@@ -1,0 +1,306 @@
+// Hopper (sm_90a) kernels of the BST read path: the forest descent and the
+// in-kernel hybrid dispatch.  Plain C interface, loaded with ctypes by
+// repro_torch/kernels/_build.py; each entry point launches on the caller's
+// stream and returns cudaGetLastError().
+//
+// What each kernel replaces (the JAX package's Pallas TPU kernel):
+//   forest_descend<ORDERED>          -> repro/kernels/bst_search.py
+//       _forest_search_kernel with dispatch=None, with_delta=False, reached
+//       through bst_ordered_forest_pallas / bst_search_forest_pallas /
+//       bst_search_pallas (hrz: a forest of one row; dup: every grid row
+//       reads row 0).
+//   hybrid_descend<ORDERED, MAPPING> -> the same body with
+//       dispatch=(mapping, capacity), through bst_hybrid_forest_pallas
+//       (_dispatch_lanes for the queue/direct placement).
+//
+// What bounds them on this card: each lane walks H+1 levels, and the address
+// of every level's node depends on the compare at the level above, so one
+// lane is a chain of H+1 dependent global loads (about 24 for the 2^24-key
+// tree).  The bytes are few (a key, and a value where needed, per level) and
+// the arithmetic is a handful of int32 compares, so neither DRAM bandwidth
+// nor the ALUs is the limit: it is load latency times depth, hidden only by
+// the number of lanes in flight.  The byte bound (distinct nodes touched
+// over 3.35 TB/s) that chip_smoke.py reports is therefore far below what the
+// chain allows.
+//
+// What the design does about it: one thread per query lane with few
+// registers, so many lanes are resident per SM; the top levels, which every
+// lane reads, sit in shared memory; deeper levels go through the read-only
+// path (__ldg) and stay int32; a lane that hits stops at once; the value of a
+// node is read only where a result needs it (a hit, or any turn in the
+// ordered configuration).  The hybrid kernel runs each 512-lane chunk as one
+// CTA: the dispatch labels are computed in shared memory, and the stall
+// round is a second pass behind a block-wide vote, so chunks that do not
+// overflow pay nothing for it.  Making the chain itself shorter (software
+// prefetch of both children, several lanes per thread) is later work.
+//
+// Sentinels stay int32: INT32_MIN (no predecessor), INT32_MAX (no successor)
+// and -1 (no value).
+
+#include <climits>
+#include <cstddef>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSentinelValue = -1;
+constexpr int kForestBlock = 256;  // lanes per CTA of forest_descend
+constexpr int kHybridBlock = 512;  // lanes per dispatch chunk (plans.KERNEL_BLOCK_Q)
+constexpr int kMaxStagedLevels = 8;  // levels staged in shared memory, at most
+constexpr int kMaxStaged = (1 << kMaxStagedLevels) - 1;
+constexpr int kQueue = 0;
+constexpr int kDirect = 1;
+
+struct Outputs {
+  int* val;
+  bool* found;
+  int* pred_key;
+  int* pred_value;
+  int* succ_key;
+  int* succ_value;
+  int* rank;
+};
+
+struct Lane {
+  int idx;
+  int val;
+  bool found;
+  int pred_key;
+  int pred_value;
+  int succ_key;
+  int succ_value;
+  int rank;
+};
+
+__device__ __forceinline__ Lane init_lane() {
+  return Lane{0, kSentinelValue, false, INT_MIN, kSentinelValue,
+              INT_MAX, kSentinelValue, 0};
+}
+
+// Stage the first `levels` levels of a flat row in shared memory.
+__device__ __forceinline__ void stage(const int* __restrict__ keys,
+                                      const int* __restrict__ values,
+                                      int levels, int* s_keys, int* s_vals) {
+  const int n = (1 << levels) - 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s_keys[i] = keys[i];
+    s_vals[i] = values[i];
+  }
+}
+
+// Compare-descend levels [l0, l1) of one flat row for a lane whose gate is
+// open.  Levels below `staged` read the shared copy, deeper ones the row.
+// The update order follows the Pallas body (_descend_one_level).
+template <bool ORDERED>
+__device__ __forceinline__ void descend(Lane& s, int q, bool gate, int l0,
+                                        int l1, int height, int staged,
+                                        const int* s_keys, const int* s_vals,
+                                        const int* __restrict__ keys,
+                                        const int* __restrict__ values,
+                                        int n) {
+  if (!gate) return;
+  for (int l = l0; l < l1 && !s.found; ++l) {
+    const int i = min(max(s.idx, 0), n - 1);
+    const bool shared = l < staged;
+    const int nk = shared ? s_keys[i] : __ldg(keys + i);
+    const bool hit = nk == q;
+    const bool go_right = !hit && q > nk;
+    int nv = 0;
+    if (ORDERED || hit) nv = shared ? s_vals[i] : __ldg(values + i);
+    if (hit) {
+      s.val = nv;
+      s.found = true;
+    }
+    if (ORDERED) {
+      const int left = (1 << (height - l)) - 1;
+      const bool go_left = !hit && q < nk;
+      if (go_right) {
+        s.pred_key = nk;
+        s.pred_value = nv;
+      }
+      if (go_left) {
+        s.succ_key = nk;
+        s.succ_value = nv;
+      }
+      if (go_right) s.rank += left + 1;
+      if (hit) s.rank += left;
+    }
+    if (!s.found) s.idx = 2 * s.idx + 1 + (go_right ? 1 : 0);
+  }
+}
+
+template <bool ORDERED>
+__device__ __forceinline__ void store(const Outputs& out, size_t o,
+                                      const Lane& s) {
+  out.val[o] = s.val;
+  out.found[o] = s.found;
+  if (ORDERED) {
+    out.pred_key[o] = s.pred_key;
+    out.pred_value[o] = s.pred_value;
+    out.succ_key[o] = s.succ_key;
+    out.succ_value[o] = s.succ_value;
+    out.rank[o] = s.rank;
+  }
+}
+
+// K1: grid (ceil(B / 256), T); lane b of query row t descends tree row t, or
+// row 0 when the rows share one tree (dup).
+template <bool ORDERED>
+__global__ void __launch_bounds__(kForestBlock)
+    forest_descend_kernel(const int* __restrict__ keys,
+                          const int* __restrict__ values, int n, int height,
+                          int reg_levels, bool shared_tree,
+                          const int* __restrict__ queries,
+                          const bool* __restrict__ active, int B,
+                          Outputs out) {
+  __shared__ int s_keys[kMaxStaged];
+  __shared__ int s_vals[kMaxStaged];
+  const int t = blockIdx.y;
+  const size_t row = shared_tree ? 0 : static_cast<size_t>(t) * n;
+  const int* rk = keys + row;
+  const int* rv = values + row;
+  stage(rk, rv, reg_levels, s_keys, s_vals);
+  __syncthreads();
+
+  const int b = blockIdx.x * kForestBlock + threadIdx.x;
+  if (b >= B) return;  // ragged edge of the last block
+  const size_t o = static_cast<size_t>(t) * B + b;
+  const bool act = active == nullptr || active[o];
+  Lane s = init_lane();
+  descend<ORDERED>(s, queries[o], act, 0, height + 1, height, reg_levels,
+                   s_keys, s_vals, rk, rv, n);
+  store<ORDERED>(out, o, s);
+}
+
+// K3: one CTA per 512-lane chunk.  Route through [0, split), place the live
+// lanes into per-subtree buffers (queue or direct), descend the placed lanes
+// through [split, H], then replay the overflow lanes through the same levels
+// from the route state.  Lanes past B are padding: inactive, never live.
+template <bool ORDERED, int MAPPING>
+__global__ void __launch_bounds__(kHybridBlock)
+    hybrid_descend_kernel(const int* __restrict__ keys,
+                          const int* __restrict__ values, int n, int height,
+                          int split, int capacity,
+                          const int* __restrict__ queries,
+                          const bool* __restrict__ active, int B, Outputs out,
+                          int* __restrict__ overflow_out) {
+  __shared__ int s_keys[kMaxStaged];
+  __shared__ int s_vals[kMaxStaged];
+  __shared__ int s_dest[kHybridBlock];  // a live lane's subtree, else -1
+  const int staged = min(split, kMaxStagedLevels);
+  stage(keys, values, staged, s_keys, s_vals);
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kHybridBlock + tid;
+  const bool in = b < B;
+  const bool act = in && (active == nullptr || active[b]);
+  const int q = in ? queries[b] : 0;
+  Lane s = init_lane();
+  descend<ORDERED>(s, q, act, 0, split, height, staged, s_keys, s_vals, keys,
+                   values, n);
+
+  const int n_sub = 1 << split;
+  const bool live = act && !s.found;
+  const int dest = min(max(s.idx - (n_sub - 1), 0), n_sub - 1);
+  s_dest[tid] = live ? dest : -1;
+  __syncthreads();
+
+  bool clash = false;
+  if (live) {
+    if (MAPPING == kQueue) {
+      // label = earlier live lanes of the chunk with the same subtree
+      int label = 0;
+      for (int j = 0; j < tid && label < capacity; ++j) {
+        label += s_dest[j] == dest;
+      }
+      clash = label >= capacity;
+    } else {
+      // lane i owns slot i % capacity; it clashes with a live lane
+      // k * capacity back that shares its subtree
+      for (int off = capacity; off < kHybridBlock && off <= tid; off += capacity) {
+        clash = clash || s_dest[tid - off] == dest;
+      }
+    }
+  }
+  const bool overflow = live && clash;
+
+  descend<ORDERED>(s, q, act && !overflow, split, height + 1, height, staged,
+                   s_keys, s_vals, keys, values, n);
+  if (__syncthreads_or(overflow)) {  // the stall round
+    descend<ORDERED>(s, q, overflow, split, height + 1, height, staged,
+                     s_keys, s_vals, keys, values, n);
+  }
+  if (!in) return;
+  if (overflow_out != nullptr) overflow_out[b] = overflow;
+  store<ORDERED>(out, b, s);
+}
+
+Outputs make_outputs(int* val, bool* found, int* pred_key, int* pred_value,
+                     int* succ_key, int* succ_value, int* rank) {
+  return Outputs{val, found, pred_key, pred_value, succ_key, succ_value, rank};
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* forest_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int hybrid_block_q() { return kHybridBlock; }
+
+// keys/values: (n_rows, n) int32; queries: (T, B) int32; active: (T, B) bool
+// or null; outputs (T, B).  pred/succ/rank outputs are read only if ordered.
+int forest_descend(const int* keys, const int* values, int n, int height,
+                   int reg_levels, int shared_tree, const int* queries,
+                   const bool* active, int T, int B, int ordered, int* val,
+                   bool* found, int* pred_key, int* pred_value, int* succ_key,
+                   int* succ_value, int* rank, void* stream) {
+  const dim3 grid((B + kForestBlock - 1) / kForestBlock, T);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Outputs out =
+      make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank);
+  if (ordered) {
+    forest_descend_kernel<true><<<grid, kForestBlock, 0, st>>>(
+        keys, values, n, height, reg_levels, shared_tree != 0, queries, active,
+        B, out);
+  } else {
+    forest_descend_kernel<false><<<grid, kForestBlock, 0, st>>>(
+        keys, values, n, height, reg_levels, shared_tree != 0, queries, active,
+        B, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys/values: (n,) int32; queries: (B,) int32; active: (B,) bool or null;
+// mapping 0 = queue, 1 = direct; overflow_out: (B,) int32 or null.
+int hybrid_descend(const int* keys, const int* values, int n, int height,
+                   int split, int mapping, int capacity, const int* queries,
+                   const bool* active, int B, int ordered, int* val,
+                   bool* found, int* pred_key, int* pred_value, int* succ_key,
+                   int* succ_value, int* rank, int* overflow_out,
+                   void* stream) {
+  const dim3 grid((B + kHybridBlock - 1) / kHybridBlock);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Outputs out =
+      make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank);
+#define REPRO_HYBRID_LAUNCH(ORD, MAP)                                        \
+  hybrid_descend_kernel<ORD, MAP><<<grid, kHybridBlock, 0, st>>>(            \
+      keys, values, n, height, split, capacity, queries, active, B, out,     \
+      overflow_out)
+  if (ordered && mapping == kQueue) {
+    REPRO_HYBRID_LAUNCH(true, kQueue);
+  } else if (ordered) {
+    REPRO_HYBRID_LAUNCH(true, kDirect);
+  } else if (mapping == kQueue) {
+    REPRO_HYBRID_LAUNCH(false, kQueue);
+  } else {
+    REPRO_HYBRID_LAUNCH(false, kDirect);
+  }
+#undef REPRO_HYBRID_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,108 @@
+"""Public entry points of the read path's kernels.
+
+The tensors' device decides: CUDA tensors launch the Hopper kernel (or the
+call raises), CPU tensors take the plain version in ``kernels.ref``.  There
+is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import bst_search as K
+from repro_torch.kernels import ref
+
+
+def _on_card(queries: torch.Tensor) -> bool:
+    return queries.device.type == "cuda"
+
+
+def bst_search_forest(
+    forest_keys: torch.Tensor,
+    forest_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    active: Optional[torch.Tensor] = None,
+    shared_tree: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forest-batched membership search: (T, B) queries over (R, n) flat
+    trees -> ``(values, found)``, each (T, B).  hrz is a forest of one, dup
+    shares one row across the query rows (``shared_tree``)."""
+    if _on_card(queries):
+        return K.bst_search_forest_cuda(
+            forest_keys, forest_values, queries, height, active=active,
+            shared_tree=shared_tree,
+        )
+    K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
+    return ref.bst_search_ref(forest_keys, forest_values, queries, height, active)
+
+
+def bst_ordered_forest(
+    forest_keys: torch.Tensor,
+    forest_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    active: Optional[torch.Tensor] = None,
+    shared_tree: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Forest-batched ORDERED search: one pass per query yields ``(values,
+    found, pred_keys, pred_values, succ_keys, succ_values, rank)``, each
+    (T, B) -- the descent behind predecessor, successor and the range ops."""
+    if _on_card(queries):
+        return K.bst_ordered_forest_cuda(
+            forest_keys, forest_values, queries, height, active=active,
+            shared_tree=shared_tree,
+        )
+    K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
+    return ref.bst_ordered_ref(forest_keys, forest_values, queries, height, active)
+
+
+def bst_hybrid_forest(
+    tree_keys: torch.Tensor,
+    tree_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    split_level: int,
+    mapping: str = "queue",
+    capacity: int = 1,
+    active: Optional[torch.Tensor] = None,
+    ordered: bool = True,
+    overflow_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The hybrid strategy's single entry point: register route,
+    queue/direct dispatch per 512-lane chunk, vertical-subtree descent
+    and stall-round replay in one call.  Operands are the (n,) flat FULL
+    tree and a (B,) batch; outputs are (B,) in the ordered contract
+    (``(values, found)`` with ``ordered=False``).  ``overflow_out`` (int32
+    (B,)) optionally receives which lanes overflowed."""
+    if _on_card(queries):
+        return K.bst_hybrid_forest_cuda(
+            tree_keys, tree_values, queries, height, split_level, mapping=mapping,
+            capacity=capacity, active=active, ordered=ordered, overflow_out=overflow_out,
+        )
+    K.check_hybrid_operands(
+        tree_keys, tree_values, queries, height, split_level, mapping, capacity
+    )
+    return ref.bst_hybrid_ref(
+        tree_keys, tree_values, queries, height, split_level, mapping, capacity,
+        active=active, ordered=ordered, block_q=K.HYBRID_BLOCK_Q, overflow_out=overflow_out,
+    )
+
+
+def bst_search(
+    tree_keys: torch.Tensor,
+    tree_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    active: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-tree membership search: ``(values, found)``, each (B,)."""
+    if _on_card(queries):
+        return K.bst_search_cuda(tree_keys, tree_values, queries, height, active=active)
+    val, found = bst_search_forest(
+        tree_keys[None, :], tree_values[None, :], queries[None, :], height,
+        active=None if active is None else active[None, :],
+    )
+    return val[0], found[0]

@@ -26,6 +26,13 @@ except ModuleNotFoundError:
     _USING_SHIM = True
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )
+
+
 def pytest_addoption(parser):
     # CI pins the differential harness with --hypothesis-seed; real
     # hypothesis registers that flag itself, so only the shim (which is
