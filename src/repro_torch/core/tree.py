@@ -158,7 +158,7 @@ def tree_from_numpy(
     values_bfs: np.ndarray,
     height: int,
     n_real: int,
-    device="cpu",
+    device="cuda",
 ) -> TreeData:
     """A TreeData from host BFS arrays (for example the JAX package's
     snapshot taken as numpy), moved to ``device`` once.  The arrays are
@@ -178,7 +178,7 @@ def tree_from_numpy(
     )
 
 
-def build_tree(keys: np.ndarray, values: np.ndarray, device="cpu") -> TreeData:
+def build_tree(keys: np.ndarray, values: np.ndarray, device="cuda") -> TreeData:
     """Build a TreeData from (unsorted) unique keys + values on the host and
     move it to ``device``."""
     keys = np.asarray(keys, dtype=np.int32)

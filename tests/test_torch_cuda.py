@@ -34,7 +34,7 @@ def _case(n_keys, size, seed):
     keys, values = make_tree_data(n_keys, seed=seed)
     rng = np.random.default_rng(seed)
     q = rng.choice(np.concatenate([keys, keys + 1, keys - 1]), size).astype(np.int32)
-    return keys, values, TT.build_tree(keys, values), torch.from_numpy(q)
+    return keys, values, TT.build_tree(keys, values, device="cpu"), torch.from_numpy(q)
 
 
 def _same(got, want):

@@ -141,6 +141,6 @@ def test_engine_inputs_and_errors():
         eng.query("median", keys)
     with pytest.raises(ValueError):  # a Hyb8 split needs height >= 3
         BSTEngine(keys[:3], values[:3], EngineConfig(strategy="hyb", n_trees=8, device="cpu"))
-    tree = TT.build_tree(keys, values)
+    tree = TT.build_tree(keys, values, device="cpu")
     same = BSTEngine.from_tree(tree, EngineConfig(device="cpu"))
     np.testing.assert_array_equal(same.lookup(keys)[0].numpy(), values)

@@ -35,7 +35,7 @@ EDGE_KEYS = np.array([-(2**31) + 1, 2**31 - 2], np.int32)  # extreme real keys
 
 def _trees(n_keys, seed):
     keys, values = make_tree_data(n_keys, seed=seed)
-    return keys, JT.build_tree(keys, values), TT.build_tree(keys, values)
+    return keys, JT.build_tree(keys, values), TT.build_tree(keys, values, device="cpu")
 
 
 def _queries(keys, size, seed):
@@ -184,7 +184,7 @@ def test_hybrid_whole_batch_matches_jax_ref(mapping):
 # ---------------------------------------------------------------- edge cases
 def test_height_zero_tree_matches_pallas():
     jt = JT.build_tree(np.array([100], np.int32), np.array([7], np.int32))
-    tt = TT.build_tree(np.array([100], np.int32), np.array([7], np.int32))
+    tt = TT.build_tree(np.array([100], np.int32), np.array([7], np.int32), device="cpu")
     q = np.concatenate([np.array([99, 100, 101], np.int32), EDGE_KEYS])
     want = jops.bst_ordered_forest(jt.keys[None], jt.values[None], jnp.asarray(q)[None],
                                    height=0, use_ref=False, interpret=True)
@@ -206,7 +206,7 @@ def test_minimal_hyb_tree_every_split_matches_jax(split):
     against the Pallas kernel at Hyb4's split, its jnp twin elsewhere (the
     JAX suite holds the two bit-identical)."""
     keys = np.arange(2, 16, 2, dtype=np.int32)
-    jt, tt = JT.build_tree(keys, keys * 3), TT.build_tree(keys, keys * 3)
+    jt, tt = JT.build_tree(keys, keys * 3), TT.build_tree(keys, keys * 3, device="cpu")
     q = np.concatenate([np.arange(0, 18, dtype=np.int32), EDGE_KEYS])
     for mapping in ("queue", "direct"):
         want = jops.bst_hybrid_forest(jt.keys, jt.values, jnp.asarray(q), height=2,

@@ -45,7 +45,7 @@ def _queries(keys, size, seed):
 def test_tree_layout_and_descents_match_jax(height):
     keys, values = _keys_for_height(height, seed=height)
     jt = JT.build_tree(keys, values)
-    tt = TT.build_tree(keys, values)
+    tt = TT.build_tree(keys, values, device="cpu")
     assert tt.height == jt.height == height
     assert tt.n_real == jt.n_real
     assert tt.keys.dtype == tt.values.dtype == torch.int32
@@ -88,7 +88,7 @@ def test_tree_from_numpy_round_trips_a_jax_snapshot():
     keys, values = _keys_for_height(7, seed=3)
     jt = JT.build_tree(keys, values)
     tt = TT.tree_from_numpy(
-        np.asarray(jt.keys), np.asarray(jt.values), jt.height, jt.n_real
+        np.asarray(jt.keys), np.asarray(jt.values), jt.height, jt.n_real, device="cpu"
     )
     assert (tt.height, tt.n_real, tt.n_nodes) == (jt.height, jt.n_real, jt.n_nodes)
     np.testing.assert_array_equal(tt.keys.numpy(), np.asarray(jt.keys))
@@ -103,7 +103,7 @@ def test_key_sets_match_jax():
     np.testing.assert_array_equal(keys, tkeys)
     np.testing.assert_array_equal(values, tvalues)
     want = jkeysets.make_key_sets(JT.build_tree(keys, values), 1000)
-    got = tkeysets.make_key_sets(TT.build_tree(keys, values), 1000)
+    got = tkeysets.make_key_sets(TT.build_tree(keys, values, device="cpu"), 1000)
     assert set(got) == set(want)
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
