@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's single-chip BST read path on one card.
+"""Drive the PyTorch/CUDA port's single-chip BST read and write paths on one card.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -10,16 +10,27 @@ Phases, in order; any failure raises and exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
-   height-0 and minimal hybrid trees;
+   height-0 and minimal hybrid trees; then the delta configuration (K2)
+   of both kernels the same way, against a full 4096-entry write buffer
+   (upserts, overwrites, tombstones of stored and absent keys), an empty
+   one and a one-entry one;
 4. serve the paper's streams through ``BSTServer`` for each of the seven
    paper configurations over the same tree, check every answer against a
    numpy searchsorted oracle, and check that each kernel of the path was
    launched and that each retired chunk made exactly one device fetch;
    then profile Hrz lookup drains for the device's idle share;
+4w. the live write path: each paper configuration with a 4096-entry delta
+   buffer serves one stream of interleaved writes, deletes and reads of
+   all five ops over the same tree, every answer held against a numpy
+   oracle of the state the read must see; the fetch budget (one per read
+   chunk, one per compaction) and the launch counts (K2 once per read
+   chunk, K1 or K3 once per ingest chunk) are checked, and so is the
+   snapshot after a final compaction;
 5. at the main path's shapes, hold each kernel configuration against its
    plain version once more, then time the kernel, its plain version and
    ``torch.searchsorted`` (the library yardstick, never called by the port)
-   with CUDA events, beside the byte bound of the same work;
+   with CUDA events, beside the byte bound of the same work; K2 likewise
+   with the full buffer, its yardstick searching the merged sorted view;
 6. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -33,6 +44,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +57,9 @@ import torch  # noqa: E402
 
 from repro_torch import invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS  # noqa: E402
+from repro_torch.core import delta as delta_lib  # noqa: E402
+from repro_torch.core import plans as plans_lib  # noqa: E402
+from repro_torch.core import tree as tree_lib  # noqa: E402
 from repro_torch.core.tree import (  # noqa: E402
     NO_PRED_KEY,
     NO_SUCC_KEY,
@@ -73,7 +88,19 @@ SOURCE = "src/repro_torch/kernels/csrc/forest_search.cu"
 REPLACES = {
     "forest_descend": "src/repro/kernels/bst_search.py:255",
     "hybrid_descend": "src/repro/kernels/bst_search.py:404",
+    "forest_descend_delta": "src/repro/kernels/bst_search.py:228",
+    "hybrid_descend_delta": "src/repro/kernels/bst_search.py:228",
 }
+# The write phase (4w): the engine capacity of examples/serve_bst.py and
+# launch/serve.py, its default high-water mark (3/4), and per round of the
+# stream the op counts below.
+W_CAPACITY = 4096
+W_ROUNDS = 8
+W_WRITES = 4096  # half new odd keys, half overwrites of stored keys
+W_DELETES = 2048  # three quarters stored keys, one quarter absent
+W_LOOKUPS = 8192  # written, deleted and random keys
+W_POINTS = 8192  # predecessor, and as many successor, queries of odd keys
+W_RANGES = 4096  # range_count, and as many range_scan, spans near written keys
 
 
 def check(cond, msg: str) -> None:
@@ -179,6 +206,69 @@ def check_edge_trees() -> None:
         log(f"  edge tree H={H}: K1 and K3 (every split) 0 mismatches")
 
 
+def buffer_of(tree, wk, wv, wd, capacity: int) -> delta_lib.DeltaBuffer:
+    """A write buffer holding the distinct writes ``wk/wv/wd`` (wd: delete),
+    classified by K1 and merged by the port's own ingest."""
+    k, v, d = (torch.from_numpy(x).cuda() for x in (wk, wv, wd))
+    res = K.bst_ordered_forest_cuda(tree.keys[None], tree.values[None], k[None], tree.height)
+    ok = torch.ones(wk.size, dtype=torch.bool, device="cuda")
+    buf = delta_lib.ingest(delta_lib.empty(capacity, "cuda"), k, v, d, ok, res[1][0], res[6][0])
+    check(int(buf.count) == wk.size, f"buffer holds {int(buf.count)} of {wk.size} entries")
+    return buf
+
+
+def full_buffer(tree, keys, capacity: int, seed: int) -> delta_lib.DeltaBuffer:
+    """A write buffer filled to ``capacity`` distinct live entries, a quarter
+    each: overwrites of stored keys, upserts of new odd keys, tombstones of
+    stored keys, tombstones of absent odd keys."""
+    rng = np.random.default_rng(seed)
+    q = capacity // 4
+    stored = keys[rng.choice(keys.size, 2 * q, replace=False)]
+    odd = (rng.choice(keys.size + 1, 2 * q, replace=False) * 2 + 1).astype(np.int32)
+    wk = np.concatenate([stored[:q], odd[:q], stored[q:], odd[q:]])
+    wd = np.arange(wk.size) >= 2 * q
+    order = rng.permutation(wk.size)
+    wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+    return buffer_of(tree, wk[order], wv, wd[order], capacity)
+
+
+def check_delta_kernels(tree, lanes, active, buffers) -> None:
+    """K2, the delta configuration of both kernels, against its plain
+    version for every buffer: forest hrz, dup4, dup8 and hybrid split 2 and
+    3 x queue/direct, membership and ordered."""
+    H = tree.height
+    fk, fv = tree.keys[None], tree.values[None]
+    for label, buf in buffers.items():
+        d_ops = delta_lib.operands(buf)
+        hit, dead, _, _ = ref.bst_delta_resolve_ref(*d_ops, lanes, active)
+        for ordered in (False, True):
+            tag = f"{label} {'ordered' if ordered else 'membership'}"
+            for T in (1, 4, 8):
+                q, a = lanes.reshape(T, -1), active.reshape(T, -1)
+                got = K.bst_ordered_forest_cuda(fk, fv, q, H, active=a, shared_tree=T > 1,
+                                                ordered=ordered, delta=d_ops)
+                want = ref.bst_ordered_ref(fk, fv, q, H, a, ordered=ordered, delta=d_ops)
+                compare(got, want, "forest_descend_delta", f"K2 forest T={T} {tag}")
+            for n_trees in (4, 8):
+                split = invariants.split_level_for(n_trees)
+                cap = invariants.buffer_capacity(K.HYBRID_BLOCK_Q, n_trees, 2.0)
+                for mapping in ("queue", "direct"):
+                    k_ovf, r_ovf = torch.full_like(lanes, -7), torch.full_like(lanes, -7)
+                    args = (tree.keys, tree.values, lanes, H, split, mapping, cap)
+                    got = K.bst_hybrid_forest_cuda(*args, active=active, ordered=ordered,
+                                                   overflow_out=k_ovf, delta=d_ops)
+                    want = ref.bst_hybrid_ref(*args, active=active, ordered=ordered,
+                                              overflow_out=r_ovf, delta=d_ops)
+                    t = f"K2 hybrid split={split} {mapping} {tag}"
+                    compare(got + (k_ovf,), want + (r_ovf,), "hybrid_descend_delta", t)
+                    check(int(k_ovf[: lanes.shape[0] // 4].sum()) > 0,
+                          f"{t}: the equal key set did not overflow")
+        log(f"  K2 {label} (C={buf.capacity}, {int(buf.count)} live): forest hrz/dup4/dup8 "
+            f"and hybrid split 2, 3 x queue/direct, membership and ordered: 0 mismatches; "
+            f"{int(hit.sum())} active lanes hit the buffer, {int((hit & dead).sum())} of them "
+            f"tombstones")
+
+
 # ------------------------------------------------------------ phase 4: server
 def oracle(sk, sv, op, a, b=None, k=SCAN_K):
     """Ground truth from np.searchsorted over the sorted key/value view."""
@@ -269,33 +359,230 @@ def serve_all_configs(keys, values, sets, smi: str, device="cuda") -> list:
 
 def profile_drain(keys, values, q) -> dict:
     """Where a steady lookup drain's time goes, over PROFILE_RUNS drains of
-    the same keys: each drain's wall time and, from torch.profiler on that
-    same drain, its device time (kernels and copies, summed by name).  The
-    profiler's own host cost is inside the wall time, so the idle share is
-    an upper estimate."""
+    the same keys (see ``profiled_drains``)."""
     srv = BSTServer(keys, values, dataclasses.replace(PAPER_CONFIGS["Hrz"], device="cuda"),
                     chunk_size=CHUNK)
     srv.warmup(("lookup",))
+    return {"chunks": PROFILE_CHUNKS, "runs": profiled_drains(srv, lambda _: srv.submit(q))}
+
+
+def profile_write_drains(keys, values, rounds) -> list:
+    """Where a write-path drain's time goes: an Hrz server with the phase-4w
+    buffer, two profiled drains of half the stream's rounds each."""
+    cfg = dataclasses.replace(PAPER_CONFIGS["Hrz"], device="cuda", delta_capacity=W_CAPACITY)
+    srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
+    srv.warmup(QUERY_OPS)
+    half = len(rounds) // 2
+
+    def submit(i):
+        for rnd in rounds[i * half:(i + 1) * half]:
+            srv.submit_write(*rnd["writes"])
+            srv.submit_delete(rnd["deletes"])
+            for op, a, b, _ in rnd["reads"]:
+                srv.submit(a, op=op) if b is None else srv.submit_range(a, b, op=op)
+
+    return profiled_drains(srv, submit, runs=2)
+
+
+def profiled_drains(srv, submit, runs: int = PROFILE_RUNS) -> list:
+    """``runs`` drains of ``srv``, each of what ``submit(i)`` queues: each
+    drain's wall time and, from torch.profiler on that same drain, its
+    device time (kernels and copies, summed by name).  The profiler's own
+    host cost is inside the wall time, so the idle share is an upper
+    estimate."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    runs = []
-    for _ in range(PROFILE_RUNS):
+    out = []
+    for i in range(runs):
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            srv.submit(q)
+            submit(i)
             srv.drain()
             wall = time.perf_counter() - t0
-        by_name = {}
+        by_name, host = {}, {}
         for ev in prof.key_averages():
-            # device-side events only (kernels, copies): a host op's row
-            # repeats the device time of what it launched
+            # device-side events (kernels, copies) by their own device time:
+            # a host op's row repeats the device time of what it launched
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
                 by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+            elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
+                host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
         device_s = sum(by_name.values()) / 1e6
         check(device_s > 0, "the profiler saw no device time")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        runs.append({"wall_s": wall, "device_s": device_s, "idle_share": 1 - device_s / wall,
-                     "top": [(name[:80], us) for name, us in top]})
-    return {"chunks": PROFILE_CHUNKS, "runs": runs}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+        out.append({"wall_s": wall, "device_s": device_s, "idle_share": 1 - device_s / wall,
+                    "top": [(name[:80], us) for name, us in top],
+                    "top_host_self_us": [(name[:80], us) for name, us in top_host]})
+    return out
+
+
+def log_profile(label: str, runs) -> None:
+    for i, run in enumerate(runs):
+        log(f"    {label} {i}: wall {run['wall_s']!r} s, device busy {run['device_s']!r} s, "
+            f"idle share {run['idle_share']!r}")
+        for name, us in run["top"]:
+            log(f"      {us!r} us  {name}")
+        log("      host ops by self CPU time:")
+        for name, us in run["top_host_self_us"]:
+            log(f"      {us!r} us  {name}")
+
+
+# ------------------------------------------------------- phase 4w: the writes
+def write_stream(keys, values, seed: int = 11) -> tuple:
+    """W_ROUNDS rounds of the write phase's stream, each with the oracle's
+    answers for its reads: the reads of a round follow its writes and
+    deletes, so they must see the state after them.  The stream is the
+    same for every config, so the oracle runs once."""
+    rng = np.random.default_rng(seed)
+    sk, sv = keys.copy(), values.copy()  # make_tree_data's keys are sorted and unique
+    n_odd = keys.size + 1  # odd keys 1 .. 2 n + 1 lie among and beside the even ones
+    rounds = []
+    for _ in range(W_ROUNDS):
+        half = W_WRITES // 2
+        wk = np.concatenate([
+            (rng.integers(0, n_odd, half) * 2 + 1).astype(np.int32),  # new keys
+            sk[rng.integers(0, sk.size, W_WRITES - half)],  # overwrites
+        ])
+        wk = wk[rng.permutation(wk.size)]
+        wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+        # upserts, last write wins
+        uk, first = np.unique(wk[::-1], return_index=True)
+        uv = wv[::-1][first]
+        pos = np.searchsorted(sk, uk)
+        hit = pos < sk.size
+        hit[hit] = sk[pos[hit]] == uk[hit]
+        sv = sv.copy()
+        sv[pos[hit]] = uv[hit]
+        sk, sv = np.insert(sk, pos[~hit], uk[~hit]), np.insert(sv, pos[~hit], uv[~hit])
+        n_stored = W_DELETES * 3 // 4
+        dk = np.concatenate([
+            sk[rng.integers(0, sk.size, n_stored)],
+            (rng.integers(0, n_odd, W_DELETES - n_stored) * 2 + 1).astype(np.int32),
+        ])
+        pos = np.searchsorted(sk, dk)
+        hit = pos < sk.size
+        hit[hit] = sk[pos[hit]] == dk[hit]
+        drop = np.unique(pos[hit])
+        sk, sv = np.delete(sk, drop), np.delete(sv, drop)
+
+        third = W_LOOKUPS // 3
+        look = np.concatenate([
+            wk[rng.integers(0, wk.size, third)],
+            dk[rng.integers(0, dk.size, third)],
+            rng.integers(1, 2 * n_odd, W_LOOKUPS - 2 * third).astype(np.int32),
+        ])
+        pred = (rng.integers(0, n_odd, W_POINTS) * 2 + 1).astype(np.int32)
+        succ = (rng.integers(0, n_odd, W_POINTS) * 2 + 1).astype(np.int32)
+        lo = (wk[rng.integers(0, wk.size, W_RANGES)] + rng.integers(-8, 1, W_RANGES)).astype(np.int32)
+        hi = (lo + rng.integers(-8, 64, W_RANGES)).astype(np.int32)
+        reads = [("lookup", look, None), ("predecessor", pred, None), ("successor", succ, None),
+                 ("range_count", lo, hi), ("range_scan", lo, hi)]
+        rounds.append({
+            "writes": (wk, wv),
+            "deletes": dk,
+            "reads": [(op, a, b, oracle(sk, sv, op, a, b)) for op, a, b in reads],
+        })
+    return rounds, (sk, sv)
+
+
+def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
+    """Phase 4w: every paper config with a W_CAPACITY delta buffer serves
+    the whole stream in one drain.  Returns the per-config rows and the
+    launches of each kernel summed over the configs' drains (each counted
+    from 0 just before its drain)."""
+    rows, launches = [], {kern: 0 for kern in K.LAUNCHES}
+    for name, cfg in PAPER_CONFIGS.items():
+        cfg = dataclasses.replace(cfg, device=device, delta_capacity=W_CAPACITY)
+        srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
+        srv.warmup(QUERY_OPS)
+        tickets = []
+        for rnd in rounds:
+            srv.submit_write(*rnd["writes"])
+            srv.submit_delete(rnd["deletes"])
+            for op, a, b, want in rnd["reads"]:
+                t = srv.submit(a, op=op) if b is None else srv.submit_range(a, b, op=op)
+                tickets.append((t, op, want))
+        fetches = runtime.fetch_count()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = srv.drain()
+        drain_s = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        n_fetch = runtime.fetch_count() - fetches
+        for kern, n in counts.items():
+            launches[kern] += n
+
+        for i, (t, op, want) in enumerate(tickets):
+            got = res[t]
+            check(len(got) == len(want), f"{name} write phase {op} #{i}: arity")
+            for g, w in zip(got, want):
+                check(np.array_equal(g, w), f"{name} write phase {op} #{i}: answers differ from the oracle")
+        st = srv.stats
+        read_chunks = sum(st.per_op[op].chunks for op in QUERY_OPS)
+        ingest_chunks = st.chunks - read_chunks
+        check(st.compactions >= 1, f"{name}: no compaction in the write phase")
+        check(n_fetch == read_chunks + st.compactions,
+              f"{name}: {n_fetch} fetches for {read_chunks} read chunks + {st.compactions} compactions")
+        kern = "hybrid_descend" if cfg.strategy == "hyb" else "forest_descend"
+        other = "forest_descend" if cfg.strategy == "hyb" else "hybrid_descend"
+        check(counts[kern + "_delta"] == read_chunks,
+              f"{name}: {counts[kern + '_delta']} K2 launches for {read_chunks} read chunks")
+        check(counts[kern] == ingest_chunks,
+              f"{name}: {counts[kern]} {kern} launches for {ingest_chunks} ingest chunks")
+        check(counts[other] == counts[other + "_delta"] == 0, f"{name}: {other} launched")
+
+        # One compaction and one ingest chunk, timed on the state the drain
+        # left (neither result is installed), then the final compaction.
+        eng = srv.engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        delta_lib.compact(eng.tree, eng.delta)
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        wk, wv = rounds[-1]["writes"]
+        k, v = torch.from_numpy(wk).to(device), torch.from_numpy(wv).to(device)
+        d = torch.zeros(wk.size, dtype=torch.bool, device=device)
+        ok = torch.ones(wk.size, dtype=torch.bool, device=device)
+        fresh = delta_lib.empty(W_CAPACITY, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls = plans_lib.execute_plan_ordered(eng.plan, k)
+        delta_lib.ingest(fresh, k, v, d, ok, cls.found, cls.rank)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        eng.compact()
+        skd, svd = eng.plan.sorted_view()
+        n_real = eng.tree.n_real
+        check(n_real == final[0].size, f"{name}: {n_real} keys after compaction, oracle {final[0].size}")
+        check(np.array_equal(skd[:n_real].cpu().numpy(), final[0])
+              and np.array_equal(svd[:n_real].cpu().numpy(), final[1]),
+              f"{name}: the compacted snapshot differs from the oracle")
+
+        row = {
+            "config": name,
+            "lanes": st.lanes,
+            "read_chunks": read_chunks,
+            "ingest_chunks": ingest_chunks,
+            "compactions": st.compactions,
+            "fetches": n_fetch,
+            "launches": counts,
+            "busy_s": st.busy_s,
+            "lanes_per_sec": st.lanes_per_sec,
+            "drain_s": drain_s,
+            "lanes_per_drain_sec": st.lanes / drain_s,
+            "compaction_s": compact_s,
+            "ingest_chunk_s": ingest_s,
+            "final_height": eng.tree.height,
+            "per_op_lanes_per_sec": {op: s.lanes_per_sec for op, s in st.per_op.items()},
+        }
+        rows.append(row)
+        log(f"  {name}: lanes_per_sec={st.lanes_per_sec!r} (busy), "
+            f"{row['lanes_per_drain_sec']!r} (drain wall) over {st.lanes} lanes; "
+            f"{read_chunks} read chunks, {ingest_chunks} ingest chunks, {st.compactions} "
+            f"compactions, {n_fetch} fetches; one compaction {compact_s!r} s, one ingest "
+            f"chunk of {wk.size} {ingest_s!r} s; answers and final snapshot == oracle ({smi})")
+        del srv, eng, skd, svd
+    return rows, launches
 
 
 # ------------------------------------------------------------ phase 5: timing
@@ -350,56 +637,67 @@ def touched_bytes(tree, q, ordered: bool) -> int:
     return q.numel() * (4 + out_per_lane) + 4 * n_visit + 4 * n_val
 
 
-def kernel_and_plain(tree, cfg, q, ordered: bool):
-    """The kernel call a config's engine makes for a batch ``q``, and the
-    same call to its plain version: ``(kernel name, run, plain, agree)``,
-    where ``agree(tag)`` holds the two against each other (with the
-    overflow mask, for the hybrid kernel)."""
+def kernel_and_plain(tree, cfg, q, ordered: bool, delta=None):
+    """The kernel call a config's engine makes for a batch ``q`` (with the
+    write buffer's operands ``delta``: K2), and the same call to its plain
+    version: ``(kernel name, run, plain, agree)``, where ``agree(tag)`` holds
+    the two against each other (with the overflow mask, for the hybrid
+    kernel)."""
     H = tree.height
+    suffix = "" if delta is None else "_delta"
     if cfg.strategy == "hyb":
+        kern = "hybrid_descend" + suffix
         split = invariants.split_level_for(cfg.n_trees)
         cap = invariants.buffer_capacity(K.HYBRID_BLOCK_Q, cfg.n_trees, cfg.buffer_slack)
         args = (tree.keys, tree.values, q, H, split, cfg.mapping, cap)
-        run = functools.partial(K.bst_hybrid_forest_cuda, *args, ordered=ordered)
-        plain = functools.partial(ref.bst_hybrid_ref, *args, ordered=ordered)
+        run = functools.partial(K.bst_hybrid_forest_cuda, *args, ordered=ordered, delta=delta)
+        plain = functools.partial(ref.bst_hybrid_ref, *args, ordered=ordered, delta=delta)
 
         def agree(tag):
             k_ovf, r_ovf = torch.full_like(q, -7), torch.full_like(q, -7)
             got = run(overflow_out=k_ovf) + (k_ovf,)
-            compare(got, plain(overflow_out=r_ovf) + (r_ovf,), "hybrid_descend", tag)
+            compare(got, plain(overflow_out=r_ovf) + (r_ovf,), kern, tag)
             return int(k_ovf.sum())
 
-        return "hybrid_descend", run, plain, agree
+        return kern, run, plain, agree
+    kern = "forest_descend" + suffix
     T = cfg.n_trees if cfg.strategy == "dup" else 1
     args = (tree.keys[None], tree.values[None], q.reshape(T, -1), H)
-    run = functools.partial(K.bst_ordered_forest_cuda, *args, shared_tree=T > 1, ordered=ordered)
-    plain = functools.partial(ref.bst_ordered_ref, *args, ordered=ordered)
+    run = functools.partial(K.bst_ordered_forest_cuda, *args, shared_tree=T > 1,
+                            ordered=ordered, delta=delta)
+    plain = functools.partial(ref.bst_ordered_ref, *args, ordered=ordered, delta=delta)
 
     def agree(tag):
-        compare(run(), plain(), "forest_descend", tag)
+        compare(run(), plain(), kern, tag)
         return 0
 
-    return "forest_descend", run, plain, agree
+    return kern, run, plain, agree
 
 
-def time_kernels(tree, pool, skewed, timer) -> list:
+def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> list:
     """Each kernel configuration of the main path at its serving shape: held
     against its plain version there on the timing keys and on the skewed
     ``equal`` set (which forces the hybrid kernel's stall round), then
-    timed on the timing keys."""
+    timed on the timing keys.  With ``delta`` (a write buffer) the kernels
+    run their delta configuration, the byte bound adds the buffer's four
+    operands read once, and the yardstick searches ``library_keys`` (the
+    merged sorted view) instead of the snapshot's."""
     H = tree.height
-    sorted_keys = tree.keys[torch.from_numpy(rank_to_bfs_indices(H)).long().cuda()]
+    if library_keys is None:
+        library_keys = tree.keys[torch.from_numpy(rank_to_bfs_indices(H)).long().cuda()]
+    d_ops = None if delta is None else delta_lib.operands(delta)
+    delta_bytes = 0 if delta is None else 16 * delta.capacity
     rows = []
     for name, cfg in PAPER_CONFIGS.items():
         for ordered in (False, True):
             lanes = 2 * CHUNK if ordered else CHUNK  # range ops descend lo || hi
             mode = "ordered" if ordered else "membership"
             q = pool[:lanes].contiguous()
-            kern, _, _, agree = kernel_and_plain(tree, cfg, skewed[:lanes].contiguous(), ordered)
+            kern, _, _, agree = kernel_and_plain(tree, cfg, skewed[:lanes].contiguous(), ordered, d_ops)
             replayed = agree(f"{name} {mode} x{lanes} equal keys")
-            check(kern == "forest_descend" or replayed > 0,
+            check(cfg.strategy != "hyb" or replayed > 0,
                   f"{name} {mode}: the equal key set did not overflow")
-            kern, run, plain, agree = kernel_and_plain(tree, cfg, q, ordered)
+            kern, run, plain, agree = kernel_and_plain(tree, cfg, q, ordered, d_ops)
             agree(f"{name} {mode} x{lanes}")
             rows.append({
                 "kernel": kern,
@@ -407,8 +705,8 @@ def time_kernels(tree, pool, skewed, timer) -> list:
                 "lanes": lanes,
                 "ms": timer(run),
                 "plain_ms": timer(plain, reps=5),
-                "library_ms": timer(functools.partial(torch.searchsorted, sorted_keys, q)),
-                "bound_ms": touched_bytes(tree, q, ordered) / HBM_BYTES_PER_S * 1e3,
+                "library_ms": timer(functools.partial(torch.searchsorted, library_keys, q)),
+                "bound_ms": (touched_bytes(tree, q, ordered) + delta_bytes) / HBM_BYTES_PER_S * 1e3,
             })
             r = rows[-1]
             log(f"  {kern} {r['config']} x{lanes}: 0 mismatches ({replayed} equal-set "
@@ -434,8 +732,27 @@ def main() -> int:
     built = _build.library()
     log(f"[2] built {os.path.relpath(built.path, ROOT)} in {built.seconds:.3f} s")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
+        if entry:  # the template arguments: ORDERED[, MAPPING], WITH_DELTA
+            targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
+            log(f"    {entry.group(1)}_descend_kernel<{targs}>")
+        elif "registers" in line or "spill" in line:
             log(f"    {line.strip()}")
+    occupancy = {}
+    for hybrid, kern, threads in ((0, "forest_descend_delta", 256), (1, "hybrid_descend_delta", 512)):
+        for ordered in (0, 1):
+            for mapping in ((0, 1) if hybrid else (0,)):
+                blocks = built.lib.delta_blocks_per_sm(hybrid, ordered, mapping, W_CAPACITY)
+                check(blocks > 0, f"{kern}: occupancy query failed ({blocks})")
+                tag = f"{kern} {'ordered' if ordered else 'membership'}" + (
+                    f" {('queue', 'direct')[mapping]}" if hybrid else "")
+                occupancy[tag] = {"blocks_per_sm": blocks, "threads_per_sm": blocks * threads,
+                                  "theoretical_occupancy": blocks * threads / 2048}
+                log(f"    {tag} at C={W_CAPACITY}: {blocks} CTAs of {threads} threads per SM "
+                    f"(theoretical occupancy {blocks * threads / 2048!r})")
+    limits = {kern: K.delta_capacity_limit(torch.device("cuda"), hybrid)
+              for hybrid, kern in ((False, "forest_descend_delta"), (True, "hybrid_descend_delta"))}
+    log(f"    delta capacity limit (shared memory of one CTA): {limits}")
 
     keys, values = make_tree_data(N_KEYS)
     tree = build_tree(keys, values, device="cuda")
@@ -449,6 +766,15 @@ def main() -> int:
     log(f"[3] kernels vs plain versions, H={tree.height}, {CHECK_LANES} lanes")
     check_kernels(tree, lanes, active)
     check_edge_trees()
+    full = full_buffer(tree, keys, W_CAPACITY, seed=5)
+    live = full.keys.cpu().numpy()
+    d_lanes = lanes.clone()
+    d_lanes[-W_CAPACITY:] = torch.from_numpy(rng.permutation(live)).cuda()  # in place of absent keys
+    # C = 1: a tombstone of a stored key among the lanes (the random set's first)
+    one = buffer_of(tree, sets["random"][:1], np.zeros(1, np.int32), np.ones(1, bool), 1)
+    check_delta_kernels(tree, d_lanes, active, {
+        "full buffer": full, "empty buffer": delta_lib.empty(W_CAPACITY, "cuda"), "one entry": one,
+    })
     torch.cuda.synchronize()
 
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")
@@ -456,32 +782,66 @@ def main() -> int:
     served = serve_all_configs(keys, values, make_key_sets(tree, STREAM), smi)
     launches = dict(K.LAUNCHES)
     for kern, n in launches.items():
-        check(n > 0, f"{kern} never launched on the main path")
-    log(f"    launches on the main path: {launches}")
+        if kern.endswith("_delta"):
+            check(n == 0, f"{kern} launched on the read-only path")
+        else:
+            check(n > 0, f"{kern} never launched on the main path")
+    log(f"    launches on the read path: {launches}")
     busy = profile_drain(keys, values, make_key_sets(tree, PROFILE_CHUNKS * CHUNK)["random"])
-    for i, run in enumerate(busy["runs"]):
-        log(f"    Hrz lookup drain {i}, {PROFILE_CHUNKS} chunks: wall {run['wall_s']!r} s, "
-            f"device busy {run['device_s']!r} s, idle share {run['idle_share']!r}")
-        for name, us in run["top"]:
-            log(f"      {us!r} us  {name}")
+    log_profile(f"Hrz lookup drain of {PROFILE_CHUNKS} chunks", busy["runs"])
+
+    log(f"[4w] the write path: BSTServer, chunk {CHUNK}, delta capacity {W_CAPACITY}, "
+        f"every paper config; {W_ROUNDS} rounds of {W_WRITES} writes, {W_DELETES} deletes, "
+        f"{W_LOOKUPS} lookups, {W_POINTS} predecessor, {W_POINTS} successor, {W_RANGES} "
+        f"range_count, {W_RANGES} range_scan")
+    t0 = time.perf_counter()
+    rounds, final = write_stream(keys, values)
+    log(f"    stream and oracle built in {time.perf_counter() - t0!r} s")
+    for h in (tree.height, tree.height + 1):  # set-up: the re-layout maps a compaction reads
+        tree_lib.rank_to_bfs_on(h, tree.device)
+        tree_lib.bfs_inorder_ranks_on(h, tree.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    written, w_launches = serve_write_path(keys, values, rounds, final, smi)
+    peak = torch.cuda.max_memory_allocated()
+    for kern, n in w_launches.items():
+        check(n > 0, f"{kern} never launched on the write path")
+    log(f"    launches on the write path: {w_launches}")
+    log(f"    peak device memory of the write phase: {peak} bytes "
+        f"(torch.cuda.max_memory_allocated, the phase 3 tree and buffers included)")
+    write_profile = profile_write_drains(keys, values, rounds)
+    log_profile(f"Hrz write-path drain of {W_ROUNDS // 2} rounds", write_profile)
 
     log("[5] kernels vs plain versions at the main path's shapes; times (CUDA events, L2 flushed, median)")
     serving_sets = make_key_sets(tree, 2 * CHUNK)
     pool = torch.from_numpy(serving_sets["random"]).cuda()
     skewed = torch.from_numpy(serving_sets["equal"]).cuda()
-    timings = time_kernels(tree, pool, skewed, ColdTimer())
+    timer = ColdTimer()
+    timings = time_kernels(tree, pool, skewed, timer)
+    # K2 with the full phase-3 buffer; its yardstick searches the merged
+    # sorted view (snapshot and buffer), built here outside the timing.
+    m_keys, _, m_count = delta_lib.compact_sorted(
+        tree.keys, tree.values, tree_lib.rank_to_bfs_on(tree.height, tree.device),
+        tree.n_real, full, tree.n_real + full.capacity,
+    )
+    merged = m_keys[: int(m_count)].contiguous()
+    timings += time_kernels(tree, pool, skewed, timer, delta=full, library_keys=merged)
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
-    headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership"}
+    headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
+                "forest_descend_delta": "Hrz membership",
+                "hybrid_descend_delta": "Hyb8q membership"}
+    path_launches = {**{k: launches[k] for k in ("forest_descend", "hybrid_descend")},
+                     **{k: w_launches[k] for k in ("forest_descend_delta", "hybrid_descend_delta")}}
     kernels = []
     for kern, config in headline.items():
-        row = next(r for r in timings if r["config"] == config)
+        row = next(r for r in timings if r["config"] == config and r["kernel"] == kern)
         kernels.append({
             "name": kern,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[kern],
-            "launches": launches[kern],
+            "launches": path_launches[kern],
             "mismatches": AGREEMENT[kern]["mismatches"],
             "max_abs_err": AGREEMENT[kern]["max_abs_err"],
             "ms": row["ms"],
@@ -496,7 +856,10 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": smi, "kernels": kernels, "served": served,
-                       "hrz_drain_profile": busy,
+                       "hrz_drain_profile": busy, "written": written,
+                       "write_phase_launches": w_launches, "write_phase_peak_bytes": peak,
+                       "hrz_write_drain_profile": write_profile,
+                       "delta_occupancy": occupancy, "delta_capacity_limit": limits,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

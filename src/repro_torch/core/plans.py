@@ -1,4 +1,4 @@
-"""SearchPlan: one strategy abstraction behind the single-chip read path.
+"""SearchPlan: one strategy abstraction behind the single-chip search path.
 
 A ``SearchPlan`` captures a strategy's static layout -- the flat forest
 operands, hyb's split level and dispatch mapping -- and every query op lowers
@@ -6,19 +6,23 @@ through one descent: hrz and dup through the forest kernel (dup as one shared
 tree row), hyb through the hybrid kernel whose route, dispatch, subtree
 descent and stall-round replay run inside one launch.  Range ops descend the
 concatenated ``lo || hi`` batch and finish with rank arithmetic over the
-sorted view.  The tensors' device decides kernel or plain version
-(``kernels.ops``).
+sorted view.  With ``delta`` (the live write path) the pending write buffer
+rides the same descent (the kernels' delta configuration) and the epilogues
+switch to their delta-aware twins in ``core.delta``.  The tensors' device
+decides kernel or plain version (``kernels.ops``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import invariants
+from repro_torch.core import delta as delta_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import OrderedResult, TreeData
 from repro_torch.kernels import bst_search as kernels
@@ -51,6 +55,8 @@ class SearchPlan:
     (``shared_tree``), and for hyb levels ``[0, split_level)`` double as the
     register layer.  ``full_tree`` backs the range ops' sorted-view gathers;
     ``rank_to_bfs`` maps in-order rank -> BFS index on the tree's device.
+    The delta epilogues' sorted view is gathered on first use and kept
+    (``sorted_view``), so a read-only plan never materialises it.
     """
 
     strategy: str  # hrz | dup | hyb
@@ -64,6 +70,16 @@ class SearchPlan:
     split_level: int = 0
     mapping: str = "queue"  # direct | queue (hyb only)
     buffer_slack: float = 2.0
+
+    def sorted_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The snapshot's sorted key/value view: one gather through
+        ``rank_to_bfs``, made once per plan (the snapshot is immutable)."""
+        return self._sorted_view
+
+    @functools.cached_property
+    def _sorted_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        idx = self.rank_to_bfs.long()
+        return self.full_tree.keys[idx], self.full_tree.values[idx]
 
     def memory_nodes(self) -> int:
         """Stored nodes (the paper's Fig. 8 memory metric)."""
@@ -94,9 +110,7 @@ def make_plan(
         forest_values=tree.values[None, :],
         forest_height=tree.height,
         full_tree=tree,
-        rank_to_bfs=torch.from_numpy(tree_lib.rank_to_bfs_indices(tree.height)).to(
-            tree.device
-        ),
+        rank_to_bfs=tree_lib.rank_to_bfs_on(tree.height, tree.device),
     )
     if strategy == "hrz":
         return SearchPlan(strategy="hrz", n_trees=1, shared_tree=False, **common)
@@ -131,10 +145,14 @@ def hyb_capacity(plan: SearchPlan, chunk: int) -> int:
     return invariants.buffer_capacity(chunk, plan.n_trees, plan.buffer_slack)
 
 
+DeltaOps = Optional[Tuple[torch.Tensor, ...]]
+
+
 def _hybrid_descend(
-    plan: SearchPlan, queries: torch.Tensor, *, ordered: bool
+    plan: SearchPlan, queries: torch.Tensor, *, ordered: bool, delta: DeltaOps
 ) -> Tuple[torch.Tensor, ...]:
-    """Single-chip hyb: the whole pipeline in one call."""
+    """Single-chip hyb: the whole pipeline, delta merge included, in one
+    call."""
     return kops.bst_hybrid_forest(
         plan.full_tree.keys,
         plan.full_tree.values,
@@ -144,6 +162,7 @@ def _hybrid_descend(
         mapping=plan.mapping,
         capacity=hyb_capacity(plan, KERNEL_BLOCK_Q),
         ordered=ordered,
+        delta=delta,
     )
 
 
@@ -156,12 +175,17 @@ def _dup_rows(queries: torch.Tensor, n: int) -> torch.Tensor:
     return queries.reshape(n, -1)
 
 
-def _forest_descend(plan: SearchPlan, queries: torch.Tensor, *, ordered: bool):
+def _forest_descend(
+    plan: SearchPlan, queries: torch.Tensor, *, ordered: bool, delta: DeltaOps
+):
     """hrz and dup through the forest kernel; (B,) outputs."""
     B = queries.shape[0]
     fn = kops.bst_ordered_forest if ordered else kops.bst_search_forest
     if plan.strategy == "hrz":
-        out = fn(plan.forest_keys, plan.forest_values, queries[None, :], plan.forest_height)
+        out = fn(
+            plan.forest_keys, plan.forest_values, queries[None, :], plan.forest_height,
+            delta=delta,
+        )
         return tuple(f[0] for f in out)
     out = fn(
         plan.forest_keys,
@@ -169,26 +193,44 @@ def _forest_descend(plan: SearchPlan, queries: torch.Tensor, *, ordered: bool):
         _dup_rows(queries, plan.n_trees),
         plan.forest_height,
         shared_tree=True,
+        delta=delta,
     )
     return tuple(f.reshape(-1)[:B] for f in out)
 
 
-def execute_plan_ordered(plan: SearchPlan, queries: torch.Tensor) -> OrderedResult:
+def _operands(delta: Optional[delta_lib.DeltaBuffer]) -> DeltaOps:
+    return None if delta is None else delta_lib.operands(delta)
+
+
+def execute_plan_ordered(
+    plan: SearchPlan,
+    queries: torch.Tensor,
+    *,
+    delta: Optional[delta_lib.DeltaBuffer] = None,
+) -> OrderedResult:
     """The single-chip path: one ordered pass -> the per-query
-    ``OrderedResult`` every op's epilogue reads."""
+    ``OrderedResult`` every op's epilogue reads.  With ``delta`` value,
+    found and rank come back merged with the pending writes, resolved
+    inside the descent itself."""
+    d_ops = _operands(delta)
     if plan.strategy == "hyb":
-        return OrderedResult(*_hybrid_descend(plan, queries, ordered=True))
-    return OrderedResult(*_forest_descend(plan, queries, ordered=True))
+        return OrderedResult(*_hybrid_descend(plan, queries, ordered=True, delta=d_ops))
+    return OrderedResult(*_forest_descend(plan, queries, ordered=True, delta=d_ops))
 
 
 def execute_plan(
-    plan: SearchPlan, queries: torch.Tensor
+    plan: SearchPlan,
+    queries: torch.Tensor,
+    *,
+    delta: Optional[delta_lib.DeltaBuffer] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Membership lookup through the kernels' 2-output configuration: the
-    hot lookup path pays nothing for the ordered tracking."""
+    hot lookup path pays nothing for the ordered tracking.  ``delta``
+    rides the descent as in ``execute_plan_ordered``."""
+    d_ops = _operands(delta)
     if plan.strategy == "hyb":
-        return _hybrid_descend(plan, queries, ordered=False)
-    return _forest_descend(plan, queries, ordered=False)
+        return _hybrid_descend(plan, queries, ordered=False, delta=d_ops)
+    return _forest_descend(plan, queries, ordered=False, delta=d_ops)
 
 
 def ordered_query(
@@ -198,6 +240,7 @@ def ordered_query(
     queries_hi: Optional[torch.Tensor] = None,
     *,
     k: int = 8,
+    delta: Optional[delta_lib.DeltaBuffer] = None,
 ):
     """The per-op query contract -- one descent, one epilogue.
 
@@ -210,17 +253,31 @@ def ordered_query(
       ``counts`` is clipped to ``k``.
 
     Keys and bounds must be strictly inside (NO_PRED_KEY, SENTINEL_KEY).
+
+    With ``delta`` (the live write path) the same descent resolves the
+    pending upserts and tombstones, and every epilogue switches to its
+    delta-aware twin in ``core.delta``: rank selection over the merged key
+    set instead of the static rank -> BFS map.  An empty buffer gives the
+    read-only answers bit for bit.
     """
     validate_op(op, queries_hi is not None)
     if op == "lookup":
-        return execute_plan(plan, queries)
+        return execute_plan(plan, queries, delta=delta)
+    n_real = plan.full_tree.n_real
     if op in RANGE_OPS:
         B = queries.shape[0]
-        res = execute_plan_ordered(plan, torch.cat([queries, queries_hi]))
+        res = execute_plan_ordered(plan, torch.cat([queries, queries_hi]), delta=delta)
         r_lo = OrderedResult(*(f[:B] for f in res))
         r_hi = OrderedResult(*(f[B:] for f in res))
+        if delta is not None:
+            sk, sv = plan.sorted_view()
+            return delta_lib.range_epilogue(op, sk, sv, n_real, delta, r_lo, r_hi, k=k)
         return range_epilogue(op, plan.full_tree, plan.rank_to_bfs, r_lo, r_hi, k=k)
-    return point_epilogue(op, queries, execute_plan_ordered(plan, queries))
+    res = execute_plan_ordered(plan, queries, delta=delta)
+    if delta is not None:
+        sk, sv = plan.sorted_view()
+        return delta_lib.point_epilogue(op, queries, res, sk, sv, n_real, delta)
+    return point_epilogue(op, queries, res)
 
 
 def point_epilogue(op: str, queries: torch.Tensor, res: OrderedResult):

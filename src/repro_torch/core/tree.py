@@ -8,7 +8,9 @@ descent step touches one contiguous region.  Trees are *perfect*
 (``n = 2^{H+1} - 1`` nodes); sorted inputs are padded with a +inf sentinel.
 
 The layout is built with numpy on the host and moved to the engine's device
-once (``build_tree`` / ``tree_from_numpy``); every tensor stays int32.
+once (``build_tree`` / ``tree_from_numpy``); a compaction re-lays a sorted
+view out on the device itself (``layout_from_sorted_device``).  Every tensor
+stays int32.
 """
 
 from __future__ import annotations
@@ -223,6 +225,51 @@ def bfs_inorder_ranks(height: int) -> np.ndarray:
         o = level_offset(l)
         out[o : o + (1 << l)] = (2 * p + 1) * (1 << (height - l)) - 1
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def rank_to_bfs_on(height: int, device: torch.device) -> torch.Tensor:
+    """``rank_to_bfs_indices(height)`` as an int32 tensor on ``device``,
+    memoized like the host map (read-only contract): a new plan or a
+    compaction reuses it instead of copying it to the device again."""
+    return torch.from_numpy(rank_to_bfs_indices(height)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def bfs_inorder_ranks_on(height: int, device: torch.device) -> torch.Tensor:
+    """``bfs_inorder_ranks(height)`` as an int32 tensor on ``device``
+    (memoized, read-only)."""
+    return torch.from_numpy(bfs_inorder_ranks(height)).to(device)
+
+
+def layout_from_sorted_device(
+    sorted_keys: torch.Tensor, sorted_values: torch.Tensor, n_real: int
+) -> TreeData:
+    """A TreeData from a sorted view on the device, in one gather.
+
+    ``sorted_keys/values`` hold ``n_real`` real pairs in ascending key order
+    followed by sentinel padding (any length >= n_real).  The perfect tree's
+    height follows from ``n_real`` (a host int: the one scalar a compaction
+    reads back); the BFS image is a single gather through
+    ``bfs_inorder_ranks`` on the tensors' device, so the arrays stay there.
+    """
+    if n_real < 1:
+        raise ValueError("empty tree")
+    h = height_for(n_real)
+    n = (1 << (h + 1)) - 1
+    pad = n - int(sorted_keys.shape[0])
+    if pad > 0:
+        sorted_keys = torch.cat([sorted_keys, sorted_keys.new_full((pad,), int(SENTINEL_KEY))])
+        sorted_values = torch.cat(
+            [sorted_values, sorted_values.new_full((pad,), int(SENTINEL_VALUE))]
+        )
+    ranks = bfs_inorder_ranks_on(h, sorted_keys.device)
+    return TreeData(
+        keys=sorted_keys[:n][ranks],
+        values=sorted_values[:n][ranks],
+        height=h,
+        n_real=n_real,
+    )
 
 
 def init_ordered(B: int, device) -> OrderedResult:

@@ -1,4 +1,4 @@
-"""Shared invariants of the read path, kept inside the port.
+"""Shared invariants of the read and write paths, kept inside the port.
 
 The port stands alone: it imports nothing of the JAX package, so it keeps
 its own copy of the few pure-stdlib bounds its engine, plans and kernel
@@ -9,6 +9,7 @@ depend on it without cycles.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 
 def check_power_of_two(n: int, what: str) -> int:
@@ -38,3 +39,30 @@ def buffer_capacity(chunk: int, n_trees: int, buffer_slack: float) -> int:
     if buffer_slack <= 0:
         raise ValueError(f"buffer_slack must be > 0 (got {buffer_slack})")
     return max(1, int(math.ceil(chunk / n_trees * buffer_slack)))
+
+
+def check_delta_config(delta_capacity: int, delta_high_water: Optional[int]) -> None:
+    """The write path's capacity bounds (``EngineConfig.__post_init__``)."""
+    if delta_capacity < 0:
+        raise ValueError(
+            f"delta_capacity must be >= 0 (got {delta_capacity}); "
+            "0 disables the write path"
+        )
+    if (
+        delta_capacity > 0
+        and delta_high_water is not None
+        and not 1 <= delta_high_water <= delta_capacity
+    ):
+        raise ValueError(
+            f"delta_high_water={delta_high_water} must lie in "
+            f"[1, delta_capacity={delta_capacity}] -- a mark above "
+            "the capacity could never trigger compaction and the buffer "
+            "would overflow"
+        )
+
+
+def resolved_high_water(delta_capacity: int, delta_high_water: Optional[int]) -> int:
+    """The compaction trigger: explicit mark, else 3/4 of the capacity."""
+    if delta_high_water is not None:
+        return delta_high_water
+    return max(1, (3 * delta_capacity) // 4)

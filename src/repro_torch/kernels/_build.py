@@ -45,6 +45,20 @@ _SIGNATURES = {
     "hybrid_descend": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I]
     + [_P] * 7
     + [_P, _P],
+    # forest_descend's arguments up to ordered, then the delta buffer's keys,
+    # values, tombstone, weight and capacity, 7 outputs, stream
+    "forest_descend_delta": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I]
+    + [_P, _P, _P, _P, _I]
+    + [_P] * 7
+    + [_P],
+    # hybrid_descend's arguments up to ordered, the delta buffer as above,
+    # 7 outputs, overflow_out, stream
+    "hybrid_descend_delta": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I]
+    + [_P, _P, _P, _P, _I]
+    + [_P] * 7
+    + [_P, _P],
+    "delta_capacity_limit": [_I],  # hybrid
+    "delta_blocks_per_sm": [_I, _I, _I, _I],  # hybrid, ordered, mapping, capacity
 }
 
 

@@ -6,11 +6,17 @@ raises if the launch was refused, and adds one to its kernel's entry in
 ``LAUNCHES``.  They take CUDA tensors only; ``kernels.ops`` sends CPU tensors
 to the plain versions in ``kernels.ref`` instead.  Lanes past the end of the
 batch are the kernels' own padding, so no query is copied to pad it.
+
+``delta=``, the write buffer's four (C,) int32 operands, selects a kernel's
+delta configuration (K2: ``forest_descend_delta``, ``hybrid_descend_delta``),
+which stages the buffer in shared memory; a capacity whose staging does not
+fit one CTA raises, naming the limit (``delta_capacity_limit``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,7 +25,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import MAPPINGS
 
 # Launches per kernel since the last ``reset_launches()``.
-LAUNCHES: Dict[str, int] = {"forest_descend": 0, "hybrid_descend": 0}
+LAUNCHES: Dict[str, int] = {
+    "forest_descend": 0,
+    "hybrid_descend": 0,
+    "forest_descend_delta": 0,
+    "hybrid_descend_delta": 0,
+}
 
 HYBRID_BLOCK_Q = 512  # lanes per dispatch chunk: one CTA of hybrid_descend
 REGISTER_LEVELS = 3  # K1 levels served from shared memory, as the Pallas register block
@@ -90,6 +101,40 @@ def check_hybrid_operands(
         raise ValueError(f"capacity must be >= 1 (got {capacity})")
 
 
+@functools.lru_cache(maxsize=None)
+def delta_capacity_limit(device: torch.device, hybrid: bool) -> int:
+    """The largest delta capacity whose staging fits one CTA of the forest
+    (or, with ``hybrid``, the hybrid) kernel on ``device``: the shared
+    memory a block may opt in to, less the kernel's static shared memory."""
+    with torch.cuda.device(device):
+        rc = _build.library().lib.delta_capacity_limit(int(hybrid))
+    if rc < 0:
+        _raise_on(-rc, "delta_capacity_limit")
+    return rc
+
+
+def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
+    """The buffer's four operands: (C,) int32, contiguous, on ``device``,
+    one length C >= 1 that the kernel can stage.  Returns C."""
+    if len(delta) != 4:
+        raise ValueError("delta must be (keys, values, tombstone, weight)")
+    C = int(delta[0].shape[0]) if delta[0].ndim == 1 else -1
+    for name, t in zip(("keys", "values", "tombstone", "weight"), delta):
+        _check_int32(f"delta {name}", t, device)
+        if t.ndim != 1 or int(t.shape[0]) != C:
+            raise ValueError("delta operands must be 1-D (C,) tensors of one length")
+    if C < 1:
+        raise ValueError("delta capacity must be >= 1")
+    limit = delta_capacity_limit(device, hybrid)
+    if C > limit:
+        kernel = "hybrid_descend_delta" if hybrid else "forest_descend_delta"
+        raise ValueError(
+            f"delta capacity {C} does not fit the shared memory of one "
+            f"{kernel} CTA on this card: the limit is {limit} entries"
+        )
+    return C
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -117,12 +162,15 @@ def bst_ordered_forest_cuda(
     active: Optional[torch.Tensor] = None,
     shared_tree: bool = False,
     ordered: bool = True,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Kernel K1 (``forest_descend``) over (R, n) flat trees for (T, B)
     queries: ``(values, found, pred_keys, pred_values, succ_keys,
     succ_values, rank)``, each (T, B), or ``(values, found)`` with
     ``ordered=False``.  Levels ``[0, r)`` are staged in shared memory,
-    ``r = max(1, min(REGISTER_LEVELS, height + 1))``."""
+    ``r = max(1, min(REGISTER_LEVELS, height + 1))``.  With ``delta`` it is
+    K2 (``forest_descend_delta``): value/found/rank come back merged with
+    the write buffer."""
     device = queries.device
     if device.type != "cuda":
         raise ValueError(f"bst_ordered_forest_cuda takes CUDA tensors, got {device}")
@@ -131,6 +179,7 @@ def bst_ordered_forest_cuda(
                     ("queries", queries)):
         _check_int32(name, t, device)
     active = _check_active(active, queries.shape, device)
+    C = None if delta is None else _check_delta(delta, device, hybrid=False)
     T, B = queries.shape
     if T > 65535 or B > _INT32_MAX or forest_keys.shape[1] > _INT32_MAX:
         raise ValueError(f"forest shape out of the kernel's range: T={T}, B={B}")
@@ -140,16 +189,23 @@ def bst_ordered_forest_cuda(
     built = _build.library()
     r = max(1, min(REGISTER_LEVELS, height + 1))
     ord_ptrs = [_ptr(o) for o in outs[2:]] if ordered else [None] * 5
+    tree_args = (
+        forest_keys.data_ptr(), forest_values.data_ptr(), forest_keys.shape[1],
+        height, r, int(shared_tree), queries.data_ptr(), _ptr(active), T, B,
+        int(ordered),
+    )
+    out_ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), *ord_ptrs)
+    name = "forest_descend" if delta is None else "forest_descend_delta"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        LAUNCHES["forest_descend"] += 1
-        rc = built.lib.forest_descend(
-            forest_keys.data_ptr(), forest_values.data_ptr(),
-            forest_keys.shape[1], height, r, int(shared_tree),
-            queries.data_ptr(), _ptr(active), T, B, int(ordered),
-            outs[0].data_ptr(), outs[1].data_ptr(), *ord_ptrs, stream,
-        )
-    _raise_on(rc, "forest_descend")
+        LAUNCHES[name] += 1
+        if delta is None:
+            rc = built.lib.forest_descend(*tree_args, *out_ptrs, stream)
+        else:
+            rc = built.lib.forest_descend_delta(
+                *tree_args, *(t.data_ptr() for t in delta), C, *out_ptrs, stream
+            )
+    _raise_on(rc, name)
     return outs
 
 
@@ -160,11 +216,13 @@ def bst_search_forest_cuda(
     height: int,
     active: Optional[torch.Tensor] = None,
     shared_tree: bool = False,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Membership search: K1 in its 2-output configuration."""
+    """Membership search: K1 (K2 with ``delta``) in its 2-output
+    configuration."""
     return bst_ordered_forest_cuda(
         forest_keys, forest_values, queries, height, active=active,
-        shared_tree=shared_tree, ordered=False,
+        shared_tree=shared_tree, ordered=False, delta=delta,
     )
 
 
@@ -194,12 +252,15 @@ def bst_hybrid_forest_cuda(
     active: Optional[torch.Tensor] = None,
     ordered: bool = True,
     overflow_out: Optional[torch.Tensor] = None,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Kernel K3 (``hybrid_descend``): the whole hybrid pipeline over the
     (n,) flat FULL tree, one 512-lane CTA per dispatch chunk.  Returns (B,)
     tensors in the ordered contract (``(values, found)`` with
     ``ordered=False``).  ``overflow_out``, an int32 (B,) CUDA tensor, if
-    given receives which lanes took the stall round."""
+    given receives which lanes took the stall round.  With ``delta`` it is
+    K2 (``hybrid_descend_delta``), resolving the buffer after the stall
+    round."""
     device = queries.device
     if device.type != "cuda":
         raise ValueError(f"bst_hybrid_forest_cuda takes CUDA tensors, got {device}")
@@ -214,6 +275,7 @@ def bst_hybrid_forest_cuda(
         _check_int32("overflow_out", overflow_out, device)
         if tuple(overflow_out.shape) != tuple(queries.shape):
             raise ValueError("overflow_out must have the queries' shape")
+    C = None if delta is None else _check_delta(delta, device, hybrid=True)
     B = queries.shape[0]
     if B > _INT32_MAX or tree_keys.shape[0] > _INT32_MAX:
         raise ValueError(f"hybrid shape out of the kernel's range: B={B}")
@@ -224,15 +286,21 @@ def bst_hybrid_forest_cuda(
     if built.lib.hybrid_block_q() != HYBRID_BLOCK_Q:
         raise RuntimeError("kernel and wrapper disagree on the dispatch chunk")
     ord_ptrs = [_ptr(o) for o in outs[2:]] if ordered else [None] * 5
+    tree_args = (
+        tree_keys.data_ptr(), tree_values.data_ptr(), tree_keys.shape[0], height,
+        split_level, MAPPINGS.index(mapping), min(capacity, _INT32_MAX),
+        queries.data_ptr(), _ptr(active), B, int(ordered),
+    )
+    out_ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), *ord_ptrs, _ptr(overflow_out))
+    name = "hybrid_descend" if delta is None else "hybrid_descend_delta"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        LAUNCHES["hybrid_descend"] += 1
-        rc = built.lib.hybrid_descend(
-            tree_keys.data_ptr(), tree_values.data_ptr(), tree_keys.shape[0],
-            height, split_level, MAPPINGS.index(mapping),
-            min(capacity, _INT32_MAX), queries.data_ptr(), _ptr(active), B,
-            int(ordered), outs[0].data_ptr(), outs[1].data_ptr(), *ord_ptrs,
-            _ptr(overflow_out), stream,
-        )
-    _raise_on(rc, "hybrid_descend")
+        LAUNCHES[name] += 1
+        if delta is None:
+            rc = built.lib.hybrid_descend(*tree_args, *out_ptrs, stream)
+        else:
+            rc = built.lib.hybrid_descend_delta(
+                *tree_args, *(t.data_ptr() for t in delta), C, *out_ptrs, stream
+            )
+    _raise_on(rc, name)
     return outs

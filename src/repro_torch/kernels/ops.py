@@ -1,13 +1,15 @@
-"""Public entry points of the read path's kernels.
+"""Public entry points of the search kernels.
 
 The tensors' device decides: CUDA tensors launch the Hopper kernel (or the
 call raises), CPU tensors take the plain version in ``kernels.ref``.  There
-is no fallback from one to the other.
+is no fallback from one to the other.  ``delta=``, the write buffer's four
+(C,) int32 operands (``core.delta.operands``), rides any descent: value,
+found and (ordered) rank come back merged with the pending writes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +28,7 @@ def bst_search_forest(
     height: int,
     active: Optional[torch.Tensor] = None,
     shared_tree: bool = False,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forest-batched membership search: (T, B) queries over (R, n) flat
     trees -> ``(values, found)``, each (T, B).  hrz is a forest of one, dup
@@ -33,10 +36,10 @@ def bst_search_forest(
     if _on_card(queries):
         return K.bst_search_forest_cuda(
             forest_keys, forest_values, queries, height, active=active,
-            shared_tree=shared_tree,
+            shared_tree=shared_tree, delta=delta,
         )
     K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
-    return ref.bst_search_ref(forest_keys, forest_values, queries, height, active)
+    return ref.bst_search_ref(forest_keys, forest_values, queries, height, active, delta)
 
 
 def bst_ordered_forest(
@@ -46,17 +49,22 @@ def bst_ordered_forest(
     height: int,
     active: Optional[torch.Tensor] = None,
     shared_tree: bool = False,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Forest-batched ORDERED search: one pass per query yields ``(values,
     found, pred_keys, pred_values, succ_keys, succ_values, rank)``, each
-    (T, B) -- the descent behind predecessor, successor and the range ops."""
+    (T, B) -- the descent behind predecessor, successor and the range ops.
+    With ``delta`` pred/succ stay tree-local (``core.delta`` selects the
+    merged floor and ceiling by rank)."""
     if _on_card(queries):
         return K.bst_ordered_forest_cuda(
             forest_keys, forest_values, queries, height, active=active,
-            shared_tree=shared_tree,
+            shared_tree=shared_tree, delta=delta,
         )
     K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
-    return ref.bst_ordered_ref(forest_keys, forest_values, queries, height, active)
+    return ref.bst_ordered_ref(
+        forest_keys, forest_values, queries, height, active, delta=delta
+    )
 
 
 def bst_hybrid_forest(
@@ -70,17 +78,19 @@ def bst_hybrid_forest(
     active: Optional[torch.Tensor] = None,
     ordered: bool = True,
     overflow_out: Optional[torch.Tensor] = None,
+    delta: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The hybrid strategy's single entry point: register route,
-    queue/direct dispatch per 512-lane chunk, vertical-subtree descent
-    and stall-round replay in one call.  Operands are the (n,) flat FULL
-    tree and a (B,) batch; outputs are (B,) in the ordered contract
-    (``(values, found)`` with ``ordered=False``).  ``overflow_out`` (int32
-    (B,)) optionally receives which lanes overflowed."""
+    queue/direct dispatch per 512-lane chunk, vertical-subtree descent,
+    stall-round replay and the delta merge in one call.  Operands are the
+    (n,) flat FULL tree and a (B,) batch; outputs are (B,) in the ordered
+    contract (``(values, found)`` with ``ordered=False``).  ``overflow_out``
+    (int32 (B,)) optionally receives which lanes overflowed."""
     if _on_card(queries):
         return K.bst_hybrid_forest_cuda(
             tree_keys, tree_values, queries, height, split_level, mapping=mapping,
             capacity=capacity, active=active, ordered=ordered, overflow_out=overflow_out,
+            delta=delta,
         )
     K.check_hybrid_operands(
         tree_keys, tree_values, queries, height, split_level, mapping, capacity
@@ -88,6 +98,7 @@ def bst_hybrid_forest(
     return ref.bst_hybrid_ref(
         tree_keys, tree_values, queries, height, split_level, mapping, capacity,
         active=active, ordered=ordered, block_q=K.HYBRID_BLOCK_Q, overflow_out=overflow_out,
+        delta=delta,
     )
 
 
@@ -106,3 +117,21 @@ def bst_search(
         active=None if active is None else active[None, :],
     )
     return val[0], found[0]
+
+
+def bst_delta_resolve(
+    delta_keys: torch.Tensor,
+    delta_values: torch.Tensor,
+    delta_tombstone: torch.Tensor,
+    delta_weight: torch.Tensor,
+    queries: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The delta buffer's resolution on its own: per query ``(hit, dead,
+    value, weight_below)`` against the four flat operands, with inactive
+    lanes' hit dropped and rank correction zeroed.  Plain torch on either
+    device (the JAX twin is jnp, not a Pallas kernel); the descent kernels
+    resolve the buffer themselves, so the serving path never calls this."""
+    return ref.bst_delta_resolve_ref(
+        delta_keys, delta_values, delta_tombstone, delta_weight, queries, active
+    )

@@ -21,6 +21,13 @@ NO_SUCC_KEY = 2**31 - 1  # identity of the min-tracked successor
 
 MAPPINGS = ("queue", "direct")
 
+# Lanes per block of the delta resolution's broadcast compare: a block of
+# lanes meets all C buffer slots at once, so one intermediate holds
+# _RESOLVE_LANES * C elements (16 Mi at C = 4096) whatever the batch.
+_RESOLVE_LANES = 4096
+
+DeltaOperands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
 
 def _init_state(shape, device) -> List[torch.Tensor]:
     """(idx, val, found, pred_key, pred_value, succ_key, succ_value, rank)."""
@@ -84,6 +91,69 @@ def _active(queries, active):
     return active.to(torch.bool)
 
 
+def bst_delta_resolve_ref(
+    delta_keys: torch.Tensor,
+    delta_values: torch.Tensor,
+    delta_tombstone: torch.Tensor,
+    delta_weight: torch.Tensor,
+    queries: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The delta buffer's resolution, as the Pallas body writes it: one
+    broadcast compare of every lane with every slot.
+
+    Operands are the buffer's four (C,) int32 arrays (sorted keys with an
+    INT32_MAX tail, values, tombstone flags, signed rank weights).  Returns
+    per query ``(hit, dead, value, weight_below)``, where ``weight_below``
+    sums the weights of the slots strictly below the query.  Queries may
+    have any batch shape; the compare runs over blocks of lanes so memory
+    stays bounded.  The kernel's binary search over the staged buffer must
+    equal these sums bit for bit."""
+    q = queries.reshape(-1)
+    parts = []
+    for lo in range(0, q.shape[0], _RESOLVE_LANES):
+        qb = q[lo : lo + _RESOLVE_LANES, None]
+        eq = qb == delta_keys
+        parts.append((
+            eq.any(dim=-1),
+            torch.where(eq, delta_tombstone, 0).sum(dim=-1, dtype=torch.int32) != 0,
+            torch.where(eq, delta_values, 0).sum(dim=-1, dtype=torch.int32),
+            torch.where(delta_keys < qb, delta_weight, 0).sum(dim=-1, dtype=torch.int32),
+        ))
+    if parts:
+        hit, dead, value, wbelow = (torch.cat(c).reshape(queries.shape) for c in zip(*parts))
+    else:
+        hit = dead = torch.zeros(queries.shape, dtype=torch.bool, device=queries.device)
+        value = wbelow = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    if active is not None:
+        hit = hit & active
+        wbelow = torch.where(active, wbelow, 0)
+    return hit, dead, value, wbelow
+
+
+def merge_delta_resolution(
+    out: Tuple[torch.Tensor, ...],
+    hit: torch.Tensor,
+    dead: torch.Tensor,
+    value: torch.Tensor,
+    weight_below: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Fold a resolution into descent outputs: ``delta-hit > tombstone >
+    tree-hit`` on value/found, and the merged rank on the 7-field ordered
+    tuple (a membership tuple has no rank to correct)."""
+    val = torch.where(hit, torch.where(dead, SENTINEL_VALUE, value), out[0])
+    found = torch.where(hit, ~dead, out[1])
+    if len(out) == 2:
+        return val, found
+    return (val, found) + tuple(out[2:6]) + (out[6] + weight_below,)
+
+
+def _with_delta(out, delta: Optional[DeltaOperands], queries, active):
+    if delta is None:
+        return out
+    return merge_delta_resolution(out, *bst_delta_resolve_ref(*delta, queries, active))
+
+
 def bst_ordered_ref(
     forest_keys: torch.Tensor,
     forest_values: torch.Tensor,
@@ -91,19 +161,21 @@ def bst_ordered_ref(
     height: int,
     active: Optional[torch.Tensor] = None,
     ordered: bool = True,
+    delta: Optional[DeltaOperands] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Forest descent over (R, n) trees for (T, B) queries; R is T, or 1 for
     a row every query row shares (dup).  Returns ``(values, found,
     pred_keys, pred_values, succ_keys, succ_values, rank)``, each (T, B), or
     ``(values, found)`` with ``ordered=False``.  Inactive lanes keep the
-    identities."""
+    identities.  ``delta``, the write buffer's four operands, resolves
+    after the descent: value/found/rank come back merged."""
     active = _active(queries, active)
     state = _init_state(queries.shape, queries.device)
     state = _descend(
         forest_keys, forest_values, queries, active, state, height,
         range(height + 1), ordered,
     )
-    return _outputs(state, active, ordered)
+    return _with_delta(_outputs(state, active, ordered), delta, queries, active)
 
 
 def bst_search_ref(
@@ -112,10 +184,11 @@ def bst_search_ref(
     queries: torch.Tensor,
     height: int,
     active: Optional[torch.Tensor] = None,
+    delta: Optional[DeltaOperands] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Membership descent: ``(values, found)``, each (T, B)."""
     return bst_ordered_ref(
-        forest_keys, forest_values, queries, height, active, ordered=False
+        forest_keys, forest_values, queries, height, active, ordered=False, delta=delta
     )
 
 
@@ -160,6 +233,7 @@ def bst_hybrid_ref(
     ordered: bool = True,
     block_q: int = 512,
     overflow_out: Optional[torch.Tensor] = None,
+    delta: Optional[DeltaOperands] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The hybrid pipeline over the (n,) flat FULL tree, one ``block_q``
     chunk at a time as the kernel runs it: route through levels
@@ -169,7 +243,8 @@ def bst_hybrid_ref(
     through the same levels from the shared route state (the stall round).
     Padding lanes of the last chunk are inactive.  With ``block_q = B`` the
     whole batch is one chunk.  ``overflow_out``, an int32 (B,) tensor, if
-    given receives the overflow mask.  Returns (B,) tensors: the 7-field
+    given receives the overflow mask.  ``delta`` resolves after the stall
+    round, as in ``bst_ordered_ref``.  Returns (B,) tensors: the 7-field
     ordered tuple, or ``(values, found)`` with ``ordered=False``."""
     B = queries.shape[0]
     active = _active(queries, active)
@@ -192,5 +267,5 @@ def bst_hybrid_ref(
         sub = [torch.where(overflow, r, s) for r, s in zip(rep, sub)]
     if overflow_out is not None:
         overflow_out.copy_(overflow.reshape(-1)[:B])
-    outs = _outputs(sub, act, ordered)
-    return tuple(o.reshape(-1)[:B] for o in outs)
+    outs = tuple(o.reshape(-1)[:B] for o in _outputs(sub, act, ordered))
+    return _with_delta(outs, delta, queries, active)

@@ -1,7 +1,8 @@
-"""BSTServer: streaming read-request scheduler over an immutable snapshot.
+"""BSTServer: streaming request scheduler over immutable tree snapshots.
 
 The paper's deployment story: search streams are served at full throughput
-from an immutable tree.  This module is that loop for the read path:
+from an immutable tree while inserts and deletes accumulate.  This module is
+that loop:
 
   * **typed request kinds** -- ``lookup`` / ``predecessor`` / ``successor``
     via ``submit``, ``range_count`` / ``range_scan`` via ``submit_range``.
@@ -9,12 +10,26 @@ from an immutable tree.  This module is that loop for the read path:
     engine calls, padding only the final partial chunk per op; per-request
     results are sliced back out, so padded lanes never leak into answers or
     accounting;
-  * **one fetch per chunk** -- a chunk's results cross device->host once,
-    through the counted ``runtime.device_fetch`` in ``_fill_columns``;
+  * **live write path** -- with ``EngineConfig(delta_capacity > 0)`` the
+    server also takes ``write`` / ``delete`` requests (``submit_write`` /
+    ``submit_delete``).  The drain keeps SUBMISSION ORDER across reads and
+    writes: the queue splits into maximal read spans (packed per op as
+    above) separated by write spans, each write span lands in the engine's
+    delta buffer as fixed-size padded chunks, and the engine compacts
+    between chunks at the high-water mark;
+  * **snapshot swap** -- ``apply_updates`` on a write-path engine goes
+    through the delta buffer; otherwise it rebuilds the snapshot through
+    ``core.updates`` and installs a new engine;
+  * **one fetch per chunk** -- a read chunk's results cross device->host
+    once, through the counted ``runtime.device_fetch`` in
+    ``_fill_columns``; a compaction adds one more (its new key count);
   * **lanes/sec accounting** -- per-chunk engine time (synchronised on the
     device), found counts per chunk, and busy seconds attributed per op by
-    the engine lanes each request occupied (one per point key, two per
-    range request: the lo||hi concatenated descent).
+    the engine lanes each request occupied (one per point, write or delete
+    key, two per range request: the lo||hi concatenated descent).
+
+The JAX server re-warms its reads after every snapshot swap to refill jit's
+compile cache; eager torch has no such cache, so nothing is re-warmed here.
 """
 
 from __future__ import annotations
@@ -32,6 +47,8 @@ from repro_torch.core.tree import TreeData
 
 RANGE_OPS = plans_lib.RANGE_OPS
 POINT_OPS = tuple(op for op in plans_lib.QUERY_OPS if op not in RANGE_OPS)
+# Mutating request kinds; they are order barriers in the drain.
+WRITE_OPS = ("write", "delete")
 
 
 @dataclasses.dataclass
@@ -60,11 +77,14 @@ class ServerStats:
 
     requests: int = 0  # submit() calls
     submitted: int = 0  # keys/ranges accepted
-    served: int = 0  # keys/ranges answered
+    served: int = 0  # keys/ranges/write ops answered
     found: int = 0  # lookup hits, accumulated per chunk
     chunks: int = 0  # engine invocations
     busy_s: float = 0.0  # time inside the engine (incl. padding lanes)
     lanes: int = 0  # engine lanes occupied (see OpStats.lanes)
+    snapshot_swaps: int = 0  # full-rebuild swaps (the path without a buffer)
+    updates: int = 0  # write/delete ops absorbed by the delta buffer
+    compactions: int = 0  # delta-buffer merges into fresh snapshots
     per_op: Dict[str, OpStats] = dataclasses.field(default_factory=dict)
 
     @property
@@ -83,8 +103,8 @@ class ServerStats:
 class _Request:
     ticket: int
     op: str
-    a: np.ndarray  # keys (point ops) / range lows
-    b: Optional[np.ndarray]  # range highs (range ops)
+    a: np.ndarray  # keys (point / write / delete ops) / range lows
+    b: Optional[np.ndarray]  # range highs (range ops) / write values
 
 
 class BSTServer:
@@ -117,12 +137,22 @@ class BSTServer:
         self._pending: List[_Request] = []
         self._pending_keys = 0
         self._next_ticket = 0
+        # Write chunks are at most the buffer's capacity, so each is one
+        # ingest step of the engine.
+        self._write_chunk = (
+            min(chunk_size, config.delta_capacity) if config.delta_capacity > 0 else chunk_size
+        )
         self._engine = BSTEngine(keys, values, config)
 
     @property
     def snapshot(self) -> TreeData:
-        """The current immutable tree snapshot."""
+        """The current immutable tree snapshot (pending delta-buffer writes,
+        if any, overlay it until the next compaction)."""
         return self._engine.tree
+
+    @property
+    def engine(self) -> BSTEngine:
+        return self._engine
 
     def warmup(self, ops=("lookup",)) -> None:
         """Run one chunk of each op, so timed chunks exclude first-use costs
@@ -137,6 +167,26 @@ class BSTServer:
         else:
             res = self._engine.query(op, a)
         return res if isinstance(res, tuple) else (res,)
+
+    def apply_updates(self, insert_keys=None, insert_values=None, delete_keys=None) -> TreeData:
+        """Bulk-maintain the store (deletes before inserts, so an upsert of
+        a just-deleted key lands).  Returns the current snapshot.  Pending
+        (undrained) requests will be served from the new state.
+
+        With the write path enabled the batch is absorbed by the engine's
+        delta buffer (compaction at the high-water mark); otherwise the
+        engine rebuilds its snapshot (``BSTEngine.apply_updates``).
+        """
+        before = self._engine.compactions
+        tree = self._engine.apply_updates(insert_keys, insert_values, delete_keys)
+        if self._engine.delta is None:
+            self.stats.snapshot_swaps += 1
+            return tree
+        self.stats.updates += sum(
+            len(np.atleast_1d(x)) for x in (insert_keys, delete_keys) if x is not None
+        )
+        self.stats.compactions += self._engine.compactions - before
+        return tree
 
     # --------------------------------------------------------------- requests
     def submit(self, request_keys, op: str = "lookup") -> int:
@@ -166,6 +216,38 @@ class BSTServer:
             raise ValueError("lo/hi must be equal-length scalars or 1-D arrays")
         return self._enqueue(_Request(0, op, lo, hi), lo.size)
 
+    def submit_write(self, request_keys, request_values) -> int:
+        """Queue an upsert request; returns a ticket.
+
+        Requires a write-path engine (``delta_capacity > 0``).  The drain
+        applies writes in SUBMISSION ORDER relative to every other request
+        (reads before the write see the old state, reads after see it); the
+        ticket resolves to ``(applied_count,)``.
+        """
+        self._require_write_path()
+        k = np.atleast_1d(np.asarray(request_keys, np.int32))
+        v = np.atleast_1d(np.asarray(request_values, np.int32))
+        if k.shape != v.shape or k.ndim != 1:
+            raise ValueError("keys/values must be equal-length scalars or 1-D")
+        return self._enqueue(_Request(0, "write", k, v), k.size)
+
+    def submit_delete(self, request_keys) -> int:
+        """Queue a delete (tombstone) request; returns a ticket.  Same
+        ordering contract as ``submit_write``; deleting an absent key is a
+        no-op that still counts as applied."""
+        self._require_write_path()
+        k = np.atleast_1d(np.asarray(request_keys, np.int32))
+        if k.ndim != 1:
+            raise ValueError("request_keys must be scalar or 1-D")
+        return self._enqueue(_Request(0, "delete", k, None), k.size)
+
+    def _require_write_path(self) -> None:
+        if self._engine.delta is None:
+            raise ValueError(
+                "write/delete request kinds need EngineConfig(delta_capacity"
+                " > 0); use apply_updates() for bulk snapshot swaps"
+            )
+
     def _enqueue(self, req: _Request, size: int) -> int:
         req.ticket = self._next_ticket
         self._next_ticket += 1
@@ -186,8 +268,14 @@ class BSTServer:
         Result shapes per op: ``lookup`` -> (values, found);
         ``predecessor``/``successor`` -> (keys, values, ok);
         ``range_count`` -> (counts,); ``range_scan`` -> (keys, values,
-        counts).  Reads commute, so each op's stream is packed into its own
-        ``chunk_size`` engine calls.
+        counts); ``write``/``delete`` -> (applied_count,).
+
+        Writes are ORDER BARRIERS: the queue splits into maximal read spans
+        separated by write spans, served in submission order, so a read
+        sees exactly the writes submitted before it.  Reads commute within
+        a span, so each op's stream is packed into its own ``chunk_size``
+        engine calls; a write span lands in the delta buffer as padded
+        chunks, with compaction between chunks at the high-water mark.
         """
         if not self._pending:
             return {}
@@ -195,8 +283,20 @@ class BSTServer:
         self._pending = []
         self._pending_keys = 0
         out: Dict[int, tuple] = {}
-        self._serve_read_span(batch, out)
+        span: List[_Request] = []
+        for req in batch:
+            if span and (req.op in WRITE_OPS) != (span[-1].op in WRITE_OPS):
+                self._serve_span(span, out)
+                span = []
+            span.append(req)
+        self._serve_span(span, out)
         return out
+
+    def _serve_span(self, reqs: List[_Request], out: Dict[int, tuple]) -> None:
+        if reqs[-1].op in WRITE_OPS:
+            self._serve_write_span(reqs, out)
+        else:
+            self._serve_read_span(reqs, out)
 
     def _serve_read_span(self, reqs: List[_Request], out: Dict[int, tuple]):
         """One span of reads: requests commute, so pack per op kind."""
@@ -212,6 +312,54 @@ class BSTServer:
                 hi = lo + r.a.size
                 out[r.ticket] = tuple(col[lo:hi] for col in columns)
                 lo = hi
+
+    def _serve_write_span(self, reqs: List[_Request], out: Dict[int, tuple]):
+        """One run of consecutive write/delete requests -> delta ingest.
+
+        The requests merge into one submission-ordered batch (the buffer's
+        last-wins dedup keeps exactly that order), cut into ``_write_chunk``
+        slices, the last padded with invalid lanes.  The engine may compact
+        between slices.
+        """
+        keys = np.concatenate([r.a for r in reqs])
+        values = np.concatenate(
+            [r.b if r.op == "write" else np.zeros(r.a.size, np.int32) for r in reqs]
+        )
+        deletes = np.concatenate([np.full(r.a.size, r.op == "delete") for r in reqs])
+        n = keys.size
+        pad = (-n) % self._write_chunk
+        valid = np.arange(n + pad) < n
+        if pad:
+            keys = np.pad(keys, (0, pad))
+            values = np.pad(values, (0, pad))
+            deletes = np.pad(deletes, (0, pad))
+        before = self._engine.compactions
+        t0 = time.perf_counter()
+        n_calls = 0
+        for lo in range(0, keys.size, self._write_chunk):
+            sl = slice(lo, lo + self._write_chunk)
+            self._engine.apply_ops(keys[sl], values[sl], deletes[sl], valid[sl])
+            n_calls += 1
+        # the device work is asynchronous: wait for the buffer, so busy_s
+        # holds the ingest as _serve_stream's does the reads
+        runtime.block_until_ready(self._engine.delta)
+        dt = time.perf_counter() - t0
+        self.stats.busy_s += dt
+        self.stats.updates += n
+        self.stats.served += n
+        self.stats.chunks += n_calls
+        self.stats.compactions += self._engine.compactions - before
+        self.stats.lanes += n
+        for r in reqs:
+            op_stats = self.stats.op(r.op)
+            op_stats.served += r.a.size
+            # busy time shared by the lanes each request occupied
+            op_stats.busy_s += dt * (r.a.size / max(n, 1))
+            op_stats.lanes += r.a.size
+            out[r.ticket] = (np.asarray(r.a.size, np.int32),)
+        for kind in {r.op for r in reqs}:
+            # each kind records every engine call of the span it rode in
+            self.stats.op(kind).chunks += n_calls
 
     def _empty_columns(self, op: str):
         """Result columns for a zero-key stream (no engine call needed)."""
@@ -297,6 +445,16 @@ class BSTServer:
     def range_scan(self, lo, hi):
         ticket = self.submit_range(lo, hi, op="range_scan")
         return self.drain()[ticket]
+
+    def write(self, request_keys, request_values) -> int:
+        """Synchronous upsert: submit one write request and drain."""
+        ticket = self.submit_write(request_keys, request_values)
+        return int(self.drain()[ticket][0])
+
+    def delete(self, request_keys) -> int:
+        """Synchronous delete: submit one tombstone request and drain."""
+        ticket = self.submit_delete(request_keys)
+        return int(self.drain()[ticket][0])
 
     # ------------------------------------------------------------- accounting
     def reset_stats(self) -> None:

@@ -14,11 +14,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import invariants  # noqa: E402
+from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine  # noqa: E402
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.serving import BSTServer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -41,7 +44,7 @@ def _same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g.cpu(), w.cpu())
 
 
 def test_ops_on_cuda_tensors_launch_the_kernels(cuda_device):
@@ -49,7 +52,8 @@ def test_ops_on_cuda_tensors_launch_the_kernels(cuda_device):
     tk, tv, qc = tt.keys.to(cuda_device), tt.values.to(cuda_device), q.to(cuda_device)
     K.reset_launches()
     got = ops.bst_ordered_forest(tk[None], tv[None], qc[None], tt.height)
-    assert K.LAUNCHES == {"forest_descend": 1, "hybrid_descend": 0}
+    assert K.LAUNCHES == {"forest_descend": 1, "hybrid_descend": 0,
+                          "forest_descend_delta": 0, "hybrid_descend_delta": 0}
     _same(got, ref.bst_ordered_ref(tt.keys[None], tt.values[None], q[None], tt.height))
     got = ops.bst_search_forest(tk[None], tv[None], qc.reshape(4, -1), tt.height,
                                 shared_tree=True)
@@ -93,3 +97,114 @@ def test_engine_on_the_card_matches_the_engine_on_the_cpu(cuda_device, name):
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         _same(got, want)
+
+
+def _buffer(keys, tree, C, seed, device):
+    """A delta buffer of capacity C on ``device``, filled by the port's own
+    ingest: upserts of new odd keys, overwrites and tombstones of stored
+    keys, tombstones of absent keys."""
+    rng = np.random.default_rng(seed)
+    m = C
+    k = np.concatenate([keys[rng.choice(keys.size, m - m // 2, replace=False)],
+                        rng.choice(keys.size, m // 2, replace=False).astype(np.int32) * 2 + 1])
+    k = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(device)
+    v = torch.from_numpy(rng.integers(0, 2**31 - 1, m, dtype=np.int32)).to(device)
+    d = torch.from_numpy(rng.random(m) < 0.3).to(device)
+    res = ops.bst_ordered_forest(tree.keys[None], tree.values[None], k[None], tree.height)
+    ok = torch.ones(m, dtype=torch.bool, device=device)
+    return TD.ingest(TD.empty(C, device), k, v, d, ok, res[1][0], res[6][0])
+
+
+@pytest.mark.parametrize("C", [1, 64, 4096])
+def test_delta_kernels_match_their_plain_versions(cuda_device, C):
+    keys, values = make_tree_data(32767, seed=C)
+    tree = TT.build_tree(keys, values, device=cuda_device)
+    buf = _buffer(keys, tree, C, seed=C, device=cuda_device)
+    d_ops = TD.operands(buf)
+    rng = np.random.default_rng(1)
+    pool = np.concatenate([keys, keys + 1, buf.keys[: int(buf.count)].cpu().numpy()])
+    q = torch.from_numpy(rng.choice(pool, 4096).astype(np.int32)).to(cuda_device)
+    act = torch.from_numpy(rng.random(4096) > 0.1).to(cuda_device)
+    K.reset_launches()
+    for ordered in (False, True):
+        for T in (1, 4):
+            qq, aa = q.reshape(T, -1), act.reshape(T, -1)
+            got = K.bst_ordered_forest_cuda(tree.keys[None], tree.values[None], qq, tree.height,
+                                            active=aa, shared_tree=T > 1, ordered=ordered,
+                                            delta=d_ops)
+            want = ref.bst_ordered_ref(tree.keys[None], tree.values[None], qq, tree.height, aa,
+                                       ordered=ordered, delta=d_ops)
+            _same(got, want)
+        for split, mapping in ((2, "queue"), (3, "direct")):
+            cap = invariants.buffer_capacity(512, 1 << split, 2.0)
+            ko, ro = torch.zeros_like(q), torch.zeros_like(q)
+            got = K.bst_hybrid_forest_cuda(tree.keys, tree.values, q, tree.height, split, mapping,
+                                           cap, active=act, ordered=ordered, overflow_out=ko,
+                                           delta=d_ops)
+            want = ref.bst_hybrid_ref(tree.keys, tree.values, q, tree.height, split, mapping, cap,
+                                      active=act, ordered=ordered, overflow_out=ro, delta=d_ops)
+            _same(got + (ko,), want + (ro,))
+    assert K.LAUNCHES["forest_descend_delta"] == 4 and K.LAUNCHES["hybrid_descend_delta"] == 4
+    assert K.LAUNCHES["forest_descend"] == K.LAUNCHES["hybrid_descend"] == 0
+
+
+def test_delta_capacity_past_the_shared_memory_limit_raises(cuda_device):
+    keys, values = make_tree_data(1023, seed=1)
+    tree = TT.build_tree(keys, values, device=cuda_device)
+    limit = K.delta_capacity_limit(cuda_device, False)
+    assert 4096 < limit < 65536
+    big = tuple(torch.zeros(limit + 1, dtype=torch.int32, device=cuda_device) for _ in range(4))
+    q = torch.from_numpy(keys[:8]).to(cuda_device)
+    with pytest.raises(ValueError, match=f"the limit is {limit} entries"):
+        K.bst_ordered_forest_cuda(tree.keys[None], tree.values[None], q[None], tree.height,
+                                  delta=big)
+
+
+@pytest.mark.parametrize("name", list(PAPER_CONFIGS))
+def test_write_path_server_round_matches_an_oracle(cuda_device, name):
+    keys, values = make_tree_data(8191, seed=2)
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], delta_capacity=256)
+    srv = BSTServer(keys, values, cfg, chunk_size=1024, scan_k=4)
+    rng = np.random.default_rng(3)
+    wk = np.concatenate([rng.choice(keys, 150, replace=False),
+                         rng.choice(keys.size, 150, replace=False).astype(np.int32) * 2 + 1])
+    wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+    dk = np.concatenate([rng.choice(keys, 90, replace=False), keys[:30] + 1])
+    q = rng.choice(np.concatenate([keys, wk, dk, keys + 1]), 3000).astype(np.int32)
+    srv.submit_write(wk, wv)
+    srv.submit_delete(dk)
+    t_look = srv.submit(q)
+    t_pred = srv.submit(q, op="predecessor")
+    t_succ = srv.submit(q, op="successor")
+    t_scan = srv.submit_range(q[:500], q[:500] + 40, op="range_scan")
+    K.reset_launches()
+    got = srv.drain()
+    assert srv.stats.compactions >= 1
+
+    kv = dict(zip(keys.tolist(), values.tolist()))
+    kv.update(zip(wk.tolist(), wv.tolist()))
+    for k in dk.tolist():
+        kv.pop(k, None)
+    sk = np.array(sorted(kv), np.int32)
+    sv = np.array([kv[k] for k in sk.tolist()], np.int32)
+    i = np.clip(np.searchsorted(sk, q), 0, sk.size - 1)
+    found = sk[i] == q
+    np.testing.assert_array_equal(got[t_look][1], found)
+    np.testing.assert_array_equal(got[t_look][0], np.where(found, sv[i], -1))
+    i = np.searchsorted(sk, q, "right") - 1
+    np.testing.assert_array_equal(got[t_pred][0], np.where(i >= 0, sk[np.clip(i, 0, None)],
+                                                           np.int32(TT.NO_PRED_KEY)))
+    i = np.searchsorted(sk, q)
+    np.testing.assert_array_equal(got[t_succ][0], np.where(i < sk.size, sk[np.clip(i, 0, sk.size - 1)],
+                                                           np.int32(TT.NO_SUCC_KEY)))
+    start = np.searchsorted(sk, q[:500])
+    counts = np.searchsorted(sk, q[:500] + 40, "right") - start
+    np.testing.assert_array_equal(got[t_scan][2], np.minimum(counts, 4))
+    np.testing.assert_array_equal(got[t_scan][0][:, 0], np.where(counts > 0, sk[np.clip(start, 0, sk.size - 1)],
+                                                                 np.int32(TT.SENTINEL_KEY)))
+    kern = "hybrid_descend" if cfg.strategy == "hyb" else "forest_descend"
+    read_chunks = sum(srv.stats.per_op[op].chunks for op in
+                      ("lookup", "predecessor", "successor", "range_scan"))
+    assert read_chunks == 10
+    assert K.LAUNCHES[kern + "_delta"] == read_chunks  # every read resolves the buffer
+    assert K.LAUNCHES[kern] == 2  # ingest: 420 writes and deletes in chunks of 256

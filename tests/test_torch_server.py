@@ -106,4 +106,5 @@ def test_server_rejects_what_this_slice_does_not_serve():
         srv.submit_range(keys, keys[:-1])
     with pytest.raises(ValueError):
         BSTServer(keys, values, EngineConfig(device="cpu"), chunk_size=0)
-    assert not hasattr(srv, "submit_write") and not hasattr(srv, "apply_updates")
+    with pytest.raises(ValueError, match="delta_capacity"):  # a read-only engine
+        srv.submit_write(keys[:1], keys[:1])
