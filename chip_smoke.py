@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. identify the card (name and power limit from nvidia-smi, versions);
-2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, and
+   report ptxas's registers per kernel and K2's theoretical occupancy;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
@@ -142,6 +143,50 @@ def compare(got, want, kernel: str, tag: str) -> int:
     AGREEMENT[kernel]["max_abs_err"] = max(AGREEMENT[kernel]["max_abs_err"], worst)
     check(n_bad == 0, f"{tag}: {n_bad} mismatching lanes")
     return n_bad
+
+
+# ------------------------------------------------------- phase 2: resources
+# Per-SM limits of sm_90 (the CUDA occupancy calculator's table): threads,
+# CTAs, registers (allocated per warp in units of 256), shared memory (1 KiB
+# reserved per CTA, allocated in units of 128 bytes).
+SM_THREADS, SM_CTAS, SM_REGS, SM_SMEM, CTA_RESERVED_SMEM = 2048, 32, 65536, 233472, 1024
+FOREST_CTA = 256  # threads per CTA of forest_descend (kForestBlock)
+
+
+def ptxas_resources(build_log: str) -> dict:
+    """Per kernel instantiation, from ptxas's report in the build log:
+    ``{"forest_descend_kernel<ORDERED,WITH_DELTA>" (or hybrid's
+    <ORDERED,MAPPING,WITH_DELTA>): (registers, static shared memory bytes,
+    spill line)}``."""
+    out, label, spills = {}, None, ""
+    for line in build_log.splitlines():
+        entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
+        if entry:
+            targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
+            label = f"{entry.group(1)}_descend_kernel<{targs}>"
+        elif label and "spill" in line:
+            spills = line.strip()
+        elif label and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[label] = (regs, int(smem.group(1)) if smem else 0, spills)
+            label = None
+    return out
+
+
+def delta_smem_bytes(capacity: int, ordered: int) -> int:
+    """The delta staging's dynamic shared memory (``delta_smem_ints`` in
+    forest_search.cu): keys, values, tombstones, and ordered adds the
+    weight prefix and the scan's 32 per-warp partials."""
+    return 4 * (4 * capacity + 1 + 32 if ordered else 3 * capacity)
+
+
+def ctas_per_sm(threads: int, regs: int, smem: int) -> int:
+    """Theoretical CTAs per SM of a kernel with ``regs`` registers per
+    thread and ``smem`` bytes of shared memory per CTA."""
+    regs_per_cta = threads // 32 * -(-regs * 32 // 256) * 256
+    smem_per_cta = -(-(smem + CTA_RESERVED_SMEM) // 128) * 128
+    return min(SM_THREADS // threads, SM_CTAS, SM_REGS // regs_per_cta, SM_SMEM // smem_per_cta)
 
 
 # ----------------------------------------------------------- phase 3: checks
@@ -637,6 +682,33 @@ def touched_bytes(tree, q, ordered: bool) -> int:
     return q.numel() * (4 + out_per_lane) + 4 * n_visit + 4 * n_val
 
 
+def delta_touched_bytes(d_ops, q, ordered: bool) -> int:
+    """Bytes of the write buffer that resolving the batch ``q`` must read,
+    counted as ``touched_bytes`` counts the tree's: each distinct key slot
+    the lanes' lower-bound searches compare, the tombstone at each distinct
+    slot a lane hits and the value where that hit is live, and (ordered)
+    every weight, since the rank correction sums the weights below q."""
+    keys, _, tomb, _ = d_ops
+    C = keys.shape[0]
+    q = q.reshape(-1)
+    lo = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    hi = torch.full(q.shape, C, dtype=torch.int64, device=q.device)
+    seen = []
+    while bool((lo < hi).any()):
+        open_ = lo < hi
+        mid = (lo + hi) >> 1
+        seen.append(mid[open_])
+        right = open_ & (keys[mid.clamp(max=C - 1)] < q)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(open_ & ~right, mid, hi)
+    in_range = lo < C
+    seen.append(lo[in_range])
+    hit_slots = torch.unique(lo[in_range][keys[lo[in_range]] == q[in_range]])
+    n_keys = int(torch.unique(torch.cat(seen)).numel())
+    n_live = int((tomb[hit_slots] == 0).sum())
+    return 4 * n_keys + 4 * hit_slots.numel() + 4 * n_live + (4 * C if ordered else 0)
+
+
 def kernel_and_plain(tree, cfg, q, ordered: bool, delta=None):
     """The kernel call a config's engine makes for a batch ``q`` (with the
     write buffer's operands ``delta``: K2), and the same call to its plain
@@ -679,14 +751,13 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
     against its plain version there on the timing keys and on the skewed
     ``equal`` set (which forces the hybrid kernel's stall round), then
     timed on the timing keys.  With ``delta`` (a write buffer) the kernels
-    run their delta configuration, the byte bound adds the buffer's four
-    operands read once, and the yardstick searches ``library_keys`` (the
-    merged sorted view) instead of the snapshot's."""
+    run their delta configuration, the byte bound adds the buffer bytes the
+    batch must read (``delta_touched_bytes``), and the yardstick searches
+    ``library_keys`` (the merged sorted view) instead of the snapshot's."""
     H = tree.height
     if library_keys is None:
         library_keys = tree.keys[torch.from_numpy(rank_to_bfs_indices(H)).long().cuda()]
     d_ops = None if delta is None else delta_lib.operands(delta)
-    delta_bytes = 0 if delta is None else 16 * delta.capacity
     rows = []
     for name, cfg in PAPER_CONFIGS.items():
         for ordered in (False, True):
@@ -699,6 +770,9 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
                   f"{name} {mode}: the equal key set did not overflow")
             kern, run, plain, agree = kernel_and_plain(tree, cfg, q, ordered, d_ops)
             agree(f"{name} {mode} x{lanes}")
+            n_bytes = touched_bytes(tree, q, ordered)
+            if d_ops is not None:
+                n_bytes += delta_touched_bytes(d_ops, q, ordered)
             rows.append({
                 "kernel": kern,
                 "config": f"{name} {mode}",
@@ -706,7 +780,7 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
                 "ms": timer(run),
                 "plain_ms": timer(plain, reps=5),
                 "library_ms": timer(functools.partial(torch.searchsorted, library_keys, q)),
-                "bound_ms": (touched_bytes(tree, q, ordered) + delta_bytes) / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
             })
             r = rows[-1]
             log(f"  {kern} {r['config']} x{lanes}: 0 mismatches ({replayed} equal-set "
@@ -731,25 +805,26 @@ def main() -> int:
 
     built = _build.library()
     log(f"[2] built {os.path.relpath(built.path, ROOT)} in {built.seconds:.3f} s")
-    for line in built.log.splitlines():
-        entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
-        if entry:  # the template arguments: ORDERED[, MAPPING], WITH_DELTA
-            targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
-            log(f"    {entry.group(1)}_descend_kernel<{targs}>")
-        elif "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    resources = ptxas_resources(built.log)
+    for kern, (regs, smem, spills) in resources.items():
+        log(f"    {kern}: {regs} registers, {smem} bytes static shared memory, {spills}")
     occupancy = {}
-    for hybrid, kern, threads in ((0, "forest_descend_delta", 256), (1, "hybrid_descend_delta", 512)):
+    for kern, threads in (("forest_descend_kernel", FOREST_CTA),
+                          ("hybrid_descend_kernel", K.HYBRID_BLOCK_Q)):
         for ordered in (0, 1):
-            for mapping in ((0, 1) if hybrid else (0,)):
-                blocks = built.lib.delta_blocks_per_sm(hybrid, ordered, mapping, W_CAPACITY)
-                check(blocks > 0, f"{kern}: occupancy query failed ({blocks})")
-                tag = f"{kern} {'ordered' if ordered else 'membership'}" + (
-                    f" {('queue', 'direct')[mapping]}" if hybrid else "")
-                occupancy[tag] = {"blocks_per_sm": blocks, "threads_per_sm": blocks * threads,
-                                  "theoretical_occupancy": blocks * threads / 2048}
-                log(f"    {tag} at C={W_CAPACITY}: {blocks} CTAs of {threads} threads per SM "
-                    f"(theoretical occupancy {blocks * threads / 2048!r})")
+            for mapping in ((0, 1) if kern.startswith("hybrid") else (None,)):
+                targs = (ordered, 1) if mapping is None else (ordered, mapping, 1)
+                label = f"{kern}<{','.join(map(str, targs))}>"
+                check(label in resources, f"ptxas reported no resources for {label}")
+                regs, smem, _ = resources[label]
+                ctas = ctas_per_sm(threads, regs, smem + delta_smem_bytes(W_CAPACITY, ordered))
+                tag = (f"{kern.replace('_kernel', '_delta')} {'ordered' if ordered else 'membership'}"
+                       + ("" if mapping is None else f" {('queue', 'direct')[mapping]}"))
+                occupancy[tag] = {"registers": regs, "blocks_per_sm": ctas,
+                                  "threads_per_sm": ctas * threads,
+                                  "theoretical_occupancy": ctas * threads / SM_THREADS}
+                log(f"    {tag} at C={W_CAPACITY}: {ctas} CTAs of {threads} threads per SM "
+                    f"(theoretical occupancy {ctas * threads / SM_THREADS!r})")
     limits = {kern: K.delta_capacity_limit(torch.device("cuda"), hybrid)
               for hybrid, kern in ((False, "forest_descend_delta"), (True, "hybrid_descend_delta"))}
     log(f"    delta capacity limit (shared memory of one CTA): {limits}")

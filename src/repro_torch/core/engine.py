@@ -107,9 +107,6 @@ class BSTEngine:
         self.config = config
         self.tree = tree
         self.compactions = 0
-        # Called with the fresh TreeData after every snapshot swap (a
-        # compaction inside apply_ops, or apply_updates' rebuild).
-        self.on_snapshot: Optional[Callable[[TreeData], None]] = None
         self._finalize()
 
     def _finalize(self) -> None:
@@ -126,7 +123,7 @@ class BSTEngine:
         # One bound callable per (op, k): the eager counterpart of a jit cache.
         self._query_cache: Dict[Tuple[str, Optional[int]], Callable] = {}
         # The live write path: a fresh empty buffer per snapshot.
-        self.delta = (
+        self._set_delta(
             delta_lib.empty(cfg.delta_capacity, self.device)
             if cfg.delta_capacity > 0
             else None
@@ -159,9 +156,17 @@ class BSTEngine:
         queries = self._to_device(queries)
         # The buffer is an argument, not part of the bound callable: it
         # changes with every write batch.
+        d = {"delta": self.delta, "delta_ops": self._delta_ops}
         if op in plans_lib.RANGE_OPS:
-            return fn(queries, self._to_device(queries_hi), delta=self.delta)
-        return fn(queries, delta=self.delta)
+            return fn(queries, self._to_device(queries_hi), **d)
+        return fn(queries, **d)
+
+    def _set_delta(self, delta: Optional[delta_lib.DeltaBuffer]) -> None:
+        """Install a buffer with its kernel operands, computed once here
+        rather than on every read chunk: the buffer changes only at ingest
+        and compaction."""
+        self.delta = delta
+        self._delta_ops = None if delta is None else delta_lib.operands(delta)
 
     def _to_device(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -220,7 +225,7 @@ class BSTEngine:
             # one host -> device copy per slice: keys, values, deletes, valid
             packed = np.stack([keys[sl], values[sl], deletes[sl], valid[sl]]).astype(np.int32)
             k, v, d, ok = torch.from_numpy(packed).to(self.device)
-            self.delta = self._ingest_step(self.delta, k, v, d != 0, ok != 0)
+            self._set_delta(self._ingest_step(self.delta, k, v, d != 0, ok != 0))
             # an upper bound on the occupancy (ingest dedups, so the true
             # count can only be lower); it stays <= cap at every step
             self._pending_writes += m
@@ -270,8 +275,6 @@ class BSTEngine:
     def _swap(self, tree: TreeData) -> None:
         self.tree = tree
         self._finalize()
-        if self.on_snapshot is not None:
-            self.on_snapshot(tree)
 
     def pending_writes(self) -> int:
         """Upper bound on buffered entries (0 right after a compaction)."""

@@ -198,8 +198,10 @@ def _forest_descend(
     return tuple(f.reshape(-1)[:B] for f in out)
 
 
-def _operands(delta: Optional[delta_lib.DeltaBuffer]) -> DeltaOps:
-    return None if delta is None else delta_lib.operands(delta)
+def _operands(delta: Optional[delta_lib.DeltaBuffer], delta_ops: DeltaOps) -> DeltaOps:
+    if delta is None or delta_ops is not None:
+        return delta_ops
+    return delta_lib.operands(delta)
 
 
 def execute_plan_ordered(
@@ -207,12 +209,15 @@ def execute_plan_ordered(
     queries: torch.Tensor,
     *,
     delta: Optional[delta_lib.DeltaBuffer] = None,
+    delta_ops: DeltaOps = None,
 ) -> OrderedResult:
     """The single-chip path: one ordered pass -> the per-query
     ``OrderedResult`` every op's epilogue reads.  With ``delta`` value,
     found and rank come back merged with the pending writes, resolved
-    inside the descent itself."""
-    d_ops = _operands(delta)
+    inside the descent itself.  ``delta_ops`` are ``delta``'s kernel
+    operands (``core.delta.operands``) when the caller already holds them;
+    otherwise they are computed here."""
+    d_ops = _operands(delta, delta_ops)
     if plan.strategy == "hyb":
         return OrderedResult(*_hybrid_descend(plan, queries, ordered=True, delta=d_ops))
     return OrderedResult(*_forest_descend(plan, queries, ordered=True, delta=d_ops))
@@ -223,11 +228,12 @@ def execute_plan(
     queries: torch.Tensor,
     *,
     delta: Optional[delta_lib.DeltaBuffer] = None,
+    delta_ops: DeltaOps = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Membership lookup through the kernels' 2-output configuration: the
-    hot lookup path pays nothing for the ordered tracking.  ``delta``
-    rides the descent as in ``execute_plan_ordered``."""
-    d_ops = _operands(delta)
+    hot lookup path pays nothing for the ordered tracking.  ``delta`` (and
+    ``delta_ops``) ride the descent as in ``execute_plan_ordered``."""
+    d_ops = _operands(delta, delta_ops)
     if plan.strategy == "hyb":
         return _hybrid_descend(plan, queries, ordered=False, delta=d_ops)
     return _forest_descend(plan, queries, ordered=False, delta=d_ops)
@@ -241,6 +247,7 @@ def ordered_query(
     *,
     k: int = 8,
     delta: Optional[delta_lib.DeltaBuffer] = None,
+    delta_ops: DeltaOps = None,
 ):
     """The per-op query contract -- one descent, one epilogue.
 
@@ -258,22 +265,25 @@ def ordered_query(
     pending upserts and tombstones, and every epilogue switches to its
     delta-aware twin in ``core.delta``: rank selection over the merged key
     set instead of the static rank -> BFS map.  An empty buffer gives the
-    read-only answers bit for bit.
+    read-only answers bit for bit.  ``delta_ops`` as in
+    ``execute_plan_ordered``.
     """
     validate_op(op, queries_hi is not None)
     if op == "lookup":
-        return execute_plan(plan, queries, delta=delta)
+        return execute_plan(plan, queries, delta=delta, delta_ops=delta_ops)
     n_real = plan.full_tree.n_real
     if op in RANGE_OPS:
         B = queries.shape[0]
-        res = execute_plan_ordered(plan, torch.cat([queries, queries_hi]), delta=delta)
+        res = execute_plan_ordered(
+            plan, torch.cat([queries, queries_hi]), delta=delta, delta_ops=delta_ops
+        )
         r_lo = OrderedResult(*(f[:B] for f in res))
         r_hi = OrderedResult(*(f[B:] for f in res))
         if delta is not None:
             sk, sv = plan.sorted_view()
             return delta_lib.range_epilogue(op, sk, sv, n_real, delta, r_lo, r_hi, k=k)
         return range_epilogue(op, plan.full_tree, plan.rank_to_bfs, r_lo, r_hi, k=k)
-    res = execute_plan_ordered(plan, queries, delta=delta)
+    res = execute_plan_ordered(plan, queries, delta=delta, delta_ops=delta_ops)
     if delta is not None:
         sk, sv = plan.sorted_view()
         return delta_lib.point_epilogue(op, queries, res, sk, sv, n_real, delta)

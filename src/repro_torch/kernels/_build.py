@@ -2,7 +2,8 @@
 
 The shared library goes into ``build/repro_torch/`` at the root of the
 checkout (listed in ``.gitignore``), named by a hash of its source and flags,
-so an edited source rebuilds and an unchanged one loads at once.  Nothing
+so an edited source rebuilds and an unchanged one loads at once; nvcc's
+report (ptxas resources per kernel) is kept beside it as ``.log``.  Nothing
 here falls back: a missing ``nvcc``, a failed compile or a failed load
 raises.  Importing this module builds nothing; ``library()`` does, once per
 process.
@@ -58,7 +59,6 @@ _SIGNATURES = {
     + [_P] * 7
     + [_P, _P],
     "delta_capacity_limit": [_I],  # hybrid
-    "delta_blocks_per_sm": [_I, _I, _I, _I],  # hybrid, ordered, mapping, capacity
 }
 
 
@@ -107,12 +107,14 @@ def library() -> Built:
     """Build (if needed) and load the kernels' shared library."""
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libforest_search-{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        log = _compile(nvcc_path(), out)
+        log_path.write_text(_compile(nvcc_path(), out))
         seconds = time.perf_counter() - t0
+    log = log_path.read_text() if log_path.is_file() else ""
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

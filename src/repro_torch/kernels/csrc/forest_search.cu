@@ -61,6 +61,10 @@
 
 #include <climits>
 #include <cstddef>
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -374,24 +378,22 @@ Outputs make_outputs(int* val, bool* found, int* pred_key, int* pred_value,
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory (above the 48 KiB
-// default a launch is refused without it).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// CTAs of `kernel` that fit one SM with `smem` bytes of dynamic shared
-// memory each, or -(cudaError_t).
-template <typename Kernel>
-int blocks_per_sm(Kernel* kernel, int threads, size_t smem) {
-  cudaError_t e = allow_smem(kernel, smem);
-  int blocks = 0;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                      smem);
-  }
-  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+// default a launch is refused without it).  The attribute is set only when
+// `bytes` exceeds the largest opt-in made so far for this kernel on the
+// current device, so a steady stream of launches sets it once.
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> allowed;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  size_t& have = allowed[{kernel, dev}];
+  if (bytes <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess) have = bytes;
+  return e;
 }
 
 }  // namespace
@@ -445,7 +447,8 @@ int forest_descend_delta(const int* keys, const int* values, int n, int height,
   const size_t smem = sizeof(int) * delta_smem_ints(capacity, ordered != 0);
 #define REPRO_FOREST_DELTA_LAUNCH(ORD)                                        \
   do {                                                                        \
-    const cudaError_t e = allow_smem(forest_descend_kernel<ORD, true>, smem); \
+    const cudaError_t e = allow_smem(                                         \
+        reinterpret_cast<const void*>(&forest_descend_kernel<ORD, true>), smem); \
     if (e != cudaSuccess) return static_cast<int>(e);                         \
     forest_descend_kernel<ORD, true><<<grid, kForestBlock, smem, st>>>(       \
         keys, values, n, height, reg_levels, shared_tree != 0, queries,       \
@@ -508,7 +511,9 @@ int hybrid_descend_delta(const int* keys, const int* values, int n,
 #define REPRO_HYBRID_DELTA_LAUNCH(ORD, MAP)                                   \
   do {                                                                        \
     const cudaError_t e =                                                     \
-        allow_smem(hybrid_descend_kernel<ORD, MAP, true>, smem);              \
+        allow_smem(reinterpret_cast<const void*>(                             \
+                       &hybrid_descend_kernel<ORD, MAP, true>),               \
+                   smem);                                                     \
     if (e != cudaSuccess) return static_cast<int>(e);                         \
     hybrid_descend_kernel<ORD, MAP, true><<<grid, kHybridBlock, smem, st>>>(  \
         keys, values, n, height, split, capacity, queries, active, B, out,    \
@@ -547,28 +552,6 @@ int delta_capacity_limit(int hybrid) {
   const int ints =
       (optin - static_cast<int>(attr.sharedSizeBytes)) / static_cast<int>(sizeof(int));
   return (ints - 1 - kWarpSums) / 4;
-}
-
-// CTAs of a delta configuration (forest or hybrid, membership or ordered,
-// queue or direct) that fit one SM at `capacity`: the occupancy its shared
-// memory staging leaves.  A negative return is -(cudaError_t).
-int delta_blocks_per_sm(int hybrid, int ordered, int mapping, int capacity) {
-  const size_t smem = sizeof(int) * delta_smem_ints(capacity, ordered != 0);
-  if (!hybrid) {
-    return ordered
-               ? blocks_per_sm(forest_descend_kernel<true, true>, kForestBlock, smem)
-               : blocks_per_sm(forest_descend_kernel<false, true>, kForestBlock, smem);
-  }
-  if (ordered && mapping == kQueue) {
-    return blocks_per_sm(hybrid_descend_kernel<true, kQueue, true>, kHybridBlock, smem);
-  }
-  if (ordered) {
-    return blocks_per_sm(hybrid_descend_kernel<true, kDirect, true>, kHybridBlock, smem);
-  }
-  if (mapping == kQueue) {
-    return blocks_per_sm(hybrid_descend_kernel<false, kQueue, true>, kHybridBlock, smem);
-  }
-  return blocks_per_sm(hybrid_descend_kernel<false, kDirect, true>, kHybridBlock, smem);
 }
 
 }  // extern "C"

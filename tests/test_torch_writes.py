@@ -104,16 +104,26 @@ def test_bulk_maintenance_matches_jax(case):
 
 
 # ------------------------------------------------------ engine write stream
+# One config per strategy is also held to the JAX engine (whose compiles
+# take most of this file's time); every config is held to the oracle.
+JAX_CHECKED = ("Hrz", "Dup4", "Hyb8q")
+# (compactions, pending writes) after each batch of (9, 40, 3) ops with a
+# 16-slot buffer and its default high-water mark of 12.
+STREAM_COUNTS = [(0, 9), (3, 8), (3, 11)]
+
+
 @pytest.mark.parametrize("name", list(PAPER_CONFIGS))
 def test_engine_write_stream_matches_jax_and_oracle(name):
     """Batches of mixed upserts and tombstones, smaller and larger than the
     capacity, so compactions fire inside the stream; every op is held to
-    the JAX engine and the oracle with a buffer pending before the first
-    compaction and again after several."""
+    the oracle (and to the JAX engine, for ``JAX_CHECKED``) with a buffer
+    pending before the first compaction and again after several."""
     keys, values = make_tree_data(255, seed=7)
     cfg = dataclasses.replace(PAPER_CONFIGS[name], device="cpu", delta_capacity=16)
     eng = BSTEngine(keys, values, cfg)
-    jeng = JEngine(keys, values, dataclasses.replace(J_CONFIGS[name], delta_capacity=16))
+    jeng = None
+    if name in JAX_CHECKED:
+        jeng = JEngine(keys, values, dataclasses.replace(J_CONFIGS[name], delta_capacity=16))
     kv = dict(zip(keys.tolist(), values.tolist()))
     rng = np.random.default_rng(3)
     pool = np.concatenate([keys, keys + 1])
@@ -121,16 +131,18 @@ def test_engine_write_stream_matches_jax_and_oracle(name):
         bk = rng.choice(pool, m).astype(np.int32)
         bv = rng.integers(0, 10**6, m).astype(np.int32)
         bd = rng.random(m) < 0.35
+        engines = (eng,) if jeng is None else (eng, jeng)
         if step == 2:  # apply_updates: deletes first, then inserts
-            eng.apply_updates(bk[~bd], bv[~bd], bk[bd])
-            jeng.apply_updates(bk[~bd], bv[~bd], bk[bd])
+            for e in engines:
+                e.apply_updates(bk[~bd], bv[~bd], bk[bd])
             _apply(kv, bk[bd], bv[bd], bd[bd])
             _apply(kv, bk[~bd], bv[~bd], bd[~bd])
         else:
-            eng.apply_ops(bk, bv, bd)
-            jeng.apply_ops(bk, bv, bd)
+            for e in engines:
+                e.apply_ops(bk, bv, bd)
             _apply(kv, bk, bv, bd)
-        assert (eng.compactions, eng.pending_writes()) == (jeng.compactions, jeng.pending_writes())
+        for e in engines:
+            assert (e.compactions, e.pending_writes()) == STREAM_COUNTS[step]
         if step == 1:
             continue
         assert eng.pending_writes() > 0
@@ -139,7 +151,8 @@ def test_engine_write_stream_matches_jax_and_oracle(name):
         for op in OPS:
             args = (q, hi) if op in ("range_count", "range_scan") else (q,)
             got = eng.query(op, *args, k=4)
-            _same(got, jeng.query(op, *args, k=4), f"{name} step {step} {op}")
+            if jeng is not None:
+                _same(got, jeng.query(op, *args, k=4), f"{name} step {step} {op}")
             _same(got, _oracle(kv, op, *args, k=4), f"{name} step {step} {op} oracle")
     assert eng.compactions >= 2
     eng.compact()
@@ -154,11 +167,9 @@ def test_read_only_engine_rebuilds_on_apply_updates():
     jeng = JEngine(keys, values)
     with pytest.raises(ValueError, match="write path disabled"):
         eng.apply_ops([1], [1], [False])
-    seen = []
-    eng.on_snapshot = seen.append
     tree = eng.apply_updates(insert_keys=[1, 4], insert_values=[10, 40], delete_keys=[6])
     jtree = jeng.apply_updates(insert_keys=[1, 4], insert_values=[10, 40], delete_keys=[6])
-    assert seen == [tree] and eng.compactions == 0
+    assert eng.tree is tree and eng.compactions == 0
     _same((tree.keys, tree.values), (jtree.keys, jtree.values), "rebuild")
     v, f = eng.lookup(np.array([1, 4, 6], np.int32))
     assert f.tolist() == [True, True, False] and v[:2].tolist() == [10, 40]
