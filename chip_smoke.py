@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's single-chip BST read and write paths on one card.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths and LM serving.
 
     python3 chip_smoke.py [--json PATH]
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. identify the card (name and power limit from nvidia-smi, versions);
-2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, and
-   report ptxas's registers per kernel and K2's theoretical occupancy;
+2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
+   process per source, all at once), and report ptxas's registers per
+   kernel and K2's theoretical occupancy;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
@@ -32,7 +33,17 @@ Phases, in order; any failure raises and exits non-zero:
    ``torch.searchsorted`` (the library yardstick, never called by the port)
    with CUDA events, beside the byte bound of the same work; K2 likewise
    with the full buffer, its yardstick searching the merged sorted view;
-6. print the ``{"kernels": [...]}`` line, the card's line, and last the
+6. LM serving of qwen3-1.7b at full width and depth (28 layers): kernel K5
+   (flash attention) against its plain version in fp32 and bf16 at the JAX
+   package's sweep shapes, at Sq > Skv and at the serving shape; the whole
+   model in fp32 (1 x 512 prompt), the flash route against the naive route
+   over prefill and 4 decode steps, and decode against a prefill of the
+   longer prompt; then the bf16 serving run through ``greedy_generate``
+   (4 prompts x 2048 tokens + 32 new), one K5 launch per layer, every
+   logit finite, with prefill and decode times, peak memory and a decode
+   step's device idle share; then K5 timed at the serving shape beside its
+   bound, its plain version and ``scaled_dot_product_attention``;
+7. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits with code 2 and prints no result without one.
@@ -70,9 +81,12 @@ from repro_torch.core.tree import (  # noqa: E402
     rank_to_bfs_indices,
 )
 from repro_torch.data.keysets import make_key_sets, make_tree_data  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
-from repro_torch.serving import BSTServer  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.serving import BSTServer, greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
 
 N_KEYS = (1 << 24) - 1  # H = 23: 2 x 64 MiB of int32 keys and values
 CHECK_LANES = 1 << 16
@@ -86,6 +100,8 @@ SPIN_CYCLES = 2_000_000  # about 1 ms of the SM clock
 PROFILE_CHUNKS = 128
 PROFILE_RUNS = 3
 SOURCE = "src/repro_torch/kernels/csrc/forest_search.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:100"
 REPLACES = {
     "forest_descend": "src/repro/kernels/bst_search.py:255",
     "hybrid_descend": "src/repro/kernels/bst_search.py:404",
@@ -102,6 +118,29 @@ W_DELETES = 2048  # three quarters stored keys, one quarter absent
 W_LOOKUPS = 8192  # written, deleted and random keys
 W_POINTS = 8192  # predecessor, and as many successor, queries of odd keys
 W_RANGES = 4096  # range_count, and as many range_scan, spans near written keys
+# The LM phase (6): qwen3-1.7b at its published width and depth.
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32  # the serving run
+LM_CHECK_PROMPT, LM_CHECK_STEPS = 512, 4  # the fp32 full-depth check
+LM_CHECK_TOL = 1e-3  # fp32 logits after 28 layers: the routes' rounding differs
+LM_PROFILE_STEPS = 4
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# K5 against its plain version: fp32, the kernel's FMA order and expf
+# against torch's matmul and softmax (TF32 off); bf16, both compute in fp32
+# from the same bf16 inputs, so they differ by about one bf16 rounding of
+# the output (the JAX sweep's 2e-2).  atol = rtol = the value.
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (BH, BHkv, Sq, Skv, d, causal, window): the JAX package's sweep
+# (tests/test_kernels.py), a causal Sq > Skv case, and the serving shape.
+FLASH_SHAPES = [
+    (4, 2, 256, 256, 64, True, None),
+    (4, 4, 128, 256, 32, True, None),
+    (2, 1, 256, 256, 64, True, 128),
+    (8, 2, 128, 128, 128, False, None),
+    (2, 2, 384, 384, 64, True, 256),
+    (4, 2, 512, 256, 128, True, None),
+    (LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, LM_PROMPT, 128, True, None),
+]
 
 
 def check(cond, msg: str) -> None:
@@ -156,14 +195,17 @@ FOREST_CTA = 256  # threads per CTA of forest_descend (kForestBlock)
 def ptxas_resources(build_log: str) -> dict:
     """Per kernel instantiation, from ptxas's report in the build log:
     ``{"forest_descend_kernel<ORDERED,WITH_DELTA>" (or hybrid's
-    <ORDERED,MAPPING,WITH_DELTA>): (registers, static shared memory bytes,
-    spill line)}``."""
+    <ORDERED,MAPPING,WITH_DELTA>, or "flash_fwd_kernel<float|bf16,D>"):
+    (registers, static shared memory bytes, spill line)}``."""
     out, label, spills = {}, None, ""
     for line in build_log.splitlines():
         entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
+        flash = "Compiling entry" in line and re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
         if entry:
             targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
             label = f"{entry.group(1)}_descend_kernel<{targs}>"
+        elif flash:
+            label = f"flash_fwd_kernel<{'float' if flash.group(1) == 'f' else 'bf16'},{flash.group(2)}>"
         elif label and "spill" in line:
             spills = line.strip()
         elif label and "registers" in line:
@@ -790,6 +832,229 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
     return rows
 
 
+# ------------------------------------------------------------- phase 6: LM
+def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """(q row, key) pairs one head row attends to: the work K5 must do."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
+    hi = np.minimum(Skv - 1, qpos) if causal else np.full(Sq, Skv - 1, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_operands(shape, dtype, seed: int):
+    BH, BHkv, Sq, Skv, d, _, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                 for s in ((BH, Sq, d), (BHkv, Skv, d), (BHkv, Skv, d)))
+
+
+def check_flash_kernel() -> list:
+    """K5 against its plain version at every FLASH_SHAPES shape, fp32 and
+    bf16: per case the elements outside the tolerance (``mismatches``) and
+    the largest absolute difference.  Fails on any mismatch, and if a row
+    with no visible key is not 0."""
+    rows = []
+    for i, shape in enumerate(FLASH_SHAPES):
+        _, _, Sq, Skv, d, causal, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_operands(shape, dtype, seed=i)
+            got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            tol = FLASH_TOL[dtype]
+            diff = (got.float() - want.float()).abs()
+            bad = int((diff > tol + tol * want.float().abs()).sum())
+            err = float(diff.max())
+            empty = causal and Sq > Skv and bool(got[:, : Sq - Skv].any())
+            rows.append({"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                         "mismatches": bad, "max_abs_err": err, "tol": tol})
+            log(f"  K5 {shape} {rows[-1]['dtype']}: mismatches {bad}, max_abs_err {err!r} "
+                f"(tolerance atol = rtol = {tol})")
+            check(bad == 0, f"K5 {shape} {dtype}: {bad} elements outside the tolerance")
+            check(not empty, f"K5 {shape} {dtype}: a row with no visible key is not 0")
+            del q, k, v, got, want, diff
+    return rows
+
+
+def check_full_model_fp32(cfg, smi: str) -> dict:
+    """qwen3-1.7b in fp32 at full width and depth, 1 x LM_CHECK_PROMPT: the
+    flash route (K5) against the naive route (plain attention) over prefill
+    and LM_CHECK_STEPS decode steps, then each decode step against a prefill
+    of the longer prompt."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
+    naive = dataclasses.replace(cfg32, attention_impl="naive")
+    model = lm.init_params(cfg32, seed=0, device="cuda")
+    total = LM_CHECK_PROMPT + LM_CHECK_STEPS
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, total))).cuda()
+
+    def run(c):
+        logits, state = lm.prefill(c, model, toks[:, :LM_CHECK_PROMPT], max_len=total)
+        check(bool(torch.isfinite(logits).all()), f"fp32 {c.attention_impl} prefill: a logit is not finite")
+        out = [logits]
+        for t in range(LM_CHECK_PROMPT, total):
+            logits, state = lm.decode_step(c, model, toks[:, t:t + 1], state)
+            out.append(logits)
+        return out
+
+    FA.reset_launches()
+    flash = run(cfg32)
+    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
+          f"fp32 prefill: {FA.LAUNCHES['flash_attention']} K5 launches for {cfg.n_layers} layers")
+    plain = run(naive)
+    route_err = max(float((a - b).abs().max()) for a, b in zip(flash, plain))
+    for a, b in zip(flash, plain):
+        torch.testing.assert_close(a, b, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
+    consistency_err = 0.0
+    for t, logits in enumerate(flash[1:], start=1):
+        want, _ = lm.prefill(cfg32, model, toks[:, :LM_CHECK_PROMPT + t])
+        consistency_err = max(consistency_err, float((logits - want).abs().max()))
+        torch.testing.assert_close(logits, want, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
+    row = {"prompt": LM_CHECK_PROMPT, "decode_steps": len(flash) - 1,
+           "flash_vs_naive_max_abs_err": route_err,
+           "decode_vs_prefill_max_abs_err": consistency_err, "tol": LM_CHECK_TOL,
+           "logit_scale": float(flash[0].abs().max())}
+    log(f"  fp32 {cfg.name}, {cfg.n_layers} layers, 1 x {LM_CHECK_PROMPT}: flash vs naive route "
+        f"max_abs_err {route_err!r}, decode vs longer prefill {consistency_err!r} over "
+        f"{len(flash) - 1} steps (tolerance {LM_CHECK_TOL}; largest logit "
+        f"{row['logit_scale']!r}) ({smi})")
+    del model, flash, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_lm(cfg, smi: str) -> dict:
+    """The serving run: qwen3-1.7b in bf16 through ``greedy_generate`` with
+    K5's launches counted from 0, then the same prefill and decode steps
+    timed one by one through the serve loop's units, their logits checked
+    finite and their tokens held against greedy_generate's, and a profile of
+    decode steps."""
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    tokens = greedy_generate(cfg, model, prompts, LM_NEW)
+    torch.cuda.synchronize()
+    launches = FA.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.n_layers, f"serving: {launches} K5 launches for one prefill of "
+                                    f"{cfg.n_layers} layers")
+    check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
+
+    prefill_fn = make_prefill_fn(cfg, max_len=LM_PROMPT + LM_NEW)
+    step = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill_fn(model, prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    all_logits = [logits]
+    tok = logits.argmax(dim=-1, keepdim=True)
+    outs = [tok]
+    for _ in range(LM_NEW - 1):
+        logits, state = step(model, tok, state)
+        all_logits.append(logits)
+        tok = logits.argmax(dim=-1, keepdim=True)
+        outs.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(all(bool(torch.isfinite(lg).all()) for lg in all_logits), "serving: a logit is not finite")
+    check(torch.equal(torch.cat(outs, dim=1), tokens),
+          "serving: the timed steps' tokens differ from greedy_generate's")
+    prefill_s, decode_s = t1 - t0, t2 - t1
+    n_steps = LM_NEW - 1
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        p0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            logits, state = step(model, tok, state)
+            tok = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - p0
+    by_name, host, device_events = {}, {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+            device_events += ev.count
+        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
+            host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
+    device_s = sum(by_name.values()) / 1e6
+    check(device_s > 0, "the profiler saw no device time in the decode steps")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    row = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": cfg.n_params(),
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "flash_launches": launches, "peak_bytes": peak,
+        "prefill_s": prefill_s, "prefill_tok_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
+        "decode_tok_per_s": LM_BATCH * n_steps / decode_s,
+        "decode_profile": {"steps": LM_PROFILE_STEPS, "wall_s": wall, "device_s": device_s,
+                           "idle_share": 1 - device_s / wall,
+                           "device_events_per_step": device_events / LM_PROFILE_STEPS,
+                           "top": [(name[:80], us) for name, us in top],
+                           "top_host_self_us": [(name[:80], us) for name, us in top_host]},
+        "sample_ids": tokens[0, :16].tolist(),
+    }
+    log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + {LM_NEW}: "
+        f"K5 launches {launches}, prefill {prefill_s!r} s ({row['prefill_tok_per_s']!r} tok/s), "
+        f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
+        f"peak {peak} bytes, every logit finite ({smi})")
+    log(f"    decode profile, {LM_PROFILE_STEPS} steps: wall {wall!r} s, device busy "
+        f"{device_s!r} s, idle share {row['decode_profile']['idle_share']!r}, "
+        f"{device_events / LM_PROFILE_STEPS!r} device kernels and copies per step")
+    for name, us in top:
+        log(f"      {us!r} us  {name[:120]}")
+    log("      host ops by self CPU time:")
+    for name, us in top_host:
+        log(f"      {us!r} us  {name[:120]}")
+    log(f"    sample ids {row['sample_ids']}")
+    del model, state, all_logits
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_flash(timer) -> dict:
+    """K5 at the serving shape (bf16), its plain version and
+    scaled_dot_product_attention (the library yardstick, never called by the
+    port), beside the least time the card could take for the same work."""
+    shape = FLASH_SHAPES[-1]
+    BH, BHkv, Sq, Skv, d, causal, window = shape
+    q, k, v = flash_operands(shape, torch.bfloat16, seed=99)
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    B = LM_BATCH
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                             is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().reshape(BH, Sq, d).float() - want.float()).abs().max())
+    flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    row = {
+        "shape": list(shape), "dtype": "bfloat16",
+        "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal, window=window)),
+        "plain_ms": timer(functools.partial(ref.flash_attention_ref, q, k, v, causal=causal,
+                                            window=window), reps=5),
+        "library_ms": timer(sdpa),
+        "flop": flop, "bytes": n_bytes,
+        "flop_ms": flop / BF16_FLOP_PER_S * 1e3, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "library_max_abs_err": lib_err,
+    }
+    row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+    row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
+    log(f"  K5 {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+        f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}: "
+        f"{flop} FLOP over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} ms, {n_bytes} bytes over "
+        f"{HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms); max_abs_err vs plain {err!r}, "
+        f"sdpa vs plain {lib_err!r}")
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -799,6 +1064,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # fp32 matrix products in full fp32 for every check (the defaults, set
+    # so that no environment changes them): TF32 keeps about 3 digits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -902,6 +1171,23 @@ def main() -> int:
     merged = m_keys[: int(m_count)].contiguous()
     timings += time_kernels(tree, pool, skewed, timer, delta=full, library_keys=merged)
 
+    log(f"    [5] done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[6] LM serving: {LM_ARCH}; K5 vs its plain version (fp32, bf16)")
+    for kern in ("flash_fwd_kernel<bf16,128>", "flash_fwd_kernel<float,128>"):
+        check(kern in resources, f"ptxas reported no resources for {kern}")
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.vocab_size, cfg.dtype) == (28, 2048, 16, 8, 128, 151936, "bfloat16"),
+          f"{LM_ARCH} is not at its published width and depth: {cfg}")
+    del tree, full, pool, skewed, merged, m_keys
+    torch.cuda.empty_cache()
+    flash_checks = check_flash_kernel()
+    full_model = check_full_model_fp32(cfg, smi)
+    lm_served = serve_lm(cfg, smi)
+    flash_timing = time_flash(timer)
+    flash_resources = {k: v for k, v in resources.items() if k.startswith("flash")}
+
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
                 "forest_descend_delta": "Hrz membership",
@@ -927,6 +1213,23 @@ def main() -> int:
             "config": f"{config} x{row['lanes']}",
             "configs": [r for r in timings if r["kernel"] == kern],
         })
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": lm_served["flash_launches"],
+        "mismatches": sum(r["mismatches"] for r in flash_checks),
+        "max_abs_err": max(r["max_abs_err"] for r in flash_checks),
+        "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
+        "ms": flash_timing["ms"],
+        "plain_ms": flash_timing["plain_ms"],
+        "bound_ms": flash_timing["bound_ms"],
+        "bound_by": flash_timing["bound_by"],
+        "library_ms": flash_timing["library_ms"],
+        "config": f"{LM_ARCH} prefill attention {flash_timing['shape']} bf16",
+        "ptxas": {k: list(v) for k, v in flash_resources.items()},
+    })
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -935,8 +1238,10 @@ def main() -> int:
                        "write_phase_launches": w_launches, "write_phase_peak_bytes": peak,
                        "hrz_write_drain_profile": write_profile,
                        "delta_occupancy": occupancy, "delta_capacity_limit": limits,
+                       "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
+                       "lm_served": lm_served, "flash_timing": flash_timing,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -109,7 +109,7 @@ def delta_capacity_limit(device: torch.device, hybrid: bool) -> int:
     with torch.cuda.device(device):
         rc = _build.library().lib.delta_capacity_limit(int(hybrid))
     if rc < 0:
-        _raise_on(-rc, "delta_capacity_limit")
+        _build.check_launch(-rc, "delta_capacity_limit")
     return rc
 
 
@@ -137,12 +137,6 @@ def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        msg = _build.library().lib.forest_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed: cudaError {rc} ({msg})")
 
 
 def _outputs(shape, device, ordered: bool):
@@ -205,7 +199,7 @@ def bst_ordered_forest_cuda(
             rc = built.lib.forest_descend_delta(
                 *tree_args, *(t.data_ptr() for t in delta), C, *out_ptrs, stream
             )
-    _raise_on(rc, name)
+    _build.check_launch(rc, name)
     return outs
 
 
@@ -302,5 +296,5 @@ def bst_hybrid_forest_cuda(
             rc = built.lib.hybrid_descend_delta(
                 *tree_args, *(t.data_ptr() for t in delta), C, *out_ptrs, stream
             )
-    _raise_on(rc, name)
+    _build.check_launch(rc, name)
     return outs

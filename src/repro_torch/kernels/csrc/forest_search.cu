@@ -400,7 +400,8 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 
 extern "C" {
 
-const char* forest_error_string(int code) {
+// The message of a cudaError code, for every entry point of the library.
+const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,4 +1,4 @@
-"""Public entry points of the search kernels.
+"""Public entry points of the kernels: the BST searches and flash attention.
 
 The tensors' device decides: CUDA tensors launch the Hopper kernel (or the
 call raises), CPU tensors take the plain version in ``kernels.ref``.  There
@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import bst_search as K
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 
 
@@ -135,3 +136,21 @@ def bst_delta_resolve(
     return ref.bst_delta_resolve_ref(
         delta_keys, delta_values, delta_tombstone, delta_weight, queries, active
     )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Batched-heads attention: q (BH, Sq, d) against k/v (BHkv, Skv, d),
+    GQA by reading kv row ``b // (BH // BHkv)`` for q row b; causal and
+    window masks align q at the end of kv; rows that see no key give 0.
+    Kernel K5 on the card, ``ref.flash_attention_ref`` on the CPU."""
+    if _on_card(q):
+        return FA.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    FA.check_operands(q, k, v, window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)

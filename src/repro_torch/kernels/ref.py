@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the Hopper kernels in ``csrc/forest_search.cu``.
+"""Plain PyTorch versions of the Hopper kernels in ``csrc/``.
 
-Each function repeats its kernel's arithmetic step by step over a level loop,
-with a leading batch dimension where the JAX package used ``vmap``.  They are
+Each BST function repeats its kernel's arithmetic step by step over a level
+loop, with a leading batch dimension where the JAX package used ``vmap``;
+the attention functions at the end are the JAX package's reference
+attention (materialized scores, fp32).  They are
 the CPU path of ``kernels.ops`` and the ground truth ``chip_smoke.py`` holds
 the kernels against on the card (called there explicitly on CUDA tensors);
 nothing on the main path calls them for tensors on the card.  All arithmetic
@@ -269,3 +271,52 @@ def bst_hybrid_ref(
         overflow_out.copy_(overflow.reshape(-1)[:B])
     outs = tuple(o.reshape(-1)[:B] for o in _outputs(sub, act, ordered))
     return _with_delta(outs, delta, queries, active)
+
+
+# ----------------------------------------------------------------- attention
+def mha_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Reference attention.  q: (..., Sq, d), k/v: (..., Skv, d), with any
+    leading batch dims; fp32 scores and sums, output in q's dtype.
+
+    ``window`` masks keys older than ``window`` positions (sliding-window
+    attention); q is aligned at the end of the kv sequence.  Rows that see
+    no key give 0."""
+    Sq, d = q.shape[-2], q.shape[-1]
+    Skv = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
+    return (probs @ v.float()).to(q.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The plain version of K5 (``csrc/flash_attention.cu``): q (BH, Sq, d)
+    against k/v (BHkv, Skv, d), each kv row repeated for the ``BH // BHkv``
+    q rows that read it, then reference attention per row."""
+    group = q.shape[0] // k.shape[0]
+    kk = k.repeat_interleave(group, dim=0)
+    vv = v.repeat_interleave(group, dim=0)
+    return mha_attention_ref(q, kk, vv, causal=causal, window=window, scale=scale)

@@ -14,13 +14,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs as TC  # noqa: E402
 from repro_torch import invariants  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine  # noqa: E402
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving import BSTServer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -208,3 +211,89 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
     assert read_chunks == 10
     assert K.LAUNCHES[kern + "_delta"] == read_chunks  # every read resolves the buffer
     assert K.LAUNCHES[kern] == 2  # ingest: 420 writes and deletes in chunks of 256
+
+
+# ------------------------------------------------------------ K5: attention
+# fp32: the kernel's FMA order and expf against torch's matmul and softmax
+# (TF32 off); bf16: both compute in fp32 from the same bf16 inputs, so they
+# differ by at most about one bf16 rounding of the output (the JAX sweep's
+# 2e-2).
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,BHkv,Sq,Skv,d,causal,window", [
+    (8, 4, 300, 300, 128, True, None),  # GQA causal, ragged last tiles
+    (4, 2, 200, 77, 64, True, None),    # Sq > Skv: rows with no key give 0
+    (2, 2, 130, 260, 16, True, 40),     # offset and a sliding window
+])
+def test_flash_attention_matches_its_plain_version(cuda_device, no_tf32, dtype, BH, BHkv,
+                                                   Sq, Skv, d, causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(BH + Sq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((BH, Sq, d), (BHkv, Skv, d), (BHkv, Skv, d)))
+    FA.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (BH, Sq, d)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if Sq > Skv:
+        assert not got[:, : Sq - Skv].any()
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    def qkv(dtype=torch.bfloat16, d=64, kv_rows=2):
+        return (torch.zeros(4, 32, d, dtype=dtype, device=cuda_device),
+                torch.zeros(kv_rows, 32, d, dtype=dtype, device=cuda_device),
+                torch.zeros(kv_rows, 32, d, dtype=dtype, device=cuda_device))
+
+    FA.reset_launches()
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_attention_cuda(*qkv(torch.float16))
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_attention_cuda(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        FA.flash_attention_cuda(*qkv(kv_rows=3))
+    with pytest.raises(ValueError, match="head dim 48"):
+        FA.flash_attention_cuda(*qkv(d=48))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_cuda(*(t.cpu() for t in qkv()))
+    assert FA.LAUNCHES["flash_attention"] == 0
+
+
+def test_smoke_model_on_the_card_matches_the_cpu(cuda_device, no_tf32):
+    """qwen3's smoke config (GQA: 2 kv heads) in fp32, the same weights on
+    both devices: prefill logits, caches and decode logits to 1e-4 (kernel
+    and plain attention, and the card's and the CPU's matrix products), and
+    one K5 launch per layer per prefill."""
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), n_kv_heads=2)
+    cpu = TM.init_params(cfg, seed=1, device="cpu")
+    card = TM.Model(cfg, cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 40)))
+    S = 36
+    FA.reset_launches()
+    got, g_state = TM.prefill(cfg, card, toks[:, :S].to(cuda_device), max_len=40)
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, w_state = TM.prefill(cfg, cpu, toks[:, :S], max_len=40)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(g_state.kv.k.cpu(), w_state.kv.k, atol=1e-4, rtol=1e-4)
+    for t in range(S, 40):
+        got, g_state = TM.decode_step(cfg, card, toks[:, t:t + 1].to(cuda_device), g_state)
+        want, w_state = TM.decode_step(cfg, cpu, toks[:, t:t + 1], w_state)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers  # decode runs no K5
