@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths and LM serving.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM and MoE serving.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -43,7 +43,22 @@ Phases, in order; any failure raises and exits non-zero:
    logit finite, with prefill and decode times, peak memory and a decode
    step's device idle share; then K5 timed at the serving shape beside its
    bound, its plain version and ``scaled_dot_product_attention``;
-7. print the ``{"kernels": [...]}`` line, the card's line, and last the
+7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
+   layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
+   dispatch) against its plain version, bit for bit, at the JAX package's
+   sweep shapes, the MoE prefill and decode shapes and the kernel
+   benchmarks' shapes, with skewed and all-inactive rows; K4 timed at the
+   prefill, decode and kernel-benchmark shapes beside its byte bound, its
+   plain version and a one-element fill (the launch floor); the model in fp32 at 2 layers (1 x 512 prompt + 4 decode
+   steps): the K4 route against the plain dispatch route (equal logits),
+   and at capacity factor 4 the dispatch route against a dense
+   every-token-through-its-experts oracle and decode against a prefill of
+   the longer prompt; then the bf16 serving run at 16 layers through
+   ``greedy_generate`` (4 prompts x 2048 tokens + 32 new), one K4 and one
+   K5 launch per layer per prefill, one K4 launch per layer per decode
+   step, every logit finite, with prefill and decode times, the dropped
+   share, peak memory and a decode step's device idle share;
+8. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits with code 2 and prints no result without one.
@@ -52,6 +67,7 @@ Needs one CUDA card; exits with code 2 and prints no result without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -85,7 +101,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serving import BSTServer, greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
 
 N_KEYS = (1 << 24) - 1  # H = 23: 2 x 64 MiB of int32 keys and values
@@ -141,6 +160,31 @@ FLASH_SHAPES = [
     (4, 2, 512, 256, 128, True, None),
     (LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, LM_PROMPT, 128, True, None),
 ]
+# The MoE phase (7): mixtral-8x7b at its published width.  Depth is the one
+# cut: 16 of 32 layers (2.90 GB of bf16 weights a layer; 16 take 47.0 GB).
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 16
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 2048, 32  # the serving run
+MOE_CHECK_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 2, 512, 4  # the fp32 checks
+MOE_AMPLE_CF = 4.0  # n_experts / top_k: no expert can overflow
+MOE_CHECK_TOL = 1e-3  # fp32 logits: the oracle sums the experts in another order
+QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
+QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
+# (G, B, n_dest, capacity, what): K4's shapes.
+QD_SHAPES = [
+    (1, 16, 2, 2, "JAX sweep"),
+    (1, 128, 8, 16, "JAX sweep"),
+    (1, 64, 16, 8, "JAX sweep"),
+    (1, 33, 4, 1, "JAX sweep, ragged"),
+    (1, 40, 4, 3, "JAX overflow test"),
+    (32, 512, 8, 80, "mixtral prefill, 4 x 2048 tokens in 32 groups"),
+    (1, 8, 8, 1, "mixtral decode, 4 tokens"),
+    (1, 4096, 16, 512, "kernel_bench"),
+    (1, 8192, 8, 1280, "moe_dispatch_bench, capacity factor 1.25"),
+    (2, 1000, 256, 8, "256 destinations"),
+    (3, 700, 1024, 2, "the kernel's n_dest limit"),
+]
+QD_TIMED = (5, 6, 7)  # indices into QD_SHAPES: the prefill, decode and kernel_bench shapes
 
 
 def check(cond, msg: str) -> None:
@@ -160,9 +204,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# Per kernel, over every comparison with its plain version (phases 3 and 5):
-# lanes where any output differed, and the largest absolute difference.
-AGREEMENT = {kern: {"mismatches": 0, "max_abs_err": 0} for kern in REPLACES}
+# Per kernel, over every comparison with its plain version (phases 3, 5 and
+# 7): lanes (K4: elements) where any output differed, and the largest
+# absolute difference.
+AGREEMENT = {kern: {"mismatches": 0, "max_abs_err": 0} for kern in [*REPLACES, "queue_dispatch"]}
 
 
 def compare(got, want, kernel: str, tag: str) -> int:
@@ -195,8 +240,9 @@ FOREST_CTA = 256  # threads per CTA of forest_descend (kForestBlock)
 def ptxas_resources(build_log: str) -> dict:
     """Per kernel instantiation, from ptxas's report in the build log:
     ``{"forest_descend_kernel<ORDERED,WITH_DELTA>" (or hybrid's
-    <ORDERED,MAPPING,WITH_DELTA>, or "flash_fwd_kernel<float|bf16,D>"):
-    (registers, static shared memory bytes, spill line)}``."""
+    <ORDERED,MAPPING,WITH_DELTA>, "flash_fwd_kernel<float|bf16,D>" or
+    "queue_dispatch_kernel"): (registers, static shared memory bytes, spill
+    line)}``."""
     out, label, spills = {}, None, ""
     for line in build_log.splitlines():
         entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
@@ -206,6 +252,8 @@ def ptxas_resources(build_log: str) -> dict:
             label = f"{entry.group(1)}_descend_kernel<{targs}>"
         elif flash:
             label = f"flash_fwd_kernel<{'float' if flash.group(1) == 'f' else 'bf16'},{flash.group(2)}>"
+        elif "Compiling entry" in line and "queue_dispatch_kernel" in line:
+            label = "queue_dispatch_kernel"
         elif label and "spill" in line:
             spills = line.strip()
         elif label and "registers" in line:
@@ -471,47 +519,59 @@ def profile_write_drains(keys, values, rounds) -> list:
     return profiled_drains(srv, submit, runs=2)
 
 
-def profiled_drains(srv, submit, runs: int = PROFILE_RUNS) -> list:
-    """``runs`` drains of ``srv``, each of what ``submit(i)`` queues: each
-    drain's wall time and, from torch.profiler on that same drain, its
-    device time (kernels and copies, summed by name).  The profiler's own
-    host cost is inside the wall time, so the idle share is an upper
-    estimate."""
+def profile_calls(run, calls: int) -> dict:
+    """``run()`` ``calls`` times between synchronisations: the wall time and,
+    from torch.profiler over the same calls, the device time of kernels and
+    copies by name, and host self time by op."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    out = []
-    for i in range(runs):
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            submit(i)
-            srv.drain()
-            wall = time.perf_counter() - t0
-        by_name, host = {}, {}
-        for ev in prof.key_averages():
-            # device-side events (kernels, copies) by their own device time:
-            # a host op's row repeats the device time of what it launched
-            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-                by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
-            elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
-                host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
-        device_s = sum(by_name.values()) / 1e6
-        check(device_s > 0, "the profiler saw no device time")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
-        out.append({"wall_s": wall, "device_s": device_s, "idle_share": 1 - device_s / wall,
-                    "top": [(name[:80], us) for name, us in top],
-                    "top_host_self_us": [(name[:80], us) for name, us in top_host]})
-    return out
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        p0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - p0
+    by_name, host, device_events = {}, {}, 0
+    for ev in prof.key_averages():
+        # device-side events (kernels, copies) by their own device time:
+        # a host op's row repeats the device time of what it launched
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+            device_events += ev.count
+        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
+            host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
+    device_s = sum(by_name.values()) / 1e6
+    check(device_s > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    return {"calls": calls, "wall_s": wall, "device_s": device_s,
+            "idle_share": 1 - device_s / wall,
+            "device_events_per_call": device_events / calls,
+            "top": [(name[:80], us) for name, us in top],
+            "top_host_self_us": [(name[:80], us) for name, us in top_host]}
+
+
+def log_call_profile(label: str, profile: dict) -> None:
+    log(f"    {label} profile, {profile['calls']} calls: wall {profile['wall_s']!r} s, device busy "
+        f"{profile['device_s']!r} s, idle share {profile['idle_share']!r}, "
+        f"{profile['device_events_per_call']!r} device kernels and copies per call")
+    for name, us in profile["top"]:
+        log(f"      {us!r} us  {name}")
+    log("      host ops by self CPU time:")
+    for name, us in profile["top_host_self_us"]:
+        log(f"      {us!r} us  {name}")
+
+
+def profiled_drains(srv, submit, runs: int = PROFILE_RUNS) -> list:
+    """``runs`` drains of ``srv``, each of what ``submit(i)`` queues, each
+    profiled on its own (``profile_calls``).  The profiler's own host cost
+    is inside the wall time, so the idle share is an upper estimate."""
+    return [profile_calls(lambda i=i: (submit(i), srv.drain()), 1) for i in range(runs)]
 
 
 def log_profile(label: str, runs) -> None:
     for i, run in enumerate(runs):
-        log(f"    {label} {i}: wall {run['wall_s']!r} s, device busy {run['device_s']!r} s, "
-            f"idle share {run['idle_share']!r}")
-        for name, us in run["top"]:
-            log(f"      {us!r} us  {name}")
-        log("      host ops by self CPU time:")
-        for name, us in run["top_host_self_us"]:
-            log(f"      {us!r} us  {name}")
+        log_call_profile(f"{label} {i}", run)
 
 
 # ------------------------------------------------------- phase 4w: the writes
@@ -964,26 +1024,7 @@ def serve_lm(cfg, smi: str) -> dict:
     prefill_s, decode_s = t1 - t0, t2 - t1
     n_steps = LM_NEW - 1
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        torch.cuda.synchronize()
-        p0 = time.perf_counter()
-        for _ in range(LM_PROFILE_STEPS):
-            logits, state = step(model, tok, state)
-            tok = logits.argmax(dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - p0
-    by_name, host, device_events = {}, {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
-            device_events += ev.count
-        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
-            host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
-    device_s = sum(by_name.values()) / 1e6
-    check(device_s > 0, "the profiler saw no device time in the decode steps")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    profile = profile_decode(step, model, tok, state)
     row = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
@@ -993,29 +1034,29 @@ def serve_lm(cfg, smi: str) -> dict:
         "prefill_s": prefill_s, "prefill_tok_per_s": LM_BATCH * LM_PROMPT / prefill_s,
         "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
         "decode_tok_per_s": LM_BATCH * n_steps / decode_s,
-        "decode_profile": {"steps": LM_PROFILE_STEPS, "wall_s": wall, "device_s": device_s,
-                           "idle_share": 1 - device_s / wall,
-                           "device_events_per_step": device_events / LM_PROFILE_STEPS,
-                           "top": [(name[:80], us) for name, us in top],
-                           "top_host_self_us": [(name[:80], us) for name, us in top_host]},
+        "decode_profile": profile,
         "sample_ids": tokens[0, :16].tolist(),
     }
     log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + {LM_NEW}: "
         f"K5 launches {launches}, prefill {prefill_s!r} s ({row['prefill_tok_per_s']!r} tok/s), "
         f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
         f"peak {peak} bytes, every logit finite ({smi})")
-    log(f"    decode profile, {LM_PROFILE_STEPS} steps: wall {wall!r} s, device busy "
-        f"{device_s!r} s, idle share {row['decode_profile']['idle_share']!r}, "
-        f"{device_events / LM_PROFILE_STEPS!r} device kernels and copies per step")
-    for name, us in top:
-        log(f"      {us!r} us  {name[:120]}")
-    log("      host ops by self CPU time:")
-    for name, us in top_host:
-        log(f"      {us!r} us  {name[:120]}")
+    log_call_profile("decode", profile)
     log(f"    sample ids {row['sample_ids']}")
     del model, state, all_logits
     torch.cuda.empty_cache()
     return row
+
+
+def profile_decode(step, model, tok, state) -> dict:
+    """Where LM_PROFILE_STEPS greedy decode steps' time goes (``profile_calls``)."""
+    carry = [tok, state]
+
+    def one_step():
+        logits, carry[1] = step(model, carry[0], carry[1])
+        carry[0] = logits.argmax(dim=-1, keepdim=True)
+
+    return profile_calls(one_step, LM_PROFILE_STEPS)
 
 
 def time_flash(timer) -> dict:
@@ -1053,6 +1094,297 @@ def time_flash(timer) -> dict:
         f"{HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms); max_abs_err vs plain {err!r}, "
         f"sdpa vs plain {lib_err!r}")
     return row
+
+
+# ------------------------------------------------------------ phase 7: MoE
+def queue_dispatch_rows(G: int, B: int, n_dest: int, seed: int) -> torch.Tensor:
+    """G rows of B destinations, 1/8 of the lanes inactive (-1), then three
+    skewed rows: every lane to one destination, two hot destinations, and
+    every lane inactive."""
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, n_dest, (G, B)).astype(np.int32)
+    dest[rng.random((G, B)) < 1 / 8] = -1
+    skews = np.stack([np.full(B, n_dest - 1), rng.choice([0, n_dest // 2], B), np.full(B, -1)])
+    return torch.from_numpy(np.concatenate([dest, skews.astype(np.int32)])).cuda()
+
+
+def compare_k4(got, want, tag: str) -> int:
+    """K4's three outputs against its plain version's, element by element;
+    adds to ``AGREEMENT`` and fails on any difference."""
+    n_bad, worst = 0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{tag}[{i}]: shape/dtype")
+        diff = (g.long() - w.long()).abs()
+        n_bad += int((diff != 0).sum())
+        worst = max(worst, int(diff.max()) if diff.numel() else 0)
+    AGREEMENT["queue_dispatch"]["mismatches"] += n_bad
+    AGREEMENT["queue_dispatch"]["max_abs_err"] = max(AGREEMENT["queue_dispatch"]["max_abs_err"], worst)
+    check(n_bad == 0, f"{tag}: {n_bad} mismatching elements")
+    return n_bad
+
+
+def check_queue_dispatch() -> list:
+    """K4 against its plain version at every QD_SHAPES shape, bit for bit on
+    buffers, counts and overflow; the one-destination row must overflow
+    wherever B exceeds the capacity."""
+    rows = []
+    for i, (G, B, n_dest, capacity, what) in enumerate(QD_SHAPES):
+        dest = queue_dispatch_rows(G, B, n_dest, seed=i)
+        got = QD.queue_dispatch_cuda(dest, n_dest, capacity)
+        want = ref.queue_dispatch_ref(dest, n_dest, capacity)
+        bad = compare_k4(got, want, f"K4 {what}")
+        n_over = int(got[2][G].sum())
+        check(n_over == max(0, B - capacity), f"K4 {what}: {n_over} lanes of the one-destination row overflowed")
+        check(not bool(got[2][G + 2].any()) and int(got[1][G + 2].sum()) == 0,
+              f"K4 {what}: the all-inactive row placed a lane")
+        rows.append({"G": G, "B": B, "n_dest": n_dest, "capacity": capacity, "what": what,
+                     "mismatches": bad, "overflowed": int(got[2].sum())})
+        log(f"  K4 {what}: G={G} (+3 skewed rows) B={B} n_dest={n_dest} capacity={capacity}: "
+            f"0 mismatches, {rows[-1]['overflowed']} lanes overflowed")
+    return rows
+
+
+def queue_dispatch_bytes(G: int, B: int, n_dest: int, capacity: int) -> int:
+    """Bytes K4 must move: dest read once; buffers, counts and overflow
+    written once, all int32."""
+    return 4 * G * B + 4 * G * (n_dest * capacity + n_dest + B)
+
+
+def time_queue_dispatch(timer) -> tuple:
+    """K4 at the MoE prefill and decode shapes and at kernel_bench's shape
+    (random rows, 1/8 inactive), its plain version, and the byte bound.  No
+    single PyTorch call builds a FIFO buffer image, so there is no library
+    yardstick.  Beside them, timed the same way, a one-element fill: the
+    least a launch takes on this card.  Returns ``(rows, fill_ms)``."""
+    one = torch.zeros(1, device="cuda")
+    fill_ms = timer(functools.partial(one.fill_, 1.0))
+    log(f"  a one-element fill (the launch floor): {fill_ms!r} ms")
+    rows = []
+    for i in QD_TIMED:
+        G, B, n_dest, capacity, what = QD_SHAPES[i]
+        dest = queue_dispatch_rows(G, B, n_dest, seed=100 + i)[:G].contiguous()
+        compare_k4(QD.queue_dispatch_cuda(dest, n_dest, capacity),
+                   ref.queue_dispatch_ref(dest, n_dest, capacity), f"K4 timed {what}")
+        n_bytes = queue_dispatch_bytes(G, B, n_dest, capacity)
+        rows.append({
+            "what": what, "G": G, "B": B, "n_dest": n_dest, "capacity": capacity,
+            "ms": timer(functools.partial(QD.queue_dispatch_cuda, dest, n_dest, capacity)),
+            "plain_ms": timer(functools.partial(ref.queue_dispatch_ref, dest, n_dest, capacity), reps=5),
+            "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+        })
+        r = rows[-1]
+        log(f"  K4 {what} (G={G}, B={B}, n_dest={n_dest}, capacity={capacity}): ms={r['ms']!r} "
+            f"plain_ms={r['plain_ms']!r} bound_ms={r['bound_ms']!r} (bytes: {n_bytes} over "
+            f"{HBM_BYTES_PER_S:.3g}/s) library_ms=None (no single PyTorch call builds a FIFO "
+            f"buffer image)")
+    return rows, fill_ms
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` is ``fn`` inside the block, and what it was after."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def dense_moe_ffn(cfg, p, x):
+    """The oracle of tests/test_moe.py: every token through its top-k
+    experts with no capacity, the experts' outputs summed with the gate
+    weights.  Where no expert overflows, the dispatch must give this."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    gates, experts = moe_lib.top_k((xt @ p.router).float(), cfg.top_k)
+    gates = torch.softmax(gates, dim=-1)
+    out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        g = torch.nn.functional.silu((xt @ p.w_gate[e]).float())
+        y = (g * (xt @ p.w_up[e]).float()) @ p.w_down[e].float()
+        out += y * (gates * (experts == e)).sum(dim=-1, keepdim=True)
+    return out.reshape(B, S, D).to(x.dtype), torch.zeros((), device=x.device)
+
+
+def check_moe_fp32(cfg, smi: str) -> dict:
+    """mixtral-8x7b in fp32 at full width and MOE_CHECK_LAYERS layers, 1 x
+    MOE_CHECK_PROMPT + MOE_CHECK_STEPS decode steps: (i) the K4 route
+    against the plain dispatch route (``ref.queue_dispatch_ref`` swapped in
+    for ``ops.queue_dispatch``), equal logits; at capacity factor 4 (ii) the
+    dispatch route against the dense oracle and (iii) decode against a
+    prefill of the longer prompt."""
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS, dtype="float32")
+    ample = dataclasses.replace(cfg32, capacity_factor=MOE_AMPLE_CF)
+    model = lm.init_params(cfg32, seed=0, device="cuda")
+    total = MOE_CHECK_PROMPT + MOE_CHECK_STEPS
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, total))).cuda()
+
+    def run(c):
+        logits, state = lm.prefill(c, model, toks[:, :MOE_CHECK_PROMPT], max_len=total)
+        out, dropped = [logits], [[float(lp.moe.dropped) for lp in model.layers]]
+        for t in range(MOE_CHECK_PROMPT, total):
+            logits, state = lm.decode_step(c, model, toks[:, t:t + 1], state)
+            out.append(logits)
+            dropped.append([float(lp.moe.dropped) for lp in model.layers])
+        check(all(bool(torch.isfinite(lg).all()) for lg in out), "fp32 MoE: a logit is not finite")
+        return out, dropped
+
+    QD.reset_launches()
+    k4, k4_dropped = run(cfg32)
+    check(QD.LAUNCHES["queue_dispatch"] == MOE_CHECK_LAYERS * (1 + MOE_CHECK_STEPS),
+          f"fp32 MoE: {QD.LAUNCHES['queue_dispatch']} K4 launches")
+    with swapped(kops, "queue_dispatch", ref.queue_dispatch_ref):
+        plain, plain_dropped = run(cfg32)
+    check(QD.LAUNCHES["queue_dispatch"] == MOE_CHECK_LAYERS * (1 + MOE_CHECK_STEPS),
+          "fp32 MoE: the plain dispatch route launched K4")
+    route_err = max(float((a - b).abs().max()) for a, b in zip(k4, plain))
+    check(all(torch.equal(a, b) for a, b in zip(k4, plain)) and k4_dropped == plain_dropped,
+          f"fp32 MoE: the K4 and plain dispatch routes differ (max_abs_err {route_err!r})")
+
+    routed, routed_dropped = run(ample)
+    check(all(d == 0.0 for step in routed_dropped for d in step),
+          f"fp32 MoE at capacity factor {MOE_AMPLE_CF}: an expert overflowed")
+    with swapped(moe_lib, "moe_ffn", dense_moe_ffn):
+        oracle, _ = run(ample)
+    oracle_err = max(float((a - b).abs().max()) for a, b in zip(routed, oracle))
+    for a, b in zip(routed, oracle):
+        torch.testing.assert_close(a, b, atol=MOE_CHECK_TOL, rtol=MOE_CHECK_TOL)
+    consistency_err = 0.0
+    for t, logits in enumerate(routed[1:], start=1):
+        want, _ = lm.prefill(ample, model, toks[:, :MOE_CHECK_PROMPT + t])
+        consistency_err = max(consistency_err, float((logits - want).abs().max()))
+        torch.testing.assert_close(logits, want, atol=MOE_CHECK_TOL, rtol=MOE_CHECK_TOL)
+    row = {"layers": MOE_CHECK_LAYERS, "prompt": MOE_CHECK_PROMPT, "decode_steps": MOE_CHECK_STEPS,
+           "k4_vs_plain_route_max_abs_err": route_err, "dropped_per_step": k4_dropped,
+           "ample_capacity_factor": MOE_AMPLE_CF, "dispatch_vs_dense_oracle_max_abs_err": oracle_err,
+           "decode_vs_prefill_max_abs_err": consistency_err, "tol": MOE_CHECK_TOL,
+           "logit_scale": float(k4[0].abs().max())}
+    log(f"  fp32 {cfg.name}, {MOE_CHECK_LAYERS} layers, 1 x {MOE_CHECK_PROMPT} + {MOE_CHECK_STEPS}: "
+        f"K4 route == plain dispatch route (logits equal; dropped share per layer, prefill "
+        f"{k4_dropped[0]}, last decode step {k4_dropped[-1]}); at capacity factor {MOE_AMPLE_CF}: "
+        f"dispatch vs dense oracle max_abs_err {oracle_err!r}, decode vs longer prefill "
+        f"{consistency_err!r} (tolerance {MOE_CHECK_TOL}; largest logit {row['logit_scale']!r}) ({smi})")
+    del model, k4, plain, routed, oracle
+    torch.cuda.empty_cache()
+    return row
+
+
+def layer_dropped(model) -> torch.Tensor:
+    """Each MoE layer's dropped share of its last call, stacked on the card."""
+    return torch.stack([lp.moe.dropped for lp in model.layers])
+
+
+def serve_moe(cfg, smi: str) -> dict:
+    """The MoE serving run: mixtral-8x7b in bf16 at MOE_LAYERS layers through
+    ``greedy_generate`` with K4's and K5's launches counted from 0, then the
+    same prefill and decode steps timed one by one through the serve loop's
+    units (launches counted per step, logits checked finite, tokens held
+    against greedy_generate's, the dropped share read after the timing),
+    and a profile of decode steps."""
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).cuda()
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    QD.reset_launches()
+    FA.reset_launches()
+    tokens = greedy_generate(cfg, model, prompts, MOE_NEW)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    k4_launches, k5_launches = QD.LAUNCHES["queue_dispatch"], FA.LAUNCHES["flash_attention"]
+    check(k5_launches == L, f"MoE serving: {k5_launches} K5 launches for one prefill of {L} layers")
+    check(k4_launches == L * MOE_NEW,
+          f"MoE serving: {k4_launches} K4 launches for a prefill and {MOE_NEW - 1} decode steps "
+          f"of {L} layers")
+    check(tuple(tokens.shape) == (MOE_BATCH, MOE_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
+
+    prefill_fn = make_prefill_fn(cfg, max_len=MOE_PROMPT + MOE_NEW)
+    step = make_serve_step(cfg)
+    QD.reset_launches()
+    FA.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill_fn(model, prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(QD.LAUNCHES["queue_dispatch"] == L and FA.LAUNCHES["flash_attention"] == L,
+          f"MoE prefill: {QD.LAUNCHES['queue_dispatch']} K4 and {FA.LAUNCHES['flash_attention']} "
+          f"K5 launches for {L} layers")
+    prefill_dropped = layer_dropped(model)
+    all_logits, decode_dropped = [logits], []
+    tok = logits.argmax(dim=-1, keepdim=True)
+    outs = [tok]
+    t2 = time.perf_counter()
+    for _ in range(MOE_NEW - 1):
+        before = QD.LAUNCHES["queue_dispatch"]
+        logits, state = step(model, tok, state)
+        check(QD.LAUNCHES["queue_dispatch"] - before == L, "MoE decode: not one K4 launch per layer")
+        decode_dropped.append(layer_dropped(model))
+        all_logits.append(logits)
+        tok = logits.argmax(dim=-1, keepdim=True)
+        outs.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check(FA.LAUNCHES["flash_attention"] == L, "MoE decode launched K5")
+    check(all(bool(torch.isfinite(lg).all()) for lg in all_logits), "MoE serving: a logit is not finite")
+    check(torch.equal(torch.cat(outs, dim=1), tokens),
+          "MoE serving: the timed steps' tokens differ from greedy_generate's")
+    prefill_s, decode_s = t1 - t0, t3 - t2
+    n_steps = MOE_NEW - 1
+    profile = profile_decode(step, model, tok, state)
+    prefill_profile = profile_calls(lambda: prefill_fn(model, prompts), 1)
+    row = {
+        "arch": cfg.name, "layers": L, "published_layers": get_config(MOE_ARCH).n_layers,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.n_experts, "top_k": cfg.top_k,
+        "capacity_factor": cfg.capacity_factor, "moe_groups": cfg.moe_groups,
+        "dtype": cfg.dtype, "params": cfg.n_params(), "active_params": cfg.n_active_params(),
+        "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
+        "k4_launches": k4_launches, "k5_launches": k5_launches, "peak_bytes": peak,
+        "prefill_s": prefill_s, "prefill_tok_per_s": MOE_BATCH * MOE_PROMPT / prefill_s,
+        "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
+        "decode_tok_per_s": MOE_BATCH * n_steps / decode_s,
+        "prefill_dropped_share": float(prefill_dropped.mean()),
+        "decode_dropped_share": float(torch.stack(decode_dropped).mean()),
+        "decode_profile": profile,
+        "prefill_profile": prefill_profile,
+        "sample_ids": tokens[0, :16].tolist(),
+    }
+    log(f"  {cfg.name} bf16, {L} of {row['published_layers']} layers, {MOE_BATCH} x {MOE_PROMPT} + "
+        f"{MOE_NEW}: K4 launches {k4_launches} (one per layer per prefill and decode step), K5 "
+        f"launches {k5_launches}; prefill {prefill_s!r} s ({row['prefill_tok_per_s']!r} tok/s), "
+        f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
+        f"dropped share {row['prefill_dropped_share']!r} (prefill), "
+        f"{row['decode_dropped_share']!r} (decode), peak {peak} bytes, every logit finite ({smi})")
+    log_call_profile("decode", profile)
+    log_call_profile("prefill", prefill_profile)
+    log(f"    sample ids {row['sample_ids']}")
+    del model, state, all_logits
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_phase(resources: dict, timer, smi: str) -> dict:
+    """Phase 7: K4 checked and timed, the fp32 checks, the bf16 serving run."""
+    log(f"[7] MoE serving: {MOE_ARCH}; K4 vs its plain version")
+    check("queue_dispatch_kernel" in resources, "ptxas reported no resources for queue_dispatch_kernel")
+    regs, smem, spills = resources["queue_dispatch_kernel"]
+    log(f"    queue_dispatch_kernel: {regs} registers, {smem} bytes static shared memory, {spills}; "
+        f"n_dest limit {QD.max_dest()}")
+    cfg = get_config(MOE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size,
+           cfg.n_experts, cfg.top_k, cfg.moe_dispatch, cfg.capacity_factor, cfg.moe_groups,
+           cfg.sliding_window, cfg.dtype)
+          == (32, 4096, 32, 8, 14336, 32000, 8, 2, "queue", 1.25, 32, 4096, "bfloat16"),
+          f"{MOE_ARCH} is not at its published width: {cfg}")
+    checks = check_queue_dispatch()
+    timing, fill_ms = time_queue_dispatch(timer)
+    fp32 = check_moe_fp32(cfg, smi)
+    served = serve_moe(dataclasses.replace(cfg, n_layers=MOE_LAYERS), smi)
+    return {"queue_dispatch_checks": checks, "queue_dispatch_timing": timing,
+            "launch_floor_ms": fill_ms, "ptxas": [regs, smem, spills], "moe_full_width_fp32": fp32, "moe_served": served}
 
 
 def main() -> int:
@@ -1187,6 +1519,9 @@ def main() -> int:
     lm_served = serve_lm(cfg, smi)
     flash_timing = time_flash(timer)
     flash_resources = {k: v for k, v in resources.items() if k.startswith("flash")}
+    log(f"    [6] done at {time.perf_counter() - t_start:.1f} s")
+    moe = moe_phase(resources, timer, smi)
+    qd_timing, moe_served = moe["queue_dispatch_timing"], moe["moe_served"]
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
@@ -1230,6 +1565,27 @@ def main() -> int:
         "config": f"{LM_ARCH} prefill attention {flash_timing['shape']} bf16",
         "ptxas": {k: list(v) for k, v in flash_resources.items()},
     })
+    kernels.append({
+        "name": "queue_dispatch",
+        "route": "cuda",
+        "source": QD_SOURCE,
+        "replaces": QD_REPLACES,
+        "launches": moe_served["k4_launches"],
+        "mismatches": AGREEMENT["queue_dispatch"]["mismatches"],
+        "max_abs_err": AGREEMENT["queue_dispatch"]["max_abs_err"],
+        "ms": qd_timing[0]["ms"],
+        "plain_ms": qd_timing[0]["plain_ms"],
+        "bound_ms": qd_timing[0]["bound_ms"],
+        "bound_by": qd_timing[0]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call builds a FIFO buffer image",
+        "config": (f"{MOE_ARCH} prefill dispatch, G={qd_timing[0]['G']} B={qd_timing[0]['B']} "
+                   f"n_dest={qd_timing[0]['n_dest']} capacity={qd_timing[0]['capacity']}; launches: "
+                   f"greedy_generate at {MOE_LAYERS} layers, one prefill and {MOE_NEW - 1} decode steps"),
+        "configs": qd_timing,
+        "launch_floor_ms": moe["launch_floor_ms"],
+        "ptxas": moe["ptxas"],
+    })
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -1240,8 +1596,8 @@ def main() -> int:
                        "delta_occupancy": occupancy, "delta_capacity_limit": limits,
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
                        "lm_served": lm_served, "flash_timing": flash_timing,
-                       "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[7] done in {time.perf_counter() - t_start:.1f} s")
+                       **moe, "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,15 @@
 """Core library of the port: tree layout, search plans, the engine, the
-delta write buffer and bulk maintenance."""
+delta write buffer, bulk maintenance and the dispatch buffers."""
 
-from repro_torch.core import delta
+from repro_torch.core import buffers, delta
+from repro_torch.core.buffers import (
+    DispatchPlan,
+    combine_to_chunk,
+    direct_dispatch,
+    dispatch,
+    gather_from_buffers,
+    queue_dispatch,
+)
 from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig
 from repro_torch.core.plans import (
@@ -31,6 +39,7 @@ from repro_torch.core.updates import bulk_delete, bulk_insert, sorted_view
 __all__ = [
     "BSTEngine",
     "DeltaBuffer",
+    "DispatchPlan",
     "EngineConfig",
     "NO_PRED_KEY",
     "NO_SUCC_KEY",
@@ -42,15 +51,21 @@ __all__ = [
     "SENTINEL_VALUE",
     "SearchPlan",
     "TreeData",
+    "buffers",
     "build_tree",
     "bulk_delete",
     "bulk_insert",
+    "combine_to_chunk",
     "delta",
+    "direct_dispatch",
+    "dispatch",
     "execute_plan",
     "execute_plan_ordered",
+    "gather_from_buffers",
     "layout_from_sorted_device",
     "make_plan",
     "ordered_query",
+    "queue_dispatch",
     "search_reference",
     "search_reference_ordered",
     "sorted_view",

@@ -65,6 +65,9 @@ _SIGNATURES = {
     + [_P] * 7
     + [_P, _P],
     "delta_capacity_limit": [_I],  # hybrid
+    # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
+    "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "queue_dispatch_max_dest": [],
 }
 
 

@@ -1,4 +1,5 @@
-"""Public entry points of the kernels: the BST searches and flash attention.
+"""Public entry points of the kernels: the BST searches, queue dispatch and
+flash attention.
 
 The tensors' device decides: CUDA tensors launch the Hopper kernel (or the
 call raises), CPU tensors take the plain version in ``kernels.ref``.  There
@@ -15,11 +16,12 @@ import torch
 
 from repro_torch.kernels import bst_search as K
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import queue_dispatch as QD
 from repro_torch.kernels import ref
 
 
-def _on_card(queries: torch.Tensor) -> bool:
-    return queries.device.type == "cuda"
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def bst_search_forest(
@@ -154,3 +156,18 @@ def flash_attention(
         return FA.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
     FA.check_operands(q, k, v, window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def queue_dispatch(
+    dest: torch.Tensor, n_dest: int, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Queue-mapped buffer placement (the paper's labeling network) of one
+    row of lanes (B,) or of G rows at once (G, B): ``(buffers (…, n_dest,
+    capacity) of source lane indices, -1 when empty, in FIFO order; counts
+    (…, n_dest) = min(lanes per destination, capacity); overflow (…, B)
+    bool)``.  A negative dest marks an inactive lane.  Kernel K4 on the
+    card, ``ref.queue_dispatch_ref`` on the CPU."""
+    if _on_card(dest):
+        return QD.queue_dispatch_cuda(dest, n_dest, capacity)
+    QD.check_operands(dest, n_dest, capacity)
+    return ref.queue_dispatch_ref(dest, n_dest, capacity)

@@ -1,0 +1,90 @@
+"""Wrapper of kernel K4 in ``csrc/queue_dispatch.cu``: queue-mapped dispatch.
+
+``queue_dispatch_cuda`` checks its operands (device, dtype, rank,
+contiguity, ``n_dest`` and ``capacity``; ``check_operands`` holds the part
+of that contract the plain version shares), allocates the outputs with
+``torch.empty``, launches the kernel on the current stream, raises if the
+launch was refused, and adds one to ``LAUNCHES["queue_dispatch"]``.  It
+takes CUDA tensors only; ``kernels.ops.queue_dispatch`` sends CPU tensors to
+the plain version (``ref.queue_dispatch_ref``) instead.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+# Launches since the last ``reset_launches()``.
+LAUNCHES: Dict[str, int] = {"queue_dispatch": 0}
+
+_INT32_MAX = 2**31 - 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_operands(dest: torch.Tensor, n_dest: int, capacity: int) -> Tuple[int, int]:
+    """The dispatch contract on either device: ``dest`` int32, (B,) or
+    (G, B), contiguous; ``n_dest`` and ``capacity`` at least 1, with
+    ``n_dest * capacity`` slots within int32.  Returns ``(G, B)``, G = 1 for
+    a single row."""
+    if dest.dtype != torch.int32:
+        raise ValueError(f"dest must be int32, got {dest.dtype}")
+    if dest.ndim not in (1, 2):
+        raise ValueError(f"dest must be (B,) or (G, B), got shape {tuple(dest.shape)}")
+    if not dest.is_contiguous():
+        raise ValueError("dest must be contiguous")
+    if n_dest < 1 or capacity < 1:
+        raise ValueError(f"n_dest and capacity must be >= 1, got {n_dest} and {capacity}")
+    if n_dest * capacity > _INT32_MAX:
+        raise ValueError(f"n_dest * capacity = {n_dest * capacity} slots exceed int32")
+    G, B = (1, dest.shape[0]) if dest.ndim == 1 else tuple(dest.shape)
+    if B > _INT32_MAX or G > _INT32_MAX:
+        raise ValueError(f"dest shape {tuple(dest.shape)} out of the kernel's range")
+    return G, B
+
+
+def max_dest() -> int:
+    """The largest ``n_dest`` K4 takes: its per-warp count table lives in
+    shared memory."""
+    return _build.library().lib.queue_dispatch_max_dest()
+
+
+def queue_dispatch_cuda(
+    dest: torch.Tensor, n_dest: int, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K4: ``(buffers (…, n_dest, capacity), counts (…, n_dest),
+    overflow (…, B) bool)`` for ``dest`` (B,) or (G, B), one group row per
+    CTA.  A negative dest marks an inactive lane; a dest >= n_dest counts
+    as n_dest - 1, as the Pallas kernel clips it (the JAX package's plain
+    version lets such a lane fall into its sink instead: the two disagree,
+    so such input has no defined answer)."""
+    if dest.device.type != "cuda":
+        raise ValueError(f"queue_dispatch_cuda takes CUDA tensors, got {dest.device}")
+    G, B = check_operands(dest, n_dest, capacity)
+    limit = max_dest()
+    if n_dest > limit:
+        raise ValueError(
+            f"n_dest {n_dest} is above K4's limit of {limit} destinations "
+            f"(its per-warp count table in shared memory)"
+        )
+    lead = tuple(dest.shape[:-1])
+    buffers = torch.empty(lead + (n_dest, capacity), dtype=torch.int32, device=dest.device)
+    counts = torch.empty(lead + (n_dest,), dtype=torch.int32, device=dest.device)
+    overflow = torch.empty_like(dest)
+    if G > 0:
+        built = _build.library()
+        with torch.cuda.device(dest.device):
+            stream = torch.cuda.current_stream(dest.device).cuda_stream
+            LAUNCHES["queue_dispatch"] += 1
+            rc = built.lib.queue_dispatch(
+                dest.data_ptr(), G, B, n_dest, capacity, buffers.data_ptr(),
+                counts.data_ptr(), overflow.data_ptr(), stream,
+            )
+        _build.check_launch(rc, "queue_dispatch")
+    return buffers, counts, overflow != 0

@@ -2,8 +2,9 @@
 
 Each BST function repeats its kernel's arithmetic step by step over a level
 loop, with a leading batch dimension where the JAX package used ``vmap``;
-the attention functions at the end are the JAX package's reference
-attention (materialized scores, fp32).  They are
+``queue_dispatch_ref`` is K4's one-hot and cumulative sum; the attention
+functions at the end are the JAX package's reference attention
+(materialized scores, fp32).  They are
 the CPU path of ``kernels.ops`` and the ground truth ``chip_smoke.py`` holds
 the kernels against on the card (called there explicitly on CUDA tensors);
 nothing on the main path calls them for tensors on the card.  All arithmetic
@@ -271,6 +272,42 @@ def bst_hybrid_ref(
         overflow_out.copy_(overflow.reshape(-1)[:B])
     outs = tuple(o.reshape(-1)[:B] for o in _outputs(sub, act, ordered))
     return _with_delta(outs, delta, queries, active)
+
+
+# ------------------------------------------------------------ queue dispatch
+def queue_dispatch_ref(
+    dest: torch.Tensor, n_dest: int, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K4 (``csrc/queue_dispatch.cu``), the JAX
+    package's ``queue_dispatch_ref``: ``(buffers (…, n_dest, capacity),
+    counts (…, n_dest), overflow (…, B) bool)`` for ``dest`` (B,) or (G, B).
+
+    A one-hot over the destinations, its exclusive cumulative sum over the
+    lanes (each lane's FIFO label), and a scatter of the kept lanes' indices
+    into the buffer image, with a sink slot for the rest; buffers hold
+    source indices, -1 for an empty slot.  A negative dest marks an
+    inactive lane; a dest >= n_dest counts as n_dest - 1, as the kernel and
+    the Pallas kernel clip it."""
+    rows = dest if dest.ndim == 2 else dest[None]
+    G, B = rows.shape
+    dev = dest.device
+    active = rows >= 0
+    d = rows.clamp(max=n_dest - 1)
+    iota = torch.arange(n_dest, dtype=torch.int32, device=dev)
+    onehot = ((d[..., None] == iota) & active[..., None]).to(torch.int32)  # (G, B, n_dest)
+    label = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    label = label.gather(2, d.clamp(min=0).long()[..., None])[..., 0]
+    kept = active & (label < capacity)
+    sink = n_dest * capacity
+    lin = torch.where(kept, d * capacity + label, sink).long()
+    flat = torch.full((G, sink + 1), -1, dtype=torch.int32, device=dev)
+    flat.scatter_(1, lin, torch.arange(B, dtype=torch.int32, device=dev).expand(G, B))
+    buffers = flat[:, :sink].reshape(G, n_dest, capacity)
+    counts = onehot.sum(dim=1, dtype=torch.int32).clamp(max=capacity)
+    overflow = active & ~kept
+    if dest.ndim == 1:
+        return buffers[0], counts[0], overflow[0]
+    return buffers, counts, overflow
 
 
 # ----------------------------------------------------------------- attention

@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
         --device cpu --batch 4 --prompt-len 32 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu
 
 Parameters come from a seed (``init_params``), prompts from numpy's
 generator.  It prints the prefill time, decode tokens per second and the
-first sequence's token ids.  The sharded BST store (``--bst``) is not
-ported yet and raises.
+first sequence's token ids.  The published config is served whole:
+mixtral-8x7b's 32 layers (93.4 GB in bf16) do not fit one 80 GB card, so
+on one card it runs with the smoke config only (``chip_smoke.py`` cuts
+its depth to 16).  The sharded BST store (``--bst``) is not ported yet
+and raises.
 """
 
 from __future__ import annotations

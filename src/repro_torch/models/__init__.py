@@ -1,2 +1,3 @@
-"""The LM substrate of the port: configs, layers, attention, the dense
-model and the weights carried across from the JAX package."""
+"""The LM substrate of the port: configs, layers, attention, the
+mixture-of-experts FFN, the dense and moe model and the weights carried
+across from the JAX package."""

@@ -11,8 +11,8 @@ Families:
   encdec  -- seamless-m4t: encoder + causal decoder with cross-attention
   vlm     -- internvl2: decoder LM consuming stub patch embeddings
 
-The port runs the dense family (``models.model``); the others are
-configured here and raise ``NotImplementedError`` there.  The JAX
+The port runs the dense and moe families (``models.model``); the others
+are configured here and raise ``NotImplementedError`` there.  The JAX
 package's XLA and TPU switches (``sharding_strategy``, ``zero1``, ``remat``,
 ``remat_policy``, ``scan_layers``, ``attn_block_q``/``attn_block_k``) and its
 training switch ``logit_chunk`` have no meaning in eager PyTorch on one card

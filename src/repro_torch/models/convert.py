@@ -3,9 +3,11 @@
 ``params_from_jax`` fills a ``Model`` from the tree that the JAX package's
 ``init_params`` returns, as numpy arrays (``jax.tree.map(np.asarray,
 params)``): the embedding, the final norm, the head where it is untied, and
-each layer's slice of the stacked (L, ...) layer leaves.  The layouts agree
-(weights (in, out) on both sides), so every tensor is a plain copy; bf16
-arrays pass through float32, which holds them exactly.  This module imports
+each layer's slice of the stacked (L, ...) layer leaves (for the moe family
+the router and the expert stacks, ``layers.moe.w_gate`` (L, E, D, F) and so
+on, in place of the MLP).  The layouts agree (weights (in, out) on both
+sides), so every tensor is a plain copy; bf16 arrays pass through float32,
+which holds them exactly.  This module imports
 no JAX: it reads the arrays only.
 """
 
@@ -40,6 +42,7 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any], device="cuda
         _copy(lp.ln2, stacked["ln2"][i], f"layers.{i}.ln2")
         for name, p in lp.attn.named_parameters():
             _copy(p, stacked["attn"][name][i], f"layers.{i}.attn.{name}")
-        for name, p in lp.mlp.named_parameters():
-            _copy(p, stacked["mlp"][name][i], f"layers.{i}.mlp.{name}")
+        ffn = "moe" if cfg.family == "moe" else "mlp"  # the (L, E, D, F) expert stacks too
+        for name, p in getattr(lp, ffn).named_parameters():
+            _copy(p, stacked[ffn][name][i], f"layers.{i}.{ffn}.{name}")
     return model

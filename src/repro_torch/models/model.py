@@ -1,14 +1,16 @@
-"""The dense decoder LM: parameters, prefill and decode.
+"""The decoder LM: parameters, prefill and decode.
 
 The port of the JAX package's ``models/model.py`` for the dense family
-(internlm2, granite-3, tinyllama, qwen3).  Parameters are ``nn.Module``s:
+(internlm2, granite-3, tinyllama, qwen3) and the moe family (mixtral: the
+dense decoder with a mixture-of-experts FFN, ``models/moe.py``, in place of
+the MLP).  Parameters are ``nn.Module``s:
 ``Model`` holds the embedding, the final norm, the untied head where there
 is one, and an ``nn.ModuleList`` of ``DecoderLayer``s, where the JAX package
 stacks (L, ...) leaves for its layer scan; the scan becomes a Python loop.
 Serving runs under ``torch.no_grad``.  The decode caches are stacked
 (L, B, C, KV, hd) as in the JAX package and are updated in place.
 
-The other families (moe, ssm, hybrid, encdec, vlm) raise
+The other families (ssm, hybrid, encdec, vlm) raise
 ``NotImplementedError``: they are still to port (ROADMAP.md Queue 1 item
 13b).
 """
@@ -21,17 +23,18 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 
 INIT_SCALE = 0.02
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md Queue 1 item 13b); the port runs the dense family"
+            f"(ROADMAP.md Queue 1 item 13b); the port runs the families {PORTED_FAMILIES}"
         )
 
 
@@ -54,11 +57,14 @@ class DecoderLayer(nn.Module):
         self.ln1 = _param((cfg.d_model,), device, dtype)
         self.attn = attn.Attention(cfg, device, dtype)
         self.ln2 = _param((cfg.d_model,), device, dtype)
-        self.mlp = MLP(cfg, device, dtype)
+        if cfg.family == "moe":
+            self.moe = moe.MoE(cfg, device, dtype)
+        else:
+            self.mlp = MLP(cfg, device, dtype)
 
 
 class Model(nn.Module):
-    """The dense LM's parameters, allocated uninitialised on ``device`` in
+    """The LM's parameters, allocated uninitialised on ``device`` in
     the config's parameter dtype (``init_params`` fills them from a seed,
     ``models.convert.params_from_jax`` from the JAX package's tree)."""
 
@@ -80,7 +86,8 @@ class Model(nn.Module):
 
 # ------------------------------------------------------------------ param init
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
-    """A ``Model`` on ``device`` from ``seed``: every matrix N(0, 0.02),
+    """A ``Model`` on ``device`` from ``seed``: every matrix (the MoE
+    router and the (E, in, out) expert stacks too) N(0, 0.02),
     drawn in fp32 by a ``torch.Generator`` on ``device`` and cast to the
     parameter dtype; every norm scale 1.  (The JAX package draws its layer
     norms' scales from N(0, 0.02) too and sets only the final norm to 1;
@@ -99,8 +106,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
 
 
 # ---------------------------------------------------------------- layer bodies
-def _mlp(lp: DecoderLayer, h: torch.Tensor) -> torch.Tensor:
-    return layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+def _mix_ffn(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor):
+    """The layer's FFN: ``(out, dropped)``.  For the moe family ``dropped``
+    is the share of expert assignments its dispatch dropped, a device
+    tensor, also kept on ``lp.moe.dropped`` (prefill and decode discard it,
+    as the JAX package does); the dense MLP drops nothing."""
+    if cfg.family == "moe":
+        out, dropped = moe.moe_ffn(cfg, lp.moe, h)
+        lp.moe.dropped = dropped
+        return out, dropped
+    return layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down), 0.0
 
 
 def _decoder_layer_full(
@@ -114,7 +129,8 @@ def _decoder_layer_full(
     q, k, v = attn.project_qkv(cfg, lp.attn, h, positions)
     x = x + attn.attend(cfg, lp.attn, q, k, v, causal=causal, window=cfg.sliding_window)
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + _mlp(lp, h), k, v
+    f, _ = _mix_ffn(cfg, lp, h)
+    return x + f, k, v
 
 
 # --------------------------------------------------------------------- decode
@@ -144,7 +160,8 @@ def _decoder_layer_decode(
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
     x = x + attn.decode_attention(cfg, lp.attn, h, cache)
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + _mlp(lp, h)
+    f, _ = _mix_ffn(cfg, lp, h)
+    return x + f
 
 
 @torch.no_grad()

@@ -1,0 +1,131 @@
+"""Mixture-of-experts FFN with the paper's buffer-mapped dispatch.
+
+The port of the JAX package's ``models/moe.py``.  The hybrid-partitioning
+router of the paper and a top-k MoE router solve the same problem: a chunk
+of items must be placed into fixed-capacity buffers keyed by a
+data-dependent destination, and collisions beyond the port budget cost
+throughput.  Both of the paper's mappings are exposed (``core/buffers.py``):
+
+  * ``queue`` (the paper's contribution, the default): slot = write_ptr +
+    label, the label being the count of earlier same-expert items -- dense,
+    FIFO packing.  On the card the placement is kernel K4.  Overflow is the
+    paper's frontend stall; in serving it is a dropped expert contribution
+    for the token.
+  * ``direct``: slot = the item's position modulo capacity; a token can be
+    dropped while its expert's buffer still has free slots.
+
+Dispatch and combine are gathers on (E, C) buffers.  The slice runs on one
+card, so the JAX package's sharding constraints (``_ambient_dp_axes``) are
+left out; the dispatch groups stay, since they set the capacity and so the
+drops.  The expert products run as one batched matrix product per weight
+(``torch.bmm`` over the experts), as the JAX package leaves its einsums to
+XLA.  Two details differ from a literal copy and give the JAX package's
+answers: the top-k choice is a stable descending sort (``top_k``), and the
+expert rows are laid out expert-major, (E, G, C), so each expert's rows of
+every group form one matrix.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import buffers as buf
+from repro_torch.models.config import ModelConfig
+
+
+def moe_params_shape(cfg: ModelConfig):
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": (D, E),
+        "w_gate": (E, D, Fd),
+        "w_up": (E, D, Fd),
+        "w_down": (E, Fd, D),
+    }
+
+
+class MoE(nn.Module):
+    """One MoE FFN's parameters (``moe_params_shape``), allocated
+    uninitialised on ``device``; ``models.model.init_params`` or
+    ``models.convert.params_from_jax`` fills them.  ``dropped`` holds the
+    dropped share of the layer's last call, a device tensor (None before
+    the first), for callers that want it without a sync on the hot path."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype: torch.dtype):
+        super().__init__()
+        for name, shape in moe_params_shape(cfg).items():
+            setattr(self, name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype)))
+        self.dropped = None
+
+
+def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    fair = n_tokens * cfg.top_k / cfg.n_experts
+    return max(1, int(fair * cfg.capacity_factor))
+
+
+def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``'s rule: the k largest along the last axis, largest
+    first, and among equal values the lower index first.  ``torch.topk``
+    promises no order among ties (and bf16 router logits tie often); a
+    stable descending sort keeps the index order."""
+    values, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def moe_ffn(cfg: ModelConfig, params: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, dropped fraction, a 0-d device tensor).
+
+    Tokens are split into ``cfg.moe_groups`` independent dispatch groups
+    along the flattened (B·S) token axis where it divides, else one group:
+    a prefill of 4 x 2048 tokens makes 32 groups of 256, a decode step of 4
+    tokens one group of 4.  (The JAX package tests ``B % G`` first, then
+    ``B·S % G``; both give this reshape.)"""
+    B, S, D = x.shape
+    G = cfg.moe_groups or 1
+    if G > 1 and (B * S) % G == 0:
+        xg = x.reshape(G, (B * S) // G, D)
+    else:
+        xg = x.reshape(1, B * S, D)
+    out, dropped = _moe_grouped(cfg, params, xg)
+    return out.reshape(B, S, D).to(x.dtype), dropped
+
+
+def _moe_grouped(cfg: ModelConfig, p: MoE, xg: torch.Tensor):
+    G, Tg, D = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = (xg @ p.router).float()
+    gates, experts = top_k(logits, K)  # (G, Tg, K)
+    gates = torch.softmax(gates, dim=-1)
+
+    C = expert_capacity(cfg, Tg)
+    # K*Tg items per group, k-major so primary choices claim slots first.
+    dest = experts.transpose(1, 2).reshape(G, K * Tg).to(torch.int32)
+    plan = buf.dispatch(cfg.moe_dispatch, dest, E, C)  # one call for all groups
+
+    # Gather each expert's tokens, expert-major: row (e, g, c) of x_e is
+    # token buffers[g, e, c] % Tg of group g, zero where the slot is empty.
+    group = torch.arange(G, device=xg.device)[:, None, None]
+    rows = (group * Tg + plan.buffers % Tg).transpose(0, 1).reshape(-1)  # (E*G*C,)
+    live = (plan.buffers >= 0).transpose(0, 1).reshape(-1, 1)
+    xe = xg.reshape(G * Tg, D).index_select(0, rows).masked_fill_(~live, 0)
+    xe = xe.reshape(E, G * C, D)
+
+    g = torch.bmm(xe, p.w_gate)
+    u = torch.bmm(xe, p.w_up)
+    h = F.silu(g.float()).to(xg.dtype) * u
+    ye = torch.bmm(h, p.w_down).reshape(E * G * C, D)
+
+    # combine: a pure gather -- each (dest, slot) holds at most one item, so
+    # a token reads its k-th expert output at (dest, slot).
+    slot = plan.slot.reshape(G, K, Tg)  # -1 when dropped
+    dest_k = dest.reshape(G, K, Tg)
+    lin = (dest_k.clamp(0, E - 1) * G + group) * C + slot.clamp(0, C - 1)
+    picked = ye.index_select(0, lin.reshape(-1)).reshape(G, K, Tg, D)
+    w = gates.transpose(1, 2)  # (G, K, Tg), fp32
+    w = torch.where(slot >= 0, w, 0.0)
+    out = (picked.float() * w[..., None]).sum(dim=1)  # (G, Tg, D)
+    dropped = 1.0 - plan.kept.sum() / max(dest.numel(), 1)
+    return out, dropped

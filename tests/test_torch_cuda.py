@@ -23,6 +23,7 @@ from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving import BSTServer  # noqa: E402
 
@@ -297,3 +298,83 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda_device, no_tf32):
         want, w_state = TM.decode_step(cfg, cpu, toks[:, t:t + 1], w_state)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     assert FA.LAUNCHES["flash_attention"] == cfg.n_layers  # decode runs no K5
+
+
+# ------------------------------------------------------ K4: queue dispatch
+# (G, B, n_dest, capacity): the JAX package's sweep (tests/test_kernels.py)
+# and its overflow case, the MoE prefill (4 x 2048 tokens in 32 groups) and
+# decode (4 tokens) shapes of mixtral-8x7b, the port's n_dest limit, and
+# the kernel benchmarks' 4096 x 16 and 8192 x 8 chunks.
+K4_SHAPES = [
+    (1, 16, 2, 2), (1, 128, 8, 16), (1, 64, 16, 8), (1, 33, 4, 1), (1, 40, 4, 3),
+    (32, 512, 8, 80), (1, 8, 8, 1), (3, 700, 1024, 2), (1, 4096, 16, 512), (1, 8192, 8, 1280),
+]
+
+
+def _k4_same(dest, n_dest, capacity):
+    QD.reset_launches()
+    got = ops.queue_dispatch(dest, n_dest, capacity)
+    assert QD.LAUNCHES["queue_dispatch"] == 1
+    want = ref.queue_dispatch_ref(dest, n_dest, capacity)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("G,B,n_dest,capacity", K4_SHAPES)
+def test_queue_dispatch_kernel_matches_its_plain_version(cuda_device, G, B, n_dest, capacity):
+    """Bit for bit on all three outputs, 1/8 of the lanes inactive; then a
+    row whose lanes all go to one destination, one with two hot
+    destinations, and an all-inactive row."""
+    rng = np.random.default_rng(B + n_dest)
+    dest = rng.integers(0, n_dest, (G, B)).astype(np.int32)
+    dest[rng.random((G, B)) < 1 / 8] = -1
+    _k4_same(torch.from_numpy(dest).to(cuda_device), n_dest, capacity)
+    skews = np.stack([np.full(B, n_dest - 1), rng.choice([0, n_dest // 2], B),
+                      np.full(B, -1)]).astype(np.int32)
+    _k4_same(torch.from_numpy(skews).to(cuda_device), n_dest, capacity)
+    _k4_same(torch.from_numpy(dest[0]).to(cuda_device), n_dest, capacity)  # one (B,) row
+
+
+def test_queue_dispatch_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    limit = QD.max_dest()
+    assert limit >= 256
+    dest = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    QD.reset_launches()
+    with pytest.raises(ValueError, match=f"limit of {limit} destinations"):
+        QD.queue_dispatch_cuda(dest, limit + 1, 4)
+    with pytest.raises(ValueError, match="int32"):
+        QD.queue_dispatch_cuda(dest.long(), 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        QD.queue_dispatch_cuda(dest.reshape(8, 8).t(), 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        QD.queue_dispatch_cuda(dest.cpu(), 8, 4)
+    assert QD.LAUNCHES["queue_dispatch"] == 0
+
+
+def test_full_width_moe_model_takes_the_same_plans_through_k4_and_its_plain_version(
+        cuda_device, no_tf32, monkeypatch):
+    """mixtral-8x7b at full width, 2 layers, bf16: prefill of 2 x 256 and 2
+    decode steps through K4 (one launch per layer per step), then the same
+    with the plain version of the dispatch swapped in; the plans are equal,
+    so the logits are equal."""
+    cfg = dataclasses.replace(TC.get_config("mixtral-8x7b"), n_layers=2)
+    model = TM.init_params(cfg, seed=0, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 258)))
+    toks = toks.to(cuda_device)
+
+    def run():
+        logits, state = TM.prefill(cfg, model, toks[:, :256], max_len=258)
+        out = [logits]
+        for t in (256, 257):
+            logits, state = TM.decode_step(cfg, model, toks[:, t:t + 1], state)
+            out.append(logits)
+        return out
+
+    QD.reset_launches()
+    k4 = run()
+    assert QD.LAUNCHES["queue_dispatch"] == 3 * cfg.n_layers
+    assert all(bool(torch.isfinite(lg).all()) for lg in k4)
+    monkeypatch.setattr(ops, "queue_dispatch", ref.queue_dispatch_ref)
+    plain = run()
+    assert QD.LAUNCHES["queue_dispatch"] == 3 * cfg.n_layers
+    for a, b in zip(k4, plain):
+        assert torch.equal(a, b)

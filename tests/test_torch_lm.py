@@ -217,7 +217,9 @@ def test_decode_agrees_with_longer_prefill(window):
         _close(logits, want, LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if jget_config(a).family != "dense"])
+@pytest.mark.parametrize(
+    "arch", [a for a in ARCH_IDS if jget_config(a).family not in TM.PORTED_FAMILIES]
+)
 def test_other_families_are_not_ported_yet(arch):
     cfg = tconfigs.smoke_config(arch)
     with pytest.raises(NotImplementedError, match="13b"):
