@@ -68,6 +68,7 @@ _SIGNATURES = {
     # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
     "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "queue_dispatch_max_dest": [],
+    "flash_set_variant": [_I],
 }
 
 

@@ -14,41 +14,53 @@
 //
 // It is not the TPU grid.  The Pallas kernel walks kv blocks as the
 // innermost, sequential grid axis and carries m/l/acc in VMEM scratch from
-// one grid step to the next.  Here one CTA owns 64 q rows of one head row
-// and loops over the kv tiles itself; m, l and the accumulator live in
-// registers.  Four threads share a q row, each holding a quarter of its
-// head dim (float4 chunks c, c+4, c+8, ...) for q and the accumulator; a
-// score is their four partial dot products summed by two xor shuffles, so
-// all four hold the same bits of it and run the same softmax.  K and V
-// tiles of 32 rows are staged in shared memory as fp32 (coalesced loads of
-// 4 elements a thread; rows past Skv are zero-filled and masked, so a
-// ragged last tile needs no padding of the inputs and any Sq, Skv >= 1 is
-// taken).  The TPU's 512/1024 block shapes are VMEM sizes and do not carry
-// over: 64 x 32 tiles keep the 32 KiB of staging and about 100 registers
-// a thread inside two CTAs per SM.
+// one grid step to the next.  Here a CTA owns a block of q rows of one head
+// row and loops over the kv tiles itself; m, l and the accumulator live in
+// registers.  Both bodies skip whole kv tiles that no row of the CTA can see
+// (above the causal diagonal, or older than the window; exact, since such a
+// tile has alpha = 1 and p = 0), so a causal prefill does half the work, and
+// launch the q blocks with the most kv tiles first.
 //
-// What bounds it on this card: at the LM slice's shape (B*H = 64, BHkv = 32,
-// S = 2048, d = 128, causal, bf16) the work is about 69 GFLOP against
-// about 100 MB of q/k/v/o, so a tensor-core kernel would be compute-bound
-// (~0.07 ms at 989 TFLOP/s bf16).  This kernel does its products as scalar
-// fp32 FMAs on the CUDA cores (67 TFLOP/s fp32 peak), two FMAs per shared-
-// memory float read, so it is bound by the FMA pipes and the shared-memory
-// reads that feed them, some 15-30x above the tensor-core bound.  What the
-// design does about it: it skips whole kv tiles that no row of the CTA can
-// see (above the causal diagonal, or older than the window; exact, since
-// such a tile has alpha = 1 and p = 0), so a causal prefill does half the
-// work; it launches the q blocks with the most kv tiles first; it keeps
-// every intermediate in registers or shared memory, so device memory sees
-// each q row and each output row once.  Moving the two products onto the
-// tensor cores (mma.sync, then wgmma with TMA-fed tiles) is later work.
+// What bounds it on this card: at the LM slices' prefill shapes (B*H = 64
+// or 128, BHkv = 32, S = 2048, d = 128, causal, bf16) the work is 69 or 137
+// GFLOP against 100 or 168 MB of q/k/v/o, so the tensor cores bound it
+// (~0.07 ms at 989 TFLOP/s bf16 for qwen3's shape).  Two bodies:
+//
+// - bf16 (the serving dtype): both products on the tensor cores with
+//   wgmma.  A CTA of three warpgroups owns 128 q rows: two consumer
+//   warpgroups of 64 rows, each computing S = Q K^T (m64nNk16, both operands
+//   in shared memory, N = 128 kv rows a tile) into fp32 registers, the
+//   online softmax there (a row's max and sum across its quad of threads),
+//   and O += P V with P packed to bf16 in registers as the A operand and V
+//   read MN-major through the transpose bit; one producer warpgroup, whose
+//   one thread keeps a two-stage ring of K/V tiles filled by TMA, with
+//   mbarriers for "landed" and "released", and setmaxnreg moving registers
+//   from it to the consumers.  TMA zero-fills rows past Skv or Sq, so any
+//   Sq, Skv >= 1 is taken without padding.  P is rounded to bf16 before
+//   P V, as the tensor cores take it; the plain version keeps P in fp32,
+//   a difference of at most about 2^-9 of sum p|v| / l, far inside the
+//   bf16 tolerance.
+// - fp32: scalar FMAs on the CUDA cores (64 q rows a CTA, four threads a
+//   row, fp32 K/V tiles of 32 rows in shared memory).  The tensor cores take
+//   fp32 only as TF32, about three decimal digits, which cannot hold the
+//   fp32 checks (1e-5 against the plain version, 1e-3 on the logits of the
+//   28-layer model), so fp32 keeps the exact body.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
+
+// ------------------------------------------------------------ the fp32 body
+
 
 constexpr int kThreads = 256;                     // threads per CTA
 constexpr int kLanesPerRow = 4;                   // threads sharing one q row
@@ -60,24 +72,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // One CTA: q rows [q0, q0 + kBlockQ) of head row blockIdx.y.  Thread t
@@ -212,6 +208,674 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ the bf16 body
+//
+// Warp-specialised, tensor-core flash attention for Hopper.  A CTA owns
+// kBlockM = 128 q rows of one head row and runs three warpgroups: two
+// consumer warpgroups of 64 q rows each and one producer warpgroup, of
+// which one thread issues every TMA copy.  Shared memory holds the Q tile
+// and a ring of kStages K and V tiles of kBlockN kv rows; an mbarrier per
+// tile says it has landed (TMA's complete_tx) and one per stage says both
+// consumers are done with it.  Tiles are stored as TMA writes them: panels
+// of at most 64 columns (128 bytes a row), rows swizzled at the panel's
+// width, which is what the wgmma descriptors below describe.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBlockM = 128;             // q rows per CTA
+constexpr int kWarpgroup = 128;          // threads per warpgroup
+constexpr int kBf16Threads = 3 * kWarpgroup;
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kProducerRegs = 40;        // setmaxnreg: 128 x 40 + 256 x 232 <= 65536
+constexpr int kConsumerRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// How a (rows, D) bf16 tile lies in shared memory: D splits into panels of
+// kPanelCols columns, each panel rows x kRowBytes, row-major; within a row
+// the 16-byte chunk c sits at c ^ (address bits 7..9), the hardware's
+// 128-, 64- or 32-byte swizzle (d = 64 and 128, 32, 16).
+template <int D>
+struct Layout {
+  static constexpr int kRowBytes = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int kPanelCols = kRowBytes / 2;
+  static constexpr int kPanels = D / kPanelCols;
+  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode.  Tiles start on 1024 bytes,
+// so the base-offset field stays 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | swizzle << 62;
+}
+
+// The k16 slice kk of a K-major operand (Q, or K for S = Q K^T): 16 head-dim
+// columns of a tile whose panels hold `rows` rows.  8-row groups lie
+// 8 x kRowBytes apart (SBO); a slice never crosses a swizzle row, so LBO is
+// unused (1).
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  using L = Layout<D>;
+  const uint32_t byte = 32u * kk;
+  return gmma_desc(tile + byte / L::kRowBytes * rows * L::kRowBytes + byte % L::kRowBytes, 16,
+                   8 * L::kRowBytes, L::kSwizzle);
+}
+
+// The k16 slice kk of V for O += P V, where the product's K is the kv row:
+// V is (kv, d) with d contiguous, MN-major, read with wgmma's transpose bit.
+// 16 kv rows per slice; 8-row groups along K lie 8 x kRowBytes apart (SBO),
+// 64-column panels along N lie `rows` x kRowBytes apart (LBO).
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
+  using L = Layout<D>;
+  return gmma_desc(tile + 16u * kk * L::kRowBytes, rows * L::kRowBytes, 8 * L::kRowBytes,
+                   L::kSwizzle);
+}
+
+// Named barriers shared by the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x N fp32, the accumulator fragment) = / += A (smem, K-major) x B
+// (smem, K-major)^T: one m64nNk16 for N the kv tile.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+// d (64 x N fp32) += A (registers, 64 x 16 bf16) x B (smem, MN-major): one
+// m64nNk16 for N the head dim.
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},\n"
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7},\n"
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// ------------------------------------------------- mbarriers and TMA (PTX)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint32_t tries = 0;  // probe only: trap instead of hanging
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries > (1u << 26)) __trap();
+  } while (!done);
+}
+// One box of a 3-D tensor map (column, row, head row) into shared memory;
+// completion is counted in bytes on `bar`.  Rows past the tensor's end
+// arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+// All panels of one (rows, D) tile.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int rows, int row, int head) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p) {
+    tma_load(dst + p * rows * L::kRowBytes, map, bar, p * L::kPanelCols, row, head);
+  }
+}
+
+// 2^x on the special-function unit (flush to zero): 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The kv tiles a CTA visits: [t_lo, t_hi) of kBlockN rows.  Tiles that no
+// row of the CTA can see are skipped (above the causal diagonal, or older
+// than every row's window; exact, since there alpha = 1 and p = 0).
+struct Span {
+  int t_lo, t_hi;
+};
+
+template <int N>
+__device__ __forceinline__ Span kv_span(int q0, int Sq, int Skv, int causal, int window) {
+  const long long offset = static_cast<long long>(Skv) - Sq;  // q sits at the end of kv
+  const long long last = min(q0 + kBlockM, Sq) - 1 + offset;  // the last row's position
+  long long hi = Skv;
+  long long lo = 0;
+  if (causal) hi = min(hi, last + 1);
+  if (window > 0) lo = max(0LL, q0 + offset - window + 1);
+  const int t_lo = static_cast<int>(lo / N);
+  const int t_hi = hi > 0 ? static_cast<int>((hi + N - 1) / N) : 0;
+  return Span{t_lo, max(t_lo, t_hi)};
+}
+
+// Whether every (row, key) pair of the CTA's rows and tile [k0, k0 + N) is
+// visible, so the tile needs no element mask.
+template <int N>
+__device__ __forceinline__ bool tile_is_full(int k0, int q0, int Sq, int Skv, int causal,
+                                             int window) {
+  const long long offset = static_cast<long long>(Skv) - Sq;
+  if (k0 + N > Skv) return false;
+  if (causal && k0 + N - 1 > q0 + offset) return false;
+  if (window > 0 && k0 < q0 + kBlockM + offset - window) return false;
+  return true;
+}
+
+// One consumer thread's share of 64 q rows: the wgmma accumulator layout.
+// Thread t (of 128) holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, and
+// of each 8-column chunk j the columns 8 j + 2 (t % 4) + {0, 1}: element
+// i of a fragment is row r + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4)
+// + i % 2.  A row's max and sum come from the quad of threads that hold it.
+template <int D, int N>
+struct Consumer {
+  float o[D / 2];  // the output rows, unnormalised
+  float m[2];      // running max of the scaled scores (log2 units)
+  float l[2];      // this thread's part of the running sum
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+  }
+
+  // Issue S = Q K^T for this warpgroup's 64 rows and one kv tile.
+  __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t q_tile,
+                                               uint32_t k_tile) {
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<N>(s, kmajor_desc<D>(q_tile, kBlockM, kk), kmajor_desc<D>(k_tile, N, kk), kk > 0);
+    }
+    wgmma_commit();
+  }
+
+  // Issue O += P V: P from registers, V from shared memory.
+  __device__ __forceinline__ void issue_pv(const uint32_t (&p)[N / 16][4], uint32_t v_tile) {
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<D>(o, p[kk], mnmajor_desc<D>(v_tile, N, kk), 1);
+    wgmma_commit();
+  }
+
+  // The online-softmax statistics of one tile, in registers: scale to log2
+  // units, mask (kMask: tiles that cross the diagonal, the window edge or
+  // Skv), new row max, alpha, and p = 2^(s - m) in place of s, summed into
+  // l.  A masked score is -inf: its weight is 0 and it never raises m,
+  // which starts at -1e30, so a row that has seen no key keeps alpha = 1
+  // and l = 0.  Touches neither o nor the P fragments.
+  template <bool kMask>
+  __device__ __forceinline__ void softmax(float (&s)[N / 2], float (&alpha)[2], float sl2,
+                                          int kpos0, int qpos, int Skv, int causal, int window) {
+    float mx[2] = {kNegInf, kNegInf};  // the tile's row max, unscaled (scale > 0)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      if (kMask) {
+        const int kpos = kpos0 + 8 * (i >> 2) + (i & 1);
+        const int qp = qpos + 8 * h;
+        bool vis = kpos < Skv;
+        if (causal) vis = vis && kpos <= qp;
+        if (window > 0) vis = vis && qp - kpos < window;
+        s[i] = vis ? s[i] : -INFINITY;
+      }
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * sl2);
+      alpha[h] = exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      s[i] = exp2_approx(fmaf(s[i], sl2, -m[h]));
+      l[h] += s[i];
+    }
+  }
+
+  // The element mask only where the tile needs it.
+  __device__ __forceinline__ void update(float (&s)[N / 2], float (&alpha)[2], float sl2, int k0,
+                                         int q0, int qpos, int quad, int Sq, int Skv, int causal,
+                                         int window) {
+    if (tile_is_full<N>(k0, q0, Sq, Skv, causal, window)) {
+      softmax<false>(s, alpha, sl2, 0, 0, Skv, causal, window);
+    } else {
+      softmax<true>(s, alpha, sl2, k0 + 2 * quad, qpos, Skv, causal, window);
+    }
+  }
+
+  // Rescale o by alpha (once the P V that accumulates into it is done) and
+  // pack p to bf16 as the A fragments of the next P V: the accumulator's
+  // layout is the A operand's.
+  __device__ __forceinline__ void rescale_and_pack(const float (&s)[N / 2], const float (&alpha)[2],
+                                                   uint32_t (&p)[N / 16][4]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  }
+
+  // O / l in bf16; a row that saw no key (l == 0) gives 0.
+  __device__ __forceinline__ void store(bf16* out, int row, int Sq, int quad) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[h];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = sum != 0.f ? 1.f / sum : 0.f;
+      const int r = row + 8 * h;
+      if (r >= Sq) continue;
+      bf16* dst = out + static_cast<size_t>(r) * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      }
+    }
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int D, int N, int S>
+struct Bf16Smem {
+  static constexpr int kQ = kBlockM * D * 2;
+  static constexpr int kTile = N * D * 2;
+  // q, then per stage K full, V full, K empty, V empty
+  static constexpr int kBarriers = kQ + 2 * S * kTile;
+  static constexpr int kBytes = kBarriers + 8 * (1 + 4 * S) + 1024;  // + alignment slack
+};
+
+template <int D, int N, int S, bool kOverlap, int kMode>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
+                      int Skv, int group, int causal, int window, float sl2) {
+  using L = Layout<D>;
+  using M = Bf16Smem<D, N, S>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + M::kQ;         // + s * kTile
+  const uint32_t sv = sk + S * M::kTile;  // + s * kTile
+  const uint32_t bar_q = sq + M::kBarriers;
+  const uint32_t k_full = bar_q + 8;      // + 8 s
+  const uint32_t v_full = k_full + 8 * S;
+  const uint32_t k_free = v_full + 8 * S;
+  const uint32_t v_free = k_free + 8 * S;
+
+  // The last q blocks see the most kv tiles under a causal mask: launch
+  // them first so the short ones fill the tail.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;
+  const Span span = kv_span<N>(q0, Sq, Skv, causal, window);
+  const int n_tiles = span.t_hi - span.t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_free + 8 * s, 2 * kWarpgroup / 32);  // one arrival per consumer warp
+      mbar_init(v_free + 8 * s, 2 * kWarpgroup / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.  Tile i goes to stage
+    // i % S once the consumers have released that stage's previous tile.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 2 * kWarpgroup) {
+      mbar_expect_tx(bar_q, M::kQ);
+      tma_tile<D>(sq, &tq, bar_q, kBlockM, q0, bh);
+      const int kv_head = bh / group;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % S;
+        const uint32_t parity = (i / S + 1) & 1;  // the release of tile i - S
+        const int k0 = (span.t_lo + i) * N;
+        if (i >= S) mbar_wait(k_free + 8 * s, parity);
+        if (kMode == 2 && i >= S) {
+          mbar_arrive(k_full + 8 * s);
+          mbar_wait(v_free + 8 * s, parity);
+          mbar_arrive(v_full + 8 * s);
+          continue;
+        }
+        mbar_expect_tx(k_full + 8 * s, M::kTile);
+        tma_tile<D>(sk + s * M::kTile, &tk, k_full + 8 * s, N, k0, kv_head);
+        if (i >= S) mbar_wait(v_free + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, M::kTile);
+        tma_tile<D>(sv + s * M::kTile, &tv, v_full + 8 * s, N, k0, kv_head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32;
+    const int quad = lane % 4;
+    const int row = q0 + 64 * wg + 16 * (threadIdx.x % kWarpgroup / 32) + lane / 4;
+    const int qpos = row + Skv - Sq;
+    const uint32_t q_tile = sq + 64 * wg * L::kRowBytes;
+    Consumer<D, N> c;
+    c.init();
+    float sc[N / 2];
+    uint32_t p[N / 16][4];
+    float alpha[2];
+    mbar_wait(bar_q, 0);
+    // kMode 1: the two warpgroups take turns issuing their S products, so
+    // one's softmax runs while the other's products hold the tensor cores
+    // (named barriers 1 and 2; warpgroup 0 goes first).
+    if (kMode == 1 && wg == 1 && n_tiles > 0) named_arrive(1);
+    if (!kOverlap) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % S;
+        const uint32_t parity = (i / S) & 1;
+        mbar_wait(k_full + 8 * s, parity);
+        if (kMode == 1) named_sync(1 + wg);
+        c.issue_scores(sc, q_tile, sk + s * M::kTile);
+        if (kMode == 1 && (wg == 0 || i + 1 < n_tiles)) named_arrive(2 - wg);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_free + 8 * s);
+        c.update(sc, alpha, sl2, (span.t_lo + i) * N, q0, qpos, quad, Sq, Skv, causal, window);
+        c.rescale_and_pack(sc, alpha, p);
+        mbar_wait(v_full + 8 * s, parity);
+        c.issue_pv(p, sv + s * M::kTile);
+        wgmma_wait<0>();
+        fence_regs(c.o);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_free + 8 * s);
+      }
+    } else if (n_tiles > 0) {
+      // S of tile i is issued before P V of tile i - 1, so the tensor cores
+      // work on one while the softmax of the other runs.
+      mbar_wait(k_full, 0);
+      if (kMode == 1) named_sync(1 + wg);
+      c.issue_scores(sc, q_tile, sk);
+      if (kMode == 1 && (wg == 0 || n_tiles > 1)) named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_free);
+      c.update(sc, alpha, sl2, span.t_lo * N, q0, qpos, quad, Sq, Skv, causal, window);
+      c.rescale_and_pack(sc, alpha, p);
+      for (int i = 1; i < n_tiles; ++i) {
+        const int s = i % S;
+        const int sp = (i - 1) % S;
+        mbar_wait(k_full + 8 * s, (i / S) & 1);
+        if (kMode == 1) named_sync(1 + wg);
+        c.issue_scores(sc, q_tile, sk + s * M::kTile);
+        mbar_wait(v_full + 8 * sp, ((i - 1) / S) & 1);
+        c.issue_pv(p, sv + sp * M::kTile);
+        if (kMode == 1 && (wg == 0 || i + 1 < n_tiles)) named_arrive(2 - wg);
+        wgmma_wait<1>();  // S of tile i
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_free + 8 * s);
+        c.update(sc, alpha, sl2, (span.t_lo + i) * N, q0, qpos, quad, Sq, Skv, causal, window);
+        wgmma_wait<0>();  // P V of tile i - 1
+        fence_regs(c.o);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_free + 8 * sp);
+        c.rescale_and_pack(sc, alpha, p);
+      }
+      const int sl = (n_tiles - 1) % S;
+      mbar_wait(v_full + 8 * sl, ((n_tiles - 1) / S) & 1);
+      c.issue_pv(p, sv + sl * M::kTile);
+      wgmma_wait<0>();
+      fence_regs(c.o);
+    }
+    c.store(o + static_cast<size_t>(bh) * Sq * D, row, Sq, quad);
+  }
+}
+
+// ---- step (a), kept for the first measurements: the same consumers, with
+// ---- the tiles staged by cp.async issued by the consumers themselves.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Rows [row0, row0 + rows) of one head's (len, D) matrix into the swizzled
+// panel layout; rows past len are zero-filled.
+template <int D>
+__device__ __forceinline__ void cp_async_tile(uint32_t dst, const bf16* head, int row0, int len,
+                                              int rows, int tid, int nthreads) {
+  using L = Layout<D>;
+  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
+  constexpr int kPanelChunks = L::kRowBytes / 16;
+  for (int i = tid; i < rows * kChunks; i += nthreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const int pc = c % kPanelChunks;
+    const uint32_t off = (c / kPanelChunks) * rows * L::kRowBytes + r * L::kRowBytes +
+                         ((pc ^ ((r * L::kRowBytes >> 7) & (kPanelChunks - 1))) << 4);
+    const bool ok = row0 + r < len;
+    cp_async16(dst + off, head + static_cast<size_t>(ok ? row0 + r : 0) * D + 8 * c, ok ? 16 : 0);
+  }
+}
+
+template <int D, int N>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+flash_fwd_bf16_cpasync_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
+                              int group, int causal, int window, float sl2) {
+  using L = Layout<D>;
+  using M = Bf16Smem<D, N, 2>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + M::kQ;
+  const uint32_t sv = sk + kStages * M::kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;
+  const Span span = kv_span<N>(q0, Sq, Skv, causal, window);
+  const int n_tiles = span.t_hi - span.t_lo;
+  const int tid = threadIdx.x;
+  const bf16* kh = k + static_cast<size_t>(bh / group) * Skv * D;
+  const bf16* vh = v + static_cast<size_t>(bh / group) * Skv * D;
+
+  cp_async_tile<D>(sq, q + static_cast<size_t>(bh) * Sq * D, q0, Sq, kBlockM, tid, 2 * kWarpgroup);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (n_tiles > 0) {
+    cp_async_tile<D>(sk, kh, span.t_lo * N, Skv, N, tid, 2 * kWarpgroup);
+    cp_async_tile<D>(sv, vh, span.t_lo * N, Skv, N, tid, 2 * kWarpgroup);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int wg = tid / kWarpgroup;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int row = q0 + 64 * wg + 16 * (tid % kWarpgroup / 32) + lane / 4;
+  const int qpos = row + Skv - Sq;
+  const uint32_t q_tile = sq + 64 * wg * L::kRowBytes;
+  Consumer<D, N> c;
+  c.init();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const int k0 = (span.t_lo + i) * N;
+    if (i + 1 < n_tiles) {
+      const int s1 = (i + 1) % kStages;
+      cp_async_tile<D>(sk + s1 * M::kTile, kh, k0 + N, Skv, N, tid, 2 * kWarpgroup);
+      cp_async_tile<D>(sv + s1 * M::kTile, vh, k0 + N, Skv, N, tid, 2 * kWarpgroup);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    float sc[N / 2];
+    uint32_t p[N / 16][4];
+    float alpha[2];
+    c.issue_scores(sc, q_tile, sk + s * M::kTile);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    c.update(sc, alpha, sl2, k0, q0, qpos, quad, Sq, Skv, causal, window);
+    c.rescale_and_pack(sc, alpha, p);
+    c.issue_pv(p, sv + s * M::kTile);
+    wgmma_wait<0>();
+    fence_regs(c.o);
+    __syncthreads();  // both warpgroups are done with stage s before it is refilled
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  c.store(o + static_cast<size_t>(bh) * Sq * D, row, Sq, quad);
+}
+
+// ------------------------------------------------------------- host side
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* o, int BH,
             int BHkv, int Sq, int Skv, int causal, int window, float scale,
@@ -222,15 +886,148 @@ void launch(const void* q, const void* k, const void* v, void* o, int BH,
       static_cast<T*>(o), Sq, Skv, BH / BHkv, causal, window, scale);
 }
 
-template <typename T>
-int launch_head_dim(const void* q, const void* k, const void* v, void* o,
-                    int BH, int BHkv, int Sq, int Skv, int d, int causal,
-                    int window, float scale, cudaStream_t stream) {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D tensor map (column, row, head row) over a contiguous (heads, rows,
+// D) bf16 tensor, in boxes of one panel's columns x box_rows rows, swizzled
+// as Layout<D> says; rows past `rows` read as zeros.
+template <int D>
+bool encode_rows(CUtensorMap* map, const void* base, int rows, int heads, int box_rows) {
+  using L = Layout<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::kPanelCols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, L::kTmaSwizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory (above the 48 KiB
+// default a launch is refused without it), once per kernel and device.
+cudaError_t allow_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> allowed;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  int& have = allowed[{kernel, dev}];
+  if (bytes <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int N, int S, bool kOverlap, int kMode = 0>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq,
+                int Skv, int causal, int window, float scale, cudaStream_t stream) {
+  using M = Bf16Smem<D, N, S>;
+  CUtensorMap tq, tk, tv;
+  // With Skv = 0 no tile is loaded; the maps only need to be well formed.
+  const void* kb = Skv > 0 ? k : q;
+  const void* vb = Skv > 0 ? v : q;
+  const int kv_rows = Skv > 0 ? Skv : 1;
+  if (!encode_rows<D>(&tq, q, Sq, BH, kBlockM) || !encode_rows<D>(&tk, kb, kv_rows, BHkv, N) ||
+      !encode_rows<D>(&tv, vb, kv_rows, BHkv, N)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D, N, S, kOverlap, kMode>);
+  const cudaError_t e = allow_smem(kernel, M::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
+  flash_fwd_bf16_kernel<D, N, S, kOverlap, kMode><<<grid, kBf16Threads, M::kBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), Sq, Skv, BH / BHkv, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int N>
+int launch_bf16_cpasync(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
+                        int Sq, int Skv, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  using M = Bf16Smem<D, N, 2>;
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_bf16_cpasync_kernel<D, N>);
+  const cudaError_t e = allow_smem(kernel, M::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
+  flash_fwd_bf16_cpasync_kernel<D, N><<<grid, 2 * kWarpgroup, M::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), Sq, Skv, BH / BHkv, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Design variants for k5_probe.py: 0 TMA N=128, 1 TMA N=64, 3 N=64 3 stages
+// overlap, 4 N=128 overlap, 5 cp.async N=128, 6 cp.async N=64, 7 pingpong,
+// 9 no K/V loads (timing only)
+int g_variant = 0;
+
+#define ARGS q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream
+template <int D>
+int launch_bf16_variant(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
+                        int Sq, int Skv, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  if constexpr (D == 128 || D == 64) {
+    switch (g_variant) {
+      case 1: return launch_bf16<D, 64, 2, false>(ARGS);
+      case 3: return launch_bf16<D, 64, 3, true>(ARGS);
+      case 4: return launch_bf16<D, 128, 2, true>(ARGS);
+      case 5: return launch_bf16_cpasync<D, 128>(ARGS);
+      case 6: return launch_bf16_cpasync<D, 64>(ARGS);
+      case 7: return launch_bf16<D, 128, 2, false, 1>(ARGS);  // pingpong
+      case 9: return launch_bf16<D, 128, 2, false, 2>(ARGS);  // no K/V loads after the first (timing only)
+      default: break;
+    }
+  }
+  return launch_bf16<D, 128, 2, false>(ARGS);
+}
+#undef ARGS
+
+int launch_head_dim_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
+                         int Sq, int Skv, int d, int causal, int window, float scale,
+                         cudaStream_t stream) {
   switch (d) {
-    case 16: launch<T, 16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 32: launch<T, 32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 64: launch<T, 64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 128: launch<T, 128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 16: return launch_bf16_variant<16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 32: return launch_bf16_variant<32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 64: return launch_bf16_variant<64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 128: return launch_bf16_variant<128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_head_dim_fp32(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
+                         int Sq, int Skv, int d, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  switch (d) {
+    case 16: launch<float, 16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 32: launch<float, 32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 64: launch<float, 64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 128: launch<float, 128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -252,11 +1049,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_head_dim<__nv_bfloat16>(q, k, v, o, BH, BHkv, Sq, Skv, d,
-                                          causal, window, scale, st);
+    return launch_head_dim_bf16(q, k, v, o, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
   }
-  return launch_head_dim<float>(q, k, v, o, BH, BHkv, Sq, Skv, d, causal,
-                                window, scale, st);
+  return launch_head_dim_fp32(q, k, v, o, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
 }
+
+void flash_set_variant(int variant) { g_variant = variant; }  // probe only
 
 }  // extern "C"
