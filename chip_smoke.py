@@ -7,8 +7,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. identify the card (name and power limit from nvidia-smi, versions);
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
-   process per source, all at once), and report ptxas's registers per
-   kernel and K2's theoretical occupancy;
+   process per source, all at once), and report ptxas's registers, spills
+   and shared memory per kernel, K2's theoretical occupancy, and the
+   HGMMA (wgmma) instructions in each K5 body's SASS (``cuobjdump``): the
+   bf16 body must have some;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
@@ -35,14 +37,17 @@ Phases, in order; any failure raises and exits non-zero:
    with the full buffer, its yardstick searching the merged sorted view;
 6. LM serving of qwen3-1.7b at full width and depth (28 layers): kernel K5
    (flash attention) against its plain version in fp32 and bf16 at the JAX
-   package's sweep shapes, at Sq > Skv and at the serving shape; the whole
+   package's sweep shapes, at Sq > Skv, at the edges of the bf16 body's
+   128-row tiles (ragged Sq and Skv, a window edge inside a kv tile, rows
+   that see no key, d = 16 and 32) and at both serving shapes (qwen3's and
+   mixtral-8x7b's prefill attention); the whole
    model in fp32 (1 x 512 prompt), the flash route against the naive route
    over prefill and 4 decode steps, and decode against a prefill of the
    longer prompt; then the bf16 serving run through ``greedy_generate``
    (4 prompts x 2048 tokens + 32 new), one K5 launch per layer, every
    logit finite, with prefill and decode times, peak memory and a decode
-   step's device idle share; then K5 timed at the serving shape beside its
-   bound, its plain version and ``scaled_dot_product_attention``;
+   step's device idle share; then K5 timed at both prefill shapes beside
+   its bound, its plain version and ``scaled_dot_product_attention``;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
    layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
    dispatch) against its plain version, bit for bit, at the JAX package's
@@ -145,12 +150,17 @@ LM_CHECK_TOL = 1e-3  # fp32 logits after 28 layers: the routes' rounding differs
 LM_PROFILE_STEPS = 4
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 # K5 against its plain version: fp32, the kernel's FMA order and expf
-# against torch's matmul and softmax (TF32 off); bf16, both compute in fp32
-# from the same bf16 inputs, so they differ by about one bf16 rounding of
-# the output (the JAX sweep's 2e-2).  atol = rtol = the value.
+# against torch's matmul and softmax (TF32 off); bf16, the kernel's tensor
+# cores take bf16 q, k, v and P (P rounded to bf16 before P V, at most
+# about 2^-9 of sum p|v| / l) and sum in fp32, the plain version keeps P in
+# fp32, and both round the output to bf16 once: they differ by about one
+# bf16 rounding of the output (the JAX sweep's 2e-2).  atol = rtol = the
+# value.
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (BH, BHkv, Sq, Skv, d, causal, window): the JAX package's sweep
-# (tests/test_kernels.py), a causal Sq > Skv case, and the serving shape.
+# (tests/test_kernels.py), a causal Sq > Skv case, the serving shape, the
+# mixtral-8x7b prefill shape, and the edges of the bf16 body's tiles (128 q
+# rows a CTA, 128 kv rows a tile).
 FLASH_SHAPES = [
     (4, 2, 256, 256, 64, True, None),
     (4, 4, 128, 256, 32, True, None),
@@ -159,7 +169,17 @@ FLASH_SHAPES = [
     (2, 2, 384, 384, 64, True, 256),
     (4, 2, 512, 256, 128, True, None),
     (LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, LM_PROMPT, 128, True, None),
+    (128, 32, 2048, 2048, 128, True, 4096),  # mixtral-8x7b: 4 x 32 heads, 8 kv heads
+    (2, 1, 100, 100, 128, True, None),  # Sq and Skv inside one tile
+    (3, 3, 200, 333, 64, True, None),  # Sq and Skv not multiples of 64 or 128
+    (2, 1, 257, 190, 128, True, None),  # Sq > Skv: 67 rows see no key
+    (2, 2, 300, 300, 128, True, 100),  # a window edge inside a kv tile
+    (2, 1, 129, 300, 64, False, None),  # one row past a q block, ragged Skv
+    (4, 2, 1, 300, 128, True, None),  # one q row
+    (4, 2, 190, 190, 32, True, 50),  # d = 32, window edge inside a tile
+    (8, 4, 129, 129, 16, True, 7),  # d = 16, a 7-key window
 ]
+FLASH_TIMED = (6, 7)  # indices into FLASH_SHAPES: the qwen3 and mixtral prefill shapes
 # The MoE phase (7): mixtral-8x7b at its published width.  Depth is the one
 # cut: 16 of 32 layers (2.90 GB of bf16 weights a layer; 16 take 47.0 GB).
 MOE_ARCH = "mixtral-8x7b"
@@ -237,23 +257,35 @@ SM_THREADS, SM_CTAS, SM_REGS, SM_SMEM, CTA_RESERVED_SMEM = 2048, 32, 65536, 2334
 FOREST_CTA = 256  # threads per CTA of forest_descend (kForestBlock)
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable name of a kernel instantiation from its mangled name:
+    ``forest_descend_kernel<ORDERED,WITH_DELTA>`` (hybrid's
+    ``<ORDERED,MAPPING,WITH_DELTA>``), ``flash_fwd_kernel<float,D>``,
+    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel``; any other
+    kernel keeps its mangled name, so a renamed or new one still shows."""
+    entry = re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", mangled)
+    if entry:
+        targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
+        return f"{entry.group(1)}_descend_kernel<{targs}>"
+    flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if flash:
+        return f"flash_fwd_kernel<{'float' if flash.group(1) == 'f' else 'bf16'},{flash.group(2)}>"
+    bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", mangled)
+    if bf16:
+        return f"flash_fwd_bf16_kernel<{bf16.group(1)}>"
+    if "queue_dispatch_kernel" in mangled:
+        return "queue_dispatch_kernel"
+    return mangled
+
+
 def ptxas_resources(build_log: str) -> dict:
-    """Per kernel instantiation, from ptxas's report in the build log:
-    ``{"forest_descend_kernel<ORDERED,WITH_DELTA>" (or hybrid's
-    <ORDERED,MAPPING,WITH_DELTA>, "flash_fwd_kernel<float|bf16,D>" or
-    "queue_dispatch_kernel"): (registers, static shared memory bytes, spill
-    line)}``."""
+    """Per kernel instantiation (``kernel_label``), from ptxas's report in
+    the build log: ``(registers, static shared memory bytes, spill line)``."""
     out, label, spills = {}, None, ""
     for line in build_log.splitlines():
-        entry = "Compiling entry" in line and re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", line)
-        flash = "Compiling entry" in line and re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+        entry = "Compiling entry" in line and re.search(r"function '(\w+)'", line)
         if entry:
-            targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
-            label = f"{entry.group(1)}_descend_kernel<{targs}>"
-        elif flash:
-            label = f"flash_fwd_kernel<{'float' if flash.group(1) == 'f' else 'bf16'},{flash.group(2)}>"
-        elif "Compiling entry" in line and "queue_dispatch_kernel" in line:
-            label = "queue_dispatch_kernel"
+            label, spills = kernel_label(entry.group(1)), ""
         elif label and "spill" in line:
             spills = line.strip()
         elif label and "registers" in line:
@@ -262,6 +294,24 @@ def ptxas_resources(build_log: str) -> dict:
             out[label] = (regs, int(smem.group(1)) if smem else 0, spills)
             label = None
     return out
+
+
+def sass_instruction_counts(lib_path, opcode: str) -> dict:
+    """Per kernel (``kernel_label``) of the built library, the SASS
+    instructions whose opcode starts with ``opcode`` (``cuobjdump
+    --dump-sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            label = kernel_label(func.group(1))
+            counts.setdefault(label, 0)
+        elif label and re.search(rf"\*/\s+(@!?U?P\w+\s+)?{opcode}", line):
+            counts[label] += 1
+    return counts
 
 
 def delta_smem_bytes(capacity: int, ordered: int) -> int:
@@ -1059,41 +1109,50 @@ def profile_decode(step, model, tok, state) -> dict:
     return profile_calls(one_step, LM_PROFILE_STEPS)
 
 
-def time_flash(timer) -> dict:
-    """K5 at the serving shape (bf16), its plain version and
-    scaled_dot_product_attention (the library yardstick, never called by the
-    port), beside the least time the card could take for the same work."""
-    shape = FLASH_SHAPES[-1]
-    BH, BHkv, Sq, Skv, d, causal, window = shape
-    q, k, v = flash_operands(shape, torch.bfloat16, seed=99)
-    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    err = float((got.float() - want.float()).abs().max())
-    B = LM_BATCH
-    q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
-    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
-                             is_causal=True, enable_gqa=True)
-    lib_err = float((sdpa().reshape(BH, Sq, d).float() - want.float()).abs().max())
-    flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    row = {
-        "shape": list(shape), "dtype": "bfloat16",
-        "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal, window=window)),
-        "plain_ms": timer(functools.partial(ref.flash_attention_ref, q, k, v, causal=causal,
-                                            window=window), reps=5),
-        "library_ms": timer(sdpa),
-        "flop": flop, "bytes": n_bytes,
-        "flop_ms": flop / BF16_FLOP_PER_S * 1e3, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
-        "max_abs_err": err, "library_max_abs_err": lib_err,
-    }
-    row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
-    row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
-    log(f"  K5 {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
-        f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}: "
-        f"{flop} FLOP over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} ms, {n_bytes} bytes over "
-        f"{HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms); max_abs_err vs plain {err!r}, "
-        f"sdpa vs plain {lib_err!r}")
-    return row
+def time_flash(timer) -> list:
+    """K5 in bf16 at both prefill shapes (qwen3's and mixtral's), each beside
+    its plain version, scaled_dot_product_attention (the library yardstick,
+    never called by the port) and the least time the card could take for
+    the same work."""
+    rows = []
+    for idx, what in zip(FLASH_TIMED, (LM_ARCH, MOE_ARCH)):
+        shape = FLASH_SHAPES[idx]
+        BH, BHkv, Sq, Skv, d, causal, window = shape
+        check(causal and (window is None or window >= Skv),
+              f"{shape}: SDPA's is_causal computes this function only without a window cut")
+        q, k, v = flash_operands(shape, torch.bfloat16, seed=99)
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        B = LM_BATCH
+        q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
+        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                 is_causal=True, enable_gqa=True)
+        lib_err = float((sdpa().reshape(BH, Sq, d).float() - want.float()).abs().max())
+        flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        row = {
+            "config": f"{what} prefill attention", "shape": list(shape), "dtype": "bfloat16",
+            "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal,
+                                          window=window)),
+            "plain_ms": timer(functools.partial(ref.flash_attention_ref, q, k, v, causal=causal,
+                                                window=window), reps=5),
+            "library_ms": timer(sdpa),
+            "flop": flop, "bytes": n_bytes,
+            "flop_ms": flop / BF16_FLOP_PER_S * 1e3, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+        }
+        row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
+        row["tflop_per_s"] = flop / row["ms"] * 1e-9
+        log(f"  K5 {what} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+            f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}: "
+            f"{flop} FLOP over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} ms, {n_bytes} bytes "
+            f"over {HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms; {row['tflop_per_s']!r} "
+            f"TFLOP/s); max_abs_err vs plain {err!r}, sdpa vs plain {lib_err!r}")
+        rows.append(row)
+        del q, k, v, got, want, q4, k4, v4
+    return rows
 
 
 # ------------------------------------------------------------ phase 7: MoE
@@ -1409,6 +1468,14 @@ def main() -> int:
     resources = ptxas_resources(built.log)
     for kern, (regs, smem, spills) in resources.items():
         log(f"    {kern}: {regs} registers, {smem} bytes static shared memory, {spills}")
+    hgmma = {k: n for k, n in sass_instruction_counts(built.path, "HGMMA").items()
+             if k.startswith("flash")}
+    for d in FA.HEAD_DIMS:
+        bf16_body = f"flash_fwd_bf16_kernel<{d}>"
+        check(hgmma.get(bf16_body, 0) > 0, f"{bf16_body} has no HGMMA in its SASS: {hgmma}")
+    flash_smem = {d: FA.bf16_smem_bytes(d) for d in FA.HEAD_DIMS}
+    log(f"    K5 HGMMA instructions in SASS: {hgmma}; bf16 body dynamic shared memory "
+        f"per CTA by head dim: {flash_smem}")
     occupancy = {}
     for kern, threads in (("forest_descend_kernel", FOREST_CTA),
                           ("hybrid_descend_kernel", K.HYBRID_BLOCK_Q)):
@@ -1506,7 +1573,7 @@ def main() -> int:
     log(f"    [5] done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[6] LM serving: {LM_ARCH}; K5 vs its plain version (fp32, bf16)")
-    for kern in ("flash_fwd_kernel<bf16,128>", "flash_fwd_kernel<float,128>"):
+    for kern in ("flash_fwd_bf16_kernel<128>", "flash_fwd_kernel<float,128>"):
         check(kern in resources, f"ptxas reported no resources for {kern}")
     cfg = get_config(LM_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -1557,13 +1624,18 @@ def main() -> int:
         "mismatches": sum(r["mismatches"] for r in flash_checks),
         "max_abs_err": max(r["max_abs_err"] for r in flash_checks),
         "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
-        "ms": flash_timing["ms"],
-        "plain_ms": flash_timing["plain_ms"],
-        "bound_ms": flash_timing["bound_ms"],
-        "bound_by": flash_timing["bound_by"],
-        "library_ms": flash_timing["library_ms"],
-        "config": f"{LM_ARCH} prefill attention {flash_timing['shape']} bf16",
+        "ms": flash_timing[0]["ms"],
+        "plain_ms": flash_timing[0]["plain_ms"],
+        "bound_ms": flash_timing[0]["bound_ms"],
+        "bound_by": flash_timing[0]["bound_by"],
+        "library_ms": flash_timing[0]["library_ms"],
+        "config": (f"{flash_timing[0]['config']} {flash_timing[0]['shape']} bf16; launches: one "
+                   f"{LM_ARCH} prefill (and {moe_served['k5_launches']} per {MOE_ARCH} prefill "
+                   f"at {MOE_LAYERS} layers)"),
+        "configs": flash_timing,
         "ptxas": {k: list(v) for k, v in flash_resources.items()},
+        "hgmma": hgmma,
+        "bf16_smem_bytes": flash_smem,
     })
     kernels.append({
         "name": "queue_dispatch",

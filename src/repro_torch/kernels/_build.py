@@ -41,6 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, BH, BHkv, Sq, Skv, d, bf16, causal, window, scale, stream
     "flash_attention": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_bf16_smem_bytes": [_I],  # d
     "hybrid_block_q": [],
     # keys, values, n, height, reg_levels, shared_tree, queries, active, T, B,
     # ordered, 7 outputs, stream
@@ -68,7 +69,6 @@ _SIGNATURES = {
     # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
     "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "queue_dispatch_max_dest": [],
-    "flash_set_variant": [_I],
 }
 
 

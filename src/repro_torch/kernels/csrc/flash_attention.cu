@@ -36,7 +36,13 @@
 //   one thread keeps a two-stage ring of K/V tiles filled by TMA, with
 //   mbarriers for "landed" and "released", and setmaxnreg moving registers
 //   from it to the consumers.  TMA zero-fills rows past Skv or Sq, so any
-//   Sq, Skv >= 1 is taken without padding.  P is rounded to bf16 before
+//   Sq, Skv >= 1 is taken without padding.  Each warpgroup runs its two
+//   products and its softmax in turn; the other warpgroup's work fills the
+//   gaps.  Overlapping them within a warpgroup (S of the next tile issued
+//   before P V of this one) needs two tiles' fragments live at once, more
+//   than the 168 registers ptxas gives a thread of a 384-thread CTA, and
+//   ptxas then serialises the wgmma; at a 64-row kv tile it fits but
+//   gains nothing over the 128-row tile kept here.  P is rounded to bf16 before
 //   P V, as the tensor cores take it; the plain version keeps P in fp32,
 //   a difference of at most about 2^-9 of sum p|v| / l, far inside the
 //   bf16 tolerance.
@@ -214,17 +220,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // kBlockM = 128 q rows of one head row and runs three warpgroups: two
 // consumer warpgroups of 64 q rows each and one producer warpgroup, of
 // which one thread issues every TMA copy.  Shared memory holds the Q tile
-// and a ring of kStages K and V tiles of kBlockN kv rows; an mbarrier per
-// tile says it has landed (TMA's complete_tx) and one per stage says both
-// consumers are done with it.  Tiles are stored as TMA writes them: panels
-// of at most 64 columns (128 bytes a row), rows swizzled at the panel's
-// width, which is what the wgmma descriptors below describe.
+// and a ring of kStages K and V tiles of kBlockN kv rows (160 KiB at
+// d = 128); mbarriers say when a K or V tile has landed (TMA's complete_tx)
+// and when every consumer warp is done with it, K and V apart, since K is
+// free as soon as S is computed.  Tiles are stored as TMA writes them:
+// panels of at most 64 columns (128 bytes a row), rows swizzled at the
+// panel's width, which is what the wgmma descriptors below describe.
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 128;             // q rows per CTA
 constexpr int kWarpgroup = 128;          // threads per warpgroup
 constexpr int kBf16Threads = 3 * kWarpgroup;
+constexpr int kBlockN = 128;             // kv rows per tile (64 measured slower)
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kProducerRegs = 40;        // setmaxnreg: 128 x 40 + 256 x 232 <= 65536
 constexpr int kConsumerRegs = 232;
@@ -282,22 +290,16 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk
                    L::kSwizzle);
 }
 
-// Named barriers shared by the two consumer warpgroups (256 threads).
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keep the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma that owns them.
@@ -315,21 +317,6 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d)
 // m64nNk16 for N the head dim.
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},\n"
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -423,7 +410,6 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // Wait for the completion of the barrier's phase of parity `parity`.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
-  uint32_t tries = 0;  // probe only: trap instead of hanging
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -432,7 +418,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (++tries > (1u << 26)) __trap();
   } while (!done);
 }
 // One box of a 3-D tensor map (column, row, head row) into shared memory;
@@ -509,7 +494,7 @@ __device__ __forceinline__ bool tile_is_full(int k0, int q0, int Sq, int Skv, in
 template <int D, int N>
 struct Consumer {
   float o[D / 2];  // the output rows, unnormalised
-  float m[2];      // running max of the scaled scores (log2 units)
+  float m[2];      // running row max of the scores, times scale * log2(e)
   float l[2];      // this thread's part of the running sum
 
   __device__ __forceinline__ void init() {
@@ -540,16 +525,18 @@ struct Consumer {
     wgmma_commit();
   }
 
-  // The online-softmax statistics of one tile, in registers: scale to log2
-  // units, mask (kMask: tiles that cross the diagonal, the window edge or
-  // Skv), new row max, alpha, and p = 2^(s - m) in place of s, summed into
-  // l.  A masked score is -inf: its weight is 0 and it never raises m,
-  // which starts at -1e30, so a row that has seen no key keeps alpha = 1
-  // and l = 0.  Touches neither o nor the P fragments.
+  // The online-softmax statistics of one tile, in registers: mask (kMask:
+  // tiles that cross the diagonal, the window edge or Skv), the tile's row
+  // max (of the raw scores: the scale is positive), the new running max m
+  // in log2 units, alpha, and p = 2^(s * sl2 - m) in place of s (one FFMA
+  // and one ex2), summed into l.  A masked score is -inf: its weight is 0
+  // and it never raises m, which starts at -1e30, so a row that has seen
+  // no key keeps alpha = 1 and l = 0.  Touches neither o nor the P
+  // fragments.
   template <bool kMask>
   __device__ __forceinline__ void softmax(float (&s)[N / 2], float (&alpha)[2], float sl2,
                                           int kpos0, int qpos, int Skv, int causal, int window) {
-    float mx[2] = {kNegInf, kNegInf};  // the tile's row max, unscaled (scale > 0)
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
       const int h = (i >> 1) & 1;
@@ -627,36 +614,32 @@ struct Consumer {
   }
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-template <int D, int N, int S>
+template <int D>
 struct Bf16Smem {
   static constexpr int kQ = kBlockM * D * 2;
-  static constexpr int kTile = N * D * 2;
-  // q, then per stage K full, V full, K empty, V empty
-  static constexpr int kBarriers = kQ + 2 * S * kTile;
-  static constexpr int kBytes = kBarriers + 8 * (1 + 4 * S) + 1024;  // + alignment slack
+  static constexpr int kTile = kBlockN * D * 2;
+  // then the mbarriers: q, and per stage K landed, V landed, K free, V free
+  static constexpr int kBarriers = kQ + 2 * kStages * kTile;
+  static constexpr int kBytes = kBarriers + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
 };
 
-template <int D, int N, int S, bool kOverlap, int kMode>
+template <int D>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
                       int Skv, int group, int causal, int window, float sl2) {
   using L = Layout<D>;
-  using M = Bf16Smem<D, N, S>;
+  using M = Bf16Smem<D>;
+  constexpr int N = kBlockN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + M::kQ;         // + s * kTile
-  const uint32_t sv = sk + S * M::kTile;  // + s * kTile
+  const uint32_t sk = sq + M::kQ;               // + s * kTile
+  const uint32_t sv = sk + kStages * M::kTile;  // + s * kTile
   const uint32_t bar_q = sq + M::kBarriers;
-  const uint32_t k_full = bar_q + 8;      // + 8 s
-  const uint32_t v_full = k_full + 8 * S;
-  const uint32_t k_free = v_full + 8 * S;
-  const uint32_t v_free = k_free + 8 * S;
+  const uint32_t k_full = bar_q + 8;            // + 8 s
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_free = v_full + 8 * kStages;
+  const uint32_t v_free = k_free + 8 * kStages;
 
   // The last q blocks see the most kv tiles under a causal mask: launch
   // them first so the short ones fill the tail.
@@ -667,7 +650,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_free + 8 * s, 2 * kWarpgroup / 32);  // one arrival per consumer warp
@@ -680,31 +663,28 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int wg = threadIdx.x / kWarpgroup;
   if (wg == 2) {
     // Producer: one thread keeps the ring full.  Tile i goes to stage
-    // i % S once the consumers have released that stage's previous tile.
+    // i % kStages once the consumers have released that stage's previous
+    // tile (K and V apart: K is free once S is computed).
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 2 * kWarpgroup) {
       mbar_expect_tx(bar_q, M::kQ);
       tma_tile<D>(sq, &tq, bar_q, kBlockM, q0, bh);
       const int kv_head = bh / group;
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % S;
-        const uint32_t parity = (i / S + 1) & 1;  // the release of tile i - S
+        const int s = i % kStages;
+        const uint32_t parity = (i / kStages + 1) & 1;  // the release of tile i - kStages
         const int k0 = (span.t_lo + i) * N;
-        if (i >= S) mbar_wait(k_free + 8 * s, parity);
-        if (kMode == 2 && i >= S) {
-          mbar_arrive(k_full + 8 * s);
-          mbar_wait(v_free + 8 * s, parity);
-          mbar_arrive(v_full + 8 * s);
-          continue;
-        }
+        if (i >= kStages) mbar_wait(k_free + 8 * s, parity);
         mbar_expect_tx(k_full + 8 * s, M::kTile);
         tma_tile<D>(sk + s * M::kTile, &tk, k_full + 8 * s, N, k0, kv_head);
-        if (i >= S) mbar_wait(v_free + 8 * s, parity);
+        if (i >= kStages) mbar_wait(v_free + 8 * s, parity);
         mbar_expect_tx(v_full + 8 * s, M::kTile);
         tma_tile<D>(sv + s * M::kTile, &tv, v_full + 8 * s, N, k0, kv_head);
       }
     }
   } else {
+    // Consumers: per tile, S on the tensor cores, the softmax in
+    // registers, O += P V on the tensor cores.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int lane = threadIdx.x % 32;
     const int quad = lane % 4;
@@ -717,162 +697,26 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     uint32_t p[N / 16][4];
     float alpha[2];
     mbar_wait(bar_q, 0);
-    // kMode 1: the two warpgroups take turns issuing their S products, so
-    // one's softmax runs while the other's products hold the tensor cores
-    // (named barriers 1 and 2; warpgroup 0 goes first).
-    if (kMode == 1 && wg == 1 && n_tiles > 0) named_arrive(1);
-    if (!kOverlap) {
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % S;
-        const uint32_t parity = (i / S) & 1;
-        mbar_wait(k_full + 8 * s, parity);
-        if (kMode == 1) named_sync(1 + wg);
-        c.issue_scores(sc, q_tile, sk + s * M::kTile);
-        if (kMode == 1 && (wg == 0 || i + 1 < n_tiles)) named_arrive(2 - wg);
-        wgmma_wait<0>();
-        fence_regs(sc);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(k_free + 8 * s);
-        c.update(sc, alpha, sl2, (span.t_lo + i) * N, q0, qpos, quad, Sq, Skv, causal, window);
-        c.rescale_and_pack(sc, alpha, p);
-        mbar_wait(v_full + 8 * s, parity);
-        c.issue_pv(p, sv + s * M::kTile);
-        wgmma_wait<0>();
-        fence_regs(c.o);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(v_free + 8 * s);
-      }
-    } else if (n_tiles > 0) {
-      // S of tile i is issued before P V of tile i - 1, so the tensor cores
-      // work on one while the softmax of the other runs.
-      mbar_wait(k_full, 0);
-      if (kMode == 1) named_sync(1 + wg);
-      c.issue_scores(sc, q_tile, sk);
-      if (kMode == 1 && (wg == 0 || n_tiles > 1)) named_arrive(2 - wg);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      mbar_wait(k_full + 8 * s, parity);
+      c.issue_scores(sc, q_tile, sk + s * M::kTile);
       wgmma_wait<0>();
       fence_regs(sc);
       __syncwarp();
-      if (lane == 0) mbar_arrive(k_free);
-      c.update(sc, alpha, sl2, span.t_lo * N, q0, qpos, quad, Sq, Skv, causal, window);
+      if (lane == 0) mbar_arrive(k_free + 8 * s);
+      c.update(sc, alpha, sl2, (span.t_lo + i) * N, q0, qpos, quad, Sq, Skv, causal, window);
       c.rescale_and_pack(sc, alpha, p);
-      for (int i = 1; i < n_tiles; ++i) {
-        const int s = i % S;
-        const int sp = (i - 1) % S;
-        mbar_wait(k_full + 8 * s, (i / S) & 1);
-        if (kMode == 1) named_sync(1 + wg);
-        c.issue_scores(sc, q_tile, sk + s * M::kTile);
-        mbar_wait(v_full + 8 * sp, ((i - 1) / S) & 1);
-        c.issue_pv(p, sv + sp * M::kTile);
-        if (kMode == 1 && (wg == 0 || i + 1 < n_tiles)) named_arrive(2 - wg);
-        wgmma_wait<1>();  // S of tile i
-        fence_regs(sc);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(k_free + 8 * s);
-        c.update(sc, alpha, sl2, (span.t_lo + i) * N, q0, qpos, quad, Sq, Skv, causal, window);
-        wgmma_wait<0>();  // P V of tile i - 1
-        fence_regs(c.o);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(v_free + 8 * sp);
-        c.rescale_and_pack(sc, alpha, p);
-      }
-      const int sl = (n_tiles - 1) % S;
-      mbar_wait(v_full + 8 * sl, ((n_tiles - 1) / S) & 1);
-      c.issue_pv(p, sv + sl * M::kTile);
+      mbar_wait(v_full + 8 * s, parity);
+      c.issue_pv(p, sv + s * M::kTile);
       wgmma_wait<0>();
       fence_regs(c.o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_free + 8 * s);
     }
     c.store(o + static_cast<size_t>(bh) * Sq * D, row, Sq, quad);
   }
-}
-
-// ---- step (a), kept for the first measurements: the same consumers, with
-// ---- the tiles staged by cp.async issued by the consumers themselves.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// Rows [row0, row0 + rows) of one head's (len, D) matrix into the swizzled
-// panel layout; rows past len are zero-filled.
-template <int D>
-__device__ __forceinline__ void cp_async_tile(uint32_t dst, const bf16* head, int row0, int len,
-                                              int rows, int tid, int nthreads) {
-  using L = Layout<D>;
-  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
-  constexpr int kPanelChunks = L::kRowBytes / 16;
-  for (int i = tid; i < rows * kChunks; i += nthreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int pc = c % kPanelChunks;
-    const uint32_t off = (c / kPanelChunks) * rows * L::kRowBytes + r * L::kRowBytes +
-                         ((pc ^ ((r * L::kRowBytes >> 7) & (kPanelChunks - 1))) << 4);
-    const bool ok = row0 + r < len;
-    cp_async16(dst + off, head + static_cast<size_t>(ok ? row0 + r : 0) * D + 8 * c, ok ? 16 : 0);
-  }
-}
-
-template <int D, int N>
-__global__ void __launch_bounds__(2 * kWarpgroup, 1)
-flash_fwd_bf16_cpasync_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
-                              int group, int causal, int window, float sl2) {
-  using L = Layout<D>;
-  using M = Bf16Smem<D, N, 2>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + M::kQ;
-  const uint32_t sv = sk + kStages * M::kTile;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
-  const int bh = blockIdx.y;
-  const Span span = kv_span<N>(q0, Sq, Skv, causal, window);
-  const int n_tiles = span.t_hi - span.t_lo;
-  const int tid = threadIdx.x;
-  const bf16* kh = k + static_cast<size_t>(bh / group) * Skv * D;
-  const bf16* vh = v + static_cast<size_t>(bh / group) * Skv * D;
-
-  cp_async_tile<D>(sq, q + static_cast<size_t>(bh) * Sq * D, q0, Sq, kBlockM, tid, 2 * kWarpgroup);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  if (n_tiles > 0) {
-    cp_async_tile<D>(sk, kh, span.t_lo * N, Skv, N, tid, 2 * kWarpgroup);
-    cp_async_tile<D>(sv, vh, span.t_lo * N, Skv, N, tid, 2 * kWarpgroup);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  const int wg = tid / kWarpgroup;
-  const int lane = tid % 32;
-  const int quad = lane % 4;
-  const int row = q0 + 64 * wg + 16 * (tid % kWarpgroup / 32) + lane / 4;
-  const int qpos = row + Skv - Sq;
-  const uint32_t q_tile = sq + 64 * wg * L::kRowBytes;
-  Consumer<D, N> c;
-  c.init();
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages;
-    const int k0 = (span.t_lo + i) * N;
-    if (i + 1 < n_tiles) {
-      const int s1 = (i + 1) % kStages;
-      cp_async_tile<D>(sk + s1 * M::kTile, kh, k0 + N, Skv, N, tid, 2 * kWarpgroup);
-      cp_async_tile<D>(sv + s1 * M::kTile, vh, k0 + N, Skv, N, tid, 2 * kWarpgroup);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    float sc[N / 2];
-    uint32_t p[N / 16][4];
-    float alpha[2];
-    c.issue_scores(sc, q_tile, sk + s * M::kTile);
-    wgmma_wait<0>();
-    fence_regs(sc);
-    c.update(sc, alpha, sl2, k0, q0, qpos, quad, Sq, Skv, causal, window);
-    c.rescale_and_pack(sc, alpha, p);
-    c.issue_pv(p, sv + s * M::kTile);
-    wgmma_wait<0>();
-    fence_regs(c.o);
-    __syncthreads();  // both warpgroups are done with stage s before it is refilled
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  c.store(o + static_cast<size_t>(bh) * Sq * D, row, Sq, quad);
 }
 
 // ------------------------------------------------------------- host side
@@ -945,77 +789,37 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D, int N, int S, bool kOverlap, int kMode = 0>
+template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq,
                 int Skv, int causal, int window, float scale, cudaStream_t stream) {
-  using M = Bf16Smem<D, N, S>;
+  using M = Bf16Smem<D>;
   CUtensorMap tq, tk, tv;
   // With Skv = 0 no tile is loaded; the maps only need to be well formed.
   const void* kb = Skv > 0 ? k : q;
   const void* vb = Skv > 0 ? v : q;
   const int kv_rows = Skv > 0 ? Skv : 1;
-  if (!encode_rows<D>(&tq, q, Sq, BH, kBlockM) || !encode_rows<D>(&tk, kb, kv_rows, BHkv, N) ||
-      !encode_rows<D>(&tv, vb, kv_rows, BHkv, N)) {
+  if (!encode_rows<D>(&tq, q, Sq, BH, kBlockM) ||
+      !encode_rows<D>(&tk, kb, kv_rows, BHkv, kBlockN) ||
+      !encode_rows<D>(&tv, vb, kv_rows, BHkv, kBlockN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D, N, S, kOverlap, kMode>);
-  const cudaError_t e = allow_smem(kernel, M::kBytes);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D>),
+                                   M::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
-  flash_fwd_bf16_kernel<D, N, S, kOverlap, kMode><<<grid, kBf16Threads, M::kBytes, stream>>>(
+  flash_fwd_bf16_kernel<D><<<grid, kBf16Threads, M::kBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), Sq, Skv, BH / BHkv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <int D, int N>
-int launch_bf16_cpasync(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                        int Sq, int Skv, int causal, int window, float scale,
-                        cudaStream_t stream) {
-  using M = Bf16Smem<D, N, 2>;
-  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_bf16_cpasync_kernel<D, N>);
-  const cudaError_t e = allow_smem(kernel, M::kBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
-  flash_fwd_bf16_cpasync_kernel<D, N><<<grid, 2 * kWarpgroup, M::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, BH / BHkv, causal, window, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Design variants for k5_probe.py: 0 TMA N=128, 1 TMA N=64, 3 N=64 3 stages
-// overlap, 4 N=128 overlap, 5 cp.async N=128, 6 cp.async N=64, 7 pingpong,
-// 9 no K/V loads (timing only)
-int g_variant = 0;
-
-#define ARGS q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream
-template <int D>
-int launch_bf16_variant(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                        int Sq, int Skv, int causal, int window, float scale,
-                        cudaStream_t stream) {
-  if constexpr (D == 128 || D == 64) {
-    switch (g_variant) {
-      case 1: return launch_bf16<D, 64, 2, false>(ARGS);
-      case 3: return launch_bf16<D, 64, 3, true>(ARGS);
-      case 4: return launch_bf16<D, 128, 2, true>(ARGS);
-      case 5: return launch_bf16_cpasync<D, 128>(ARGS);
-      case 6: return launch_bf16_cpasync<D, 64>(ARGS);
-      case 7: return launch_bf16<D, 128, 2, false, 1>(ARGS);  // pingpong
-      case 9: return launch_bf16<D, 128, 2, false, 2>(ARGS);  // no K/V loads after the first (timing only)
-      default: break;
-    }
-  }
-  return launch_bf16<D, 128, 2, false>(ARGS);
-}
-#undef ARGS
 
 int launch_head_dim_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
                          int Sq, int Skv, int d, int causal, int window, float scale,
                          cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_bf16_variant<16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 32: return launch_bf16_variant<32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 64: return launch_bf16_variant<64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 128: return launch_bf16_variant<128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 16: return launch_bf16<16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1054,6 +858,16 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   return launch_head_dim_fp32(q, k, v, o, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
 }
 
-void flash_set_variant(int variant) { g_variant = variant; }  // probe only
+// Dynamic shared memory of one CTA of the bf16 body at head dim d (-1 for
+// a d it has no instantiation of).
+int flash_bf16_smem_bytes(int d) {
+  switch (d) {
+    case 16: return Bf16Smem<16>::kBytes;
+    case 32: return Bf16Smem<32>::kBytes;
+    case 64: return Bf16Smem<64>::kBytes;
+    case 128: return Bf16Smem<128>::kBytes;
+    default: return -1;
+  }
+}
 
 }  // extern "C"

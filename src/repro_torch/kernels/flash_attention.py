@@ -26,6 +26,15 @@ _MAX_HEAD_ROWS = 65535  # the grid's y dimension
 _INT32_MAX = 2**31 - 1
 
 
+def bf16_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one CTA of the bf16 body at head dim d (the
+    Q tile and two stages of K and V tiles, with their mbarriers)."""
+    n = _build.library().lib.flash_bf16_smem_bytes(d)
+    if n < 0:
+        raise ValueError(f"head dim {d} has no kernel instantiation (have {HEAD_DIMS})")
+    return n
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

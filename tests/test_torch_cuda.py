@@ -216,9 +216,11 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
 
 # ------------------------------------------------------------ K5: attention
 # fp32: the kernel's FMA order and expf against torch's matmul and softmax
-# (TF32 off); bf16: both compute in fp32 from the same bf16 inputs, so they
-# differ by at most about one bf16 rounding of the output (the JAX sweep's
-# 2e-2).
+# (TF32 off); bf16: the kernel's tensor cores take bf16 q, k, v and P (P
+# rounded to bf16 before P V, at most about 2^-9 of sum p|v| / l) and sum in
+# fp32, the plain version keeps P in fp32, and both round the output to bf16
+# once, so they differ by about one bf16 rounding of the output (the JAX
+# sweep's 2e-2).
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -236,6 +238,11 @@ def no_tf32():
     (8, 4, 300, 300, 128, True, None),  # GQA causal, ragged last tiles
     (4, 2, 200, 77, 64, True, None),    # Sq > Skv: rows with no key give 0
     (2, 2, 130, 260, 16, True, 40),     # offset and a sliding window
+    (4, 2, 1, 200, 128, True, None),    # one q row of a 128-row q tile
+    (4, 2, 127, 127, 128, True, None),  # one row short of the q tile
+    (4, 2, 129, 129, 64, True, None),   # one row past it
+    (8, 2, 300, 300, 32, True, 100),    # GQA group 4, a window edge inside a kv tile
+    (4, 2, 300, 300, 16, False, 70),    # d = 16, a window without the causal mask
 ])
 def test_flash_attention_matches_its_plain_version(cuda_device, no_tf32, dtype, BH, BHkv,
                                                    Sq, Skv, d, causal, window):
@@ -251,6 +258,17 @@ def test_flash_attention_matches_its_plain_version(cuda_device, no_tf32, dtype, 
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if Sq > Skv:
         assert not got[:, : Sq - Skv].any()
+
+
+def test_flash_bf16_body_fits_one_cta(cuda_device):
+    """The bf16 body's Q tile and two stages of K and V tiles fit the 227 KB
+    a CTA can opt in to at every head dim; a head dim without an
+    instantiation raises."""
+    sizes = [FA.bf16_smem_bytes(d) for d in FA.HEAD_DIMS]
+    assert sizes == sorted(sizes) and sizes[-1] <= 232448
+    assert sizes[-1] >= 5 * 128 * 128 * 2  # Q and four 128 x 128 bf16 tiles at d = 128
+    with pytest.raises(ValueError, match="head dim 48"):
+        FA.bf16_smem_bytes(48)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
