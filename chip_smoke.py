@@ -40,14 +40,14 @@ Phases, in order; any failure raises and exits non-zero:
    package's sweep shapes, at Sq > Skv, at the edges of the bf16 body's
    128-row tiles (ragged Sq and Skv, a window edge inside a kv tile, rows
    that see no key, d = 16 and 32) and at both serving shapes (qwen3's and
-   mixtral-8x7b's prefill attention); the whole
-   model in fp32 (1 x 512 prompt), the flash route against the naive route
-   over prefill and 4 decode steps, and decode against a prefill of the
-   longer prompt; then the bf16 serving run through ``greedy_generate``
-   (4 prompts x 2048 tokens + 32 new), one K5 launch per layer, every
-   logit finite, with prefill and decode times, peak memory and a decode
-   step's device idle share; then K5 timed at both prefill shapes beside
-   its bound, its plain version and ``scaled_dot_product_attention``;
+   mixtral-8x7b's prefill attention); the whole model in fp32 (1 x 512
+   prompt), the flash route against the naive route over prefill and 4
+   decode steps, and decode against a prefill of the longer prompt; then
+   the bf16 serving run through ``greedy_generate`` (4 prompts x 2048
+   tokens + 32 new), one K5 launch per layer, every logit finite, with
+   prefill and decode times, peak memory and the device idle share of a
+   decode step and of a prefill; then K5 timed at both prefill shapes
+   beside its bound, its plain version and ``scaled_dot_product_attention``;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
    layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
    dispatch) against its plain version, bit for bit, at the JAX package's
@@ -1075,6 +1075,7 @@ def serve_lm(cfg, smi: str) -> dict:
     n_steps = LM_NEW - 1
 
     profile = profile_decode(step, model, tok, state)
+    prefill_profile = profile_calls(lambda: prefill_fn(model, prompts), 1)
     row = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
@@ -1084,7 +1085,7 @@ def serve_lm(cfg, smi: str) -> dict:
         "prefill_s": prefill_s, "prefill_tok_per_s": LM_BATCH * LM_PROMPT / prefill_s,
         "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
         "decode_tok_per_s": LM_BATCH * n_steps / decode_s,
-        "decode_profile": profile,
+        "decode_profile": profile, "prefill_profile": prefill_profile,
         "sample_ids": tokens[0, :16].tolist(),
     }
     log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + {LM_NEW}: "
@@ -1092,6 +1093,7 @@ def serve_lm(cfg, smi: str) -> dict:
         f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
         f"peak {peak} bytes, every logit finite ({smi})")
     log_call_profile("decode", profile)
+    log_call_profile("prefill", prefill_profile)
     log(f"    sample ids {row['sample_ids']}")
     del model, state, all_logits
     torch.cuda.empty_cache()

@@ -243,6 +243,7 @@ def no_tf32():
     (4, 2, 129, 129, 64, True, None),   # one row past it
     (8, 2, 300, 300, 32, True, 100),    # GQA group 4, a window edge inside a kv tile
     (4, 2, 300, 300, 16, False, 70),    # d = 16, a window without the causal mask
+    (2, 1, 5, 0, 64, True, None),       # no keys at all: every row gives 0
 ])
 def test_flash_attention_matches_its_plain_version(cuda_device, no_tf32, dtype, BH, BHkv,
                                                    Sq, Skv, d, causal, window):
