@@ -121,6 +121,10 @@ SCAN_K = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TIMING_REPS = 30
 SPIN_CYCLES = 2_000_000  # about 1 ms of the SM clock
+CHASE_HBM_INTS = 1 << 24  # 64 MiB: the tree's key array, past the 50 MB L2
+CHASE_L2_INTS = 1 << 20  # 4 MiB: held by the L2
+CHASE_STEPS = 1 << 15
+CHASE_REPS = 5
 PROFILE_CHUNKS = 128
 PROFILE_RUNS = 3
 SOURCE = "src/repro_torch/kernels/csrc/forest_search.cu"
@@ -136,6 +140,7 @@ REPLACES = {
 # launch/serve.py, its default high-water mark (3/4), and per round of the
 # stream the op counts below.
 W_CAPACITY = 4096
+BIG_CAPACITY = 20000  # a hybrid buffer past the forest kernel's staging limit (~14,000)
 W_ROUNDS = 8
 W_WRITES = 4096  # half new odd keys, half overwrites of stored keys
 W_DELETES = 2048  # three quarters stored keys, one quarter absent
@@ -315,10 +320,21 @@ def sass_instruction_counts(lib_path, opcode: str) -> dict:
 
 
 def delta_smem_bytes(capacity: int, ordered: int) -> int:
-    """The delta staging's dynamic shared memory (``delta_smem_ints`` in
-    forest_search.cu): keys, values, tombstones, and ordered adds the
-    weight prefix and the scan's 32 per-warp partials."""
+    """The forest kernel's delta staging, dynamic shared memory
+    (``delta_smem_ints`` in forest_search.cu): keys, values, tombstones, and
+    ordered adds the weight prefix and the scan's 32 per-warp partials."""
     return 4 * (4 * capacity + 1 + 32 if ordered else 3 * capacity)
+
+
+def hybrid_smem_bytes(split: int, mapping: int, capacity: int, ordered: int) -> int:
+    """The hybrid body's dynamic shared memory (``hyb_table_ints``,
+    ``hyb_delta_ints``): the queue label table (16 warps x 2^split ints,
+    padded to 4), then the delta buffer's sample (and, ordered, the weight
+    prefix of its lines and the scan's 32 partials)."""
+    table = ((16 << split) + 3) & ~3 if mapping == 0 else 0
+    n_lines = -(-capacity // ref.delta_line(capacity, bool(ordered))) if capacity else 0
+    sample = (2 * n_lines + 1 + 32 if ordered else n_lines) if capacity else 0
+    return 4 * (table + sample)
 
 
 def ctas_per_sm(threads: int, regs: int, smem: int) -> int:
@@ -417,10 +433,11 @@ def full_buffer(tree, keys, capacity: int, seed: int) -> delta_lib.DeltaBuffer:
     return buffer_of(tree, wk[order], wv, wd[order], capacity)
 
 
-def check_delta_kernels(tree, lanes, active, buffers) -> None:
+def check_delta_kernels(tree, lanes, active, buffers, forest: bool = True) -> None:
     """K2, the delta configuration of both kernels, against its plain
-    version for every buffer: forest hrz, dup4, dup8 and hybrid split 2 and
-    3 x queue/direct, membership and ordered."""
+    version for every buffer: forest hrz, dup4, dup8 (unless ``forest`` is
+    False) and hybrid split 2 and 3 x queue/direct, membership and
+    ordered."""
     H = tree.height
     fk, fv = tree.keys[None], tree.values[None]
     for label, buf in buffers.items():
@@ -428,7 +445,7 @@ def check_delta_kernels(tree, lanes, active, buffers) -> None:
         hit, dead, _, _ = ref.bst_delta_resolve_ref(*d_ops, lanes, active)
         for ordered in (False, True):
             tag = f"{label} {'ordered' if ordered else 'membership'}"
-            for T in (1, 4, 8):
+            for T in (1, 4, 8) if forest else ():
                 q, a = lanes.reshape(T, -1), active.reshape(T, -1)
                 got = K.bst_ordered_forest_cuda(fk, fv, q, H, active=a, shared_tree=T > 1,
                                                 ordered=ordered, delta=d_ops)
@@ -448,8 +465,9 @@ def check_delta_kernels(tree, lanes, active, buffers) -> None:
                     compare(got + (k_ovf,), want + (r_ovf,), "hybrid_descend_delta", t)
                     check(int(k_ovf[: lanes.shape[0] // 4].sum()) > 0,
                           f"{t}: the equal key set did not overflow")
-        log(f"  K2 {label} (C={buf.capacity}, {int(buf.count)} live): forest hrz/dup4/dup8 "
-            f"and hybrid split 2, 3 x queue/direct, membership and ordered: 0 mismatches; "
+        log(f"  K2 {label} (C={buf.capacity}, {int(buf.count)} live): "
+            f"{'forest hrz/dup4/dup8 and ' if forest else ''}"
+            f"hybrid split 2, 3 x queue/direct, membership and ordered: 0 mismatches; "
             f"{int(hit.sum())} active lanes hit the buffer, {int((hit & dead).sum())} of them "
             f"tombstones")
 
@@ -794,12 +812,13 @@ class ColdTimer:
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int = TIMING_REPS) -> float:
+    def __call__(self, fn, reps: int = TIMING_REPS, cold: bool = True) -> float:
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            if cold:
+                self.flush.zero_()
             torch.cuda._sleep(SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -809,6 +828,40 @@ class ColdTimer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+
+def chase_cycle(n: int, seed: int) -> tuple:
+    """A random cycle through ``n`` int32 slots, built on the card: ``(next,
+    start)`` with ``next[perm[i]] = perm[i + 1]``."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    perm = torch.randperm(n, generator=g, device="cuda")
+    nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    return nxt, int(perm[0])
+
+
+def pointer_chase_latency(timer) -> dict:
+    """The card's dependent-load latency (``csrc/pointer_chase.cu``): one
+    thread's walk of CHASE_STEPS links over CHASE_STEPS.  L_HBM from a cold
+    64 MiB cycle (the L2 flushed before each run; the size of the tree's
+    keys, past the 50 MB L2), L_L2 from a warm 4 MiB one (the timed walk
+    repeats the warm-up's path, which the L2 holds and the L1 does not)."""
+    lib = _build.library().lib
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    res = {"steps": CHASE_STEPS}
+    for name, n, cold in (("l_hbm_ms", CHASE_HBM_INTS, True), ("l_l2_ms", CHASE_L2_INTS, False)):
+        nxt, start = chase_cycle(n, seed=n)
+
+        def run():
+            rc = lib.pointer_chase(nxt.data_ptr(), start, CHASE_STEPS, out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+            _build.check_launch(rc, "pointer_chase")
+
+        res[name] = timer(run, reps=CHASE_REPS, cold=cold) / CHASE_STEPS
+        res[name.replace("_ms", "_buffer_bytes")] = 4 * n
+        del nxt
+    return res
 
 
 def touched_bytes(tree, q, ordered: bool) -> int:
@@ -861,6 +914,24 @@ def delta_touched_bytes(d_ops, q, ordered: bool) -> int:
     return 4 * n_keys + 4 * hit_slots.numel() + 4 * n_live + (4 * C if ordered else 0)
 
 
+def round_trips(kern: str, H: int, ordered: bool, split: int = 0) -> int:
+    """Global round trips on the dependent chain of a lane that walks all
+    H + 1 levels, each an HBM round trip when the L2 is cold: one to stage
+    the top levels, then for the forest kernel one per level below its
+    REGISTER_LEVELS staged ones and, membership, one for the value at the
+    hit (read after the compare; the ordered body reads it with the key);
+    for the hybrid body one per ``hybrid_levels_per_trip`` levels below its
+    staged ones, one to gather the values, and with the delta buffer one
+    for its line of keys (read before the route)."""
+    if kern.startswith("forest"):
+        r = max(1, min(K.REGISTER_LEVELS, H + 1))
+        return 1 + (H + 1 - r) + (0 if ordered else 1)
+    lib = _build.library().lib
+    per, staged = lib.hybrid_levels_per_trip(), lib.hybrid_staged_levels(split)
+    deep = max(0, H + 1 - staged)
+    return 1 + -(-deep // per) + 1 + (1 if kern.endswith("_delta") else 0)
+
+
 def kernel_and_plain(tree, cfg, q, ordered: bool, delta=None):
     """The kernel call a config's engine makes for a batch ``q`` (with the
     write buffer's operands ``delta``: K2), and the same call to its plain
@@ -898,11 +969,12 @@ def kernel_and_plain(tree, cfg, q, ordered: bool, delta=None):
     return kern, run, plain, agree
 
 
-def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> list:
+def time_kernels(tree, pool, skewed, timer, l_hbm_ms, delta=None, library_keys=None) -> list:
     """Each kernel configuration of the main path at its serving shape: held
     against its plain version there on the timing keys and on the skewed
     ``equal`` set (which forces the hybrid kernel's stall round), then
-    timed on the timing keys.  With ``delta`` (a write buffer) the kernels
+    timed on the timing keys, beside the byte bound and the latency bound
+    (``round_trips`` x ``l_hbm_ms``).  With ``delta`` (a write buffer) the kernels
     run their delta configuration, the byte bound adds the buffer bytes the
     batch must read (``delta_touched_bytes``), and the yardstick searches
     ``library_keys`` (the merged sorted view) instead of the snapshot's."""
@@ -925,6 +997,8 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
             n_bytes = touched_bytes(tree, q, ordered)
             if d_ops is not None:
                 n_bytes += delta_touched_bytes(d_ops, q, ordered)
+            trips = round_trips(kern, H, ordered, invariants.split_level_for(cfg.n_trees)
+                                if cfg.strategy == "hyb" else 0)
             rows.append({
                 "kernel": kern,
                 "config": f"{name} {mode}",
@@ -933,12 +1007,15 @@ def time_kernels(tree, pool, skewed, timer, delta=None, library_keys=None) -> li
                 "plain_ms": timer(plain, reps=5),
                 "library_ms": timer(functools.partial(torch.searchsorted, library_keys, q)),
                 "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                "round_trips": trips,
+                "latency_bound_ms": trips * l_hbm_ms,
             })
             r = rows[-1]
             log(f"  {kern} {r['config']} x{lanes}: 0 mismatches ({replayed} equal-set "
                 f"lanes replayed), ms={r['ms']!r} "
                 f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
-                f"bound_ms={r['bound_ms']!r}")
+                f"bound_ms={r['bound_ms']!r} latency_bound_ms={r['latency_bound_ms']!r} "
+                f"({trips} round trips)")
     return rows
 
 
@@ -1487,7 +1564,9 @@ def main() -> int:
                 label = f"{kern}<{','.join(map(str, targs))}>"
                 check(label in resources, f"ptxas reported no resources for {label}")
                 regs, smem, _ = resources[label]
-                ctas = ctas_per_sm(threads, regs, smem + delta_smem_bytes(W_CAPACITY, ordered))
+                dyn = (delta_smem_bytes(W_CAPACITY, ordered) if mapping is None else
+                       hybrid_smem_bytes(invariants.split_level_for(8), mapping, W_CAPACITY, ordered))
+                ctas = ctas_per_sm(threads, regs, smem + dyn)
                 tag = (f"{kern.replace('_kernel', '_delta')} {'ordered' if ordered else 'membership'}"
                        + ("" if mapping is None else f" {('queue', 'direct')[mapping]}"))
                 occupancy[tag] = {"registers": regs, "blocks_per_sm": ctas,
@@ -1495,9 +1574,14 @@ def main() -> int:
                                   "theoretical_occupancy": ctas * threads / SM_THREADS}
                 log(f"    {tag} at C={W_CAPACITY}: {ctas} CTAs of {threads} threads per SM "
                     f"(theoretical occupancy {ctas * threads / SM_THREADS!r})")
-    limits = {kern: K.delta_capacity_limit(torch.device("cuda"), hybrid)
-              for hybrid, kern in ((False, "forest_descend_delta"), (True, "hybrid_descend_delta"))}
-    log(f"    delta capacity limit (shared memory of one CTA): {limits}")
+    limits = {"forest_descend_delta capacity": K.delta_capacity_limit(torch.device("cuda")),
+              "hybrid_descend queue split": K.hybrid_max_queue_split(torch.device("cuda"))}
+    check(limits["hybrid_descend queue split"] >= 3, f"the engine's splits do not fit: {limits}")
+    design = (built.lib.hybrid_levels_per_trip(), built.lib.hybrid_staged_levels(0))
+    check(design == (ref.HYBRID_LEVELS_PER_TRIP, ref.HYBRID_STAGED_LEVELS),
+          f"the hybrid body's design {design} is not its twin's in kernels/ref.py")
+    log(f"    limits (shared memory of one CTA): {limits}; the hybrid kernel reads the delta "
+        f"buffer in global memory and takes any capacity")
 
     keys, values = make_tree_data(N_KEYS)
     tree = build_tree(keys, values, device="cuda")
@@ -1520,6 +1604,15 @@ def main() -> int:
     check_delta_kernels(tree, d_lanes, active, {
         "full buffer": full, "empty buffer": delta_lib.empty(W_CAPACITY, "cuda"), "one entry": one,
     })
+    # past what one CTA could stage (the forest kernel's limit): the hybrid
+    # kernel reads the buffer in global memory
+    big = full_buffer(tree, keys, BIG_CAPACITY, seed=6)
+    check(BIG_CAPACITY > limits["forest_descend_delta capacity"], f"{BIG_CAPACITY} is within {limits}")
+    b_lanes = lanes.clone()
+    b_lanes[-CHECK_LANES // 4:] = torch.from_numpy(
+        rng.permutation(big.keys.cpu().numpy())[: CHECK_LANES // 4]).cuda()
+    check_delta_kernels(tree, b_lanes, active, {"large buffer": big}, forest=False)
+    del big
     torch.cuda.synchronize()
 
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")
@@ -1562,7 +1655,11 @@ def main() -> int:
     pool = torch.from_numpy(serving_sets["random"]).cuda()
     skewed = torch.from_numpy(serving_sets["equal"]).cuda()
     timer = ColdTimer()
-    timings = time_kernels(tree, pool, skewed, timer)
+    chase = pointer_chase_latency(timer)
+    log(f"    pointer chase ({CHASE_STEPS} dependent loads, median of {CHASE_REPS}): "
+        f"L_HBM={chase['l_hbm_ms']!r} ms (cold {CHASE_HBM_INTS * 4} bytes), "
+        f"L_L2={chase['l_l2_ms']!r} ms (warm {CHASE_L2_INTS * 4} bytes) ({smi})")
+    timings = time_kernels(tree, pool, skewed, timer, chase["l_hbm_ms"])
     # K2 with the full phase-3 buffer; its yardstick searches the merged
     # sorted view (snapshot and buffer), built here outside the timing.
     m_keys, _, m_count = delta_lib.compact_sorted(
@@ -1570,7 +1667,8 @@ def main() -> int:
         tree.n_real, full, tree.n_real + full.capacity,
     )
     merged = m_keys[: int(m_count)].contiguous()
-    timings += time_kernels(tree, pool, skewed, timer, delta=full, library_keys=merged)
+    timings += time_kernels(tree, pool, skewed, timer, chase["l_hbm_ms"], delta=full,
+                            library_keys=merged)
 
     log(f"    [5] done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1614,8 +1712,15 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": "bytes",
             "library_ms": row["library_ms"],
+            "latency_bound_ms": row["latency_bound_ms"],
+            "round_trips": row["round_trips"],
+            "l_hbm_ms": chase["l_hbm_ms"],
+            "l_l2_ms": chase["l_l2_ms"],
             "config": f"{config} x{row['lanes']}",
             "configs": [r for r in timings if r["kernel"] == kern],
+            "ptxas": {k: list(v) for k, v in resources.items()
+                      if k.startswith(kern.replace("_delta", "") + "_kernel<")
+                      and k.endswith(",1>" if kern.endswith("_delta") else ",0>")},
         })
     kernels.append({
         "name": "flash_attention",
@@ -1667,7 +1772,8 @@ def main() -> int:
                        "hrz_drain_profile": busy, "written": written,
                        "write_phase_launches": w_launches, "write_phase_peak_bytes": peak,
                        "hrz_write_drain_profile": write_profile,
-                       "delta_occupancy": occupancy, "delta_capacity_limit": limits,
+                       "delta_occupancy": occupancy, "kernel_limits": limits,
+                       "pointer_chase": chase,
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
                        "lm_served": lm_served, "flash_timing": flash_timing,
                        **moe, "seconds": time.perf_counter() - t_start}, f, indent=1)

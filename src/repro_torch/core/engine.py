@@ -36,6 +36,7 @@ from repro_torch.core import plans as plans_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core import updates as updates_lib
 from repro_torch.core.tree import TreeData
+from repro_torch.kernels import bst_search as bst_kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +89,14 @@ class BSTEngine:
     """Build once, query batches of keys many times."""
 
     def __init__(self, keys, values, config: EngineConfig = EngineConfig()):
+        _check_kernel_limits(config)
         tree = tree_lib.build_tree(np.asarray(keys), np.asarray(values), device=config.device)
         self._start(tree, config)
 
     @classmethod
     def from_tree(cls, tree: TreeData, config: EngineConfig = EngineConfig()):
         """Wrap an existing immutable snapshot (moved to the config's device)."""
+        _check_kernel_limits(config)
         self = cls.__new__(cls)
         self._start(
             dataclasses.replace(
@@ -284,6 +287,20 @@ class BSTEngine:
     def memory_nodes(self) -> int:
         """Stored nodes (the paper's Fig. 8 memory metric)."""
         return self.plan.memory_nodes()
+
+
+def _check_kernel_limits(config: EngineConfig) -> None:
+    """On a CUDA device, the limits of the kernels the configuration will
+    launch, before anything is allocated: the forest kernel's staged delta
+    buffer (hrz, dup) and the hybrid kernel's queue label table (hyb).  A
+    kernel would otherwise refuse the engine's buffer at its first read."""
+    device = torch.device(config.device)
+    if device.type != "cuda":
+        return
+    split = invariants.split_level_for(config.n_trees) if config.strategy == "hyb" else 0
+    bst_kernels.check_engine_limits(
+        device, config.strategy, split, config.mapping, config.delta_capacity
+    )
 
 
 def _as_keys(keys) -> np.ndarray:

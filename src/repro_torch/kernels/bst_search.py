@@ -8,9 +8,14 @@ to the plain versions in ``kernels.ref`` instead.  Lanes past the end of the
 batch are the kernels' own padding, so no query is copied to pad it.
 
 ``delta=``, the write buffer's four (C,) int32 operands, selects a kernel's
-delta configuration (K2: ``forest_descend_delta``, ``hybrid_descend_delta``),
-which stages the buffer in shared memory; a capacity whose staging does not
-fit one CTA raises, naming the limit (``delta_capacity_limit``).
+delta configuration (K2: ``forest_descend_delta``, ``hybrid_descend_delta``).
+The forest kernel stages the buffer in shared memory, so a capacity whose
+staging does not fit one CTA raises, naming the limit
+(``delta_capacity_limit``); the hybrid kernel reads it in global memory and
+takes any capacity.  The hybrid kernel's queue mapping keeps a label table
+of 16 x 2^split ints in shared memory, so a split above
+``hybrid_max_queue_split`` raises.  ``check_engine_limits`` applies both
+limits to an engine's configuration before it is built.
 """
 
 from __future__ import annotations
@@ -102,20 +107,68 @@ def check_hybrid_operands(
 
 
 @functools.lru_cache(maxsize=None)
-def delta_capacity_limit(device: torch.device, hybrid: bool) -> int:
+def delta_capacity_limit(device: torch.device) -> int:
     """The largest delta capacity whose staging fits one CTA of the forest
-    (or, with ``hybrid``, the hybrid) kernel on ``device``: the shared
-    memory a block may opt in to, less the kernel's static shared memory."""
+    kernel on ``device``: the shared memory a block may opt in to, less the
+    kernel's static shared memory."""
     with torch.cuda.device(device):
-        rc = _build.library().lib.delta_capacity_limit(int(hybrid))
+        rc = _build.library().lib.delta_capacity_limit()
     if rc < 0:
         _build.check_launch(-rc, "delta_capacity_limit")
     return rc
 
 
+@functools.lru_cache(maxsize=None)
+def hybrid_max_queue_split(device: torch.device) -> int:
+    """The largest split level the hybrid kernel's queue mapping takes on
+    ``device``: its label table, 16 warps x 2^split ints, must fit one
+    CTA's shared memory beside the delta buffer's sample."""
+    with torch.cuda.device(device):
+        rc = _build.library().lib.hybrid_max_queue_split()
+    if rc < 0:
+        _build.check_launch(-rc, "hybrid_max_queue_split")
+    return rc
+
+
+def check_delta_capacity(C: int, device) -> None:
+    """Raise if the forest kernel cannot stage a C-entry buffer on ``device``."""
+    limit = delta_capacity_limit(device)
+    if C > limit:
+        raise ValueError(
+            f"delta capacity {C} does not fit the shared memory of one "
+            f"forest_descend_delta CTA on this card: the limit is {limit} entries"
+        )
+
+
+def check_queue_split(split_level: int, device) -> None:
+    """Raise if the hybrid kernel's queue label table at ``split_level``
+    does not fit one CTA on ``device``."""
+    limit = hybrid_max_queue_split(device)
+    if split_level > limit:
+        raise ValueError(
+            f"queue mapping at split level {split_level} needs a label table of "
+            f"{16 << split_level} ints in the shared memory of one hybrid_descend "
+            f"CTA on this card: the limit is split level {limit}"
+        )
+
+
+def check_engine_limits(
+    device, strategy: str, split_level: int, mapping: str, delta_capacity: int
+) -> None:
+    """The limits of the kernels an engine of this configuration launches
+    on ``device`` (a CUDA device), with the messages the wrappers give:
+    hyb runs the hybrid kernel (its queue label table), hrz and dup the
+    forest kernel (its staged delta buffer)."""
+    if strategy == "hyb":
+        if mapping == "queue":
+            check_queue_split(split_level, device)
+    elif delta_capacity > 0:
+        check_delta_capacity(delta_capacity, device)
+
+
 def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
     """The buffer's four operands: (C,) int32, contiguous, on ``device``,
-    one length C >= 1 that the kernel can stage.  Returns C."""
+    one length C >= 1 (that the forest kernel can stage).  Returns C."""
     if len(delta) != 4:
         raise ValueError("delta must be (keys, values, tombstone, weight)")
     C = int(delta[0].shape[0]) if delta[0].ndim == 1 else -1
@@ -125,13 +178,10 @@ def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
             raise ValueError("delta operands must be 1-D (C,) tensors of one length")
     if C < 1:
         raise ValueError("delta capacity must be >= 1")
-    limit = delta_capacity_limit(device, hybrid)
-    if C > limit:
-        kernel = "hybrid_descend_delta" if hybrid else "forest_descend_delta"
-        raise ValueError(
-            f"delta capacity {C} does not fit the shared memory of one "
-            f"{kernel} CTA on this card: the limit is {limit} entries"
-        )
+    if C > _INT32_MAX:
+        raise ValueError(f"delta capacity {C} exceeds int32")
+    if not hybrid:
+        check_delta_capacity(C, device)
     return C
 
 
@@ -270,6 +320,8 @@ def bst_hybrid_forest_cuda(
         if tuple(overflow_out.shape) != tuple(queries.shape):
             raise ValueError("overflow_out must have the queries' shape")
     C = None if delta is None else _check_delta(delta, device, hybrid=True)
+    if mapping == "queue":
+        check_queue_split(split_level, device)
     B = queries.shape[0]
     if B > _INT32_MAX or tree_keys.shape[0] > _INT32_MAX:
         raise ValueError(f"hybrid shape out of the kernel's range: B={B}")

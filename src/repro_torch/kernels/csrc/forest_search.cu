@@ -59,12 +59,15 @@
 // Sentinels stay int32: INT32_MIN (no predecessor), INT32_MAX (no successor)
 // and -1 (no value).
 
+#include <algorithm>
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <utility>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -301,75 +304,504 @@ __global__ void __launch_bounds__(kForestBlock)
   store<ORDERED>(out, o, s);
 }
 
-// K3 (and K2 with WITH_DELTA): one CTA per 512-lane chunk.  Route through
-// [0, split), place the live lanes into per-subtree buffers (queue or
-// direct), descend the placed lanes through [split, H], then replay the
-// overflow lanes through the same levels from the route state; the delta
-// buffer resolves after all of that.  Lanes past B are padding: inactive,
-// never live.
-template <bool ORDERED, int MAPPING, bool WITH_DELTA>
-__global__ void __launch_bounds__(kHybridBlock)
-    hybrid_descend_kernel(const int* __restrict__ keys,
-                          const int* __restrict__ values, int n, int height,
-                          int split, int capacity,
-                          const int* __restrict__ queries,
-                          const bool* __restrict__ active, int B, Outputs out,
-                          int* __restrict__ overflow_out, Delta delta) {
-  __shared__ int s_keys[kMaxStaged];
-  __shared__ int s_vals[kMaxStaged];
-  __shared__ int s_dest[kHybridBlock];  // a live lane's subtree, else -1
-  extern __shared__ int s_delta[];
-  const int staged = min(split, kMaxStagedLevels);
-  stage(keys, values, staged, s_keys, s_vals);
-  if constexpr (WITH_DELTA) stage_delta<ORDERED>(delta, s_delta);
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// K3 and K2 hybrid: the hybrid body (hybrid_descend_kernel).  One 512-lane
+// dispatch chunk is CTAS CTAs of 512 / CTAS threads, a cluster when CTAS > 1.
+// A lane's descent is kept by node index (Walk); the values a result needs
+// are gathered once, after the descent.
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x * kHybridBlock + tid;
-  const bool in = b < B;
-  const bool act = in && (active == nullptr || active[b]);
-  const int q = in ? queries[b] : 0;
-  Lane s = init_lane();
-  descend<ORDERED>(s, q, act, 0, split, height, staged, s_keys, s_vals, keys,
-                   values, n);
+constexpr int kChunkWarps = kHybridBlock / 32;
+constexpr int kHybMaxStagedLevels = 11;  // levels staged in shared memory, at most
+constexpr int kHybStaged = (1 << kHybMaxStagedLevels) - 1;  // 2047 keys: 8 KiB
+constexpr int kLine = 32;  // delta slots per sampled line: 128 bytes of keys
+constexpr int kSampleInts = 4096;  // the delta sample's shared memory, in ints
+constexpr unsigned kFullMask = 0xffffffffu;
+// Variants of the body, timed by the design probe (hyb_probe.py).
+constexpr int kLoopLabels = 1;   // PR 15's O(tid) label loop
+constexpr int kVoteReplay = 2;   // the stall round as a second pass behind a vote
+constexpr int kStagedDelta = 4;  // PR 12's staged delta buffer
+constexpr int kThreadLineSums = 8;  // a thread per line sums the delta weights
 
-  const int n_sub = 1 << split;
-  const bool live = act && !s.found;
-  const int dest = min(max(s.idx - (n_sub - 1), 0), n_sub - 1);
-  s_dest[tid] = live ? dest : -1;
-  __syncthreads();
+struct Walk {
+  int idx;        // the next node to compare
+  bool found;
+  int hit;        // the node that matched
+  int pred_key;   // the key and node of the last right turn (node -1: none)
+  int pred_node;
+  int succ_key;   // the key and node of the last left turn
+  int succ_node;
+  int rank;
+};
 
-  bool clash = false;
-  if (live) {
-    if (MAPPING == kQueue) {
-      // label = earlier live lanes of the chunk with the same subtree
-      int label = 0;
-      for (int j = 0; j < tid && label < capacity; ++j) {
-        label += s_dest[j] == dest;
-      }
-      clash = label >= capacity;
+__device__ __forceinline__ Walk init_walk() {
+  return Walk{0, false, -1, INT_MIN, -1, INT_MAX, -1, 0};
+}
+
+// One compare at `node` of level l, in the Pallas body's update order
+// (_descend_one_level).  Returns whether the lane turned right.
+template <bool ORDERED>
+__device__ __forceinline__ bool walk_step(Walk& w, int q, int nk, int node,
+                                          int l, int height) {
+  const bool hit = nk == q;
+  const bool right = !hit && q > nk;
+  if (ORDERED) {
+    const int left = (1 << (height - l)) - 1;
+    if (hit) {
+      w.rank += left;
+    } else if (right) {
+      w.pred_key = nk;
+      w.pred_node = node;
+      w.rank += left + 1;
     } else {
-      // lane i owns slot i % capacity; it clashes with a live lane
-      // k * capacity back that shares its subtree
-      for (int off = capacity; off < kHybridBlock && off <= tid; off += capacity) {
-        clash = clash || s_dest[tid - off] == dest;
+      w.succ_key = nk;
+      w.succ_node = node;
+    }
+  }
+  if (hit) {
+    w.found = true;
+    w.hit = node;
+  } else {
+    w.idx = 2 * node + 1 + (right ? 1 : 0);
+  }
+  return right;
+}
+
+// kk[BASE + m] for m < 2^J, by a mux over the bits of m: every index is a
+// constant, so the keys stay in registers.
+template <int BASE, int J, int N>
+__device__ __forceinline__ int mux(const int (&kk)[N], int m) {
+  if constexpr (J == 0) {
+    return kk[BASE];
+  } else {
+    const int lo = mux<BASE, J - 1, N>(kk, m);
+    const int hi = mux<BASE + (1 << (J - 1)), J - 1, N>(kk, m);
+    return ((m >> (J - 1)) & 1) ? hi : lo;
+  }
+}
+
+// The keys of depths J..K-1 under the node i1 - 1 (depth j: the 2^j keys
+// from (i1 << j) - 1), for the depths below g.
+template <int J, int K, int N>
+__device__ __forceinline__ void load_runs(int (&kk)[N], const int* __restrict__ keys,
+                                          unsigned i1, int g) {
+  if constexpr (J < K) {
+#pragma unroll
+    for (int m = 0; m < (1 << J); ++m) {
+      kk[(1 << J) - 1 + m] = J < g ? __ldg(keys + ((i1 << J) - 1u + m)) : 0;
+    }
+    load_runs<J + 1, K, N>(kk, keys, i1, g);
+  }
+}
+
+// Compare depths J..g-1 of a loaded group; m is the path below i1 - 1.
+template <bool ORDERED, int J, int K, int N>
+__device__ __forceinline__ void resolve_runs(Walk& w, int q, const int (&kk)[N],
+                                             unsigned i1, int m, int g, int l,
+                                             int height) {
+  if constexpr (J < K) {
+    if (J < g && !w.found) {
+      const int nk = mux<(1 << J) - 1, J, N>(kk, m);
+      const int node = static_cast<int>((i1 << J) - 1u) + m;
+      const bool right = walk_step<ORDERED>(w, q, nk, node, l + J, height);
+      resolve_runs<ORDERED, J + 1, K, N>(w, q, kk, i1, 2 * m + (right ? 1 : 0), g, l,
+                                         height);
+    }
+  }
+}
+
+// Levels [l0, l1) of the tree for a lane that has not hit.  Levels below
+// `staged` read the shared copy one at a time; deeper ones go K levels per
+// round trip: the 2^K - 1 keys of the K levels under the lane's node are
+// K contiguous runs of the BFS layout (depth j: (idx + 1) 2^j - 1 + m,
+// m < 2^j), loaded at once and resolved in registers.  The nodes compared
+// and their order are those of a level-by-level descent.
+template <bool ORDERED, int K>
+__device__ __forceinline__ void walk_levels(Walk& w, int q, int l0, int l1,
+                                            int height, int staged,
+                                            const int* s_keys,
+                                            const int* __restrict__ keys) {
+  int l = l0;
+  for (; l < min(l1, staged) && !w.found; ++l) {
+    walk_step<ORDERED>(w, q, s_keys[w.idx], w.idx, l, height);
+  }
+  l = max(l, staged);
+  for (; l < l1 && !w.found; l += K) {
+    const int g = min(K, l1 - l);
+    const unsigned i1 = static_cast<unsigned>(w.idx) + 1u;
+    int kk[(1 << K) - 1];
+    load_runs<0, K>(kk, keys, i1, g);
+    resolve_runs<ORDERED, 0, K>(w, q, kk, i1, 0, g, l, height);
+  }
+}
+
+// Sum of p[lo, hi): eight 16-byte loads for a whole aligned line.
+__device__ __forceinline__ int slot_sum(const int* __restrict__ p, int lo,
+                                        int hi, bool vec) {
+  int s = 0;
+  if (vec && hi - lo == kLine) {
+    const int4* v = reinterpret_cast<const int4*>(p + lo);
+#pragma unroll
+    for (int i = 0; i < kLine / 4; ++i) {
+      const int4 x = __ldg(v + i);
+      s += x.x + x.y + x.z + x.w;
+    }
+    return s;
+  }
+  for (int i = lo; i < hi; ++i) s += __ldg(p + i);
+  return s;
+}
+
+// Exclusive prefix in place over a[0..n] of the values in a[1..n]: each
+// thread sums a contiguous segment, the block scans the segment sums, each
+// thread rewrites its own.  Every thread of the block must call it.
+__device__ void block_prefix(int* a, int n, int* s_warp) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int begin = min(static_cast<int>(threadIdx.x) * per, n);
+  const int end = min(begin + per, n);
+  int local = 0;
+  for (int i = begin; i < end; ++i) local += a[i + 1];
+  int run = block_exclusive_scan(local, s_warp);
+  if (threadIdx.x == 0) a[0] = 0;
+  for (int i = begin; i < end; ++i) {
+    run += a[i + 1];
+    a[i + 1] = run;
+  }
+}
+
+// The delta buffer's sample: the first key of each `line` slots, and for
+// the ordered configuration the signed weight of the slots before each
+// sampled line.  Shared memory: n_lines + (ordered) n_lines + 1 + kWarpSums
+// ints.  Every thread of the block must call it; the caller's
+// __syncthreads() publishes the last writes.
+template <bool ORDERED, bool THREAD_SUMS>
+__device__ void stage_lines(const Delta& d, int line, int* s) {
+  const int C = d.capacity;
+  const int n_lines = (C + line - 1) / line;
+  const bool vec = (reinterpret_cast<uintptr_t>(d.weight) & 15) == 0;
+  int* s_pre = s + n_lines;
+  for (int j = threadIdx.x; j < n_lines; j += blockDim.x) {
+    s[j] = __ldg(d.keys + j * line);
+    if (ORDERED && THREAD_SUMS) {
+      const int lo = j * line;
+      const int hi = min(lo + line, C);
+      int sum = 0;
+      for (int p = lo; p < hi; p += kLine) sum += slot_sum(d.weight, p, min(p + kLine, hi), vec);
+      s_pre[j + 1] = sum;
+    }
+  }
+  if (!ORDERED) return;
+  if (!THREAD_SUMS) {
+    // a warp per line: 32 coalesced weights at a time, summed by a shuffle
+    const int lane = threadIdx.x & 31;
+    for (int j = threadIdx.x >> 5; j < n_lines; j += blockDim.x >> 5) {
+      const int hi = min(j * line + line, C);
+      int sum = 0;
+      for (int p = j * line + lane; p < hi; p += 32) sum += __ldg(d.weight + p);
+      sum = __reduce_add_sync(kFullMask, sum);
+      if (lane == 0) s_pre[j + 1] = sum;
+    }
+  }
+  __syncthreads();
+  block_prefix(s_pre, n_lines, s_pre + n_lines + 1);
+}
+
+// A lane's slot in the delta buffer, from the sample and one line of keys
+// (and weights) in global memory: pos = #keys < q.  Returns the slot if
+// keys[pos] == q, else -1; `below` gets the weight of the slots under q.
+template <bool ORDERED>
+__device__ __forceinline__ int probe_lines(const Delta& d, int line,
+                                           const int* s, int q, int& below) {
+  const int C = d.capacity;
+  const int n_lines = (C + line - 1) / line;
+  int lo = 0;
+  int hi = n_lines;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  below = 0;
+  if (lo == 0) return s[0] == q ? 0 : -1;  // nothing below q
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(d.keys) | reinterpret_cast<uintptr_t>(d.weight)) & 15) == 0;
+  const int begin = (lo - 1) * line;
+  const int end = min(begin + line, C);
+  int n_below = 0;
+  bool eq = false;
+  int wsum = 0;
+  for (int p = begin; p < end; p += kLine) {
+    if (vec && p + kLine <= end) {
+      const int4* kv = reinterpret_cast<const int4*>(d.keys + p);
+      const int4* wv = reinterpret_cast<const int4*>(d.weight + p);
+#pragma unroll
+      for (int i = 0; i < kLine / 4; ++i) {
+        const int4 k4 = __ldg(kv + i);
+        int4 w4 = make_int4(0, 0, 0, 0);
+        if (ORDERED) w4 = __ldg(wv + i);
+        const int kx[4] = {k4.x, k4.y, k4.z, k4.w};
+        const int wx[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          n_below += kx[u] < q;
+          eq = eq || kx[u] == q;
+          if (ORDERED && kx[u] < q) wsum += wx[u];
+        }
+      }
+    } else {
+      for (int i = p; i < min(p + kLine, end); ++i) {
+        const int k = __ldg(d.keys + i);
+        n_below += k < q;
+        eq = eq || k == q;
+        if (ORDERED && k < q) wsum += __ldg(d.weight + i);
       }
     }
   }
+  if (ORDERED) below = s[n_lines + lo - 1] + wsum;
+  const int pos = begin + n_below;
+  // keys[pos] is in the line, or it opens the next sampled line
+  return eq || (pos == end && lo < n_lines && s[lo] == q) ? pos : -1;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+struct HybArgs {
+  const int* keys;
+  const int* values;
+  int height;
+  int split;
+  int staged;  // levels to stage in shared memory (at most kHybMaxStagedLevels)
+  int capacity;
+  const int* queries;
+  const bool* active;
+  int B;
+  Outputs out;
+  int* overflow;
+  Delta delta;
+  int line;  // delta slots per sampled line
+};
+
+// Dynamic shared memory of the hybrid body, in ints: the label table
+// (queue: warps x 2^split counts, and with a cluster the CTA's totals),
+// then the delta buffer's sample (or, staged, the whole buffer).
+__host__ __device__ inline int hyb_table_ints(int split, int mapping, int ctas,
+                                              int flags) {
+  if (mapping != kQueue || (flags & kLoopLabels)) return 0;
+  return (kChunkWarps / ctas + (ctas > 1 ? 1 : 0)) << split;
+}
+
+__host__ __device__ inline int hyb_delta_ints(int capacity, int line,
+                                              bool ordered, int flags) {
+  if (capacity == 0) return 0;
+  if (flags & kStagedDelta) return delta_smem_ints(capacity, ordered);
+  const int n_lines = (capacity + line - 1) / line;
+  return ordered ? 2 * n_lines + 1 + kWarpSums : n_lines;
+}
+
+// The sampled line of a C-slot buffer: the smallest kLine * 2^e whose
+// sample fits kSampleInts.
+inline int hyb_delta_line(int capacity, bool ordered) {
+  int line = kLine;
+  while (hyb_delta_ints(capacity, line, ordered, 0) > kSampleInts) line *= 2;
+  return line;
+}
+
+template <bool ORDERED, int MAPPING, bool WITH_DELTA, int CTAS, int K, int FLAGS>
+__global__ void __launch_bounds__(kHybridBlock / CTAS)
+    hybrid_descend_kernel(const HybArgs a) {
+  constexpr int kThreads = kHybridBlock / CTAS;
+  constexpr int kWarps = kThreads / 32;
+  constexpr bool kDestTable = MAPPING == kDirect || (FLAGS & kLoopLabels);
+  __shared__ int s_keys[kHybStaged];
+  __shared__ int s_dest[kDestTable ? kThreads : 1];  // a live lane's subtree, else -1
+  extern __shared__ int smem[];
+  const int n_sub = 1 << a.split;
+  int* table = smem;                      // [kWarps][n_sub], then [n_sub] totals
+  int* totals = smem + kWarps * n_sub;
+  int* s_delta = smem + ((hyb_table_ints(a.split, MAPPING, CTAS, FLAGS) + 3) & ~3);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  int crank = 0;
+  int chunk = blockIdx.x;
+  if constexpr (CTAS > 1) {
+    crank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+    chunk = blockIdx.x / CTAS;
+  }
+  const int g = crank * kThreads + tid;  // lane within the chunk
+  const int b = chunk * kHybridBlock + g;
+  const bool in = b < a.B;
+  const bool act = in && (a.active == nullptr || a.active[b]);
+  const int q = in ? a.queries[b] : 0;
+
+  const int staged = min(a.staged, a.height + 1);
+  for (int i = tid; i < (1 << staged) - 1; i += kThreads) s_keys[i] = a.keys[i];
+  if constexpr (MAPPING == kQueue && !(FLAGS & kLoopLabels)) {
+    for (int i = tid; i < kWarps * n_sub; i += kThreads) table[i] = 0;
+  }
+  if constexpr (WITH_DELTA) {
+    if constexpr (FLAGS & kStagedDelta) {
+      stage_delta<ORDERED>(a.delta, s_delta);
+    } else {
+      stage_lines<ORDERED, (FLAGS & kThreadLineSums) != 0>(a.delta, a.line, s_delta);
+    }
+  }
+  __syncthreads();
+
+  // The delta buffer first: its loads are consumed after the descent.
+  int d_pos = -1;
+  int d_below = 0;
+  int d_val = 0;
+  int d_tomb = 0;
+  if constexpr (WITH_DELTA) {
+    if (act) {
+      const int C = a.delta.capacity;
+      if constexpr (FLAGS & kStagedDelta) {
+        int lo = 0;
+        int hi = C;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_delta[mid] < q) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        if (lo < C && s_delta[lo] == q) {
+          d_pos = lo;
+          d_val = s_delta[C + lo];
+          d_tomb = s_delta[2 * C + lo];
+        }
+        if (ORDERED) d_below = s_delta[3 * C + lo];
+      } else {
+        d_pos = probe_lines<ORDERED>(a.delta, a.line, s_delta, q, d_below);
+        if (d_pos >= 0) {
+          d_val = __ldg(a.delta.values + d_pos);
+          d_tomb = __ldg(a.delta.tombstone + d_pos);
+        }
+      }
+    }
+  }
+
+  // The route through [0, split): shared memory while split <= staged.
+  Walk w = init_walk();
+  if (act) {
+    walk_levels<ORDERED, K>(w, q, 0, a.split, a.height, staged, s_keys, a.keys);
+  }
+  const bool live = act && !w.found;
+  const int dest = min(max(w.idx - (n_sub - 1), 0), n_sub - 1);
+
+  // Placement of the chunk's live lanes.
+  bool clash = false;
+  if constexpr (MAPPING == kQueue && (FLAGS & kLoopLabels)) {
+    s_dest[tid] = live ? dest : -1;
+    __syncthreads();
+    if (live) {
+      int label = 0;
+      for (int j = 0; j < tid && label < a.capacity; ++j) label += s_dest[j] == dest;
+      clash = label >= a.capacity;
+    }
+  } else if constexpr (MAPPING == kQueue) {
+    // FIFO labels as K4 makes them: rank among same-destination peers of
+    // the warp, the warp's count in a (warps x n_sub) table, one thread per
+    // destination scanning its column over the warps (and, in a cluster,
+    // over the earlier CTAs' totals).  label = prefix + rank.
+    const unsigned peers = __match_any_sync(kFullMask, live ? dest : -1);
+    const int rank = __popc(peers & ((1u << (tid & 31)) - 1u));
+    if (live && rank == 0) table[warp * n_sub + dest] = __popc(peers);
+    __syncthreads();
+    for (int d = tid; d < n_sub; d += kThreads) {
+      int run = 0;
+      for (int v = 0; v < kWarps; ++v) {
+        const int c = table[v * n_sub + d];
+        table[v * n_sub + d] = run;
+        run += c;
+      }
+      if constexpr (CTAS > 1) totals[d] = run;
+    }
+    if constexpr (CTAS > 1) {
+      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+      cluster.sync();
+      for (int d = tid; d < n_sub; d += kThreads) {
+        int base = 0;
+        for (int r = 0; r < crank; ++r) base += cluster.map_shared_rank(totals, r)[d];
+        for (int v = 0; v < kWarps; ++v) table[v * n_sub + d] += base;
+      }
+      cluster_arrive();  // done with the other CTAs' shared memory
+    }
+    __syncthreads();
+    if (live) clash = table[warp * n_sub + dest] + rank >= a.capacity;
+  } else {
+    // lane i owns slot i % capacity; it clashes with a live lane
+    // k * capacity back that shares its subtree
+    s_dest[tid] = live ? dest : -1;
+    if constexpr (CTAS > 1) {
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    if (live) {
+      for (int off = a.capacity; off < kHybridBlock && off <= g; off += a.capacity) {
+        const int j = g - off;
+        const int owner = j / kThreads;
+        const int* src = s_dest;
+        if constexpr (CTAS > 1) {
+          if (owner != crank) src = cooperative_groups::this_cluster().map_shared_rank(s_dest, owner);
+        }
+        clash = clash || src[j - owner * kThreads] == dest;
+      }
+    }
+    if constexpr (CTAS > 1) cluster_arrive();
+  }
   const bool overflow = live && clash;
 
-  descend<ORDERED>(s, q, act && !overflow, split, height + 1, height, staged,
-                   s_keys, s_vals, keys, values, n);
-  if (__syncthreads_or(overflow)) {  // the stall round
-    descend<ORDERED>(s, q, overflow, split, height + 1, height, staged,
-                     s_keys, s_vals, keys, values, n);
+  // The placed lanes descend [split, H]; the overflow lanes replay the same
+  // levels from the route state (the stall round).  A lane reads nothing
+  // another lane writes, so the replay runs in the same pass.
+  if constexpr (FLAGS & kVoteReplay) {
+    if (act && !overflow) {
+      walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
+    }
+    if (__syncthreads_or(overflow) && overflow) {
+      walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
+    }
+  } else if (act) {
+    walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
   }
-  if (!in) return;
-  if constexpr (WITH_DELTA) {
-    resolve_delta<ORDERED>(s, q, act, s_delta, delta.capacity);
+
+  if (in) {
+    // One round trip for the values: the hit's, and (ordered) the last
+    // right and left turns'.
+    Lane s = init_lane();
+    s.found = w.found;
+    if (w.found) s.val = __ldg(a.values + w.hit);
+    if (ORDERED) {
+      s.pred_key = w.pred_key;
+      s.succ_key = w.succ_key;
+      s.rank = w.rank;
+      if (w.pred_node >= 0) s.pred_value = __ldg(a.values + w.pred_node);
+      if (w.succ_node >= 0) s.succ_value = __ldg(a.values + w.succ_node);
+    }
+    if constexpr (WITH_DELTA) {
+      // delta-hit > tombstone > tree-hit; the weight below q joins the rank
+      if (d_pos >= 0) {
+        s.val = d_tomb != 0 ? kSentinelValue : d_val;
+        s.found = d_tomb == 0;
+      }
+      if (ORDERED) s.rank += d_below;
+    }
+    if (a.overflow != nullptr) a.overflow[b] = overflow;
+    store<ORDERED>(a.out, b, s);
   }
-  if (overflow_out != nullptr) overflow_out[b] = overflow;
-  store<ORDERED>(out, b, s);
+  if constexpr (CTAS > 1) cluster_wait();  // no CTA leaves while read
 }
 
 Outputs make_outputs(int* val, bool* found, int* pred_key, int* pred_value,
@@ -394,6 +826,91 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
                            static_cast<int>(bytes));
   if (e == cudaSuccess) have = bytes;
   return e;
+}
+
+// One launch of a hybrid body: one cluster of CTAS CTAs per chunk.
+template <bool ORDERED, int MAPPING, bool WITH_DELTA, int CTAS, int K, int FLAGS>
+cudaError_t launch_hybrid(HybArgs a, cudaStream_t st) {
+  const auto kernel = hybrid_descend_kernel<ORDERED, MAPPING, WITH_DELTA, CTAS, K, FLAGS>;
+  const int ints = ((hyb_table_ints(a.split, MAPPING, CTAS, FLAGS) + 3) & ~3) +
+                   (WITH_DELTA ? hyb_delta_ints(a.delta.capacity, a.line, ORDERED, FLAGS) : 0);
+  const size_t smem = sizeof(int) * static_cast<size_t>(ints);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((a.B + kHybridBlock - 1) / kHybridBlock) * CTAS);
+  cfg.blockDim = dim3(kHybridBlock / CTAS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CTAS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CTAS > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int CTAS, int K, int FLAGS, bool WITH_DELTA>
+cudaError_t dispatch_hybrid(const HybArgs& a, bool ordered, int mapping, cudaStream_t st) {
+  if (ordered && mapping == kQueue) return launch_hybrid<true, kQueue, WITH_DELTA, CTAS, K, FLAGS>(a, st);
+  if (ordered) return launch_hybrid<true, kDirect, WITH_DELTA, CTAS, K, FLAGS>(a, st);
+  if (mapping == kQueue) return launch_hybrid<false, kQueue, WITH_DELTA, CTAS, K, FLAGS>(a, st);
+  return launch_hybrid<false, kDirect, WITH_DELTA, CTAS, K, FLAGS>(a, st);
+}
+
+// The design of the hybrid body that the entry points launch.
+constexpr int kHybCtas = 1;
+constexpr int kHybLevelsPerTrip = 2;
+constexpr int kHybStagedLevels = 8;
+
+// Levels staged in shared memory: at least the route's, so it never leaves
+// shared memory while the queue table fits.
+inline int hyb_staged_levels(int split) {
+  return std::min(std::max(kHybStagedLevels, split), kHybMaxStagedLevels);
+}
+
+// The shared memory one CTA of the hybrid body may take dynamically: the
+// opt-in limit less its largest static shared memory.  -(cudaError_t) on
+// failure.
+int hyb_smem_budget() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, hybrid_descend_kernel<true, kDirect, true, kHybCtas,
+                                                         kHybLevelsPerTrip, 0>);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return optin - static_cast<int>(attr.sharedSizeBytes);
+}
+
+int hyb_entry(const int* keys, const int* values, int n, int height, int split,
+              int mapping, int capacity, const int* queries, const bool* active,
+              int B, int ordered, const Delta& d, int* val, bool* found,
+              int* pred_key, int* pred_value, int* succ_key, int* succ_value,
+              int* rank, int* overflow_out, void* stream) {
+  (void)n;
+  const bool with_delta = d.capacity > 0;
+  HybArgs a{keys, values, height, split, hyb_staged_levels(split), capacity, queries, active, B,
+            make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
+            overflow_out, d, with_delta ? hyb_delta_line(d.capacity, ordered != 0) : kLine};
+  const int budget = hyb_smem_budget();
+  if (budget < 0) return -budget;
+  const int ints = ((hyb_table_ints(split, mapping, kHybCtas, 0) + 3) & ~3) +
+                   hyb_delta_ints(d.capacity, a.line, ordered != 0, 0);
+  if (static_cast<long long>(ints) * sizeof(int) > budget) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      with_delta ? dispatch_hybrid<kHybCtas, kHybLevelsPerTrip, 0, true>(a, ordered != 0, mapping, st)
+                 : dispatch_hybrid<kHybCtas, kHybLevelsPerTrip, 0, false>(a, ordered != 0, mapping, st);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -465,35 +982,22 @@ int forest_descend_delta(const int* keys, const int* values, int n, int height,
 }
 
 // keys/values: (n,) int32; queries: (B,) int32; active: (B,) bool or null;
-// mapping 0 = queue, 1 = direct; overflow_out: (B,) int32 or null.
+// mapping 0 = queue, 1 = direct; overflow_out: (B,) int32 or null.  A queue
+// split whose label table does not fit (hybrid_max_queue_split) is refused.
 int hybrid_descend(const int* keys, const int* values, int n, int height,
                    int split, int mapping, int capacity, const int* queries,
                    const bool* active, int B, int ordered, int* val,
                    bool* found, int* pred_key, int* pred_value, int* succ_key,
                    int* succ_value, int* rank, int* overflow_out,
                    void* stream) {
-  const dim3 grid((B + kHybridBlock - 1) / kHybridBlock);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Outputs out =
-      make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank);
-#define REPRO_HYBRID_LAUNCH(ORD, MAP)                                        \
-  hybrid_descend_kernel<ORD, MAP, false><<<grid, kHybridBlock, 0, st>>>(     \
-      keys, values, n, height, split, capacity, queries, active, B, out,     \
-      overflow_out, Delta{})
-  if (ordered && mapping == kQueue) {
-    REPRO_HYBRID_LAUNCH(true, kQueue);
-  } else if (ordered) {
-    REPRO_HYBRID_LAUNCH(true, kDirect);
-  } else if (mapping == kQueue) {
-    REPRO_HYBRID_LAUNCH(false, kQueue);
-  } else {
-    REPRO_HYBRID_LAUNCH(false, kDirect);
-  }
-#undef REPRO_HYBRID_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return hyb_entry(keys, values, n, height, split, mapping, capacity, queries, active, B,
+                   ordered, Delta{}, val, found, pred_key, pred_value, succ_key, succ_value,
+                   rank, overflow_out, stream);
 }
 
 // hybrid_descend with the delta buffer (K2), resolved after the stall round.
+// Any capacity >= 1: the buffer stays in global memory, a sample of it in
+// shared memory.
 int hybrid_descend_delta(const int* keys, const int* values, int n,
                          int height, int split, int mapping, int capacity,
                          const int* queries, const bool* active, int B,
@@ -503,41 +1007,38 @@ int hybrid_descend_delta(const int* keys, const int* values, int n,
                          int* pred_key, int* pred_value, int* succ_key,
                          int* succ_value, int* rank, int* overflow_out,
                          void* stream) {
-  const dim3 grid((B + kHybridBlock - 1) / kHybridBlock);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Outputs out =
-      make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank);
-  const Delta d{dkeys, dvals, dtomb, dweight, delta_capacity};
-  const size_t smem = sizeof(int) * delta_smem_ints(delta_capacity, ordered != 0);
-#define REPRO_HYBRID_DELTA_LAUNCH(ORD, MAP)                                   \
-  do {                                                                        \
-    const cudaError_t e =                                                     \
-        allow_smem(reinterpret_cast<const void*>(                             \
-                       &hybrid_descend_kernel<ORD, MAP, true>),               \
-                   smem);                                                     \
-    if (e != cudaSuccess) return static_cast<int>(e);                         \
-    hybrid_descend_kernel<ORD, MAP, true><<<grid, kHybridBlock, smem, st>>>(  \
-        keys, values, n, height, split, capacity, queries, active, B, out,    \
-        overflow_out, d);                                                     \
-  } while (0)
-  if (ordered && mapping == kQueue) {
-    REPRO_HYBRID_DELTA_LAUNCH(true, kQueue);
-  } else if (ordered) {
-    REPRO_HYBRID_DELTA_LAUNCH(true, kDirect);
-  } else if (mapping == kQueue) {
-    REPRO_HYBRID_DELTA_LAUNCH(false, kQueue);
-  } else {
-    REPRO_HYBRID_DELTA_LAUNCH(false, kDirect);
+  if (delta_capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return hyb_entry(keys, values, n, height, split, mapping, capacity, queries, active, B,
+                   ordered, Delta{dkeys, dvals, dtomb, dweight, delta_capacity}, val, found,
+                   pred_key, pred_value, succ_key, succ_value, rank, overflow_out, stream);
+}
+
+// The hybrid body's design, for the latency bound chip_smoke.py reports:
+// levels per global round trip, and levels staged in shared memory at a
+// split level.
+int hybrid_levels_per_trip() { return kHybLevelsPerTrip; }
+
+int hybrid_staged_levels(int split) { return hyb_staged_levels(split); }
+
+// The largest split level whose queue label table fits one CTA of the
+// hybrid body beside the largest delta sample, on the current device.
+// A negative return is -(cudaError_t).
+int hybrid_max_queue_split() {
+  const int budget = hyb_smem_budget();
+  if (budget < 0) return budget;
+  int split = 0;
+  while (sizeof(int) * static_cast<size_t>(((hyb_table_ints(split + 1, kQueue, kHybCtas, 0) + 3) & ~3) +
+                                           kSampleInts) <= static_cast<size_t>(budget)) {
+    ++split;
   }
-#undef REPRO_HYBRID_DELTA_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return split;
 }
 
 // The largest delta capacity whose ordered staging fits in one CTA of the
-// forest (hybrid = 0) or hybrid (hybrid = 1) kernel on the current device:
-// the shared memory a block may opt in to, less the kernel's static shared
-// memory.  A negative return is -(cudaError_t).
-int delta_capacity_limit(int hybrid) {
+// forest kernel on the current device: the shared memory a block may opt
+// in to, less the kernel's static shared memory.  A negative return is
+// -(cudaError_t).
+int delta_capacity_limit() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
@@ -546,13 +1047,55 @@ int delta_capacity_limit(int hybrid) {
                              dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaFuncAttributes attr;
-  e = hybrid ? cudaFuncGetAttributes(&attr,
-                                     hybrid_descend_kernel<true, kQueue, true>)
-             : cudaFuncGetAttributes(&attr, forest_descend_kernel<true, true>);
+  e = cudaFuncGetAttributes(&attr, forest_descend_kernel<true, true>);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const int ints =
       (optin - static_cast<int>(attr.sharedSizeBytes)) / static_cast<int>(sizeof(int));
   return (ints - 1 - kWarpSums) / 4;
+}
+
+// The design probe's entry point (hyb_probe.py): hybrid_descend_delta with
+// the body's variant chosen by `variant` and `staged` levels in shared
+// memory; delta_capacity 0 runs without the buffer.  Queue mapping only.
+int hybrid_descend_probe(int variant, int staged, const int* keys, const int* values,
+                         int height, int split, int capacity, const int* queries,
+                         const bool* active, int B, int ordered, const int* dkeys,
+                         const int* dvals, const int* dtomb, const int* dweight,
+                         int delta_capacity, int* val, bool* found, int* pred_key,
+                         int* pred_value, int* succ_key, int* succ_value, int* rank,
+                         int* overflow_out, void* stream) {
+  const bool with_delta = delta_capacity > 0;
+  const HybArgs a{keys, values, height, split, std::min(staged, kHybMaxStagedLevels), capacity,
+                  queries, active, B,
+                  make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
+                  overflow_out, Delta{dkeys, dvals, dtomb, dweight, delta_capacity},
+                  with_delta ? hyb_delta_line(delta_capacity, ordered != 0) : kLine};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool o = ordered != 0;
+#define REPRO_PROBE(ID, CTAS, K, FLAGS)                                              \
+  case ID:                                                                           \
+    return static_cast<int>(                                                         \
+        with_delta ? dispatch_hybrid<CTAS, K, FLAGS, true>(a, o, kQueue, st)         \
+                   : dispatch_hybrid<CTAS, K, FLAGS, false>(a, o, kQueue, st))
+  switch (variant) {
+    REPRO_PROBE(0, 1, 1, kLoopLabels | kVoteReplay | kStagedDelta);
+    REPRO_PROBE(1, 1, 1, kVoteReplay | kStagedDelta);
+    REPRO_PROBE(2, 1, 1, kStagedDelta);
+    REPRO_PROBE(3, 1, 2, kStagedDelta);
+    REPRO_PROBE(4, 1, 3, kStagedDelta);
+    REPRO_PROBE(5, 1, 4, kStagedDelta);
+    REPRO_PROBE(6, 1, 2, 0);
+    REPRO_PROBE(7, 1, 3, 0);
+    REPRO_PROBE(8, 1, 4, 0);
+    REPRO_PROBE(9, 4, 2, 0);
+    REPRO_PROBE(10, 4, 3, 0);
+    REPRO_PROBE(11, 8, 2, 0);
+    REPRO_PROBE(12, 2, 2, 0);
+    REPRO_PROBE(13, 1, 2, kThreadLineSums);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_PROBE
 }
 
 }  // extern "C"

@@ -55,6 +55,16 @@ def max_dest() -> int:
     return _build.library().lib.queue_dispatch_max_dest()
 
 
+def check_n_dest(n_dest: int) -> None:
+    """Raise if ``n_dest`` is above K4's limit (``max_dest``)."""
+    limit = max_dest()
+    if n_dest > limit:
+        raise ValueError(
+            f"n_dest {n_dest} is above K4's limit of {limit} destinations "
+            f"(its per-warp count table in shared memory)"
+        )
+
+
 def queue_dispatch_cuda(
     dest: torch.Tensor, n_dest: int, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -67,12 +77,7 @@ def queue_dispatch_cuda(
     if dest.device.type != "cuda":
         raise ValueError(f"queue_dispatch_cuda takes CUDA tensors, got {dest.device}")
     G, B = check_operands(dest, n_dest, capacity)
-    limit = max_dest()
-    if n_dest > limit:
-        raise ValueError(
-            f"n_dest {n_dest} is above K4's limit of {limit} destinations "
-            f"(its per-warp count table in shared memory)"
-        )
+    check_n_dest(n_dest)
     lead = tuple(dest.shape[:-1])
     buffers = torch.empty(lead + (n_dest, capacity), dtype=torch.int32, device=dest.device)
     counts = torch.empty(lead + (n_dest,), dtype=torch.int32, device=dest.device)

@@ -274,6 +274,232 @@ def bst_hybrid_ref(
     return _with_delta(outs, delta, queries, active)
 
 
+# ------------------------------------------------ the hybrid body's phases
+# Twins of the phases of ``hybrid_descend_kernel`` (csrc/forest_search.cu),
+# each repeating the kernel's own arithmetic; ``bst_hybrid_phases_ref``
+# composes them.  The tests hold them against ``_dispatch_lanes``,
+# ``bst_hybrid_ref`` and the JAX package's Pallas kernel.
+WARP = 32
+HYBRID_LEVELS_PER_TRIP = 2  # kHybLevelsPerTrip
+HYBRID_STAGED_LEVELS = 8  # kHybStagedLevels: at least the route's, at most
+HYBRID_MAX_STAGED_LEVELS = 11  # kHybMaxStagedLevels
+DELTA_LINE = 32  # delta slots per sampled line (kLine)
+DELTA_SAMPLE_INTS = 4096  # the sample's shared memory, in ints (kSampleInts)
+_WARP_SUMS = 32
+
+
+def warp_queue_labels(dest: torch.Tensor, live: torch.Tensor, n_sub: int, ctas: int = 1):
+    """The queue labels of (n_chunks, block_q) lanes as the kernel makes
+    them: each warp of 32 lanes ranks its live lanes among their
+    same-destination peers (``__match_any_sync``; rank = peers below), the
+    warps' per-destination counts fill a (warps, n_sub) table, each column
+    is scanned over the warps of a CTA and, in a cluster of ``ctas`` CTAs,
+    offset by the totals of the CTAs before it.  label = prefix + rank on
+    live lanes, 0 elsewhere: the FIFO exclusive count of ``_dispatch_lanes``."""
+    n, block_q = dest.shape
+    W = block_q // WARP
+    dev = dest.device
+    lw = live.reshape(n, W, WARP)
+    d = torch.where(lw, dest.reshape(n, W, WARP), -1)
+    peers = (d[..., :, None] == d[..., None, :]) & lw[..., None, :]  # (n, W, lane, peer)
+    lower = torch.ones(WARP, WARP, dtype=torch.bool, device=dev).tril(-1)  # peer < lane
+    rank = (peers & lower).sum(-1, dtype=torch.int32)
+    cols = torch.arange(n_sub, device=dev)
+    table = ((d[..., None] == cols) & lw[..., None]).sum(2, dtype=torch.int32)  # (n, W, n_sub)
+    per_cta = table.reshape(n, ctas, W // ctas, n_sub)
+    prefix = torch.cumsum(per_cta, 2, dtype=torch.int32) - per_cta
+    totals = per_cta.sum(2, dtype=torch.int32)
+    base = torch.cumsum(totals, 1, dtype=torch.int32) - totals
+    prefix = (prefix + base[:, :, None]).reshape(n, W, n_sub)
+    own = prefix.gather(2, d.clamp(min=0).long())
+    return torch.where(lw, own + rank, 0).reshape(n, block_q)
+
+
+def _walk_state(shape, device) -> List[torch.Tensor]:
+    """(idx, found, hit, pred_key, pred_node, succ_key, succ_node, rank):
+    the kernel's Walk, nodes by index (-1: none)."""
+
+    def full(v, dtype=torch.int64):
+        return torch.full(shape, int(v), dtype=dtype, device=device)
+
+    return [full(0), torch.zeros(shape, dtype=torch.bool, device=device), full(-1),
+            full(NO_PRED_KEY, torch.int32), full(-1), full(NO_SUCC_KEY, torch.int32), full(-1),
+            full(0, torch.int32)]
+
+
+def _walk_step(state, q, gate, nk, node, level, height, ordered):
+    """One compare of the lanes in ``gate`` that have not hit, at ``node``
+    of ``level`` with key ``nk``; returns the new state and the right turns."""
+    idx, found, hit_node, pk, pn, sk, sn, rank = state
+    live = gate & ~found
+    hit = live & (nk == q)
+    right = live & ~hit & (q > nk)
+    if ordered:
+        left_turn = live & ~hit & ~right
+        size = (1 << (height - level)) - 1
+        rank = rank + hit.int() * size + right.int() * (size + 1)
+        pk, pn = torch.where(right, nk, pk), torch.where(right, node, pn)
+        sk, sn = torch.where(left_turn, nk, sk), torch.where(left_turn, node, sn)
+    hit_node = torch.where(hit, node, hit_node)
+    idx = torch.where(live & ~hit, 2 * node + 1 + right.long(), idx)
+    return [idx, found | hit, hit_node, pk, pn, sk, sn, rank], right
+
+
+def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, k, ordered):
+    """Levels ``[l0, l1)`` of the flat tree ``keys`` (n,) for the lanes in
+    ``gate``, as the kernel walks them: levels below ``staged`` one at a
+    time, deeper ones ``k`` per round trip -- the 2^g - 1 keys under a
+    lane's node (depth j: ``(idx + 1) 2^j - 1 + m``, m < 2^j) gathered at
+    once, then resolved level by level, picking each level's key by the
+    path ``m`` taken so far.  Nodes by index; no value is read."""
+    n = keys.shape[0]
+    l = l0
+    while l < min(l1, staged):
+        node = state[0]
+        nk = keys[node.clamp(0, n - 1)]
+        state, _ = _walk_step(state, queries, gate, nk, node, l, height, ordered)
+        l += 1
+    l = max(l, staged)
+    while l < l1:
+        g = min(k, l1 - l)
+        i1 = state[0] + 1
+        runs = [((i1 << j) - 1)[..., None] + torch.arange(1 << j, device=keys.device)
+                for j in range(g)]
+        kk = keys[torch.cat(runs, -1).clamp(0, n - 1)]  # the round trip: (..., 2^g - 1)
+        m = torch.zeros_like(i1)
+        for j in range(g):
+            nk = kk.gather(-1, ((1 << j) - 1 + m)[..., None])[..., 0]
+            node = (i1 << j) - 1 + m
+            state, right = _walk_step(state, queries, gate, nk, node, l + j, height, ordered)
+            m = 2 * m + right.long()
+        l += g
+    return state
+
+
+def gather_values_ref(values, state, active, ordered):
+    """The end of the descent: one gather of the values a result needs (the
+    hit's; ordered, the last right and left turns'), into the kernel's
+    outputs."""
+    _, found, hit_node, pk, pn, sk, sn, rank = state
+
+    def at(node):
+        return torch.where(node >= 0, values[node.clamp(min=0)], SENTINEL_VALUE)
+
+    found = found & active
+    val = torch.where(found, at(hit_node), SENTINEL_VALUE)
+    if not ordered:
+        return val, found
+    return val, found, pk, at(pn), sk, at(sn), rank
+
+
+def delta_line(capacity: int, ordered: bool) -> int:
+    """Delta slots per sampled line: the smallest 32 x 2^e whose sample
+    fits the kernel's DELTA_SAMPLE_INTS (``hyb_delta_line``)."""
+    line = DELTA_LINE
+    while True:
+        n_lines = -(-capacity // line)
+        if (2 * n_lines + 1 + _WARP_SUMS if ordered else n_lines) <= DELTA_SAMPLE_INTS:
+            return line
+        line *= 2
+
+
+def delta_line_probe_ref(
+    delta_keys, delta_values, delta_tombstone, delta_weight, queries, active=None,
+    line: int = DELTA_LINE,
+):
+    """The hybrid kernel's delta resolution, per query ``(hit, dead, value,
+    weight_below)`` as ``bst_delta_resolve_ref`` gives it: the sample (the
+    first key of each ``line`` slots) places q after the sampled lines
+    whose first key is below it; one line of keys (and weights) then counts
+    the slots below q, pos; ``keys[pos] == q`` is a hit; weight_below is the
+    weight of the lines before plus the line's slots below q."""
+    C = delta_keys.shape[0]
+    n_lines = -(-C // line)
+    q = queries.reshape(-1)
+    starts = torch.arange(n_lines, device=q.device) * line
+    sample = delta_keys[starts]
+    line_w = torch.zeros(n_lines * line, dtype=torch.int32, device=q.device)
+    line_w[:C] = delta_weight
+    line_w = line_w.reshape(n_lines, line).sum(1, dtype=torch.int32)
+    line_pre = torch.cumsum(line_w, 0, dtype=torch.int32) - line_w
+    lo = (sample[None, :] < q[:, None]).sum(1)  # sampled lines whose first key < q
+    begin = (lo - 1).clamp(min=0) * line
+    slots = begin[:, None] + torch.arange(line, device=q.device)
+    inside = (slots < C) & (lo[:, None] > 0)
+    kl = delta_keys[slots.clamp(max=C - 1)]
+    below = inside & (kl < q[:, None])
+    pos = begin + below.sum(1)
+    end = torch.clamp(begin + line, max=C)
+    nxt = sample[lo.clamp(max=n_lines - 1)]
+    eq = (inside & (kl == q[:, None])).any(1)
+    hit = torch.where(lo == 0, sample[0] == q,
+                      eq | ((pos == end) & (lo < n_lines) & (nxt == q)))
+    wsum = torch.where(below, delta_weight[slots.clamp(max=C - 1)], 0).sum(1, dtype=torch.int32)
+    wbelow = torch.where(lo == 0, 0, line_pre[(lo - 1).clamp(min=0)] + wsum)
+    at = pos.clamp(max=C - 1)
+    dead = hit & (delta_tombstone[at] != 0)
+    value = torch.where(hit, delta_values[at], 0)
+    hit, dead, value, wbelow = (t.reshape(queries.shape) for t in (hit, dead, value, wbelow))
+    if active is not None:
+        hit = hit & active
+        wbelow = torch.where(active, wbelow, 0)
+    return hit, dead, value, wbelow
+
+
+def bst_hybrid_phases_ref(
+    tree_keys: torch.Tensor,
+    tree_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    split_level: int,
+    mapping: str,
+    capacity: int,
+    active: Optional[torch.Tensor] = None,
+    ordered: bool = True,
+    block_q: int = 512,
+    overflow_out: Optional[torch.Tensor] = None,
+    delta: Optional[DeltaOperands] = None,
+    staged: Optional[int] = None,
+    k: int = HYBRID_LEVELS_PER_TRIP,
+    ctas: int = 1,
+) -> Tuple[torch.Tensor, ...]:
+    """``bst_hybrid_ref``'s function through the kernel's own phases: the
+    route through ``[0, split_level)`` (``walk_levels_ref``), the warp
+    labels (``warp_queue_labels``) or the direct clash, the descent of
+    ``[split_level, H]`` for every active lane in one pass (an overflow
+    lane's replay from the route state reads nothing another lane writes),
+    one gather of the values, and the delta buffer through its sample
+    (``delta_line_probe_ref``).  ``staged`` (levels read from the shared
+    copy), ``k`` and ``ctas`` default to the kernel's design.  Must equal
+    ``bst_hybrid_ref`` bit for bit."""
+    B = queries.shape[0]
+    active = _active(queries, active)
+    pad = (-B) % block_q
+    q = torch.cat([queries, queries.new_zeros(pad)]).reshape(-1, block_q)
+    act = torch.cat([active, active.new_zeros(pad)]).reshape(-1, block_q)
+    n_sub = 1 << split_level
+    if staged is None:
+        staged = min(max(HYBRID_STAGED_LEVELS, split_level), HYBRID_MAX_STAGED_LEVELS)
+    staged = min(staged, height + 1)
+    state = _walk_state(q.shape, q.device)
+    state = walk_levels_ref(tree_keys, q, act, state, height, 0, split_level, staged, k, ordered)
+    live = act & ~state[1]
+    dest = torch.clamp(state[0] - (n_sub - 1), 0, n_sub - 1)
+    if mapping == "queue":
+        overflow = live & (warp_queue_labels(dest, live, n_sub, ctas) >= capacity)
+    else:
+        overflow = _dispatch_lanes(dest, live, mapping, n_sub, capacity)[1]
+    state = walk_levels_ref(tree_keys, q, act, state, height, split_level, height + 1,
+                            staged, k, ordered)
+    if overflow_out is not None:
+        overflow_out.copy_(overflow.reshape(-1)[:B])
+    outs = tuple(o.reshape(-1)[:B] for o in gather_values_ref(tree_values, state, act, ordered))
+    if delta is None:
+        return outs
+    line = delta_line(delta[0].shape[0], ordered)
+    return merge_delta_resolution(outs, *delta_line_probe_ref(*delta, queries, active, line))
+
+
 # ------------------------------------------------------------ queue dispatch
 def queue_dispatch_ref(
     dest: torch.Tensor, n_dest: int, capacity: int

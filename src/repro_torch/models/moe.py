@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import buffers as buf
+from repro_torch.kernels import queue_dispatch as QD
 from repro_torch.models.config import ModelConfig
 
 
@@ -56,6 +57,8 @@ class MoE(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, dtype: torch.dtype):
         super().__init__()
+        if cfg.moe_dispatch == "queue" and torch.device(device).type == "cuda":
+            QD.check_n_dest(cfg.n_experts)  # K4's limit, before any allocation
         for name, shape in moe_params_shape(cfg).items():
             setattr(self, name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype)))
         self.dropped = None

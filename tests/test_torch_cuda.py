@@ -155,13 +155,98 @@ def test_delta_kernels_match_their_plain_versions(cuda_device, C):
 def test_delta_capacity_past_the_shared_memory_limit_raises(cuda_device):
     keys, values = make_tree_data(1023, seed=1)
     tree = TT.build_tree(keys, values, device=cuda_device)
-    limit = K.delta_capacity_limit(cuda_device, False)
+    limit = K.delta_capacity_limit(cuda_device)
     assert 4096 < limit < 65536
     big = tuple(torch.zeros(limit + 1, dtype=torch.int32, device=cuda_device) for _ in range(4))
     q = torch.from_numpy(keys[:8]).to(cuda_device)
     with pytest.raises(ValueError, match=f"the limit is {limit} entries"):
         K.bst_ordered_forest_cuda(tree.keys[None], tree.values[None], q[None], tree.height,
                                   delta=big)
+
+
+def _hybrid_same(cuda_device, tree, q, act, split, mapping, cap, ordered, delta=None):
+    """The hybrid kernel (K3, or K2 with ``delta``) against ``bst_hybrid_ref``
+    on the CPU, overflow mask included; returns the lanes replayed."""
+    dev = cuda_device
+    ko = torch.full(q.shape, -7, dtype=torch.int32, device=dev)
+    ro = torch.full(q.shape, -7, dtype=torch.int32)
+    got = K.bst_hybrid_forest_cuda(
+        tree.keys.to(dev), tree.values.to(dev), q.to(dev), tree.height, split, mapping, cap,
+        active=None if act is None else act.to(dev), ordered=ordered, overflow_out=ko,
+        delta=None if delta is None else tuple(t.to(dev) for t in delta),
+    )
+    want = ref.bst_hybrid_ref(tree.keys, tree.values, q, tree.height, split, mapping, cap,
+                              active=act, ordered=ordered, overflow_out=ro, delta=delta)
+    _same(got + (ko,), want + (ro,))
+    return int(ro.sum())
+
+
+@pytest.mark.parametrize("mapping", ["queue", "direct"])
+@pytest.mark.parametrize("split", [0, 1, 2, 3, 4])
+def test_hybrid_kernel_matches_its_plain_version(cuda_device, split, mapping):
+    """Every split 0-4 at both mappings, membership and ordered: ragged B
+    (1, 511, 513, 8193), a tenth of the lanes inactive, capacity 1 and the
+    engine's, random keys and a chunk whose live lanes all share one
+    destination."""
+    keys, values, tree, pool = _case(32767, 8193, seed=split)
+    rng = np.random.default_rng(split)
+    for B in (1, 511, 513, 8193):
+        act = torch.from_numpy(rng.random(B) > 0.1)
+        one_dest = torch.full((B,), int(keys[len(keys) // 3]), dtype=torch.int32)
+        for cap in (1, invariants.buffer_capacity(512, 1 << split, 2.0)):
+            for ordered in (False, True):
+                _hybrid_same(cuda_device, tree, pool[:B].contiguous(), act, split, mapping, cap,
+                             ordered)
+                replayed = _hybrid_same(cuda_device, tree, one_dest, None, split, mapping, cap,
+                                        ordered)
+                assert replayed > 0 or cap >= min(B, 512)
+
+
+def test_hybrid_kernel_with_every_lane_inactive(cuda_device):
+    _, _, tree, q = _case(4095, 1500, seed=4)
+    for split, mapping in ((0, "queue"), (3, "direct"), (3, "queue")):
+        for ordered in (False, True):
+            assert _hybrid_same(cuda_device, tree, q, torch.zeros(1500, dtype=torch.bool), split,
+                                mapping, 1, ordered) == 0
+
+
+@pytest.mark.parametrize("C", [1, 4096, 20000])
+def test_hybrid_delta_kernel_matches_its_plain_version(cuda_device, C):
+    """K2 hybrid at C = 1, 4096 and 20,000 (past the ~14,000 the staged
+    form took: the buffer now stays in global memory)."""
+    keys, values = make_tree_data(32767, seed=C)
+    tree = TT.build_tree(keys, values, device="cpu")
+    buf = _buffer(keys, tree, C, seed=C, device="cpu")
+    d_ops = TD.operands(buf)
+    rng = np.random.default_rng(C)
+    pool = np.concatenate([keys, keys + 1, buf.keys[: int(buf.count)].numpy()])
+    q = torch.from_numpy(rng.choice(pool, 4099).astype(np.int32))
+    act = torch.from_numpy(rng.random(4099) > 0.1)
+    for split, mapping in ((2, "queue"), (3, "direct"), (3, "queue"), (0, "queue")):
+        cap = invariants.buffer_capacity(512, 1 << split, 2.0)
+        for ordered in (False, True):
+            _hybrid_same(cuda_device, tree, q, act, split, mapping, cap, ordered, delta=d_ops)
+
+
+def test_queue_split_past_the_label_table_raises(cuda_device):
+    keys, values = make_tree_data(8191, seed=1)  # height 12
+    tree = TT.build_tree(keys, values, device=cuda_device)
+    limit = K.hybrid_max_queue_split(cuda_device)
+    assert limit == 11
+    q = torch.from_numpy(keys[:600]).to(cuda_device)
+    with pytest.raises(ValueError, match="the limit is split level 11"):
+        K.bst_hybrid_forest_cuda(tree.keys, tree.values, q, tree.height, 12, "queue", 4)
+    # the direct mapping keeps no table: split 12 runs
+    ko = torch.zeros_like(q)
+    got = K.bst_hybrid_forest_cuda(tree.keys, tree.values, q, tree.height, 12, "direct", 4,
+                                   overflow_out=ko)
+    ro = torch.zeros(600, dtype=torch.int32)
+    want = ref.bst_hybrid_ref(tree.keys.cpu(), tree.values.cpu(), q.cpu(), tree.height, 12,
+                              "direct", 4, overflow_out=ro)
+    _same(got + (ko,), want + (ro,))
+    got = K.bst_hybrid_forest_cuda(tree.keys, tree.values, q, tree.height, 11, "queue", 4)
+    _same(got, ref.bst_hybrid_ref(tree.keys.cpu(), tree.values.cpu(), q.cpu(), tree.height, 11,
+                                  "queue", 4))
 
 
 @pytest.mark.parametrize("name", list(PAPER_CONFIGS))

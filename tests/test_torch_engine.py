@@ -144,3 +144,33 @@ def test_engine_inputs_and_errors():
     tree = TT.build_tree(keys, values, device="cpu")
     same = BSTEngine.from_tree(tree, EngineConfig(device="cpu"))
     np.testing.assert_array_equal(same.lookup(keys)[0].numpy(), values)
+
+
+def test_engine_checks_the_kernel_limits_at_construction(monkeypatch):
+    """On a CUDA device the constructor applies the limits of the kernels
+    its configuration launches before it allocates anything: the forest
+    kernel's staged delta buffer (hrz, dup) and the hybrid kernel's queue
+    label table (hyb), with the wrappers' messages.  The limit functions
+    are patched, so no card is needed."""
+    from repro_torch.kernels import bst_search as K
+
+    monkeypatch.setattr(K, "delta_capacity_limit", lambda device: 100)
+    monkeypatch.setattr(K, "hybrid_max_queue_split", lambda device: 2)
+    keys = np.arange(2, 2 * 64, 2, dtype=np.int32)
+    msg = ("delta capacity 4096 does not fit the shared memory of one forest_descend_delta "
+           "CTA on this card: the limit is 100 entries")
+    with pytest.raises(ValueError, match=msg):
+        BSTEngine(keys, keys, EngineConfig(delta_capacity=4096, device="cuda"))
+    with pytest.raises(ValueError, match="the limit is 100 entries"):
+        BSTEngine.from_tree(TT.build_tree(keys, keys, device="cpu"),
+                            EngineConfig(strategy="dup", n_trees=4, delta_capacity=101,
+                                         device="cuda"))
+    with pytest.raises(ValueError, match="split level 3 .* the limit is split level 2"):
+        BSTEngine(keys, keys, PAPER_CONFIGS["Hyb8q"])
+    # the direct mapping keeps no table, and the hybrid kernel reads the
+    # buffer in global memory: neither limit applies (what fails is the
+    # allocation on a machine without a card)
+    with pytest.raises(Exception) as err:
+        BSTEngine(keys, keys, dataclasses.replace(PAPER_CONFIGS["Hyb8"], delta_capacity=4096))
+    assert "the limit is" not in str(err.value)
+    BSTEngine(keys, keys, EngineConfig(delta_capacity=4096, device="cpu"))  # no card, no limit

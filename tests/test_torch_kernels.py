@@ -181,6 +181,166 @@ def test_hybrid_whole_batch_matches_jax_ref(mapping):
     np.testing.assert_array_equal(overflow.numpy().astype(bool), want_ovf)
 
 
+# ------------------------------------- the hybrid body's phases, as twins
+def _hyb_batch(keys, jt, B, seed):
+    """A skewed batch (it overflows the buffers) with the int32 extremes
+    among its keys and a tenth of its lanes inactive."""
+    q = _skewed_batch(keys, jt, B, seed)
+    q[: min(B, 2)] = EDGE_KEYS[: min(B, 2)]
+    act = np.random.default_rng(seed + 1).random(B) > 0.1
+    return q, act
+
+
+def _fifo_labels(dest, live):
+    """The serial network's labels: earlier live lanes of the chunk with the
+    same destination."""
+    out = np.zeros(dest.shape, np.int32)
+    for c in range(dest.shape[0]):
+        seen = {}
+        for i in np.flatnonzero(live[c]):
+            out[c, i] = seen.get(dest[c, i], 0)
+            seen[dest[c, i]] = out[c, i] + 1
+    return out
+
+
+@pytest.mark.parametrize("ctas", [1, 4])
+@pytest.mark.parametrize("split", [0, 1, 2, 3, 4])
+def test_warp_labels_match_jax_dispatch_lanes(split, ctas):
+    """The kernel's warp-aggregated labels (rank in the warp, per-warp count
+    table scanned over the warps, in a cluster over the CTAs) are the FIFO
+    labels, and at every capacity place exactly the lanes JAX's
+    ``_dispatch_lanes`` places, chunk by chunk."""
+    keys, jt, tt = _trees(1023, seed=5)
+    B = 1024
+    q, act = _hyb_batch(keys, jt, B, seed=split)
+    n_sub = 1 << split
+    qt = torch.from_numpy(q).reshape(-1, 512)
+    at = torch.from_numpy(act).reshape(-1, 512)
+    state = tref._walk_state(qt.shape, "cpu")
+    state = tref.walk_levels_ref(tt.keys, qt, at, state, tt.height, 0, split, 11, 4, False)
+    live = at & ~state[1]
+    dest = torch.clamp(state[0] - (n_sub - 1), 0, n_sub - 1)
+    labels = tref.warp_queue_labels(dest, live, n_sub, ctas)
+    np.testing.assert_array_equal(labels.numpy(), _fifo_labels(dest.numpy(), live.numpy()))
+    for cap in (1, 7, invariants.buffer_capacity(512, n_sub, 0.5)):
+        for c in range(B // 512):
+            sl = slice(512 * c, 512 * (c + 1))
+            np.testing.assert_array_equal(
+                (live[c] & (labels[c] >= cap)).numpy(),
+                _jax_overflow(jt, q[sl], act[sl], split, "queue", cap),
+                err_msg=f"capacity {cap} chunk {c}",
+            )
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("mapping", ["queue", "direct"])
+@pytest.mark.parametrize("split", [0, 1, 2, 3, 4])
+def test_hybrid_phases_match_pallas(split, mapping, ordered):
+    """The kernel's phases composed (route, warp labels or direct clash, the
+    descent K levels per round trip with the values gathered at the end)
+    against the Pallas kernel in interpret mode at B = 513 (a full chunk
+    and a ragged one), and against JAX's jnp oracle at B = 1 and 511 (one
+    chunk, which it dispatches whole), overflow mask included."""
+    keys, jt, tt = _trees(1023, seed=5)
+    cap = invariants.buffer_capacity(512, 1 << split, 0.5)
+    for B in (513, 511, 1):
+        q, act = _hyb_batch(keys, jt, B, seed=B + split)
+        if B == 513:
+            want = jops.bst_hybrid_forest(
+                jt.keys, jt.values, jnp.asarray(q), height=jt.height, split_level=split,
+                mapping=mapping, capacity=cap, active=jnp.asarray(act), block_q=512,
+                ordered=ordered, use_ref=False, interpret=True,
+            )
+        else:
+            want = jref.bst_hybrid_ref(jt.keys, jt.values, jnp.asarray(q), jt.height, split,
+                                       mapping, cap, active=jnp.asarray(act), ordered=ordered)
+        want_ovf = np.zeros(B, bool)
+        for c in range(0, B, 512):
+            sl = slice(c, c + 512)
+            want_ovf[sl] = _jax_overflow(jt, q[sl], act[sl], split, mapping, cap)
+        if B == 513:
+            assert want_ovf.any()  # the skew reached the stall round
+        for k, staged in ((2, None), (4, 11), (3, 0), (1, split)):
+            overflow = torch.full((B,), -7, dtype=torch.int32)
+            got = tref.bst_hybrid_phases_ref(
+                tt.keys, tt.values, torch.from_numpy(q), tt.height, split, mapping, cap,
+                active=torch.from_numpy(act), ordered=ordered, overflow_out=overflow,
+                staged=staged, k=k,
+            )
+            tag = f"B={B} split={split} {mapping} k={k} staged={staged}"
+            _assert_same(got, want, tag)
+            np.testing.assert_array_equal(overflow.numpy().astype(bool), want_ovf, err_msg=tag)
+
+
+def _sorted_buffer(C, seed):
+    """A delta buffer's four operands in numpy: sorted unique keys (the
+    extremes among them) with an INT32_MAX tail of empty slots, values,
+    tombstones, and signed weights (0 on the empty slots)."""
+    rng = np.random.default_rng(seed)
+    n_live = max(1, C - C // 5)
+    live = rng.choice(np.arange(-(2**31) + 1, 2**31 - 1, 5, dtype=np.int64), n_live, replace=False)
+    live[: min(2, n_live)] = EDGE_KEYS[: min(2, n_live)]
+    dk = np.full(C, 2**31 - 1, np.int32)
+    dk[:n_live] = np.sort(live).astype(np.int32)
+    dv = rng.integers(0, 2**31 - 1, C, dtype=np.int32)
+    dt = (rng.random(C) < 0.3).astype(np.int32)
+    dw = rng.integers(-3, 4, C).astype(np.int32)
+    dw[n_live:] = 0
+    q = np.concatenate([rng.choice(dk[:n_live], 200), dk[:n_live][:64] + 1,
+                        rng.integers(-(2**31) + 1, 2**31 - 2, 200), EDGE_KEYS]).astype(np.int32)
+    q = np.minimum(q, 2**31 - 2)  # INT32_MAX is the empty slots' key: outside the contract
+    return (dk, dv, dt, dw), q, rng.random(q.size) > 0.1
+
+
+@pytest.mark.parametrize("C", [1, 2, 33, 4096, 20000, 140000])
+def test_delta_line_probe_matches_jax_resolution(C):
+    """The hybrid kernel's delta resolution (a sample of the sorted keys,
+    then one line of keys and weights) against JAX's broadcast oracle, at
+    sample lines of 32 slots and, past 65,536 slots, of 64 and 128."""
+    ops4, q, act = _sorted_buffer(C, seed=C)
+    want = jref.bst_delta_resolve_ref(*(jnp.asarray(x) for x in ops4), jnp.asarray(q),
+                                      jnp.asarray(act))
+    want = (want[0], want[1], jnp.where(want[0], want[2], 0), want[3])
+    for ordered in (False, True):
+        line = tref.delta_line(C, ordered)
+        assert (line == 32) == (C <= 65536 or not ordered and C <= 131072)
+        hit, dead, value, wbelow = tref.delta_line_probe_ref(
+            *(torch.from_numpy(x) for x in ops4), torch.from_numpy(q), torch.from_numpy(act), line
+        )
+        _assert_same((hit, dead, torch.where(hit, value, 0), wbelow), want, f"C={C} line={line}")
+
+
+@pytest.mark.parametrize("C,split,mapping,ordered", [(1, 3, "queue", True), (64, 2, "direct", False),
+                                                      (64, 3, "queue", False)])
+def test_hybrid_phases_with_delta_match_pallas(C, split, mapping, ordered):
+    """The composed phases with the delta buffer (stored and absent keys
+    of the tree) against the Pallas kernel in interpret mode."""
+    keys, jt, tt = _trees(1023, seed=5)
+    (_, dv, dt, dw), _, _ = _sorted_buffer(C, seed=C)
+    live = np.unique(np.random.default_rng(C).choice(np.concatenate([keys, keys + 1]), C))
+    dk = np.full(C, 2**31 - 1, np.int32)
+    dk[: live.size] = live
+    dw[live.size:] = 0
+    d_ops = (dk, dv, dt, dw)
+    B = 700
+    q, act = _hyb_batch(keys, jt, B, seed=C)
+    q[B // 2:] = np.random.default_rng(1).choice(np.concatenate([keys, live]), B - B // 2)
+    cap = invariants.buffer_capacity(512, 1 << split, 2.0)
+    want = jops.bst_hybrid_forest(
+        jt.keys, jt.values, jnp.asarray(q), height=jt.height, split_level=split,
+        mapping=mapping, capacity=cap, active=jnp.asarray(act), block_q=512,
+        ordered=ordered, use_ref=False, interpret=True, delta=tuple(jnp.asarray(x) for x in d_ops),
+    )
+    overflow = torch.zeros(B, dtype=torch.int32)
+    got = tref.bst_hybrid_phases_ref(
+        tt.keys, tt.values, torch.from_numpy(q), tt.height, split, mapping, cap,
+        active=torch.from_numpy(act), ordered=ordered, overflow_out=overflow,
+        delta=tuple(torch.from_numpy(x) for x in d_ops),
+    )
+    _assert_same(got, want, f"C={C} split={split} {mapping}")
+    assert int(overflow.sum()) > 0
+
+
 # ---------------------------------------------------------------- edge cases
 def test_height_zero_tree_matches_pallas():
     jt = JT.build_tree(np.array([100], np.int32), np.array([7], np.int32))

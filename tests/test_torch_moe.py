@@ -343,3 +343,18 @@ def test_moe_serving_entry_point_on_the_cpu(capsys):
                  "--batch", "2", "--prompt-len", "8", "--new-tokens", "4"])
     out = capsys.readouterr().out
     assert "prefill: 2x8" in out and "decode: 4 tokens x 2 seqs" in out
+
+
+def test_moe_layer_checks_k4_n_dest_at_construction(monkeypatch):
+    """On a CUDA device a queue-dispatched MoE layer applies K4's limit on
+    its destinations (the experts) before it allocates its weights; the
+    limit is patched, so no card is needed."""
+    from repro_torch.kernels import queue_dispatch as QD
+
+    monkeypatch.setattr(QD, "max_dest", lambda: 2)
+    cfg = tconfigs.smoke_config("mixtral_8x7b")
+    assert cfg.moe_dispatch == "queue" and cfg.n_experts > 2
+    with pytest.raises(ValueError, match=f"n_dest {cfg.n_experts} is above K4's limit of 2"):
+        tmoe.MoE(cfg, "cuda", torch.float32)
+    tmoe.MoE(cfg, "cpu", torch.float32)  # the plain version has no limit
+    tmoe.MoE(dataclasses.replace(cfg, moe_dispatch="direct"), "meta", torch.float32)
