@@ -3,25 +3,27 @@
 
     python3 hyb_probe.py [--parent build/parent/forest_search.cu] [--json PATH]
 
-Builds the port's kernels, and with ``--parent`` also the parent's
-``forest_search.cu`` (the body before this redesign) into a library of its
-own.  Over the 2^24 - 1 key tree of ``chip_smoke.py`` at the Hyb8q shapes
-(split 3, capacity 128; membership x 8192 and ordered x 16384 lanes of the
-``random`` key set, with and without a full 4096-entry delta buffer) it
-holds every variant of the body (``hybrid_descend_probe``) against the plain
-version bit for bit, overflow mask included, on the random and the skewed
-``equal`` keys, then times each with chip_smoke's cold-L2 timer, in turns
-with the parent's kernel, the entry point's design, K1 and
-``torch.searchsorted``.  Variants (csrc/forest_search.cu,
-``hybrid_descend_probe``): 0 = PR 15's design (O(tid) label loop, stall
-round behind a vote, staged delta, one level per round trip); 1 = with
-warp-aggregated labels; 2 = and the stall round in the same pass; 3-5 =
-and K = 2, 3, 4 levels per round trip; 6-8 = the same with the delta
-buffer in global memory (a sample of it staged); 9, 10 = 4-CTA clusters at
-K = 2, 3; 11 = 8-CTA clusters at K = 2; 12 = 2-CTA clusters at K = 2; 13 =
-variant 6 with a thread, not a warp, summing each sampled line's weights.
-Each with S staged levels.
-Ends with the pointer chase (L_HBM, L_L2).
+Builds the port's kernels; ``hyb_probe_variants.cu`` (the body with its
+design variants behind template flags, entry point
+``hybrid_descend_probe``) into a library of its own; and with ``--parent``
+the parent's ``forest_search.cu`` (the body before the redesign) into a
+third.  Over the 2^24 - 1 key tree of ``chip_smoke.py`` at the Hyb8q
+shapes (split 3, capacity 128; membership x 8192 and ordered x 16384 lanes
+of the ``random`` key set, with and without a full 4096-entry delta
+buffer) it holds each variant against the plain version bit for bit,
+overflow mask included, on the random and the skewed ``equal`` keys, then
+times it with chip_smoke's cold-L2 timer, in turns with the parent's
+kernel, the port's entry point, K1 and ``torch.searchsorted``.  Variants:
+0 = the parent's design (O(tid) label loop, stall round behind a vote, the
+delta buffer staged whole, one level per round trip); 2 = with
+warp-aggregated labels and the stall round in the same pass; 6 = and two
+levels per round trip below 8 staged levels, the delta buffer in global
+memory through a sample whose line weights a warp sums; 13 = the same with
+a thread summing each line (the entry point's design).  Timing only, with
+parts of the delta work left out (wrong answers, not checked): 14-16 =
+variant 0 without the lanes' search, without the weight scan, without the
+staging; 17-19 = variant 13 without the lanes' line probe, without the
+line weights, without the sample.  Ends with the pointer chase.
 """
 
 from __future__ import annotations
@@ -47,23 +49,33 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import bst_search as K
 
 VARIANTS = {  # id: staged levels to try
-    0: (3,), 1: (3,), 2: (3,), 3: (8,), 4: (8,), 5: (8,),
-    6: (6, 7, 8, 9, 10, 11), 7: (6, 7, 8, 9, 10, 11), 8: (6, 7, 8, 9, 10, 11),
-    9: (8,), 10: (8,), 11: (8,), 12: (8,), 13: (8,),
+    0: (3,), 2: (3,), 6: (8,), 13: (8,),
+    14: (3,), 15: (3,), 16: (3,), 17: (8,), 18: (8,), 19: (8,),
 }
 
 
-def build_parent(src: str):
-    out = os.path.splitext(src)[0] + ".so"
+TIMING_ONLY = (14, 15, 16, 17, 18, 19)  # parts of the delta work left out: no check
+
+
+def build_parent(src: str, names=("hybrid_descend", "hybrid_descend_delta")):
+    out = os.path.join("build", "probe", os.path.basename(os.path.splitext(src)[0]) + ".so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     nvcc = _build.nvcc_path()
     cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
            "-o", out, src]
     subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(out)
-    for name in ("hybrid_descend", "hybrid_descend_delta"):
-        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+    for name in names:
+        getattr(lib, name).argtypes = PROBE_SIGNATURE if name == "hybrid_descend_probe" else _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# variant, staged levels, keys, values, height, split, capacity, queries,
+# active, B, ordered, the delta buffer's four operands and capacity, 7
+# outputs, overflow_out, stream
+PROBE_SIGNATURE = [_I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I] + [_P] * 4 + [_I] + [_P] * 7 + [_P, _P]
 
 
 def outputs(B, ordered, dev="cuda"):
@@ -86,6 +98,7 @@ def call(fn_ptr, pre, tree, q, split, cap, ordered, d_ops, ovf, post_delta: bool
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent")
+    parser.add_argument("--variants", default="hyb_probe_variants.cu")
     parser.add_argument("--json", default="chiprun_out/hyb_probe.json")
     parser.add_argument("--reps", type=int, default=cs.TIMING_REPS)
     args = parser.parse_args()
@@ -101,7 +114,7 @@ def main() -> int:
         if k.startswith("hybrid") or k.startswith("forest"):
             print(f"  {k}: {v}", flush=True)
     parent = build_parent(args.parent) if args.parent else None
-    lib = built.lib
+    lib = build_parent(args.variants, ("hybrid_descend_probe",))
 
     keys, values = make_tree_data(cs.N_KEYS)
     tree = build_tree(keys, values, device="cuda")
@@ -155,12 +168,15 @@ def main() -> int:
                 runs.append(("parent (PR 15)", parent_fn))
             runs.append(("entry point", entry_fn))
             for v, Ss in VARIANTS.items():
+                if v in TIMING_ONLY and not with_delta:
+                    continue
                 for S in Ss:
                     runs.append((f"v{v} S={S}", functools.partial(variant_fn, v, S)))
             if parent is not None:
                 runs.append(("parent (PR 15) again", parent_fn))
             for name, fn in runs:
-                for tag, q in sets_q.items():
+                timing_only = name.startswith("v") and int(name[1:].split()[0]) in TIMING_ONLY
+                for tag, q in ({} if timing_only else sets_q).items():
                     ovf = torch.full_like(q, -7)
                     got = fn(q, ovf) + (ovf,)
                     torch.cuda.synchronize()
@@ -169,7 +185,7 @@ def main() -> int:
                 ovf = torch.empty_like(q)
                 ms = timer(functools.partial(fn, q, ovf), reps=args.reps)
                 rows.append({"config": cfg, "variant": name, "ms": ms})
-                print(f"  {cfg} {name}: 0 mismatches, ms={ms!r}", flush=True)
+                print(f"  {cfg} {name}: {'timing only' if timing_only else '0 mismatches'}, ms={ms!r}", flush=True)
             # controls: K1 (forest) and the library call at the same lanes
             q = sets_q["random"]
             fk, fv = tree.keys[None], tree.values[None]
