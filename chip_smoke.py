@@ -8,16 +8,18 @@ Phases, in order; any failure raises and exits non-zero:
 1. identify the card (name and power limit from nvidia-smi, versions);
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
    process per source, all at once), and report ptxas's registers, spills
-   and shared memory per kernel, K2's theoretical occupancy, and the
-   HGMMA (wgmma) instructions in each K5 body's SASS (``cuobjdump``): the
-   bf16 body must have some;
+   and shared memory per kernel, K2's theoretical occupancy, the kernels'
+   shared-memory limits (the forest kernel's delta capacity, the hybrid
+   body's queue split), and the HGMMA (wgmma) instructions in each K5
+   body's SASS (``cuobjdump``): the bf16 body must have some;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
    height-0 and minimal hybrid trees; then the delta configuration (K2)
    of both kernels the same way, against a full 4096-entry write buffer
    (upserts, overwrites, tombstones of stored and absent keys), an empty
-   one and a one-entry one;
+   one and a one-entry one, and the hybrid kernel against a 20,000-entry
+   buffer, past what the forest kernel can stage;
 4. serve the paper's streams through ``BSTServer`` for each of the seven
    paper configurations over the same tree, check every answer against a
    numpy searchsorted oracle, and check that each kernel of the path was
@@ -30,11 +32,14 @@ Phases, in order; any failure raises and exits non-zero:
    chunk, one per compaction) and the launch counts (K2 once per read
    chunk, K1 or K3 once per ingest chunk) are checked, and so is the
    snapshot after a final compaction;
-5. at the main path's shapes, hold each kernel configuration against its
+5. measure the card's dependent-load latency with the pointer chase
+   (``csrc/pointer_chase.cu``: L_HBM, cold 64 MiB; L_L2, warm 4 MiB); at
+   the main path's shapes, hold each kernel configuration against its
    plain version once more, then time the kernel, its plain version and
    ``torch.searchsorted`` (the library yardstick, never called by the port)
-   with CUDA events, beside the byte bound of the same work; K2 likewise
-   with the full buffer, its yardstick searching the merged sorted view;
+   with CUDA events, beside the byte bound of the same work and the latency
+   bound, a lane's global round trips x L_HBM; K2 likewise with the full
+   buffer, its yardstick searching the merged sorted view;
 6. LM serving of qwen3-1.7b at full width and depth (28 layers): kernel K5
    (flash attention) against its plain version in fp32 and bf16 at the JAX
    package's sweep shapes, at Sq > Skv, at the edges of the bf16 body's

@@ -69,13 +69,6 @@ _SIGNATURES = {
     "hybrid_max_queue_split": [],
     "hybrid_levels_per_trip": [],
     "hybrid_staged_levels": [_I],  # split
-    # variant, staged levels, keys, values, height, split, capacity, queries,
-    # active, B, ordered, the delta buffer as above, 7 outputs, overflow_out,
-    # stream
-    "hybrid_descend_probe": [_I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I]
-    + [_P, _P, _P, _P, _I]
-    + [_P] * 7
-    + [_P, _P],
     # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
     "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "queue_dispatch_max_dest": [],

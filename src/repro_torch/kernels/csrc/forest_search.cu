@@ -18,43 +18,66 @@
 //       sorted delta buffer of pending upserts and tombstones resolved in
 //       the same pass, after the whole descent (after the stall round).
 //
-// What bounds them on this card: each lane walks H+1 levels, and the address
-// of every level's node depends on the compare at the level above, so one
-// lane is a chain of H+1 dependent global loads (about 24 for the 2^24-key
-// tree).  The bytes are few (a key, and a value where needed, per level) and
-// the arithmetic is a handful of int32 compares, so neither DRAM bandwidth
-// nor the ALUs is the limit: it is load latency times depth, hidden only by
-// the number of lanes in flight.  The byte bound (distinct nodes touched
-// over 3.35 TB/s) that chip_smoke.py reports is therefore far below what the
-// chain allows.
+// What bounds them on this card.  Each lane walks H+1 levels and the
+// address of every level's node depends on the compare at the level above,
+// so a lane is a chain of dependent loads (H+1 = 24 for the 2^24-key tree).
+// The bytes are few and the arithmetic is a handful of int32 compares, so
+// neither the HBM rate nor the ALUs is the limit: it is the dependent round
+// trips on the chain, each an HBM latency (L_HBM) once the L2 is cold, and
+// the rate at which the memory system serves the lanes' scattered 32-byte
+// sectors, about one per lane per level below the staged ones.
+// chip_smoke.py reports both the byte bound and round trips x L_HBM
+// (L_HBM from csrc/pointer_chase.cu).
 //
-// What the design does about it: one thread per query lane with few
-// registers, so many lanes are resident per SM; the top levels, which every
-// lane reads, sit in shared memory; deeper levels go through the read-only
-// path (__ldg) and stay int32; a lane that hits stops at once; the value of a
-// node is read only where a result needs it (a hit, or any turn in the
-// ordered configuration).  The hybrid kernel runs each 512-lane chunk as one
-// CTA: the dispatch labels are computed in shared memory, and the stall
-// round is a second pass behind a block-wide vote, so chunks that do not
-// overflow pay nothing for it.  Making the chain itself shorter (software
-// prefetch of both children, several lanes per thread) is later work.
+// The forest kernel (K1, K2 forest): one thread per lane, 256 per CTA; the
+// top REGISTER_LEVELS levels staged in shared memory, deeper levels one
+// __ldg round trip each (about 21); the value read where a result needs it
+// (a hit, or any turn in the ordered configuration); the delta buffer
+// staged whole in dynamic shared memory: keys, values, tombstones and (for
+// the ordered configuration) the exclusive prefix of the weights, a
+// block-wide scan.  A lane then does one lower-bound binary search, pos =
+// #keys < q: hit = pos < C && keys[pos] == q, value and tombstone at pos,
+// and the rank gains prefix[pos].  The staging takes 16 C + 132 bytes of
+// one CTA's shared memory, so C is bounded by what one CTA may opt in to
+// (227 KiB on the H100: about 14,000; delta_capacity_limit() says
+// exactly).
 //
-// The delta configuration.  The buffer is four (C,) int32 operands: keys in
-// ascending order with an INT32_MAX tail of empty slots, values, tombstone
-// flags and signed rank weights (0 on empty slots).  Each CTA stages keys,
-// values and tombstones in dynamic shared memory and, for the ordered
-// configuration, the exclusive prefix of the weights (a block-wide scan).
-// An active lane then does one lower-bound binary search, pos = #keys < q:
-// hit = pos < C && keys[pos] == q, value and tombstone are read at pos, and
-// the rank gains prefix[pos].  Live keys are unique and sorted (ingest
-// dedups them) and empty slots carry weight 0, so this equals the Pallas
-// body's broadcast sums bit for bit.  A query equal to INT32_MAX is outside
-// the op contract (it would meet the empty slots' key), so no input of the
-// path carries one.  The staging takes 16 C + 132 bytes of shared memory per
-// CTA, so the capacity is bounded by what one CTA may opt in to (227 KiB on
-// the H100: C up to about 14,000; delta_capacity_limit() says exactly), and
-// it bounds occupancy: a 4096-entry buffer leaves room for three CTAs per SM.
-// Making it fast is later work.
+// The hybrid body (K3, K2 hybrid), one 512-thread CTA per 512-lane
+// dispatch chunk:
+//  * Stage the top S = max(8, split) levels (at most 11) of keys in shared
+//    memory, so the route through [0, split) never leaves it.
+//  * Queue labels as K4 makes them, with no loop over earlier lanes: a warp
+//    ranks its live lanes among their same-destination peers
+//    (__match_any_sync; rank = popc of the peers below), the lowest lane of
+//    each peer group writes the warp's count to a (16 warps x 2^split)
+//    table in dynamic shared memory, one thread per destination turns its
+//    column into an exclusive scan over the warps, and label = prefix +
+//    rank: the serial FIFO label, without atomics.  The table bounds the
+//    queue split at 11 (128 KiB; hybrid_max_queue_split()).  The direct
+//    mapping's clash stays ceil(512 / capacity) - 1 compares.
+//  * Below S, K = 2 levels per round trip: the 2^K - 1 keys under a lane's
+//    node are K contiguous runs of the BFS layout (depth j: (idx + 1) 2^j
+//    - 1 + m), loaded at once and resolved in registers, a hit stopping the
+//    lane inside the group.  The same nodes are compared in the same order
+//    as a level-by-level descent, so the rank arithmetic is unchanged.  A
+//    lane keeps node indices only; the values it needs (the hit's, the last
+//    right and left turns') are gathered in one round trip at the end.
+//    At H = 23: 1 + 8 + 1 round trips a lane instead of 1 + 21 (+1).
+//  * The stall round: an overflow lane replays [split, H] from its route
+//    state, as the Pallas body does; it reads nothing another lane writes,
+//    so it runs in the same pass as the placed lanes, behind no vote.
+//  * The delta buffer stays in global memory: each CTA stages a sample (the
+//    first key of every line of 32 slots, more past 65,536 slots so that it
+//    fits 16 KiB) and, ordered, the weight of the slots before each line; a
+//    lane finds its line in the sample, reads that line's keys (and
+//    weights) in one round trip before the route, and its value and
+//    tombstone during the descent.  pos, the hit and the weight below q are
+//    those of a binary search over the whole buffer, so any capacity runs.
+// Tried on the card and not kept (PERF.md, PR 16): 3 and 4 levels per round
+// trip (no faster: the scattered sectors a lane reads per level stay about
+// one, and more bytes cost more than fewer trips save), the chunk spread
+// over a cluster of 2, 4 or 8 CTAs (no faster), the whole buffer staged per
+// CTA (slower).
 //
 // Sentinels stay int32: INT32_MIN (no predecessor), INT32_MAX (no successor)
 // and -1 (no value).
@@ -67,7 +90,6 @@
 #include <mutex>
 #include <utility>
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -305,22 +327,18 @@ __global__ void __launch_bounds__(kForestBlock)
 }
 
 // ---------------------------------------------------------------------------
-// K3 and K2 hybrid: the hybrid body (hybrid_descend_kernel).  One 512-lane
-// dispatch chunk is CTAS CTAs of 512 / CTAS threads, a cluster when CTAS > 1.
-// A lane's descent is kept by node index (Walk); the values a result needs
-// are gathered once, after the descent.
+// K3 and K2 hybrid: the hybrid body (hybrid_descend_kernel), one 512-thread
+// CTA per 512-lane dispatch chunk.  A lane's descent is kept by node index
+// (Walk); the values a result needs are gathered once, after the descent.
 
 constexpr int kChunkWarps = kHybridBlock / 32;
-constexpr int kHybMaxStagedLevels = 11;  // levels staged in shared memory, at most
+constexpr int kHybLevelsPerTrip = 2;  // global levels per round trip (K)
+constexpr int kHybStagedLevels = 8;   // levels staged in shared memory (S) ...
+constexpr int kHybMaxStagedLevels = 11;  // ... raised to the split, up to 11
 constexpr int kHybStaged = (1 << kHybMaxStagedLevels) - 1;  // 2047 keys: 8 KiB
 constexpr int kLine = 32;  // delta slots per sampled line: 128 bytes of keys
 constexpr int kSampleInts = 4096;  // the delta sample's shared memory, in ints
 constexpr unsigned kFullMask = 0xffffffffu;
-// Variants of the body, timed by the design probe (hyb_probe.py).
-constexpr int kLoopLabels = 1;   // PR 15's O(tid) label loop
-constexpr int kVoteReplay = 2;   // the stall round as a second pass behind a vote
-constexpr int kStagedDelta = 4;  // PR 12's staged delta buffer
-constexpr int kThreadLineSums = 8;  // a thread per line sums the delta weights
 
 struct Walk {
   int idx;        // the next node to compare
@@ -470,10 +488,11 @@ __device__ void block_prefix(int* a, int n, int* s_warp) {
 
 // The delta buffer's sample: the first key of each `line` slots, and for
 // the ordered configuration the signed weight of the slots before each
-// sampled line.  Shared memory: n_lines + (ordered) n_lines + 1 + kWarpSums
-// ints.  Every thread of the block must call it; the caller's
-// __syncthreads() publishes the last writes.
-template <bool ORDERED, bool THREAD_SUMS>
+// sampled line (a thread sums a line, the block scans the sums).  Shared
+// memory: n_lines + (ordered) n_lines + 1 + kWarpSums ints.  Every thread
+// of the block must call it; the caller's __syncthreads() publishes the
+// last writes.
+template <bool ORDERED>
 __device__ void stage_lines(const Delta& d, int line, int* s) {
   const int C = d.capacity;
   const int n_lines = (C + line - 1) / line;
@@ -481,7 +500,7 @@ __device__ void stage_lines(const Delta& d, int line, int* s) {
   int* s_pre = s + n_lines;
   for (int j = threadIdx.x; j < n_lines; j += blockDim.x) {
     s[j] = __ldg(d.keys + j * line);
-    if (ORDERED && THREAD_SUMS) {
+    if (ORDERED) {
       const int lo = j * line;
       const int hi = min(lo + line, C);
       int sum = 0;
@@ -490,29 +509,12 @@ __device__ void stage_lines(const Delta& d, int line, int* s) {
     }
   }
   if (!ORDERED) return;
-  if (!THREAD_SUMS) {
-    // a warp per line: 32 coalesced weights at a time, summed by a shuffle
-    const int lane = threadIdx.x & 31;
-    for (int j = threadIdx.x >> 5; j < n_lines; j += blockDim.x >> 5) {
-      const int hi = min(j * line + line, C);
-      int sum = 0;
-      for (int p = j * line + lane; p < hi; p += 32) sum += __ldg(d.weight + p);
-      sum = __reduce_add_sync(kFullMask, sum);
-      if (lane == 0) s_pre[j + 1] = sum;
-    }
-  }
   __syncthreads();
   block_prefix(s_pre, n_lines, s_pre + n_lines + 1);
 }
 
-// A lane's slot in the delta buffer, from the sample and one line of keys
-// (and weights) in global memory: pos = #keys < q.  Returns the slot if
-// keys[pos] == q, else -1; `below` gets the weight of the slots under q.
-template <bool ORDERED>
-__device__ __forceinline__ int probe_lines(const Delta& d, int line,
-                                           const int* s, int q, int& below) {
-  const int C = d.capacity;
-  const int n_lines = (C + line - 1) / line;
+// The sampled lines whose first key is below q: q's line is the one before.
+__device__ __forceinline__ int sample_rank(const int* s, int n_lines, int q) {
   int lo = 0;
   int hi = n_lines;
   while (lo < hi) {
@@ -523,6 +525,65 @@ __device__ __forceinline__ int probe_lines(const Delta& d, int line,
       hi = mid;
     }
   }
+  return lo;
+}
+
+// 32 slots of the buffer in registers: keys and (ordered) weights.
+struct LineRegs {
+  int4 k[kLine / 4];
+  int4 w[kLine / 4];
+};
+
+template <bool ORDERED>
+__device__ __forceinline__ void load_line(const Delta& d, int p, LineRegs& r) {
+  const int4* kv = reinterpret_cast<const int4*>(d.keys + p);
+  const int4* wv = reinterpret_cast<const int4*>(d.weight + p);
+#pragma unroll
+  for (int i = 0; i < kLine / 4; ++i) {
+    r.k[i] = __ldg(kv + i);
+    if (ORDERED) r.w[i] = __ldg(wv + i);
+  }
+}
+
+// Adds the slots of r below q (and their weights) and whether one is q.
+template <bool ORDERED>
+__device__ __forceinline__ void count_line(const LineRegs& r, int q, int& n_below,
+                                           bool& eq, int& wsum) {
+#pragma unroll
+  for (int i = 0; i < kLine / 4; ++i) {
+    const int kx[4] = {r.k[i].x, r.k[i].y, r.k[i].z, r.k[i].w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      n_below += kx[u] < q;
+      eq = eq || kx[u] == q;
+    }
+    if (ORDERED) {
+      const int wx[4] = {r.w[i].x, r.w[i].y, r.w[i].z, r.w[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (kx[u] < q) wsum += wx[u];
+      }
+    }
+  }
+}
+
+// Whether a lane's first 32 slots can be loaded as vectors ahead of time.
+__device__ __forceinline__ bool line_in_registers(const Delta& d, int line, int lo) {
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(d.keys) | reinterpret_cast<uintptr_t>(d.weight)) & 15) == 0;
+  return lo > 0 && vec && (lo - 1) * line + kLine <= d.capacity;
+}
+
+// A lane's slot in the delta buffer from its sampled line `lo` - 1 in
+// global memory (the first 32 slots already in `first` when `loaded`):
+// pos = #keys < q.  Returns the slot if keys[pos] == q, else -1; `below`
+// gets the weight of the slots under q.
+template <bool ORDERED>
+__device__ __forceinline__ int probe_line(const Delta& d, int line, const int* s,
+                                          int q, int lo, bool loaded,
+                                          const LineRegs& first, int& below) {
+  const int C = d.capacity;
+  const int n_lines = (C + line - 1) / line;
   below = 0;
   if (lo == 0) return s[0] == q ? 0 : -1;  // nothing below q
   const bool vec =
@@ -533,23 +594,12 @@ __device__ __forceinline__ int probe_lines(const Delta& d, int line,
   bool eq = false;
   int wsum = 0;
   for (int p = begin; p < end; p += kLine) {
-    if (vec && p + kLine <= end) {
-      const int4* kv = reinterpret_cast<const int4*>(d.keys + p);
-      const int4* wv = reinterpret_cast<const int4*>(d.weight + p);
-#pragma unroll
-      for (int i = 0; i < kLine / 4; ++i) {
-        const int4 k4 = __ldg(kv + i);
-        int4 w4 = make_int4(0, 0, 0, 0);
-        if (ORDERED) w4 = __ldg(wv + i);
-        const int kx[4] = {k4.x, k4.y, k4.z, k4.w};
-        const int wx[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          n_below += kx[u] < q;
-          eq = eq || kx[u] == q;
-          if (ORDERED && kx[u] < q) wsum += wx[u];
-        }
-      }
+    if (loaded && p == begin) {
+      count_line<ORDERED>(first, q, n_below, eq, wsum);
+    } else if (vec && p + kLine <= end) {
+      LineRegs r;
+      load_line<ORDERED>(d, p, r);
+      count_line<ORDERED>(r, q, n_below, eq, wsum);
     } else {
       for (int i = p; i < min(p + kLine, end); ++i) {
         const int k = __ldg(d.keys + i);
@@ -565,20 +615,12 @@ __device__ __forceinline__ int probe_lines(const Delta& d, int line,
   return eq || (pos == end && lo < n_lines && s[lo] == q) ? pos : -1;
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
-
 struct HybArgs {
   const int* keys;
   const int* values;
   int height;
   int split;
-  int staged;  // levels to stage in shared memory (at most kHybMaxStagedLevels)
+  int staged;  // levels staged in shared memory
   int capacity;
   const int* queries;
   const bool* active;
@@ -589,19 +631,15 @@ struct HybArgs {
   int line;  // delta slots per sampled line
 };
 
-// Dynamic shared memory of the hybrid body, in ints: the label table
-// (queue: warps x 2^split counts, and with a cluster the CTA's totals),
-// then the delta buffer's sample (or, staged, the whole buffer).
-__host__ __device__ inline int hyb_table_ints(int split, int mapping, int ctas,
-                                              int flags) {
-  if (mapping != kQueue || (flags & kLoopLabels)) return 0;
-  return (kChunkWarps / ctas + (ctas > 1 ? 1 : 0)) << split;
+// Dynamic shared memory of the hybrid body, in ints: the queue label table
+// (16 warps x 2^split counts, padded to 4 ints), then the delta buffer's
+// sample.
+__host__ __device__ inline int hyb_table_ints(int split, int mapping) {
+  return mapping == kQueue ? ((kChunkWarps << split) + 3) & ~3 : 0;
 }
 
-__host__ __device__ inline int hyb_delta_ints(int capacity, int line,
-                                              bool ordered, int flags) {
+__host__ __device__ inline int hyb_delta_ints(int capacity, int line, bool ordered) {
   if (capacity == 0) return 0;
-  if (flags & kStagedDelta) return delta_smem_ints(capacity, ordered);
   const int n_lines = (capacity + line - 1) / line;
   return ordered ? 2 * n_lines + 1 + kWarpSums : n_lines;
 }
@@ -610,132 +648,81 @@ __host__ __device__ inline int hyb_delta_ints(int capacity, int line,
 // sample fits kSampleInts.
 inline int hyb_delta_line(int capacity, bool ordered) {
   int line = kLine;
-  while (hyb_delta_ints(capacity, line, ordered, 0) > kSampleInts) line *= 2;
+  while (hyb_delta_ints(capacity, line, ordered) > kSampleInts) line *= 2;
   return line;
 }
 
-template <bool ORDERED, int MAPPING, bool WITH_DELTA, int CTAS, int K, int FLAGS>
-__global__ void __launch_bounds__(kHybridBlock / CTAS)
+// Levels staged in shared memory: at least the route's, so it never leaves
+// shared memory while the queue table fits.
+inline int hyb_staged_levels(int split) {
+  return std::min(std::max(kHybStagedLevels, split), kHybMaxStagedLevels);
+}
+
+template <bool ORDERED, int MAPPING, bool WITH_DELTA>
+__global__ void __launch_bounds__(kHybridBlock)
     hybrid_descend_kernel(const HybArgs a) {
-  constexpr int kThreads = kHybridBlock / CTAS;
-  constexpr int kWarps = kThreads / 32;
-  constexpr bool kDestTable = MAPPING == kDirect || (FLAGS & kLoopLabels);
   __shared__ int s_keys[kHybStaged];
-  __shared__ int s_dest[kDestTable ? kThreads : 1];  // a live lane's subtree, else -1
+  __shared__ int s_dest[MAPPING == kDirect ? kHybridBlock : 1];  // a live lane's subtree, else -1
   extern __shared__ int smem[];
   const int n_sub = 1 << a.split;
-  int* table = smem;                      // [kWarps][n_sub], then [n_sub] totals
-  int* totals = smem + kWarps * n_sub;
-  int* s_delta = smem + ((hyb_table_ints(a.split, MAPPING, CTAS, FLAGS) + 3) & ~3);
+  int* table = smem;  // queue: [kChunkWarps][n_sub]
+  int* s_delta = smem + hyb_table_ints(a.split, MAPPING);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  int crank = 0;
-  int chunk = blockIdx.x;
-  if constexpr (CTAS > 1) {
-    crank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-    chunk = blockIdx.x / CTAS;
-  }
-  const int g = crank * kThreads + tid;  // lane within the chunk
-  const int b = chunk * kHybridBlock + g;
+  const int b = blockIdx.x * kHybridBlock + tid;
   const bool in = b < a.B;
   const bool act = in && (a.active == nullptr || a.active[b]);
   const int q = in ? a.queries[b] : 0;
 
   const int staged = min(a.staged, a.height + 1);
-  for (int i = tid; i < (1 << staged) - 1; i += kThreads) s_keys[i] = a.keys[i];
-  if constexpr (MAPPING == kQueue && !(FLAGS & kLoopLabels)) {
-    for (int i = tid; i < kWarps * n_sub; i += kThreads) table[i] = 0;
+  for (int i = tid; i < (1 << staged) - 1; i += kHybridBlock) s_keys[i] = a.keys[i];
+  if constexpr (MAPPING == kQueue) {
+    for (int i = tid; i < kChunkWarps * n_sub; i += kHybridBlock) table[i] = 0;
   }
-  if constexpr (WITH_DELTA) {
-    if constexpr (FLAGS & kStagedDelta) {
-      stage_delta<ORDERED>(a.delta, s_delta);
-    } else {
-      stage_lines<ORDERED, (FLAGS & kThreadLineSums) != 0>(a.delta, a.line, s_delta);
-    }
-  }
+  if constexpr (WITH_DELTA) stage_lines<ORDERED>(a.delta, a.line, s_delta);
   __syncthreads();
 
-  // The delta buffer first: its loads are consumed after the descent.
-  int d_pos = -1;
-  int d_below = 0;
-  int d_val = 0;
-  int d_tomb = 0;
+  // The lane's line of the delta buffer: found in the sample and loaded
+  // now, counted after the descent, so its round trip overlaps the descent.
+  int d_lo = 0;
+  bool d_loaded = false;
+  LineRegs d_line;
   if constexpr (WITH_DELTA) {
     if (act) {
-      const int C = a.delta.capacity;
-      if constexpr (FLAGS & kStagedDelta) {
-        int lo = 0;
-        int hi = C;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_delta[mid] < q) {
-            lo = mid + 1;
-          } else {
-            hi = mid;
-          }
-        }
-        if (lo < C && s_delta[lo] == q) {
-          d_pos = lo;
-          d_val = s_delta[C + lo];
-          d_tomb = s_delta[2 * C + lo];
-        }
-        if (ORDERED) d_below = s_delta[3 * C + lo];
-      } else {
-        d_pos = probe_lines<ORDERED>(a.delta, a.line, s_delta, q, d_below);
-        if (d_pos >= 0) {
-          d_val = __ldg(a.delta.values + d_pos);
-          d_tomb = __ldg(a.delta.tombstone + d_pos);
-        }
-      }
+      d_lo = sample_rank(s_delta, (a.delta.capacity + a.line - 1) / a.line, q);
+      d_loaded = line_in_registers(a.delta, a.line, d_lo);
+      if (d_loaded) load_line<ORDERED>(a.delta, (d_lo - 1) * a.line, d_line);
     }
   }
 
-  // The route through [0, split): shared memory while split <= staged.
+  // The route through [0, split): shared memory, since staged >= split
+  // wherever the queue table fits.
   Walk w = init_walk();
   if (act) {
-    walk_levels<ORDERED, K>(w, q, 0, a.split, a.height, staged, s_keys, a.keys);
+    walk_levels<ORDERED, kHybLevelsPerTrip>(w, q, 0, a.split, a.height, staged, s_keys,
+                                            a.keys);
   }
   const bool live = act && !w.found;
   const int dest = min(max(w.idx - (n_sub - 1), 0), n_sub - 1);
 
   // Placement of the chunk's live lanes.
   bool clash = false;
-  if constexpr (MAPPING == kQueue && (FLAGS & kLoopLabels)) {
-    s_dest[tid] = live ? dest : -1;
-    __syncthreads();
-    if (live) {
-      int label = 0;
-      for (int j = 0; j < tid && label < a.capacity; ++j) label += s_dest[j] == dest;
-      clash = label >= a.capacity;
-    }
-  } else if constexpr (MAPPING == kQueue) {
-    // FIFO labels as K4 makes them: rank among same-destination peers of
-    // the warp, the warp's count in a (warps x n_sub) table, one thread per
-    // destination scanning its column over the warps (and, in a cluster,
-    // over the earlier CTAs' totals).  label = prefix + rank.
+  if constexpr (MAPPING == kQueue) {
+    // FIFO labels as K4 makes them: rank among the warp's same-destination
+    // peers, the warp's count in a (warps x n_sub) table, one thread per
+    // destination scanning its column over the warps; label = prefix + rank.
     const unsigned peers = __match_any_sync(kFullMask, live ? dest : -1);
     const int rank = __popc(peers & ((1u << (tid & 31)) - 1u));
+    const int warp = tid >> 5;
     if (live && rank == 0) table[warp * n_sub + dest] = __popc(peers);
     __syncthreads();
-    for (int d = tid; d < n_sub; d += kThreads) {
+    for (int d = tid; d < n_sub; d += kHybridBlock) {
       int run = 0;
-      for (int v = 0; v < kWarps; ++v) {
+      for (int v = 0; v < kChunkWarps; ++v) {
         const int c = table[v * n_sub + d];
         table[v * n_sub + d] = run;
         run += c;
       }
-      if constexpr (CTAS > 1) totals[d] = run;
-    }
-    if constexpr (CTAS > 1) {
-      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-      cluster.sync();
-      for (int d = tid; d < n_sub; d += kThreads) {
-        int base = 0;
-        for (int r = 0; r < crank; ++r) base += cluster.map_shared_rank(totals, r)[d];
-        for (int v = 0; v < kWarps; ++v) table[v * n_sub + d] += base;
-      }
-      cluster_arrive();  // done with the other CTAs' shared memory
     }
     __syncthreads();
     if (live) clash = table[warp * n_sub + dest] + rank >= a.capacity;
@@ -743,65 +730,60 @@ __global__ void __launch_bounds__(kHybridBlock / CTAS)
     // lane i owns slot i % capacity; it clashes with a live lane
     // k * capacity back that shares its subtree
     s_dest[tid] = live ? dest : -1;
-    if constexpr (CTAS > 1) {
-      cooperative_groups::this_cluster().sync();
-    } else {
-      __syncthreads();
-    }
+    __syncthreads();
     if (live) {
-      for (int off = a.capacity; off < kHybridBlock && off <= g; off += a.capacity) {
-        const int j = g - off;
-        const int owner = j / kThreads;
-        const int* src = s_dest;
-        if constexpr (CTAS > 1) {
-          if (owner != crank) src = cooperative_groups::this_cluster().map_shared_rank(s_dest, owner);
-        }
-        clash = clash || src[j - owner * kThreads] == dest;
+      for (int off = a.capacity; off < kHybridBlock && off <= tid; off += a.capacity) {
+        clash = clash || s_dest[tid - off] == dest;
       }
     }
-    if constexpr (CTAS > 1) cluster_arrive();
   }
   const bool overflow = live && clash;
 
   // The placed lanes descend [split, H]; the overflow lanes replay the same
   // levels from the route state (the stall round).  A lane reads nothing
   // another lane writes, so the replay runs in the same pass.
-  if constexpr (FLAGS & kVoteReplay) {
-    if (act && !overflow) {
-      walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
-    }
-    if (__syncthreads_or(overflow) && overflow) {
-      walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
-    }
-  } else if (act) {
-    walk_levels<ORDERED, K>(w, q, a.split, a.height + 1, a.height, staged, s_keys, a.keys);
+  if (act) {
+    walk_levels<ORDERED, kHybLevelsPerTrip>(w, q, a.split, a.height + 1, a.height, staged,
+                                            s_keys, a.keys);
   }
+  if (!in) return;
 
-  if (in) {
-    // One round trip for the values: the hit's, and (ordered) the last
-    // right and left turns'.
-    Lane s = init_lane();
-    s.found = w.found;
-    if (w.found) s.val = __ldg(a.values + w.hit);
-    if (ORDERED) {
-      s.pred_key = w.pred_key;
-      s.succ_key = w.succ_key;
-      s.rank = w.rank;
-      if (w.pred_node >= 0) s.pred_value = __ldg(a.values + w.pred_node);
-      if (w.succ_node >= 0) s.succ_value = __ldg(a.values + w.succ_node);
-    }
-    if constexpr (WITH_DELTA) {
-      // delta-hit > tombstone > tree-hit; the weight below q joins the rank
+  // One round trip for the values: the hit's, (ordered) the last right and
+  // left turns', and the delta buffer's value and tombstone at its slot.
+  int d_pos = -1;
+  int d_below = 0;
+  int d_val = 0;
+  int d_tomb = 0;
+  if constexpr (WITH_DELTA) {
+    if (act) {
+      d_pos = probe_line<ORDERED>(a.delta, a.line, s_delta, q, d_lo, d_loaded, d_line,
+                                  d_below);
       if (d_pos >= 0) {
-        s.val = d_tomb != 0 ? kSentinelValue : d_val;
-        s.found = d_tomb == 0;
+        d_val = __ldg(a.delta.values + d_pos);
+        d_tomb = __ldg(a.delta.tombstone + d_pos);
       }
-      if (ORDERED) s.rank += d_below;
     }
-    if (a.overflow != nullptr) a.overflow[b] = overflow;
-    store<ORDERED>(a.out, b, s);
   }
-  if constexpr (CTAS > 1) cluster_wait();  // no CTA leaves while read
+  Lane s = init_lane();
+  s.found = w.found;
+  if (w.found) s.val = __ldg(a.values + w.hit);
+  if (ORDERED) {
+    s.pred_key = w.pred_key;
+    s.succ_key = w.succ_key;
+    s.rank = w.rank;
+    if (w.pred_node >= 0) s.pred_value = __ldg(a.values + w.pred_node);
+    if (w.succ_node >= 0) s.succ_value = __ldg(a.values + w.succ_node);
+  }
+  if constexpr (WITH_DELTA) {
+    // delta-hit > tombstone > tree-hit; the weight below q joins the rank
+    if (d_pos >= 0) {
+      s.val = d_tomb != 0 ? kSentinelValue : d_val;
+      s.found = d_tomb == 0;
+    }
+    if (ORDERED) s.rank += d_below;
+  }
+  if (a.overflow != nullptr) a.overflow[b] = overflow;
+  store<ORDERED>(a.out, b, s);
 }
 
 Outputs make_outputs(int* val, bool* found, int* pred_key, int* pred_value,
@@ -828,53 +810,15 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return e;
 }
 
-// One launch of a hybrid body: one cluster of CTAS CTAs per chunk.
-template <bool ORDERED, int MAPPING, bool WITH_DELTA, int CTAS, int K, int FLAGS>
-cudaError_t launch_hybrid(HybArgs a, cudaStream_t st) {
-  const auto kernel = hybrid_descend_kernel<ORDERED, MAPPING, WITH_DELTA, CTAS, K, FLAGS>;
-  const int ints = ((hyb_table_ints(a.split, MAPPING, CTAS, FLAGS) + 3) & ~3) +
-                   (WITH_DELTA ? hyb_delta_ints(a.delta.capacity, a.line, ORDERED, FLAGS) : 0);
-  const size_t smem = sizeof(int) * static_cast<size_t>(ints);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((a.B + kHybridBlock - 1) / kHybridBlock) * CTAS);
-  cfg.blockDim = dim3(kHybridBlock / CTAS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CTAS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CTAS > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-template <int CTAS, int K, int FLAGS, bool WITH_DELTA>
-cudaError_t dispatch_hybrid(const HybArgs& a, bool ordered, int mapping, cudaStream_t st) {
-  if (ordered && mapping == kQueue) return launch_hybrid<true, kQueue, WITH_DELTA, CTAS, K, FLAGS>(a, st);
-  if (ordered) return launch_hybrid<true, kDirect, WITH_DELTA, CTAS, K, FLAGS>(a, st);
-  if (mapping == kQueue) return launch_hybrid<false, kQueue, WITH_DELTA, CTAS, K, FLAGS>(a, st);
-  return launch_hybrid<false, kDirect, WITH_DELTA, CTAS, K, FLAGS>(a, st);
-}
-
-// The design of the hybrid body that the entry points launch.
-constexpr int kHybCtas = 1;
-constexpr int kHybLevelsPerTrip = 2;
-constexpr int kHybStagedLevels = 8;
-
-// Levels staged in shared memory: at least the route's, so it never leaves
-// shared memory while the queue table fits.
-inline int hyb_staged_levels(int split) {
-  return std::min(std::max(kHybStagedLevels, split), kHybMaxStagedLevels);
+// The dynamic shared memory a launch needs, in bytes.
+size_t hyb_smem_bytes(int split, int mapping, int capacity, int line, bool ordered) {
+  return sizeof(int) * (static_cast<size_t>(hyb_table_ints(split, mapping)) +
+                        static_cast<size_t>(hyb_delta_ints(capacity, line, ordered)));
 }
 
 // The shared memory one CTA of the hybrid body may take dynamically: the
-// opt-in limit less its largest static shared memory.  -(cudaError_t) on
-// failure.
+// opt-in limit less its static shared memory (the direct mapping's, the
+// larger).  -(cudaError_t) on failure.
 int hyb_smem_budget() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -883,33 +827,52 @@ int hyb_smem_budget() {
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, hybrid_descend_kernel<true, kDirect, true, kHybCtas,
-                                                         kHybLevelsPerTrip, 0>);
+  e = cudaFuncGetAttributes(&attr, hybrid_descend_kernel<true, kDirect, true>);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return optin - static_cast<int>(attr.sharedSizeBytes);
 }
 
-int hyb_entry(const int* keys, const int* values, int n, int height, int split,
+template <bool ORDERED, int MAPPING, bool WITH_DELTA>
+cudaError_t launch_hybrid(const HybArgs& a, size_t smem, cudaStream_t st) {
+  const auto kernel = hybrid_descend_kernel<ORDERED, MAPPING, WITH_DELTA>;
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.B + kHybridBlock - 1) / kHybridBlock);
+  kernel<<<grid, kHybridBlock, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Both entry points: Delta{} (capacity 0) runs without the buffer.
+int hyb_entry(const int* keys, const int* values, int height, int split,
               int mapping, int capacity, const int* queries, const bool* active,
-              int B, int ordered, const Delta& d, int* val, bool* found,
-              int* pred_key, int* pred_value, int* succ_key, int* succ_value,
-              int* rank, int* overflow_out, void* stream) {
-  (void)n;
+              int B, bool ordered, const Delta& d, const Outputs& out,
+              int* overflow_out, void* stream) {
   const bool with_delta = d.capacity > 0;
-  HybArgs a{keys, values, height, split, hyb_staged_levels(split), capacity, queries, active, B,
-            make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
-            overflow_out, d, with_delta ? hyb_delta_line(d.capacity, ordered != 0) : kLine};
+  const int line = with_delta ? hyb_delta_line(d.capacity, ordered) : kLine;
+  const HybArgs a{keys, values, height, split, hyb_staged_levels(split), capacity,
+                  queries, active, B, out, overflow_out, d, line};
   const int budget = hyb_smem_budget();
   if (budget < 0) return -budget;
-  const int ints = ((hyb_table_ints(split, mapping, kHybCtas, 0) + 3) & ~3) +
-                   hyb_delta_ints(d.capacity, a.line, ordered != 0, 0);
-  if (static_cast<long long>(ints) * sizeof(int) > budget) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t smem = hyb_smem_bytes(split, mapping, d.capacity, line, ordered);
+  if (smem > static_cast<size_t>(budget)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      with_delta ? dispatch_hybrid<kHybCtas, kHybLevelsPerTrip, 0, true>(a, ordered != 0, mapping, st)
-                 : dispatch_hybrid<kHybCtas, kHybLevelsPerTrip, 0, false>(a, ordered != 0, mapping, st);
+  cudaError_t e;
+#define REPRO_HYBRID_LAUNCH(DELTA)                                      \
+  if (ordered && mapping == kQueue) {                                   \
+    e = launch_hybrid<true, kQueue, DELTA>(a, smem, st);                \
+  } else if (ordered) {                                                 \
+    e = launch_hybrid<true, kDirect, DELTA>(a, smem, st);               \
+  } else if (mapping == kQueue) {                                       \
+    e = launch_hybrid<false, kQueue, DELTA>(a, smem, st);               \
+  } else {                                                              \
+    e = launch_hybrid<false, kDirect, DELTA>(a, smem, st);              \
+  }
+  if (with_delta) {
+    REPRO_HYBRID_LAUNCH(true)
+  } else {
+    REPRO_HYBRID_LAUNCH(false)
+  }
+#undef REPRO_HYBRID_LAUNCH
   return static_cast<int>(e);
 }
 
@@ -990,9 +953,11 @@ int hybrid_descend(const int* keys, const int* values, int n, int height,
                    bool* found, int* pred_key, int* pred_value, int* succ_key,
                    int* succ_value, int* rank, int* overflow_out,
                    void* stream) {
-  return hyb_entry(keys, values, n, height, split, mapping, capacity, queries, active, B,
-                   ordered, Delta{}, val, found, pred_key, pred_value, succ_key, succ_value,
-                   rank, overflow_out, stream);
+  (void)n;
+  return hyb_entry(keys, values, height, split, mapping, capacity, queries, active, B,
+                   ordered != 0, Delta{},
+                   make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
+                   overflow_out, stream);
 }
 
 // hybrid_descend with the delta buffer (K2), resolved after the stall round.
@@ -1007,10 +972,12 @@ int hybrid_descend_delta(const int* keys, const int* values, int n,
                          int* pred_key, int* pred_value, int* succ_key,
                          int* succ_value, int* rank, int* overflow_out,
                          void* stream) {
+  (void)n;
   if (delta_capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return hyb_entry(keys, values, n, height, split, mapping, capacity, queries, active, B,
-                   ordered, Delta{dkeys, dvals, dtomb, dweight, delta_capacity}, val, found,
-                   pred_key, pred_value, succ_key, succ_value, rank, overflow_out, stream);
+  return hyb_entry(keys, values, height, split, mapping, capacity, queries, active, B,
+                   ordered != 0, Delta{dkeys, dvals, dtomb, dweight, delta_capacity},
+                   make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
+                   overflow_out, stream);
 }
 
 // The hybrid body's design, for the latency bound chip_smoke.py reports:
@@ -1027,8 +994,8 @@ int hybrid_max_queue_split() {
   const int budget = hyb_smem_budget();
   if (budget < 0) return budget;
   int split = 0;
-  while (sizeof(int) * static_cast<size_t>(((hyb_table_ints(split + 1, kQueue, kHybCtas, 0) + 3) & ~3) +
-                                           kSampleInts) <= static_cast<size_t>(budget)) {
+  while (sizeof(int) * (static_cast<size_t>(hyb_table_ints(split + 1, kQueue)) + kSampleInts) <=
+         static_cast<size_t>(budget)) {
     ++split;
   }
   return split;
@@ -1052,50 +1019,6 @@ int delta_capacity_limit() {
   const int ints =
       (optin - static_cast<int>(attr.sharedSizeBytes)) / static_cast<int>(sizeof(int));
   return (ints - 1 - kWarpSums) / 4;
-}
-
-// The design probe's entry point (hyb_probe.py): hybrid_descend_delta with
-// the body's variant chosen by `variant` and `staged` levels in shared
-// memory; delta_capacity 0 runs without the buffer.  Queue mapping only.
-int hybrid_descend_probe(int variant, int staged, const int* keys, const int* values,
-                         int height, int split, int capacity, const int* queries,
-                         const bool* active, int B, int ordered, const int* dkeys,
-                         const int* dvals, const int* dtomb, const int* dweight,
-                         int delta_capacity, int* val, bool* found, int* pred_key,
-                         int* pred_value, int* succ_key, int* succ_value, int* rank,
-                         int* overflow_out, void* stream) {
-  const bool with_delta = delta_capacity > 0;
-  const HybArgs a{keys, values, height, split, std::min(staged, kHybMaxStagedLevels), capacity,
-                  queries, active, B,
-                  make_outputs(val, found, pred_key, pred_value, succ_key, succ_value, rank),
-                  overflow_out, Delta{dkeys, dvals, dtomb, dweight, delta_capacity},
-                  with_delta ? hyb_delta_line(delta_capacity, ordered != 0) : kLine};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool o = ordered != 0;
-#define REPRO_PROBE(ID, CTAS, K, FLAGS)                                              \
-  case ID:                                                                           \
-    return static_cast<int>(                                                         \
-        with_delta ? dispatch_hybrid<CTAS, K, FLAGS, true>(a, o, kQueue, st)         \
-                   : dispatch_hybrid<CTAS, K, FLAGS, false>(a, o, kQueue, st))
-  switch (variant) {
-    REPRO_PROBE(0, 1, 1, kLoopLabels | kVoteReplay | kStagedDelta);
-    REPRO_PROBE(1, 1, 1, kVoteReplay | kStagedDelta);
-    REPRO_PROBE(2, 1, 1, kStagedDelta);
-    REPRO_PROBE(3, 1, 2, kStagedDelta);
-    REPRO_PROBE(4, 1, 3, kStagedDelta);
-    REPRO_PROBE(5, 1, 4, kStagedDelta);
-    REPRO_PROBE(6, 1, 2, 0);
-    REPRO_PROBE(7, 1, 3, 0);
-    REPRO_PROBE(8, 1, 4, 0);
-    REPRO_PROBE(9, 4, 2, 0);
-    REPRO_PROBE(10, 4, 3, 0);
-    REPRO_PROBE(11, 8, 2, 0);
-    REPRO_PROBE(12, 2, 2, 0);
-    REPRO_PROBE(13, 1, 2, kThreadLineSums);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_PROBE
 }
 
 }  // extern "C"
