@@ -77,7 +77,8 @@
 // trip (no faster: the scattered sectors a lane reads per level stay about
 // one, and more bytes cost more than fewer trips save), the chunk spread
 // over a cluster of 2, 4 or 8 CTAs (no faster), the whole buffer staged per
-// CTA (slower).
+// CTA (slower), the delta line loaded before the route but counted after
+// the descent (no faster, 64-100 registers).
 //
 // Sentinels stay int32: INT32_MIN (no predecessor), INT32_MAX (no successor)
 // and -1 (no value).
@@ -513,8 +514,14 @@ __device__ void stage_lines(const Delta& d, int line, int* s) {
   block_prefix(s_pre, n_lines, s_pre + n_lines + 1);
 }
 
-// The sampled lines whose first key is below q: q's line is the one before.
-__device__ __forceinline__ int sample_rank(const int* s, int n_lines, int q) {
+// A lane's slot in the delta buffer, from the sample and one line of keys
+// (and weights) in global memory: pos = #keys < q.  Returns the slot if
+// keys[pos] == q, else -1; `below` gets the weight of the slots under q.
+template <bool ORDERED>
+__device__ __forceinline__ int probe_lines(const Delta& d, int line,
+                                           const int* s, int q, int& below) {
+  const int C = d.capacity;
+  const int n_lines = (C + line - 1) / line;
   int lo = 0;
   int hi = n_lines;
   while (lo < hi) {
@@ -525,65 +532,6 @@ __device__ __forceinline__ int sample_rank(const int* s, int n_lines, int q) {
       hi = mid;
     }
   }
-  return lo;
-}
-
-// 32 slots of the buffer in registers: keys and (ordered) weights.
-struct LineRegs {
-  int4 k[kLine / 4];
-  int4 w[kLine / 4];
-};
-
-template <bool ORDERED>
-__device__ __forceinline__ void load_line(const Delta& d, int p, LineRegs& r) {
-  const int4* kv = reinterpret_cast<const int4*>(d.keys + p);
-  const int4* wv = reinterpret_cast<const int4*>(d.weight + p);
-#pragma unroll
-  for (int i = 0; i < kLine / 4; ++i) {
-    r.k[i] = __ldg(kv + i);
-    if (ORDERED) r.w[i] = __ldg(wv + i);
-  }
-}
-
-// Adds the slots of r below q (and their weights) and whether one is q.
-template <bool ORDERED>
-__device__ __forceinline__ void count_line(const LineRegs& r, int q, int& n_below,
-                                           bool& eq, int& wsum) {
-#pragma unroll
-  for (int i = 0; i < kLine / 4; ++i) {
-    const int kx[4] = {r.k[i].x, r.k[i].y, r.k[i].z, r.k[i].w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      n_below += kx[u] < q;
-      eq = eq || kx[u] == q;
-    }
-    if (ORDERED) {
-      const int wx[4] = {r.w[i].x, r.w[i].y, r.w[i].z, r.w[i].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (kx[u] < q) wsum += wx[u];
-      }
-    }
-  }
-}
-
-// Whether a lane's first 32 slots can be loaded as vectors ahead of time.
-__device__ __forceinline__ bool line_in_registers(const Delta& d, int line, int lo) {
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(d.keys) | reinterpret_cast<uintptr_t>(d.weight)) & 15) == 0;
-  return lo > 0 && vec && (lo - 1) * line + kLine <= d.capacity;
-}
-
-// A lane's slot in the delta buffer from its sampled line `lo` - 1 in
-// global memory (the first 32 slots already in `first` when `loaded`):
-// pos = #keys < q.  Returns the slot if keys[pos] == q, else -1; `below`
-// gets the weight of the slots under q.
-template <bool ORDERED>
-__device__ __forceinline__ int probe_line(const Delta& d, int line, const int* s,
-                                          int q, int lo, bool loaded,
-                                          const LineRegs& first, int& below) {
-  const int C = d.capacity;
-  const int n_lines = (C + line - 1) / line;
   below = 0;
   if (lo == 0) return s[0] == q ? 0 : -1;  // nothing below q
   const bool vec =
@@ -594,12 +542,23 @@ __device__ __forceinline__ int probe_line(const Delta& d, int line, const int* s
   bool eq = false;
   int wsum = 0;
   for (int p = begin; p < end; p += kLine) {
-    if (loaded && p == begin) {
-      count_line<ORDERED>(first, q, n_below, eq, wsum);
-    } else if (vec && p + kLine <= end) {
-      LineRegs r;
-      load_line<ORDERED>(d, p, r);
-      count_line<ORDERED>(r, q, n_below, eq, wsum);
+    if (vec && p + kLine <= end) {
+      const int4* kv = reinterpret_cast<const int4*>(d.keys + p);
+      const int4* wv = reinterpret_cast<const int4*>(d.weight + p);
+#pragma unroll
+      for (int i = 0; i < kLine / 4; ++i) {
+        const int4 k4 = __ldg(kv + i);
+        int4 w4 = make_int4(0, 0, 0, 0);
+        if (ORDERED) w4 = __ldg(wv + i);
+        const int kx[4] = {k4.x, k4.y, k4.z, k4.w};
+        const int wx[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          n_below += kx[u] < q;
+          eq = eq || kx[u] == q;
+          if (ORDERED && kx[u] < q) wsum += wx[u];
+        }
+      }
     } else {
       for (int i = p; i < min(p + kLine, end); ++i) {
         const int k = __ldg(d.keys + i);
@@ -682,16 +641,19 @@ __global__ void __launch_bounds__(kHybridBlock)
   if constexpr (WITH_DELTA) stage_lines<ORDERED>(a.delta, a.line, s_delta);
   __syncthreads();
 
-  // The lane's line of the delta buffer: found in the sample and loaded
-  // now, counted after the descent, so its round trip overlaps the descent.
-  int d_lo = 0;
-  bool d_loaded = false;
-  LineRegs d_line;
+  // The delta buffer first: its value and tombstone loads are consumed
+  // after the descent.
+  int d_pos = -1;
+  int d_below = 0;
+  int d_val = 0;
+  int d_tomb = 0;
   if constexpr (WITH_DELTA) {
     if (act) {
-      d_lo = sample_rank(s_delta, (a.delta.capacity + a.line - 1) / a.line, q);
-      d_loaded = line_in_registers(a.delta, a.line, d_lo);
-      if (d_loaded) load_line<ORDERED>(a.delta, (d_lo - 1) * a.line, d_line);
+      d_pos = probe_lines<ORDERED>(a.delta, a.line, s_delta, q, d_below);
+      if (d_pos >= 0) {
+        d_val = __ldg(a.delta.values + d_pos);
+        d_tomb = __ldg(a.delta.tombstone + d_pos);
+      }
     }
   }
 
@@ -748,22 +710,8 @@ __global__ void __launch_bounds__(kHybridBlock)
   }
   if (!in) return;
 
-  // One round trip for the values: the hit's, (ordered) the last right and
-  // left turns', and the delta buffer's value and tombstone at its slot.
-  int d_pos = -1;
-  int d_below = 0;
-  int d_val = 0;
-  int d_tomb = 0;
-  if constexpr (WITH_DELTA) {
-    if (act) {
-      d_pos = probe_line<ORDERED>(a.delta, a.line, s_delta, q, d_lo, d_loaded, d_line,
-                                  d_below);
-      if (d_pos >= 0) {
-        d_val = __ldg(a.delta.values + d_pos);
-        d_tomb = __ldg(a.delta.tombstone + d_pos);
-      }
-    }
-  }
+  // One round trip for the values: the hit's, and (ordered) the last right
+  // and left turns'.
   Lane s = init_lane();
   s.found = w.found;
   if (w.found) s.val = __ldg(a.values + w.hit);
