@@ -145,7 +145,11 @@ REPLACES = {
 # launch/serve.py, its default high-water mark (3/4), and per round of the
 # stream the op counts below.
 W_CAPACITY = 4096
-BIG_CAPACITY = 20000  # a hybrid buffer past the forest kernel's staging limit (~14,000)
+# hybrid buffers past the forest kernel's staging limit (~14,000): sampled
+# lines of 32 slots, and past 131,072 slots lines of 64 (membership) and 128
+# (ordered)
+BIG_CAPACITIES = (20000, 140000)
+DELTA_LINE_CAPACITIES = (1, 4096, 20000, 65504, 65536, 131072, 131073, 140000, 1 << 20)
 W_ROUNDS = 8
 W_WRITES = 4096  # half new odd keys, half overwrites of stored keys
 W_DELETES = 2048  # three quarters stored keys, one quarter absent
@@ -329,17 +333,6 @@ def delta_smem_bytes(capacity: int, ordered: int) -> int:
     (``delta_smem_ints`` in forest_search.cu): keys, values, tombstones, and
     ordered adds the weight prefix and the scan's 32 per-warp partials."""
     return 4 * (4 * capacity + 1 + 32 if ordered else 3 * capacity)
-
-
-def hybrid_smem_bytes(split: int, mapping: int, capacity: int, ordered: int) -> int:
-    """The hybrid body's dynamic shared memory (``hyb_table_ints``,
-    ``hyb_delta_ints``): the queue label table (16 warps x 2^split ints,
-    padded to 4), then the delta buffer's sample (and, ordered, the weight
-    prefix of its lines and the scan's 32 partials)."""
-    table = ((16 << split) + 3) & ~3 if mapping == 0 else 0
-    n_lines = -(-capacity // ref.delta_line(capacity, bool(ordered))) if capacity else 0
-    sample = (2 * n_lines + 1 + 32 if ordered else n_lines) if capacity else 0
-    return 4 * (table + sample)
 
 
 def ctas_per_sm(threads: int, regs: int, smem: int) -> int:
@@ -1570,7 +1563,8 @@ def main() -> int:
                 check(label in resources, f"ptxas reported no resources for {label}")
                 regs, smem, _ = resources[label]
                 dyn = (delta_smem_bytes(W_CAPACITY, ordered) if mapping is None else
-                       hybrid_smem_bytes(invariants.split_level_for(8), mapping, W_CAPACITY, ordered))
+                       built.lib.hybrid_smem_bytes(invariants.split_level_for(8), mapping,
+                                                   W_CAPACITY, ordered))
                 ctas = ctas_per_sm(threads, regs, smem + dyn)
                 tag = (f"{kern.replace('_kernel', '_delta')} {'ordered' if ordered else 'membership'}"
                        + ("" if mapping is None else f" {('queue', 'direct')[mapping]}"))
@@ -1582,9 +1576,13 @@ def main() -> int:
     limits = {"forest_descend_delta capacity": K.delta_capacity_limit(torch.device("cuda")),
               "hybrid_descend queue split": K.hybrid_max_queue_split(torch.device("cuda"))}
     check(limits["hybrid_descend queue split"] >= 3, f"the engine's splits do not fit: {limits}")
-    design = (built.lib.hybrid_levels_per_trip(), built.lib.hybrid_staged_levels(0))
-    check(design == (ref.HYBRID_LEVELS_PER_TRIP, ref.HYBRID_STAGED_LEVELS),
-          f"the hybrid body's design {design} is not its twin's in kernels/ref.py")
+    design = (built.lib.hybrid_levels_per_trip(),
+              [built.lib.hybrid_staged_levels(s) for s in range(13)],
+              [built.lib.hybrid_delta_line(c, o) for c in DELTA_LINE_CAPACITIES for o in (0, 1)])
+    twin = (ref.HYBRID_LEVELS_PER_TRIP, [ref.hybrid_staged_levels(s) for s in range(13)],
+            [ref.delta_line(c, bool(o)) for c in DELTA_LINE_CAPACITIES for o in (0, 1)])
+    check(design == twin, f"the hybrid body's design {design} is not its twin's {twin} "
+          f"in kernels/ref.py")
     log(f"    limits (shared memory of one CTA): {limits}; the hybrid kernel reads the delta "
         f"buffer in global memory and takes any capacity")
 
@@ -1611,13 +1609,16 @@ def main() -> int:
     })
     # past what one CTA could stage (the forest kernel's limit): the hybrid
     # kernel reads the buffer in global memory
-    big = full_buffer(tree, keys, BIG_CAPACITY, seed=6)
-    check(BIG_CAPACITY > limits["forest_descend_delta capacity"], f"{BIG_CAPACITY} is within {limits}")
-    b_lanes = lanes.clone()
-    b_lanes[-CHECK_LANES // 4:] = torch.from_numpy(
-        rng.permutation(big.keys.cpu().numpy())[: CHECK_LANES // 4]).cuda()
-    check_delta_kernels(tree, b_lanes, active, {"large buffer": big}, forest=False)
-    del big
+    for seed, C in enumerate(BIG_CAPACITIES, 6):
+        check(C > limits["forest_descend_delta capacity"], f"{C} is within {limits}")
+        big = full_buffer(tree, keys, C, seed=seed)
+        b_lanes = lanes.clone()
+        b_lanes[-CHECK_LANES // 4:] = torch.from_numpy(
+            rng.permutation(big.keys.cpu().numpy())[: CHECK_LANES // 4]).cuda()
+        lines = [built.lib.hybrid_delta_line(C, o) for o in (0, 1)]
+        log(f"  sampled lines at C={C}: {lines[0]} slots (membership), {lines[1]} (ordered)")
+        check_delta_kernels(tree, b_lanes, active, {"large buffer": big}, forest=False)
+        del big
     torch.cuda.synchronize()
 
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")

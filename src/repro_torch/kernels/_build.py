@@ -69,6 +69,8 @@ _SIGNATURES = {
     "hybrid_max_queue_split": [],
     "hybrid_levels_per_trip": [],
     "hybrid_staged_levels": [_I],  # split
+    "hybrid_delta_line": [_I, _I],  # capacity, ordered
+    "hybrid_smem_bytes": [_I, _I, _I, _I],  # split, mapping, capacity, ordered
     # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
     "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "queue_dispatch_max_dest": [],

@@ -67,8 +67,8 @@
 //    state, as the Pallas body does; it reads nothing another lane writes,
 //    so it runs in the same pass as the placed lanes, behind no vote.
 //  * The delta buffer stays in global memory: each CTA stages a sample (the
-//    first key of every line of 32 slots, more past 65,536 slots so that it
-//    fits 16 KiB) and, ordered, the weight of the slots before each line; a
+//    first key of every line of 32 slots; lines of 64, 128, ... slots past
+//    64,992 slots ordered or 131,072 membership, so that it fits 16 KiB) and, ordered, the weight of the slots before each line; a
 //    lane finds its line in the sample, reads that line's keys (and
 //    weights) in one round trip before the route, and its value and
 //    tombstone during the descent.  pos, the hit and the weight below q are
@@ -224,6 +224,23 @@ __host__ __device__ inline int delta_smem_ints(int capacity, bool ordered) {
   return ordered ? 4 * capacity + 1 + kWarpSums : 3 * capacity;
 }
 
+// Exclusive prefix in place over a[0..n] of the values in a[1..n]: each
+// thread sums a contiguous segment, the block scans the segment sums, each
+// thread rewrites its own.  Every thread of the block must call it.
+__device__ void block_prefix(int* a, int n, int* s_warp) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int begin = min(static_cast<int>(threadIdx.x) * per, n);
+  const int end = min(begin + per, n);
+  int local = 0;
+  for (int i = begin; i < end; ++i) local += a[i + 1];
+  int run = block_exclusive_scan(local, s_warp);
+  if (threadIdx.x == 0) a[0] = 0;
+  for (int i = begin; i < end; ++i) {
+    run += a[i + 1];
+    a[i + 1] = run;
+  }
+}
+
 // Stage the delta buffer in dynamic shared memory.  Every thread of the block
 // must call it; the caller's __syncthreads() publishes the last writes.
 template <bool ORDERED>
@@ -238,19 +255,7 @@ __device__ void stage_delta(const Delta& d, int* smem) {
   }
   if (!ORDERED) return;
   __syncthreads();
-  // s_pre[p] = sum of weight[i] over i < p: each thread sums a contiguous
-  // segment, the block scans the segment sums, each thread rewrites its own.
-  const int per = (C + blockDim.x - 1) / blockDim.x;
-  const int begin = min(static_cast<int>(threadIdx.x) * per, C);
-  const int end = min(begin + per, C);
-  int local = 0;
-  for (int i = begin; i < end; ++i) local += s_pre[i + 1];
-  int run = block_exclusive_scan(local, s_pre + C + 1);
-  if (threadIdx.x == 0) s_pre[0] = 0;
-  for (int i = begin; i < end; ++i) {
-    run += s_pre[i + 1];
-    s_pre[i + 1] = run;
-  }
+  block_prefix(s_pre, C, s_pre + C + 1);  // s_pre[p] = sum of weight[i], i < p
 }
 
 // Resolve one active lane against the staged buffer: delta-hit > tombstone >
@@ -468,23 +473,6 @@ __device__ __forceinline__ int slot_sum(const int* __restrict__ p, int lo,
   }
   for (int i = lo; i < hi; ++i) s += __ldg(p + i);
   return s;
-}
-
-// Exclusive prefix in place over a[0..n] of the values in a[1..n]: each
-// thread sums a contiguous segment, the block scans the segment sums, each
-// thread rewrites its own.  Every thread of the block must call it.
-__device__ void block_prefix(int* a, int n, int* s_warp) {
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int begin = min(static_cast<int>(threadIdx.x) * per, n);
-  const int end = min(begin + per, n);
-  int local = 0;
-  for (int i = begin; i < end; ++i) local += a[i + 1];
-  int run = block_exclusive_scan(local, s_warp);
-  if (threadIdx.x == 0) a[0] = 0;
-  for (int i = begin; i < end; ++i) {
-    run += a[i + 1];
-    a[i + 1] = run;
-  }
 }
 
 // The delta buffer's sample: the first key of each `line` slots, and for
@@ -766,18 +754,23 @@ size_t hyb_smem_bytes(int split, int mapping, int capacity, int line, bool order
 
 // The shared memory one CTA of the hybrid body may take dynamically: the
 // opt-in limit less its static shared memory (the direct mapping's, the
-// larger).  -(cudaError_t) on failure.
+// larger).  Queried once per device.  -(cudaError_t) on failure.
 int hyb_smem_budget() {
+  static std::mutex mu;
+  static std::map<int, int> budgets;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = budgets.find(dev);
+  if (it != budgets.end()) return it->second;
   int optin = 0;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, hybrid_descend_kernel<true, kDirect, true>);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  return optin - static_cast<int>(attr.sharedSizeBytes);
+  return budgets[dev] = optin - static_cast<int>(attr.sharedSizeBytes);
 }
 
 template <bool ORDERED, int MAPPING, bool WITH_DELTA>
@@ -934,6 +927,17 @@ int hybrid_descend_delta(const int* keys, const int* values, int n,
 int hybrid_levels_per_trip() { return kHybLevelsPerTrip; }
 
 int hybrid_staged_levels(int split) { return hyb_staged_levels(split); }
+
+// Delta slots per sampled line at a capacity, and the dynamic shared memory
+// of one CTA of the hybrid body (capacity 0: no delta buffer), in bytes.
+int hybrid_delta_line(int capacity, int ordered) {
+  return hyb_delta_line(capacity, ordered != 0);
+}
+
+int hybrid_smem_bytes(int split, int mapping, int capacity, int ordered) {
+  const int line = capacity > 0 ? hyb_delta_line(capacity, ordered != 0) : kLine;
+  return static_cast<int>(hyb_smem_bytes(split, mapping, capacity, line, ordered != 0));
+}
 
 // The largest split level whose queue label table fits one CTA of the
 // hybrid body beside the largest delta sample, on the current device.

@@ -288,14 +288,19 @@ DELTA_SAMPLE_INTS = 4096  # the sample's shared memory, in ints (kSampleInts)
 _WARP_SUMS = 32
 
 
-def warp_queue_labels(dest: torch.Tensor, live: torch.Tensor, n_sub: int, ctas: int = 1):
+def hybrid_staged_levels(split_level: int) -> int:
+    """Levels the kernel stages in shared memory (``hyb_staged_levels``):
+    at least the route's, at most HYBRID_MAX_STAGED_LEVELS."""
+    return min(max(HYBRID_STAGED_LEVELS, split_level), HYBRID_MAX_STAGED_LEVELS)
+
+
+def warp_queue_labels(dest: torch.Tensor, live: torch.Tensor, n_sub: int):
     """The queue labels of (n_chunks, block_q) lanes as the kernel makes
     them: each warp of 32 lanes ranks its live lanes among their
     same-destination peers (``__match_any_sync``; rank = peers below), the
-    warps' per-destination counts fill a (warps, n_sub) table, each column
-    is scanned over the warps of a CTA and, in a cluster of ``ctas`` CTAs,
-    offset by the totals of the CTAs before it.  label = prefix + rank on
-    live lanes, 0 elsewhere: the FIFO exclusive count of ``_dispatch_lanes``."""
+    warps' per-destination counts fill a (warps, n_sub) table, and each
+    column is scanned over the warps.  label = prefix + rank on live lanes,
+    0 elsewhere: the FIFO exclusive count of ``_dispatch_lanes``."""
     n, block_q = dest.shape
     W = block_q // WARP
     dev = dest.device
@@ -306,11 +311,7 @@ def warp_queue_labels(dest: torch.Tensor, live: torch.Tensor, n_sub: int, ctas: 
     rank = (peers & lower).sum(-1, dtype=torch.int32)
     cols = torch.arange(n_sub, device=dev)
     table = ((d[..., None] == cols) & lw[..., None]).sum(2, dtype=torch.int32)  # (n, W, n_sub)
-    per_cta = table.reshape(n, ctas, W // ctas, n_sub)
-    prefix = torch.cumsum(per_cta, 2, dtype=torch.int32) - per_cta
-    totals = per_cta.sum(2, dtype=torch.int32)
-    base = torch.cumsum(totals, 1, dtype=torch.int32) - totals
-    prefix = (prefix + base[:, :, None]).reshape(n, W, n_sub)
+    prefix = torch.cumsum(table, 1, dtype=torch.int32) - table
     own = prefix.gather(2, d.clamp(min=0).long())
     return torch.where(lw, own + rank, 0).reshape(n, block_q)
 
@@ -345,10 +346,11 @@ def _walk_step(state, q, gate, nk, node, level, height, ordered):
     return [idx, found | hit, hit_node, pk, pn, sk, sn, rank], right
 
 
-def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, k, ordered):
+def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, ordered):
     """Levels ``[l0, l1)`` of the flat tree ``keys`` (n,) for the lanes in
     ``gate``, as the kernel walks them: levels below ``staged`` one at a
-    time, deeper ones ``k`` per round trip -- the 2^g - 1 keys under a
+    time, deeper ones HYBRID_LEVELS_PER_TRIP per round trip (fewer in a
+    last group that reaches ``l1``) -- the 2^g - 1 keys under a
     lane's node (depth j: ``(idx + 1) 2^j - 1 + m``, m < 2^j) gathered at
     once, then resolved level by level, picking each level's key by the
     path ``m`` taken so far.  Nodes by index; no value is read."""
@@ -361,7 +363,7 @@ def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, k, order
         l += 1
     l = max(l, staged)
     while l < l1:
-        g = min(k, l1 - l)
+        g = min(HYBRID_LEVELS_PER_TRIP, l1 - l)
         i1 = state[0] + 1
         runs = [((i1 << j) - 1)[..., None] + torch.arange(1 << j, device=keys.device)
                 for j in range(g)]
@@ -459,9 +461,6 @@ def bst_hybrid_phases_ref(
     block_q: int = 512,
     overflow_out: Optional[torch.Tensor] = None,
     delta: Optional[DeltaOperands] = None,
-    staged: Optional[int] = None,
-    k: int = HYBRID_LEVELS_PER_TRIP,
-    ctas: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
     """``bst_hybrid_ref``'s function through the kernel's own phases: the
     route through ``[0, split_level)`` (``walk_levels_ref``), the warp
@@ -469,28 +468,25 @@ def bst_hybrid_phases_ref(
     ``[split_level, H]`` for every active lane in one pass (an overflow
     lane's replay from the route state reads nothing another lane writes),
     one gather of the values, and the delta buffer through its sample
-    (``delta_line_probe_ref``).  ``staged`` (levels read from the shared
-    copy), ``k`` and ``ctas`` default to the kernel's design.  Must equal
-    ``bst_hybrid_ref`` bit for bit."""
+    (``delta_line_probe_ref``).  Must equal ``bst_hybrid_ref`` bit for
+    bit."""
     B = queries.shape[0]
     active = _active(queries, active)
     pad = (-B) % block_q
     q = torch.cat([queries, queries.new_zeros(pad)]).reshape(-1, block_q)
     act = torch.cat([active, active.new_zeros(pad)]).reshape(-1, block_q)
     n_sub = 1 << split_level
-    if staged is None:
-        staged = min(max(HYBRID_STAGED_LEVELS, split_level), HYBRID_MAX_STAGED_LEVELS)
-    staged = min(staged, height + 1)
+    staged = min(hybrid_staged_levels(split_level), height + 1)
     state = _walk_state(q.shape, q.device)
-    state = walk_levels_ref(tree_keys, q, act, state, height, 0, split_level, staged, k, ordered)
+    state = walk_levels_ref(tree_keys, q, act, state, height, 0, split_level, staged, ordered)
     live = act & ~state[1]
     dest = torch.clamp(state[0] - (n_sub - 1), 0, n_sub - 1)
     if mapping == "queue":
-        overflow = live & (warp_queue_labels(dest, live, n_sub, ctas) >= capacity)
+        overflow = live & (warp_queue_labels(dest, live, n_sub) >= capacity)
     else:
         overflow = _dispatch_lanes(dest, live, mapping, n_sub, capacity)[1]
     state = walk_levels_ref(tree_keys, q, act, state, height, split_level, height + 1,
-                            staged, k, ordered)
+                            staged, ordered)
     if overflow_out is not None:
         overflow_out.copy_(overflow.reshape(-1)[:B])
     outs = tuple(o.reshape(-1)[:B] for o in gather_values_ref(tree_values, state, act, ordered))

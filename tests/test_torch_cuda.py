@@ -210,11 +210,14 @@ def test_hybrid_kernel_with_every_lane_inactive(cuda_device):
                                 mapping, 1, ordered) == 0
 
 
-@pytest.mark.parametrize("C", [1, 4096, 20000])
+@pytest.mark.parametrize("C", [1, 4096, 20000, 140000])
 def test_hybrid_delta_kernel_matches_its_plain_version(cuda_device, C):
-    """K2 hybrid at C = 1, 4096 and 20,000 (past the ~14,000 the staged
-    form took: the buffer now stays in global memory)."""
-    keys, values = make_tree_data(32767, seed=C)
+    """K2 hybrid at C = 1, 4096, 20,000 (past the ~14,000 the staged form
+    took: the buffer now stays in global memory) and 140,000 (sampled lines
+    of 64 slots for membership and 128 ordered, several 32-slot runs
+    each)."""
+    assert (ref.delta_line(C, False) > 32) == (ref.delta_line(C, True) > 32) == (C > 131072)
+    keys, values = make_tree_data(32767 if C < 32767 else 262143, seed=C)
     tree = TT.build_tree(keys, values, device="cpu")
     buf = _buffer(keys, tree, C, seed=C, device="cpu")
     d_ops = TD.operands(buf)

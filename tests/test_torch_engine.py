@@ -18,6 +18,7 @@ from repro.core.engine import PAPER_CONFIGS as J_CONFIGS  # noqa: E402
 from repro.core.engine import BSTEngine as JEngine  # noqa: E402
 from repro.core.engine import EngineConfig as JConfig  # noqa: E402
 from repro.data.keysets import make_tree_data  # noqa: E402
+from repro_torch.core import engine as engine_lib  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig  # noqa: E402
 
@@ -168,9 +169,13 @@ def test_engine_checks_the_kernel_limits_at_construction(monkeypatch):
     with pytest.raises(ValueError, match="split level 3 .* the limit is split level 2"):
         BSTEngine(keys, keys, PAPER_CONFIGS["Hyb8q"])
     # the direct mapping keeps no table, and the hybrid kernel reads the
-    # buffer in global memory: neither limit applies (what fails is the
-    # allocation on a machine without a card)
-    with pytest.raises(Exception) as err:
-        BSTEngine(keys, keys, dataclasses.replace(PAPER_CONFIGS["Hyb8"], delta_capacity=4096))
-    assert "the limit is" not in str(err.value)
+    # buffer in global memory: neither limit is asked for
+
+    def no_limit(device):
+        raise AssertionError("no kernel limit applies to Hyb8 with a delta buffer")
+
+    monkeypatch.setattr(K, "delta_capacity_limit", no_limit)
+    monkeypatch.setattr(K, "hybrid_max_queue_split", no_limit)
+    engine_lib._check_kernel_limits(
+        dataclasses.replace(PAPER_CONFIGS["Hyb8"], device="cuda", delta_capacity=4096))
     BSTEngine(keys, keys, EngineConfig(delta_capacity=4096, device="cpu"))  # no card, no limit

@@ -8,11 +8,14 @@ themselves run only on the card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them against these plain versions there.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import plans as jplans  # noqa: E402
@@ -116,17 +119,21 @@ def _skewed_batch(keys, jt, B, seed):
 
 def _jax_overflow(jt, q, active, split, mapping, capacity):
     """The JAX package's placement of a whole batch: its register route, then
-    its kernel's own ``_dispatch_lanes``."""
+    its kernel's own ``_dispatch_lanes`` (jitted: one compile, not one per
+    eager op)."""
     n_sub = 1 << split
-    if split == 0:
-        dest = np.zeros(q.shape, np.int32)
-        found = np.zeros(q.shape, bool)
-    else:
-        dest, _, found = JT.register_layer_route(jt, jnp.asarray(q), split)
-    live = jnp.asarray(active) & ~jnp.asarray(found)
-    dest = jnp.clip(jnp.asarray(dest), 0, n_sub - 1)
-    _, overflow = _dispatch_lanes(dest, live, mapping, n_sub, capacity)
-    return np.asarray(overflow)
+
+    @jax.jit
+    def overflow(q, active):
+        if split == 0:
+            dest = jnp.zeros(q.shape, jnp.int32)
+            found = jnp.zeros(q.shape, bool)
+        else:
+            dest, _, found = JT.register_layer_route(jt, q, split)
+        live = active & ~found
+        return _dispatch_lanes(jnp.clip(dest, 0, n_sub - 1), live, mapping, n_sub, capacity)[1]
+
+    return np.asarray(overflow(jnp.asarray(q), jnp.asarray(active)))
 
 
 @pytest.mark.parametrize(
@@ -203,24 +210,30 @@ def _fifo_labels(dest, live):
     return out
 
 
-@pytest.mark.parametrize("ctas", [1, 4])
+@pytest.mark.parametrize("batch", ["skewed", "one_dest"])
 @pytest.mark.parametrize("split", [0, 1, 2, 3, 4])
-def test_warp_labels_match_jax_dispatch_lanes(split, ctas):
+def test_warp_labels_match_jax_dispatch_lanes(split, batch):
     """The kernel's warp-aggregated labels (rank in the warp, per-warp count
-    table scanned over the warps, in a cluster over the CTAs) are the FIFO
-    labels, and at every capacity place exactly the lanes JAX's
-    ``_dispatch_lanes`` places, chunk by chunk."""
+    table scanned over the warps) are the FIFO labels, and at every
+    capacity place exactly the lanes JAX's ``_dispatch_lanes`` places,
+    chunk by chunk: on a skewed batch, and on one whose live lanes all
+    share one destination."""
     keys, jt, tt = _trees(1023, seed=5)
     B = 1024
     q, act = _hyb_batch(keys, jt, B, seed=split)
+    if batch == "one_dest":
+        q[:] = leaf_keys(jt)[split]
     n_sub = 1 << split
     qt = torch.from_numpy(q).reshape(-1, 512)
     at = torch.from_numpy(act).reshape(-1, 512)
     state = tref._walk_state(qt.shape, "cpu")
-    state = tref.walk_levels_ref(tt.keys, qt, at, state, tt.height, 0, split, 11, 4, False)
+    state = tref.walk_levels_ref(tt.keys, qt, at, state, tt.height, 0, split,
+                                 tref.hybrid_staged_levels(split), False)
     live = at & ~state[1]
     dest = torch.clamp(state[0] - (n_sub - 1), 0, n_sub - 1)
-    labels = tref.warp_queue_labels(dest, live, n_sub, ctas)
+    if batch == "one_dest":
+        assert bool(live.any()) and int(dest[live].unique().numel()) == 1
+    labels = tref.warp_queue_labels(dest, live, n_sub)
     np.testing.assert_array_equal(labels.numpy(), _fifo_labels(dest.numpy(), live.numpy()))
     for cap in (1, 7, invariants.buffer_capacity(512, n_sub, 0.5)):
         for c in range(B // 512):
@@ -237,11 +250,12 @@ def test_warp_labels_match_jax_dispatch_lanes(split, ctas):
 @pytest.mark.parametrize("split", [0, 1, 2, 3, 4])
 def test_hybrid_phases_match_pallas(split, mapping, ordered):
     """The kernel's phases composed (route, warp labels or direct clash, the
-    descent K levels per round trip with the values gathered at the end)
+    descent two levels per round trip with the values gathered at the end)
     against the Pallas kernel in interpret mode at B = 513 (a full chunk
     and a ragged one), and against JAX's jnp oracle at B = 1 and 511 (one
-    chunk, which it dispatches whole), overflow mask included."""
-    keys, jt, tt = _trees(1023, seed=5)
+    chunk, which it dispatches whole), overflow mask included.  H = 10:
+    below the 8 staged levels a full group of two and a last one of one."""
+    keys, jt, tt = _trees(2047, seed=5)
     cap = invariants.buffer_capacity(512, 1 << split, 0.5)
     for B in (513, 511, 1):
         q, act = _hyb_batch(keys, jt, B, seed=B + split)
@@ -252,24 +266,24 @@ def test_hybrid_phases_match_pallas(split, mapping, ordered):
                 ordered=ordered, use_ref=False, interpret=True,
             )
         else:
-            want = jref.bst_hybrid_ref(jt.keys, jt.values, jnp.asarray(q), jt.height, split,
-                                       mapping, cap, active=jnp.asarray(act), ordered=ordered)
+            want = jax.jit(functools.partial(
+                jref.bst_hybrid_ref, height=jt.height, split_level=split, mapping=mapping,
+                capacity=cap, ordered=ordered,
+            ))(jt.keys, jt.values, jnp.asarray(q), active=jnp.asarray(act))
         want_ovf = np.zeros(B, bool)
         for c in range(0, B, 512):
             sl = slice(c, c + 512)
             want_ovf[sl] = _jax_overflow(jt, q[sl], act[sl], split, mapping, cap)
         if B == 513:
             assert want_ovf.any()  # the skew reached the stall round
-        for k, staged in ((2, None), (4, 11), (3, 0), (1, split)):
-            overflow = torch.full((B,), -7, dtype=torch.int32)
-            got = tref.bst_hybrid_phases_ref(
-                tt.keys, tt.values, torch.from_numpy(q), tt.height, split, mapping, cap,
-                active=torch.from_numpy(act), ordered=ordered, overflow_out=overflow,
-                staged=staged, k=k,
-            )
-            tag = f"B={B} split={split} {mapping} k={k} staged={staged}"
-            _assert_same(got, want, tag)
-            np.testing.assert_array_equal(overflow.numpy().astype(bool), want_ovf, err_msg=tag)
+        overflow = torch.full((B,), -7, dtype=torch.int32)
+        got = tref.bst_hybrid_phases_ref(
+            tt.keys, tt.values, torch.from_numpy(q), tt.height, split, mapping, cap,
+            active=torch.from_numpy(act), ordered=ordered, overflow_out=overflow,
+        )
+        tag = f"B={B} split={split} {mapping}"
+        _assert_same(got, want, tag)
+        np.testing.assert_array_equal(overflow.numpy().astype(bool), want_ovf, err_msg=tag)
 
 
 def _sorted_buffer(C, seed):
@@ -296,7 +310,8 @@ def _sorted_buffer(C, seed):
 def test_delta_line_probe_matches_jax_resolution(C):
     """The hybrid kernel's delta resolution (a sample of the sorted keys,
     then one line of keys and weights) against JAX's broadcast oracle, at
-    sample lines of 32 slots and, past 65,536 slots, of 64 and 128."""
+    sample lines of 32 slots and, at 140,000 slots, of 64 (membership) and
+    128 (ordered)."""
     ops4, q, act = _sorted_buffer(C, seed=C)
     want = jref.bst_delta_resolve_ref(*(jnp.asarray(x) for x in ops4), jnp.asarray(q),
                                       jnp.asarray(act))
