@@ -8,18 +8,21 @@ Phases, in order; any failure raises and exits non-zero:
 1. identify the card (name and power limit from nvidia-smi, versions);
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
    process per source, all at once), and report ptxas's registers, spills
-   and shared memory per kernel, K2's theoretical occupancy, the kernels'
-   shared-memory limits (the forest kernel's delta capacity, the hybrid
-   body's queue split), and the HGMMA (wgmma) instructions in each K5
-   body's SASS (``cuobjdump``): the bf16 body must have some;
+   and shared memory per kernel, K2's theoretical occupancy at its
+   dynamic shared memory (both bodies' delta sample, the hybrid body's
+   label table), the hybrid body's queue split limit, both bodies' design
+   (levels staged and per round trip, sampled delta lines) against their
+   twins in ``kernels/ref.py``, and the HGMMA (wgmma) instructions in each
+   K5 body's SASS (``cuobjdump``): the bf16 body must have some;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
    height-0 and minimal hybrid trees; then the delta configuration (K2)
    of both kernels the same way, against a full 4096-entry write buffer
    (upserts, overwrites, tombstones of stored and absent keys), an empty
-   one and a one-entry one, and the hybrid kernel against a 20,000-entry
-   buffer, past what the forest kernel can stage;
+   one, a one-entry one, and 20,000- and 140,000-entry ones (sampled
+   lines of 32, 64 and 128 slots); an hrz engine with a 140,000-entry
+   buffer built, written and read against a dict oracle;
 4. serve the paper's streams through ``BSTServer`` for each of the seven
    paper configurations over the same tree, check every answer against a
    numpy searchsorted oracle, and check that each kernel of the path was
@@ -94,7 +97,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import invariants, runtime  # noqa: E402
-from repro_torch.core import PAPER_CONFIGS, QUERY_OPS  # noqa: E402
+from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
 from repro_torch.core import delta as delta_lib  # noqa: E402
 from repro_torch.core import plans as plans_lib  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
@@ -145,9 +148,8 @@ REPLACES = {
 # launch/serve.py, its default high-water mark (3/4), and per round of the
 # stream the op counts below.
 W_CAPACITY = 4096
-# hybrid buffers past the forest kernel's staging limit (~14,000): sampled
-# lines of 32 slots, and past 131,072 slots lines of 64 (membership) and 128
-# (ordered)
+# buffers past what one CTA could stage whole (~14,000): sampled lines of 32
+# slots, and past 131,072 slots lines of 64 (membership) and 128 (ordered)
 BIG_CAPACITIES = (20000, 140000)
 DELTA_LINE_CAPACITIES = (1, 4096, 20000, 65504, 65536, 131072, 131073, 140000, 1 << 20)
 W_ROUNDS = 8
@@ -268,7 +270,6 @@ def compare(got, want, kernel: str, tag: str) -> int:
 # CTAs, registers (allocated per warp in units of 256), shared memory (1 KiB
 # reserved per CTA, allocated in units of 128 bytes).
 SM_THREADS, SM_CTAS, SM_REGS, SM_SMEM, CTA_RESERVED_SMEM = 2048, 32, 65536, 233472, 1024
-FOREST_CTA = 256  # threads per CTA of forest_descend (kForestBlock)
 
 
 def kernel_label(mangled: str) -> str:
@@ -326,13 +327,6 @@ def sass_instruction_counts(lib_path, opcode: str) -> dict:
         elif label and re.search(rf"\*/\s+(@!?U?P\w+\s+)?{opcode}", line):
             counts[label] += 1
     return counts
-
-
-def delta_smem_bytes(capacity: int, ordered: int) -> int:
-    """The forest kernel's delta staging, dynamic shared memory
-    (``delta_smem_ints`` in forest_search.cu): keys, values, tombstones, and
-    ordered adds the weight prefix and the scan's 32 per-warp partials."""
-    return 4 * (4 * capacity + 1 + 32 if ordered else 3 * capacity)
 
 
 def ctas_per_sm(threads: int, regs: int, smem: int) -> int:
@@ -431,11 +425,10 @@ def full_buffer(tree, keys, capacity: int, seed: int) -> delta_lib.DeltaBuffer:
     return buffer_of(tree, wk[order], wv, wd[order], capacity)
 
 
-def check_delta_kernels(tree, lanes, active, buffers, forest: bool = True) -> None:
+def check_delta_kernels(tree, lanes, active, buffers) -> None:
     """K2, the delta configuration of both kernels, against its plain
-    version for every buffer: forest hrz, dup4, dup8 (unless ``forest`` is
-    False) and hybrid split 2 and 3 x queue/direct, membership and
-    ordered."""
+    version for every buffer: forest hrz, dup4, dup8 and hybrid split 2 and
+    3 x queue/direct, membership and ordered."""
     H = tree.height
     fk, fv = tree.keys[None], tree.values[None]
     for label, buf in buffers.items():
@@ -443,7 +436,7 @@ def check_delta_kernels(tree, lanes, active, buffers, forest: bool = True) -> No
         hit, dead, _, _ = ref.bst_delta_resolve_ref(*d_ops, lanes, active)
         for ordered in (False, True):
             tag = f"{label} {'ordered' if ordered else 'membership'}"
-            for T in (1, 4, 8) if forest else ():
+            for T in (1, 4, 8):
                 q, a = lanes.reshape(T, -1), active.reshape(T, -1)
                 got = K.bst_ordered_forest_cuda(fk, fv, q, H, active=a, shared_tree=T > 1,
                                                 ordered=ordered, delta=d_ops)
@@ -464,10 +457,41 @@ def check_delta_kernels(tree, lanes, active, buffers, forest: bool = True) -> No
                     check(int(k_ovf[: lanes.shape[0] // 4].sum()) > 0,
                           f"{t}: the equal key set did not overflow")
         log(f"  K2 {label} (C={buf.capacity}, {int(buf.count)} live): "
-            f"{'forest hrz/dup4/dup8 and ' if forest else ''}"
-            f"hybrid split 2, 3 x queue/direct, membership and ordered: 0 mismatches; "
+            f"forest hrz/dup4/dup8 and hybrid split 2, 3 x queue/direct, membership and ordered: 0 mismatches; "
             f"{int(hit.sum())} active lanes hit the buffer, {int((hit & dead).sum())} of them "
             f"tombstones")
+
+
+def check_large_buffer_engine(n_keys: int = (1 << 18) - 1, capacity: int = BIG_CAPACITIES[-1]):
+    """An hrz engine with a ``capacity``-entry write buffer, built on the card
+    (no kernel limit stands in its way), written with 100,000 upserts and
+    tombstones in one batch and read back through K2 forest: every lookup
+    of the written keys, stored keys and absent neighbours equals a dict
+    oracle of the state."""
+    keys, values = make_tree_data(n_keys, seed=13)
+    rng = np.random.default_rng(13)
+    wk = np.unique(rng.integers(1, 4 * n_keys, 100_000).astype(np.int32))
+    wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+    wd = rng.random(wk.size) < 0.25
+    state = dict(zip(keys.tolist(), values.tolist()))
+    for k, v, d in zip(wk.tolist(), wv.tolist(), wd.tolist()):
+        if d:
+            state.pop(k, None)
+        else:
+            state[k] = v
+    eng = BSTEngine(keys, values, dataclasses.replace(PAPER_CONFIGS["Hrz"], delta_capacity=capacity))
+    eng.apply_ops(wk, wv, wd)
+    check(eng.compactions == 0, "the buffer compacted before the read")
+    q = np.concatenate([wk, keys[::7], wk + 1]).astype(np.int32)
+    K.reset_launches()
+    val, found = (t.cpu().numpy() for t in eng.lookup(q))
+    check(K.LAUNCHES["forest_descend_delta"] > 0, "K2 forest did not serve the read")
+    want_found = np.array([k in state for k in q.tolist()])
+    want_val = np.array([state.get(k, SENTINEL_VALUE) for k in q.tolist()], np.int32)
+    check(np.array_equal(found, want_found) and np.array_equal(val[found], want_val[found]),
+          "the large-buffer engine disagrees with its oracle")
+    log(f"  Hrz engine, delta capacity {capacity}: {wk.size} writes ({int(wd.sum())} deletes) "
+        f"buffered, {q.size} lookups equal the oracle ({int(found.sum())} found)")
 
 
 # ------------------------------------------------------------ phase 4: server
@@ -914,20 +938,17 @@ def delta_touched_bytes(d_ops, q, ordered: bool) -> int:
 
 def round_trips(kern: str, H: int, ordered: bool, split: int = 0) -> int:
     """Global round trips on the dependent chain of a lane that walks all
-    H + 1 levels, each an HBM round trip when the L2 is cold: one to stage
-    the top levels, then for the forest kernel one per level below its
-    REGISTER_LEVELS staged ones and, membership, one for the value at the
-    hit (read after the compare; the ordered body reads it with the key);
-    for the hybrid body one per ``hybrid_levels_per_trip`` levels below its
-    staged ones, one to gather the values, and with the delta buffer one
-    for its line of keys (read before the route)."""
-    if kern.startswith("forest"):
-        r = max(1, min(K.REGISTER_LEVELS, H + 1))
-        return 1 + (H + 1 - r) + (0 if ordered else 1)
+    H + 1 levels, each an HBM round trip when the L2 is cold, from the
+    design the library exports: one to stage the top levels (the forest
+    body's ``forest_staged_levels``, the hybrid body's
+    ``hybrid_staged_levels`` at its split), one per ``levels_per_trip``
+    levels below them, one to gather the values, and with the delta buffer
+    one for the lane's line of keys (read before the descent).  The same
+    in both configurations: the ordered walk keeps node indices too."""
     lib = _build.library().lib
-    per, staged = lib.hybrid_levels_per_trip(), lib.hybrid_staged_levels(split)
+    staged = lib.forest_staged_levels() if kern.startswith("forest") else lib.hybrid_staged_levels(split)
     deep = max(0, H + 1 - staged)
-    return 1 + -(-deep // per) + 1 + (1 if kern.endswith("_delta") else 0)
+    return 1 + -(-deep // lib.levels_per_trip()) + 1 + (1 if kern.endswith("_delta") else 0)
 
 
 def kernel_and_plain(tree, cfg, q, ordered: bool, delta=None):
@@ -1554,37 +1575,39 @@ def main() -> int:
     log(f"    K5 HGMMA instructions in SASS: {hgmma}; bf16 body dynamic shared memory "
         f"per CTA by head dim: {flash_smem}")
     occupancy = {}
-    for kern, threads in (("forest_descend_kernel", FOREST_CTA),
+    for kern, threads in (("forest_descend_kernel", built.lib.forest_block()),
                           ("hybrid_descend_kernel", K.HYBRID_BLOCK_Q)):
         for ordered in (0, 1):
             for mapping in ((0, 1) if kern.startswith("hybrid") else (None,)):
                 targs = (ordered, 1) if mapping is None else (ordered, mapping, 1)
                 label = f"{kern}<{','.join(map(str, targs))}>"
                 check(label in resources, f"ptxas reported no resources for {label}")
-                regs, smem, _ = resources[label]
-                dyn = (delta_smem_bytes(W_CAPACITY, ordered) if mapping is None else
+                regs, smem, spills = resources[label]
+                dyn = (built.lib.forest_smem_bytes(W_CAPACITY, ordered) if mapping is None else
                        built.lib.hybrid_smem_bytes(invariants.split_level_for(8), mapping,
                                                    W_CAPACITY, ordered))
                 ctas = ctas_per_sm(threads, regs, smem + dyn)
                 tag = (f"{kern.replace('_kernel', '_delta')} {'ordered' if ordered else 'membership'}"
                        + ("" if mapping is None else f" {('queue', 'direct')[mapping]}"))
-                occupancy[tag] = {"registers": regs, "blocks_per_sm": ctas,
+                occupancy[tag] = {"registers": regs, "spills": spills, "static_smem_bytes": smem,
+                                  "dynamic_smem_bytes": dyn, "blocks_per_sm": ctas,
                                   "threads_per_sm": ctas * threads,
                                   "theoretical_occupancy": ctas * threads / SM_THREADS}
-                log(f"    {tag} at C={W_CAPACITY}: {ctas} CTAs of {threads} threads per SM "
+                log(f"    {tag} at C={W_CAPACITY}: {regs} registers, {smem} + {dyn} bytes "
+                    f"shared memory (static + dynamic), {ctas} CTAs of {threads} threads per SM "
                     f"(theoretical occupancy {ctas * threads / SM_THREADS!r})")
-    limits = {"forest_descend_delta capacity": K.delta_capacity_limit(torch.device("cuda")),
-              "hybrid_descend queue split": K.hybrid_max_queue_split(torch.device("cuda"))}
+    limits = {"hybrid_descend queue split": K.hybrid_max_queue_split(torch.device("cuda"))}
     check(limits["hybrid_descend queue split"] >= 3, f"the engine's splits do not fit: {limits}")
-    design = (built.lib.hybrid_levels_per_trip(),
+    design = (built.lib.levels_per_trip(), built.lib.forest_staged_levels(),
               [built.lib.hybrid_staged_levels(s) for s in range(13)],
-              [built.lib.hybrid_delta_line(c, o) for c in DELTA_LINE_CAPACITIES for o in (0, 1)])
-    twin = (ref.HYBRID_LEVELS_PER_TRIP, [ref.hybrid_staged_levels(s) for s in range(13)],
+              [built.lib.delta_line(c, o) for c in DELTA_LINE_CAPACITIES for o in (0, 1)])
+    twin = (ref.LEVELS_PER_TRIP, ref.STAGED_LEVELS, [ref.hybrid_staged_levels(s) for s in range(13)],
             [ref.delta_line(c, bool(o)) for c in DELTA_LINE_CAPACITIES for o in (0, 1)])
-    check(design == twin, f"the hybrid body's design {design} is not its twin's {twin} "
+    check(design == twin, f"the bodies' design {design} is not their twins' {twin} "
           f"in kernels/ref.py")
-    log(f"    limits (shared memory of one CTA): {limits}; the hybrid kernel reads the delta "
-        f"buffer in global memory and takes any capacity")
+    log(f"    design: {design[0]} levels per round trip, forest body {design[1]} staged levels "
+        f"and {built.lib.forest_block()} lanes a CTA; limits (shared memory of one CTA): "
+        f"{limits}; both kernels read the delta buffer in global memory and take any capacity")
 
     keys, values = make_tree_data(N_KEYS)
     tree = build_tree(keys, values, device="cuda")
@@ -1607,18 +1630,18 @@ def main() -> int:
     check_delta_kernels(tree, d_lanes, active, {
         "full buffer": full, "empty buffer": delta_lib.empty(W_CAPACITY, "cuda"), "one entry": one,
     })
-    # past what one CTA could stage (the forest kernel's limit): the hybrid
-    # kernel reads the buffer in global memory
+    # past what one CTA could stage whole: both kernels read the buffer in
+    # global memory through its sample
     for seed, C in enumerate(BIG_CAPACITIES, 6):
-        check(C > limits["forest_descend_delta capacity"], f"{C} is within {limits}")
         big = full_buffer(tree, keys, C, seed=seed)
         b_lanes = lanes.clone()
         b_lanes[-CHECK_LANES // 4:] = torch.from_numpy(
             rng.permutation(big.keys.cpu().numpy())[: CHECK_LANES // 4]).cuda()
-        lines = [built.lib.hybrid_delta_line(C, o) for o in (0, 1)]
+        lines = [built.lib.delta_line(C, o) for o in (0, 1)]
         log(f"  sampled lines at C={C}: {lines[0]} slots (membership), {lines[1]} (ordered)")
-        check_delta_kernels(tree, b_lanes, active, {"large buffer": big}, forest=False)
+        check_delta_kernels(tree, b_lanes, active, {"large buffer": big})
         del big
+    check_large_buffer_engine()
     torch.cuda.synchronize()
 
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")

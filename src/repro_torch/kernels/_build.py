@@ -43,9 +43,9 @@ _SIGNATURES = {
     "flash_attention": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
     "flash_bf16_smem_bytes": [_I],  # d
     "hybrid_block_q": [],
-    # keys, values, n, height, reg_levels, shared_tree, queries, active, T, B,
-    # ordered, 7 outputs, stream
-    "forest_descend": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I]
+    # keys, values, n, height, shared_tree, queries, active, T, B, ordered,
+    # 7 outputs, stream
+    "forest_descend": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I]
     + [_P] * 7
     + [_P],
     # keys, values, n, height, split, mapping, capacity, queries, active, B,
@@ -55,7 +55,7 @@ _SIGNATURES = {
     + [_P, _P],
     # forest_descend's arguments up to ordered, then the delta buffer's keys,
     # values, tombstone, weight and capacity, 7 outputs, stream
-    "forest_descend_delta": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I]
+    "forest_descend_delta": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I]
     + [_P, _P, _P, _P, _I]
     + [_P] * 7
     + [_P],
@@ -65,11 +65,13 @@ _SIGNATURES = {
     + [_P, _P, _P, _P, _I]
     + [_P] * 7
     + [_P, _P],
-    "delta_capacity_limit": [],
     "hybrid_max_queue_split": [],
-    "hybrid_levels_per_trip": [],
+    "levels_per_trip": [],
+    "forest_block": [],
+    "forest_staged_levels": [],
     "hybrid_staged_levels": [_I],  # split
-    "hybrid_delta_line": [_I, _I],  # capacity, ordered
+    "delta_line": [_I, _I],  # capacity, ordered
+    "forest_smem_bytes": [_I, _I],  # capacity, ordered
     "hybrid_smem_bytes": [_I, _I, _I, _I],  # split, mapping, capacity, ordered
     # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
     "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -9,13 +9,11 @@ batch are the kernels' own padding, so no query is copied to pad it.
 
 ``delta=``, the write buffer's four (C,) int32 operands, selects a kernel's
 delta configuration (K2: ``forest_descend_delta``, ``hybrid_descend_delta``).
-The forest kernel stages the buffer in shared memory, so a capacity whose
-staging does not fit one CTA raises, naming the limit
-(``delta_capacity_limit``); the hybrid kernel reads it in global memory and
-takes any capacity.  The hybrid kernel's queue mapping keeps a label table
-of 16 x 2^split ints in shared memory, so a split above
-``hybrid_max_queue_split`` raises.  ``check_engine_limits`` applies both
-limits to an engine's configuration before it is built.
+Both kernels read the buffer in global memory through a sample of it in
+shared memory, so any capacity runs.  The hybrid kernel's queue mapping
+keeps a label table of 16 x 2^split ints in shared memory, so a split above
+``hybrid_max_queue_split`` raises; ``check_engine_limits`` applies that
+limit to an engine's configuration before it is built.
 """
 
 from __future__ import annotations
@@ -38,7 +36,6 @@ LAUNCHES: Dict[str, int] = {
 }
 
 HYBRID_BLOCK_Q = 512  # lanes per dispatch chunk: one CTA of hybrid_descend
-REGISTER_LEVELS = 3  # K1 levels served from shared memory, as the Pallas register block
 _INT32_MAX = 2**31 - 1
 
 
@@ -107,18 +104,6 @@ def check_hybrid_operands(
 
 
 @functools.lru_cache(maxsize=None)
-def delta_capacity_limit(device: torch.device) -> int:
-    """The largest delta capacity whose staging fits one CTA of the forest
-    kernel on ``device``: the shared memory a block may opt in to, less the
-    kernel's static shared memory."""
-    with torch.cuda.device(device):
-        rc = _build.library().lib.delta_capacity_limit()
-    if rc < 0:
-        _build.check_launch(-rc, "delta_capacity_limit")
-    return rc
-
-
-@functools.lru_cache(maxsize=None)
 def hybrid_max_queue_split(device: torch.device) -> int:
     """The largest split level the hybrid kernel's queue mapping takes on
     ``device``: its label table, 16 warps x 2^split ints, must fit one
@@ -128,16 +113,6 @@ def hybrid_max_queue_split(device: torch.device) -> int:
     if rc < 0:
         _build.check_launch(-rc, "hybrid_max_queue_split")
     return rc
-
-
-def check_delta_capacity(C: int, device) -> None:
-    """Raise if the forest kernel cannot stage a C-entry buffer on ``device``."""
-    limit = delta_capacity_limit(device)
-    if C > limit:
-        raise ValueError(
-            f"delta capacity {C} does not fit the shared memory of one "
-            f"forest_descend_delta CTA on this card: the limit is {limit} entries"
-        )
 
 
 def check_queue_split(split_level: int, device) -> None:
@@ -152,23 +127,18 @@ def check_queue_split(split_level: int, device) -> None:
         )
 
 
-def check_engine_limits(
-    device, strategy: str, split_level: int, mapping: str, delta_capacity: int
-) -> None:
+def check_engine_limits(device, strategy: str, split_level: int, mapping: str) -> None:
     """The limits of the kernels an engine of this configuration launches
     on ``device`` (a CUDA device), with the messages the wrappers give:
-    hyb runs the hybrid kernel (its queue label table), hrz and dup the
-    forest kernel (its staged delta buffer)."""
-    if strategy == "hyb":
-        if mapping == "queue":
-            check_queue_split(split_level, device)
-    elif delta_capacity > 0:
-        check_delta_capacity(delta_capacity, device)
+    hyb with the queue mapping needs its label table to fit one CTA; the
+    forest kernel and the direct mapping have no limit to check."""
+    if strategy == "hyb" and mapping == "queue":
+        check_queue_split(split_level, device)
 
 
-def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
+def _check_delta(delta: Sequence[torch.Tensor], device) -> int:
     """The buffer's four operands: (C,) int32, contiguous, on ``device``,
-    one length C >= 1 (that the forest kernel can stage).  Returns C."""
+    one length C >= 1.  Returns C."""
     if len(delta) != 4:
         raise ValueError("delta must be (keys, values, tombstone, weight)")
     C = int(delta[0].shape[0]) if delta[0].ndim == 1 else -1
@@ -180,8 +150,6 @@ def _check_delta(delta: Sequence[torch.Tensor], device, hybrid: bool) -> int:
         raise ValueError("delta capacity must be >= 1")
     if C > _INT32_MAX:
         raise ValueError(f"delta capacity {C} exceeds int32")
-    if not hybrid:
-        check_delta_capacity(C, device)
     return C
 
 
@@ -211,10 +179,12 @@ def bst_ordered_forest_cuda(
     """Kernel K1 (``forest_descend``) over (R, n) flat trees for (T, B)
     queries: ``(values, found, pred_keys, pred_values, succ_keys,
     succ_values, rank)``, each (T, B), or ``(values, found)`` with
-    ``ordered=False``.  Levels ``[0, r)`` are staged in shared memory,
-    ``r = max(1, min(REGISTER_LEVELS, height + 1))``.  With ``delta`` it is
-    K2 (``forest_descend_delta``): value/found/rank come back merged with
-    the write buffer."""
+    ``ordered=False``.  Each CTA stages the top ``min(8, height + 1)``
+    levels of its row's keys in shared memory (the kernel's
+    ``forest_staged_levels``); deeper levels go two per global round trip,
+    and the values are gathered at the end.  With ``delta`` it is K2
+    (``forest_descend_delta``): value/found/rank come back merged with the
+    write buffer, read through its sample, at any capacity."""
     device = queries.device
     if device.type != "cuda":
         raise ValueError(f"bst_ordered_forest_cuda takes CUDA tensors, got {device}")
@@ -223,7 +193,7 @@ def bst_ordered_forest_cuda(
                     ("queries", queries)):
         _check_int32(name, t, device)
     active = _check_active(active, queries.shape, device)
-    C = None if delta is None else _check_delta(delta, device, hybrid=False)
+    C = None if delta is None else _check_delta(delta, device)
     T, B = queries.shape
     if T > 65535 or B > _INT32_MAX or forest_keys.shape[1] > _INT32_MAX:
         raise ValueError(f"forest shape out of the kernel's range: T={T}, B={B}")
@@ -231,11 +201,10 @@ def bst_ordered_forest_cuda(
     if B == 0 or T == 0:
         return outs
     built = _build.library()
-    r = max(1, min(REGISTER_LEVELS, height + 1))
     ord_ptrs = [_ptr(o) for o in outs[2:]] if ordered else [None] * 5
     tree_args = (
         forest_keys.data_ptr(), forest_values.data_ptr(), forest_keys.shape[1],
-        height, r, int(shared_tree), queries.data_ptr(), _ptr(active), T, B,
+        height, int(shared_tree), queries.data_ptr(), _ptr(active), T, B,
         int(ordered),
     )
     out_ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), *ord_ptrs)
@@ -319,7 +288,7 @@ def bst_hybrid_forest_cuda(
         _check_int32("overflow_out", overflow_out, device)
         if tuple(overflow_out.shape) != tuple(queries.shape):
             raise ValueError("overflow_out must have the queries' shape")
-    C = None if delta is None else _check_delta(delta, device, hybrid=True)
+    C = None if delta is None else _check_delta(delta, device)
     if mapping == "queue":
         check_queue_split(split_level, device)
     B = queries.shape[0]

@@ -274,15 +274,17 @@ def bst_hybrid_ref(
     return _with_delta(outs, delta, queries, active)
 
 
-# ------------------------------------------------ the hybrid body's phases
-# Twins of the phases of ``hybrid_descend_kernel`` (csrc/forest_search.cu),
-# each repeating the kernel's own arithmetic; ``bst_hybrid_phases_ref``
-# composes them.  The tests hold them against ``_dispatch_lanes``,
-# ``bst_hybrid_ref`` and the JAX package's Pallas kernel.
+# ------------------------------------------------------ the bodies' phases
+# Twins of the phases of ``forest_descend_kernel`` and
+# ``hybrid_descend_kernel`` (csrc/forest_search.cu), each repeating the
+# kernel's own arithmetic; ``bst_forest_phases_ref`` and
+# ``bst_hybrid_phases_ref`` compose them.  The tests hold them against
+# ``_dispatch_lanes``, ``bst_ordered_ref``, ``bst_hybrid_ref`` and the JAX
+# package's Pallas kernel.
 WARP = 32
-HYBRID_LEVELS_PER_TRIP = 2  # kHybLevelsPerTrip
-HYBRID_STAGED_LEVELS = 8  # kHybStagedLevels: at least the route's, at most
-HYBRID_MAX_STAGED_LEVELS = 11  # kHybMaxStagedLevels
+LEVELS_PER_TRIP = 2  # kLevelsPerTrip: global levels per round trip, both bodies
+STAGED_LEVELS = 8  # kStagedLevels: the forest body's staged levels; the hybrid body's least,
+HYBRID_MAX_STAGED_LEVELS = 11  # kHybMaxStagedLevels: and its most
 DELTA_LINE = 32  # delta slots per sampled line (kLine)
 DELTA_SAMPLE_INTS = 4096  # the sample's shared memory, in ints (kSampleInts)
 _WARP_SUMS = 32
@@ -291,7 +293,7 @@ _WARP_SUMS = 32
 def hybrid_staged_levels(split_level: int) -> int:
     """Levels the kernel stages in shared memory (``hyb_staged_levels``):
     at least the route's, at most HYBRID_MAX_STAGED_LEVELS."""
-    return min(max(HYBRID_STAGED_LEVELS, split_level), HYBRID_MAX_STAGED_LEVELS)
+    return min(max(STAGED_LEVELS, split_level), HYBRID_MAX_STAGED_LEVELS)
 
 
 def warp_queue_labels(dest: torch.Tensor, live: torch.Tensor, n_sub: int):
@@ -349,7 +351,7 @@ def _walk_step(state, q, gate, nk, node, level, height, ordered):
 def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, ordered):
     """Levels ``[l0, l1)`` of the flat tree ``keys`` (n,) for the lanes in
     ``gate``, as the kernel walks them: levels below ``staged`` one at a
-    time, deeper ones HYBRID_LEVELS_PER_TRIP per round trip (fewer in a
+    time, deeper ones LEVELS_PER_TRIP per round trip (fewer in a
     last group that reaches ``l1``) -- the 2^g - 1 keys under a
     lane's node (depth j: ``(idx + 1) 2^j - 1 + m``, m < 2^j) gathered at
     once, then resolved level by level, picking each level's key by the
@@ -363,7 +365,7 @@ def walk_levels_ref(keys, queries, gate, state, height, l0, l1, staged, ordered)
         l += 1
     l = max(l, staged)
     while l < l1:
-        g = min(HYBRID_LEVELS_PER_TRIP, l1 - l)
+        g = min(LEVELS_PER_TRIP, l1 - l)
         i1 = state[0] + 1
         runs = [((i1 << j) - 1)[..., None] + torch.arange(1 << j, device=keys.device)
                 for j in range(g)]
@@ -396,7 +398,7 @@ def gather_values_ref(values, state, active, ordered):
 
 def delta_line(capacity: int, ordered: bool) -> int:
     """Delta slots per sampled line: the smallest 32 x 2^e whose sample
-    fits the kernel's DELTA_SAMPLE_INTS (``hyb_delta_line``)."""
+    fits the kernels' DELTA_SAMPLE_INTS (``delta_line_of``)."""
     line = DELTA_LINE
     while True:
         n_lines = -(-capacity // line)
@@ -409,7 +411,7 @@ def delta_line_probe_ref(
     delta_keys, delta_values, delta_tombstone, delta_weight, queries, active=None,
     line: int = DELTA_LINE,
 ):
-    """The hybrid kernel's delta resolution, per query ``(hit, dead, value,
+    """Both kernels' delta resolution, per query ``(hit, dead, value,
     weight_below)`` as ``bst_delta_resolve_ref`` gives it: the sample (the
     first key of each ``line`` slots) places q after the sampled lines
     whose first key is below it; one line of keys (and weights) then counts
@@ -446,6 +448,39 @@ def delta_line_probe_ref(
         hit = hit & active
         wbelow = torch.where(active, wbelow, 0)
     return hit, dead, value, wbelow
+
+
+def bst_forest_phases_ref(
+    forest_keys: torch.Tensor,
+    forest_values: torch.Tensor,
+    queries: torch.Tensor,
+    height: int,
+    active: Optional[torch.Tensor] = None,
+    ordered: bool = True,
+    delta: Optional[DeltaOperands] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """``bst_ordered_ref``'s function through the forest kernel's own
+    phases, one tree row at a time (row 0 for every query row when R is 1):
+    the top ``min(STAGED_LEVELS, height + 1)`` levels one at a time, the
+    rest LEVELS_PER_TRIP per round trip (``walk_levels_ref``), one gather
+    of the values (``gather_values_ref``), and the delta buffer through its
+    sample (``delta_line_probe_ref``).  Must equal ``bst_ordered_ref`` bit
+    for bit."""
+    active = _active(queries, active)
+    R = forest_keys.shape[0]
+    staged = min(STAGED_LEVELS, height + 1)
+    rows = []
+    for t in range(queries.shape[0]):
+        r = t if R > 1 else 0
+        state = _walk_state(queries[t].shape, queries.device)
+        state = walk_levels_ref(forest_keys[r], queries[t], active[t], state, height, 0,
+                                height + 1, staged, ordered)
+        rows.append(gather_values_ref(forest_values[r], state, active[t], ordered))
+    outs = tuple(torch.stack(o) for o in zip(*rows))
+    if delta is None:
+        return outs
+    line = delta_line(delta[0].shape[0], ordered)
+    return merge_delta_resolution(outs, *delta_line_probe_ref(*delta, queries, active, line))
 
 
 def bst_hybrid_phases_ref(

@@ -152,16 +152,54 @@ def test_delta_kernels_match_their_plain_versions(cuda_device, C):
     assert K.LAUNCHES["forest_descend"] == K.LAUNCHES["hybrid_descend"] == 0
 
 
-def test_delta_capacity_past_the_shared_memory_limit_raises(cuda_device):
-    keys, values = make_tree_data(1023, seed=1)
-    tree = TT.build_tree(keys, values, device=cuda_device)
-    limit = K.delta_capacity_limit(cuda_device)
-    assert 4096 < limit < 65536
-    big = tuple(torch.zeros(limit + 1, dtype=torch.int32, device=cuda_device) for _ in range(4))
-    q = torch.from_numpy(keys[:8]).to(cuda_device)
-    with pytest.raises(ValueError, match=f"the limit is {limit} entries"):
-        K.bst_ordered_forest_cuda(tree.keys[None], tree.values[None], q[None], tree.height,
-                                  delta=big)
+def test_forest_delta_kernel_takes_large_buffers(cuda_device):
+    """K2 forest at C = 20,000 (past the ~14,400 the staged form took) and
+    140,000 (sampled lines of 64 slots for membership and 128 ordered):
+    equal to its plain version for hrz, dup4 and three unshared rows, both
+    configurations; then an hrz and a dup4 engine with a 140,000-slot
+    buffer built and read on the card, against a dict oracle."""
+    for C in (20000, 140000):
+        keys, values = make_tree_data(262143, seed=C)
+        tree = TT.build_tree(keys, values, device=cuda_device)
+        buf = _buffer(keys, tree, C, seed=C, device=cuda_device)
+        d_ops = TD.operands(buf)
+        rng = np.random.default_rng(C)
+        pool = np.concatenate([keys, keys + 1, buf.keys[: int(buf.count)].cpu().numpy()])
+        q = torch.from_numpy(rng.choice(pool, 4 * 4100).astype(np.int32)).to(cuda_device)
+        act = torch.from_numpy(rng.random(4 * 4100) > 0.1).to(cuda_device)
+        for ordered in (False, True):
+            for T, rows in ((1, 1), (4, 1), (3, 3)):
+                qq, aa = q[: T * 4100].reshape(T, -1), act[: T * 4100].reshape(T, -1)
+                fk = tree.keys[None].repeat(rows, 1)
+                fv = (tree.values[None] + torch.arange(rows, device=cuda_device)[:, None]).int()
+                got = K.bst_ordered_forest_cuda(fk, fv, qq, tree.height, active=aa,
+                                                shared_tree=rows < T, ordered=ordered,
+                                                delta=d_ops)
+                want = ref.bst_ordered_ref(fk, fv, qq, tree.height, aa, ordered=ordered,
+                                           delta=d_ops)
+                _same(got, want)
+    keys, values = make_tree_data(32767, seed=3)
+    rng = np.random.default_rng(3)
+    wk = np.unique(rng.integers(1, 2**20, 20000, dtype=np.int32))
+    wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+    wd = rng.random(wk.size) < 0.25
+    want = dict(zip(keys.tolist(), values.tolist()))
+    for k, v, d in zip(wk.tolist(), wv.tolist(), wd.tolist()):
+        if d:
+            want.pop(k, None)
+        else:
+            want[k] = v
+    q = np.concatenate([wk, keys[:5000], wk + 1]).astype(np.int32)
+    for name in ("Hrz", "Dup4"):
+        eng = BSTEngine(keys, values, dataclasses.replace(PAPER_CONFIGS[name],
+                                                          delta_capacity=140_000))
+        eng.apply_ops(wk, wv, wd)
+        assert eng.pending_writes() == wk.size and eng.compactions == 0
+        K.reset_launches()
+        val, found = (t.cpu().numpy() for t in eng.lookup(q))
+        assert K.LAUNCHES["forest_descend_delta"] > 0
+        assert found.tolist() == [k in want for k in q.tolist()]
+        assert val[found].tolist() == [want[k] for k in q[found].tolist()]
 
 
 def _hybrid_same(cuda_device, tree, q, act, split, mapping, cap, ordered, delta=None):

@@ -149,33 +149,29 @@ def test_engine_inputs_and_errors():
 
 def test_engine_checks_the_kernel_limits_at_construction(monkeypatch):
     """On a CUDA device the constructor applies the limits of the kernels
-    its configuration launches before it allocates anything: the forest
-    kernel's staged delta buffer (hrz, dup) and the hybrid kernel's queue
-    label table (hyb), with the wrappers' messages.  The limit functions
-    are patched, so no card is needed."""
+    its configuration launches before it allocates anything: only the
+    hybrid kernel's queue label table (Hyb8q), with the wrapper's message.
+    hrz and dup (the forest kernel) and both kernels' delta buffers ask for
+    no limit, at any capacity.  The limit function is patched, so no card
+    is needed."""
     from repro_torch.kernels import bst_search as K
 
-    monkeypatch.setattr(K, "delta_capacity_limit", lambda device: 100)
-    monkeypatch.setattr(K, "hybrid_max_queue_split", lambda device: 2)
-    keys = np.arange(2, 2 * 64, 2, dtype=np.int32)
-    msg = ("delta capacity 4096 does not fit the shared memory of one forest_descend_delta "
-           "CTA on this card: the limit is 100 entries")
-    with pytest.raises(ValueError, match=msg):
-        BSTEngine(keys, keys, EngineConfig(delta_capacity=4096, device="cuda"))
-    with pytest.raises(ValueError, match="the limit is 100 entries"):
-        BSTEngine.from_tree(TT.build_tree(keys, keys, device="cpu"),
-                            EngineConfig(strategy="dup", n_trees=4, delta_capacity=101,
-                                         device="cuda"))
-    with pytest.raises(ValueError, match="split level 3 .* the limit is split level 2"):
-        BSTEngine(keys, keys, PAPER_CONFIGS["Hyb8q"])
-    # the direct mapping keeps no table, and the hybrid kernel reads the
-    # buffer in global memory: neither limit is asked for
+    assert not hasattr(K, "delta_capacity_limit")
 
     def no_limit(device):
-        raise AssertionError("no kernel limit applies to Hyb8 with a delta buffer")
+        raise AssertionError("no kernel limit applies to this configuration")
 
-    monkeypatch.setattr(K, "delta_capacity_limit", no_limit)
     monkeypatch.setattr(K, "hybrid_max_queue_split", no_limit)
-    engine_lib._check_kernel_limits(
-        dataclasses.replace(PAPER_CONFIGS["Hyb8"], device="cuda", delta_capacity=4096))
+    for cfg in (EngineConfig(delta_capacity=140_000, device="cuda"),
+                EngineConfig(strategy="dup", n_trees=4, delta_capacity=140_000, device="cuda"),
+                EngineConfig(strategy="dup", n_trees=8, delta_capacity=140_000, device="cuda"),
+                dataclasses.replace(PAPER_CONFIGS["Hyb8"], device="cuda", delta_capacity=140_000)):
+        engine_lib._check_kernel_limits(cfg)
+    monkeypatch.setattr(K, "hybrid_max_queue_split", lambda device: 2)
+    keys = np.arange(2, 2 * 64, 2, dtype=np.int32)
+    with pytest.raises(ValueError, match="split level 3 .* the limit is split level 2"):
+        BSTEngine(keys, keys, PAPER_CONFIGS["Hyb8q"])
+    with pytest.raises(ValueError, match="split level 3 .* the limit is split level 2"):
+        BSTEngine.from_tree(TT.build_tree(keys, keys, device="cpu"),
+                            dataclasses.replace(PAPER_CONFIGS["Hyb8q"], delta_capacity=140_000))
     BSTEngine(keys, keys, EngineConfig(delta_capacity=4096, device="cpu"))  # no card, no limit

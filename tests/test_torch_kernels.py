@@ -107,6 +107,98 @@ def test_forest_rejects_a_row_count_that_is_not_shared():
         tops.bst_search_forest(tt.keys[None], tt.values[None], q, tt.height)
 
 
+# ------------------------------------- the forest body's phases, as twins
+FOREST_HEIGHT_KEYS = {0: 1, 1: 3, 7: 200, 8: 300, 10: 1500}  # H: keys (sentinel padding)
+FOREST_LAYOUTS = {"hrz": (1, False), "dup4": (4, True), "t3": (3, False)}  # T, shared row
+
+
+def _tree_buffer(keys, C, seed):
+    """A delta buffer over a tree's keys, in numpy: sorted unique live keys
+    (stored keys, absent neighbours and the int32 extremes) with an
+    INT32_MAX tail of empty slots, values, tombstones, signed weights (0 on
+    the empty slots)."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([rng.choice(keys, C), rng.choice(keys, C) + 1,
+                           rng.integers(-(2**31) + 1, 2**31 - 2, C // 4 + 1), EDGE_KEYS])
+    live = np.unique(pool.astype(np.int32))
+    live = np.sort(rng.choice(live, min(live.size, max(1, C - C // 5)), replace=False))
+    dk = np.full(C, 2**31 - 1, np.int32)
+    dk[: live.size] = live
+    dv = rng.integers(0, 2**31 - 1, C, dtype=np.int32)
+    dt = (rng.random(C) < 0.3).astype(np.int32)
+    dw = rng.integers(-3, 4, C).astype(np.int32)
+    dw[live.size:] = 0
+    return (dk, dv, dt, dw), live
+
+
+def _forest_case(H, layout, C, B, seed):
+    """Rows, queries and (with C) a buffer for a forest twin test: distinct
+    rows store shifted values; the queries mix stored keys, their
+    neighbours, buffer keys and the int32 extremes; a seventh of the lanes
+    is inactive."""
+    keys, jt, tt = _trees(FOREST_HEIGHT_KEYS[H], seed=seed)
+    assert jt.height == H
+    T, shared = FOREST_LAYOUTS[layout]
+    rows = 1 if shared else T
+    fk = np.tile(np.asarray(jt.keys)[None], (rows, 1))
+    fv = np.tile(np.asarray(jt.values)[None], (rows, 1)) + np.arange(rows, dtype=np.int32)[:, None]
+    d_ops, live = (None, np.empty(0, np.int32)) if C is None else _tree_buffer(keys, C, seed)
+    q = _queries(np.concatenate([keys, live]).astype(np.int32), T * B, seed).reshape(T, B)
+    q = np.minimum(q, 2**31 - 2)  # INT32_MAX is the empty slots' key: outside the contract
+    q[:, :2] = EDGE_KEYS
+    act = np.random.default_rng(seed + 1).random((T, B)) > 1 / 7
+    return fk, fv, q, act, shared, d_ops
+
+
+@pytest.mark.parametrize(
+    "H,layout,ordered,C",
+    [(sorted(FOREST_HEIGHT_KEYS)[i % 5], layout, ordered, C)
+     for i, (layout, ordered, C) in enumerate(
+         (layout, ordered, C) for layout in FOREST_LAYOUTS for ordered in (False, True)
+         for C in (None, 1, 64))],
+)
+def test_forest_phases_match_pallas(H, layout, ordered, C):
+    """The forest kernel's phases composed (the top min(8, H + 1) levels
+    from shared memory, two levels per round trip below them, the values
+    gathered at the end, the delta buffer through its sample) against the
+    Pallas forest kernel in interpret mode: hrz, dup4 on one shared row and
+    three unshared rows; H 0, 1 and 7 (every level staged), 8 (a last group
+    of one), 10 (a full group, then one); inactive lanes and int32-extreme
+    keys."""
+    fk, fv, q, act, shared, d_ops = _forest_case(H, layout, C, B=300, seed=H + (C or 0))
+    jfn = jops.bst_ordered_forest if ordered else jops.bst_search_forest  # jitted Pallas call
+    want = jfn(jnp.asarray(fk), jnp.asarray(fv), jnp.asarray(q), height=H,
+               active=jnp.asarray(act), shared_tree=shared, use_ref=False, interpret=True,
+               delta=None if d_ops is None else tuple(jnp.asarray(x) for x in d_ops))
+    got = tref.bst_forest_phases_ref(
+        torch.from_numpy(fk), torch.from_numpy(fv), torch.from_numpy(q), H,
+        active=torch.from_numpy(act), ordered=ordered,
+        delta=None if d_ops is None else tuple(torch.from_numpy(x) for x in d_ops),
+    )
+    _assert_same(got, want, f"H={H} {layout} ordered={ordered} C={C}")
+
+
+@pytest.mark.parametrize("C", [20000, 140000])
+def test_forest_phases_with_large_buffers_match_jax_ref(C):
+    """The composed forest route against JAX's jnp oracle (jitted) with
+    buffers whose sampled lines are 32 slots (C = 20,000) and 64
+    (membership) or 128 (ordered) slots (C = 140,000): hrz and dup4."""
+    assert [tref.delta_line(C, o) for o in (False, True)] == ([32, 32] if C == 20000 else [64, 128])
+    for layout in ("hrz", "dup4"):
+        fk, fv, q, act, shared, d_ops = _forest_case(10, layout, C, B=256, seed=C % 997)
+        for ordered in (False, True):
+            jfn = jops.bst_ordered_forest if ordered else jops.bst_search_forest
+            want = jfn(jnp.asarray(fk), jnp.asarray(fv), jnp.asarray(q), height=10,
+                       active=jnp.asarray(act), shared_tree=shared, use_ref=True,
+                       delta=tuple(jnp.asarray(x) for x in d_ops))
+            got = tref.bst_forest_phases_ref(
+                torch.from_numpy(fk), torch.from_numpy(fv), torch.from_numpy(q), 10,
+                active=torch.from_numpy(act), ordered=ordered,
+                delta=tuple(torch.from_numpy(x) for x in d_ops),
+            )
+            _assert_same(got, want, f"C={C} {layout} ordered={ordered}")
+
+
 # ------------------------------------------------- K3: the hybrid pipeline
 def _skewed_batch(keys, jt, B, seed):
     """70% one leaf key (every lane to one subtree: overflows the buffers),
