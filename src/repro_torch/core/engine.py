@@ -292,14 +292,13 @@ class BSTEngine:
 def _check_kernel_limits(config: EngineConfig) -> None:
     """On a CUDA device, the limits of the kernels the configuration will
     launch, before anything is allocated: the hybrid kernel's queue label
-    table (hyb with the queue mapping).  The forest kernel (hrz, dup) and
-    both kernels' delta buffers have none: any capacity runs.  A kernel
-    would otherwise refuse the engine's configuration at its first read."""
+    table (hyb with the queue mapping), with the wrapper's message.  The
+    forest kernel (hrz, dup), the direct mapping and both kernels' delta
+    buffers have none: any capacity runs.  A kernel would otherwise refuse
+    the engine's configuration at its first read."""
     device = torch.device(config.device)
-    if device.type != "cuda":
-        return
-    split = invariants.split_level_for(config.n_trees) if config.strategy == "hyb" else 0
-    bst_kernels.check_engine_limits(device, config.strategy, split, config.mapping)
+    if device.type == "cuda" and config.strategy == "hyb" and config.mapping == "queue":
+        bst_kernels.check_queue_split(invariants.split_level_for(config.n_trees), device)
 
 
 def _as_keys(keys) -> np.ndarray:

@@ -12,8 +12,8 @@ delta configuration (K2: ``forest_descend_delta``, ``hybrid_descend_delta``).
 Both kernels read the buffer in global memory through a sample of it in
 shared memory, so any capacity runs.  The hybrid kernel's queue mapping
 keeps a label table of 16 x 2^split ints in shared memory, so a split above
-``hybrid_max_queue_split`` raises; ``check_engine_limits`` applies that
-limit to an engine's configuration before it is built.
+``hybrid_max_queue_split`` raises (``check_queue_split``, which the engine
+also applies to its configuration before it is built).
 """
 
 from __future__ import annotations
@@ -125,15 +125,6 @@ def check_queue_split(split_level: int, device) -> None:
             f"{16 << split_level} ints in the shared memory of one hybrid_descend "
             f"CTA on this card: the limit is split level {limit}"
         )
-
-
-def check_engine_limits(device, strategy: str, split_level: int, mapping: str) -> None:
-    """The limits of the kernels an engine of this configuration launches
-    on ``device`` (a CUDA device), with the messages the wrappers give:
-    hyb with the queue mapping needs its label table to fit one CTA; the
-    forest kernel and the direct mapping have no limit to check."""
-    if strategy == "hyb" and mapping == "queue":
-        check_queue_split(split_level, device)
 
 
 def _check_delta(delta: Sequence[torch.Tensor], device) -> int:
