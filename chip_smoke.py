@@ -50,27 +50,34 @@ Phases, in order; any failure raises and exits non-zero:
    that see no key, d = 16 and 32) and at both serving shapes (qwen3's and
    mixtral-8x7b's prefill attention); the whole model in fp32 (1 x 512
    prompt), the flash route against the naive route over prefill and 4
-   decode steps, and decode against a prefill of the longer prompt; then
-   the bf16 serving run through ``greedy_generate`` (4 prompts x 2048
+   decode steps, and decode against a prefill of the longer prompt; the
+   whole model in bf16 (4 x 512 prompts), the flash route (K5's wgmma body)
+   and the naive route each against the naive route in fp32: the flash
+   route's RMS distance at most 1.25 times the naive one's; then the bf16
+   serving run through ``greedy_generate`` (4 prompts x 2048
    tokens + 32 new), one K5 launch per layer, every logit finite, with
    prefill and decode times, peak memory and the device idle share of a
    decode step and of a prefill; then K5 timed at both prefill shapes
    beside its bound, its plain version and ``scaled_dot_product_attention``;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
    layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
-   dispatch) against its plain version, bit for bit, at the JAX package's
-   sweep shapes, the MoE prefill and decode shapes and the kernel
-   benchmarks' shapes, with skewed and all-inactive rows; K4 timed at the
-   prefill, decode and kernel-benchmark shapes beside its byte bound, its
-   plain version and a one-element fill (the launch floor); the model in fp32 at 2 layers (1 x 512 prompt + 4 decode
-   steps): the K4 route against the plain dispatch route (equal logits),
+   dispatch, all five outputs of the plan) against its plain version, bit
+   for bit, at the JAX package's sweep shapes, the MoE prefill and decode
+   shapes and the kernel benchmarks' shapes, with skewed and all-inactive
+   rows; K4 timed at the prefill, decode and both benchmarks' shapes
+   beside its byte and latency bounds, its plain version and its floor (an
+   empty kernel of the same launch through the same ctypes path); one
+   queue dispatch of the MoE layer counted with torch.profiler at the
+   prefill and decode shapes: one device kernel, K4; the model in fp32 at
+   2 layers (1 x 512 prompt + 4 decode steps): the K4 route against the plain dispatch route (equal logits),
    and at capacity factor 4 the dispatch route against a dense
    every-token-through-its-experts oracle and decode against a prefill of
    the longer prompt; then the bf16 serving run at 16 layers through
    ``greedy_generate`` (4 prompts x 2048 tokens + 32 new), one K4 and one
    K5 launch per layer per prefill, one K4 launch per layer per decode
    step, every logit finite, with prefill and decode times, the dropped
-   share, peak memory and a decode step's device idle share;
+   share, peak memory, a decode step's device idle share and its eager
+   device kernels;
 8. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -98,6 +105,7 @@ import torch  # noqa: E402
 
 from repro_torch import invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
+from repro_torch.core import buffers as buf_lib  # noqa: E402
 from repro_torch.core import delta as delta_lib  # noqa: E402
 from repro_torch.core import plans as plans_lib  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
@@ -163,6 +171,11 @@ LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32  # the serving run
 LM_CHECK_PROMPT, LM_CHECK_STEPS = 512, 4  # the fp32 full-depth check
 LM_CHECK_TOL = 1e-3  # fp32 logits after 28 layers: the routes' rounding differs
+# The bf16 check: 4 prompts of LM_CHECK_PROMPT tokens; the flash route's
+# bf16 logits may be no further (RMS) from the fp32 naive route's than
+# this factor times the naive bf16 route's distance from them.
+LM_BF16_CHECK_BATCH = 4
+LM_BF16_ROUTE_RATIO = 1.25
 LM_PROFILE_STEPS = 4
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 # K5 against its plain version: fp32, the kernel's FMA order and expf
@@ -220,7 +233,8 @@ QD_SHAPES = [
     (2, 1000, 256, 8, "256 destinations"),
     (3, 700, 1024, 2, "the kernel's n_dest limit"),
 ]
-QD_TIMED = (5, 6, 7)  # indices into QD_SHAPES: the prefill, decode and kernel_bench shapes
+QD_TIMED = (5, 6, 7, 8)  # indices into QD_SHAPES: the prefill, decode and both benchmarks' shapes
+QD_ROUND_TRIPS = 1  # a lane's dependent global round trips in K4: its dest, before any barrier
 
 
 def check(cond, msg: str) -> None:
@@ -276,8 +290,9 @@ def kernel_label(mangled: str) -> str:
     """A readable name of a kernel instantiation from its mangled name:
     ``forest_descend_kernel<ORDERED,WITH_DELTA>`` (hybrid's
     ``<ORDERED,MAPPING,WITH_DELTA>``), ``flash_fwd_kernel<float,D>``,
-    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel``; any other
-    kernel keeps its mangled name, so a renamed or new one still shows."""
+    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel``,
+    ``queue_dispatch_wide_kernel``; any other kernel keeps its mangled
+    name, so a renamed or new one still shows."""
     entry = re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", mangled)
     if entry:
         targs = ",".join(re.findall(r"L[bi](\d+)E", entry.group(2) + "E"))
@@ -288,8 +303,9 @@ def kernel_label(mangled: str) -> str:
     bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", mangled)
     if bf16:
         return f"flash_fwd_bf16_kernel<{bf16.group(1)}>"
-    if "queue_dispatch_kernel" in mangled:
-        return "queue_dispatch_kernel"
+    qd = re.search(r"queue_dispatch(_wide)?_kernel", mangled)
+    if qd:
+        return qd.group(0)
     return mangled
 
 
@@ -1127,6 +1143,52 @@ def check_full_model_fp32(cfg, smi: str) -> dict:
     return row
 
 
+def check_full_model_bf16(cfg, smi: str) -> dict:
+    """qwen3-1.7b in bf16 at full width and depth, LM_BF16_CHECK_BATCH x
+    LM_CHECK_PROMPT: the serving route (flash, K5's bf16 wgmma body) and the
+    naive route (plain attention) in bf16, each against the naive route of
+    the same weights in fp32.  The flash route's RMS distance over all the
+    last-position logits may be at most LM_BF16_ROUTE_RATIO times the naive
+    bf16 route's: the kernel may add to the model's bf16 rounding, not
+    more than that share of it."""
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    naive32 = dataclasses.replace(naive, dtype="float32")
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    model32 = lm.Model(naive32, device="cuda")
+    for p32, p in zip(model32.parameters(), model.parameters()):
+        p32.copy_(p)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_BF16_CHECK_BATCH, LM_CHECK_PROMPT))).cuda()
+    FA.reset_launches()
+    flash, _ = lm.prefill(cfg, model, toks)
+    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
+          f"bf16 prefill: {FA.LAUNCHES['flash_attention']} K5 launches for {cfg.n_layers} layers")
+    plain, _ = lm.prefill(naive, model, toks)
+    want, _ = lm.prefill(naive32, model32, toks)
+    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers, "the naive routes launched K5")
+    check(all(bool(torch.isfinite(t).all()) for t in (flash, plain, want)),
+          "bf16 check: a logit is not finite")
+    dist = {name: (float((got.float() - want).pow(2).mean().sqrt()),
+                   float((got.float() - want).abs().max()))
+            for name, got in (("flash", flash), ("naive", plain))}
+    ratio = dist["flash"][0] / dist["naive"][0]
+    row = {"batch": LM_BF16_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
+           "flash_vs_fp32_rms": dist["flash"][0], "flash_vs_fp32_max_abs": dist["flash"][1],
+           "naive_vs_fp32_rms": dist["naive"][0], "naive_vs_fp32_max_abs": dist["naive"][1],
+           "rms_ratio": ratio, "tol_ratio": LM_BF16_ROUTE_RATIO,
+           "logit_scale": float(want.abs().max())}
+    log(f"  bf16 {cfg.name}, {cfg.n_layers} layers, {LM_BF16_CHECK_BATCH} x {LM_CHECK_PROMPT}: "
+        f"against the fp32 naive route, flash bf16 RMS {dist['flash'][0]!r} (max abs "
+        f"{dist['flash'][1]!r}), naive bf16 RMS {dist['naive'][0]!r} (max abs "
+        f"{dist['naive'][1]!r}); ratio {ratio!r} (tolerance {LM_BF16_ROUTE_RATIO}; largest "
+        f"logit {row['logit_scale']!r}) ({smi})")
+    check(ratio <= LM_BF16_ROUTE_RATIO,
+          f"bf16 check: the flash route is {ratio!r} times as far from fp32 as the naive route")
+    del model, model32, flash, plain, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def serve_lm(cfg, smi: str) -> dict:
     """The serving run: qwen3-1.7b in bf16 through ``greedy_generate`` with
     K5's launches counted from 0, then the same prefill and decode steps
@@ -1266,8 +1328,9 @@ def queue_dispatch_rows(G: int, B: int, n_dest: int, seed: int) -> torch.Tensor:
 
 
 def compare_k4(got, want, tag: str) -> int:
-    """K4's three outputs against its plain version's, element by element;
-    adds to ``AGREEMENT`` and fails on any difference."""
+    """K4's five outputs (slot, kept, buffers, counts, overflow) against its
+    plain version's, element by element; adds to ``AGREEMENT`` and fails on
+    any difference."""
     n_bad, worst = 0, 0
     for i, (g, w) in enumerate(zip(got, want)):
         check(g.shape == w.shape and g.dtype == w.dtype, f"{tag}[{i}]: shape/dtype")
@@ -1282,40 +1345,55 @@ def compare_k4(got, want, tag: str) -> int:
 
 def check_queue_dispatch() -> list:
     """K4 against its plain version at every QD_SHAPES shape, bit for bit on
-    buffers, counts and overflow; the one-destination row must overflow
+    all five outputs of the plan; the one-destination row must overflow
     wherever B exceeds the capacity."""
     rows = []
     for i, (G, B, n_dest, capacity, what) in enumerate(QD_SHAPES):
         dest = queue_dispatch_rows(G, B, n_dest, seed=i)
         got = QD.queue_dispatch_cuda(dest, n_dest, capacity)
         want = ref.queue_dispatch_ref(dest, n_dest, capacity)
+        check(len(got) == 5, f"K4 {what}: {len(got)} outputs")
         bad = compare_k4(got, want, f"K4 {what}")
-        n_over = int(got[2][G].sum())
+        n_over = int(got[4][G].sum())
         check(n_over == max(0, B - capacity), f"K4 {what}: {n_over} lanes of the one-destination row overflowed")
-        check(not bool(got[2][G + 2].any()) and int(got[1][G + 2].sum()) == 0,
+        check(not bool(got[4][G + 2].any()) and int(got[3][G + 2].sum()) == 0,
               f"K4 {what}: the all-inactive row placed a lane")
         rows.append({"G": G, "B": B, "n_dest": n_dest, "capacity": capacity, "what": what,
-                     "mismatches": bad, "overflowed": int(got[2].sum())})
+                     "mismatches": bad, "overflowed": int(got[4].sum())})
         log(f"  K4 {what}: G={G} (+3 skewed rows) B={B} n_dest={n_dest} capacity={capacity}: "
             f"0 mismatches, {rows[-1]['overflowed']} lanes overflowed")
     return rows
 
 
 def queue_dispatch_bytes(G: int, B: int, n_dest: int, capacity: int) -> int:
-    """Bytes K4 must move: dest read once; buffers, counts and overflow
-    written once, all int32."""
-    return 4 * G * B + 4 * G * (n_dest * capacity + n_dest + B)
+    """Bytes K4 must move: dest read once; slot, buffers and counts (int32)
+    and kept and overflow (bool) written once."""
+    return 4 * G * B + G * (4 * B + 2 * B + 4 * n_dest * capacity + 4 * n_dest)
 
 
-def time_queue_dispatch(timer) -> tuple:
-    """K4 at the MoE prefill and decode shapes and at kernel_bench's shape
-    (random rows, 1/8 inactive), its plain version, and the byte bound.  No
-    single PyTorch call builds a FIFO buffer image, so there is no library
-    yardstick.  Beside them, timed the same way, a one-element fill: the
-    least a launch takes on this card.  Returns ``(rows, fill_ms)``."""
+def empty_launch(grid: int, threads: int, smem_bytes: int) -> None:
+    """An empty kernel (``csrc/pointer_chase.cu``) of ``grid`` CTAs of
+    ``threads`` threads with ``smem_bytes`` of dynamic shared memory,
+    through the same ctypes path as the kernels."""
+    rc = _build.library().lib.empty_launch(grid, threads, smem_bytes,
+                                           torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "empty_launch")
+
+
+def time_queue_dispatch(timer, l_hbm_ms: float) -> tuple:
+    """K4 at the MoE prefill and decode shapes and at both benchmarks'
+    shapes (random rows, 1/8 inactive), its plain version, the byte bound
+    and the latency bound (QD_ROUND_TRIPS x L_HBM); beside each, timed the
+    same way, its floor: an empty kernel launched with K4's grid, threads
+    and dynamic shared memory (and without the shared memory, which says
+    what asking for it costs).  No single PyTorch call builds a FIFO buffer
+    image, so there is no library yardstick.  Also a one-element fill, the
+    least a torch launch takes (PR 14's floor).  Returns ``(rows,
+    fill_ms)``."""
+    lib = _build.library().lib
     one = torch.zeros(1, device="cuda")
     fill_ms = timer(functools.partial(one.fill_, 1.0))
-    log(f"  a one-element fill (the launch floor): {fill_ms!r} ms")
+    log(f"  a one-element fill (a torch launch): {fill_ms!r} ms")
     rows = []
     for i in QD_TIMED:
         G, B, n_dest, capacity, what = QD_SHAPES[i]
@@ -1323,19 +1401,44 @@ def time_queue_dispatch(timer) -> tuple:
         compare_k4(QD.queue_dispatch_cuda(dest, n_dest, capacity),
                    ref.queue_dispatch_ref(dest, n_dest, capacity), f"K4 timed {what}")
         n_bytes = queue_dispatch_bytes(G, B, n_dest, capacity)
+        threads = lib.queue_dispatch_threads(B, n_dest)
+        smem = lib.queue_dispatch_smem_bytes(B, n_dest)
         rows.append({
             "what": what, "G": G, "B": B, "n_dest": n_dest, "capacity": capacity,
+            "threads": threads, "smem_bytes": smem,
             "ms": timer(functools.partial(QD.queue_dispatch_cuda, dest, n_dest, capacity)),
             "plain_ms": timer(functools.partial(ref.queue_dispatch_ref, dest, n_dest, capacity), reps=5),
+            "floor_ms": timer(functools.partial(empty_launch, G, threads, smem)),
+            "floor_no_smem_ms": timer(functools.partial(empty_launch, G, threads, 0)),
             "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "round_trips": QD_ROUND_TRIPS, "latency_bound_ms": QD_ROUND_TRIPS * l_hbm_ms,
             "library_ms": None,
         })
         r = rows[-1]
-        log(f"  K4 {what} (G={G}, B={B}, n_dest={n_dest}, capacity={capacity}): ms={r['ms']!r} "
-            f"plain_ms={r['plain_ms']!r} bound_ms={r['bound_ms']!r} (bytes: {n_bytes} over "
-            f"{HBM_BYTES_PER_S:.3g}/s) library_ms=None (no single PyTorch call builds a FIFO "
-            f"buffer image)")
+        log(f"  K4 {what} (G={G}, B={B}, n_dest={n_dest}, capacity={capacity}; {threads} "
+            f"threads, {smem} bytes dynamic shared memory a CTA): ms={r['ms']!r} "
+            f"plain_ms={r['plain_ms']!r} floor_ms={r['floor_ms']!r} (an empty kernel of K4's "
+            f"launch; {r['floor_no_smem_ms']!r} without the shared memory) "
+            f"bound_ms={r['bound_ms']!r} (bytes: {n_bytes} over {HBM_BYTES_PER_S:.3g}/s) "
+            f"latency_bound_ms={r['latency_bound_ms']!r} ({QD_ROUND_TRIPS} round trip x L_HBM) "
+            f"library_ms=None (no single PyTorch call builds a FIFO buffer image)")
     return rows, fill_ms
+
+
+def kernels_per_dispatch(G: int, B: int, n_dest: int, capacity: int, calls: int = 10) -> list:
+    """The device kernels (and copies) of ``calls`` queue dispatches of the
+    MoE layer, ``core.buffers.dispatch("queue", ...)``, on the card, by
+    name, as torch.profiler sees them (after a warm-up call): one K4 launch
+    per dispatch gives ``calls`` names, so a lost event shows too."""
+    dest = queue_dispatch_rows(G, B, n_dest, seed=7)[:G].contiguous()
+    buf_lib.dispatch("queue", dest, n_dest, capacity)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            buf_lib.dispatch("queue", dest, n_dest, capacity)
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
 @contextlib.contextmanager
@@ -1506,6 +1609,7 @@ def serve_moe(cfg, smi: str) -> dict:
         "prefill_dropped_share": float(prefill_dropped.mean()),
         "decode_dropped_share": float(torch.stack(decode_dropped).mean()),
         "decode_profile": profile,
+        "decode_kernels_per_step": profile["device_events_per_call"],
         "prefill_profile": prefill_profile,
         "sample_ids": tokens[0, :16].tolist(),
     }
@@ -1515,6 +1619,9 @@ def serve_moe(cfg, smi: str) -> dict:
         f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
         f"dropped share {row['prefill_dropped_share']!r} (prefill), "
         f"{row['decode_dropped_share']!r} (decode), peak {peak} bytes, every logit finite ({smi})")
+    log(f"    decode: {row['decode_ms_per_step']!r} ms/step, {profile['device_events_per_call']!r} "
+        f"eager device kernels and copies per step, idle share {profile['idle_share']!r} "
+        f"(profile of {profile['calls']} steps)")
     log_call_profile("decode", profile)
     log_call_profile("prefill", prefill_profile)
     log(f"    sample ids {row['sample_ids']}")
@@ -1523,13 +1630,15 @@ def serve_moe(cfg, smi: str) -> dict:
     return row
 
 
-def moe_phase(resources: dict, timer, smi: str) -> dict:
-    """Phase 7: K4 checked and timed, the fp32 checks, the bf16 serving run."""
+def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
+    """Phase 7: K4 checked and timed, the kernels of one queue dispatch
+    counted, the fp32 checks, the bf16 serving run."""
     log(f"[7] MoE serving: {MOE_ARCH}; K4 vs its plain version")
-    check("queue_dispatch_kernel" in resources, "ptxas reported no resources for queue_dispatch_kernel")
-    regs, smem, spills = resources["queue_dispatch_kernel"]
-    log(f"    queue_dispatch_kernel: {regs} registers, {smem} bytes static shared memory, {spills}; "
-        f"n_dest limit {QD.max_dest()}")
+    for kern in ("queue_dispatch_kernel", "queue_dispatch_wide_kernel"):
+        check(kern in resources, f"ptxas reported no resources for {kern}")
+        regs, smem, spills = resources[kern]
+        log(f"    {kern}: {regs} registers, {smem} bytes static shared memory, {spills}")
+    log(f"    n_dest limit {QD.max_dest()}")
     cfg = get_config(MOE_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size,
            cfg.n_experts, cfg.top_k, cfg.moe_dispatch, cfg.capacity_factor, cfg.moe_groups,
@@ -1537,11 +1646,24 @@ def moe_phase(resources: dict, timer, smi: str) -> dict:
           == (32, 4096, 32, 8, 14336, 32000, 8, 2, "queue", 1.25, 32, 4096, "bfloat16"),
           f"{MOE_ARCH} is not at its published width: {cfg}")
     checks = check_queue_dispatch()
-    timing, fill_ms = time_queue_dispatch(timer)
+    timing, fill_ms = time_queue_dispatch(timer, l_hbm_ms)
+    per_dispatch = {}
+    for i in QD_TIMED[:2]:  # the prefill and decode shapes
+        G, B, n_dest, capacity, what = QD_SHAPES[i]
+        calls = 10
+        names = kernels_per_dispatch(G, B, n_dest, capacity, calls)
+        per_dispatch[what] = len(names) / calls
+        log(f"  {calls} queue dispatches at {what} (G={G}, B={B}): {len(names)} device kernels "
+            f"{sorted(set(names))}")
+        check(len(names) == calls and all("queue_dispatch" in n for n in names),
+              f"{calls} queue dispatches at {what} ran {names}, not one K4 launch each")
     fp32 = check_moe_fp32(cfg, smi)
     served = serve_moe(dataclasses.replace(cfg, n_layers=MOE_LAYERS), smi)
     return {"queue_dispatch_checks": checks, "queue_dispatch_timing": timing,
-            "launch_floor_ms": fill_ms, "ptxas": [regs, smem, spills], "moe_full_width_fp32": fp32, "moe_served": served}
+            "kernels_per_queue_dispatch": per_dispatch, "launch_floor_ms": fill_ms,
+            "ptxas": {k: list(resources[k]) for k in ("queue_dispatch_kernel",
+                                                      "queue_dispatch_wide_kernel")},
+            "moe_full_width_fp32": fp32, "moe_served": served}
 
 
 def main() -> int:
@@ -1712,11 +1834,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_checks = check_flash_kernel()
     full_model = check_full_model_fp32(cfg, smi)
+    full_model_bf16 = check_full_model_bf16(cfg, smi)
     lm_served = serve_lm(cfg, smi)
     flash_timing = time_flash(timer)
     flash_resources = {k: v for k, v in resources.items() if k.startswith("flash")}
     log(f"    [6] done at {time.perf_counter() - t_start:.1f} s")
-    moe = moe_phase(resources, timer, smi)
+    moe = moe_phase(resources, timer, smi, chase["l_hbm_ms"])
     qd_timing, moe_served = moe["queue_dispatch_timing"], moe["moe_served"]
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
@@ -1787,11 +1910,15 @@ def main() -> int:
         "bound_by": qd_timing[0]["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call builds a FIFO buffer image",
+        "floor_ms": qd_timing[0]["floor_ms"],
+        "latency_bound_ms": qd_timing[0]["latency_bound_ms"],
+        "round_trips": QD_ROUND_TRIPS,
+        "l_hbm_ms": chase["l_hbm_ms"],
+        "kernels_per_queue_dispatch": moe["kernels_per_queue_dispatch"],
         "config": (f"{MOE_ARCH} prefill dispatch, G={qd_timing[0]['G']} B={qd_timing[0]['B']} "
                    f"n_dest={qd_timing[0]['n_dest']} capacity={qd_timing[0]['capacity']}; launches: "
                    f"greedy_generate at {MOE_LAYERS} layers, one prefill and {MOE_NEW - 1} decode steps"),
         "configs": qd_timing,
-        "launch_floor_ms": moe["launch_floor_ms"],
         "ptxas": moe["ptxas"],
     })
     if args.json:
@@ -1804,6 +1931,7 @@ def main() -> int:
                        "delta_occupancy": occupancy, "kernel_limits": limits,
                        "pointer_chase": chase,
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
+                       "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
                        **moe, "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[8] done in {time.perf_counter() - t_start:.1f} s")

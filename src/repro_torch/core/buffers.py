@@ -70,19 +70,6 @@ def _scatter_buffers(
     return flat[:, :sink].reshape(dest.shape[:-1] + (n_dest, capacity))
 
 
-def _slots_of(buffers: torch.Tensor, B: int) -> torch.Tensor:
-    """Each item's slot in a buffer image, -1 where it is in none:
-    ``slot[buffers[d, c]] = c`` by one scatter (the empty slots go to a
-    sink past the chunk)."""
-    n_dest, capacity = buffers.shape[-2:]
-    flat = buffers.reshape(-1, n_dest * capacity)
-    idx = torch.where(flat >= 0, flat, B).long()
-    c = torch.arange(capacity, dtype=torch.int32, device=buffers.device).repeat(n_dest)
-    slot = torch.full((flat.shape[0], B + 1), -1, dtype=torch.int32, device=buffers.device)
-    slot.scatter_(1, idx, c.expand_as(idx))
-    return slot[:, :B].reshape(buffers.shape[:-2] + (B,))
-
-
 def queue_dispatch(
     dest: torch.Tensor,
     n_dest: int,
@@ -92,19 +79,19 @@ def queue_dispatch(
 ) -> DispatchPlan:
     """Queue mapping: slot = write_ptr(dest) + |earlier same-dest items|.
 
-    Without ``base`` the placement is ``kernels.ops.queue_dispatch``: kernel
-    K4 on the card, its plain version on the CPU; ``kept`` and ``slot``
-    follow from its outputs.  ``base`` optionally carries the
-    per-destination write pointers (occupancy) from previous rounds, (n_dest,)
-    or (G, n_dest); K4 has no such operand, so with ``base`` the plan is
-    computed in torch ops on either device (no caller in the repository
-    passes it today)."""
-    active = (dest >= 0) if active is None else (active & (dest >= 0))
-    dest = torch.where(active, dest, -1)
+    Without ``base`` the plan is ``kernels.ops.queue_dispatch``: kernel K4
+    on the card, which writes all five fields in one launch (with
+    ``active``, one ``torch.where`` first folds the mask into ``dest``), its
+    plain version on the CPU.  ``base`` optionally carries the per-destination
+    write pointers (occupancy) from previous rounds, (n_dest,) or (G,
+    n_dest); K4 has no such operand, so with ``base`` the plan is computed
+    in torch ops on either device (no caller in the repository passes it
+    today)."""
+    if active is not None:
+        dest = torch.where(active, dest, -1)
     if base is None:
-        buffers, counts, overflow = kops.queue_dispatch(dest, n_dest, capacity)
-        slot = _slots_of(buffers, dest.shape[-1])
-        return DispatchPlan(slot, active & ~overflow, buffers, counts, overflow)
+        return DispatchPlan(*kops.queue_dispatch(dest, n_dest, capacity))
+    active = dest >= 0
     # Segmented prefix count: label[i] = #{j < i : dest[j] == dest[i]}.
     iota = torch.arange(n_dest, dtype=dest.dtype, device=dest.device)
     onehot = (dest[..., None] == iota).to(torch.int32)  # (…, B, n_dest)

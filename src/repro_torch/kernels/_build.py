@@ -73,11 +73,16 @@ _SIGNATURES = {
     "delta_line": [_I, _I],  # capacity, ordered
     "forest_smem_bytes": [_I, _I],  # capacity, ordered
     "hybrid_smem_bytes": [_I, _I, _I, _I],  # split, mapping, capacity, ordered
-    # dest, G, B, n_dest, capacity, buffers, counts, overflow, stream
-    "queue_dispatch": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # dest, G, B, n_dest, capacity, slot, kept, buffers, counts, overflow,
+    # stream
+    "queue_dispatch": [_P, _I, _I, _I, _I] + [_P] * 5 + [_P],
     "queue_dispatch_max_dest": [],
+    "queue_dispatch_threads": [_I, _I],  # B, n_dest
+    "queue_dispatch_smem_bytes": [_I, _I],  # B, n_dest
     # next, start, steps, out, stream
     "pointer_chase": [_P, _I, _I, _P, _P],
+    # grid, threads, dynamic shared memory bytes, stream
+    "empty_launch": [_I, _I, _I, _P],
 }
 
 

@@ -1,16 +1,20 @@
-// Hopper (sm_90a) pointer chase: the card's dependent-load latency, the
-// yardstick of the BST kernels' latency bound.  Plain C interface, loaded
-// with ctypes by repro_torch/kernels/_build.py; the entry point launches on
-// the caller's stream and returns cudaGetLastError().
+// Hopper (sm_90a) yardsticks of the kernels' bounds: a pointer chase, the
+// card's dependent-load latency, and an empty kernel, the least a launch
+// through this library costs.  Plain C interface, loaded with ctypes by
+// repro_torch/kernels/_build.py; the entry points launch on the caller's
+// stream and return cudaGetLastError().
 //
-// It replaces no TPU kernel and no path of the port calls it: chip_smoke.py
-// phase 5 times it.  One thread walks `steps` links of a cycle through
-// `next` (p = next[p]), each load's address the value of the one before, by
-// the same read-only path (__ldg) the descents take.  Its time over `steps`
+// They replace no TPU kernel and no path of the port calls them:
+// chip_smoke.py times them (phases 5 and 7).  In the chase one thread walks
+// `steps` links of a cycle through `next` (p = next[p]), each load's
+// address the value of the one before, by the same read-only path (__ldg)
+// the descents take.  Its time over `steps`
 // is one dependent round trip: to HBM for a cold buffer larger than the
 // L2 cache (L_HBM), to L2 for a warm buffer of a few MiB (L_L2).  A BST
 // lane's descent is such a chain, one round trip per global load on it, so
-// round trips x L_HBM bound a kernel whose every lane must make them.
+// round trips x L_HBM bound a kernel whose every lane must make them.  The
+// empty kernel, launched with a kernel's own grid, threads and dynamic
+// shared memory, is that kernel's floor: what no body can take away.
 
 #include <cuda_runtime.h>
 
@@ -23,6 +27,8 @@ __global__ void pointer_chase_kernel(const int* __restrict__ next, int start,
   out[0] = p;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -33,6 +39,16 @@ int pointer_chase(const void* next, int start, int steps, void* out, void* strea
   if (steps < 0 || start < 0) return static_cast<int>(cudaErrorInvalidValue);
   pointer_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(next), start, steps, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel of `grid` CTAs of `threads` threads with `smem_bytes` of
+// dynamic shared memory (at most 48 KiB).
+int empty_launch(int grid, int threads, int smem_bytes, void* stream) {
+  if (grid < 1 || threads < 1 || threads > 1024 || smem_bytes < 0 || smem_bytes > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  empty_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

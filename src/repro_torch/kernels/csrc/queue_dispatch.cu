@@ -4,83 +4,263 @@
 // point launches on the caller's stream and returns cudaGetLastError().
 //
 // What it replaces: repro/kernels/queue_dispatch.py _queue_dispatch_kernel,
-// reached through queue_dispatch_pallas.  Same function, per row of dest
-// (B int32 lanes, a negative value marks an inactive lane, a value >= n_dest
-// counts as n_dest - 1 as the Pallas kernel's clip makes it):
+// reached through queue_dispatch_pallas, and the torch ops around it that
+// make the JAX package's DispatchPlan (repro/core/buffers.py
+// queue_dispatch).  Per row of dest (B int32 lanes, a negative value marks
+// an inactive lane, a value >= n_dest counts as n_dest - 1 as the Pallas
+// kernel's clip makes it):
 //   label[i]  = #{j < i : lane j active, dest[j] == dest[i]}   (FIFO order)
-//   kept      = active & label < capacity
+//   kept      = active & label < capacity                       (bool)
+//   slot      = kept ? label : -1                               (int32)
 //   buffers[d, c] = the lane with destination d and label c, else -1
 //   counts[d] = min(#{active lanes with destination d}, capacity)
-//   overflow  = active & ~kept   (int32 0/1, as the Pallas kernel writes it)
-// with a leading group axis G: one call serves every dispatch group of a MoE
-// layer, one CTA per group row.
+//   overflow  = active & ~kept                                  (bool)
+// with a leading group axis G: one launch serves every dispatch group of a
+// MoE layer, one CTA per group row, and writes the whole plan, so a queue
+// dispatch is this one kernel and nothing else.
 //
 // It is not the TPU body.  The Pallas kernel builds a (B, n_dest) one-hot,
 // takes its cumulative sum over the lanes and materialises a
 // (B, n_dest * capacity) match matrix to scatter the buffer image, all in
-// VMEM.  Here one CTA walks its row in tiles of 256 lanes.  In a tile each
-// warp ranks its lanes among their same-destination peers with
-// __match_any_sync and __popc(peers & lanemask_lt); the lowest lane of each
-// peer group writes the warp's count for that destination to a
-// (warps x n_dest) table in shared memory; one thread per destination turns
-// its column into an exclusive scan over the warps, starting from the
-// running count of that destination over the earlier tiles.  A lane's label
-// is its warp's prefix plus its rank, so every label is that of the serial
-// FIFO network: earlier lanes, earlier warps and earlier tiles come first
-// (no atomics, whose order would not be FIFO).  A kept lane stores its index
-// at buffers[d, label]; at the end each destination's slots past its count
-// are filled with -1, so every buffer slot is written exactly once.
+// VMEM.  Here (n_dest <= 32, every MoE config of the repo) a CTA of
+// whole warps, sized from B up to 1024 threads, loads its row into
+// registers before the first barrier: lane i = r * threads + tid, up to
+// kMaxRegs lanes a thread, so a row of up to 8192 lanes takes one
+// dependent HBM round trip (a longer one is walked in passes of that many).
+// For each register a warp ranks its lanes among their same-destination
+// peers by ballots over the bits of the destination (peers = the lanes
+// that agree on every bit), and lane d of the warp counts destination d
+// the same way; the counts go to a (n_dest x registers*warps) table in
+// shared memory.  After one barrier, a group of lanes per destination
+// (as many as there are table positions, up to a warp) turns its column
+// into an exclusive scan by warp shuffles, writes the count, and fills
+// the destination's empty slots with -1; after a second barrier each lane
+// reads its label from the table.  Labels are those of the serial FIFO
+// network: earlier lanes of a warp, then earlier warps, then earlier
+// registers, then earlier passes come first (no atomics, whose order
+// would not be FIFO).  Every buffer slot is written once: by its lane, or
+// as -1 by its destination's group.  Above 32 destinations
+// (queue_dispatch_wide_kernel, up to kMaxDest) a CTA of 256 threads walks
+// the row in tiles with __match_any_sync ranks and a (warps x n_dest)
+// table in shared memory, four barriers a tile.
 //
 // What bounds it on this card: nothing the card is short of.  At the MoE
 // prefill shape (G = 32 rows of B = 512 lanes, n_dest = 8, capacity = 80)
-// it reads 64 KiB and writes 145 KiB, some 0.06 us of HBM time; the decode
-// shape (G = 1, B = 8) is smaller still.  So its time is the launch and the
-// four block-wide barriers per tile, not bytes or operations; the design
-// keeps it to one launch per MoE layer for all groups, where the Pallas
-// kernel's wrapper is vmapped per row.  The count table takes
-// (8 warps + 1) x n_dest ints of shared memory, so n_dest is bounded by
-// kMaxDest (36 KiB at 1024, inside the 48 KiB a launch gets without opting
-// in); the wrapper raises above it.
+// it reads 64 KiB and writes 209 KiB, some 0.08 us of HBM time, and each
+// lane makes one dependent round trip (about 0.34 us); the decode shape
+// (G = 1, B = 8) is smaller still.  So its time is the launch, one round
+// trip and two barriers; the design keeps it to one launch per MoE layer
+// for all groups, where the Pallas kernel's wrapper is vmapped per row.
 
 #include <cuda_runtime.h>
 
+#ifdef REPRO_QD_CLUSTER
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+#endif
+
 #include <climits>
 #include <cstddef>
+#include <cstdint>
+
+#ifndef REPRO_QD_MAX_THREADS
+#define REPRO_QD_MAX_THREADS 512
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;                // threads per CTA = lanes per tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDest = 1024;               // (kWarps + 1) * kMaxDest ints of shared memory
+constexpr int kMaxThreads = REPRO_QD_MAX_THREADS;  // narrow path: threads per CTA at most
+constexpr int kMaxRegs = 8;        // lanes a thread holds per pass
+constexpr int kNarrowDest = 32;    // the narrow path: one lane per destination
+constexpr int kMaxDest = 1024;     // the wide path's (kWideWarps + 1) x n_dest table
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-queue_dispatch_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
-                      int* __restrict__ buffers, int* __restrict__ counts,
-                      int* __restrict__ overflow) {
-  extern __shared__ int smem[];
-  int* warp_prefix = smem;              // [kWarps][n_dest]: counts, then exclusive prefixes
-  int* seen = smem + kWarps * n_dest;   // [n_dest]: active lanes per destination so far
+static_assert(kMaxThreads % 32 == 0 && kMaxThreads <= 1024, "whole warps, at most 1024");
 
+struct Row {  // one dispatch group's inputs and outputs
+  const int* dest;
+  int* slot;
+  uint8_t* kept;
+  int* buffers;
+  int* counts;
+  uint8_t* overflow;
+};
+
+__device__ __forceinline__ Row row_of(const int* dest, int B, int n_dest, int capacity,
+                                      int* slot, uint8_t* kept, int* buffers, int* counts,
+                                      uint8_t* overflow) {
+  const size_t g = blockIdx.x;
+  return {dest + g * B, slot + g * B, kept + g * B,
+          buffers + g * static_cast<size_t>(n_dest) * capacity, counts + g * n_dest,
+          overflow + g * B};
+}
+
+// Narrow-path geometry, the same on host and device: threads per CTA
+// (whole warps, one lane each up to kMaxThreads), registers of the first
+// pass, and the table's column stride (odd, so that the lanes of a warp
+// that write or read one position of n_dest columns hit distinct banks).
+__host__ __device__ __forceinline__ int narrow_threads(int B) {
+  const int warps = (B + 31) / 32;
+  return warps < 1 ? 32 : (warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads);
+}
+
+__host__ __device__ __forceinline__ int pass_regs(int lanes, int threads) {
+  const int regs = (lanes + threads - 1) / threads;
+  return regs < kMaxRegs ? regs : kMaxRegs;
+}
+
+__host__ __device__ __forceinline__ int table_stride(int B, int threads) {
+  return (pass_regs(B, threads) * (threads / 32)) | 1;
+}
+
+__host__ __device__ __forceinline__ size_t narrow_smem_bytes(int B, int n_dest) {
+  return (kNarrowDest + static_cast<size_t>(n_dest) * table_stride(B, narrow_threads(B))) *
+         sizeof(int);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+queue_dispatch_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
+                      int* __restrict__ slot, uint8_t* __restrict__ kept,
+                      int* __restrict__ buffers, int* __restrict__ counts,
+                      uint8_t* __restrict__ overflow) {
+  extern __shared__ int smem[];
+  int* seen = smem;                 // [n_dest]: active lanes per destination over earlier passes
+  int* table = smem + kNarrowDest;  // [n_dest][stride]: counts, then exclusive prefixes
+
+  const Row row = row_of(dest, B, n_dest, capacity, slot, kept, buffers, counts, overflow);
+#ifdef REPRO_QD_TRIVIAL
+  // Timing only: the same loads and stores, no labels.
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const int v = __ldg(row.dest + i);
+    row.slot[i] = v;
+    row.kept[i] = 0;
+    row.overflow[i] = 0;
+  }
+  for (int s = threadIdx.x; s < n_dest * capacity; s += blockDim.x) row.buffers[s] = -1;
+  for (int s = threadIdx.x; s < n_dest; s += blockDim.x) row.counts[s] = 0;
+  return;
+#endif
+  const int threads = blockDim.x;
+  const int warps = threads >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int bits = n_dest > 1 ? 32 - __clz(n_dest - 1) : 0;
+  const int stride = table_stride(B, threads);
+  const int per_pass = threads * kMaxRegs;
+
+  // Every loop bound below is the same for all threads of the CTA, so every
+  // lane reaches each ballot, shuffle and barrier.
+  for (int base = 0;; base += per_pass) {
+    const int regs = pass_regs(B - base, threads);
+    const bool last = B - base <= per_pass;
+    int d[kMaxRegs];
+#pragma unroll
+    for (int r = 0; r < kMaxRegs; ++r) {
+      const int i = base + r * threads + tid;
+      d[r] = r < regs && i < B ? __ldg(row.dest + i) : -1;
+    }
+
+    int rank[kMaxRegs];
+#pragma unroll
+    for (int r = 0; r < kMaxRegs; ++r) {
+      if (r >= regs) break;
+      const bool active = d[r] >= 0;
+      d[r] = active ? min(d[r], n_dest - 1) : -1;  // the Pallas kernel's clip
+      unsigned peers = __ballot_sync(kFullMask, active);
+      unsigned own = peers;  // the active lanes whose destination is `lane`
+#pragma unroll
+      for (int b = 0; b < 5; ++b) {  // n_dest <= 32: at most 5 bits
+        if (b >= bits) break;
+        const unsigned ones = __ballot_sync(kFullMask, (d[r] >> b) & 1);
+        peers &= (d[r] >> b) & 1 ? ones : ~ones;
+        own &= (lane >> b) & 1 ? ones : ~ones;
+      }
+      rank[r] = __popc(peers & lanes_below);
+      if (lane < n_dest) table[lane * stride + r * warps + warp] = __popc(own);
+    }
+    __syncthreads();
+
+    // A group of `width` lanes per destination (a power of two, the table
+    // positions rounded up, at most a warp) scans its column; after the
+    // last pass the warp fills its destinations' empty slots with -1.
+    const int positions = regs * warps;
+    int width = 1;
+    while (width < positions && width < 32) width <<= 1;
+    const int per_warp = 32 / width;
+    const int j = lane & (width - 1);
+    for (int d0 = warp * per_warp; d0 < n_dest; d0 += warps * per_warp) {
+      const int dd = d0 + lane / width;
+      const bool owner = dd < n_dest;
+      int run = owner && base > 0 ? seen[dd] : 0;
+      for (int p0 = 0; p0 < positions; p0 += width) {
+        const int p = p0 + j;
+        const int c = owner && p < positions ? table[dd * stride + p] : 0;
+        int incl = c;
+        for (int o = 1; o < width; o <<= 1) {
+          const int t = __shfl_up_sync(kFullMask, incl, o, width);
+          if (j >= o) incl += t;
+        }
+        if (owner && p < positions) table[dd * stride + p] = run + incl - c;
+        run += __shfl_sync(kFullMask, incl, width - 1, width);
+      }
+      if (!last) {
+        if (owner && j == 0) seen[dd] = run;
+        continue;
+      }
+      const int n_kept = min(run, capacity);
+      if (owner && j == 0) row.counts[dd] = n_kept;
+if (owner) {
+        int* buf = row.buffers + static_cast<size_t>(dd) * capacity;
+        for (int c = n_kept + j; c < capacity; c += width) buf[c] = -1;  // a slot no lane took
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int r = 0; r < kMaxRegs; ++r) {
+      if (r >= regs) break;
+      const int i = base + r * threads + tid;
+      if (i >= B) break;
+      const bool active = d[r] >= 0;
+      const int label = active ? table[d[r] * stride + r * warps + warp] + rank[r] : 0;
+      const bool keep = active && label < capacity;
+      row.slot[i] = keep ? label : -1;
+      row.kept[i] = keep;
+      row.overflow[i] = active && !keep;
+      if (keep) row.buffers[static_cast<size_t>(d[r]) * capacity + label] = i;
+    }
+    if (last) break;
+    __syncthreads();  // the next pass rewrites the table
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+queue_dispatch_wide_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
+                           int* __restrict__ slot, uint8_t* __restrict__ kept,
+                           int* __restrict__ buffers, int* __restrict__ counts,
+                           uint8_t* __restrict__ overflow) {
+  extern __shared__ int smem[];
+  int* warp_prefix = smem;                  // [kWideWarps][n_dest]: counts, then prefixes
+  int* seen = smem + kWideWarps * n_dest;   // [n_dest]: active lanes per destination so far
+
+  const Row row = row_of(dest, B, n_dest, capacity, slot, kept, buffers, counts, overflow);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const unsigned lanes_below = (1u << (tid & 31)) - 1u;
-  const size_t row = blockIdx.x;
-  const int* drow = dest + row * B;
-  int* orow = overflow + row * B;
-  int* brow = buffers + row * static_cast<size_t>(n_dest) * capacity;
 
-  for (int d = tid; d < n_dest; d += kThreads) seen[d] = 0;
+  for (int d = tid; d < n_dest; d += kWideThreads) seen[d] = 0;
   __syncthreads();
 
-  // The trip count is the same for every thread, so every lane of every
-  // warp reaches each __match_any_sync and __syncthreads.
-  for (int tile = 0; tile < B; tile += kThreads) {
-    for (int j = tid; j < kWarps * n_dest; j += kThreads) warp_prefix[j] = 0;
+  for (int tile = 0; tile < B; tile += kWideThreads) {
+    for (int j = tid; j < kWideWarps * n_dest; j += kWideThreads) warp_prefix[j] = 0;
     __syncthreads();
 
     const int i = tile + tid;
-    const int raw = i < B ? drow[i] : -1;
+    const int raw = i < B ? __ldg(row.dest + i) : -1;
     const bool active = raw >= 0;
     const int d = min(raw, n_dest - 1);  // the Pallas kernel's clip
     const unsigned peers = __match_any_sync(kFullMask, active ? d : -1);
@@ -88,9 +268,9 @@ queue_dispatch_kernel(const int* __restrict__ dest, int B, int n_dest, int capac
     if (active && rank == 0) warp_prefix[warp * n_dest + d] = __popc(peers);
     __syncthreads();
 
-    for (int dd = tid; dd < n_dest; dd += kThreads) {
+    for (int dd = tid; dd < n_dest; dd += kWideThreads) {
       int run = seen[dd];
-      for (int w = 0; w < kWarps; ++w) {
+      for (int w = 0; w < kWideWarps; ++w) {
         const int c = warp_prefix[w * n_dest + dd];
         warp_prefix[w * n_dest + dd] = run;
         run += c;
@@ -100,51 +280,206 @@ queue_dispatch_kernel(const int* __restrict__ dest, int B, int n_dest, int capac
     __syncthreads();
 
     if (i < B) {
-      int over = 0;
-      if (active) {
-        const int label = warp_prefix[warp * n_dest + d] + rank;
-        if (label < capacity) {
-          brow[static_cast<size_t>(d) * capacity + label] = i;
-        } else {
-          over = 1;
-        }
-      }
-      orow[i] = over;
+      const int label = active ? warp_prefix[warp * n_dest + d] + rank : 0;
+      const bool keep = active && label < capacity;
+      row.slot[i] = keep ? label : -1;
+      row.kept[i] = keep;
+      row.overflow[i] = active && !keep;
+      if (keep) row.buffers[static_cast<size_t>(d) * capacity + label] = i;
     }
     __syncthreads();  // the next tile clears warp_prefix; the tail reads seen
   }
 
-  for (int d = tid; d < n_dest; d += kThreads) {
-    counts[row * n_dest + d] = min(seen[d], capacity);
-  }
+  for (int d = tid; d < n_dest; d += kWideThreads) row.counts[d] = min(seen[d], capacity);
   const int slots = n_dest * capacity;
-  for (int s = tid; s < slots; s += kThreads) {
+  for (int s = tid; s < slots; s += kWideThreads) {
     const int d = s / capacity;
-    if (s - d * capacity >= seen[d]) brow[s] = -1;  // a slot no lane took
+    if (s - d * capacity >= seen[d]) row.buffers[s] = -1;  // a slot no lane took
   }
 }
+
+#ifdef REPRO_QD_CLUSTER
+// Probe variant: a row of B > kMaxThreads lanes split over a cluster of
+// REPRO_QD_CLUSTER CTAs, chunk k = lanes [k * chunk, (k + 1) * chunk), one
+// pass each; each CTA's per-destination totals are read by the later CTAs
+// through distributed shared memory for their offsets.
+constexpr int kCluster = REPRO_QD_CLUSTER;
+
+__host__ __device__ __forceinline__ int cluster_chunk(int B) {
+  return (B + kCluster - 1) / kCluster;
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
+queue_dispatch_cluster_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
+                              int* __restrict__ slot, uint8_t* __restrict__ kept,
+                              int* __restrict__ buffers, int* __restrict__ counts,
+                              uint8_t* __restrict__ overflow) {
+  extern __shared__ int smem[];
+  int* totals = smem;                   // [n_dest]: this chunk's active lanes per destination
+  int* offs = smem + kNarrowDest;       // [n_dest]: the earlier chunks' totals
+  int* kept_n = smem + 2 * kNarrowDest; // [n_dest]: the row's kept lanes per destination
+  int* table = smem + 3 * kNarrowDest;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int part = static_cast<int>(cluster.block_rank());
+  const size_t g = blockIdx.x / kCluster;
+  const int* drow = dest + g * B;
+  int* brow = buffers + g * static_cast<size_t>(n_dest) * capacity;
+  const int chunk = cluster_chunk(B);
+  const int lo = part * chunk;
+  const int n = max(0, min(B, lo + chunk) - lo);  // this CTA's lanes
+
+  const int threads = blockDim.x;
+  const int warps = threads >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int bits = n_dest > 1 ? 32 - __clz(n_dest - 1) : 0;
+  const int stride = table_stride(chunk, threads);
+  const int regs = pass_regs(n, threads);
+
+  int d[kMaxRegs];
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    const int i = r * threads + tid;
+    d[r] = r < regs && i < n ? __ldg(drow + lo + i) : -1;
+  }
+  int rank[kMaxRegs];
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    if (r >= regs) break;
+    const bool active = d[r] >= 0;
+    d[r] = active ? min(d[r], n_dest - 1) : -1;
+    unsigned peers = __ballot_sync(kFullMask, active);
+    unsigned own = peers;
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      if (b >= bits) break;
+      const unsigned ones = __ballot_sync(kFullMask, (d[r] >> b) & 1);
+      peers &= (d[r] >> b) & 1 ? ones : ~ones;
+      own &= (lane >> b) & 1 ? ones : ~ones;
+    }
+    rank[r] = __popc(peers & lanes_below);
+    if (lane < n_dest) table[lane * stride + r * warps + warp] = __popc(own);
+  }
+  __syncthreads();
+
+  const int positions = regs * warps;
+  int width = 1;
+  while (width < positions && width < 32) width <<= 1;
+  const int per_warp = 32 / width;
+  const int j = lane & (width - 1);
+  for (int d0 = warp * per_warp; d0 < n_dest; d0 += warps * per_warp) {
+    const int dd = d0 + lane / width;
+    const bool owner = dd < n_dest;
+    int run = 0;
+    for (int p0 = 0; p0 < positions; p0 += width) {
+      const int p = p0 + j;
+      const int c = owner && p < positions ? table[dd * stride + p] : 0;
+      int incl = c;
+      for (int o = 1; o < width; o <<= 1) {
+        const int t = __shfl_up_sync(kFullMask, incl, o, width);
+        if (j >= o) incl += t;
+      }
+      if (owner && p < positions) table[dd * stride + p] = run + incl - c;
+      run += __shfl_sync(kFullMask, incl, width - 1, width);
+    }
+    if (owner && j == 0) totals[dd] = run;
+  }
+  cluster.sync();
+
+  for (int dd = tid; dd < n_dest; dd += threads) {
+    int off = 0, total = 0;
+    for (int k = 0; k < kCluster; ++k) {
+      const int t = cluster.map_shared_rank(totals, k)[dd];
+      off += k < part ? t : 0;
+      total += t;
+    }
+    offs[dd] = off;
+    kept_n[dd] = min(total, capacity);
+    if (dd % kCluster == part) counts[g * n_dest + dd] = kept_n[dd];
+  }
+  __syncthreads();
+
+  for (int dd = part; dd < n_dest; dd += kCluster) {
+    for (int c = kept_n[dd] + tid; c < capacity; c += threads) {
+      brow[static_cast<size_t>(dd) * capacity + c] = -1;  // a slot no lane took
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    if (r >= regs) break;
+    const int i = r * threads + tid;
+    if (i >= n) break;
+    const size_t at = g * B + lo + i;
+    const bool active = d[r] >= 0;
+    const int label =
+        active ? offs[d[r]] + table[d[r] * stride + r * warps + warp] + rank[r] : 0;
+    const bool keep = active && label < capacity;
+    slot[at] = keep ? label : -1;
+    kept[at] = keep;
+    overflow[at] = active && !keep;
+    if (keep) brow[static_cast<size_t>(d[r]) * capacity + label] = lo + i;
+  }
+  cluster.sync();  // no CTA leaves while a later one may still read its totals
+}
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// The largest n_dest the kernel takes (its shared-memory count table).
+// The largest n_dest the kernel takes (the wide path's count table).
 int queue_dispatch_max_dest() { return kMaxDest; }
 
-// dest: (G, B) int32, contiguous; buffers: (G, n_dest, capacity), counts:
-// (G, n_dest), overflow: (G, B), all int32 and contiguous.  1 <= n_dest <=
-// kMaxDest, capacity >= 1, n_dest * capacity <= INT_MAX.
-int queue_dispatch(const void* dest, int G, int B, int n_dest, int capacity,
-                   void* buffers, void* counts, void* overflow, void* stream) {
+// The launch of a (G, B) row set: threads per CTA and dynamic shared
+// memory in bytes (chip_smoke.py times an empty kernel of the same shape).
+int queue_dispatch_threads(int B, int n_dest) {
+  return n_dest <= kNarrowDest ? narrow_threads(B) : kWideThreads;
+}
+
+int queue_dispatch_smem_bytes(int B, int n_dest) {
+  return static_cast<int>(n_dest <= kNarrowDest
+                              ? narrow_smem_bytes(B, n_dest)
+                              : static_cast<size_t>(kWideWarps + 1) * n_dest * sizeof(int));
+}
+
+// dest: (G, B) int32; slot: (G, B) int32; kept: (G, B) bool; buffers:
+// (G, n_dest, capacity) int32; counts: (G, n_dest) int32; overflow: (G, B)
+// bool; all contiguous.  1 <= n_dest <= kMaxDest, capacity >= 1,
+// n_dest * capacity <= INT_MAX.
+int queue_dispatch(const void* dest, int G, int B, int n_dest, int capacity, void* slot,
+                   void* kept, void* buffers, void* counts, void* overflow, void* stream) {
   if (G < 0 || B < 0 || n_dest < 1 || n_dest > kMaxDest || capacity < 1 ||
       static_cast<long long>(n_dest) * capacity > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (G == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(kWarps + 1) * n_dest * sizeof(int);
-  queue_dispatch_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(dest), B, n_dest, capacity, static_cast<int*>(buffers),
-      static_cast<int*>(counts), static_cast<int*>(overflow));
+  const auto launch = [&](auto kernel) {
+    kernel<<<G, queue_dispatch_threads(B, n_dest), queue_dispatch_smem_bytes(B, n_dest),
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(dest), B, n_dest, capacity, static_cast<int*>(slot),
+        static_cast<uint8_t*>(kept), static_cast<int*>(buffers), static_cast<int*>(counts),
+        static_cast<uint8_t*>(overflow));
+  };
+#ifdef REPRO_QD_CLUSTER
+  if (n_dest <= kNarrowDest && B > kMaxThreads &&
+      cluster_chunk(B) <= kMaxThreads * kMaxRegs) {
+    const int chunk = cluster_chunk(B);
+    queue_dispatch_cluster_kernel<<<G * kCluster, narrow_threads(chunk),
+                                    narrow_smem_bytes(chunk, n_dest) + 2 * kNarrowDest * sizeof(int),
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(dest), B, n_dest, capacity, static_cast<int*>(slot),
+        static_cast<uint8_t*>(kept), static_cast<int*>(buffers), static_cast<int*>(counts),
+        static_cast<uint8_t*>(overflow));
+    return static_cast<int>(cudaGetLastError());
+  }
+#endif
+  if (n_dest <= kNarrowDest) {
+    launch(queue_dispatch_kernel);
+  } else {
+    launch(queue_dispatch_wide_kernel);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -160,13 +160,15 @@ def flash_attention(
 
 def queue_dispatch(
     dest: torch.Tensor, n_dest: int, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Queue-mapped buffer placement (the paper's labeling network) of one
-    row of lanes (B,) or of G rows at once (G, B): ``(buffers (…, n_dest,
-    capacity) of source lane indices, -1 when empty, in FIFO order; counts
-    (…, n_dest) = min(lanes per destination, capacity); overflow (…, B)
-    bool)``.  A negative dest marks an inactive lane.  Kernel K4 on the
-    card, ``ref.queue_dispatch_ref`` on the CPU."""
+    row of lanes (B,) or of G rows at once (G, B): the dispatch plan
+    ``(slot (…, B) int32: the FIFO label of a kept lane, else -1; kept (…,
+    B) bool; buffers (…, n_dest, capacity) of source lane indices, -1 when
+    empty; counts (…, n_dest) = min(lanes per destination, capacity);
+    overflow (…, B) bool)``.  A negative dest marks an inactive lane.
+    Kernel K4 on the card (one launch for all five), ``ref.queue_dispatch_ref``
+    on the CPU."""
     if _on_card(dest):
         return QD.queue_dispatch_cuda(dest, n_dest, capacity)
     QD.check_operands(dest, n_dest, capacity)

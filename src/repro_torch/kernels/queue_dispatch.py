@@ -2,11 +2,12 @@
 
 ``queue_dispatch_cuda`` checks its operands (device, dtype, rank,
 contiguity, ``n_dest`` and ``capacity``; ``check_operands`` holds the part
-of that contract the plain version shares), allocates the outputs with
-``torch.empty``, launches the kernel on the current stream, raises if the
-launch was refused, and adds one to ``LAUNCHES["queue_dispatch"]``.  It
-takes CUDA tensors only; ``kernels.ops.queue_dispatch`` sends CPU tensors to
-the plain version (``ref.queue_dispatch_ref``) instead.
+of that contract the plain version shares), allocates the five outputs of
+the dispatch plan with ``torch.empty``, launches the kernel on the current
+stream, raises if the launch was refused, and adds one to
+``LAUNCHES["queue_dispatch"]``.  It takes CUDA tensors only;
+``kernels.ops.queue_dispatch`` sends CPU tensors to the plain version
+(``ref.queue_dispatch_ref``) instead.
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ def check_operands(dest: torch.Tensor, n_dest: int, capacity: int) -> Tuple[int,
 
 
 def max_dest() -> int:
-    """The largest ``n_dest`` K4 takes: its per-warp count table lives in
-    shared memory."""
+    """The largest ``n_dest`` K4 takes: above 32 destinations its per-warp
+    count table lives in shared memory."""
     return _build.library().lib.queue_dispatch_max_dest()
 
 
@@ -67,29 +68,33 @@ def check_n_dest(n_dest: int) -> None:
 
 def queue_dispatch_cuda(
     dest: torch.Tensor, n_dest: int, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel K4: ``(buffers (…, n_dest, capacity), counts (…, n_dest),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K4: the queue dispatch plan ``(slot (…, B) int32, kept (…, B)
+    bool, buffers (…, n_dest, capacity) int32, counts (…, n_dest) int32,
     overflow (…, B) bool)`` for ``dest`` (B,) or (G, B), one group row per
-    CTA.  A negative dest marks an inactive lane; a dest >= n_dest counts
-    as n_dest - 1, as the Pallas kernel clips it (the JAX package's plain
-    version lets such a lane fall into its sink instead: the two disagree,
-    so such input has no defined answer)."""
+    CTA, all five written by the one launch.  A negative dest marks an
+    inactive lane; a dest >= n_dest counts as n_dest - 1, as the Pallas
+    kernel clips it (the JAX package's plain version lets such a lane fall
+    into its sink instead: the two disagree, so such input has no defined
+    answer)."""
     if dest.device.type != "cuda":
         raise ValueError(f"queue_dispatch_cuda takes CUDA tensors, got {dest.device}")
     G, B = check_operands(dest, n_dest, capacity)
     check_n_dest(n_dest)
     lead = tuple(dest.shape[:-1])
+    slot = torch.empty_like(dest)
+    kept = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
     buffers = torch.empty(lead + (n_dest, capacity), dtype=torch.int32, device=dest.device)
     counts = torch.empty(lead + (n_dest,), dtype=torch.int32, device=dest.device)
-    overflow = torch.empty_like(dest)
+    overflow = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
     if G > 0:
         built = _build.library()
         with torch.cuda.device(dest.device):
             stream = torch.cuda.current_stream(dest.device).cuda_stream
             LAUNCHES["queue_dispatch"] += 1
             rc = built.lib.queue_dispatch(
-                dest.data_ptr(), G, B, n_dest, capacity, buffers.data_ptr(),
-                counts.data_ptr(), overflow.data_ptr(), stream,
+                dest.data_ptr(), G, B, n_dest, capacity, slot.data_ptr(), kept.data_ptr(),
+                buffers.data_ptr(), counts.data_ptr(), overflow.data_ptr(), stream,
             )
         _build.check_launch(rc, "queue_dispatch")
-    return buffers, counts, overflow != 0
+    return slot, kept, buffers, counts, overflow

@@ -534,17 +534,20 @@ def bst_hybrid_phases_ref(
 # ------------------------------------------------------------ queue dispatch
 def queue_dispatch_ref(
     dest: torch.Tensor, n_dest: int, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of K4 (``csrc/queue_dispatch.cu``), the JAX
-    package's ``queue_dispatch_ref``: ``(buffers (…, n_dest, capacity),
-    counts (…, n_dest), overflow (…, B) bool)`` for ``dest`` (B,) or (G, B).
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K4 (``csrc/queue_dispatch.cu``): the JAX
+    package's queue dispatch plan (``repro.core.buffers.queue_dispatch``,
+    whose buffers, counts and overflow are its ``queue_dispatch_ref``'s),
+    ``(slot (…, B) int32, kept (…, B) bool, buffers (…, n_dest, capacity)
+    int32, counts (…, n_dest) int32, overflow (…, B) bool)`` for ``dest``
+    (B,) or (G, B).
 
     A one-hot over the destinations, its exclusive cumulative sum over the
     lanes (each lane's FIFO label), and a scatter of the kept lanes' indices
     into the buffer image, with a sink slot for the rest; buffers hold
-    source indices, -1 for an empty slot.  A negative dest marks an
-    inactive lane; a dest >= n_dest counts as n_dest - 1, as the kernel and
-    the Pallas kernel clip it."""
+    source indices, -1 for an empty slot, and slot is the label of a kept
+    lane, else -1.  A negative dest marks an inactive lane; a dest >= n_dest
+    counts as n_dest - 1, as the kernel and the Pallas kernel clip it."""
     rows = dest if dest.ndim == 2 else dest[None]
     G, B = rows.shape
     dev = dest.device
@@ -555,6 +558,7 @@ def queue_dispatch_ref(
     label = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
     label = label.gather(2, d.clamp(min=0).long()[..., None])[..., 0]
     kept = active & (label < capacity)
+    slot = torch.where(kept, label, -1)
     sink = n_dest * capacity
     lin = torch.where(kept, d * capacity + label, sink).long()
     flat = torch.full((G, sink + 1), -1, dtype=torch.int32, device=dev)
@@ -562,9 +566,8 @@ def queue_dispatch_ref(
     buffers = flat[:, :sink].reshape(G, n_dest, capacity)
     counts = onehot.sum(dim=1, dtype=torch.int32).clamp(max=capacity)
     overflow = active & ~kept
-    if dest.ndim == 1:
-        return buffers[0], counts[0], overflow[0]
-    return buffers, counts, overflow
+    plan = (slot, kept, buffers, counts, overflow)
+    return plan if dest.ndim == 2 else tuple(t[0] for t in plan)
 
 
 # ----------------------------------------------------------------- attention

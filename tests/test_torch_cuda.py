@@ -448,11 +448,15 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda_device, no_tf32):
 # ------------------------------------------------------ K4: queue dispatch
 # (G, B, n_dest, capacity): the JAX package's sweep (tests/test_kernels.py)
 # and its overflow case, the MoE prefill (4 x 2048 tokens in 32 groups) and
-# decode (4 tokens) shapes of mixtral-8x7b, the port's n_dest limit, and
-# the kernel benchmarks' 4096 x 16 and 8192 x 8 chunks.
+# decode (4 tokens) shapes of mixtral-8x7b, the port's n_dest limit, the
+# kernel benchmarks' 4096 x 16 and 8192 x 8 chunks, rows past the largest
+# CTA (1025 lanes, past 8192: a second pass of the narrow body), the
+# narrow body's 32 destinations and the wide body's 33 and 1024.
 K4_SHAPES = [
     (1, 16, 2, 2), (1, 128, 8, 16), (1, 64, 16, 8), (1, 33, 4, 1), (1, 40, 4, 3),
     (32, 512, 8, 80), (1, 8, 8, 1), (3, 700, 1024, 2), (1, 4096, 16, 512), (1, 8192, 8, 1280),
+    (2, 1025, 8, 130), (1, 1025, 1024, 3), (1, 9000, 8, 1200), (2, 300, 32, 12),
+    (2, 300, 33, 12),
 ]
 
 
@@ -466,9 +470,9 @@ def _k4_same(dest, n_dest, capacity):
 
 @pytest.mark.parametrize("G,B,n_dest,capacity", K4_SHAPES)
 def test_queue_dispatch_kernel_matches_its_plain_version(cuda_device, G, B, n_dest, capacity):
-    """Bit for bit on all three outputs, 1/8 of the lanes inactive; then a
-    row whose lanes all go to one destination, one with two hot
-    destinations, and an all-inactive row."""
+    """Bit for bit on all five outputs of the plan, 1/8 of the lanes
+    inactive; then a row whose lanes all go to one destination, one with
+    two hot destinations, and an all-inactive row."""
     rng = np.random.default_rng(B + n_dest)
     dest = rng.integers(0, n_dest, (G, B)).astype(np.int32)
     dest[rng.random((G, B)) < 1 / 8] = -1
@@ -477,6 +481,29 @@ def test_queue_dispatch_kernel_matches_its_plain_version(cuda_device, G, B, n_de
                       np.full(B, -1)]).astype(np.int32)
     _k4_same(torch.from_numpy(skews).to(cuda_device), n_dest, capacity)
     _k4_same(torch.from_numpy(dest[0]).to(cuda_device), n_dest, capacity)  # one (B,) row
+
+
+@pytest.mark.parametrize("G,B,n_dest,capacity", [(32, 512, 8, 80), (1, 8, 8, 1)])
+def test_one_queue_dispatch_runs_one_kernel(cuda_device, G, B, n_dest, capacity):
+    """The MoE layer's queue dispatch (``core.buffers.dispatch``) at the
+    mixtral prefill and decode shapes is one device kernel, K4, as
+    torch.profiler counts it over five dispatches: the kernel writes the
+    whole plan."""
+    from repro_torch.core import buffers as TB
+
+    rng = np.random.default_rng(B)
+    dest = torch.from_numpy(rng.integers(-1, n_dest, (G, B)).astype(np.int32)).to(cuda_device)
+    want = TB.DispatchPlan(*ref.queue_dispatch_ref(dest, n_dest, capacity))
+    TB.dispatch("queue", dest, n_dest, capacity)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        plans = [TB.dispatch("queue", dest, n_dest, capacity) for _ in range(5)]
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 5 and all("queue_dispatch" in n for n in names), names
+    for plan in plans:
+        _same(plan, want)
 
 
 def test_queue_dispatch_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):

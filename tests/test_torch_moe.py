@@ -83,19 +83,22 @@ def _close(got, want, tol):
 
 
 def _numpy_queue_model(dest, n_dest, capacity):
-    """The paper's serial labeling network (Fig. 6), one lane at a time."""
+    """The paper's serial labeling network (Fig. 6), one lane at a time:
+    the plan ``(slot, kept, buffers, counts, overflow)``."""
     buffers = np.full((n_dest, capacity), -1, np.int32)
     counts = np.zeros(n_dest, np.int32)
+    slot = np.full(len(dest), -1, np.int32)
     overflow = np.zeros(len(dest), bool)
     for i, d in enumerate(dest):
         if d < 0:
             continue
         if counts[d] < capacity:
             buffers[d, counts[d]] = i
+            slot[i] = counts[d]
             counts[d] += 1
         else:
             overflow[i] = True
-    return buffers, counts, overflow
+    return slot, slot >= 0, buffers, counts, overflow
 
 
 def _skewed(skew, size, rng):
@@ -109,16 +112,17 @@ def _skewed(skew, size, rng):
 
 
 # ------------------------------------------------------- K4's plain version
+# K4's plan is (slot, kept, buffers, counts, overflow): the JAX package's
+# DispatchPlan, whose last three fields are the Pallas kernel's outputs.
 @pytest.mark.parametrize("n_dest,capacity,size", SWEEP)
 def test_queue_dispatch_ref_matches_pallas_and_buffers(n_dest, capacity, size):
     rng = np.random.default_rng(size)
     dest = rng.integers(-1, n_dest, size=size).astype(np.int32)
     got = tops.queue_dispatch(_t(dest), n_dest, capacity)
-    assert got[2].dtype == torch.bool
-    _equal(got, pallas_qd(jnp.asarray(dest), n_dest, capacity, True))
-    _equal(got, jref_qd(jnp.asarray(dest), n_dest, capacity))
-    plan = jqueue(jnp.asarray(dest), n_dest, capacity)
-    _equal(got, (plan.buffers, plan.counts, plan.overflow))
+    assert got[1].dtype == torch.bool and got[4].dtype == torch.bool
+    _equal(got[2:], pallas_qd(jnp.asarray(dest), n_dest, capacity, True))
+    _equal(got[2:], jref_qd(jnp.asarray(dest), n_dest, capacity))
+    _equal(got, tuple(jqueue(jnp.asarray(dest), n_dest, capacity)))
 
 
 @pytest.mark.parametrize("skew", ["all_one_dest", "two_hot", "mixed_inactive", "all_inactive"])
@@ -128,9 +132,9 @@ def test_queue_dispatch_ref_overflow_skews(skew):
     n_dest, capacity, size = 4, 3, 40
     dest = _skewed(skew, size, np.random.default_rng(17))
     got = tref.queue_dispatch_ref(_t(dest), n_dest, capacity)
-    _equal(got, pallas_qd(jnp.asarray(dest), n_dest, capacity, True))
+    _equal(got[2:], pallas_qd(jnp.asarray(dest), n_dest, capacity, True))
     _equal(got, _numpy_queue_model(dest, n_dest, capacity))
-    assert bool(got[2].any()) == (skew != "all_inactive")
+    assert bool(got[4].any()) == (skew != "all_inactive")
 
 
 def test_queue_dispatch_ref_takes_group_rows_and_clips_like_the_kernel():
@@ -141,12 +145,61 @@ def test_queue_dispatch_ref_takes_group_rows_and_clips_like_the_kernel():
     dest = rng.integers(-1, n_dest, size=(6, 50)).astype(np.int32)
     dest[2] = -1  # an all-inactive row
     got = tops.queue_dispatch(_t(dest), n_dest, capacity)
-    assert tuple(got[0].shape) == (6, n_dest, capacity)
+    assert tuple(got[2].shape) == (6, n_dest, capacity)
     for g in range(dest.shape[0]):
-        _equal([o[g] for o in got], pallas_qd(jnp.asarray(dest[g]), n_dest, capacity, True))
+        _equal([o[g] for o in got][2:], pallas_qd(jnp.asarray(dest[g]), n_dest, capacity, True))
+        _equal([o[g] for o in got], _numpy_queue_model(dest[g], n_dest, capacity))
     wide = rng.integers(-1, n_dest + 4, size=70).astype(np.int32)
-    _equal(tops.queue_dispatch(_t(wide), n_dest, capacity),
-           pallas_qd(jnp.asarray(wide), n_dest, capacity, True))
+    got = tops.queue_dispatch(_t(wide), n_dest, capacity)
+    _equal(got[2:], pallas_qd(jnp.asarray(wide), n_dest, capacity, True))
+    _equal(got, _numpy_queue_model(np.minimum(wide, n_dest - 1), n_dest, capacity))
+
+
+# (what, n_dest, capacity, shape of dest): the JAX sweep, the overflow
+# skews, group rows (the MoE prefill's 8 x 80 among them), rows of B not a
+# multiple of a warp (up to the kernel's narrow limit of 32 destinations),
+# and B = 0.
+PLAN_CASES = [
+    *(("sweep", n, c, (b,)) for n, c, b in SWEEP),
+    *((skew, 4, 3, (40,)) for skew in ("all_one_dest", "two_hot", "mixed_inactive",
+                                       "all_inactive")),
+    ("rows", 8, 5, (3, 50)),
+    ("rows", 8, 80, (2, 512)),
+    ("ragged", 8, 3, (2, 45)),
+    ("ragged", 32, 2, (1, 100)),
+    ("empty", 4, 3, (0,)),
+    ("empty", 8, 2, (2, 0)),
+]
+
+
+@pytest.mark.parametrize("what,n_dest,capacity,shape", PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}-{'x'.join(map(str, c[3]))}"
+                              for c in PLAN_CASES])
+def test_queue_dispatch_plan_matches_jax(what, n_dest, capacity, shape):
+    """All five outputs of ``ops.queue_dispatch`` (K4's plan): slot and kept
+    against the JAX package's ``core.buffers.queue_dispatch``, buffers,
+    counts and overflow against the Pallas kernel in interpret mode (which
+    takes no B = 0: there, all five against the JAX plan), row by row."""
+    rng = np.random.default_rng(sum(shape) + n_dest)
+    if what in ("sweep", "rows", "ragged", "empty"):
+        dest = rng.integers(-1, n_dest, size=shape).astype(np.int32)
+    else:
+        dest = _skewed(what, shape[0], rng)
+    got = tops.queue_dispatch(_t(dest), n_dest, capacity)
+    lead = shape[:-1]
+    assert [tuple(o.shape) for o in got] == [shape, shape, lead + (n_dest, capacity),
+                                             lead + (n_dest,), shape]
+    assert [o.dtype for o in got] == [torch.int32, torch.bool, torch.int32, torch.int32,
+                                      torch.bool]
+    n_rows = int(np.prod(lead))
+    for g, row in enumerate(dest.reshape(n_rows, shape[-1])):
+        mine = [o.reshape((n_rows,) + tuple(o.shape[len(lead):]))[g] for o in got]
+        plan = jqueue(jnp.asarray(row), n_dest, capacity)
+        _equal(mine[:2], (plan.slot, plan.kept))
+        if row.size == 0:
+            _equal(mine[2:], (plan.buffers, plan.counts, plan.overflow))
+        else:
+            _equal(mine[2:], pallas_qd(jnp.asarray(row), n_dest, capacity, True))
 
 
 def test_queue_dispatch_rejects_bad_operands_on_the_cpu():
