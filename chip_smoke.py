@@ -235,6 +235,7 @@ QD_SHAPES = [
 ]
 QD_TIMED = (5, 6, 7, 8)  # indices into QD_SHAPES: the prefill, decode and both benchmarks' shapes
 QD_ROUND_TRIPS = 1  # a lane's dependent global round trips in K4: its dest, before any barrier
+QD_BODIES = ("queue_dispatch_kernel", "queue_dispatch_cluster_kernel", "queue_dispatch_wide_kernel")
 
 
 def check(cond, msg: str) -> None:
@@ -290,8 +291,8 @@ def kernel_label(mangled: str) -> str:
     """A readable name of a kernel instantiation from its mangled name:
     ``forest_descend_kernel<ORDERED,WITH_DELTA>`` (hybrid's
     ``<ORDERED,MAPPING,WITH_DELTA>``), ``flash_fwd_kernel<float,D>``,
-    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel``,
-    ``queue_dispatch_wide_kernel``; any other kernel keeps its mangled
+    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel`` (and its
+    ``_cluster`` and ``_wide`` bodies); any other kernel keeps its mangled
     name, so a renamed or new one still shows."""
     entry = re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", mangled)
     if entry:
@@ -303,7 +304,7 @@ def kernel_label(mangled: str) -> str:
     bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", mangled)
     if bf16:
         return f"flash_fwd_bf16_kernel<{bf16.group(1)}>"
-    qd = re.search(r"queue_dispatch(_wide)?_kernel", mangled)
+    qd = re.search(r"queue_dispatch(_wide|_cluster)?_kernel", mangled)
     if qd:
         return qd.group(0)
     return mangled
@@ -1371,29 +1372,25 @@ def queue_dispatch_bytes(G: int, B: int, n_dest: int, capacity: int) -> int:
     return 4 * G * B + G * (4 * B + 2 * B + 4 * n_dest * capacity + 4 * n_dest)
 
 
-def empty_launch(grid: int, threads: int, smem_bytes: int) -> None:
+def empty_launch(grid: int, threads: int, smem_bytes: int, cluster: int = 1) -> None:
     """An empty kernel (``csrc/pointer_chase.cu``) of ``grid`` CTAs of
-    ``threads`` threads with ``smem_bytes`` of dynamic shared memory,
-    through the same ctypes path as the kernels."""
-    rc = _build.library().lib.empty_launch(grid, threads, smem_bytes,
+    ``threads`` threads with ``smem_bytes`` of dynamic shared memory, in
+    clusters of ``cluster`` CTAs, through the same ctypes path as the
+    kernels."""
+    rc = _build.library().lib.empty_launch(grid, threads, smem_bytes, cluster,
                                            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "empty_launch")
 
 
-def time_queue_dispatch(timer, l_hbm_ms: float) -> tuple:
+def time_queue_dispatch(timer, l_hbm_ms: float) -> list:
     """K4 at the MoE prefill and decode shapes and at both benchmarks'
     shapes (random rows, 1/8 inactive), its plain version, the byte bound
     and the latency bound (QD_ROUND_TRIPS x L_HBM); beside each, timed the
-    same way, its floor: an empty kernel launched with K4's grid, threads
-    and dynamic shared memory (and without the shared memory, which says
-    what asking for it costs).  No single PyTorch call builds a FIFO buffer
-    image, so there is no library yardstick.  Also a one-element fill, the
-    least a torch launch takes (PR 14's floor).  Returns ``(rows,
-    fill_ms)``."""
+    same way, its floor: an empty kernel launched with K4's grid, clusters,
+    threads and dynamic shared memory (and without the shared memory, which
+    says what asking for it costs).  No single PyTorch call builds a FIFO
+    buffer image, so there is no library yardstick."""
     lib = _build.library().lib
-    one = torch.zeros(1, device="cuda")
-    fill_ms = timer(functools.partial(one.fill_, 1.0))
-    log(f"  a one-element fill (a torch launch): {fill_ms!r} ms")
     rows = []
     for i in QD_TIMED:
         G, B, n_dest, capacity, what = QD_SHAPES[i]
@@ -1401,44 +1398,49 @@ def time_queue_dispatch(timer, l_hbm_ms: float) -> tuple:
         compare_k4(QD.queue_dispatch_cuda(dest, n_dest, capacity),
                    ref.queue_dispatch_ref(dest, n_dest, capacity), f"K4 timed {what}")
         n_bytes = queue_dispatch_bytes(G, B, n_dest, capacity)
+        ctas = lib.queue_dispatch_ctas(B, n_dest)
         threads = lib.queue_dispatch_threads(B, n_dest)
         smem = lib.queue_dispatch_smem_bytes(B, n_dest)
         rows.append({
             "what": what, "G": G, "B": B, "n_dest": n_dest, "capacity": capacity,
-            "threads": threads, "smem_bytes": smem,
+            "ctas_per_row": ctas, "threads": threads, "smem_bytes": smem,
             "ms": timer(functools.partial(QD.queue_dispatch_cuda, dest, n_dest, capacity)),
             "plain_ms": timer(functools.partial(ref.queue_dispatch_ref, dest, n_dest, capacity), reps=5),
-            "floor_ms": timer(functools.partial(empty_launch, G, threads, smem)),
-            "floor_no_smem_ms": timer(functools.partial(empty_launch, G, threads, 0)),
+            "floor_ms": timer(functools.partial(empty_launch, G * ctas, threads, smem, ctas)),
+            "floor_no_smem_ms": timer(functools.partial(empty_launch, G * ctas, threads, 0, ctas)),
             "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "round_trips": QD_ROUND_TRIPS, "latency_bound_ms": QD_ROUND_TRIPS * l_hbm_ms,
             "library_ms": None,
         })
         r = rows[-1]
-        log(f"  K4 {what} (G={G}, B={B}, n_dest={n_dest}, capacity={capacity}; {threads} "
-            f"threads, {smem} bytes dynamic shared memory a CTA): ms={r['ms']!r} "
+        log(f"  K4 {what} (G={G}, B={B}, n_dest={n_dest}, capacity={capacity}; {ctas} CTAs a "
+            f"row of {threads} threads, {smem} bytes dynamic shared memory a CTA): ms={r['ms']!r} "
             f"plain_ms={r['plain_ms']!r} floor_ms={r['floor_ms']!r} (an empty kernel of K4's "
             f"launch; {r['floor_no_smem_ms']!r} without the shared memory) "
             f"bound_ms={r['bound_ms']!r} (bytes: {n_bytes} over {HBM_BYTES_PER_S:.3g}/s) "
             f"latency_bound_ms={r['latency_bound_ms']!r} ({QD_ROUND_TRIPS} round trip x L_HBM) "
             f"library_ms=None (no single PyTorch call builds a FIFO buffer image)")
-    return rows, fill_ms
+    return rows
 
 
 def kernels_per_dispatch(G: int, B: int, n_dest: int, capacity: int, calls: int = 10) -> list:
     """The device kernels (and copies) of ``calls`` queue dispatches of the
     MoE layer, ``core.buffers.dispatch("queue", ...)``, on the card, by
-    name, as torch.profiler sees them (after a warm-up call): one K4 launch
-    per dispatch gives ``calls`` names, so a lost event shows too."""
+    name, as torch.profiler sees them: one step of ``calls`` dispatches as
+    the profiler's warm-up (a trace can miss its first kernels), then one
+    recorded.  One K4 launch per dispatch gives ``calls`` names, so a lost
+    event shows too."""
     dest = queue_dispatch_rows(G, B, n_dest, seed=7)[:G].contiguous()
-    buf_lib.dispatch("queue", dest, n_dest, capacity)
-    torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            buf_lib.dispatch("queue", dest, n_dest, capacity)
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                buf_lib.dispatch("queue", dest, n_dest, capacity)
+            torch.cuda.synchronize()
+            prof.step()
+    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith("ProfilerStep")]  # the step's own annotation
 
 
 @contextlib.contextmanager
@@ -1634,7 +1636,7 @@ def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
     """Phase 7: K4 checked and timed, the kernels of one queue dispatch
     counted, the fp32 checks, the bf16 serving run."""
     log(f"[7] MoE serving: {MOE_ARCH}; K4 vs its plain version")
-    for kern in ("queue_dispatch_kernel", "queue_dispatch_wide_kernel"):
+    for kern in QD_BODIES:
         check(kern in resources, f"ptxas reported no resources for {kern}")
         regs, smem, spills = resources[kern]
         log(f"    {kern}: {regs} registers, {smem} bytes static shared memory, {spills}")
@@ -1646,7 +1648,7 @@ def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
           == (32, 4096, 32, 8, 14336, 32000, 8, 2, "queue", 1.25, 32, 4096, "bfloat16"),
           f"{MOE_ARCH} is not at its published width: {cfg}")
     checks = check_queue_dispatch()
-    timing, fill_ms = time_queue_dispatch(timer, l_hbm_ms)
+    timing = time_queue_dispatch(timer, l_hbm_ms)
     per_dispatch = {}
     for i in QD_TIMED[:2]:  # the prefill and decode shapes
         G, B, n_dest, capacity, what = QD_SHAPES[i]
@@ -1660,9 +1662,8 @@ def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
     fp32 = check_moe_fp32(cfg, smi)
     served = serve_moe(dataclasses.replace(cfg, n_layers=MOE_LAYERS), smi)
     return {"queue_dispatch_checks": checks, "queue_dispatch_timing": timing,
-            "kernels_per_queue_dispatch": per_dispatch, "launch_floor_ms": fill_ms,
-            "ptxas": {k: list(resources[k]) for k in ("queue_dispatch_kernel",
-                                                      "queue_dispatch_wide_kernel")},
+            "kernels_per_queue_dispatch": per_dispatch,
+            "ptxas": {k: list(resources[k]) for k in QD_BODIES},
             "moe_full_width_fp32": fp32, "moe_served": served}
 
 

@@ -77,12 +77,13 @@ _SIGNATURES = {
     # stream
     "queue_dispatch": [_P, _I, _I, _I, _I] + [_P] * 5 + [_P],
     "queue_dispatch_max_dest": [],
+    "queue_dispatch_ctas": [_I, _I],  # B, n_dest
     "queue_dispatch_threads": [_I, _I],  # B, n_dest
     "queue_dispatch_smem_bytes": [_I, _I],  # B, n_dest
     # next, start, steps, out, stream
     "pointer_chase": [_P, _I, _I, _P, _P],
-    # grid, threads, dynamic shared memory bytes, stream
-    "empty_launch": [_I, _I, _I, _P],
+    # grid, threads, dynamic shared memory bytes, cluster, stream
+    "empty_launch": [_I, _I, _I, _I, _P],
 }
 
 

@@ -43,13 +43,27 @@ int pointer_chase(const void* next, int start, int steps, void* out, void* strea
 }
 
 // An empty kernel of `grid` CTAs of `threads` threads with `smem_bytes` of
-// dynamic shared memory (at most 48 KiB).
-int empty_launch(int grid, int threads, int smem_bytes, void* stream) {
-  if (grid < 1 || threads < 1 || threads > 1024 || smem_bytes < 0 || smem_bytes > 48 * 1024) {
+// dynamic shared memory (at most 48 KiB), in clusters of `cluster` CTAs
+// (1: no cluster).
+int empty_launch(int grid, int threads, int smem_bytes, int cluster, void* stream) {
+  if (grid < 1 || threads < 1 || threads > 1024 || smem_bytes < 0 || smem_bytes > 48 * 1024 ||
+      cluster < 1 || cluster > 8 || grid % cluster != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  empty_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute dims = {};
+  dims.id = cudaLaunchAttributeClusterDimension;
+  dims.val.clusterDim.x = cluster;
+  dims.val.clusterDim.y = 1;
+  dims.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &dims;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(&config, empty_kernel);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -16,68 +16,68 @@
 //   counts[d] = min(#{active lanes with destination d}, capacity)
 //   overflow  = active & ~kept                                  (bool)
 // with a leading group axis G: one launch serves every dispatch group of a
-// MoE layer, one CTA per group row, and writes the whole plan, so a queue
-// dispatch is this one kernel and nothing else.
+// MoE layer and writes the whole plan, so a queue dispatch is this one
+// kernel and nothing else.
 //
 // It is not the TPU body.  The Pallas kernel builds a (B, n_dest) one-hot,
 // takes its cumulative sum over the lanes and materialises a
 // (B, n_dest * capacity) match matrix to scatter the buffer image, all in
-// VMEM.  Here (n_dest <= 32, every MoE config of the repo) a CTA of
-// whole warps, sized from B up to 1024 threads, loads its row into
-// registers before the first barrier: lane i = r * threads + tid, up to
-// kMaxRegs lanes a thread, so a row of up to 8192 lanes takes one
-// dependent HBM round trip (a longer one is walked in passes of that many).
-// For each register a warp ranks its lanes among their same-destination
-// peers by ballots over the bits of the destination (peers = the lanes
-// that agree on every bit), and lane d of the warp counts destination d
-// the same way; the counts go to a (n_dest x registers*warps) table in
-// shared memory.  After one barrier, a group of lanes per destination
-// (as many as there are table positions, up to a warp) turns its column
-// into an exclusive scan by warp shuffles, writes the count, and fills
-// the destination's empty slots with -1; after a second barrier each lane
-// reads its label from the table.  Labels are those of the serial FIFO
-// network: earlier lanes of a warp, then earlier warps, then earlier
-// registers, then earlier passes come first (no atomics, whose order
-// would not be FIFO).  Every buffer slot is written once: by its lane, or
-// as -1 by its destination's group.  Above 32 destinations
+// VMEM.  Here, for n_dest <= 32 (every MoE config of the repo), a CTA of
+// whole warps, sized from its lanes up to kMaxThreads, loads them into
+// registers before its first barrier: lane r * threads + tid in register
+// r, up to kMaxRegs a thread, so every lane makes one dependent HBM round
+// trip.  For each register a warp ranks its lanes among their
+// same-destination peers by ballots over the bits of the destination
+// (peers = the lanes that agree on every bit), and lane d of the warp
+// counts destination d the same way; the counts go to an (n_dest x
+// registers * warps) table in shared memory.  After one barrier a group of
+// lanes per destination (as many as the table has positions, up to a
+// warp) turns its column into an exclusive scan with warp shuffles; after
+// a second barrier each lane reads its label from the table and stores
+// its outputs.  A row of up to kMaxThreads lanes takes one CTA
+// (queue_dispatch_kernel: the MoE prefill's 32 rows of 512, the decode
+// row of 8); a longer one a cluster of up to kMaxCluster CTAs
+// (queue_dispatch_cluster_kernel), one chunk of the row each, which read
+// the earlier chunks' per-destination totals from their distributed
+// shared memory, so the stores of a long row are spread over that many
+// SMs.  Rows past a cluster's one pass are walked by one CTA in passes.
+// Labels are those of the serial FIFO network: earlier lanes of a warp,
+// then earlier warps, then earlier registers, then earlier chunks or
+// passes come first (no atomics, whose order would not be FIFO).  Each
+// buffer slot is written once: by its lane, or as -1 by its destination's
+// lanes, which know the count.  Above 32 destinations
 // (queue_dispatch_wide_kernel, up to kMaxDest) a CTA of 256 threads walks
 // the row in tiles with __match_any_sync ranks and a (warps x n_dest)
 // table in shared memory, four barriers a tile.
 //
 // What bounds it on this card: nothing the card is short of.  At the MoE
 // prefill shape (G = 32 rows of B = 512 lanes, n_dest = 8, capacity = 80)
-// it reads 64 KiB and writes 209 KiB, some 0.08 us of HBM time, and each
+// it reads 64 KiB and writes 272 KiB, some 0.1 us of HBM time, and each
 // lane makes one dependent round trip (about 0.34 us); the decode shape
 // (G = 1, B = 8) is smaller still.  So its time is the launch, one round
-// trip and two barriers; the design keeps it to one launch per MoE layer
-// for all groups, where the Pallas kernel's wrapper is vmapped per row.
+// trip, two barriers and the stores; the design keeps it to one launch per
+// MoE layer for all groups, where the Pallas kernel's wrapper is vmapped
+// per row and the JAX package's plan adds a dozen ops around it.
 
-#include <cuda_runtime.h>
-
-#ifdef REPRO_QD_CLUSTER
 #include <cooperative_groups.h>
-namespace cg = cooperative_groups;
-#endif
+#include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 
-#ifndef REPRO_QD_MAX_THREADS
-#define REPRO_QD_MAX_THREADS 512
-#endif
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = REPRO_QD_MAX_THREADS;  // narrow path: threads per CTA at most
+constexpr int kMaxThreads = 512;   // threads of a narrow CTA at most (lanes of one chunk)
 constexpr int kMaxRegs = 8;        // lanes a thread holds per pass
-constexpr int kNarrowDest = 32;    // the narrow path: one lane per destination
-constexpr int kMaxDest = 1024;     // the wide path's (kWideWarps + 1) x n_dest table
+constexpr int kMaxCluster = 8;     // CTAs of a long row (the portable cluster size)
+constexpr int kNarrowDest = 32;    // the narrow bodies: one warp lane per destination
+constexpr int kMaxDest = 1024;     // the wide body's (kWideWarps + 1) x n_dest table
 constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-static_assert(kMaxThreads % 32 == 0 && kMaxThreads <= 1024, "whole warps, at most 1024");
 
 struct Row {  // one dispatch group's inputs and outputs
   const int* dest;
@@ -88,154 +88,270 @@ struct Row {  // one dispatch group's inputs and outputs
   uint8_t* overflow;
 };
 
-__device__ __forceinline__ Row row_of(const int* dest, int B, int n_dest, int capacity,
+__device__ __forceinline__ Row row_of(size_t g, const int* dest, int B, int n_dest, int capacity,
                                       int* slot, uint8_t* kept, int* buffers, int* counts,
                                       uint8_t* overflow) {
-  const size_t g = blockIdx.x;
   return {dest + g * B, slot + g * B, kept + g * B,
           buffers + g * static_cast<size_t>(n_dest) * capacity, counts + g * n_dest,
           overflow + g * B};
 }
 
-// Narrow-path geometry, the same on host and device: threads per CTA
-// (whole warps, one lane each up to kMaxThreads), registers of the first
-// pass, and the table's column stride (odd, so that the lanes of a warp
-// that write or read one position of n_dest columns hit distinct banks).
-__host__ __device__ __forceinline__ int narrow_threads(int B) {
-  const int warps = (B + 31) / 32;
+// The narrow bodies' geometry, the same on host and device.  A row takes
+// `cluster_size` CTAs of `chunk_of` lanes each, in CTAs of
+// `narrow_threads(lanes)` (whole warps, one lane each up to kMaxThreads);
+// the table's column stride is odd, so that the lanes of a warp that
+// write or read one position of n_dest columns hit distinct banks.
+__host__ __device__ __forceinline__ int cluster_size(int B) {
+  const int ctas = (B + kMaxThreads - 1) / kMaxThreads;
+  return ctas < 1 ? 1 : (ctas < kMaxCluster ? ctas : kMaxCluster);
+}
+
+__host__ __device__ __forceinline__ int chunk_of(int B) {
+  const int c = cluster_size(B);
+  return (B + c - 1) / c;
+}
+
+__host__ __device__ __forceinline__ int narrow_threads(int lanes) {
+  const int warps = (lanes + 31) / 32;
   return warps < 1 ? 32 : (warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads);
 }
 
 __host__ __device__ __forceinline__ int pass_regs(int lanes, int threads) {
-  const int regs = (lanes + threads - 1) / threads;
+  const int regs = lanes > 0 ? (lanes + threads - 1) / threads : 0;
   return regs < kMaxRegs ? regs : kMaxRegs;
 }
 
-__host__ __device__ __forceinline__ int table_stride(int B, int threads) {
-  return (pass_regs(B, threads) * (threads / 32)) | 1;
+__host__ __device__ __forceinline__ int table_stride(int lanes, int threads) {
+  return (pass_regs(lanes, threads) * (threads / 32)) | 1;
 }
 
-__host__ __device__ __forceinline__ size_t narrow_smem_bytes(int B, int n_dest) {
-  return (kNarrowDest + static_cast<size_t>(n_dest) * table_stride(B, narrow_threads(B))) *
+// Ints of shared memory before the table: per destination, the running
+// totals (in a cluster also the earlier chunks' totals and the kept count).
+constexpr int kHeadInts = 3 * kNarrowDest;
+
+__host__ __device__ __forceinline__ size_t narrow_smem_bytes(int lanes, int n_dest) {
+  return (kHeadInts + static_cast<size_t>(n_dest) * table_stride(lanes, narrow_threads(lanes))) *
          sizeof(int);
 }
 
+// Which body a (B, n_dest) row takes: 0 one narrow CTA, 1 a cluster, 2 wide.
+__host__ __forceinline__ int body_of(int B, int n_dest) {
+  if (n_dest > kNarrowDest) return 2;
+  return B > kMaxThreads && chunk_of(B) <= kMaxThreads * kMaxRegs ? 1 : 0;
+}
+
+// One pass of a narrow CTA over the `n` lanes of its row from `lo`: the
+// loads (before any barrier), the warp ranks, and the per-warp counts into
+// `table`.  Returns the registers in use, the same for every thread.
+__device__ __forceinline__ int rank_lanes(const int* drow, int lo, int n, int n_dest, int stride,
+                                          int* table, int (&d)[kMaxRegs], int (&rank)[kMaxRegs]) {
+  const int threads = blockDim.x;
+  const int warps = threads >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int regs = pass_regs(n, threads);
+  const int bits = n_dest > 1 ? 32 - __clz(n_dest - 1) : 0;
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    const int i = r * threads + tid;
+    d[r] = r < regs && i < n ? __ldg(drow + lo + i) : -1;
+  }
+  // Every loop bound here is the same for all threads of the CTA, so every
+  // lane reaches each ballot.
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    if (r >= regs) break;
+    const bool active = d[r] >= 0;
+    d[r] = active ? min(d[r], n_dest - 1) : -1;  // the Pallas kernel's clip
+    unsigned peers = __ballot_sync(kFullMask, active);
+    unsigned own = peers;  // the active lanes whose destination is `lane`
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {  // n_dest <= 32: at most 5 bits
+      if (b >= bits) break;
+      const unsigned ones = __ballot_sync(kFullMask, (d[r] >> b) & 1);
+      peers &= (d[r] >> b) & 1 ? ones : ~ones;
+      own &= (lane >> b) & 1 ? ones : ~ones;
+    }
+    rank[r] = __popc(peers & ((1u << lane) - 1u));
+    if (lane < n_dest) table[lane * stride + r * warps + warp] = __popc(own);
+  }
+  return regs;
+}
+
+// Lanes per destination group: the table's positions rounded up to a
+// power of two, at most a warp.
+__device__ __forceinline__ int group_width(int positions) {
+  int width = 1;
+  while (width < positions && width < 32) width <<= 1;
+  return width;
+}
+
+// A destination's group of `width` lanes (this lane the j-th) scans its
+// `column` of `positions` counts into exclusive prefixes from `run`, and
+// returns `run` plus the column's total to every lane of the group.  A
+// lane without a destination (`owner` false) takes part in the shuffles
+// only.
+__device__ __forceinline__ int scan_column(int* column, int positions, bool owner, int j,
+                                           int width, int run) {
+  for (int p0 = 0; p0 < positions; p0 += width) {
+    const int p = p0 + j;
+    const int c = owner && p < positions ? column[p] : 0;
+    int incl = c;
+    for (int o = 1; o < width; o <<= 1) {
+      const int t = __shfl_up_sync(kFullMask, incl, o, width);
+      if (j >= o) incl += t;
+    }
+    if (owner && p < positions) column[p] = run + incl - c;
+    run += __shfl_sync(kFullMask, incl, width - 1, width);
+  }
+  return run;
+}
+
+// Each lane's label (its warp's prefix in the table, its rank and, in a
+// cluster, `before` for its destination: the earlier chunks' lanes), and
+// its outputs.
+__device__ __forceinline__ void place_lanes(const Row& row, int lo, int n, int regs, int capacity,
+                                            const int* table, int stride, const int* before,
+                                            const int (&d)[kMaxRegs], const int (&rank)[kMaxRegs]) {
+  const int threads = blockDim.x;
+  const int warps = threads >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int r = 0; r < kMaxRegs; ++r) {
+    if (r >= regs) break;
+    const int i = r * threads + tid;
+    if (i >= n) break;
+    const int at = lo + i;
+    const bool active = d[r] >= 0;
+    const int label =
+        active ? (before ? before[d[r]] : 0) + table[d[r] * stride + r * warps + warp] + rank[r]
+               : 0;
+    const bool keep = active && label < capacity;
+    row.slot[at] = keep ? label : -1;
+    row.kept[at] = keep;
+    row.overflow[at] = active && !keep;
+    if (keep) row.buffers[static_cast<size_t>(d[r]) * capacity + label] = at;
+  }
+}
+
+// A row of up to kMaxThreads lanes, or one too long for a cluster's one
+// pass: one CTA, in passes of threads * kMaxRegs lanes.
 __global__ void __launch_bounds__(kMaxThreads)
 queue_dispatch_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
                       int* __restrict__ slot, uint8_t* __restrict__ kept,
                       int* __restrict__ buffers, int* __restrict__ counts,
                       uint8_t* __restrict__ overflow) {
   extern __shared__ int smem[];
-  int* seen = smem;                 // [n_dest]: active lanes per destination over earlier passes
-  int* table = smem + kNarrowDest;  // [n_dest][stride]: counts, then exclusive prefixes
+  int* seen = smem;                // [n_dest]: active lanes per destination over earlier passes
+  int* table = smem + kHeadInts;   // [n_dest][stride]: counts, then exclusive prefixes
+  const Row row = row_of(blockIdx.x, dest, B, n_dest, capacity, slot, kept, buffers, counts,
+                         overflow);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int stride = table_stride(B, blockDim.x);
+  const int per_pass = blockDim.x * kMaxRegs;
 
-  const Row row = row_of(dest, B, n_dest, capacity, slot, kept, buffers, counts, overflow);
-#ifdef REPRO_QD_TRIVIAL
-  // Timing only: the same loads and stores, no labels.
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    const int v = __ldg(row.dest + i);
-    row.slot[i] = v;
-    row.kept[i] = 0;
-    row.overflow[i] = 0;
-  }
-  for (int s = threadIdx.x; s < n_dest * capacity; s += blockDim.x) row.buffers[s] = -1;
-  for (int s = threadIdx.x; s < n_dest; s += blockDim.x) row.counts[s] = 0;
-  return;
-#endif
-  const int threads = blockDim.x;
-  const int warps = threads >> 5;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  const int bits = n_dest > 1 ? 32 - __clz(n_dest - 1) : 0;
-  const int stride = table_stride(B, threads);
-  const int per_pass = threads * kMaxRegs;
-
-  // Every loop bound below is the same for all threads of the CTA, so every
-  // lane reaches each ballot, shuffle and barrier.
   for (int base = 0;; base += per_pass) {
-    const int regs = pass_regs(B - base, threads);
     const bool last = B - base <= per_pass;
-    int d[kMaxRegs];
-#pragma unroll
-    for (int r = 0; r < kMaxRegs; ++r) {
-      const int i = base + r * threads + tid;
-      d[r] = r < regs && i < B ? __ldg(row.dest + i) : -1;
-    }
-
-    int rank[kMaxRegs];
-#pragma unroll
-    for (int r = 0; r < kMaxRegs; ++r) {
-      if (r >= regs) break;
-      const bool active = d[r] >= 0;
-      d[r] = active ? min(d[r], n_dest - 1) : -1;  // the Pallas kernel's clip
-      unsigned peers = __ballot_sync(kFullMask, active);
-      unsigned own = peers;  // the active lanes whose destination is `lane`
-#pragma unroll
-      for (int b = 0; b < 5; ++b) {  // n_dest <= 32: at most 5 bits
-        if (b >= bits) break;
-        const unsigned ones = __ballot_sync(kFullMask, (d[r] >> b) & 1);
-        peers &= (d[r] >> b) & 1 ? ones : ~ones;
-        own &= (lane >> b) & 1 ? ones : ~ones;
-      }
-      rank[r] = __popc(peers & lanes_below);
-      if (lane < n_dest) table[lane * stride + r * warps + warp] = __popc(own);
-    }
+    const int n = last ? B - base : per_pass;
+    int d[kMaxRegs], rank[kMaxRegs];
+    const int regs = rank_lanes(row.dest, base, n, n_dest, stride, table, d, rank);
     __syncthreads();
 
-    // A group of `width` lanes per destination (a power of two, the table
-    // positions rounded up, at most a warp) scans its column; after the
-    // last pass the warp fills its destinations' empty slots with -1.
     const int positions = regs * warps;
-    int width = 1;
-    while (width < positions && width < 32) width <<= 1;
-    const int per_warp = 32 / width;
+    const int width = group_width(positions);
     const int j = lane & (width - 1);
-    for (int d0 = warp * per_warp; d0 < n_dest; d0 += warps * per_warp) {
+    for (int d0 = warp * (32 / width); d0 < n_dest; d0 += warps * (32 / width)) {
       const int dd = d0 + lane / width;
       const bool owner = dd < n_dest;
-      int run = owner && base > 0 ? seen[dd] : 0;
-      for (int p0 = 0; p0 < positions; p0 += width) {
-        const int p = p0 + j;
-        const int c = owner && p < positions ? table[dd * stride + p] : 0;
-        int incl = c;
-        for (int o = 1; o < width; o <<= 1) {
-          const int t = __shfl_up_sync(kFullMask, incl, o, width);
-          if (j >= o) incl += t;
-        }
-        if (owner && p < positions) table[dd * stride + p] = run + incl - c;
-        run += __shfl_sync(kFullMask, incl, width - 1, width);
-      }
+      const int run = scan_column(table + dd * stride, positions, owner, j, width,
+                                  owner && base > 0 ? seen[dd] : 0);
+      if (!owner) continue;
       if (!last) {
-        if (owner && j == 0) seen[dd] = run;
+        if (j == 0) seen[dd] = run;
         continue;
       }
       const int n_kept = min(run, capacity);
-      if (owner && j == 0) row.counts[dd] = n_kept;
-if (owner) {
-        int* buf = row.buffers + static_cast<size_t>(dd) * capacity;
-        for (int c = n_kept + j; c < capacity; c += width) buf[c] = -1;  // a slot no lane took
-      }
+      if (j == 0) row.counts[dd] = n_kept;
+      int* buf = row.buffers + static_cast<size_t>(dd) * capacity;
+      for (int c = n_kept + j; c < capacity; c += width) buf[c] = -1;  // a slot no lane took
     }
     __syncthreads();
 
-#pragma unroll
-    for (int r = 0; r < kMaxRegs; ++r) {
-      if (r >= regs) break;
-      const int i = base + r * threads + tid;
-      if (i >= B) break;
-      const bool active = d[r] >= 0;
-      const int label = active ? table[d[r] * stride + r * warps + warp] + rank[r] : 0;
-      const bool keep = active && label < capacity;
-      row.slot[i] = keep ? label : -1;
-      row.kept[i] = keep;
-      row.overflow[i] = active && !keep;
-      if (keep) row.buffers[static_cast<size_t>(d[r]) * capacity + label] = i;
-    }
+    place_lanes(row, base, n, regs, capacity, table, stride, nullptr, d, rank);
     if (last) break;
     __syncthreads();  // the next pass rewrites the table
   }
+}
+
+// A row of more than kMaxThreads lanes, one pass of each CTA of a cluster
+// (cluster_size(B) CTAs of chunk_of(B) lanes).  After its scan each CTA
+// holds its chunk's totals per destination; after a cluster barrier each
+// reads the earlier chunks' totals (its offsets) and all of them (the
+// counts) from the others' shared memory, CTA d % cluster writes
+// destination d's count and -1s, and a last cluster barrier keeps every
+// CTA's shared memory alive until the others have read it.
+__global__ void __launch_bounds__(kMaxThreads)
+queue_dispatch_cluster_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
+                              int* __restrict__ slot, uint8_t* __restrict__ kept,
+                              int* __restrict__ buffers, int* __restrict__ counts,
+                              uint8_t* __restrict__ overflow) {
+  extern __shared__ int smem[];
+  int* totals = smem;                    // [n_dest]: this chunk's active lanes per destination
+  int* before = smem + kNarrowDest;      // [n_dest]: the earlier chunks' active lanes
+  int* n_kept = smem + 2 * kNarrowDest;  // [n_dest]: the row's kept lanes
+  int* table = smem + kHeadInts;         // [n_dest][stride]: counts, then exclusive prefixes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int part = static_cast<int>(cluster.block_rank());
+  const Row row = row_of(blockIdx.x / ctas, dest, B, n_dest, capacity, slot, kept, buffers,
+                         counts, overflow);
+  const int warps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int chunk = chunk_of(B);
+  const int lo = part * chunk;
+  const int n = max(0, min(B - lo, chunk));
+  const int stride = table_stride(chunk, blockDim.x);
+
+  int d[kMaxRegs], rank[kMaxRegs];
+  const int regs = rank_lanes(row.dest, lo, n, n_dest, stride, table, d, rank);
+  __syncthreads();
+
+  const int positions = regs * warps;
+  const int width = group_width(positions);
+  const int j = lane & (width - 1);
+  for (int d0 = warp * (32 / width); d0 < n_dest; d0 += warps * (32 / width)) {
+    const int dd = d0 + lane / width;
+    const bool owner = dd < n_dest;
+    const int run = scan_column(table + dd * stride, positions, owner, j, width, 0);
+    if (owner && j == 0) totals[dd] = run;
+  }
+  cluster.sync();
+
+  for (int dd = tid; dd < n_dest; dd += blockDim.x) {
+    int earlier = 0, total = 0;
+    for (int k = 0; k < ctas; ++k) {
+      const int t = cluster.map_shared_rank(totals, k)[dd];
+      earlier += k < part ? t : 0;
+      total += t;
+    }
+    before[dd] = earlier;
+    n_kept[dd] = min(total, capacity);
+    if (dd % ctas == part) row.counts[dd] = n_kept[dd];
+  }
+  __syncthreads();
+
+  for (int dd = part; dd < n_dest; dd += ctas) {
+    int* buf = row.buffers + static_cast<size_t>(dd) * capacity;
+    for (int c = n_kept[dd] + tid; c < capacity; c += blockDim.x) buf[c] = -1;  // no lane took it
+  }
+  place_lanes(row, lo, n, regs, capacity, table, stride, before, d, rank);
+  cluster.sync();
 }
 
 __global__ void __launch_bounds__(kWideThreads)
@@ -247,7 +363,8 @@ queue_dispatch_wide_kernel(const int* __restrict__ dest, int B, int n_dest, int 
   int* warp_prefix = smem;                  // [kWideWarps][n_dest]: counts, then prefixes
   int* seen = smem + kWideWarps * n_dest;   // [n_dest]: active lanes per destination so far
 
-  const Row row = row_of(dest, B, n_dest, capacity, slot, kept, buffers, counts, overflow);
+  const Row row = row_of(blockIdx.x, dest, B, n_dest, capacity, slot, kept, buffers, counts,
+                         overflow);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const unsigned lanes_below = (1u << (tid & 31)) - 1u;
@@ -298,150 +415,34 @@ queue_dispatch_wide_kernel(const int* __restrict__ dest, int B, int n_dest, int 
   }
 }
 
-#ifdef REPRO_QD_CLUSTER
-// Probe variant: a row of B > kMaxThreads lanes split over a cluster of
-// REPRO_QD_CLUSTER CTAs, chunk k = lanes [k * chunk, (k + 1) * chunk), one
-// pass each; each CTA's per-destination totals are read by the later CTAs
-// through distributed shared memory for their offsets.
-constexpr int kCluster = REPRO_QD_CLUSTER;
-
-__host__ __device__ __forceinline__ int cluster_chunk(int B) {
-  return (B + kCluster - 1) / kCluster;
-}
-
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
-queue_dispatch_cluster_kernel(const int* __restrict__ dest, int B, int n_dest, int capacity,
-                              int* __restrict__ slot, uint8_t* __restrict__ kept,
-                              int* __restrict__ buffers, int* __restrict__ counts,
-                              uint8_t* __restrict__ overflow) {
-  extern __shared__ int smem[];
-  int* totals = smem;                   // [n_dest]: this chunk's active lanes per destination
-  int* offs = smem + kNarrowDest;       // [n_dest]: the earlier chunks' totals
-  int* kept_n = smem + 2 * kNarrowDest; // [n_dest]: the row's kept lanes per destination
-  int* table = smem + 3 * kNarrowDest;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int part = static_cast<int>(cluster.block_rank());
-  const size_t g = blockIdx.x / kCluster;
-  const int* drow = dest + g * B;
-  int* brow = buffers + g * static_cast<size_t>(n_dest) * capacity;
-  const int chunk = cluster_chunk(B);
-  const int lo = part * chunk;
-  const int n = max(0, min(B, lo + chunk) - lo);  // this CTA's lanes
-
-  const int threads = blockDim.x;
-  const int warps = threads >> 5;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  const int bits = n_dest > 1 ? 32 - __clz(n_dest - 1) : 0;
-  const int stride = table_stride(chunk, threads);
-  const int regs = pass_regs(n, threads);
-
-  int d[kMaxRegs];
-#pragma unroll
-  for (int r = 0; r < kMaxRegs; ++r) {
-    const int i = r * threads + tid;
-    d[r] = r < regs && i < n ? __ldg(drow + lo + i) : -1;
-  }
-  int rank[kMaxRegs];
-#pragma unroll
-  for (int r = 0; r < kMaxRegs; ++r) {
-    if (r >= regs) break;
-    const bool active = d[r] >= 0;
-    d[r] = active ? min(d[r], n_dest - 1) : -1;
-    unsigned peers = __ballot_sync(kFullMask, active);
-    unsigned own = peers;
-#pragma unroll
-    for (int b = 0; b < 5; ++b) {
-      if (b >= bits) break;
-      const unsigned ones = __ballot_sync(kFullMask, (d[r] >> b) & 1);
-      peers &= (d[r] >> b) & 1 ? ones : ~ones;
-      own &= (lane >> b) & 1 ? ones : ~ones;
-    }
-    rank[r] = __popc(peers & lanes_below);
-    if (lane < n_dest) table[lane * stride + r * warps + warp] = __popc(own);
-  }
-  __syncthreads();
-
-  const int positions = regs * warps;
-  int width = 1;
-  while (width < positions && width < 32) width <<= 1;
-  const int per_warp = 32 / width;
-  const int j = lane & (width - 1);
-  for (int d0 = warp * per_warp; d0 < n_dest; d0 += warps * per_warp) {
-    const int dd = d0 + lane / width;
-    const bool owner = dd < n_dest;
-    int run = 0;
-    for (int p0 = 0; p0 < positions; p0 += width) {
-      const int p = p0 + j;
-      const int c = owner && p < positions ? table[dd * stride + p] : 0;
-      int incl = c;
-      for (int o = 1; o < width; o <<= 1) {
-        const int t = __shfl_up_sync(kFullMask, incl, o, width);
-        if (j >= o) incl += t;
-      }
-      if (owner && p < positions) table[dd * stride + p] = run + incl - c;
-      run += __shfl_sync(kFullMask, incl, width - 1, width);
-    }
-    if (owner && j == 0) totals[dd] = run;
-  }
-  cluster.sync();
-
-  for (int dd = tid; dd < n_dest; dd += threads) {
-    int off = 0, total = 0;
-    for (int k = 0; k < kCluster; ++k) {
-      const int t = cluster.map_shared_rank(totals, k)[dd];
-      off += k < part ? t : 0;
-      total += t;
-    }
-    offs[dd] = off;
-    kept_n[dd] = min(total, capacity);
-    if (dd % kCluster == part) counts[g * n_dest + dd] = kept_n[dd];
-  }
-  __syncthreads();
-
-  for (int dd = part; dd < n_dest; dd += kCluster) {
-    for (int c = kept_n[dd] + tid; c < capacity; c += threads) {
-      brow[static_cast<size_t>(dd) * capacity + c] = -1;  // a slot no lane took
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxRegs; ++r) {
-    if (r >= regs) break;
-    const int i = r * threads + tid;
-    if (i >= n) break;
-    const size_t at = g * B + lo + i;
-    const bool active = d[r] >= 0;
-    const int label =
-        active ? offs[d[r]] + table[d[r] * stride + r * warps + warp] + rank[r] : 0;
-    const bool keep = active && label < capacity;
-    slot[at] = keep ? label : -1;
-    kept[at] = keep;
-    overflow[at] = active && !keep;
-    if (keep) brow[static_cast<size_t>(d[r]) * capacity + label] = lo + i;
-  }
-  cluster.sync();  // no CTA leaves while a later one may still read its totals
-}
-#endif
-
 }  // namespace
 
 extern "C" {
 
-// The largest n_dest the kernel takes (the wide path's count table).
+// The largest n_dest the kernel takes (the wide body's count table).
 int queue_dispatch_max_dest() { return kMaxDest; }
 
-// The launch of a (G, B) row set: threads per CTA and dynamic shared
-// memory in bytes (chip_smoke.py times an empty kernel of the same shape).
+// The launch for rows of B lanes: CTAs per row, threads per CTA and
+// dynamic shared memory in bytes (chip_smoke.py times an empty kernel of
+// the same launch).
+int queue_dispatch_ctas(int B, int n_dest) {
+  return body_of(B, n_dest) == 1 ? cluster_size(B) : 1;
+}
+
 int queue_dispatch_threads(int B, int n_dest) {
-  return n_dest <= kNarrowDest ? narrow_threads(B) : kWideThreads;
+  switch (body_of(B, n_dest)) {
+    case 0: return narrow_threads(B);
+    case 1: return narrow_threads(chunk_of(B));
+    default: return kWideThreads;
+  }
 }
 
 int queue_dispatch_smem_bytes(int B, int n_dest) {
-  return static_cast<int>(n_dest <= kNarrowDest
-                              ? narrow_smem_bytes(B, n_dest)
-                              : static_cast<size_t>(kWideWarps + 1) * n_dest * sizeof(int));
+  switch (body_of(B, n_dest)) {
+    case 0: return static_cast<int>(narrow_smem_bytes(B, n_dest));
+    case 1: return static_cast<int>(narrow_smem_bytes(chunk_of(B), n_dest));
+    default: return static_cast<int>((kWideWarps + 1) * n_dest * sizeof(int));
+  }
 }
 
 // dest: (G, B) int32; slot: (G, B) int32; kept: (G, B) bool; buffers:
@@ -454,33 +455,30 @@ int queue_dispatch(const void* dest, int G, int B, int n_dest, int capacity, voi
       static_cast<long long>(n_dest) * capacity > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int body = body_of(B, n_dest);
+  const int ctas = queue_dispatch_ctas(B, n_dest);
+  if (static_cast<long long>(G) * ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (G == 0) return static_cast<int>(cudaSuccess);
-  const auto launch = [&](auto kernel) {
-    kernel<<<G, queue_dispatch_threads(B, n_dest), queue_dispatch_smem_bytes(B, n_dest),
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(dest), B, n_dest, capacity, static_cast<int*>(slot),
-        static_cast<uint8_t*>(kept), static_cast<int*>(buffers), static_cast<int*>(counts),
-        static_cast<uint8_t*>(overflow));
-  };
-#ifdef REPRO_QD_CLUSTER
-  if (n_dest <= kNarrowDest && B > kMaxThreads &&
-      cluster_chunk(B) <= kMaxThreads * kMaxRegs) {
-    const int chunk = cluster_chunk(B);
-    queue_dispatch_cluster_kernel<<<G * kCluster, narrow_threads(chunk),
-                                    narrow_smem_bytes(chunk, n_dest) + 2 * kNarrowDest * sizeof(int),
-                                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(dest), B, n_dest, capacity, static_cast<int*>(slot),
-        static_cast<uint8_t*>(kept), static_cast<int*>(buffers), static_cast<int*>(counts),
-        static_cast<uint8_t*>(overflow));
-    return static_cast<int>(cudaGetLastError());
-  }
-#endif
-  if (n_dest <= kNarrowDest) {
-    launch(queue_dispatch_kernel);
-  } else {
-    launch(queue_dispatch_wide_kernel);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ctas;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(G * ctas);
+  config.blockDim = dim3(queue_dispatch_threads(B, n_dest));
+  config.dynamicSmemBytes = queue_dispatch_smem_bytes(B, n_dest);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &cluster;
+  config.numAttrs = body == 1 ? 1 : 0;
+  const auto kernel = body == 0   ? queue_dispatch_kernel
+                      : body == 1 ? queue_dispatch_cluster_kernel
+                                  : queue_dispatch_wide_kernel;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const int*>(dest), B, n_dest, capacity,
+      static_cast<int*>(slot), static_cast<uint8_t*>(kept), static_cast<int*>(buffers),
+      static_cast<int*>(counts), static_cast<uint8_t*>(overflow));
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 }  // extern "C"

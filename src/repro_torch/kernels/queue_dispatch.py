@@ -71,12 +71,12 @@ def queue_dispatch_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K4: the queue dispatch plan ``(slot (…, B) int32, kept (…, B)
     bool, buffers (…, n_dest, capacity) int32, counts (…, n_dest) int32,
-    overflow (…, B) bool)`` for ``dest`` (B,) or (G, B), one group row per
-    CTA, all five written by the one launch.  A negative dest marks an
-    inactive lane; a dest >= n_dest counts as n_dest - 1, as the Pallas
-    kernel clips it (the JAX package's plain version lets such a lane fall
-    into its sink instead: the two disagree, so such input has no defined
-    answer)."""
+    overflow (…, B) bool)`` for ``dest`` (B,) or (G, B), each group row on
+    one CTA (a cluster of CTAs past 512 lanes), all five written by the
+    one launch.  A negative dest marks an inactive lane; a dest >= n_dest
+    counts as n_dest - 1, as the Pallas kernel clips it (the JAX package's
+    plain version lets such a lane fall into its sink instead: the two
+    disagree, so such input has no defined answer)."""
     if dest.device.type != "cuda":
         raise ValueError(f"queue_dispatch_cuda takes CUDA tensors, got {dest.device}")
     G, B = check_operands(dest, n_dest, capacity)

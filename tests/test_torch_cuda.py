@@ -487,20 +487,22 @@ def test_queue_dispatch_kernel_matches_its_plain_version(cuda_device, G, B, n_de
 def test_one_queue_dispatch_runs_one_kernel(cuda_device, G, B, n_dest, capacity):
     """The MoE layer's queue dispatch (``core.buffers.dispatch``) at the
     mixtral prefill and decode shapes is one device kernel, K4, as
-    torch.profiler counts it over five dispatches: the kernel writes the
-    whole plan."""
+    torch.profiler counts it over five dispatches (after five more as its
+    warm-up): the kernel writes the whole plan."""
     from repro_torch.core import buffers as TB
 
     rng = np.random.default_rng(B)
     dest = torch.from_numpy(rng.integers(-1, n_dest, (G, B)).astype(np.int32)).to(cuda_device)
     want = TB.DispatchPlan(*ref.queue_dispatch_ref(dest, n_dest, capacity))
-    TB.dispatch("queue", dest, n_dest, capacity)
-    torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        plans = [TB.dispatch("queue", dest, n_dest, capacity) for _ in range(5)]
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+        for _ in range(2):  # a warm-up step (a trace can miss its first kernels), one recorded
+            plans = [TB.dispatch("queue", dest, n_dest, capacity) for _ in range(5)]
+            torch.cuda.synchronize()
+            prof.step()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+             and not ev.name.startswith("ProfilerStep")]  # the step's own annotation
     assert len(names) == 5 and all("queue_dispatch" in n for n in names), names
     for plan in plans:
         _same(plan, want)
