@@ -27,14 +27,22 @@ Phases, in order; any failure raises and exits non-zero:
    paper configurations over the same tree, check every answer against a
    numpy searchsorted oracle, and check that each kernel of the path was
    launched and that each retired chunk made exactly one device fetch;
-   then profile Hrz lookup drains for the device's idle share;
+   ``warmup`` captures each op's CUDA graph (captures and capture time per
+   config are logged), and the drain captures nothing and runs every chunk
+   as one replay (one descent kernel a chunk, no wrapper call); one chunk
+   of lookup, predecessor and range_scan is profiled per config through
+   the graph and through the engine's eager route (device kernels, host
+   launch calls, idle share); then profile Hrz lookup drains for the
+   device's idle share;
 4w. the live write path: each paper configuration with a 4096-entry delta
    buffer serves one stream of interleaved writes, deletes and reads of
    all five ops over the same tree, every answer held against a numpy
    oracle of the state the read must see; the fetch budget (one per read
    chunk, one per compaction) and the launch counts (K2 once per read
-   chunk, K1 or K3 once per ingest chunk) are checked, and so is the
-   snapshot after a final compaction;
+   chunk, every one a graph replay, K1 or K3 once per ingest chunk) are
+   checked, and so is the snapshot after a final compaction; the drain's
+   captures (each op again after each compaction) and their time, and
+   chunk profiles as in phase 4, are logged;
 5. measure the card's dependent-load latency with the pointer chase
    (``csrc/pointer_chase.cu``: L_HBM, cold 64 MiB; L_L2, warm 4 MiB); at
    the main path's shapes, hold each kernel configuration against its
@@ -55,8 +63,11 @@ Phases, in order; any failure raises and exits non-zero:
    and the naive route each against the naive route in fp32: the flash
    route's RMS distance at most 1.25 times the naive one's; then the bf16
    serving run through ``greedy_generate`` (4 prompts x 2048
-   tokens + 32 new), one K5 launch per layer, every logit finite, with
-   prefill and decode times, peak memory and the device idle share of a
+   tokens + 32 new), which captures the decode step as one CUDA graph, one
+   K5 launch per layer, its tokens equal to the eager route's, then one
+   request on each route in turns (graph, eager, graph, eager) with no
+   capture, every logit finite, with prefill and decode times, peak
+   memory and the device idle share, kernels and host launch calls of a
    decode step and of a prefill; then K5 timed at both prefill shapes
    beside its bound, its plain version and ``scaled_dot_product_attention``;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
@@ -66,18 +77,23 @@ Phases, in order; any failure raises and exits non-zero:
    shapes and the kernel benchmarks' shapes, with skewed and all-inactive
    rows; K4 timed at the prefill, decode and both benchmarks' shapes
    beside its byte and latency bounds, its plain version and its floor (an
-   empty kernel of the same launch through the same ctypes path); one
-   queue dispatch of the MoE layer counted with torch.profiler at the
-   prefill and decode shapes: one device kernel, K4; the model in fp32 at
+   empty kernel of the same launch through the same ctypes path); the
+   kernels of one queue dispatch of the MoE layer at the prefill and
+   decode shapes, one device kernel, K4, counted with torch.profiler
+   before phase 4 (no CUDA graph alive: a live graph makes the profiler
+   lose events far more often) and reported here; the model in fp32 at
    2 layers (1 x 512 prompt + 4 decode steps): the K4 route against the plain dispatch route (equal logits),
    and at capacity factor 4 the dispatch route against a dense
    every-token-through-its-experts oracle and decode against a prefill of
-   the longer prompt; then the bf16 serving run at 16 layers through
-   ``greedy_generate`` (4 prompts x 2048 tokens + 32 new), one K4 and one
-   K5 launch per layer per prefill, one K4 launch per layer per decode
-   step, every logit finite, with prefill and decode times, the dropped
-   share, peak memory, a decode step's device idle share and its eager
-   device kernels;
+   the longer prompt; then the bf16 serving run at 16 layers: the decode
+   graph captured, then ``greedy_generate`` (4 prompts x 2048 tokens + 32
+   new), one K4 and one K5 launch per layer per prefill, one K4 run per
+   layer per decode step (the replays'), its tokens equal to the eager
+   route's, then one request on each route in turns (graph, eager, graph,
+   eager), K4 counted and the dropped share copied out after every step,
+   the two routes' shares equal, no capture, every logit finite, with
+   prefill and decode times, peak memory, a decode step's device idle
+   share, its device kernels and its host launch calls;
 8. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -90,6 +106,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -103,7 +120,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import invariants, runtime  # noqa: E402
+from repro_torch import graphs, invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
 from repro_torch.core import buffers as buf_lib  # noqa: E402
 from repro_torch.core import delta as delta_lib  # noqa: E402
@@ -126,7 +143,13 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
-from repro_torch.serving import BSTServer, greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    BSTServer,
+    decode_graph,
+    greedy_generate,
+    make_prefill_fn,
+    make_serve_step,
+)
 
 N_KEYS = (1 << 24) - 1  # H = 23: 2 x 64 MiB of int32 keys and values
 CHECK_LANES = 1 << 16
@@ -143,6 +166,11 @@ CHASE_STEPS = 1 << 15
 CHASE_REPS = 5
 PROFILE_CHUNKS = 128
 PROFILE_RUNS = 3
+# Ops whose single chunks are profiled per config (phases 4, 4w), through
+# the engine's CUDA graph and through its eager route.
+CHUNK_PROFILE_OPS = ("lookup", "predecessor", "range_scan")
+CHUNK_PROFILE_CALLS = 16
+PROFILE_ATTEMPTS = 3
 SOURCE = "src/repro_torch/kernels/csrc/forest_search.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:100"
@@ -177,6 +205,9 @@ LM_CHECK_TOL = 1e-3  # fp32 logits after 28 layers: the routes' rounding differs
 LM_BF16_CHECK_BATCH = 4
 LM_BF16_ROUTE_RATIO = 1.25
 LM_PROFILE_STEPS = 4
+# The timed requests of phases 6 and 7, in turns: (eager route, the profiles
+# taken after it); the prefill is the same on both routes.
+ROUTE_TURNS = ((False, ("decode", "prefill")), (True, ("decode",)), (False, ()), (True, ()))
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 # K5 against its plain version: fp32, the kernel's FMA order and expf
 # against torch's matmul and softmax (TF32 off); bf16, the kernel's tensor
@@ -500,9 +531,9 @@ def check_large_buffer_engine(n_keys: int = (1 << 18) - 1, capacity: int = BIG_C
     eng.apply_ops(wk, wv, wd)
     check(eng.compactions == 0, "the buffer compacted before the read")
     q = np.concatenate([wk, keys[::7], wk + 1]).astype(np.int32)
-    K.reset_launches()
+    before = graphs.kernel_runs()["forest_descend_delta"]
     val, found = (t.cpu().numpy() for t in eng.lookup(q))
-    check(K.LAUNCHES["forest_descend_delta"] > 0, "K2 forest did not serve the read")
+    check(graphs.kernel_runs()["forest_descend_delta"] > before, "K2 forest did not serve the read")
     want_found = np.array([k in state for k in q.tolist()])
     want_val = np.array([state.get(k, SENTINEL_VALUE) for k in q.tolist()], np.int32)
     check(np.array_equal(found, want_found) and np.array_equal(val[found], want_val[found]),
@@ -543,21 +574,32 @@ def oracle(sk, sv, op, a, b=None, k=SCAN_K):
     return keys, vals, take.astype(np.int32)
 
 
-def serve_all_configs(keys, values, sets, smi: str, device="cuda") -> list:
+def serve_all_configs(keys, values, sets, smi: str, device="cuda") -> tuple:
     """Each paper config's server over the same keys: the lookup key sets,
     predecessor/successor of absent keys, range_count/range_scan of random
-    spans, every answer held against the oracle."""
+    spans, every answer held against the oracle.  ``warmup`` captures each
+    op's CUDA graph; the drain then captures nothing and makes no wrapper
+    call: every chunk is one replay, which runs one descent kernel.
+    Returns the per-config rows and the kernel launches that ran, per
+    kernel, summed over the configs' warm-ups and drains (the chunk
+    profiles after them not counted)."""
     sk, sv = keys, values  # make_tree_data's keys are sorted and unique
     rng = np.random.default_rng(3)
     absent = (rng.integers(0, keys.size + 1, STREAM) * 2 + 1).astype(np.int32)
     lo = rng.integers(1, 2 * keys.size, RANGE_STREAM).astype(np.int32)
     hi = (lo + rng.integers(-8, 64, RANGE_STREAM)).astype(np.int32)
-    rows = []
+    rows, launches = [], {kern: 0 for kern in K.LAUNCHES}
     for name, cfg in PAPER_CONFIGS.items():
         cfg = dataclasses.replace(cfg, device=device)
         srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
+        start = graphs.kernel_runs()
+        captures, capture_s = graphs.STATS["captures"], graphs.STATS["capture_s"]
         srv.warmup(QUERY_OPS)
-        before = dict(K.LAUNCHES)
+        captures = graphs.STATS["captures"] - captures
+        capture_s = graphs.STATS["capture_s"] - capture_s
+        check(captures == len(QUERY_OPS), f"{name}: warmup captured {captures} graphs")
+        before, calls = graphs.kernel_runs(), graphs.launch_counts()
+        steady = graphs.STATS["captures"]
         fetches = runtime.fetch_count()
         tickets = {f"lookup/{s}": (srv.submit(q), "lookup", q, None) for s, q in sets.items()}
         tickets["predecessor"] = (srv.submit(absent, op="predecessor"), "predecessor", absent, None)
@@ -576,8 +618,16 @@ def serve_all_configs(keys, values, sets, smi: str, device="cuda") -> list:
             for g, w in zip(got, want):
                 check(np.array_equal(g, w), f"{name} {tag}: answers differ from the oracle")
         kernel = "hybrid_descend" if cfg.strategy == "hyb" else "forest_descend"
-        launched = K.LAUNCHES[kernel] - before[kernel]
+        launched = graphs.kernel_runs()[kernel] - before[kernel]
         check(launched == srv.stats.chunks, f"{name}: {launched} {kernel} launches for {srv.stats.chunks} chunks")
+        check(graphs.STATS["captures"] == steady, f"{name}: the steady-state drain captured a graph")
+        check(graphs.launch_counts() == calls, f"{name}: a chunk ran outside its graph")
+        for kern, n in graphs.kernel_runs().items():
+            if kern in launches:
+                launches[kern] += n - start[kern]
+        # one trace a phase: every profiler session is a chance for the
+        # profiler to lose its device events (see ``profile_calls``)
+        chunks = chunk_profiles(srv.engine, absent[:CHUNK], *spans(lo, hi)) if name == "Hrz" else None
         st = srv.stats
         row = {
             "config": name,
@@ -590,13 +640,104 @@ def serve_all_configs(keys, values, sets, smi: str, device="cuda") -> list:
             "drain_s": drain_s,
             "lanes_per_drain_sec": st.lanes / drain_s,
             "per_op_lanes_per_sec": {op: s.lanes_per_sec for op, s in st.per_op.items()},
+            "captures": captures, "capture_s": capture_s, "chunk_profiles": chunks,
         }
         rows.append(row)
         log(f"  {name}: lanes_per_sec={st.lanes_per_sec!r} (busy), "
             f"{row['lanes_per_drain_sec']!r} (drain wall) over {st.lanes} lanes, "
-            f"{st.chunks} chunks, {n_fetch} fetches, answers == oracle ({smi})")
+            f"{st.chunks} chunks, {n_fetch} fetches, {launched} {kernel} runs, all replayed, "
+            f"answers == oracle; warmup captured {captures} graphs in {capture_s!r} s, "
+            f"the drain none ({smi})")
+        if chunks is not None:
+            log_chunk_profiles(chunks)
         del srv
-    return rows
+    return rows, launches
+
+
+def spans(lo, hi) -> tuple:
+    """One chunk of range requests (CHUNK ranges, 2 x CHUNK lanes), the
+    spans repeated where fewer are given."""
+    return np.resize(lo, CHUNK), np.resize(hi, CHUNK)
+
+
+def chunk_profiles(eng, a, lo, hi) -> dict:
+    """Per op of CHUNK_PROFILE_OPS, one chunk through the engine's graph and
+    through its eager route, CHUNK_PROFILE_CALLS times each, all in one
+    trace (``profile_segments``): device kernels and copies, host launch
+    calls, wall time and the idle share of back-to-back chunks.  Each op
+    runs once first, so that no graph is captured under the profiler."""
+    segments = []
+    for op in CHUNK_PROFILE_OPS:
+        args = (lo, hi) if op in plans_lib.RANGE_OPS else (a,)
+        runtime.block_until_ready(eng.query_static(op, *args, k=SCAN_K))
+        for route, eager in (("graph", False), ("eager", True)):
+            segments.append(((op, route), functools.partial(
+                eng.query_static, op, *args, k=SCAN_K, eager=eager)))
+    out = {}
+    for (op, route), prof in profile_segments(segments, CHUNK_PROFILE_CALLS).items():
+        out.setdefault(op, {})[route] = prof
+    return out
+
+
+def profile_segments(segments, calls: int) -> dict:
+    """One torch.profiler trace of several segments, each ``fn()`` ``calls``
+    times between synchronisations inside a ``record_function`` range: per
+    segment label, the device kernels and copies that started inside its
+    range (a graph's replay shows its kernels one by one), their device
+    time, the host's CUDA runtime calls with "Launch" in their name, and
+    the wall time, each per call.  A trace in which a segment saw no
+    device event is taken again, up to PROFILE_ATTEMPTS times, as in
+    ``profile_calls``."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        walls = {}
+        with torch.profiler.profile(activities=activities) as prof:
+            # the first segment's calls once more before the ranges: a trace
+            # can miss its first events
+            for _ in range(calls):
+                segments[0][1]()
+            for i, (label, fn) in enumerate(segments):
+                torch.cuda.synchronize()
+                with torch.profiler.record_function(f"segment {i}"):
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    walls[i] = time.perf_counter() - t0
+        events = prof.events()
+        spans_us = {int(e.name.split()[1]): (e.time_range.start, e.time_range.end) for e in events
+                    if e.name.startswith("segment ") and e.device_type == torch.autograd.DeviceType.CPU}
+        counts = {i: [0, 0.0, 0] for i in range(len(segments))}  # device events, us, launch calls
+        for e in events:
+            if e.name.startswith("segment "):
+                continue
+            for i, (t0, t1) in spans_us.items():
+                if t0 <= e.time_range.start <= t1:
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        counts[i][0] += 1
+                        counts[i][1] += e.time_range.elapsed_us()
+                    elif e.name.startswith("cu") and "Launch" in e.name:
+                        counts[i][2] += 1
+                    break
+        if all(n > 0 for n, _, _ in counts.values()):
+            break
+    out = {}
+    for i, (label, _) in enumerate(segments):
+        n, us, launches = counts[i]
+        check(n > 0, f"the profiler saw no device event of segment {label} in {PROFILE_ATTEMPTS} traces")
+        out[label] = {"calls": calls, "wall_s": walls[i], "device_s": us / 1e6,
+                      "idle_share": 1 - us / 1e6 / walls[i], "traces": attempt,
+                      "device_events_per_call": n / calls, "host_launches_per_call": launches / calls}
+    return out
+
+
+def log_chunk_profiles(profiles: dict) -> None:
+    for op, routes in profiles.items():
+        log("    " + op + " chunk: " + "; ".join(
+            f"{route} {p['device_events_per_call']!r} device kernels and copies, "
+            f"{p['host_launches_per_call']!r} host launch calls, "
+            f"{p['wall_s'] / p['calls'] * 1e3!r} ms wall, idle share {p['idle_share']!r}"
+            for route, p in routes.items()))
 
 
 def profile_drain(keys, values, q) -> dict:
@@ -629,31 +770,45 @@ def profile_write_drains(keys, values, rounds) -> list:
 def profile_calls(run, calls: int) -> dict:
     """``run()`` ``calls`` times between synchronisations: the wall time and,
     from torch.profiler over the same calls, the device time of kernels and
-    copies by name, and host self time by op."""
+    copies by name (a graph's replay shows its kernels one by one), the
+    launch calls the host made (CUDA runtime calls with "Launch" in their
+    name: kernels and graphs; the ctypes kernels' statically linked runtime
+    may not report its own), and host self time by op.  The profiler
+    loses device events now and then, far more often while a CUDA graph
+    is alive (``graphs.live``), and now and then all of a trace's: an
+    empty trace is taken again, up to PROFILE_ATTEMPTS times (``traces``
+    says how many it took)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        torch.cuda.synchronize()
-        p0 = time.perf_counter()
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - p0
-    by_name, host, device_events = {}, {}, 0
-    for ev in prof.key_averages():
-        # device-side events (kernels, copies) by their own device time:
-        # a host op's row repeats the device time of what it launched
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
-            device_events += ev.count
-        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
-            host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
-    device_s = sum(by_name.values()) / 1e6
-    check(device_s > 0, "the profiler saw no device time")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda.synchronize()
+            p0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - p0
+        by_name, host, device_events, launches = {}, {}, 0, 0
+        for ev in prof.key_averages():
+            # device-side events (kernels, copies) by their own device time:
+            # a host op's row repeats the device time of what it launched
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+                by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+                device_events += ev.count
+            elif ev.device_type == torch.autograd.DeviceType.CPU:
+                if ev.self_cpu_time_total > 0:
+                    host[ev.key] = host.get(ev.key, 0.0) + ev.self_cpu_time_total
+                if ev.key.startswith("cu") and "Launch" in ev.key:  # runtime calls: kernels, graphs
+                    launches += ev.count
+        device_s = sum(by_name.values()) / 1e6
+        if device_s > 0:
+            break
+    check(device_s > 0, f"the profiler saw no device time in {PROFILE_ATTEMPTS} traces")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"calls": calls, "wall_s": wall, "device_s": device_s,
             "idle_share": 1 - device_s / wall,
             "device_events_per_call": device_events / calls,
+            "host_launches_per_call": launches / calls, "traces": attempt,
             "top": [(name[:80], us) for name, us in top],
             "top_host_self_us": [(name[:80], us) for name, us in top_host]}
 
@@ -661,7 +816,9 @@ def profile_calls(run, calls: int) -> dict:
 def log_call_profile(label: str, profile: dict) -> None:
     log(f"    {label} profile, {profile['calls']} calls: wall {profile['wall_s']!r} s, device busy "
         f"{profile['device_s']!r} s, idle share {profile['idle_share']!r}, "
-        f"{profile['device_events_per_call']!r} device kernels and copies per call")
+        f"{profile['device_events_per_call']!r} device kernels and copies and "
+        f"{profile['host_launches_per_call']!r} host launch calls per call "
+        f"(trace {profile['traces']} of at most {PROFILE_ATTEMPTS})")
     for name, us in profile["top"]:
         log(f"      {us!r} us  {name}")
     log("      host ops by self CPU time:")
@@ -741,9 +898,11 @@ def write_stream(keys, values, seed: int = 11) -> tuple:
 
 def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
     """Phase 4w: every paper config with a W_CAPACITY delta buffer serves
-    the whole stream in one drain.  Returns the per-config rows and the
-    launches of each kernel summed over the configs' drains (each counted
-    from 0 just before its drain)."""
+    the whole stream in one drain.  Every read chunk is one replay of its
+    op's graph (captured again at the first read after each compaction);
+    every ingest chunk runs eagerly.  Returns the per-config rows and the
+    kernel launches that ran, per kernel, summed over the configs' drains
+    (each counted from 0 just before its drain)."""
     rows, launches = [], {kern: 0 for kern in K.LAUNCHES}
     for name, cfg in PAPER_CONFIGS.items():
         cfg = dataclasses.replace(cfg, device=device, delta_capacity=W_CAPACITY)
@@ -758,10 +917,14 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
                 tickets.append((t, op, want))
         fetches = runtime.fetch_count()
         K.reset_launches()
+        graphs.reset()
         t0 = time.perf_counter()
         res = srv.drain()
         drain_s = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)
+        runs = graphs.kernel_runs()
+        counts = {kern: runs[kern] for kern in K.LAUNCHES}
+        replayed = {kern: graphs.REPLAYED[kern] for kern in K.LAUNCHES}
+        captures, capture_s = graphs.STATS["captures"], graphs.STATS["capture_s"]
         n_fetch = runtime.fetch_count() - fetches
         for kern, n in counts.items():
             launches[kern] += n
@@ -779,15 +942,19 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
               f"{name}: {n_fetch} fetches for {read_chunks} read chunks + {st.compactions} compactions")
         kern = "hybrid_descend" if cfg.strategy == "hyb" else "forest_descend"
         other = "forest_descend" if cfg.strategy == "hyb" else "hybrid_descend"
-        check(counts[kern + "_delta"] == read_chunks,
-              f"{name}: {counts[kern + '_delta']} K2 launches for {read_chunks} read chunks")
+        check(counts[kern + "_delta"] == read_chunks == replayed[kern + "_delta"],
+              f"{name}: {counts[kern + '_delta']} K2 launches, {replayed[kern + '_delta']} of them "
+              f"replayed, for {read_chunks} read chunks")
         check(counts[kern] == ingest_chunks,
               f"{name}: {counts[kern]} {kern} launches for {ingest_chunks} ingest chunks")
         check(counts[other] == counts[other + "_delta"] == 0, f"{name}: {other} launched")
 
+        eng = srv.engine
+        rnd = rounds[-1]["reads"]
+        chunks = (chunk_profiles(eng, rnd[0][1][:CHUNK], *spans(rnd[3][1], rnd[3][2]))
+                  if name == "Hrz" else None)
         # One compaction and one ingest chunk, timed on the state the drain
         # left (neither result is installed), then the final compaction.
-        eng = srv.engine
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         delta_lib.compact(eng.tree, eng.delta)
@@ -828,13 +995,18 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
             "ingest_chunk_s": ingest_s,
             "final_height": eng.tree.height,
             "per_op_lanes_per_sec": {op: s.lanes_per_sec for op, s in st.per_op.items()},
+            "captures": captures, "capture_s": capture_s, "chunk_profiles": chunks,
         }
         rows.append(row)
         log(f"  {name}: lanes_per_sec={st.lanes_per_sec!r} (busy), "
             f"{row['lanes_per_drain_sec']!r} (drain wall) over {st.lanes} lanes; "
             f"{read_chunks} read chunks, {ingest_chunks} ingest chunks, {st.compactions} "
             f"compactions, {n_fetch} fetches; one compaction {compact_s!r} s, one ingest "
-            f"chunk of {wk.size} {ingest_s!r} s; answers and final snapshot == oracle ({smi})")
+            f"chunk of {wk.size} {ingest_s!r} s; every read chunk a graph replay, {captures} "
+            f"captures in the drain ({capture_s!r} s, {capture_s / max(captures, 1)!r} s each); "
+            f"answers and final snapshot == oracle ({smi})")
+        if chunks is not None:
+            log_chunk_profiles(chunks)
         del srv, eng, skd, svd
     return rows, launches
 
@@ -1190,71 +1362,115 @@ def check_full_model_bf16(cfg, smi: str) -> dict:
     return row
 
 
+def timed_generate(cfg, model, prompts, n_new: int, eager: bool, per_step=None,
+                   profiles=()) -> dict:
+    """One request through the serve loop's units on one route (the decode
+    graph, or with ``eager`` the ops one by one): the prefill and the
+    ``n_new - 1`` decode steps timed by the host clock around synchronised
+    work, every step's logits copied out (the graph's are its static
+    buffer) and checked finite, ``per_step()`` after the prefill and after
+    each step, then the profiles named in ``profiles``: "decode" (further
+    decode steps) and "prefill" (one more prefill)."""
+    S = prompts.shape[1]
+    prefill_fn = make_prefill_fn(cfg, max_len=S + n_new, eager=eager)
+    step = make_serve_step(cfg, eager=eager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill_fn(model, prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if per_step is not None:
+        per_step()
+    all_logits = [logits]
+    tok = logits.argmax(dim=-1, keepdim=True)
+    outs = [tok]
+    for _ in range(n_new - 1):
+        logits, state = step(model, tok, state)
+        all_logits.append(logits.clone())
+        tok = logits.argmax(dim=-1, keepdim=True)
+        outs.append(tok)
+        if per_step is not None:
+            per_step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    route = "eager" if eager else "graph"
+    check(all(bool(torch.isfinite(lg).all()) for lg in all_logits),
+          f"serving ({route}): a logit is not finite")
+    n_steps = n_new - 1
+    return {
+        "route": route, "tokens": torch.cat(outs, dim=1), "prefill_s": t1 - t0,
+        "prefill_tok_per_s": prompts.numel() / (t1 - t0), "decode_steps": n_steps,
+        "decode_ms_per_step": (t2 - t1) / n_steps * 1e3,
+        "decode_tok_per_s": prompts.shape[0] * n_steps / (t2 - t1),
+        **({"decode_profile": profile_decode(step, model, tok, state)} if "decode" in profiles else {}),
+        **({"prefill_profile": profile_calls(lambda: prefill_fn(model, prompts), 1)}
+           if "prefill" in profiles else {}),
+    }
+
+
+def log_route(label: str, r: dict) -> None:
+    log(f"    {label} {r['route']}: prefill {r['prefill_s']!r} s ({r['prefill_tok_per_s']!r} tok/s), "
+        f"decode {r['decode_ms_per_step']!r} ms/step ({r['decode_tok_per_s']!r} tok/s)")
+    for kind in ("decode", "prefill"):
+        if f"{kind}_profile" in r:
+            log_call_profile(f"{r['route']} {kind}", r[f"{kind}_profile"])
+
+
 def serve_lm(cfg, smi: str) -> dict:
-    """The serving run: qwen3-1.7b in bf16 through ``greedy_generate`` with
-    K5's launches counted from 0, then the same prefill and decode steps
-    timed one by one through the serve loop's units, their logits checked
-    finite and their tokens held against greedy_generate's, and a profile of
-    decode steps."""
+    """The serving run: qwen3-1.7b in bf16 through ``greedy_generate``, whose
+    first call captures the decode graph, with K5's launches counted from
+    0; the same through the eager route, tokens equal; then one request
+    timed on each route (graph, eager, graph, eager: the host's spread
+    shows in each pair) through the serve loop's units, tokens held against
+    greedy_generate's, and no capture after the first."""
     model = lm.init_params(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launches()
+    captures, capture_s = graphs.STATS["captures"], graphs.STATS["capture_s"]
     tokens = greedy_generate(cfg, model, prompts, LM_NEW)
     torch.cuda.synchronize()
     launches = FA.LAUNCHES["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
+    check(graphs.STATS["captures"] == captures + 1, "serving: not one decode graph captured")
+    capture_s = graphs.STATS["capture_s"] - capture_s
     check(launches == cfg.n_layers, f"serving: {launches} K5 launches for one prefill of "
                                     f"{cfg.n_layers} layers")
     check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
+    eager_tokens = greedy_generate(cfg, model, prompts, LM_NEW, eager=True)
+    check(torch.equal(eager_tokens, tokens), "serving: the graph's tokens differ from the eager route's")
 
-    prefill_fn = make_prefill_fn(cfg, max_len=LM_PROMPT + LM_NEW)
-    step = make_serve_step(cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, state = prefill_fn(model, prompts)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    all_logits = [logits]
-    tok = logits.argmax(dim=-1, keepdim=True)
-    outs = [tok]
-    for _ in range(LM_NEW - 1):
-        logits, state = step(model, tok, state)
-        all_logits.append(logits)
-        tok = logits.argmax(dim=-1, keepdim=True)
-        outs.append(tok)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    check(all(bool(torch.isfinite(lg).all()) for lg in all_logits), "serving: a logit is not finite")
-    check(torch.equal(torch.cat(outs, dim=1), tokens),
-          "serving: the timed steps' tokens differ from greedy_generate's")
-    prefill_s, decode_s = t1 - t0, t2 - t1
-    n_steps = LM_NEW - 1
-
-    profile = profile_decode(step, model, tok, state)
-    prefill_profile = profile_calls(lambda: prefill_fn(model, prompts), 1)
+    steady = graphs.STATS["captures"]
+    routes = [timed_generate(cfg, model, prompts, LM_NEW, eager, profiles=profiles)
+              for eager, profiles in ROUTE_TURNS]
+    check(graphs.STATS["captures"] == steady, "serving: a steady-state request captured a graph")
+    for r in routes:
+        check(torch.equal(r.pop("tokens"), tokens),
+              f"serving ({r['route']}): the timed steps' tokens differ from greedy_generate's")
+    graph, eager = routes[0], routes[1]
     row = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
         "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": cfg.n_params(),
         "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-        "flash_launches": launches, "peak_bytes": peak,
-        "prefill_s": prefill_s, "prefill_tok_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-        "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
-        "decode_tok_per_s": LM_BATCH * n_steps / decode_s,
-        "decode_profile": profile, "prefill_profile": prefill_profile,
+        "flash_launches": launches, "peak_bytes": peak, "capture_s": capture_s,
+        **{k: graph[k] for k in ("prefill_s", "prefill_tok_per_s", "decode_steps",
+                                 "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
+                                 "prefill_profile")},
+        "routes": routes, "graph_tokens_equal_eager": True,
         "sample_ids": tokens[0, :16].tolist(),
     }
     log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + {LM_NEW}: "
-        f"K5 launches {launches}, prefill {prefill_s!r} s ({row['prefill_tok_per_s']!r} tok/s), "
-        f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
-        f"peak {peak} bytes, every logit finite ({smi})")
-    log_call_profile("decode", profile)
-    log_call_profile("prefill", prefill_profile)
+        f"K5 launches {launches}, decode graph captured in {capture_s!r} s, graph tokens == "
+        f"eager tokens; graph: prefill {graph['prefill_s']!r} s ({graph['prefill_tok_per_s']!r} "
+        f"tok/s), decode {graph['decode_ms_per_step']!r} ms/step; eager: decode "
+        f"{eager['decode_ms_per_step']!r} ms/step; peak {peak} bytes, every logit finite ({smi})")
+    for r in routes:
+        log_route("route", r)
     log(f"    sample ids {row['sample_ids']}")
-    del model, state, all_logits
+    del model
     torch.cuda.empty_cache()
     return row
 
@@ -1539,102 +1755,122 @@ def layer_dropped(model) -> torch.Tensor:
 
 
 def serve_moe(cfg, smi: str) -> dict:
-    """The MoE serving run: mixtral-8x7b in bf16 at MOE_LAYERS layers through
-    ``greedy_generate`` with K4's and K5's launches counted from 0, then the
-    same prefill and decode steps timed one by one through the serve loop's
-    units (launches counted per step, logits checked finite, tokens held
-    against greedy_generate's, the dropped share read after the timing),
-    and a profile of decode steps."""
+    """The MoE serving run: mixtral-8x7b in bf16 at MOE_LAYERS layers.  The
+    decode graph is captured first; then ``greedy_generate`` with the
+    kernels that ran counted from 0 (K4 and K5 eager in the prefill, K4 in
+    every replayed step); the eager route's tokens equal; then one request
+    timed on each route (graph, eager, graph, eager) through the serve
+    loop's units, one K4 run per layer per step counted after each step,
+    the dropped share copied out after each step, tokens held against
+    greedy_generate's, and no capture after the first."""
     model = lm.init_params(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).cuda()
     L = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    decode_graph(cfg, model, MOE_BATCH, MOE_PROMPT + MOE_NEW)
+    torch.cuda.synchronize()
+    capture_wall_s = time.perf_counter() - t0
     QD.reset_launches()
     FA.reset_launches()
+    graphs.reset()
     tokens = greedy_generate(cfg, model, prompts, MOE_NEW)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    k4_launches, k5_launches = QD.LAUNCHES["queue_dispatch"], FA.LAUNCHES["flash_attention"]
+    runs = graphs.kernel_runs()
+    k4_launches, k5_launches = runs["queue_dispatch"], runs["flash_attention"]
+    k4_replayed = graphs.REPLAYED["queue_dispatch"]
+    check(graphs.STATS["captures"] == 0, "MoE serving: greedy_generate captured a graph")
     check(k5_launches == L, f"MoE serving: {k5_launches} K5 launches for one prefill of {L} layers")
-    check(k4_launches == L * MOE_NEW,
-          f"MoE serving: {k4_launches} K4 launches for a prefill and {MOE_NEW - 1} decode steps "
-          f"of {L} layers")
+    check(k4_launches == L * MOE_NEW == k4_replayed + L,
+          f"MoE serving: {k4_launches} K4 launches ({k4_replayed} replayed) "
+          f"for a prefill and {MOE_NEW - 1} decode steps of {L} layers")
     check(tuple(tokens.shape) == (MOE_BATCH, MOE_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
+    eager_tokens = greedy_generate(cfg, model, prompts, MOE_NEW, eager=True)
+    check(torch.equal(eager_tokens, tokens), "MoE serving: the graph's tokens differ from the eager route's")
 
-    prefill_fn = make_prefill_fn(cfg, max_len=MOE_PROMPT + MOE_NEW)
-    step = make_serve_step(cfg)
-    QD.reset_launches()
-    FA.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, state = prefill_fn(model, prompts)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    check(QD.LAUNCHES["queue_dispatch"] == L and FA.LAUNCHES["flash_attention"] == L,
-          f"MoE prefill: {QD.LAUNCHES['queue_dispatch']} K4 and {FA.LAUNCHES['flash_attention']} "
-          f"K5 launches for {L} layers")
-    prefill_dropped = layer_dropped(model)
-    all_logits, decode_dropped = [logits], []
-    tok = logits.argmax(dim=-1, keepdim=True)
-    outs = [tok]
-    t2 = time.perf_counter()
-    for _ in range(MOE_NEW - 1):
-        before = QD.LAUNCHES["queue_dispatch"]
-        logits, state = step(model, tok, state)
-        check(QD.LAUNCHES["queue_dispatch"] - before == L, "MoE decode: not one K4 launch per layer")
-        decode_dropped.append(layer_dropped(model))
-        all_logits.append(logits)
-        tok = logits.argmax(dim=-1, keepdim=True)
-        outs.append(tok)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    check(FA.LAUNCHES["flash_attention"] == L, "MoE decode launched K5")
-    check(all(bool(torch.isfinite(lg).all()) for lg in all_logits), "MoE serving: a logit is not finite")
-    check(torch.equal(torch.cat(outs, dim=1), tokens),
-          "MoE serving: the timed steps' tokens differ from greedy_generate's")
-    prefill_s, decode_s = t1 - t0, t3 - t2
-    n_steps = MOE_NEW - 1
-    profile = profile_decode(step, model, tok, state)
-    prefill_profile = profile_calls(lambda: prefill_fn(model, prompts), 1)
+    routes, dropped = [], {}
+    for eager, profiles in ROUTE_TURNS:
+        route = "eager" if eager else "graph"
+        shares, k4, k5 = [], [], []
+
+        def per_step():
+            shares.append(layer_dropped(model))  # a copy: the next step overwrites the share
+            k4.append(graphs.kernel_runs()["queue_dispatch"])
+            k5.append(graphs.kernel_runs()["flash_attention"])
+
+        r = timed_generate(cfg, model, prompts, MOE_NEW, eager, per_step, profiles)
+        check(torch.equal(r.pop("tokens"), tokens),
+              f"MoE serving ({route}): the timed steps' tokens differ from greedy_generate's")
+        check(len(k4) == MOE_NEW and all(b - a == L for a, b in zip(k4, k4[1:])),
+              f"MoE {route} decode: not one K4 launch per layer per step: {k4}")
+        check(len(set(k5)) == 1, f"MoE {route} decode launched K5")
+        r["prefill_dropped_share"] = float(shares[0].mean())
+        r["decode_dropped_share"] = float(torch.stack(shares[1:]).mean())
+        dropped.setdefault(route, torch.stack(shares))
+        routes.append(r)
+    check(graphs.STATS["captures"] == 0, "MoE serving: a steady-state request captured a graph")
+    check(torch.equal(dropped["graph"], dropped["eager"]),
+          "MoE serving: the graph's dropped shares differ from the eager route's")
+    graph, eager = routes[0], routes[1]
     row = {
         "arch": cfg.name, "layers": L, "published_layers": get_config(MOE_ARCH).n_layers,
         "d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.n_experts, "top_k": cfg.top_k,
         "capacity_factor": cfg.capacity_factor, "moe_groups": cfg.moe_groups,
         "dtype": cfg.dtype, "params": cfg.n_params(), "active_params": cfg.n_active_params(),
         "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
-        "k4_launches": k4_launches, "k5_launches": k5_launches, "peak_bytes": peak,
-        "prefill_s": prefill_s, "prefill_tok_per_s": MOE_BATCH * MOE_PROMPT / prefill_s,
-        "decode_steps": n_steps, "decode_ms_per_step": decode_s / n_steps * 1e3,
-        "decode_tok_per_s": MOE_BATCH * n_steps / decode_s,
-        "prefill_dropped_share": float(prefill_dropped.mean()),
-        "decode_dropped_share": float(torch.stack(decode_dropped).mean()),
-        "decode_profile": profile,
-        "decode_kernels_per_step": profile["device_events_per_call"],
-        "prefill_profile": prefill_profile,
+        "k4_launches": k4_launches, "k4_replayed": k4_replayed, "k5_launches": k5_launches,
+        "peak_bytes": peak,
+        "capture_wall_s": capture_wall_s,
+        **{k: graph[k] for k in ("prefill_s", "prefill_tok_per_s", "decode_steps",
+                                 "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
+                                 "prefill_profile", "prefill_dropped_share",
+                                 "decode_dropped_share")},
+        "decode_kernels_per_step": graph["decode_profile"]["device_events_per_call"],
+        "routes": routes, "graph_tokens_equal_eager": True,
         "sample_ids": tokens[0, :16].tolist(),
     }
     log(f"  {cfg.name} bf16, {L} of {row['published_layers']} layers, {MOE_BATCH} x {MOE_PROMPT} + "
-        f"{MOE_NEW}: K4 launches {k4_launches} (one per layer per prefill and decode step), K5 "
-        f"launches {k5_launches}; prefill {prefill_s!r} s ({row['prefill_tok_per_s']!r} tok/s), "
-        f"decode {row['decode_ms_per_step']!r} ms/step ({row['decode_tok_per_s']!r} tok/s), "
-        f"dropped share {row['prefill_dropped_share']!r} (prefill), "
-        f"{row['decode_dropped_share']!r} (decode), peak {peak} bytes, every logit finite ({smi})")
-    log(f"    decode: {row['decode_ms_per_step']!r} ms/step, {profile['device_events_per_call']!r} "
-        f"eager device kernels and copies per step, idle share {profile['idle_share']!r} "
-        f"(profile of {profile['calls']} steps)")
-    log_call_profile("decode", profile)
-    log_call_profile("prefill", prefill_profile)
+        f"{MOE_NEW}: decode graph captured in {capture_wall_s!r} s (warm-up step included); K4 "
+        f"launches {k4_launches} ({k4_replayed} of them replayed: one per "
+        f"layer per prefill and decode step), K5 launches {k5_launches}; graph tokens == eager "
+        f"tokens, dropped shares equal; graph: prefill {graph['prefill_s']!r} s "
+        f"({graph['prefill_tok_per_s']!r} tok/s), decode {graph['decode_ms_per_step']!r} ms/step; "
+        f"eager: decode {eager['decode_ms_per_step']!r} ms/step; dropped share "
+        f"{row['prefill_dropped_share']!r} (prefill), {row['decode_dropped_share']!r} (decode), "
+        f"peak {peak} bytes, every logit finite ({smi})")
+    for r in routes:
+        log_route("route", r)
     log(f"    sample ids {row['sample_ids']}")
-    del model, state, all_logits
+    del model
     torch.cuda.empty_cache()
     return row
 
 
-def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
+def count_dispatch_kernels() -> dict:
+    """The device kernels of 10 queue dispatches of the MoE layer at the
+    prefill and decode shapes (``kernels_per_dispatch``): one K4 launch
+    each.  The count must be exact, and torch.profiler loses events far
+    more often while a CUDA graph is alive, so ``main`` takes it before
+    phase 4 captures the first graph, and phase 7 reports it."""
+    check(graphs.live() == 0, f"{graphs.live()} CUDA graphs alive before the kernel count")
+    out = {}
+    for i in QD_TIMED[:2]:  # the prefill and decode shapes
+        G, B, n_dest, capacity, what = QD_SHAPES[i]
+        calls = 10
+        names = kernels_per_dispatch(G, B, n_dest, capacity, calls)
+        check(len(names) == calls and all("queue_dispatch" in n for n in names),
+              f"{calls} queue dispatches at {what} ran {names}, not one K4 launch each")
+        out[f"{what} (G={G}, B={B})"] = names
+    return out
+
+
+def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float, dispatch_kernels: dict) -> dict:
     """Phase 7: K4 checked and timed, the kernels of one queue dispatch
-    counted, the fp32 checks, the bf16 serving run."""
+    (counted before phase 4: ``count_dispatch_kernels``) reported, the
+    fp32 checks, the bf16 serving run."""
     log(f"[7] MoE serving: {MOE_ARCH}; K4 vs its plain version")
     for kern in QD_BODIES:
         check(kern in resources, f"ptxas reported no resources for {kern}")
@@ -1649,16 +1885,10 @@ def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float) -> dict:
           f"{MOE_ARCH} is not at its published width: {cfg}")
     checks = check_queue_dispatch()
     timing = time_queue_dispatch(timer, l_hbm_ms)
-    per_dispatch = {}
-    for i in QD_TIMED[:2]:  # the prefill and decode shapes
-        G, B, n_dest, capacity, what = QD_SHAPES[i]
-        calls = 10
-        names = kernels_per_dispatch(G, B, n_dest, capacity, calls)
-        per_dispatch[what] = len(names) / calls
-        log(f"  {calls} queue dispatches at {what} (G={G}, B={B}): {len(names)} device kernels "
-            f"{sorted(set(names))}")
-        check(len(names) == calls and all("queue_dispatch" in n for n in names),
-              f"{calls} queue dispatches at {what} ran {names}, not one K4 launch each")
+    for what, names in dispatch_kernels.items():
+        log(f"  10 queue dispatches at {what}: {len(names)} device kernels {sorted(set(names))} "
+            f"(counted before phase 4, with no CUDA graph alive)")
+    per_dispatch = {what: len(names) / 10 for what, names in dispatch_kernels.items()}
     fp32 = check_moe_fp32(cfg, smi)
     served = serve_moe(dataclasses.replace(cfg, n_layers=MOE_LAYERS), smi)
     return {"queue_dispatch_checks": checks, "queue_dispatch_timing": timing,
@@ -1767,16 +1997,24 @@ def main() -> int:
     check_large_buffer_engine()
     torch.cuda.synchronize()
 
+    gc.collect()  # phase 3's engines and their graphs
+    dispatch_kernels = count_dispatch_kernels()
+    log(f"    K4 kernels per queue dispatch counted: {[len(n) for n in dispatch_kernels.values()]} "
+        f"for 10 dispatches at each of {list(dispatch_kernels)}")
+
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")
     K.reset_launches()
-    served = serve_all_configs(keys, values, make_key_sets(tree, STREAM), smi)
-    launches = dict(K.LAUNCHES)
+    graphs.reset()
+    served, launches = serve_all_configs(keys, values, make_key_sets(tree, STREAM), smi)
     for kern, n in launches.items():
         if kern.endswith("_delta"):
             check(n == 0, f"{kern} launched on the read-only path")
         else:
             check(n > 0, f"{kern} never launched on the main path")
-    log(f"    launches on the read path: {launches}")
+    log(f"    launches on the read path that ran (warm-ups and drains): {launches}; over the "
+        f"phase, chunk profiles included: wrapper calls {dict(K.LAUNCHES)} (warm-ups, captures, "
+        f"eager chunks), replayed {dict(graphs.REPLAYED)}; {graphs.STATS['captures']} graphs "
+        f"captured in {graphs.STATS['capture_s']!r} s")
     busy = profile_drain(keys, values, make_key_sets(tree, PROFILE_CHUNKS * CHUNK)["random"])
     log_profile(f"Hrz lookup drain of {PROFILE_CHUNKS} chunks", busy["runs"])
 
@@ -1840,7 +2078,7 @@ def main() -> int:
     flash_timing = time_flash(timer)
     flash_resources = {k: v for k, v in resources.items() if k.startswith("flash")}
     log(f"    [6] done at {time.perf_counter() - t_start:.1f} s")
-    moe = moe_phase(resources, timer, smi, chase["l_hbm_ms"])
+    moe = moe_phase(resources, timer, smi, chase["l_hbm_ms"], dispatch_kernels)
     qd_timing, moe_served = moe["queue_dispatch_timing"], moe["moe_served"]
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.

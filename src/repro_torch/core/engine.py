@@ -12,7 +12,12 @@ Strategies (paper §II):
 All strategies return bit-identical results; they differ in layout and
 dispatch.  The tree is built with numpy on the host and moved to
 ``EngineConfig.device`` once; the device then decides whether each descent
-launches a Hopper kernel (CUDA) or runs the plain version (CPU).
+launches a Hopper kernel (CUDA) or runs the plain version (CPU).  On the
+card each bound (op, k) query runs as one CUDA graph per batch length and
+snapshot (``repro_torch.graphs``), the counterpart of the JAX package's jit
+cache: captured at first use, replayed after, with the delta buffer in
+static buffers that every write refreshes in place, so writes do not
+re-capture; a compaction's new snapshot does.
 
 The live write path (``EngineConfig(delta_capacity > 0)``): writes land in a
 sorted delta buffer on the device (``core.delta``), classified by the
@@ -25,12 +30,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import invariants
+from repro_torch import graphs, invariants
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import tree as tree_lib
@@ -85,6 +90,14 @@ PAPER_CONFIGS = {
 }
 
 
+class _QueryGraph(NamedTuple):
+    """One bound query as a CUDA graph and the static inputs it reads."""
+
+    queries: torch.Tensor
+    queries_hi: Optional[torch.Tensor]
+    graph: graphs.Graph
+
+
 class BSTEngine:
     """Build once, query batches of keys many times."""
 
@@ -110,6 +123,10 @@ class BSTEngine:
         self.config = config
         self.tree = tree
         self.compactions = 0
+        self.delta = None
+        # the query graphs' keys already warmed up once: a re-capture on a
+        # new snapshot runs ops this process has run, so it skips the warm-up
+        self._warmed = set()
         self._finalize()
 
     def _finalize(self) -> None:
@@ -123,8 +140,10 @@ class BSTEngine:
             register_levels=cfg.register_levels,
             buffer_slack=cfg.buffer_slack,
         )
-        # One bound callable per (op, k): the eager counterpart of a jit cache.
-        self._query_cache: Dict[Tuple[str, Optional[int]], Callable] = {}
+        # On the card, one graph per (op, k, batch length) of this snapshot
+        # and plan, all in one memory pool: the snapshot's jit cache.
+        self._graphs: Dict[Tuple[str, Optional[int], int], _QueryGraph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         # The live write path: a fresh empty buffer per snapshot.
         self._set_delta(
             delta_lib.empty(cfg.delta_capacity, self.device)
@@ -136,7 +155,7 @@ class BSTEngine:
         # the device count, at the cost of compacting a little early.
         self._pending_writes = 0
 
-    def query(self, op: str, queries, queries_hi=None, *, k: int = 8):
+    def query(self, op: str, queries, queries_hi=None, *, k: int = 8, eager: bool = False):
         """Run one query op over a 1-D int32 batch.
 
         * ``query("lookup", q)``            -> (values, found)
@@ -147,34 +166,78 @@ class BSTEngine:
           counts): the first ``k`` in-order pairs per range.
 
         Inputs may be numpy arrays or tensors; they are moved to the
-        engine's device, and results stay there.
+        engine's device, and results stay there.  On the card the op runs
+        as its graph (``eager=True`` runs its ops one by one instead, to
+        hold the graph against them), and the results are copies of the
+        graph's outputs, which later queries leave alone.
         """
+        res = self.query_static(op, queries, queries_hi, k=k, eager=eager)
+        if eager or self.device.type != "cuda":
+            return res
+        return tuple(t.clone() for t in res) if isinstance(res, tuple) else res.clone()
+
+    def query_static(self, op: str, queries, queries_hi=None, *, k: int = 8, eager: bool = False):
+        """``query``, except that on the card the results are the graph's
+        static outputs, valid until this engine's next query: for a caller
+        that fetches them at once (``BSTServer``)."""
         plans_lib.validate_op(op, queries_hi is not None)
-        # k shapes only range_scan's epilogue; other ops share one slot.
-        key = (op, k) if op == "range_scan" else (op, None)
-        fn = self._query_cache.get(key)
-        if fn is None:
-            fn = functools.partial(plans_lib.ordered_query, self.plan, op, k=k)
-            self._query_cache[key] = fn
-        queries = self._to_device(queries)
-        # The buffer is an argument, not part of the bound callable: it
-        # changes with every write batch.
-        d = {"delta": self.delta, "delta_ops": self._delta_ops}
-        if op in plans_lib.RANGE_OPS:
-            return fn(queries, self._to_device(queries_hi), **d)
-        return fn(queries, **d)
+        if eager or self.device.type != "cuda":
+            hi = None if queries_hi is None else self._to_device(queries_hi)
+            return plans_lib.ordered_query(
+                self.plan, op, self._to_device(queries), hi, k=k,
+                delta=self.delta, delta_ops=self._delta_ops,
+            )
+        q = _batch(queries)
+        hi = None if queries_hi is None else _batch(queries_hi)
+        if hi is not None and hi.shape != q.shape:
+            raise ValueError(f"queries {tuple(q.shape)} and queries_hi {tuple(hi.shape)} differ")
+        if q.shape[0] == 0:  # no lanes, no kernel: nothing to capture
+            return self.query_static(op, q, hi, k=k, eager=True)
+        g = self._graph(op, k, q.shape[0], hi is not None)
+        g.queries.copy_(q)  # the H2D copy of a host batch, outside the graph
+        if hi is not None:
+            g.queries_hi.copy_(hi)
+        return g.graph.replay()
+
+    def _graph(self, op: str, k: int, B: int, ranged: bool) -> _QueryGraph:
+        """The graph of (op, k) over B lanes for this snapshot, captured at
+        its first use."""
+        key = (op, k if op == "range_scan" else None, B)  # k shapes only range_scan
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        if self.delta is not None:
+            self.plan.sorted_view()  # made once per snapshot, outside every graph
+        q = torch.zeros(B, dtype=torch.int32, device=self.device)
+        hi = torch.zeros_like(q) if ranged else None
+        fn = functools.partial(
+            plans_lib.ordered_query, self.plan, op, q, hi, k=k,
+            delta=self.delta, delta_ops=self._delta_ops,
+        )
+        with torch.cuda.device(self.device):
+            graph = graphs.Graph(fn, warmup=key not in self._warmed, pool=self._pool)
+        self._warmed.add(key)
+        g = self._graphs[key] = _QueryGraph(q, hi, graph)
+        return g
 
     def _set_delta(self, delta: Optional[delta_lib.DeltaBuffer]) -> None:
-        """Install a buffer with its kernel operands, computed once here
-        rather than on every read chunk: the buffer changes only at ingest
-        and compaction."""
-        self.delta = delta
-        self._delta_ops = None if delta is None else delta_lib.operands(delta)
+        """Install a buffer with its kernel operands, computed here rather
+        than on every read chunk: the buffer changes only at ingest and
+        compaction.  The engine keeps one buffer at fixed addresses and
+        copies each new one into it, so that the query graphs read the
+        current buffer, as the JAX package's jitted queries take it as an
+        argument."""
+        if delta is None or self.delta is None:
+            self.delta = delta
+            self._delta_ops = None if delta is None else delta_lib.operands(delta)
+            return
+        for dst, src in zip(self.delta, delta):
+            dst.copy_(src)
+        for dst, src in zip(self._delta_ops[2:], delta_lib.operands(self.delta)[2:]):
+            dst.copy_(src)  # keys and values are the buffer's own tensors
 
     def _to_device(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-        return x.to(device=self.device, dtype=torch.int32).contiguous()
+        return _batch(x).to(device=self.device).contiguous()
 
     def lookup(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
         """(values, found) for a 1-D int32 query batch."""
@@ -299,6 +362,14 @@ def _check_kernel_limits(config: EngineConfig) -> None:
     device = torch.device(config.device)
     if device.type == "cuda" and config.strategy == "hyb" and config.mapping == "queue":
         bst_kernels.check_queue_split(invariants.split_level_for(config.n_trees), device)
+
+
+def _batch(x) -> torch.Tensor:
+    """A query batch as an int32 tensor, where it lies (numpy on the
+    host)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+    return x.to(dtype=torch.int32)
 
 
 def _as_keys(keys) -> np.ndarray:

@@ -13,7 +13,9 @@ Prefill attention is ``project_qkv`` then ``attend``: the JAX package's
 both the attention and the decode cache.  Decode attends one new token
 against a KV cache; sliding-window archs use a ring buffer of ``window``
 slots.  The cache is updated in place, where the JAX package donates it to
-the jitted step.  Layouts follow the JAX package:
+the jitted step, and the position is read on the device, so that one CUDA
+graph of the decode step serves every position.  Layouts follow the JAX
+package:
 activations (B, S, H, hd), caches (B, C, KV, hd), weights (in, out).
 """
 
@@ -36,9 +38,11 @@ _NEG_INF = -1e30  # the JAX package's mask value for decode scores
 class KVCache:
     k: torch.Tensor  # (B, C, KV, hd), or (L, B, C, KV, hd) stacked per layer
     v: torch.Tensor
-    # Tokens written so far (absolute), one for the whole batch.  A host int:
-    # the ring slot and the rope position come from it without a device sync.
-    length: int
+    # Tokens written so far (absolute), one for the whole batch: a 0-d int32
+    # tensor on the caches' device, as in the JAX package.  The rope
+    # position, the ring slot and the unwrap are computed from it on the
+    # device, so a captured decode step reads the position of each replay.
+    length: torch.Tensor
 
 
 def attn_params_shape(cfg: ModelConfig):
@@ -148,7 +152,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.param_dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.param_dtype, device=device),
-        length=0,
+        length=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -160,18 +164,18 @@ def decode_attention(
 ) -> torch.Tensor:
     """One decode step: write the new token's K/V into the (ring) cache in
     place and attend over the cache.  The caller advances the length (one
-    for all layers: ``models.model.decode_step``)."""
+    for all layers: ``models.model.decode_step``).  Nothing here reads a
+    device value on the host."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     group = H // KV
-    pos = cache.length  # absolute position of the new token
+    pos = cache.length  # absolute position of the new token, () int32
 
     q = _split_heads(x @ p.wq, H, hd)
     k_new = _split_heads(x @ p.wk, KV, hd)
     v_new = _split_heads(x @ p.wv, KV, hd)
-    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    cos, sin = layers.rope_angles(positions, hd, cfg.rope_theta)
+    cos, sin = layers.rope_angles(pos.view(1, 1), hd, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     if cfg.qk_norm:
         q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
@@ -180,14 +184,16 @@ def decode_attention(
     k_new = layers.apply_rope(k_new, cos, sin)
     C = cache.k.shape[1]
     slot = pos % C  # ring for SWA, linear when C == max_len
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
-    # slot i holds absolute position: ring unwrap
-    slots = torch.arange(C, device=x.device)
-    if pos + 1 > C:
-        abs_pos = torch.where(slots <= slot, pos - slot + slots, pos - slot - C + slots)
-    else:
-        abs_pos = slots
+    index = slot.view(1).long()
+    cache.k.index_copy_(1, index, k_new)
+    cache.v.index_copy_(1, index, v_new)
+    # slot i holds absolute position: ring unwrap, branch-free
+    slots = torch.arange(C, dtype=torch.int32, device=x.device)
+    abs_pos = torch.where(
+        pos + 1 > C,
+        torch.where(slots <= slot, pos - slot + slots, pos - slot - C + slots),
+        slots,
+    )
     valid = abs_pos <= pos
     if cfg.sliding_window:
         valid &= abs_pos > pos - cfg.sliding_window

@@ -8,7 +8,10 @@ the MLP).  Parameters are ``nn.Module``s:
 is one, and an ``nn.ModuleList`` of ``DecoderLayer``s, where the JAX package
 stacks (L, ...) leaves for its layer scan; the scan becomes a Python loop.
 Serving runs under ``torch.no_grad``.  The decode caches are stacked
-(L, B, C, KV, hd) as in the JAX package and are updated in place.
+(L, B, C, KV, hd) as in the JAX package and are updated in place, and the
+decode position is a device scalar that the step advances in place, so the
+step reads nothing on the host and one CUDA graph of it serves every
+position (``serving/serve_loop.py``).
 
 The other families (ssm, hybrid, encdec, vlm) raise
 ``NotImplementedError``: they are still to port (ROADMAP.md Queue 1 item
@@ -109,11 +112,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
 def _mix_ffn(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor):
     """The layer's FFN: ``(out, dropped)``.  For the moe family ``dropped``
     is the share of expert assignments its dispatch dropped, a device
-    tensor, also kept on ``lp.moe.dropped`` (prefill and decode discard it,
-    as the JAX package does); the dense MLP drops nothing."""
+    tensor, also copied into ``lp.moe.dropped`` (prefill and decode discard
+    it, as the JAX package does); the dense MLP drops nothing."""
     if cfg.family == "moe":
         out, dropped = moe.moe_ffn(cfg, lp.moe, h)
-        lp.moe.dropped = dropped
+        lp.moe.dropped.copy_(dropped)
         return out, dropped
     return layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down), 0.0
 
@@ -135,21 +138,22 @@ def _decoder_layer_full(
 
 # --------------------------------------------------------------------- decode
 class DecodeState(NamedTuple):
-    """The per-layer KV caches, stacked (L, B, C, KV, hd)."""
+    """The per-layer KV caches, stacked (L, B, C, KV, hd), and the decode
+    position, a 0-d int32 device tensor."""
 
     kv: attn.KVCache
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> DecodeState:
-    """Zeroed caches: a ring of ``sliding_window`` slots for SWA archs, else
-    ``max_len`` slots."""
+    """Zeroed caches at position 0: a ring of ``sliding_window`` slots for
+    SWA archs, else ``max_len`` slots."""
     check_family(cfg)
     one = attn.init_kv_cache(cfg, batch, max_len, device)
     L = cfg.n_layers
     return DecodeState(kv=attn.KVCache(
         k=one.k.new_zeros((L,) + tuple(one.k.shape)),
         v=one.v.new_zeros((L,) + tuple(one.v.shape)),
-        length=0,
+        length=one.length,
     ))
 
 
@@ -169,8 +173,8 @@ def decode_step(
     cfg: ModelConfig, model: Model, tokens: torch.Tensor, state: DecodeState
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One serving step: (B, 1) tokens -> (B, V) logits and the advanced
-    state.  The caches in ``state`` are written in place (the JAX package
-    donates them); the returned state shares their storage."""
+    state.  The caches and the position in ``state`` are advanced in place
+    (the JAX package donates them), so the returned state is ``state``."""
     check_family(cfg)
     x = layers.embed(tokens, model.embed)
     kv = state.kv
@@ -178,37 +182,50 @@ def decode_step(
         x = _decoder_layer_decode(cfg, lp, x, attn.KVCache(kv.k[i], kv.v[i], kv.length))
     x = layers.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = layers.unembed(x, model.head_table())
-    return logits[:, 0, :], DecodeState(attn.KVCache(kv.k, kv.v, kv.length + 1))
+    kv.length.add_(1)
+    return logits[:, 0, :], state
 
 
 @torch.no_grad()
 def prefill(
-    cfg: ModelConfig, model: Model, tokens: torch.Tensor, max_len: Optional[int] = None
+    cfg: ModelConfig,
+    model: Model,
+    tokens: torch.Tensor,
+    max_len: Optional[int] = None,
+    out: Optional[DecodeState] = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """Full-sequence pass that also builds the decode caches: (B, S) tokens
     -> (last-position logits (B, V), DecodeState), with room for
-    ``max_len`` (default S) tokens.  With ``attention_impl="flash"`` each
-    layer launches kernel K5 once on the card."""
+    ``max_len`` (default S) tokens.  With ``out``, a state of that shape
+    (``make_decode_state``), the caches and the position are written into
+    it and it is returned: a graphed decode step reads fixed addresses.
+    With ``attention_impl="flash"`` each layer launches kernel K5 once on
+    the card."""
     check_family(cfg)
     B, S = tokens.shape
     C = max_len or S
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed(tokens, model.embed)
-    state = make_decode_state(cfg, B, C, tokens.device)
+    state = make_decode_state(cfg, B, C, tokens.device) if out is None else out
+    W = min(C, cfg.sliding_window) if cfg.sliding_window else C
+    want = (cfg.n_layers, B, W, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if tuple(state.kv.k.shape) != want or tuple(state.kv.v.shape) != want:
+        raise ValueError(f"out state caches are {tuple(state.kv.k.shape)}, want {want}")
     for i, lp in enumerate(model.layers):
         x, k, v = _decoder_layer_full(cfg, lp, x, positions, causal=True)
-        packed = _ring_pack(cfg, k, v, C, S)
-        state.kv.k[i].copy_(packed.k)
-        state.kv.v[i].copy_(packed.v)
+        ck, cv = _ring_pack(k, v, W, S)
+        state.kv.k[i].copy_(ck)
+        state.kv.v[i].copy_(cv)
+    state.kv.length.fill_(S)
     x = layers.rms_norm(x[:, -1, :], model.final_norm, cfg.norm_eps)
     logits = layers.unembed(x, model.head_table())
-    return logits, DecodeState(attn.KVCache(state.kv.k, state.kv.v, S))
+    return logits, state
 
 
-def _ring_pack(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, C: int, S: int) -> attn.KVCache:
-    """Pack prefill K/V (B, S, KV, hd) into the decode cache layout (a ring
-    of ``W = min(C, window)`` slots for SWA)."""
-    W = min(C, cfg.sliding_window) if cfg.sliding_window else C
+def _ring_pack(k: torch.Tensor, v: torch.Tensor, W: int, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack prefill K/V (B, S, KV, hd) into the decode cache layout of
+    ``W`` slots (a ring of ``W = min(C, window)`` slots for SWA): the
+    caches' (k, v)."""
     if S >= W:
         # keep the last W tokens, placed at slots (pos % W): for pos in
         # [S-W, S), slot = pos % W -- a roll of the last-W slice.
@@ -219,4 +236,4 @@ def _ring_pack(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, C: int, S: in
         pad = (0, 0, 0, 0, 0, W - S)  # zeros after the S tokens, along dim 1
         ck = torch.nn.functional.pad(k, pad)
         cv = torch.nn.functional.pad(v, pad)
-    return attn.KVCache(k=ck, v=cv, length=S)
+    return ck, cv

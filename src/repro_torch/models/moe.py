@@ -52,8 +52,11 @@ class MoE(nn.Module):
     """One MoE FFN's parameters (``moe_params_shape``), allocated
     uninitialised on ``device``; ``models.model.init_params`` or
     ``models.convert.params_from_jax`` fills them.  ``dropped`` holds the
-    dropped share of the layer's last call, a device tensor (None before
-    the first), for callers that want it without a sync on the hot path."""
+    dropped share of the layer's last call (0 before the first), a 0-d
+    fp32 tensor on ``device`` that every call overwrites in place, so it is
+    also the static output of a captured decode step, rewritten at every
+    replay: a caller that keeps a step's share copies it before the next
+    step."""
 
     def __init__(self, cfg: ModelConfig, device, dtype: torch.dtype):
         super().__init__()
@@ -61,7 +64,9 @@ class MoE(nn.Module):
             QD.check_n_dest(cfg.n_experts)  # K4's limit, before any allocation
         for name, shape in moe_params_shape(cfg).items():
             setattr(self, name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype)))
-        self.dropped = None
+        self.register_buffer(
+            "dropped", torch.zeros((), dtype=torch.float32, device=device), persistent=False
+        )
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:

@@ -29,7 +29,9 @@ that loop:
     key, two per range request: the lo||hi concatenated descent).
 
 The JAX server re-warms its reads after every snapshot swap to refill jit's
-compile cache; eager torch has no such cache, so nothing is re-warmed here.
+compile cache.  Here ``warmup`` captures the served ops' CUDA graphs on the
+card, and after a swap the engine captures each op's graph again at its
+first use on the new snapshot.
 """
 
 from __future__ import annotations
@@ -156,16 +158,21 @@ class BSTServer:
 
     def warmup(self, ops=("lookup",)) -> None:
         """Run one chunk of each op, so timed chunks exclude first-use costs
-        (the kernels' build and load, the allocator's first blocks)."""
+        (the kernels' build and load, the allocator's first blocks, and on
+        the card each op's CUDA graph of the current snapshot: its capture;
+        a compaction's new snapshot captures again at first use)."""
         dummy = np.zeros(self.chunk_size, np.int32)
         for op in ops:
             runtime.block_until_ready(self._query_chunk(op, dummy, dummy))
 
     def _query_chunk(self, op: str, a, b) -> tuple:
+        """One chunk through the engine; on the card the results are its
+        graph's static outputs, which the caller fetches before the next
+        chunk."""
         if op in RANGE_OPS:
-            res = self._engine.query(op, a, b, k=self.scan_k)
+            res = self._engine.query_static(op, a, b, k=self.scan_k)
         else:
-            res = self._engine.query(op, a)
+            res = self._engine.query_static(op, a)
         return res if isinstance(res, tuple) else (res,)
 
     def apply_updates(self, insert_keys=None, insert_values=None, delete_keys=None) -> TreeData:

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as TC  # noqa: E402
-from repro_torch import invariants  # noqa: E402
+from repro_torch import graphs, invariants  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine  # noqa: E402
@@ -25,7 +25,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.serving import BSTServer  # noqa: E402
+from repro_torch.serving import BSTServer, greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -307,8 +307,10 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
     t_pred = srv.submit(q, op="predecessor")
     t_succ = srv.submit(q, op="successor")
     t_scan = srv.submit_range(q[:500], q[:500] + 40, op="range_scan")
-    K.reset_launches()
+    srv.warmup(("lookup", "predecessor", "successor", "range_scan"))  # the graphs' captures
+    before = graphs.kernel_runs()
     got = srv.drain()
+    runs = {k: n - before[k] for k, n in graphs.kernel_runs().items()}
     assert srv.stats.compactions >= 1
 
     kv = dict(zip(keys.tolist(), values.tolist()))
@@ -336,8 +338,8 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
     read_chunks = sum(srv.stats.per_op[op].chunks for op in
                       ("lookup", "predecessor", "successor", "range_scan"))
     assert read_chunks == 10
-    assert K.LAUNCHES[kern + "_delta"] == read_chunks  # every read resolves the buffer
-    assert K.LAUNCHES[kern] == 2  # ingest: 420 writes and deletes in chunks of 256
+    assert runs[kern + "_delta"] == read_chunks  # every read resolves the buffer
+    assert runs[kern] == 2  # ingest: 420 writes and deletes in chunks of 256
 
 
 # ------------------------------------------------------------ K5: attention
@@ -552,3 +554,111 @@ def test_full_width_moe_model_takes_the_same_plans_through_k4_and_its_plain_vers
     assert QD.LAUNCHES["queue_dispatch"] == 3 * cfg.n_layers
     for a, b in zip(k4, plain):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- compiled serving steps
+def _tuple(res):
+    return res if isinstance(res, tuple) else (res,)
+
+
+QUERY_CASES = (("lookup", 0), ("predecessor", 0), ("successor", 0), ("range_count", 1),
+               ("range_scan", 1))
+
+
+@pytest.mark.parametrize("capacity", [0, 512])
+@pytest.mark.parametrize("name", ["Hrz", "Dup4", "Hyb8q"])
+def test_graphed_queries_match_the_eager_route(cuda_device, name, capacity):
+    """Every op through its graph equals the eager route bit for bit: on a
+    read-only engine, and with a delta buffer empty, after an ingest (no
+    re-capture: the graphs read the buffer's fixed addresses) and after a
+    compaction (a new snapshot: each op captured again at its first use).
+    A query's result is unchanged by the next query."""
+    keys, values = make_tree_data(32767, seed=4)
+    eng = BSTEngine(keys, values, dataclasses.replace(PAPER_CONFIGS[name], delta_capacity=capacity))
+    rng = np.random.default_rng(4)
+    q = rng.choice(np.concatenate([keys, keys + 1, keys - 1]), 3000).astype(np.int32)
+    lo = q[:1000]
+    hi = (lo + rng.integers(-4, 60, lo.size)).astype(np.int32)
+
+    def agree():
+        for op, ranged in QUERY_CASES:
+            args = (lo, hi) if ranged else (q,)
+            _same(_tuple(eng.query(op, *args)), _tuple(eng.query(op, *args, eager=True)))
+
+    agree()
+    first = _tuple(eng.query("lookup", q))
+    kept = tuple(t.clone() for t in first)
+    eng.query("lookup", q[::-1].copy())
+    _same(first, kept)
+    if capacity == 0:
+        return
+    captures = graphs.STATS["captures"]
+    wk = rng.integers(1, 2 * keys.size, 300).astype(np.int32)
+    eng.apply_ops(wk, wk + 7, rng.random(wk.size) < 0.3)
+    assert eng.compactions == 0
+    agree()
+    assert graphs.STATS["captures"] == captures
+    eng.compact()
+    agree()
+    assert graphs.STATS["captures"] == captures + len(QUERY_CASES)
+
+
+def test_steady_state_drain_captures_nothing(cuda_device):
+    """After ``warmup`` a drain replays its ops' graphs: no capture, no
+    wrapper call, one descent kernel run per chunk."""
+    keys, values = make_tree_data(65535, seed=5)
+    srv = BSTServer(keys, values, PAPER_CONFIGS["Hrz"], chunk_size=1024)
+    srv.warmup(("lookup", "predecessor"))
+    q = np.random.default_rng(5).choice(keys, 5000).astype(np.int32)
+    captures, launches, runs = graphs.STATS["captures"], graphs.launch_counts(), graphs.kernel_runs()
+    srv.submit(q)
+    srv.submit(q, op="predecessor")
+    got = srv.drain()
+    assert graphs.STATS["captures"] == captures
+    assert graphs.launch_counts() == launches
+    assert graphs.kernel_runs()["forest_descend"] - runs["forest_descend"] == srv.stats.chunks == 10
+    assert got[0][1].all() and np.array_equal(got[1][0], q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x7b"])
+def test_graphed_decode_matches_the_eager_route(cuda_device, no_tf32, arch, dtype):
+    """The smoke configs on the card (mixtral's 16-slot ring wraps in
+    decode): the graphed step's logits and tokens equal the eager route's
+    bit for bit, the same kernels in the same order; a second request of
+    the same shape captures nothing and gives the same tokens; mixtral runs
+    one K4 per layer per replayed step, its dropped share the graph's own
+    buffer; a state the graph does not own is refused."""
+    cfg = dataclasses.replace(TC.smoke_config(arch), dtype=dtype)
+    model = TM.init_params(cfg, seed=3, device=cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 12)))
+    prompt = prompt.to(cuda_device)
+    n_new = 10
+    eager = greedy_generate(cfg, model, prompt, n_new, eager=True)
+
+    routes = {}
+    for name, eager_route in (("graph", False), ("eager", True)):
+        logits, state = make_prefill_fn(cfg, max_len=12 + n_new, eager=eager_route)(model, prompt)
+        step = make_serve_step(cfg, eager=eager_route)
+        out, tok = [logits.clone()], logits.argmax(dim=-1, keepdim=True)
+        runs = graphs.kernel_runs()
+        for _ in range(n_new - 1):
+            logits, state = step(model, tok, state)
+            out.append(logits.clone())
+            tok = logits.argmax(dim=-1, keepdim=True)
+            assert state.kv.length.dim() == 0 and state.kv.length.is_cuda
+        if cfg.family == "moe":
+            k4 = graphs.kernel_runs()["queue_dispatch"] - runs["queue_dispatch"]
+            assert k4 == cfg.n_layers * (n_new - 1)
+        assert int(state.kv.length) == 12 + n_new - 1
+        routes[name] = out
+    for a, b in zip(routes["graph"], routes["eager"]):
+        assert torch.equal(a, b)
+
+    captures = graphs.STATS["captures"]
+    for _ in range(2):
+        assert torch.equal(greedy_generate(cfg, model, prompt, n_new), eager)
+    assert graphs.STATS["captures"] == captures
+    _, own = TM.prefill(cfg, model, prompt, max_len=12 + n_new)
+    with pytest.raises(ValueError, match="its own graph"):
+        make_serve_step(cfg)(model, prompt[:, :1], own)
