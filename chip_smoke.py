@@ -43,6 +43,21 @@ Phases, in order; any failure raises and exits non-zero:
    checked, and so is the snapshot after a final compaction; the drain's
    captures (each op again after each compaction) and their time, and
    chunk profiles as in phase 4, are logged;
+4s. sharded serving (``BSTServer(mesh=...)``, ``core/distributed.py``) for
+   hrz, dup and hyb (as Hrz, Dup4, Hyb4q) over the same tree: at world 1
+   over NCCL in this process, then at 4 ranks spawned on the one card over
+   gloo (NCCL puts no two ranks on one card); per strategy the 256K random
+   lookups and 2^16 each of predecessor, successor, range_count and
+   range_scan, then the first 4 rounds of phase 4w's write stream with a
+   4096-entry buffer, every answer against the oracle, the fetch budget
+   and the launches the sharded design implies (K4 once a round of a read
+   chunk, K1 once a round, no K2) checked on every rank; K4 and K1 held
+   bit for bit against their plain versions at the shapes the path gives
+   them (K4 at n_dest = ranks over a rank's 2048- and 4096-lane slice,
+   K1 over a rank's subtree with the live mask the all_to_all delivers);
+   ``memory_nodes_per_device`` (4,194,306 for hrz and hyb at 4 ranks),
+   each rank's peak memory, and lanes/s beside the single-chip server's
+   at world 1 are logged;
 5. measure the card's dependent-load latency with the pointer chase
    (``csrc/pointer_chase.cu``: L_HBM, cold 64 MiB; L_L2, warm 4 MiB); at
    the main path's shapes, hold each kernel configuration against its
@@ -109,9 +124,12 @@ import functools
 import gc
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -119,11 +137,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed  # noqa: E402
+import torch.multiprocessing  # noqa: E402
 
 from repro_torch import graphs, invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
 from repro_torch.core import buffers as buf_lib  # noqa: E402
 from repro_torch.core import delta as delta_lib  # noqa: E402
+from repro_torch.core import distributed as dist_lib  # noqa: E402
 from repro_torch.core import plans as plans_lib  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
 from repro_torch.core.tree import (  # noqa: E402
@@ -194,6 +215,23 @@ W_DELETES = 2048  # three quarters stored keys, one quarter absent
 W_LOOKUPS = 8192  # written, deleted and random keys
 W_POINTS = 8192  # predecessor, and as many successor, queries of odd keys
 W_RANGES = 4096  # range_count, and as many range_scan, spans near written keys
+# The sharded phase (4s): each strategy over a mesh, as the paper config
+# below (hrz Hrz, dup Dup4, hyb Hyb4q), at world 1 over NCCL in this process
+# and at SHARD_RANKS ranks spawned on the one card over gloo (NCCL puts no
+# two ranks on one card).  The reads: the paper's 256K random lookups and
+# SHARD_POINTS each of predecessor, successor, range_count, range_scan; the
+# writes: the first SHARD_W_ROUNDS rounds of phase 4w's stream.
+SHARD_CONFIGS = {"hrz": "Hrz", "dup": "Dup4", "hyb": "Hyb4q"}
+# K4 launches a read chunk on the sharded path: hrz one stall-free round,
+# hyb its first round, one stall round and the drain round, dup none; K1
+# runs once a round (dup: once a chunk).  At one rank hyb's per-batch depth
+# is the whole local batch, and it runs one stall-free round
+# (``shard_rounds``).
+SHARD_ROUNDS = {"hrz": 1, "dup": 0, "hyb": 3}
+SHARD_RANKS = 4
+SHARD_POINTS = 1 << 16
+SHARD_W_ROUNDS = 4
+SHARD_TIMEOUT_S = 420
 # The LM phase (6): qwen3-1.7b at its published width and depth.
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32  # the serving run
@@ -1009,6 +1047,349 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
             log_chunk_profiles(chunks)
         del srv, eng, skd, svd
     return rows, launches
+
+
+# --------------------------------------------------- phase 4s: sharded serving
+def shard_reads(keys, values, lookups, seed: int = 4) -> list:
+    """The sharded phase's reads with the oracle's answers: ``lookups`` (the
+    paper's random set), absent keys for predecessor and successor, random
+    spans for the range ops."""
+    rng = np.random.default_rng(seed)
+    absent = (rng.integers(0, keys.size + 1, SHARD_POINTS) * 2 + 1).astype(np.int32)
+    lo = rng.integers(1, 2 * keys.size, SHARD_POINTS).astype(np.int32)
+    hi = (lo + rng.integers(-8, 64, SHARD_POINTS)).astype(np.int32)
+    reads = [("lookup", lookups, None), ("predecessor", absent, None),
+             ("successor", absent, None), ("range_count", lo, hi), ("range_scan", lo, hi)]
+    return [(op, a, b, oracle(keys, values, op, a, b)) for op, a, b in reads]
+
+
+def submit_reads(srv, reads) -> list:
+    return [(srv.submit(a, op=op) if b is None else srv.submit_range(a, b, op=op), op, want)
+            for op, a, b, want in reads]
+
+
+def check_answers(res, tickets, tag: str) -> None:
+    for i, (t, op, want) in enumerate(tickets):
+        got = res[t]
+        check(len(got) == len(want), f"{tag} {op} #{i}: arity")
+        for g, w in zip(got, want):
+            check(np.array_equal(g, w), f"{tag} {op} #{i}: answers differ from the oracle")
+
+
+def shard_rounds(strategy: str, ranks: int) -> int:
+    """K4 rounds a read chunk: SHARD_ROUNDS, but one for hyb where its
+    per-batch depth is the local batch (one rank), as the host decides."""
+    if strategy == "hyb":
+        B = CHUNK // ranks
+        cap = invariants.capacity_for_trace(B, ranks, PAPER_CONFIGS[SHARD_CONFIGS["hyb"]].buffer_slack)
+        if cap >= B:
+            return 1
+    return SHARD_ROUNDS[strategy]
+
+
+def check_shard_launches(launches: dict, strategy: str, ranks: int, read_chunks: int,
+                         ingest_chunks: int, tag: str) -> None:
+    """The launches the sharded design implies: K4 once a round of a read
+    chunk (none for dup), K1 once a round (dup: once a chunk), the engine's
+    ingest kernel once an ingest chunk (K1 for hrz and dup, K3 for hyb), and
+    no K2: the sharded path folds the buffer in plain torch."""
+    rounds = shard_rounds(strategy, ranks)
+    want = {
+        "queue_dispatch": rounds * read_chunks,
+        "forest_descend": max(rounds, 1) * read_chunks + (0 if strategy == "hyb" else ingest_chunks),
+        "hybrid_descend": ingest_chunks if strategy == "hyb" else 0,
+        "forest_descend_delta": 0,
+        "hybrid_descend_delta": 0,
+    }
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{tag}: launches {got}, the design implies {want}")
+
+
+def shard_kernel_checks(srv, mesh, strategy: str, reads) -> dict:
+    """K4 and K1 against their plain versions at the shapes the sharded path
+    gives them on this rank: K4 over this rank's slice of a point chunk and
+    of a range chunk (n_dest = ranks, B = CHUNK / ranks and twice that,
+    the capacity of the strategy's first round), and K1 over this rank's
+    subtree for the keys the all_to_all delivers, with their live mask.
+    Collectives: every rank runs it.  Returns the shapes and agreement."""
+    M, rank, group = mesh.size(), mesh.get_local_rank(), mesh.get_group()
+    tree = srv.snapshot
+    device = tree.device
+    point = torch.from_numpy(reads[0][1][:CHUNK]).to(device)
+    ranged = torch.from_numpy(np.concatenate([reads[3][1][:CHUNK], reads[3][2][:CHUNK]])).to(device)
+    out = []
+    for what, batch in (("point", point), ("range", ranged)):
+        B = batch.shape[0] // M
+        local = batch[rank * B:(rank + 1) * B]
+        if strategy == "dup":
+            got = kops.bst_ordered_forest(tree.keys[None], tree.values[None], local[None], tree.height)
+            want = ref.bst_ordered_ref(tree.keys[None], tree.values[None], local[None], tree.height)
+            compare(got, want, "forest_descend", f"4s {strategy} rank {rank} K1 {what}")
+            out.append({"what": what, "k1_shape": [1, B], "k1_height": tree.height})
+            continue
+        sub_k, sub_v, split, sub_h = dist_lib.shard_subtrees(tree, mesh, "model")
+        reg_n = (1 << max(split, 1)) - 1
+        cap = (invariants.capacity_for_trace(B, M, srv.config.buffer_slack)
+               if strategy == "hyb" else B)
+        dest, reg = plans_lib.route_phase_ordered(tree.keys[:reg_n], tree.values[:reg_n], local,
+                                                  split, tree.height)
+        dest = torch.where(reg.found, -1, dest)
+        plan = kops.queue_dispatch(dest, M, cap)
+        compare_k4(plan, ref.queue_dispatch_ref(dest, M, cap), f"4s {strategy} rank {rank} K4 {what}")
+        send_q, send_live = plans_lib.gather_phase(local, buf_lib.DispatchPlan(*plan))
+        recv_q, recv_live = torch.empty_like(send_q), torch.empty_like(send_q)
+        torch.distributed.all_to_all_single(recv_q, send_q.contiguous(), group=group)
+        torch.distributed.all_to_all_single(recv_live, send_live.to(torch.int32), group=group)
+        q1, live = recv_q.reshape(1, -1), recv_live.reshape(1, -1) != 0
+        got = kops.bst_ordered_forest(sub_k, sub_v, q1, sub_h, active=live)
+        want = ref.bst_ordered_ref(sub_k, sub_v, q1, sub_h, live)
+        compare(got, want, "forest_descend", f"4s {strategy} rank {rank} K1 {what}")
+        out.append({"what": what, "k4_B": B, "k4_n_dest": M, "k4_capacity": cap,
+                    "k4_overflow": int(plan[4].sum()), "k1_shape": list(q1.shape),
+                    "k1_height": sub_h, "k1_live": int(live.sum())})
+    return {"checks": out, "agreement": {k: dict(AGREEMENT[k])
+                                         for k in ("forest_descend", "queue_dispatch")}}
+
+
+def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bool = False) -> dict:
+    """Phase 4s for one strategy on this rank: the reads through a sharded
+    read-only server, then the write stream through a sharded server with a
+    W_CAPACITY buffer, every answer against the oracle, the fetch budget and
+    the launches (each counted from 0 just before its drain) checked; with
+    ``single`` the single-chip server of the same config serves the reads
+    too, for its lanes/s beside the sharded one's.  Every rank of ``mesh``
+    calls it alike."""
+    name = SHARD_CONFIGS[strategy]
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], device="cuda")
+    tag = f"4s {strategy} x{mesh.size()}"
+    row = {"strategy": strategy, "config": name, "ranks": mesh.size()}
+    seconds = row["seconds"] = {}  # host clock of each step, for the phase's own time
+    t0 = time.perf_counter()
+
+    srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K, mesh=mesh)
+    srv.warmup(QUERY_OPS)
+    seconds["read_server"] = time.perf_counter() - t0
+    tickets = submit_reads(srv, reads)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    QD.reset_launches()
+    fetches = runtime.fetch_count()
+    t0 = time.perf_counter()
+    res = srv.drain()
+    drain_s = time.perf_counter() - t0
+    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    n_fetch = runtime.fetch_count() - fetches
+    check_answers(res, tickets, tag)
+    st = srv.stats
+    check(n_fetch == st.chunks, f"{tag}: {n_fetch} fetches for {st.chunks} chunks")
+    check_shard_launches(launches, strategy, mesh.size(), st.chunks, 0, tag)
+    row["reads"] = {"lanes": st.lanes, "chunks": st.chunks, "fetches": n_fetch,
+                    "launches": launches, "busy_s": st.busy_s,
+                    "lanes_per_sec": st.lanes_per_sec, "drain_s": drain_s,
+                    "lanes_per_drain_sec": st.lanes / drain_s,
+                    "per_op_lanes_per_sec": {op: o.lanes_per_sec for op, o in st.per_op.items()}}
+    seconds["reads"] = drain_s
+    if single:  # where a chunk's time goes: one lookup chunk a drain, profiled
+        one_chunk = reads[0][1][:CHUNK]
+        row["chunk_profile"] = profile_calls(lambda: (srv.submit(one_chunk), srv.drain()), 4)
+    t0 = time.perf_counter()
+    row["memory_nodes_per_device"] = srv.memory_nodes_per_device()
+    row["kernels"] = shard_kernel_checks(srv, mesh, strategy, reads)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    del srv, res
+
+    if single:
+        one = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
+        one.warmup(QUERY_OPS)
+        tickets = submit_reads(one, reads)
+        t0 = time.perf_counter()
+        res = one.drain()
+        drain_s = time.perf_counter() - t0
+        check_answers(res, tickets, f"4s {name} single-chip")
+        row["single_chip"] = {"lanes_per_sec": one.stats.lanes_per_sec, "drain_s": drain_s,
+                              "lanes_per_drain_sec": one.stats.lanes / drain_s}
+        del one, res
+
+    t0 = time.perf_counter()
+    wsrv = BSTServer(keys, values, dataclasses.replace(cfg, delta_capacity=W_CAPACITY),
+                     chunk_size=CHUNK, scan_k=SCAN_K, mesh=mesh)
+    wsrv.warmup(QUERY_OPS)
+    seconds["write_server"] = time.perf_counter() - t0
+    tickets = []
+    for rnd in w_rounds:
+        wsrv.submit_write(*rnd["writes"])
+        wsrv.submit_delete(rnd["deletes"])
+        tickets += submit_reads(wsrv, rnd["reads"])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    QD.reset_launches()
+    fetches = runtime.fetch_count()
+    t0 = time.perf_counter()
+    res = wsrv.drain()
+    drain_s = time.perf_counter() - t0
+    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    n_fetch = runtime.fetch_count() - fetches
+    check_answers(res, tickets, f"{tag} writes")
+    st = wsrv.stats
+    read_chunks = sum(st.per_op[op].chunks for op in QUERY_OPS)
+    ingest_chunks = st.chunks - read_chunks
+    check(st.compactions >= 1, f"{tag}: no compaction in the write stream")
+    check(n_fetch == read_chunks + st.compactions,
+          f"{tag}: {n_fetch} fetches for {read_chunks} read chunks + {st.compactions} compactions")
+    check_shard_launches(launches, strategy, mesh.size(), read_chunks, ingest_chunks,
+                         f"{tag} writes")
+    row["writes"] = {"lanes": st.lanes, "read_chunks": read_chunks, "ingest_chunks": ingest_chunks,
+                     "compactions": st.compactions, "fetches": n_fetch, "launches": launches,
+                     "busy_s": st.busy_s, "lanes_per_sec": st.lanes_per_sec, "drain_s": drain_s,
+                     "lanes_per_drain_sec": st.lanes / drain_s,
+                     "final_height": wsrv.snapshot.height}
+    seconds["writes"] = drain_s
+    row["memory_nodes_per_device_after_writes"] = wsrv.memory_nodes_per_device()
+    del wsrv, res
+    return row
+
+
+def shard_rank(rank: int, world: int, out_dir: str, spawned_at: float) -> None:
+    """One of SHARD_RANKS ranks spawned on the one card: gloo over its CUDA
+    tensors, every strategy through ``serve_sharded`` over the streams that
+    the parent wrote to ``out_dir``; writes its rows, peak memory and clock
+    stamps there.  ``spawned_at`` is the parent's wall clock at the
+    spawn."""
+    started_s = time.time() - spawned_at
+    with open(os.path.join(out_dir, "streams.pkl"), "rb") as f:  # written by this script
+        reads, w_rounds = pickle.load(f)
+    store = os.path.join(out_dir, "store")
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        stamps = {"started": started_s, "group": time.time() - spawned_at}
+        keys, values = make_tree_data(N_KEYS)
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for strategy in SHARD_CONFIGS:
+            stamps[f"{strategy} begins"] = time.time() - spawned_at
+            rows.append(serve_sharded(keys, values, strategy, dist_lib.make_serving_mesh(strategy),
+                                      reads, w_rounds))
+        stamps["done"] = time.time() - spawned_at
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "rows": rows, "stamps": stamps,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_shard_ranks(reads, w_rounds) -> list:
+    """Spawn SHARD_RANKS ranks on the card; fail (killing the rest) when one
+    raises or they outlast SHARD_TIMEOUT_S.  Returns each rank's record."""
+    out_dir = tempfile.mkdtemp(prefix="phase4s-", dir=os.path.join(ROOT, "build"))
+    try:
+        # The streams go through a file: arguments of a spawned process
+        # pass through a pipe that its child reads only once it has started,
+        # so large ones would start the ranks one after another.
+        with open(os.path.join(out_dir, "streams.pkl"), "wb") as f:
+            pickle.dump((reads, w_rounds), f, protocol=pickle.HIGHEST_PROTOCOL)
+        ctx = torch.multiprocessing.start_processes(
+            shard_rank, args=(SHARD_RANKS, out_dir, time.time()),
+            nprocs=SHARD_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"phase 4s: ranks still running after {SHARD_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        records = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                records.append(json.load(f))
+        return records
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def log_shard_row(row: dict, smi: str) -> None:
+    r, w = row["reads"], row["writes"]
+    single = row.get("single_chip")
+    beside = (f"; single-chip {row['config']} {single['lanes_per_sec']!r} (busy), "
+              f"{single['lanes_per_drain_sec']!r} (drain wall)" if single else "")
+    log(f"    {row['strategy']} ({row['config']}) x{row['ranks']}: reads lanes_per_sec="
+        f"{r['lanes_per_sec']!r} (busy), {r['lanes_per_drain_sec']!r} (drain wall) over "
+        f"{r['lanes']} lanes, {r['chunks']} chunks, {r['fetches']} fetches, K4 "
+        f"{r['launches']['queue_dispatch']}, K1 {r['launches']['forest_descend']}{beside}; "
+        f"writes {w['lanes_per_sec']!r} (busy) over {w['lanes']} lanes, {w['read_chunks']} read "
+        f"+ {w['ingest_chunks']} ingest chunks, {w['compactions']} compactions, {w['fetches']} "
+        f"fetches, K4 {w['launches']['queue_dispatch']}, K1 {w['launches']['forest_descend']}, "
+        f"K3 {w['launches']['hybrid_descend']}; memory_nodes_per_device "
+        f"{row['memory_nodes_per_device']}; answers == oracle ({smi})")
+    for c in row["kernels"]["checks"]:
+        log(f"      {c}: K1, K4 == their plain versions")
+    if "chunk_profile" in row:
+        log_call_profile(f"{row['strategy']} x{row['ranks']} one lookup chunk's drain",
+                         row["chunk_profile"])
+
+
+def shard_phase(keys, values, lookups, rounds, smi: str) -> dict:
+    """Phase 4s: world 1 over NCCL in this process, then SHARD_RANKS ranks
+    spawned on the card over gloo.  Returns every row and the K1 and K4
+    launches of the sharded paths (reads and writes, every strategy, at
+    world 1 and on rank 0 of the spawned run)."""
+    reads = shard_reads(keys, values, lookups)
+    w_rounds = rounds[:SHARD_W_ROUNDS]
+    launches = {"forest_descend": 0, "queue_dispatch": 0}
+    torch.distributed.init_process_group("nccl", store=torch.distributed.HashStore(),
+                                         rank=0, world_size=1)
+    world1 = []
+    try:
+        t0 = time.perf_counter()
+        for strategy in SHARD_CONFIGS:
+            row = serve_sharded(keys, values, strategy, dist_lib.make_serving_mesh(strategy),
+                                reads, w_rounds, single=True)
+            check(row["memory_nodes_per_device"] == N_KEYS + (0 if strategy == "dup" else 1),
+                  f"4s {strategy} x1: {row['memory_nodes_per_device']} nodes per device")
+            world1.append(row)
+            log_shard_row(row, smi)
+        log(f"    world 1 over NCCL in {time.perf_counter() - t0!r} s; per strategy (host seconds) "
+            f"{[(row['strategy'], row['seconds']) for row in world1]}")
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    records = spawn_shard_ranks(reads, w_rounds)
+    spawned_s = time.perf_counter() - t0
+    # at 4 ranks: a subtree of height H - 2 (21) and a 3-node register layer
+    sub_nodes = (1 << (tree_lib.height_for(N_KEYS) - 1)) - 1 + 3
+    for rec in records:
+        for row in rec["rows"]:
+            want = N_KEYS if row["strategy"] == "dup" else sub_nodes
+            check(row["memory_nodes_per_device"] == want,
+                  f"4s {row['strategy']} x{SHARD_RANKS} rank {rec['rank']}: "
+                  f"{row['memory_nodes_per_device']} nodes per device, want {want}")
+            for kern, a in row["kernels"]["agreement"].items():
+                AGREEMENT[kern]["max_abs_err"] = max(AGREEMENT[kern]["max_abs_err"], a["max_abs_err"])
+                AGREEMENT[kern]["mismatches"] += a["mismatches"]
+    for row in records[0]["rows"]:
+        log_shard_row(row, smi)
+    for row in world1 + records[0]["rows"]:
+        for part in ("reads", "writes"):
+            for kern in launches:
+                launches[kern] += row[part]["launches"][kern]
+    for kern, n in launches.items():
+        check(n > 0, f"{kern} never launched on the sharded path")
+    peaks = [rec["peak_bytes"] for rec in records]
+    log(f"    ranks' clocks, seconds after the spawn: {[rec['stamps'] for rec in records]}; "
+        f"rank 0 per strategy (host seconds) "
+        f"{[(row['strategy'], row['seconds']) for row in records[0]['rows']]}")
+    log(f"    {SHARD_RANKS} ranks over gloo on one card in {spawned_s!r} s (spawn included); "
+        f"peak device memory per rank {peaks} bytes (torch.cuda.max_memory_allocated; each "
+        f"rank's engine keeps the whole snapshot); K1/K4 launches on the sharded paths (world 1 "
+        f"and rank 0 of {SHARD_RANKS}) {launches} ({smi})")
+    return {"world1": world1, "ranks": records, "spawned_s": spawned_s, "peak_bytes": peaks,
+            "launches": launches}
 
 
 # ------------------------------------------------------------ phase 5: timing
@@ -2005,7 +2386,8 @@ def main() -> int:
     log(f"[4] BSTServer, chunk {CHUNK}, every paper config")
     K.reset_launches()
     graphs.reset()
-    served, launches = serve_all_configs(keys, values, make_key_sets(tree, STREAM), smi)
+    lookup_sets = make_key_sets(tree, STREAM)
+    served, launches = serve_all_configs(keys, values, lookup_sets, smi)
     for kern, n in launches.items():
         if kern.endswith("_delta"):
             check(n == 0, f"{kern} launched on the read-only path")
@@ -2039,6 +2421,14 @@ def main() -> int:
         f"(torch.cuda.max_memory_allocated, the phase 3 tree and buffers included)")
     write_profile = profile_write_drains(keys, values, rounds)
     log_profile(f"Hrz write-path drain of {W_ROUNDS // 2} rounds", write_profile)
+
+    log(f"[4s] sharded serving: hrz, dup, hyb, chunk {CHUNK}, at world 1 over NCCL and at "
+        f"{SHARD_RANKS} ranks on this card over gloo; {STREAM} lookups, {SHARD_POINTS} each of "
+        f"predecessor, successor, range_count, range_scan; then {SHARD_W_ROUNDS} rounds of the "
+        f"write stream with delta capacity {W_CAPACITY}")
+    gc.collect()
+    sharded = shard_phase(keys, values, lookup_sets["random"], rounds, smi)
+    log(f"    [4s] done at {time.perf_counter() - t_start:.1f} s")
 
     log("[5] kernels vs plain versions at the main path's shapes; times (CUDA events, L2 flushed, median)")
     serving_sets = make_key_sets(tree, 2 * CHUNK)
@@ -2096,6 +2486,7 @@ def main() -> int:
             "source": SOURCE,
             "replaces": REPLACES[kern],
             "launches": path_launches[kern],
+            **({"sharded_launches": sharded["launches"][kern]} if kern in sharded["launches"] else {}),
             "mismatches": AGREEMENT[kern]["mismatches"],
             "max_abs_err": AGREEMENT[kern]["max_abs_err"],
             "ms": row["ms"],
@@ -2141,6 +2532,7 @@ def main() -> int:
         "source": QD_SOURCE,
         "replaces": QD_REPLACES,
         "launches": moe_served["k4_launches"],
+        "sharded_launches": sharded["launches"]["queue_dispatch"],
         "mismatches": AGREEMENT["queue_dispatch"]["mismatches"],
         "max_abs_err": AGREEMENT["queue_dispatch"]["max_abs_err"],
         "ms": qd_timing[0]["ms"],
@@ -2166,7 +2558,7 @@ def main() -> int:
             json.dump({"card": smi, "kernels": kernels, "served": served,
                        "hrz_drain_profile": busy, "written": written,
                        "write_phase_launches": w_launches, "write_phase_peak_bytes": peak,
-                       "hrz_write_drain_profile": write_profile,
+                       "hrz_write_drain_profile": write_profile, "sharded": sharded,
                        "delta_occupancy": occupancy, "kernel_limits": limits,
                        "pointer_chase": chase,
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,

@@ -1,5 +1,6 @@
 """Core library of the port: tree layout, search plans, the engine, the
-delta write buffer, bulk maintenance and the dispatch buffers."""
+delta write buffer, bulk maintenance, the dispatch buffers and sharded
+serving over ``torch.distributed``."""
 
 from repro_torch.core import buffers, delta
 from repro_torch.core.buffers import (
@@ -11,6 +12,12 @@ from repro_torch.core.buffers import (
     queue_dispatch,
 )
 from repro_torch.core.delta import DeltaBuffer
+from repro_torch.core.distributed import (
+    make_distributed_lookup,
+    make_distributed_query,
+    make_dup_lookup,
+    make_dup_query,
+)
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig
 from repro_torch.core.plans import (
     QUERY_OPS,
@@ -63,6 +70,10 @@ __all__ = [
     "execute_plan_ordered",
     "gather_from_buffers",
     "layout_from_sorted_device",
+    "make_distributed_lookup",
+    "make_distributed_query",
+    "make_dup_lookup",
+    "make_dup_query",
     "make_plan",
     "ordered_query",
     "queue_dispatch",

@@ -124,6 +124,12 @@ class BSTEngine:
         self.tree = tree
         self.compactions = 0
         self.delta = None
+        # Snapshot-swap hook: called with the fresh TreeData after every
+        # swap (a compaction, or an ``apply_updates`` rebuild without a
+        # buffer), which can happen deep inside ``apply_ops``' chunk loop;
+        # whatever holds state made from the old snapshot (the sharded
+        # server's shards) rebuilds before the next read.  None by default.
+        self.on_snapshot = None
         # the query graphs' keys already warmed up once: a re-capture on a
         # new snapshot runs ops this process has run, so it skips the warm-up
         self._warmed = set()
@@ -341,6 +347,8 @@ class BSTEngine:
     def _swap(self, tree: TreeData) -> None:
         self.tree = tree
         self._finalize()
+        if self.on_snapshot is not None:
+            self.on_snapshot(self.tree)
 
     def pending_writes(self) -> int:
         """Upper bound on buffered entries (0 right after a compaction)."""

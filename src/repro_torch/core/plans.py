@@ -10,6 +10,19 @@ sorted view.  With ``delta`` (the live write path) the pending write buffer
 rides the same descent (the kernels' delta configuration) and the epilogues
 switch to their delta-aware twins in ``core.delta``.  The tensors' device
 decides kernel or plain version (``kernels.ops``).
+
+The pipeline phases
+
+    route_phase    -- register-layer descent, survivors get a subtree id
+    dispatch_phase -- direct-/queue-mapped buffer placement (paper §II.C.3)
+    descend_phase  -- forest-batched subtree descent (kernel K1 on the card)
+    combine_phase  -- scatter buffered results back into chunk order
+
+are plain functions, each with an ``_ordered`` variant carrying the 7-field
+``OrderedResult``.  The single-chip path does not compose them (the hybrid
+kernel runs the whole pipeline in one launch); the sharded path in
+``core/distributed.py`` does, because there dispatch is a pair of
+``all_to_all`` collectives between placement and descent.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import invariants
+from repro_torch.core import buffers as buf
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import OrderedResult, TreeData
@@ -32,6 +46,28 @@ from repro_torch.kernels import ops as kops
 # descent; they differ only in operand count and epilogue.
 QUERY_OPS = ("lookup", "predecessor", "successor", "range_count", "range_scan")
 RANGE_OPS = ("range_count", "range_scan")
+
+# How each engine strategy lays out over a serving mesh:
+#   hrz -- the one tree vertically partitioned into per-device subtrees;
+#          request chunks route through the stall-free all_to_all network;
+#   dup -- the tree replicated on every device, the chunk split over the
+#          axis (data parallelism, no routing traffic at all);
+#   hyb -- subtree-sharded forest + replicated register layer, with the
+#          paper's queue-capped dispatch buffers as the collective-bytes
+#          lever (finite capacity + stall rounds).
+# ``mesh_axis_for_strategy`` is the one place that mapping lives.
+SHARDED_STRATEGIES = ("hrz", "dup", "hyb")
+
+
+def mesh_axis_for_strategy(strategy: str) -> str:
+    """The mesh axis a sharded plan uses: dup shards the *batch* over the
+    data axis; hrz/hyb shard the *tree* over the model axis."""
+    if strategy not in SHARDED_STRATEGIES:
+        raise ValueError(
+            f"unknown sharded strategy {strategy!r} (want {SHARDED_STRATEGIES})"
+        )
+    return "data" if strategy == "dup" else "model"
+
 
 # The hybrid kernel dispatches each 512-lane chunk on its own (the FPGA
 # streams chunks), and so does its plain version, on either device.
@@ -268,22 +304,43 @@ def ordered_query(
     read-only answers bit for bit.  ``delta_ops`` as in
     ``execute_plan_ordered``.
     """
+    return query_through(
+        plan, op, queries, queries_hi, k=k, delta=delta,
+        descend=lambda q: execute_plan_ordered(plan, q, delta=delta, delta_ops=delta_ops),
+        lookup=lambda q: execute_plan(plan, q, delta=delta, delta_ops=delta_ops),
+    )
+
+
+def query_through(
+    plan: SearchPlan,
+    op: str,
+    queries: torch.Tensor,
+    queries_hi: Optional[torch.Tensor],
+    *,
+    k: int,
+    delta: Optional[delta_lib.DeltaBuffer],
+    descend,
+    lookup=None,
+):
+    """``ordered_query``'s op dispatch over a given descent: ``descend(q)``
+    returns the ``OrderedResult`` of a batch with ``delta`` already folded
+    in, and ``lookup(q)``, when given, the membership columns.  The
+    epilogues read ``plan``'s rank -> BFS map and sorted view, so the
+    sharded runners (``core/distributed.py``) share the engine's."""
     validate_op(op, queries_hi is not None)
-    if op == "lookup":
-        return execute_plan(plan, queries, delta=delta, delta_ops=delta_ops)
+    if op == "lookup" and lookup is not None:
+        return lookup(queries)
     n_real = plan.full_tree.n_real
     if op in RANGE_OPS:
         B = queries.shape[0]
-        res = execute_plan_ordered(
-            plan, torch.cat([queries, queries_hi]), delta=delta, delta_ops=delta_ops
-        )
+        res = descend(torch.cat([queries, queries_hi]))
         r_lo = OrderedResult(*(f[:B] for f in res))
         r_hi = OrderedResult(*(f[B:] for f in res))
         if delta is not None:
             sk, sv = plan.sorted_view()
             return delta_lib.range_epilogue(op, sk, sv, n_real, delta, r_lo, r_hi, k=k)
         return range_epilogue(op, plan.full_tree, plan.rank_to_bfs, r_lo, r_hi, k=k)
-    res = execute_plan_ordered(plan, queries, delta=delta, delta_ops=delta_ops)
+    res = descend(queries)
     if delta is not None:
         sk, sv = plan.sorted_view()
         return delta_lib.point_epilogue(op, queries, res, sk, sv, n_real, delta)
@@ -331,3 +388,202 @@ def range_epilogue(
     keys = torch.where(valid, full_tree.keys[bfs], int(tree_lib.SENTINEL_KEY))
     values = torch.where(valid, full_tree.values[bfs], int(tree_lib.SENTINEL_VALUE))
     return keys, values, take
+
+
+# --------------------------------------------------------------------- phases
+def _register_tree(reg_keys: torch.Tensor, reg_values: torch.Tensor, split_level: int) -> TreeData:
+    return TreeData(reg_keys, reg_values, max(split_level - 1, 0), int(reg_keys.shape[0]))
+
+
+def route_phase(
+    reg_keys: torch.Tensor,
+    reg_values: torch.Tensor,
+    queries: torch.Tensor,
+    split_level: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Register-layer descent -> (dest, value, found).
+
+    ``split_level == 0`` means no routing network: everything goes to
+    subtree 0 unresolved (the single-partition degenerate case).
+    """
+    B = queries.shape[0]
+    if split_level == 0:
+        return (
+            torch.zeros((B,), dtype=torch.int32, device=queries.device),
+            torch.full((B,), int(tree_lib.SENTINEL_VALUE), dtype=torch.int32, device=queries.device),
+            torch.zeros((B,), dtype=torch.bool, device=queries.device),
+        )
+    reg_tree = _register_tree(reg_keys, reg_values, split_level)
+    return tree_lib.register_layer_route(reg_tree, queries, split_level)
+
+
+def route_phase_ordered(
+    reg_keys: torch.Tensor,
+    reg_values: torch.Tensor,
+    queries: torch.Tensor,
+    split_level: int,
+    full_height: int,
+) -> Tuple[torch.Tensor, OrderedResult]:
+    """Ordered register-layer descent -> (dest, partial OrderedResult).
+
+    The partial result carries the register layer's predecessor/successor
+    candidates and its rank contribution (left-subtree sizes of the FULL
+    tree); the subtree descent below the split completes all three
+    (``merge_ordered``).
+    """
+    B = queries.shape[0]
+    if split_level == 0:
+        return (
+            torch.zeros((B,), dtype=torch.int32, device=queries.device),
+            tree_lib.init_ordered(B, queries.device),
+        )
+    reg_tree = _register_tree(reg_keys, reg_values, split_level)
+    return tree_lib.register_layer_route_ordered(reg_tree, queries, split_level, full_height)
+
+
+def dispatch_phase(
+    mapping: str,
+    dest: torch.Tensor,
+    n_dest: int,
+    capacity: int,
+    active: Optional[torch.Tensor] = None,
+) -> buf.DispatchPlan:
+    """Buffer placement: the paper's direct/queue mapping networks (the
+    queue mapping is kernel K4 on the card)."""
+    return buf.dispatch(mapping, dest, n_dest, capacity, active=active)
+
+
+def gather_phase(
+    items: torch.Tensor, dplan: buf.DispatchPlan, fill_value=0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialise the buffered items: (B,) -> ((n_dest, cap), live mask)."""
+    per_dest = buf.gather_from_buffers(items, dplan.buffers, fill_value=fill_value)
+    return per_dest, dplan.buffers >= 0
+
+
+def descend_phase(
+    forest_keys: torch.Tensor,
+    forest_values: torch.Tensor,
+    height: int,
+    queries: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+    *,
+    shared_tree: bool = False,
+    delta: DeltaOps = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forest-batched compare-descend: (n_trees, B) queries in one launch
+    of kernel K1 on the card (its plain version on the CPU) -> ``(values,
+    found)``.  ``delta`` rides the descent as in ``kernels.ops``."""
+    return kops.bst_search_forest(
+        forest_keys, forest_values, queries, height, active=active,
+        shared_tree=shared_tree, delta=delta,
+    )
+
+
+def descend_phase_ordered(
+    forest_keys: torch.Tensor,
+    forest_values: torch.Tensor,
+    height: int,
+    queries: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+    *,
+    shared_tree: bool = False,
+    delta: DeltaOps = None,
+) -> OrderedResult:
+    """Ordered forest-batched compare-descend, the same single launch as
+    ``descend_phase``; fields are (n_trees, B)."""
+    return OrderedResult(*kops.bst_ordered_forest(
+        forest_keys, forest_values, queries, height, active=active,
+        shared_tree=shared_tree, delta=delta,
+    ))
+
+
+def combine_phase(
+    sub_values: torch.Tensor,
+    sub_found: torch.Tensor,
+    dplan: buf.DispatchPlan,
+    chunk_size: int,
+    reg_values: Optional[torch.Tensor] = None,
+    reg_found: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter per-buffer results back to chunk order; merge register hits."""
+    got_v = buf.combine_to_chunk(
+        sub_values, dplan.buffers, chunk_size, fill_value=int(tree_lib.SENTINEL_VALUE)
+    )
+    got_f = buf.combine_to_chunk(sub_found, dplan.buffers, chunk_size, fill_value=False)
+    if reg_found is None:
+        return got_v, got_f
+    return torch.where(reg_found, reg_values, got_v), reg_found | got_f
+
+
+# Each ordered field's identity: no hit, no predecessor, no successor, rank 0.
+_ORDERED_FILLS = (
+    int(tree_lib.SENTINEL_VALUE),
+    False,
+    int(tree_lib.NO_PRED_KEY),
+    int(tree_lib.SENTINEL_VALUE),
+    int(tree_lib.NO_SUCC_KEY),
+    int(tree_lib.SENTINEL_VALUE),
+    0,
+)
+
+
+def combine_phase_ordered(
+    sub: OrderedResult, dplan: buf.DispatchPlan, chunk_size: int
+) -> OrderedResult:
+    """Scatter per-buffer ordered results back to chunk order.  Unplaced
+    lanes get each field's identity, so a later ``merge_ordered`` or
+    stall-round override composes cleanly."""
+    return OrderedResult(*(
+        buf.combine_to_chunk(field, dplan.buffers, chunk_size, fill_value=fill)
+        for field, fill in zip(sub, _ORDERED_FILLS)
+    ))
+
+
+def pack_ordered(res: OrderedResult) -> torch.Tensor:
+    """Stack the 7 ordered fields into one ``(..., F)`` int32 image, so the
+    whole ordered payload rides a collective (or a device transfer) as one
+    tensor.  The width is pinned to ``invariants.ORDERED_PACK_WIDTH``."""
+    if len(res) != invariants.ORDERED_PACK_WIDTH:
+        raise ValueError(f"an ordered result has {invariants.ORDERED_PACK_WIDTH} fields")
+    return torch.stack([f.to(torch.int32) for f in res], dim=-1)
+
+
+def unpack_ordered(packed: torch.Tensor) -> OrderedResult:
+    """Inverse of ``pack_ordered`` (the NamedTuple's order on both sides).
+    One transposing copy makes every field contiguous again."""
+    if packed.shape[-1] != invariants.ORDERED_PACK_WIDTH:
+        raise ValueError(
+            f"packed image {tuple(packed.shape)} is not "
+            f"{invariants.ORDERED_PACK_WIDTH} lanes wide"
+        )
+    res = OrderedResult(*packed.movedim(-1, 0).contiguous().unbind(0))
+    return res._replace(found=res.found != 0)
+
+
+def merge_ordered(reg: OrderedResult, sub: OrderedResult) -> OrderedResult:
+    """Merge the register layer's partial result with the subtree descent.
+
+    The two are disjoint halves of one root-to-leaf path: exact hits are
+    exclusive; the predecessor is the larger of the two right-turn
+    candidates and the successor the smaller left-turn candidate (absent
+    candidates sit at the tracking identities, so plain max/min is exact);
+    ranks add (register turns count FULL-tree left subtrees, subtree turns
+    local ones -- together the global rank).
+    """
+    take_sub_pred = sub.pred_key > reg.pred_key
+    take_sub_succ = sub.succ_key < reg.succ_key
+    return OrderedResult(
+        value=torch.where(reg.found, reg.value, sub.value),
+        found=reg.found | sub.found,
+        pred_key=torch.maximum(reg.pred_key, sub.pred_key),
+        pred_value=torch.where(take_sub_pred, sub.pred_value, reg.pred_value),
+        succ_key=torch.minimum(reg.succ_key, sub.succ_key),
+        succ_value=torch.where(take_sub_succ, sub.succ_value, reg.succ_value),
+        rank=reg.rank + sub.rank,
+    )
+
+
+def where_ordered(mask: torch.Tensor, a: OrderedResult, b: OrderedResult) -> OrderedResult:
+    """Per-lane select between two ordered results (stall-round override)."""
+    return OrderedResult(*(torch.where(mask, x, y) for x, y in zip(a, b)))

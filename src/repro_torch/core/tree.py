@@ -117,6 +117,14 @@ def subtree_gather_indices(height: int, split_level: int, index: int) -> np.ndar
     return np.concatenate(out)
 
 
+def all_subtree_gather_indices(height: int, split_level: int) -> np.ndarray:
+    """(n_subtrees, subtree_nodes) gather map for every vertical partition."""
+    n_sub = 1 << split_level
+    return np.stack(
+        [subtree_gather_indices(height, split_level, s) for s in range(n_sub)]
+    )
+
+
 def eytzinger_from_sorted(
     sorted_keys: np.ndarray, sorted_values: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray, int, int]:
@@ -289,6 +297,36 @@ def init_ordered(B: int, device) -> OrderedResult:
     )
 
 
+def _ordered_step(keys, values, queries, active, idx, r, left: int, idx_clamp):
+    """One ordered compare-descend step over BFS-layout operands: the single
+    implementation behind both tree-level descents (the full reference and
+    the register-layer route; ``kernels/ref.py`` keeps its own twin of the
+    kernels' phases).  ``left`` is the level's left-subtree size.
+    ``idx_clamp`` bounds the child index for full-tree descents; the
+    register route leaves it None, because its final index must step past
+    the register block to name the subtree.  Returns ``(idx, r)``."""
+    nk = keys[idx]
+    nv = values[idx]
+    live = ~r.found if active is None else active & ~r.found
+    hit = (nk == queries) & live
+    go_right = live & ~hit & (queries > nk)
+    go_left = live & ~hit & (queries < nk)
+    r = OrderedResult(
+        value=torch.where(hit, nv, r.value),
+        found=r.found | hit,
+        pred_key=torch.where(go_right, nk, r.pred_key),
+        pred_value=torch.where(go_right, nv, r.pred_value),
+        succ_key=torch.where(go_left, nk, r.succ_key),
+        succ_value=torch.where(go_left, nv, r.succ_value),
+        rank=r.rank + go_right.int() * (left + 1) + hit.int() * left,
+    )
+    nxt = 2 * idx + 1 + go_right.long()
+    if idx_clamp is not None:
+        nxt = torch.clamp(nxt, max=idx_clamp)
+    frozen = r.found if active is None else r.found | ~active
+    return torch.where(frozen, idx, nxt), r
+
+
 def search_reference_ordered(
     tree: TreeData, queries: torch.Tensor, active: Optional[torch.Tensor] = None
 ) -> OrderedResult:
@@ -302,23 +340,9 @@ def search_reference_ordered(
     idx = torch.zeros((B,), dtype=torch.int64, device=queries.device)
     r = init_ordered(B, queries.device)
     for left in left_subtree_sizes(tree.height).tolist():
-        nk = tree.keys[idx]
-        nv = tree.values[idx]
-        live = active & ~r.found
-        hit = (nk == queries) & live
-        go_right = live & ~hit & (queries > nk)
-        go_left = live & ~hit & (queries < nk)
-        r = OrderedResult(
-            value=torch.where(hit, nv, r.value),
-            found=r.found | hit,
-            pred_key=torch.where(go_right, nk, r.pred_key),
-            pred_value=torch.where(go_right, nv, r.pred_value),
-            succ_key=torch.where(go_left, nk, r.succ_key),
-            succ_value=torch.where(go_left, nv, r.succ_value),
-            rank=r.rank + go_right.int() * (left + 1) + hit.int() * left,
+        idx, r = _ordered_step(
+            tree.keys, tree.values, queries, active, idx, r, left, tree.n_nodes - 1
         )
-        nxt = torch.clamp(2 * idx + 1 + go_right.long(), max=tree.n_nodes - 1)
-        idx = torch.where(r.found | ~active, idx, nxt)
     return r
 
 
@@ -329,3 +353,82 @@ def search_reference(
     Not-found queries get SENTINEL_VALUE."""
     res = search_reference_ordered(tree, queries)
     return res.value, res.found
+
+
+def register_layer_route(
+    tree: TreeData, queries: torch.Tensor, register_levels: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Descend the register layer only; route survivors to subtrees.
+
+    Returns (subtree_id, value, found), each (B,):
+      * found=True  -> the key matched inside the register layer, value valid;
+      * found=False -> subtree_id in [0, 2^register_levels) names the vertical
+        partition in which the descent must continue (paper Fig. 3).
+    """
+    if register_levels < 1:
+        raise ValueError("need at least one register level (the root)")
+    B = queries.shape[0]
+    device = queries.device
+    idx = torch.zeros((B,), dtype=torch.int64, device=device)
+    val = torch.full((B,), int(SENTINEL_VALUE), dtype=torch.int32, device=device)
+    found = torch.zeros((B,), dtype=torch.bool, device=device)
+    for _ in range(register_levels):
+        node_key = tree.keys[idx]
+        hit = (node_key == queries) & ~found
+        val = torch.where(hit, tree.values[idx], val)
+        found = found | hit
+        nxt = 2 * idx + 1 + (queries > node_key).long()
+        idx = torch.where(found, idx, nxt)
+    return _subtree_ids(idx, found, register_levels), val, found
+
+
+def _subtree_ids(idx: torch.Tensor, found: torch.Tensor, register_levels: int) -> torch.Tensor:
+    """After ``register_levels`` steps a live key's index lies at level
+    ``register_levels``, and its offset there is the subtree id; lanes that
+    hit in the register layer get -1."""
+    subtree_id = torch.clamp(idx - level_offset(register_levels), min=0)
+    return torch.where(found, -1, subtree_id).to(torch.int32)
+
+
+def register_layer_route_ordered(
+    tree: TreeData, queries: torch.Tensor, register_levels: int, full_height: int
+) -> Tuple[torch.Tensor, OrderedResult]:
+    """Ordered variant of ``register_layer_route``: (subtree_id, partial
+    OrderedResult), the register layer's part of the predecessor/successor
+    tracking and of the rank.  Rank contributions use ``full_height``
+    left-subtree sizes -- the register layer is a prefix of the FULL tree, so
+    a right turn at global level ``l`` skips ``2^{full_height - l}`` keys
+    wherever the split sits; the subtree descent's local rank adds on."""
+    if register_levels < 1:
+        raise ValueError("need at least one register level (the root)")
+    B = queries.shape[0]
+    idx = torch.zeros((B,), dtype=torch.int64, device=queries.device)
+    r = init_ordered(B, queries.device)
+    for left in left_subtree_sizes(full_height)[:register_levels].tolist():
+        idx, r = _ordered_step(tree.keys, tree.values, queries, None, idx, r, left, None)
+    return _subtree_ids(idx, r.found, register_levels), r
+
+
+def subtree_search(
+    sub_keys: torch.Tensor,
+    sub_values: torch.Tensor,
+    sub_height: int,
+    queries: torch.Tensor,
+    active: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Descend one vertical partition (local BFS layout) -> (values, found).
+    ``active`` masks padded or irrelevant slots so they cannot fake a hit."""
+    n = sub_keys.shape[0]
+    B = queries.shape[0]
+    device = queries.device
+    idx = torch.zeros((B,), dtype=torch.int64, device=device)
+    val = torch.full((B,), int(SENTINEL_VALUE), dtype=torch.int32, device=device)
+    found = torch.zeros((B,), dtype=torch.bool, device=device)
+    for _ in range(sub_height + 1):
+        node_key = sub_keys[idx]
+        hit = (node_key == queries) & ~found & active
+        val = torch.where(hit, sub_values[idx], val)
+        found = found | hit
+        nxt = torch.clamp(2 * idx + 1 + (queries > node_key).long(), max=n - 1)
+        idx = torch.where(found, idx, nxt)
+    return val, found & active

@@ -9,7 +9,26 @@ depend on it without cycles.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
+
+# The ordered-query payload: the field order of ``tree.OrderedResult`` and
+# the lane width of ``plans.pack_ordered``'s packed collective image are one
+# contract seen from two sides.
+ORDERED_FIELDS: Tuple[str, ...] = (
+    "value",
+    "found",
+    "pred_key",
+    "pred_value",
+    "succ_key",
+    "succ_value",
+    "rank",
+)
+ORDERED_PACK_WIDTH: int = len(ORDERED_FIELDS)
+
+# The delta buffer rides every query as this many flat (C,) int32 operands
+# -- sorted keys, values, tombstone flags, signed rank weights -- replicated
+# on every rank in sharded mode.
+DELTA_OPERANDS: int = 4
 
 
 def check_power_of_two(n: int, what: str) -> int:
@@ -31,6 +50,30 @@ def check_forest_nodes(n_nodes: int, height: int) -> None:
         raise ValueError(
             f"flat operand has {n_nodes} nodes, want 2^{height + 1}-1"
         )
+
+
+def check_chunk_divides(chunk_size: int, n_shards: int, axis: str) -> None:
+    """Sharded programs are fixed-shape SPMD: a chunk whose lanes do not
+    split evenly over the mesh axis has no legal placement, so the server
+    refuses it at construction."""
+    if chunk_size % n_shards:
+        raise ValueError(
+            f"chunk_size={chunk_size} must be divisible by the mesh "
+            f"axis {axis!r} size {n_shards} -- sharded chunks split "
+            "evenly across devices"
+        )
+
+
+def capacity_for_trace(batch: int, n_shards: int, capacity_frac: float) -> int:
+    """Per-(src, dst) dispatch-buffer depth sized per batch: the local
+    batch's fair share ``batch / n_shards`` scaled by the fraction, clamped
+    to ``[1, batch]`` (a depth above the batch is stall-free anyway, and a
+    zero depth could never place a key).  The concatenated ``lo || hi``
+    range batches see twice the lanes and get twice the depth, so the slack
+    is one constant across ops."""
+    if capacity_frac <= 0:
+        raise ValueError(f"capacity_frac must be > 0 (got {capacity_frac})")
+    return max(1, min(batch, int(math.ceil(batch / n_shards * capacity_frac))))
 
 
 def buffer_capacity(chunk: int, n_trees: int, buffer_slack: float) -> int:

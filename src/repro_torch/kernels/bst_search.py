@@ -130,7 +130,7 @@ def check_queue_split(split_level: int, device) -> None:
 def _check_delta(delta: Sequence[torch.Tensor], device) -> int:
     """The buffer's four operands: (C,) int32, contiguous, on ``device``,
     one length C >= 1.  Returns C."""
-    if len(delta) != 4:
+    if len(delta) != invariants.DELTA_OPERANDS:
         raise ValueError("delta must be (keys, values, tombstone, weight)")
     C = int(delta[0].shape[0]) if delta[0].ndim == 1 else -1
     for name, t in zip(("keys", "values", "tombstone", "weight"), delta):

@@ -1,4 +1,6 @@
-"""Serving driver, LM mode: batched greedy decoding with prefill + KV cache.
+"""Serving drivers: LM decoding, and the sharded BST store.
+
+LM mode -- batched greedy decoding with prefill + KV cache:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
@@ -11,13 +13,26 @@ before the timed prefill.  It prints the prefill time, decode tokens per
 second and the first sequence's token ids.  The published config is
 served whole: mixtral-8x7b's 32 layers (93.4 GB in bf16) do not fit one
 80 GB card, so on one card it runs with the smoke config only
-(``chip_smoke.py`` cuts its depth to 16).  The sharded BST store (``--bst``) is not ported yet
-and raises.
+(``chip_smoke.py`` cuts its depth to 16).
+
+BST mode -- the paper's accelerator served sharded, one process per
+device: ``BSTServer(mesh=...)`` routes fixed-shape chunks through the
+strategy's sharded program behind the double-buffered read loop, with live
+writes riding the replicated delta buffer:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --bst --bst-strategy hyb --requests 100000 --chunk 8192
+    PYTHONPATH=src python -m repro_torch.launch.serve --bst --device cpu
+
+Under ``torchrun`` the process group comes from its environment (NCCL on
+the card, one device per rank); without it the store runs as a world of
+one.  ``--device cpu`` selects gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -33,6 +48,79 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def bst_main(args) -> None:
+    """Serve a lookup stream and a mixed write tail through the sharded
+    BSTServer; rank 0 prints."""
+    import torch.distributed as dist
+
+    on_card = torch.device(args.device).type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    if "WORLD_SIZE" in os.environ:  # torchrun's environment
+        local_rank = int(os.environ.get("LOCAL_RANK", 0))
+        if on_card:
+            torch.cuda.set_device(local_rank)
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        local_rank = 0
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        _serve_bst(args, f"cuda:{local_rank}" if on_card else "cpu", backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_bst(args, device: str, backend: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import make_serving_mesh
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.data.keysets import make_tree_data
+    from repro_torch.serving import BSTServer
+
+    strategy = args.bst_strategy
+    mesh = make_serving_mesh(strategy, torch.device(device).type)
+    n_devices = mesh.size()
+    cfg = EngineConfig(
+        strategy=strategy,
+        n_trees=1 if strategy == "hrz" else max(2, n_devices),
+        mapping="queue",
+        device=device,
+        delta_capacity=args.chunk // 2,
+    )
+    keys, values = make_tree_data((1 << 16) - 1, seed=0)
+    srv = BSTServer(keys, values, cfg, chunk_size=args.chunk, mesh=mesh)
+    srv.warmup()
+    rng = np.random.default_rng(1)
+    stream = rng.choice(keys, args.requests).astype(np.int32)
+    lead = dist.get_rank() == 0
+
+    t0 = time.perf_counter()
+    srv.submit(stream)
+    srv.drain()
+    dt = time.perf_counter() - t0
+    s = srv.stats
+    if lead:
+        print(
+            f"sharded {strategy} x {n_devices} {backend} ranks on {device}: "
+            f"{args.requests} lookups in {dt:.3f}s ({s.keys_per_sec:.0f} keys/s busy, "
+            f"{s.found} found, {s.chunks} chunks)"
+        )
+
+    # a mixed tail: the writes ride the replicated delta buffer
+    wk = rng.integers(1, 2**20, args.chunk).astype(np.int32)
+    srv.submit_write(wk, wk * 3)
+    srv.submit(wk[: args.chunk // 2])
+    srv.drain()
+    _, found = srv.lookup(wk[:16])
+    nodes = srv.memory_nodes_per_device()  # a collective: every rank calls it
+    if lead:
+        print(
+            f"write path: {srv.stats.updates} updates absorbed, "
+            f"{int(found.sum())}/16 fresh keys found, {srv.stats.compactions} "
+            f"compaction(s); {nodes} key slots on the fullest device"
+        )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
@@ -42,14 +130,15 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--bst", action="store_true", help="serve the sharded BST store")
+    ap.add_argument("--bst-strategy", default="hyb", choices=("hrz", "dup", "hyb"))
+    ap.add_argument("--requests", type=int, default=100_000)
+    ap.add_argument("--chunk", type=int, default=8_192)
     args = ap.parse_args(argv)
 
     if args.bst:
-        raise NotImplementedError(
-            "the sharded BST store (--bst) is not ported yet (ROADMAP.md Queue 1 item 9)"
-        )
+        return bst_main(args)
     if args.arch is None:
-        ap.error("--arch is required")
+        ap.error("--arch is required (or pass --bst for the BST store)")
     if args.new_tokens < 1:
         ap.error("--new-tokens must be >= 1")
     device = torch.device(args.device)

@@ -26,7 +26,18 @@ that loop:
   * **lanes/sec accounting** -- per-chunk engine time (synchronised on the
     device), found counts per chunk, and busy seconds attributed per op by
     the engine lanes each request occupied (one per point, write or delete
-    key, two per range request: the lo||hi concatenated descent).
+    key, two per range request: the lo||hi concatenated descent);
+  * **sharded serving** -- with ``mesh`` (``core.distributed.
+    make_serving_mesh``) every rank builds the same server and takes the
+    same submissions in the same order; reads run through the sharded
+    program of ``core/distributed.py`` for the config's strategy (hrz, dup,
+    hyb), each rank serving its slice of every chunk and receiving the
+    whole columns, so every rank's ``drain()`` returns every answer.  The
+    read loop is a depth-2 double buffer: chunk i+1's copy to the device,
+    kernels and collectives are enqueued before chunk i is retired.  The
+    engine (and its delta buffer) stays whole on every rank, so writes and
+    compactions run on every rank alike; a compaction re-shards through
+    the engine's ``on_snapshot`` hook.
 
 The JAX server re-warms its reads after every snapshot swap to refill jit's
 compile cache.  Here ``warmup`` captures the served ops' CUDA graphs on the
@@ -38,11 +49,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import runtime
+import torch
+
+from repro_torch import invariants, runtime
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core.engine import BSTEngine, EngineConfig
 from repro_torch.core.tree import TreeData
@@ -109,12 +124,26 @@ class _Request:
     b: Optional[np.ndarray]  # range highs (range ops) / write values
 
 
+def _weak_hook(method: weakref.WeakMethod):
+    """An engine snapshot hook that calls ``method`` while its object lives."""
+
+    def hook(tree: TreeData) -> None:
+        bound = method()
+        if bound is not None:
+            bound(tree)
+
+    return hook
+
+
 class BSTServer:
     """Accumulate typed query requests, serve them in fixed-shape chunks.
 
     Single-threaded by design: the FPGA frontend is one stream of key
-    chunks.  ``scan_k`` fixes range_scan's bounded fan-out.  Sharded serving
-    (``mesh``) is not part of this package yet.
+    chunks.  ``scan_k`` fixes range_scan's bounded fan-out.  ``mesh``, a 1-D
+    ``DeviceMesh`` named for the config's strategy
+    (``core.distributed.make_serving_mesh``), serves the reads sharded:
+    every rank of the mesh constructs the server alike and makes the same
+    calls in the same order.
     """
 
     def __init__(
@@ -126,8 +155,6 @@ class BSTServer:
         scan_k: int = 8,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharded serving (mesh=...) is not ported yet")
         if chunk_size < 1:
             raise ValueError("chunk_size must be positive")
         if scan_k < 1:
@@ -135,6 +162,17 @@ class BSTServer:
         self.config = config
         self.chunk_size = chunk_size
         self.scan_k = scan_k
+        self.mesh = mesh
+        self._squery = None
+        if mesh is not None:
+            axis = plans_lib.mesh_axis_for_strategy(config.strategy)
+            names = mesh.mesh_dim_names or ()
+            if axis not in names:
+                raise ValueError(
+                    f"strategy {config.strategy!r} shards over axis {axis!r}; "
+                    f"the mesh has {names} (see distributed.make_serving_mesh)"
+                )
+            invariants.check_chunk_divides(chunk_size, mesh.shape[names.index(axis)], axis)
         self.stats = ServerStats()
         self._pending: List[_Request] = []
         self._pending_keys = 0
@@ -145,6 +183,23 @@ class BSTServer:
             min(chunk_size, config.delta_capacity) if config.delta_capacity > 0 else chunk_size
         )
         self._engine = BSTEngine(keys, values, config)
+        if mesh is not None:
+            self._install_sharded(self._engine.tree)
+            # A compaction can swap the snapshot deep inside apply_ops'
+            # chunk loop; the hook re-shards before any later read.  It
+            # holds the server weakly, so that the engine makes no cycle
+            # with it: a dropped server frees its mesh (and the mesh's
+            # process group) at once.
+            self._engine.on_snapshot = _weak_hook(weakref.WeakMethod(self._install_sharded))
+
+    def _install_sharded(self, tree: TreeData) -> None:
+        """Shard ``tree``, sharing the engine's plan of it (its rank -> BFS
+        map and sorted view) with the sharded epilogues."""
+        cfg = self.config
+        self._squery = dist_lib.make_sharded_query(
+            tree, self.mesh, cfg.strategy, buffer_slack=cfg.buffer_slack,
+            plan=self._engine.plan,
+        )
 
     @property
     def snapshot(self) -> TreeData:
@@ -160,16 +215,26 @@ class BSTServer:
         """Run one chunk of each op, so timed chunks exclude first-use costs
         (the kernels' build and load, the allocator's first blocks, and on
         the card each op's CUDA graph of the current snapshot: its capture;
-        a compaction's new snapshot captures again at first use)."""
+        a compaction's new snapshot captures again at first use).  Sharded,
+        the chunk runs through the sharded program, which is eager (no
+        graph): every rank must call it."""
         dummy = np.zeros(self.chunk_size, np.int32)
         for op in ops:
             runtime.block_until_ready(self._query_chunk(op, dummy, dummy))
 
     def _query_chunk(self, op: str, a, b) -> tuple:
-        """One chunk through the engine; on the card the results are its
-        graph's static outputs, which the caller fetches before the next
-        chunk."""
-        if op in RANGE_OPS:
+        """One chunk through the serving datapath: the sharded program when
+        a mesh is installed (the engine's pending delta buffer rides it,
+        folded on every rank's slice), else the engine, whose results on
+        the card are its graph's static outputs, which the caller fetches
+        before the next chunk."""
+        if self._squery is not None:
+            kw = {"delta": self._engine.delta} if self._engine.delta is not None else {}
+            if op in RANGE_OPS:
+                res = self._squery(op, a, b, k=self.scan_k, **kw)
+            else:
+                res = self._squery(op, a, **kw)
+        elif op in RANGE_OPS:
             res = self._engine.query_static(op, a, b, k=self.scan_k)
         else:
             res = self._engine.query_static(op, a)
@@ -393,6 +458,8 @@ class BSTServer:
             a = np.pad(a, (0, pad))
             if b is not None:
                 b = np.pad(b, (0, pad))
+        if self._squery is not None:
+            return self._serve_stream_sharded(op, a, b, B)
         columns = None
         for lo in range(0, a.size, self.chunk_size):
             sl = slice(lo, lo + self.chunk_size)
@@ -430,6 +497,73 @@ class BSTServer:
         for col, c in zip(columns, host):
             col[sl] = c
         return columns
+
+    def _serve_stream_sharded(self, op: str, a: np.ndarray, b: Optional[np.ndarray], B: int):
+        """The sharded read loop: a depth-2 double buffer.
+
+        Each chunk is staged in one of two host slots (pinned on the card),
+        copied to the device without blocking, and its kernels and
+        collectives enqueued; an event recorded behind them marks the
+        chunk.  Chunk i is retired (its event waited on, its columns
+        fetched: the one counted fetch) only after chunk i+1 is enqueued,
+        and its slot is staged again only after that.  Busy seconds are the
+        pipeline's wall time, first staging to last retire: per-chunk
+        times would count the overlap twice.  Lane and found accounting is
+        the single-chip loop's.
+        """
+        device = self._engine.device
+        on_card = device.type == "cuda"
+        rows = 1 if b is None else 2  # a chunk's lows, and its highs
+        slots = [
+            torch.empty((rows, self.chunk_size), dtype=torch.int32, pin_memory=on_card)
+            for _ in range(2)
+        ]
+        columns = None
+        found = 0
+        inflight: List[tuple] = []
+        n_chunks = 0
+
+        def retire(r_sl: slice, r_lo: int, r_res: tuple, r_done):
+            nonlocal columns, found
+            if r_done is not None:
+                r_done.synchronize()
+            columns = self._fill_columns(columns, a.size, r_sl, r_res)
+            if op == "lookup":
+                real = min(self.chunk_size, B - r_lo)
+                found += int(columns[1][r_lo : r_lo + real].sum())
+
+        t0 = time.perf_counter()
+        for lo in range(0, a.size, self.chunk_size):
+            sl = slice(lo, lo + self.chunk_size)
+            stage = slots[n_chunks % 2]
+            stage[0].numpy()[:] = a[sl]
+            if b is not None:
+                stage[1].numpy()[:] = b[sl]
+            dev = stage.to(device, non_blocking=True)
+            res = self._query_chunk(op, dev[0], None if b is None else dev[1])
+            done = None
+            if on_card:
+                done = torch.cuda.Event()
+                done.record()
+            inflight.append((sl, lo, res, done))
+            n_chunks += 1
+            if len(inflight) > 1:  # depth 2: retire the older chunk
+                retire(*inflight.pop(0))
+        for flying in inflight:
+            retire(*flying)
+        dt = time.perf_counter() - t0
+        lanes = B * (2 if op in RANGE_OPS else 1)
+        self.stats.busy_s += dt
+        self.stats.chunks += n_chunks
+        self.stats.lanes += lanes
+        self.stats.found += found
+        self.stats.served += B
+        ops = self.stats.op(op)
+        ops.busy_s += dt
+        ops.chunks += n_chunks
+        ops.lanes += lanes
+        ops.served += B
+        return [col[:B] for col in columns]
 
     # ------------------------------------------------------------ convenience
     def lookup(self, request_keys):
@@ -469,3 +603,14 @@ class BSTServer:
 
     def memory_nodes(self) -> int:
         return self._engine.memory_nodes()
+
+    def memory_nodes_per_device(self) -> int:
+        """Stored key slots on the fullest device: sharded, MEASURED from the
+        tensors each rank holds (``distributed.stored_nodes_per_device``, a
+        collective: every rank must call it); single-chip, the snapshot's
+        node count.  Sharded, each rank's engine also keeps the whole
+        snapshot for ingest and compaction, which this figure leaves out,
+        as the JAX package's does."""
+        if self._squery is not None:
+            return int(self._squery.device_nodes())
+        return int(self._engine.tree.n_nodes)

@@ -18,7 +18,9 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch import graphs, invariants  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
-from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine  # noqa: E402
+from repro_torch import runtime  # noqa: E402
+from repro_torch.core import distributed as TDist  # noqa: E402
+from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig  # noqa: E402
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -340,6 +342,82 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
     assert read_chunks == 10
     assert runs[kern + "_delta"] == read_chunks  # every read resolves the buffer
     assert runs[kern] == 2  # ingest: 420 writes and deletes in chunks of 256
+
+
+@pytest.fixture
+def nccl_world(cuda_device):
+    """A world of one over NCCL in this process, destroyed after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("strategy", ["hrz", "dup", "hyb"])
+def test_sharded_server_at_world_one_matches_the_single_chip_server(cuda_device, nccl_world,
+                                                                     strategy):
+    """The sharded path over NCCL (split level 0: trivial routing) against
+    the single-chip server and a dict oracle, across a compaction: the same
+    columns, one fetch per read chunk and per compaction, K4 and K1 from
+    the sharded path and no K2 (the buffer folds in plain torch)."""
+    keys, values = make_tree_data(8191, seed=2)
+    cfg = EngineConfig(strategy=strategy, n_trees=1 if strategy == "hrz" else 4,
+                       delta_capacity=256)
+    srv = BSTServer(keys, values, cfg, chunk_size=1024, scan_k=4,
+                    mesh=TDist.make_serving_mesh(strategy))
+    single = BSTServer(keys, values, cfg, chunk_size=1024, scan_k=4)
+    rng = np.random.default_rng(3)
+    wk = np.concatenate([rng.choice(keys, 150, replace=False),
+                         rng.choice(keys.size, 150, replace=False).astype(np.int32) * 2 + 1])
+    wv = rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)
+    dk = np.concatenate([rng.choice(keys, 90, replace=False), keys[:30] + 1])
+    q = rng.choice(np.concatenate([keys, wk, dk, keys + 1]), 3000).astype(np.int32)
+    ops = ("lookup", "predecessor", "successor", "range_count", "range_scan")
+
+    def submit(server):
+        server.submit_write(wk, wv)
+        server.submit_delete(dk)
+        return [server.submit(q, op=op) if op not in ("range_count", "range_scan")
+                else server.submit_range(q[:500], q[:500] + 40, op=op) for op in ops]
+
+    tickets, single_tickets = submit(srv), submit(single)
+    K.reset_launches()
+    QD.reset_launches()
+    fetches = runtime.fetch_count()
+    got = srv.drain()
+    n_fetch = runtime.fetch_count() - fetches
+    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    want = single.drain()
+    for t, st in zip(tickets, single_tickets):
+        for g, w in zip(got[t], want[st]):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+    kv = dict(zip(keys.tolist(), values.tolist()))
+    kv.update(zip(wk.tolist(), wv.tolist()))
+    for k in dk.tolist():
+        kv.pop(k, None)
+    sk = np.array(sorted(kv), np.int32)
+    i = np.clip(np.searchsorted(sk, q), 0, sk.size - 1)
+    np.testing.assert_array_equal(got[tickets[0]][1], sk[i] == q)
+
+    st = srv.stats
+    assert st.compactions >= 1
+    read_chunks = sum(st.per_op[op].chunks for op in ops)
+    assert read_chunks == 3 * 3 + 2  # 3000 point keys and 500 ranges in chunks of 1024
+    assert n_fetch == read_chunks + st.compactions
+    ingest_chunks = st.chunks - read_chunks
+    # one round a read chunk: at world 1 hyb's per-batch depth is the whole
+    # local batch, so no stall or drain round follows
+    assert launches["queue_dispatch"] == (0 if strategy == "dup" else read_chunks)
+    ingest_kernel = "hybrid_descend" if strategy == "hyb" else "forest_descend"
+    assert launches[ingest_kernel] - (0 if strategy == "hyb" else read_chunks) == ingest_chunks
+    if strategy == "hyb":
+        assert launches["forest_descend"] == read_chunks
+    assert launches["forest_descend_delta"] == launches["hybrid_descend_delta"] == 0
+    assert srv.memory_nodes_per_device() == srv.snapshot.n_nodes + (1 if strategy != "dup" else 0)
 
 
 # ------------------------------------------------------------ K5: attention

@@ -233,7 +233,9 @@ def test_serving_entry_points_on_the_cpu(capsys):
                  "--batch", "2", "--prompt-len", "8", "--new-tokens", "4"])
     out = capsys.readouterr().out
     assert "prefill: 2x8" in out and "decode: 4 tokens x 2 seqs" in out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tserve.main(["--bst"])
+    # the sharded BST store at world 1 (gloo on the CPU)
+    tserve.main(["--bst", "--device", "cpu", "--requests", "500", "--chunk", "128"])
+    out = capsys.readouterr().out
+    assert "sharded hyb x 1 gloo ranks on cpu: 500 lookups" in out and "500 found" in out
     with pytest.raises(NotImplementedError, match="item 9"):
         tserve_loop.make_prefill_fn(tconfigs.smoke_config("qwen3-1.7b"), mesh=object())

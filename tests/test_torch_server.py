@@ -7,6 +7,7 @@ count must agree exactly.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -95,8 +96,14 @@ def test_server_convenience_calls_and_warmup():
 
 def test_server_rejects_what_this_slice_does_not_serve():
     keys, values = make_tree_data(100, seed=1)
-    with pytest.raises(NotImplementedError):
-        BSTServer(keys, values, EngineConfig(device="cpu"), mesh=object())
+    # a mesh it cannot shard over: the strategy's axis missing, or a chunk
+    # that does not split over the axis (checked before any collective)
+    with pytest.raises(ValueError, match="shards over axis 'model'"):
+        BSTServer(keys, values, EngineConfig(device="cpu"),
+                  mesh=types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,)))
+    with pytest.raises(ValueError, match="divisible"):
+        BSTServer(keys, values, EngineConfig(device="cpu"),
+                  mesh=types.SimpleNamespace(mesh_dim_names=("model",), shape=(3,)))
     srv = BSTServer(keys, values, EngineConfig(device="cpu"))
     with pytest.raises(ValueError):
         srv.submit(keys, op="range_count")
