@@ -37,12 +37,21 @@ Phases, in order; any failure raises and exits non-zero:
 4w. the live write path: each paper configuration with a 4096-entry delta
    buffer serves one stream of interleaved writes, deletes and reads of
    all five ops over the same tree, every answer held against a numpy
-   oracle of the state the read must see; the fetch budget (one per read
-   chunk, one per compaction) and the launch counts (K2 once per read
-   chunk, every one a graph replay, K1 or K3 once per ingest chunk) are
-   checked, and so is the snapshot after a final compaction; the drain's
-   captures (each op again after each compaction) and their time, and
-   chunk profiles as in phase 4, are logged;
+   oracle of the state the read must see; ``warmup`` captures the
+   engine's graphs first (five queries, the ingest, the compaction's merge
+   and layout), so every read chunk, ingest chunk and compaction step of
+   the drain is a replay; the fetch budget (one per read chunk, one per
+   compaction), the launch counts (K2 once per read chunk, K1 or K3 once
+   per ingest chunk, every one replayed) and the captures (every graph
+   once inside the compaction that grows the tree to height 24, none in
+   the others) are checked, and so is the snapshot after a final
+   compaction; then, on an engine of the same tree, the ingest graph and
+   the compaction's graphs against their eager route bit for bit
+   (``_ingest_step``, ``delta.compact``: buffer, BFS image, sorted view,
+   count) through one compaction that grows the tree and three that keep
+   it, both routes timed, and for Hrz one ingest chunk profiled on either
+   route (host launch calls); chunk profiles as in phase 4, the Hrz
+   write drain's idle share and the phase's peak memory are logged;
 4s. sharded serving (``BSTServer(mesh=...)``, ``core/distributed.py``) for
    hrz, dup and hyb (as Hrz, Dup4, Hyb4q) over the same tree: at world 1
    over NCCL in this process, then at 4 ranks spawned on the one card over
@@ -215,6 +224,9 @@ W_DELETES = 2048  # three quarters stored keys, one quarter absent
 W_LOOKUPS = 8192  # written, deleted and random keys
 W_POINTS = 8192  # predecessor, and as many successor, queries of odd keys
 W_RANGES = 4096  # range_count, and as many range_scan, spans near written keys
+# The graph-vs-eager check of the write path: the first rounds' writes, one
+# compaction each (round 0's grows the tree to height 24, the others keep it)
+W_GRAPH_ROUNDS = 4
 # The sharded phase (4s): each strategy over a mesh, as the paper config
 # below (hrz Hrz, dup Dup4, hyb Hyb4q), at world 1 over NCCL in this process
 # and at SHARD_RANKS ranks spawned on the one card over gloo (NCCL puts no
@@ -792,7 +804,7 @@ def profile_write_drains(keys, values, rounds) -> list:
     buffer, two profiled drains of half the stream's rounds each."""
     cfg = dataclasses.replace(PAPER_CONFIGS["Hrz"], device="cuda", delta_capacity=W_CAPACITY)
     srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
-    srv.warmup(QUERY_OPS)
+    srv.warmup(QUERY_OPS + ("write",))
     half = len(rounds) // 2
 
     def submit(i):
@@ -934,18 +946,44 @@ def write_stream(keys, values, seed: int = 11) -> tuple:
     return rounds, (sk, sv)
 
 
-def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
+def track_compactions(eng) -> list:
+    """Record, per compaction of ``eng``, the height before and after and
+    the graphs captured inside it: ``eng.compact`` wrapped on the instance
+    (``apply_ops`` calls it there)."""
+    record = []
+    compact = eng.compact
+
+    def tracked():
+        h, captures = eng.tree.height, graphs.STATS["captures"]
+        out = compact()
+        record.append({"height": [h, eng.tree.height],
+                       "captures": graphs.STATS["captures"] - captures})
+        return out
+
+    eng.compact = tracked
+    return record
+
+
+def serve_write_path(keys, values, rounds, final, tree, smi: str, device="cuda"):
     """Phase 4w: every paper config with a W_CAPACITY delta buffer serves
-    the whole stream in one drain.  Every read chunk is one replay of its
-    op's graph (captured again at the first read after each compaction);
-    every ingest chunk runs eagerly.  Returns the per-config rows and the
-    kernel launches that ran, per kernel, summed over the configs' drains
-    (each counted from 0 just before its drain)."""
+    the whole stream in one drain, its graphs (the queries', the ingest's
+    and the compaction's) captured by ``warmup`` first.  Every read chunk,
+    ingest chunk and compaction step is one replay; a compaction that
+    keeps the height captures nothing, the one that changes it (23 -> 24)
+    captures every graph of the engine once.  Then the ingest and
+    compaction graphs against their eager route on the phase's tree
+    (``check_write_graphs``).  Returns the per-config rows and the kernel
+    launches that ran, per kernel, summed over the configs' drains (each
+    counted from 0 just before its drain)."""
     rows, launches = [], {kern: 0 for kern in K.LAUNCHES}
     for name, cfg in PAPER_CONFIGS.items():
         cfg = dataclasses.replace(cfg, device=device, delta_capacity=W_CAPACITY)
         srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
-        srv.warmup(QUERY_OPS)
+        srv.warmup(QUERY_OPS + ("write",))
+        eng = srv.engine
+        held = eng.graph_keys()
+        check(len(held) == len(QUERY_OPS) + 3, f"{name}: warmup holds graphs {held}")
+        compactions = track_compactions(eng)
         tickets = []
         for rnd in rounds:
             srv.submit_write(*rnd["writes"])
@@ -956,9 +994,12 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
         fetches = runtime.fetch_count()
         K.reset_launches()
         graphs.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = srv.drain()
         drain_s = time.perf_counter() - t0
+        drain_peak = torch.cuda.max_memory_allocated()
         runs = graphs.kernel_runs()
         counts = {kern: runs[kern] for kern in K.LAUNCHES}
         replayed = {kern: graphs.REPLAYED[kern] for kern in K.LAUNCHES}
@@ -983,39 +1024,38 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
         check(counts[kern + "_delta"] == read_chunks == replayed[kern + "_delta"],
               f"{name}: {counts[kern + '_delta']} K2 launches, {replayed[kern + '_delta']} of them "
               f"replayed, for {read_chunks} read chunks")
-        check(counts[kern] == ingest_chunks,
-              f"{name}: {counts[kern]} {kern} launches for {ingest_chunks} ingest chunks")
+        check(counts[kern] == ingest_chunks == replayed[kern],
+              f"{name}: {counts[kern]} {kern} launches, {replayed[kern]} of them replayed, for "
+              f"{ingest_chunks} ingest chunks")
         check(counts[other] == counts[other + "_delta"] == 0, f"{name}: {other} launched")
+        # captures only where the height changed: every graph once, there
+        check(len(compactions) == st.compactions, f"{name}: {len(compactions)} compactions tracked")
+        for c in compactions:
+            want = len(held) if c["height"][0] != c["height"][1] else 0
+            check(c["captures"] == want, f"{name}: a compaction {c} captured {c['captures']} "
+                  f"graphs, the design {want}")
+        changes = [c["height"] for c in compactions if c["height"][0] != c["height"][1]]
+        check(captures == len(held) * len(changes) and changes == [[23, 24]],
+              f"{name}: {captures} captures in the drain, height changes {changes}")
 
-        eng = srv.engine
         rnd = rounds[-1]["reads"]
         chunks = (chunk_profiles(eng, rnd[0][1][:CHUNK], *spans(rnd[3][1], rnd[3][2]))
                   if name == "Hrz" else None)
-        # One compaction and one ingest chunk, timed on the state the drain
-        # left (neither result is installed), then the final compaction.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        delta_lib.compact(eng.tree, eng.delta)
-        torch.cuda.synchronize()
-        compact_s = time.perf_counter() - t0
-        wk, wv = rounds[-1]["writes"]
-        k, v = torch.from_numpy(wk).to(device), torch.from_numpy(wv).to(device)
-        d = torch.zeros(wk.size, dtype=torch.bool, device=device)
-        ok = torch.ones(wk.size, dtype=torch.bool, device=device)
-        fresh = delta_lib.empty(W_CAPACITY, device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cls = plans_lib.execute_plan_ordered(eng.plan, k)
-        delta_lib.ingest(fresh, k, v, d, ok, cls.found, cls.rank)
-        torch.cuda.synchronize()
-        ingest_s = time.perf_counter() - t0
         eng.compact()
-        skd, svd = eng.plan.sorted_view()
+        skd, svd, count = eng.plan.sorted_view()
         n_real = eng.tree.n_real
-        check(n_real == final[0].size, f"{name}: {n_real} keys after compaction, oracle {final[0].size}")
+        check(n_real == final[0].size and count.tolist() == [n_real],
+              f"{name}: {n_real} keys after compaction ({count.tolist()} on the card), "
+              f"oracle {final[0].size}")
         check(np.array_equal(skd[:n_real].cpu().numpy(), final[0])
               and np.array_equal(svd[:n_real].cpu().numpy(), final[1]),
               f"{name}: the compacted snapshot differs from the oracle")
+        final_height = eng.tree.height
+        del srv, eng, skd, svd, count, res
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        graph_checks = check_write_graphs(tree, name, rounds, profile=name == "Hrz")
+        graph_checks["peak_bytes"] = torch.cuda.max_memory_allocated()
 
         row = {
             "config": name,
@@ -1023,30 +1063,126 @@ def serve_write_path(keys, values, rounds, final, smi: str, device="cuda"):
             "read_chunks": read_chunks,
             "ingest_chunks": ingest_chunks,
             "compactions": st.compactions,
+            "compaction_log": compactions,
             "fetches": n_fetch,
             "launches": counts,
             "busy_s": st.busy_s,
             "lanes_per_sec": st.lanes_per_sec,
             "drain_s": drain_s,
             "lanes_per_drain_sec": st.lanes / drain_s,
-            "compaction_s": compact_s,
-            "ingest_chunk_s": ingest_s,
-            "final_height": eng.tree.height,
+            "drain_peak_bytes": drain_peak,
+            "final_height": final_height,
             "per_op_lanes_per_sec": {op: s.lanes_per_sec for op, s in st.per_op.items()},
-            "captures": captures, "capture_s": capture_s, "chunk_profiles": chunks,
+            "read_lanes_per_sec": (sum(st.per_op[op].lanes for op in QUERY_OPS)
+                                   / sum(st.per_op[op].busy_s for op in QUERY_OPS)),
+            "graphs": len(held), "captures": captures, "capture_s": capture_s,
+            "chunk_profiles": chunks, "write_graphs": graph_checks,
         }
         rows.append(row)
-        log(f"  {name}: lanes_per_sec={st.lanes_per_sec!r} (busy), "
-            f"{row['lanes_per_drain_sec']!r} (drain wall) over {st.lanes} lanes; "
-            f"{read_chunks} read chunks, {ingest_chunks} ingest chunks, {st.compactions} "
-            f"compactions, {n_fetch} fetches; one compaction {compact_s!r} s, one ingest "
-            f"chunk of {wk.size} {ingest_s!r} s; every read chunk a graph replay, {captures} "
-            f"captures in the drain ({capture_s!r} s, {capture_s / max(captures, 1)!r} s each); "
-            f"answers and final snapshot == oracle ({smi})")
+        same = [c for c in graph_checks["compactions"] if c["height"][0] == c["height"][1]]
+        log(f"  {name}: lanes_per_sec={st.lanes_per_sec!r} (busy; reads alone "
+            f"{row['read_lanes_per_sec']!r}), {row['lanes_per_drain_sec']!r} (drain wall) over "
+            f"{st.lanes} lanes; {read_chunks} read chunks, {ingest_chunks} ingest chunks, "
+            f"{st.compactions} compactions, {n_fetch} fetches; every read chunk, ingest chunk and "
+            f"compaction step a graph replay; {captures} captures in the drain ({capture_s!r} s), "
+            f"all {len(held)} graphs once at the height change 23 -> 24, none at the "
+            f"{st.compactions - 1} others; drain peak {drain_peak} bytes; answers and final "
+            f"snapshot == oracle ({smi})")
+        log(f"    graphs == eager route: {len(graph_checks['ingests'])} ingest chunks, "
+            f"{len(graph_checks['compactions'])} compactions; ingest chunk of "
+            f"{graph_checks['ingests'][0]['lanes']} lanes graph "
+            f"{[i['graph_s'] for i in graph_checks['ingests']]!r} s, eager "
+            f"{[i['eager_s'] for i in graph_checks['ingests']]!r} s; same-height compaction graph "
+            f"{[c['graph_s'] for c in same]!r} s, eager {[c['eager_s'] for c in same]!r} s; the "
+            f"height change's {graph_checks['compactions'][0]['graph_s']!r} s (eager layout and "
+            f"{graph_checks['compactions'][0]['captures']} captures), eager "
+            f"{graph_checks['compactions'][0]['eager_s']!r} s ({smi})")
         if chunks is not None:
             log_chunk_profiles(chunks)
-        del srv, eng, skd, svd
+        if graph_checks["ingest_profile"] is not None:
+            log_chunk_profiles(graph_checks["ingest_profile"])
     return rows, launches
+
+
+def check_write_graphs(tree, name: str, rounds, profile: bool) -> dict:
+    """The write path's graphs against its eager route, bit for bit, on the
+    phase's own tree: an engine of ``name`` with a W_CAPACITY buffer (its
+    high-water mark the capacity, so that a slice of W_CAPACITY - 1 writes
+    stays in the buffer), warmed; per round of the first W_GRAPH_ROUNDS,
+    that round's writes through the ingest graph (``apply_ops``) against
+    ``_ingest_step`` on a copy of the buffer (buffer and kernel operands),
+    then a compaction through the merge and layout graphs (``compact``)
+    against ``delta.compact`` on copies (BFS image, sorted view, device
+    count, height).  Round 0 grows the tree (23 -> 24: the merge's graph,
+    then the eager layout and every graph captured again), the others keep
+    it.  Each route timed on the host clock around synchronised calls (the
+    eager ingest with its packed H2D copy, as ``apply_ops`` did it before
+    the graphs); with ``profile``, one ingest chunk on either route
+    profiled (``profile_segments``)."""
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], device="cuda", delta_capacity=W_CAPACITY,
+                              delta_high_water=W_CAPACITY)
+    eng = BSTEngine.from_tree(tree, cfg)
+    eng.warmup_writes()
+    device = eng.device
+    ingests, compactions = [], []
+    for i, rnd in enumerate(rounds[:W_GRAPH_ROUNDS]):
+        wk, wv = (x[: W_CAPACITY - 1] for x in rnd["writes"])
+        wd = np.zeros(wk.size, bool)
+        before = delta_lib.DeltaBuffer(*(t.clone() for t in eng.delta))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = np.stack([wk, wv, wd, np.ones(wk.size, bool)]).astype(np.int32)
+        k, v, d, ok = torch.from_numpy(packed).to(device)
+        want = eng._ingest_step(before, k, v, d != 0, ok != 0)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.apply_ops(wk, wv, wd)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        check((eng.compactions, eng.pending_writes()) == (i, wk.size),
+              f"{name}: the ingest check compacted")
+        check(all(torch.equal(a, b) for a, b in zip(eng.delta, want))
+              and all(torch.equal(a, b) for a, b in zip(eng._delta_ops, delta_lib.operands(want))),
+              f"{name}: the ingest graph differs from the eager ingest")
+        ingests.append({"lanes": int(wk.size), "graph_s": graph_s, "eager_s": eager_s})
+
+        old = tree_lib.TreeData(eng.tree.keys.clone(), eng.tree.values.clone(), eng.tree.height,
+                       eng.tree.n_real)
+        buffered = delta_lib.DeltaBuffer(*(t.clone() for t in eng.delta))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = delta_lib.compact(old, buffered)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        h, captures = eng.tree.height, graphs.STATS["captures"]
+        t0 = time.perf_counter()
+        eng.compact()
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        got_view, want_view = eng.plan.sorted_view(), tree_lib.sorted_view_of(want)
+        check((eng.tree.height, eng.tree.n_real) == (want.height, want.n_real)
+              and torch.equal(eng.tree.keys, want.keys) and torch.equal(eng.tree.values, want.values)
+              and all(torch.equal(a, b) for a, b in zip(got_view, want_view)),
+              f"{name}: the compaction's graphs differ from the eager compaction (round {i})")
+        compactions.append({"height": [h, eng.tree.height], "graph_s": graph_s, "eager_s": eager_s,
+                            "captures": graphs.STATS["captures"] - captures})
+        del old, buffered, want, got_view, want_view
+    heights = [c["height"] for c in compactions]
+    check(heights == [[23, 24]] + [[24, 24]] * (W_GRAPH_ROUNDS - 1),
+          f"{name}: the checked compactions went {heights}")
+    check([c["captures"] for c in compactions] == [len(eng.graph_keys())] + [0] * (W_GRAPH_ROUNDS - 1),
+          f"{name}: the checked compactions captured {[c['captures'] for c in compactions]}")
+    prof = None
+    if profile:  # one key a call: the graph pads every slice to the capacity
+        one = (wk[:1], wv[:1], wd[:1])
+        prof = profile_segments([
+            (("ingest", "graph"), lambda: eng.apply_ops(*one)),
+            (("ingest", "eager"), lambda: eng._ingest_step(eng.delta, k, v, d != 0, ok != 0)),
+        ], CHUNK_PROFILE_CALLS)
+        prof = {"ingest": {route: p for (_, route), p in prof.items()}}
+    del eng
+    return {"ingests": ingests, "compactions": compactions, "ingest_profile": prof}
 
 
 # --------------------------------------------------- phase 4s: sharded serving
@@ -1171,13 +1307,12 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
     seconds["read_server"] = time.perf_counter() - t0
     tickets = submit_reads(srv, reads)
     torch.cuda.synchronize()
-    K.reset_launches()
-    QD.reset_launches()
+    runs = graphs.kernel_runs()
     fetches = runtime.fetch_count()
     t0 = time.perf_counter()
     res = srv.drain()
     drain_s = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
     n_fetch = runtime.fetch_count() - fetches
     check_answers(res, tickets, tag)
     st = srv.stats
@@ -1213,7 +1348,7 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
     t0 = time.perf_counter()
     wsrv = BSTServer(keys, values, dataclasses.replace(cfg, delta_capacity=W_CAPACITY),
                      chunk_size=CHUNK, scan_k=SCAN_K, mesh=mesh)
-    wsrv.warmup(QUERY_OPS)
+    wsrv.warmup(QUERY_OPS + ("write",))
     seconds["write_server"] = time.perf_counter() - t0
     tickets = []
     for rnd in w_rounds:
@@ -1221,13 +1356,12 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
         wsrv.submit_delete(rnd["deletes"])
         tickets += submit_reads(wsrv, rnd["reads"])
     torch.cuda.synchronize()
-    K.reset_launches()
-    QD.reset_launches()
+    runs = graphs.kernel_runs()
     fetches = runtime.fetch_count()
     t0 = time.perf_counter()
     res = wsrv.drain()
     drain_s = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
     n_fetch = runtime.fetch_count() - fetches
     check_answers(res, tickets, f"{tag} writes")
     st = wsrv.stats
@@ -2410,15 +2544,15 @@ def main() -> int:
     for h in (tree.height, tree.height + 1):  # set-up: the re-layout maps a compaction reads
         tree_lib.rank_to_bfs_on(h, tree.device)
         tree_lib.bfs_inorder_ranks_on(h, tree.device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    written, w_launches = serve_write_path(keys, values, rounds, final, smi)
-    peak = torch.cuda.max_memory_allocated()
+    written, w_launches = serve_write_path(keys, values, rounds, final, tree, smi)
+    peak = max(max(r["drain_peak_bytes"], r["write_graphs"]["peak_bytes"]) for r in written)
     for kern, n in w_launches.items():
         check(n > 0, f"{kern} never launched on the write path")
     log(f"    launches on the write path: {w_launches}")
-    log(f"    peak device memory of the write phase: {peak} bytes "
-        f"(torch.cuda.max_memory_allocated, the phase 3 tree and buffers included)")
+    log(f"    peak device memory of the write phase: {peak} bytes (torch.cuda.max_memory_allocated "
+        f"over each drain and each graph check, the phase 3 tree and buffers included; the drains' "
+        f"{[r['drain_peak_bytes'] for r in written]}, the checks' "
+        f"{[r['write_graphs']['peak_bytes'] for r in written]})")
     write_profile = profile_write_drains(keys, values, rounds)
     log_profile(f"Hrz write-path drain of {W_ROUNDS // 2} rounds", write_profile)
 

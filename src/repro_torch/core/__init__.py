@@ -1,6 +1,7 @@
 """Core library of the port: tree layout, search plans, the engine, the
-delta write buffer, bulk maintenance, the dispatch buffers and sharded
-serving over ``torch.distributed``."""
+delta write buffer, bulk maintenance, the dispatch buffers, sharded
+serving over ``torch.distributed``, and the cycle model of the paper's
+FPGA pipeline (``cyclesim``)."""
 
 from repro_torch.core import buffers, delta
 from repro_torch.core.buffers import (
@@ -11,6 +12,7 @@ from repro_torch.core.buffers import (
     gather_from_buffers,
     queue_dispatch,
 )
+from repro_torch.core.cyclesim import SimResult, run_paper_matrix, simulate
 from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.distributed import (
     make_distributed_lookup,
@@ -57,6 +59,7 @@ __all__ = [
     "SENTINEL_KEY",
     "SENTINEL_VALUE",
     "SearchPlan",
+    "SimResult",
     "TreeData",
     "buffers",
     "build_tree",
@@ -77,8 +80,10 @@ __all__ = [
     "make_plan",
     "ordered_query",
     "queue_dispatch",
+    "run_paper_matrix",
     "search_reference",
     "search_reference_ordered",
+    "simulate",
     "sorted_view",
     "tree_from_numpy",
 ]

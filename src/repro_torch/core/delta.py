@@ -31,7 +31,7 @@ write path is the new key count at compaction (one counted
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -44,6 +44,10 @@ _SENTINEL_KEY = int(tree_lib.SENTINEL_KEY)
 _SENTINEL_VALUE = int(tree_lib.SENTINEL_VALUE)
 _NO_PRED_KEY = int(tree_lib.NO_PRED_KEY)
 _NO_SUCC_KEY = int(tree_lib.NO_SUCC_KEY)
+
+# A snapshot's key count: a host int, or its (1,) or () int32 device tensor
+# (``tree.SortedView.count``), which a CUDA graph reads at every replay.
+Count = Union[int, torch.Tensor]
 
 
 class DeltaBuffer(NamedTuple):
@@ -222,7 +226,7 @@ def merge_ordered(
 def select_merged(
     sorted_keys: torch.Tensor,
     sorted_values: torch.Tensor,
-    n_real: int,
+    n_real: Count,
     delta: DeltaBuffer,
     j: torch.Tensor,
     valid: torch.Tensor,
@@ -238,6 +242,12 @@ def select_merged(
     ``ok`` False only for masked or out-of-range lanes (their key and value
     are 0).
 
+    ``sorted_keys``/``sorted_values`` is the snapshot's sorted view, of any
+    length >= ``n_real`` and sentinel-padded past it (the engine's view is
+    the whole perfect tree's); ``n_real`` is its key count, a host int or,
+    on a CUDA graph's path, the view's device count (``tree.SortedView``):
+    no shape here depends on it.
+
     The JAX package tests every lane against every entry and every gap,
     which at the serving shapes (8192 ranges x k = 8 lanes x 4097 gaps) is
     hundreds of millions of elements per intermediate.  Here each lane
@@ -250,6 +260,7 @@ def select_merged(
     Memory is O(lanes + C).
     """
     C = delta.capacity
+    n = _count(n_real, sorted_keys.device)
     w = weights(delta)
     live = delta.keys != _SENTINEL_KEY
     present = live & ~delta.tombstone
@@ -271,12 +282,15 @@ def select_merged(
     w_gap = torch.cat([zero, w_inc])  # (C+1,) weight prefix per gap
     lo_b = torch.cat([zero + _NO_PRED_KEY, delta.keys])
     hi_b = torch.cat([delta.keys, zero + _SENTINEL_KEY])
-    real_keys = sorted_keys[:n_real].contiguous()
-    tree_at_or_below = torch.searchsorted(real_keys, lo_b, right=True).to(torch.int32)
+    # tree keys at or below each gap's lower bound; every real key is below
+    # the sentinel, so over the padded view only an empty slot's bound (the
+    # sentinel) counts the padding, and the clamp takes it off
+    at_or_below = torch.searchsorted(sorted_keys, lo_b, right=True, out_int32=True)
+    tree_at_or_below = torch.minimum(at_or_below, n)
     gap_start = tree_at_or_below + w_gap  # first merged rank inside each gap
     g = torch.clamp(torch.searchsorted(gap_start, jf, right=True) - 1, min=0)
     s = jf - w_gap[g]  # candidate tree rank in that gap
-    s_ok = (s >= 0) & (s < n_real) & vf
+    s_ok = (s >= 0) & (s < n) & vf
     safe = torch.clamp(s, 0, sorted_keys.shape[0] - 1).long()
     t_key = sorted_keys[safe]
     in_gap = s_ok & (t_key > lo_b[g]) & (t_key < hi_b[g])
@@ -295,7 +309,7 @@ def point_epilogue(
     res: OrderedResult,
     sorted_keys: torch.Tensor,
     sorted_values: torch.Tensor,
-    n_real: int,
+    n_real: Count,
     delta: DeltaBuffer,
 ):
     """Delta-aware twin of ``plans.point_epilogue`` (same op contract).
@@ -317,7 +331,7 @@ def point_epilogue(
         values = torch.where(res.found, res.value, torch.where(got, v, _SENTINEL_VALUE))
         return keys, values, res.found | got
     # successor: ceiling(q) = the element at the query's own merged rank.
-    total = n_real + net_keys(delta)
+    total = _count(n_real, sorted_keys.device) + net_keys(delta)
     need = ~res.found & (res.rank < total)
     k, v, sel_ok = select_merged(sorted_keys, sorted_values, n_real, delta, res.rank, need)
     got = need & sel_ok
@@ -330,7 +344,7 @@ def range_epilogue(
     op: str,
     sorted_keys: torch.Tensor,
     sorted_values: torch.Tensor,
-    n_real: int,
+    n_real: Count,
     delta: DeltaBuffer,
     r_lo: OrderedResult,
     r_hi: OrderedResult,
@@ -359,33 +373,52 @@ def compact_sorted(
     tree_keys: torch.Tensor,
     tree_values: torch.Tensor,
     rank_to_bfs: torch.Tensor,
-    n_real: int,
+    n_real: Count,
     delta: DeltaBuffer,
     out_size: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Merge snapshot + buffer into one sorted view on the device.
+    """Merge snapshot + buffer into one sorted view on the device: the
+    snapshot's sorted view, one gather through ``rank_to_bfs``, then
+    ``merge_sorted``.  Returns ``(sorted_keys (out_size,), sorted_values,
+    count)`` with sentinel padding past ``count``."""
+    idx = rank_to_bfs.long()
+    return merge_sorted(tree_keys[idx], tree_values[idx], n_real, delta, out_size)
 
-    Returns ``(sorted_keys (out_size,), sorted_values, count)`` with
-    sentinel padding past ``count``.  Rank arithmetic, no sort: surviving
-    old keys shift down by the shadowed keys below them and up by the live
-    upserts below them; live buffer entries land at their ingest-time tree
-    rank adjusted the same way.  Each scatter sends its dropped lanes to a
-    sink slot at ``out_size`` that is cut off.  ``out_size`` must be >=
-    n_real + capacity (the worst case).
+
+def merge_sorted(
+    sorted_keys: torch.Tensor,
+    sorted_values: torch.Tensor,
+    n_real: Count,
+    delta: DeltaBuffer,
+    out_size: int,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge a snapshot's sorted view (``n_real`` keys, sentinel-padded past
+    them; a host int or the view's device count) with the buffer.
+
+    Rank arithmetic, no sort: surviving old keys shift down by the shadowed
+    keys below them and up by the live upserts below them; live buffer
+    entries land at their ingest-time tree rank adjusted the same way.
+    Each scatter sends its dropped lanes to a sink slot at ``out_size``
+    that is cut off.  ``out_size`` must be >= n_real + capacity (the worst
+    case); the engine gives ``n_nodes + capacity``, which no key count
+    changes.  ``out``, two int32 tensors of ``out_size + 1`` slots, takes
+    the scatters in place (a CUDA graph writes into its caller's fixed
+    tensors).  Returns the sorted keys and values (``out_size``, sentinel
+    past the count) and the count (() int32).
     """
-    sk = tree_keys[rank_to_bfs]
-    sv = tree_values[rank_to_bfs]
-    n = int(sk.shape[0])
-    device = sk.device
+    n = int(sorted_keys.shape[0])
+    device = sorted_keys.device
 
     live = delta.keys != _SENTINEL_KEY
     pres = live & ~delta.tombstone
     # old ranks shadowed by a buffer entry (tombstoned OR overwritten)
     shadow_idx = torch.where(live & delta.in_tree, delta.tree_rank, n).long()
+    # a fill kernel: ``shadowed[shadow_idx] = True`` would copy the scalar
+    # from the host, which a CUDA graph cannot hold
     shadowed = torch.zeros((n + 1,), dtype=torch.bool, device=device)
-    shadowed[shadow_idx] = True
-    shadowed = shadowed[:n]
-    real_old = torch.arange(n, device=device) < n_real
+    shadowed = shadowed.index_fill_(0, shadow_idx, True)[:n]
+    real_old = torch.arange(n, dtype=torch.int32, device=device) < _count(n_real, device)
     keep_old = real_old & ~shadowed
 
     zero = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -394,7 +427,7 @@ def compact_sorted(
     pres_prefix = torch.cat([zero, pres_cum])
     # live upserts strictly below each old key (old keys never equal a
     # SURVIVING buffer key: equal keys are shadowed)
-    pres_below_old = pres_prefix[torch.searchsorted(delta.keys, sk)]
+    pres_below_old = pres_prefix[torch.searchsorted(delta.keys, sorted_keys, out_int32=True).long()]
     keep_i = keep_old.to(torch.int32)
     pos_old = (torch.cumsum(keep_i, 0, dtype=torch.int32) - keep_i) + pres_below_old
 
@@ -405,27 +438,32 @@ def compact_sorted(
     po = torch.where(keep_old, pos_old, out_size).long()
     pn = torch.where(pres, pos_new, out_size).long()
 
-    def scatter(values_old, values_new, fill):
-        out = torch.full((out_size + 1,), fill, dtype=torch.int32, device=device)
-        out[po] = values_old
-        out[pn] = values_new
-        return out[:out_size]
+    def scatter(values_old, values_new, fill, dst):
+        if dst is None:
+            dst = torch.empty((out_size + 1,), dtype=torch.int32, device=device)
+        dst.fill_(fill)
+        dst[po] = values_old
+        dst[pn] = values_new
+        return dst[:out_size]
 
-    out_k = scatter(sk, delta.keys, _SENTINEL_KEY)
-    out_v = scatter(sv, delta.values, _SENTINEL_VALUE)
+    out_k, out_v = (None, None) if out is None else out
+    out_k = scatter(sorted_keys, delta.keys, _SENTINEL_KEY, out_k)
+    out_v = scatter(sorted_values, delta.values, _SENTINEL_VALUE, out_v)
     count = keep_i.sum(dtype=torch.int32) + pres_i.sum(dtype=torch.int32)
     return out_k, out_v, count
 
 
 def compact(tree: TreeData, delta: DeltaBuffer) -> TreeData:
-    """Absorb the buffer into a fresh perfect snapshot.
+    """Absorb the buffer into a fresh perfect snapshot, eagerly.
 
     The sorted merge and the Eytzinger re-layout are gathers and scatters on
     the device; the new key count is read back once (a counted
     ``runtime.device_fetch``), since it fixes the new snapshot's height.
+    The engine runs the same merge as CUDA graphs into its own tensors
+    (``BSTEngine.compact``); this is the route they are held against.
     """
     rank_to_bfs = tree_lib.rank_to_bfs_on(tree.height, tree.device)
-    out_size = tree.n_real + delta.capacity
+    out_size = tree.n_nodes + delta.capacity
     sk, sv, count = compact_sorted(
         tree.keys, tree.values, rank_to_bfs, tree.n_real, delta, out_size
     )
@@ -434,3 +472,11 @@ def compact(tree: TreeData, delta: DeltaBuffer) -> TreeData:
     if n_real == 0:
         raise ValueError("compaction would empty the tree")
     return tree_lib.layout_from_sorted_device(sk, sv, n_real)
+
+
+def _count(n_real: Count, device) -> torch.Tensor:
+    """A key count as a () int32 tensor: the device count a graph reads as
+    it is, a host int (an eager caller's) moved to ``device``."""
+    if isinstance(n_real, torch.Tensor):
+        return n_real.reshape(()).to(torch.int32)
+    return torch.tensor(n_real, dtype=torch.int32, device=device)

@@ -13,11 +13,13 @@ All strategies return bit-identical results; they differ in layout and
 dispatch.  The tree is built with numpy on the host and moved to
 ``EngineConfig.device`` once; the device then decides whether each descent
 launches a Hopper kernel (CUDA) or runs the plain version (CPU).  On the
-card each bound (op, k) query runs as one CUDA graph per batch length and
-snapshot (``repro_torch.graphs``), the counterpart of the JAX package's jit
-cache: captured at first use, replayed after, with the delta buffer in
-static buffers that every write refreshes in place, so writes do not
-re-capture; a compaction's new snapshot does.
+card each step of the engine runs as one CUDA graph (``repro_torch.graphs``),
+the counterpart of the JAX package's jit cache: each bound (op, k) query per
+batch length, the ingest of a write slice, and the compaction's merge and
+layout.  A graph is captured at its first use and replayed after; it reads
+static buffers that the engine rewrites in place (the delta buffer at
+every write, the snapshot at a compaction that keeps the tree's height),
+so only a compaction that changes the height captures again.
 
 The live write path (``EngineConfig(delta_capacity > 0)``): writes land in a
 sorted delta buffer on the device (``core.delta``), classified by the
@@ -30,12 +32,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import graphs, invariants
+from repro_torch import graphs, invariants, runtime
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import tree as tree_lib
@@ -65,6 +67,9 @@ class EngineConfig:
     def __post_init__(self) -> None:
         invariants.check_delta_config(self.delta_capacity, self.delta_high_water)
 
+    def resolved_register_levels(self) -> int:
+        return plans_lib.resolved_register_levels(self.n_trees, self.register_levels)
+
     def resolved_high_water(self) -> int:
         return invariants.resolved_high_water(self.delta_capacity, self.delta_high_water)
 
@@ -90,12 +95,23 @@ PAPER_CONFIGS = {
 }
 
 
-class _QueryGraph(NamedTuple):
-    """One bound query as a CUDA graph and the static inputs it reads."""
+# The engine's CUDA graphs besides its queries (keyed (op, k, batch length)):
+# the ingest step and the compaction's two steps.
+_INGEST = ("ingest",)
+_MERGE = ("merge",)
+_LAYOUT = ("layout",)
 
-    queries: torch.Tensor
-    queries_hi: Optional[torch.Tensor]
-    graph: graphs.Graph
+StepKey = Tuple
+
+
+class _Staging(NamedTuple):
+    """The compaction's merge output, at fixed addresses for a height: the
+    merged sorted view (``n_nodes + capacity`` slots and a sink slot) and
+    its key count (() int32), which the one counted fetch reads."""
+
+    keys: torch.Tensor
+    values: torch.Tensor
+    count: torch.Tensor
 
 
 class BSTEngine:
@@ -108,7 +124,9 @@ class BSTEngine:
 
     @classmethod
     def from_tree(cls, tree: TreeData, config: EngineConfig = EngineConfig()):
-        """Wrap an existing immutable snapshot (moved to the config's device)."""
+        """Wrap an existing snapshot (moved to the config's device; a
+        write-path engine keeps a copy of its own, which compactions
+        rewrite)."""
         _check_kernel_limits(config)
         self = cls.__new__(cls)
         self._start(
@@ -121,45 +139,40 @@ class BSTEngine:
 
     def _start(self, tree: TreeData, config: EngineConfig) -> None:
         self.config = config
-        self.tree = tree
+        self.device = tree.device
         self.compactions = 0
-        self.delta = None
         # Snapshot-swap hook: called with the fresh TreeData after every
         # swap (a compaction, or an ``apply_updates`` rebuild without a
         # buffer), which can happen deep inside ``apply_ops``' chunk loop;
         # whatever holds state made from the old snapshot (the sharded
         # server's shards) rebuilds before the next read.  None by default.
         self.on_snapshot = None
-        # the query graphs' keys already warmed up once: a re-capture on a
-        # new snapshot runs ops this process has run, so it skips the warm-up
-        self._warmed = set()
-        self._finalize()
-
-    def _finalize(self) -> None:
-        cfg = self.config
-        self.device = self.tree.device
-        self.plan = plans_lib.make_plan(
-            self.tree,
-            strategy=cfg.strategy,
-            n_trees=cfg.n_trees,
-            mapping=cfg.mapping,
-            register_levels=cfg.register_levels,
-            buffer_slack=cfg.buffer_slack,
-        )
-        # On the card, one graph per (op, k, batch length) of this snapshot
-        # and plan, all in one memory pool: the snapshot's jit cache.
-        self._graphs: Dict[Tuple[str, Optional[int], int], _QueryGraph] = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        # The live write path: a fresh empty buffer per snapshot.
-        self._set_delta(
-            delta_lib.empty(cfg.delta_capacity, self.device)
-            if cfg.delta_capacity > 0
-            else None
-        )
+        # On the card, one graph per step of the engine (each bound query,
+        # the ingest, the compaction's merge and layout), all in one memory
+        # pool: the counterpart of the JAX package's jit cache.  ``_steps``
+        # keeps each graph's step and arguments, to capture it again over a
+        # new snapshot's tensors; ``_inputs`` the static inputs the graphs
+        # read.
+        self._graphs: Dict[StepKey, graphs.Graph] = {}
+        self._steps: Dict[StepKey, Tuple[Callable, tuple]] = {}
+        self._inputs: Dict[StepKey, Tuple[torch.Tensor, ...]] = {}
+        self._pool = None
+        # The live write path: one buffer, one snapshot set and one merge
+        # staging at fixed addresses, written in place (see ``compact``).
+        self.delta = None
+        self._delta_ops = None
+        self._snap: Optional[tree_lib.Snapshot] = None
+        self._staging: Optional[_Staging] = None
+        if config.delta_capacity > 0:
+            self._snap = tree_lib.snapshot_of(tree)
+            tree = self._snap.tree(tree.n_real)
+            self.delta = delta_lib.empty(config.delta_capacity, self.device)
+            self._delta_ops = delta_lib.operands(self.delta)
         # Host-side upper bound on the buffer's occupancy (the sum of the
         # batch sizes since the last compaction): the trigger never reads
         # the device count, at the cost of compacting a little early.
         self._pending_writes = 0
+        self._swap(tree)
 
     def query(self, op: str, queries, queries_hi=None, *, k: int = 8, eager: bool = False):
         """Run one query op over a 1-D int32 batch.
@@ -189,58 +202,63 @@ class BSTEngine:
         plans_lib.validate_op(op, queries_hi is not None)
         if eager or self.device.type != "cuda":
             hi = None if queries_hi is None else self._to_device(queries_hi)
-            return plans_lib.ordered_query(
-                self.plan, op, self._to_device(queries), hi, k=k,
-                delta=self.delta, delta_ops=self._delta_ops,
-            )
+            return self._query_step(op, k, self._to_device(queries), hi)
         q = _batch(queries)
         hi = None if queries_hi is None else _batch(queries_hi)
         if hi is not None and hi.shape != q.shape:
             raise ValueError(f"queries {tuple(q.shape)} and queries_hi {tuple(hi.shape)} differ")
         if q.shape[0] == 0:  # no lanes, no kernel: nothing to capture
             return self.query_static(op, q, hi, k=k, eager=True)
-        g = self._graph(op, k, q.shape[0], hi is not None)
-        g.queries.copy_(q)  # the H2D copy of a host batch, outside the graph
+        key = (op, k if op == "range_scan" else None, q.shape[0])  # k shapes only range_scan
+        if key not in self._inputs:
+            q_s = torch.zeros(q.shape[0], dtype=torch.int32, device=self.device)
+            self._inputs[key] = (q_s, None if hi is None else torch.zeros_like(q_s))
+        q_s, hi_s = self._inputs[key]
+        q_s.copy_(q)  # the H2D copy of a host batch, outside the graph
         if hi is not None:
-            g.queries_hi.copy_(hi)
-        return g.graph.replay()
+            hi_s.copy_(hi)
+        return self._run(key, BSTEngine._query_step, op, k, q_s, hi_s)
 
-    def _graph(self, op: str, k: int, B: int, ranged: bool) -> _QueryGraph:
-        """The graph of (op, k) over B lanes for this snapshot, captured at
-        its first use."""
-        key = (op, k if op == "range_scan" else None, B)  # k shapes only range_scan
-        g = self._graphs.get(key)
-        if g is not None:
-            return g
-        if self.delta is not None:
-            self.plan.sorted_view()  # made once per snapshot, outside every graph
-        q = torch.zeros(B, dtype=torch.int32, device=self.device)
-        hi = torch.zeros_like(q) if ranged else None
-        fn = functools.partial(
-            plans_lib.ordered_query, self.plan, op, q, hi, k=k,
+    def _query_step(self, op: str, k: int, queries, queries_hi):
+        return plans_lib.ordered_query(
+            self.plan, op, queries, queries_hi, k=k,
             delta=self.delta, delta_ops=self._delta_ops,
         )
+
+    def _run(self, key: StepKey, step: Callable, *args):
+        """``step(self, *args)``: on the card as its graph, captured (after
+        one warm-up run) at its first use and replayed after; on the CPU as
+        it is.  A step reads and writes only tensors at fixed addresses: its
+        static inputs, the snapshot set, the buffer and the staging, so a
+        graph stays valid until the snapshot's tensors are replaced.  Its
+        first use on the card runs it twice (the warm-up, then the
+        replay), which every step of the engine allows: the queries and the
+        merge write nothing the step reads, an ingest of a batch the buffer
+        already holds changes nothing, and the layout writes what it wrote
+        again.  ``step`` is a function of the engine, kept unbound in
+        ``_steps`` (a bound one would tie the engine into a reference
+        cycle, which only the collector frees)."""
+        if self.device.type != "cuda":
+            return step(self, *args)
+        g = self._graphs.get(key)
+        if g is None:
+            self._steps[key] = (step, args)
+            g = self._capture(key, warmup=True)
+        return g.replay()
+
+    def _capture(self, key: StepKey, *, warmup: bool) -> graphs.Graph:
+        step, args = self._steps[key]
         with torch.cuda.device(self.device):
-            graph = graphs.Graph(fn, warmup=key not in self._warmed, pool=self._pool)
-        self._warmed.add(key)
-        g = self._graphs[key] = _QueryGraph(q, hi, graph)
+            g = self._graphs[key] = graphs.Graph(
+                functools.partial(step, self, *args), warmup=warmup, pool=self._pool
+            )
         return g
 
-    def _set_delta(self, delta: Optional[delta_lib.DeltaBuffer]) -> None:
-        """Install a buffer with its kernel operands, computed here rather
-        than on every read chunk: the buffer changes only at ingest and
-        compaction.  The engine keeps one buffer at fixed addresses and
-        copies each new one into it, so that the query graphs read the
-        current buffer, as the JAX package's jitted queries take it as an
-        argument."""
-        if delta is None or self.delta is None:
-            self.delta = delta
-            self._delta_ops = None if delta is None else delta_lib.operands(delta)
-            return
-        for dst, src in zip(self.delta, delta):
-            dst.copy_(src)
-        for dst, src in zip(self._delta_ops[2:], delta_lib.operands(self.delta)[2:]):
-            dst.copy_(src)  # keys and values are the buffer's own tensors
+    def graph_keys(self) -> Tuple[StepKey, ...]:
+        """The steps this engine holds as CUDA graphs, in capture order:
+        ``(op, k or None, batch length)`` per bound query, and
+        ``("ingest",)``, ``("merge",)``, ``("layout",)``."""
+        return tuple(self._graphs)
 
     def _to_device(self, x) -> torch.Tensor:
         return _batch(x).to(device=self.device).contiguous()
@@ -254,9 +272,57 @@ class BSTEngine:
         """One write-batch ingest: the batch descends the engine's OWN
         datapath (the same plan and kernel as its reads, without the
         buffer) to classify each key against the snapshot, then merges into
-        the sorted buffer, all on the device."""
+        the sorted buffer, all on the device.  Returns the new buffer (the
+        eager route; ``_ingest_into`` writes it into the engine's)."""
         res = plans_lib.execute_plan_ordered(self.plan, keys)
         return delta_lib.ingest(delta, keys, values, deletes, valid, res.found, res.rank)
+
+    def _ingest_into(self, batch: torch.Tensor) -> None:
+        """The ingest step over the packed (4, C) batch (keys, values,
+        deletes, valid), written into the engine's buffer and its kernel
+        operands."""
+        k, v, d, ok = batch
+        new = self._ingest_step(self.delta, k, v, d != 0, ok != 0)
+        for dst, src in zip(self.delta, new):
+            dst.copy_(src)
+        for dst, src in zip(self._delta_ops[2:], delta_lib.operands(new)[2:]):
+            dst.copy_(src)  # keys and values are the buffer's own tensors
+
+    def _ingest(self, keys, values, deletes, valid) -> None:
+        """One slice of at most ``delta_capacity`` ops into the buffer: the
+        slice padded with invalid lanes to the capacity (one ingest graph
+        per engine), one host -> device copy of the packed batch into the
+        step's static input, then the step."""
+        cap = self.config.delta_capacity
+        packed = np.zeros((4, cap), np.int32)  # padding lanes: valid = 0
+        for row, x in enumerate((keys, values, deletes, valid)):
+            packed[row, : x.size] = x
+        if _INGEST not in self._inputs:
+            self._inputs[_INGEST] = (torch.zeros((4, cap), dtype=torch.int32, device=self.device),)
+        (batch,) = self._inputs[_INGEST]
+        batch.copy_(torch.from_numpy(packed))
+        self._run(_INGEST, BSTEngine._ingest_into, batch)
+
+    def warmup_writes(self) -> None:
+        """Capture the write path's graphs on the card before the first
+        write, as a read's first use captures its own: the ingest step over
+        a batch of padding lanes (it writes nothing), and, while the buffer
+        is empty, the compaction's two steps (they write the snapshot into
+        itself).  Counts no write and no compaction, and makes no fetch.
+        On the CPU the same steps run once."""
+        self._require_write_path()
+        self._ingest(*(np.zeros(0, np.int32),) * 4)
+        if self._pending_writes == 0:
+            self._run(_MERGE, BSTEngine._merge_step)
+            self._run(_LAYOUT, BSTEngine._layout_step)
+
+    def _require_write_path(self) -> None:
+        if self.delta is None:
+            raise ValueError(
+                "write path disabled (delta_capacity == 0): construct the "
+                "engine with EngineConfig(delta_capacity > 0), or use "
+                "core.updates bulk maintenance + snapshot swap"
+            )
 
     def apply_ops(self, keys, values, deletes, valid=None) -> None:
         """Apply a mixed batch of upserts/tombstones in submission order.
@@ -270,12 +336,7 @@ class BSTEngine:
         after the batch, never inside a slice, so readers always see a
         consistent snapshot + buffer pair.
         """
-        if self.delta is None:
-            raise ValueError(
-                "write path disabled (delta_capacity == 0): construct the "
-                "engine with EngineConfig(delta_capacity > 0), or use "
-                "core.updates bulk maintenance + snapshot swap"
-            )
+        self._require_write_path()
         keys = np.atleast_1d(np.asarray(keys, np.int32))
         values = np.atleast_1d(np.asarray(values, np.int32))
         deletes = np.atleast_1d(np.asarray(deletes, bool))
@@ -294,10 +355,7 @@ class BSTEngine:
                 continue
             if self._pending_writes + m > cap:
                 self.compact()
-            # one host -> device copy per slice: keys, values, deletes, valid
-            packed = np.stack([keys[sl], values[sl], deletes[sl], valid[sl]]).astype(np.int32)
-            k, v, d, ok = torch.from_numpy(packed).to(self.device)
-            self._set_delta(self._ingest_step(self.delta, k, v, d != 0, ok != 0))
+            self._ingest(keys[sl], values[sl], deletes[sl], valid[sl])
             # an upper bound on the occupancy (ingest dedups, so the true
             # count can only be lower); it stays <= cap at every step
             self._pending_writes += m
@@ -333,20 +391,98 @@ class BSTEngine:
         return self.tree
 
     def compact(self) -> TreeData:
-        """Absorb the delta buffer into a fresh perfect snapshot (one
-        counted device fetch, the new key count); the plan rebuilds against
-        it and the buffer comes back empty.  No-op while nothing is
-        buffered."""
+        """Absorb the delta buffer into the snapshot; the buffer comes back
+        empty.  No-op while nothing is buffered.
+
+        The merge runs into the staging (a graph on the card), and its key
+        count comes back in the one counted device fetch of a compaction.
+        Where the count keeps the snapshot's height, a second step (a graph
+        too) lays the merged view into the snapshot's own tensors and
+        empties the buffer: every graph of the engine stays valid, and a
+        TreeData that the engine returned before now reads the new keys.
+        Where the height changes, up or down, a new set of tensors is laid
+        out eagerly, the old set and every graph are dropped, and each
+        graph is captured again over the new set."""
         if self.delta is None or self._pending_writes == 0:
             return self.tree
-        tree = delta_lib.compact(self.tree, self.delta)
+        self._run(_MERGE, BSTEngine._merge_step)
+        (n_real,) = runtime.device_fetch((self._staging.count,))
+        n_real = int(n_real)
+        if n_real == 0:
+            raise ValueError("compaction would empty the tree")
         self.compactions += 1
-        self._swap(tree)
-        return tree
+        self._pending_writes = 0
+        if tree_lib.height_for(n_real) == self._snap.height:
+            self._run(_LAYOUT, BSTEngine._layout_step)
+            self._swap(self._snap.tree(n_real), kept=True)
+            return self.tree
+        st = self._staging
+        self._snap = tree_lib.snapshot_from_sorted(st.keys[:-1], st.values[:-1], st.count, n_real)
+        del st
+        self._staging = None  # one set at a time: the old height's goes
+        self._clear_delta()
+        self._swap(self._snap.tree(n_real))
+        return self.tree
 
-    def _swap(self, tree: TreeData) -> None:
+    def _merge_step(self) -> None:
+        """The compaction's merge: snapshot view + buffer into the staging."""
+        snap, st = self._snap, self._staging
+        _, _, count = delta_lib.merge_sorted(
+            snap.view.keys, snap.view.values, snap.view.count, self.delta,
+            int(st.keys.shape[0]) - 1, out=(st.keys, st.values),
+        )
+        st.count.copy_(count)
+
+    def _layout_step(self) -> None:
+        """The compaction's layout at the same height: the staging into the
+        snapshot's view, BFS image and count, after the merge has read them;
+        then the buffer empties."""
+        st = self._staging
+        tree_lib.write_sorted_(self._snap, st.keys, st.values, st.count)
+        self._clear_delta()
+
+    def _clear_delta(self) -> None:
+        """Empty the buffer in place (``delta.empty``'s contents)."""
+        d = self.delta
+        d.keys.fill_(int(tree_lib.SENTINEL_KEY))
+        d.values.fill_(int(tree_lib.SENTINEL_VALUE))
+        for t in (d.tombstone, d.in_tree, d.tree_rank, d.count, *self._delta_ops[2:]):
+            t.zero_()
+
+    def _swap(self, tree: TreeData, *, kept: bool = False) -> None:
+        """Install ``tree``.  ``kept``: its tensors are the ones every graph
+        reads already (a compaction that kept the height), and only the
+        plan's host copy of the key count is new.  Otherwise the graphs go
+        with the old tensors (their pool too), and each is captured again
+        over the new ones, in its first capture's order and without a
+        warm-up: its ops have run."""
+        stale = () if kept else tuple(self._graphs)
+        if not kept:
+            self._graphs = {}
+            self._pool = None
         self.tree = tree
-        self._finalize()
+        cfg = self.config
+        self.plan = plans_lib.make_plan(
+            tree,
+            strategy=cfg.strategy,
+            n_trees=cfg.n_trees,
+            mapping=cfg.mapping,
+            register_levels=cfg.register_levels,
+            buffer_slack=cfg.buffer_slack,
+            view=None if self._snap is None else self._snap.view,
+        )
+        if not kept:
+            if self._snap is not None and self._staging is None:
+                size = self._snap.n_nodes + cfg.delta_capacity + 1
+                self._staging = _Staging(
+                    torch.empty(size, dtype=torch.int32, device=self.device),
+                    torch.empty(size, dtype=torch.int32, device=self.device),
+                    torch.zeros((), dtype=torch.int32, device=self.device),
+                )
+            if self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            for key in stale:
+                self._capture(key, warmup=False)
         if self.on_snapshot is not None:
             self.on_snapshot(self.tree)
 

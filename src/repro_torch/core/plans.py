@@ -91,8 +91,11 @@ class SearchPlan:
     (``shared_tree``), and for hyb levels ``[0, split_level)`` double as the
     register layer.  ``full_tree`` backs the range ops' sorted-view gathers;
     ``rank_to_bfs`` maps in-order rank -> BFS index on the tree's device.
-    The delta epilogues' sorted view is gathered on first use and kept
-    (``sorted_view``), so a read-only plan never materialises it.
+    ``view`` is the delta epilogues' sorted view with the key count on the
+    device: a write-path engine passes its snapshot's, which a compaction
+    that keeps the height rewrites in place; without one it is gathered on
+    first use and kept (``sorted_view``), so a read-only plan never
+    materialises it.
     """
 
     strategy: str  # hrz | dup | hyb
@@ -106,16 +109,15 @@ class SearchPlan:
     split_level: int = 0
     mapping: str = "queue"  # direct | queue (hyb only)
     buffer_slack: float = 2.0
+    view: Optional[tree_lib.SortedView] = None
 
-    def sorted_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The snapshot's sorted key/value view: one gather through
-        ``rank_to_bfs``, made once per plan (the snapshot is immutable)."""
-        return self._sorted_view
+    def sorted_view(self) -> tree_lib.SortedView:
+        """The snapshot's sorted key/value view and its device key count."""
+        return self.view if self.view is not None else self._gathered_view
 
     @functools.cached_property
-    def _sorted_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        idx = self.rank_to_bfs.long()
-        return self.full_tree.keys[idx], self.full_tree.values[idx]
+    def _gathered_view(self) -> tree_lib.SortedView:
+        return tree_lib.sorted_view_of(self.full_tree)
 
     def memory_nodes(self) -> int:
         """Stored nodes (the paper's Fig. 8 memory metric)."""
@@ -139,14 +141,19 @@ def make_plan(
     mapping: str = "queue",
     register_levels: Optional[int] = None,
     buffer_slack: float = 2.0,
+    view: Optional[tree_lib.SortedView] = None,
 ) -> SearchPlan:
-    """Build the strategy's SearchPlan from one immutable tree snapshot."""
+    """Build the strategy's SearchPlan from one tree snapshot (``view`` as
+    in ``SearchPlan``).  It makes no tensor but views of the snapshot's
+    and the memoised rank map of its height, so a plan of a snapshot
+    rewritten in place reads the same addresses as the one before."""
     common = dict(
         forest_keys=tree.keys[None, :],
         forest_values=tree.values[None, :],
         forest_height=tree.height,
         full_tree=tree,
         rank_to_bfs=tree_lib.rank_to_bfs_on(tree.height, tree.device),
+        view=view,
     )
     if strategy == "hrz":
         return SearchPlan(strategy="hrz", n_trees=1, shared_tree=False, **common)
@@ -326,24 +333,27 @@ def query_through(
     returns the ``OrderedResult`` of a batch with ``delta`` already folded
     in, and ``lookup(q)``, when given, the membership columns.  The
     epilogues read ``plan``'s rank -> BFS map and sorted view, so the
-    sharded runners (``core/distributed.py``) share the engine's."""
+    sharded runners (``core/distributed.py``) share the engine's.  No host
+    value of the snapshot's key count reaches them: the delta epilogues
+    read the view's device count."""
     validate_op(op, queries_hi is not None)
     if op == "lookup" and lookup is not None:
         return lookup(queries)
-    n_real = plan.full_tree.n_real
     if op in RANGE_OPS:
         B = queries.shape[0]
         res = descend(torch.cat([queries, queries_hi]))
         r_lo = OrderedResult(*(f[:B] for f in res))
         r_hi = OrderedResult(*(f[B:] for f in res))
         if delta is not None:
-            sk, sv = plan.sorted_view()
-            return delta_lib.range_epilogue(op, sk, sv, n_real, delta, r_lo, r_hi, k=k)
+            view = plan.sorted_view()
+            return delta_lib.range_epilogue(
+                op, view.keys, view.values, view.count, delta, r_lo, r_hi, k=k
+            )
         return range_epilogue(op, plan.full_tree, plan.rank_to_bfs, r_lo, r_hi, k=k)
     res = descend(queries)
     if delta is not None:
-        sk, sv = plan.sorted_view()
-        return delta_lib.point_epilogue(op, queries, res, sk, sv, n_real, delta)
+        view = plan.sorted_view()
+        return delta_lib.point_epilogue(op, queries, res, view.keys, view.values, view.count, delta)
     return point_epilogue(op, queries, res)
 
 

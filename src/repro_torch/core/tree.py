@@ -9,8 +9,9 @@ descent step touches one contiguous region.  Trees are *perfect*
 
 The layout is built with numpy on the host and moved to the engine's device
 once (``build_tree`` / ``tree_from_numpy``); a compaction re-lays a sorted
-view out on the device itself (``layout_from_sorted_device``).  Every tensor
-stays int32.
+view out on the device itself (``layout_from_sorted_device``), into the
+write-path engine's own tensors where the height holds (``Snapshot``,
+``write_sorted_``).  Every tensor stays int32.
 """
 
 from __future__ import annotations
@@ -264,20 +265,110 @@ def layout_from_sorted_device(
     if n_real < 1:
         raise ValueError("empty tree")
     h = height_for(n_real)
+    sorted_keys, sorted_values = _padded(sorted_keys, sorted_values, (1 << (h + 1)) - 1)
+    ranks = bfs_inorder_ranks_on(h, sorted_keys.device)
+    return TreeData(keys=sorted_keys[ranks], values=sorted_values[ranks], height=h, n_real=n_real)
+
+
+class SortedView(NamedTuple):
+    """A snapshot's in-order view: ``keys``/``values`` (n,) int32, the
+    ``count`` real pairs ascending and sentinel padding after them, and
+    ``count``, a (1,) int32 tensor on the same device.  The delta
+    epilogues read the count from the device, so that a CUDA graph that
+    reads the view answers for whatever snapshot the tensors hold."""
+
+    keys: torch.Tensor
+    values: torch.Tensor
+    count: torch.Tensor
+
+
+def sorted_view_of(tree: TreeData) -> SortedView:
+    """A fresh sorted view of ``tree``: one gather through ``rank_to_bfs``
+    (the BFS layout pads its in-order tail with sentinels)."""
+    idx = rank_to_bfs_on(tree.height, tree.device).long()
+    count = torch.full((1,), tree.n_real, dtype=torch.int32, device=tree.device)
+    return SortedView(tree.keys[idx], tree.values[idx], count)
+
+
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    """The tensors of a write-path engine's snapshot, at fixed addresses
+    for as long as its height holds: the BFS image (``keys``, ``values``),
+    its sorted ``view`` (the key count on the device) and the height.  A
+    compaction that keeps the height writes the new snapshot into these
+    tensors (``write_sorted_``), so every CUDA graph that reads them stays
+    valid; one that changes the height makes a new set
+    (``snapshot_from_sorted``)."""
+
+    keys: torch.Tensor
+    values: torch.Tensor
+    view: SortedView
+    height: int
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.keys.shape[0])
+
+    def tree(self, n_real: int) -> TreeData:
+        """The snapshot as a TreeData over the same tensors (``n_real`` is
+        the host's copy of the count, from the compaction's one fetch)."""
+        return TreeData(self.keys, self.values, self.height, n_real)
+
+
+def snapshot_of(tree: TreeData) -> Snapshot:
+    """A snapshot set holding a copy of ``tree`` (its owner writes into it
+    in place, so it never aliases the caller's tensors)."""
+    keys, values = tree.keys.clone(), tree.values.clone()
+    view = sorted_view_of(TreeData(keys, values, tree.height, tree.n_real))
+    return Snapshot(keys, values, view, tree.height)
+
+
+def snapshot_from_sorted(
+    sorted_keys: torch.Tensor, sorted_values: torch.Tensor, count: torch.Tensor, n_real: int
+) -> Snapshot:
+    """A new snapshot set of the height that ``n_real`` keys need, laid out
+    from a sorted view on the device (``count`` is ``n_real`` there).  The
+    view is cut or sentinel-padded to the new size, as in
+    ``layout_from_sorted_device``."""
+    if n_real < 1:
+        raise ValueError("empty tree")
+    h = height_for(n_real)
     n = (1 << (h + 1)) - 1
+    keys, values = _padded(sorted_keys, sorted_values, n)
+    if n <= int(sorted_keys.shape[0]):  # a cut of the caller's tensors: copy it
+        keys, values = keys.clone(), values.clone()
+    ranks = bfs_inorder_ranks_on(h, keys.device)
+    view = SortedView(keys, values, count.reshape(1).to(torch.int32).clone())
+    return Snapshot(keys[ranks], values[ranks], view, h)
+
+
+def write_sorted_(
+    snap: Snapshot, sorted_keys: torch.Tensor, sorted_values: torch.Tensor, count: torch.Tensor
+) -> None:
+    """Lay a sorted view of at most ``snap.n_nodes`` keys (sentinel-padded,
+    any length >= ``snap.n_nodes``) into ``snap``'s own tensors: its view,
+    its BFS image (one gather through ``bfs_inorder_ranks``, the same as
+    ``layout_from_sorted_device``'s) and its device count.  Every write is
+    in place and reads no host value, so a CUDA graph can hold it."""
+    n = snap.n_nodes
+    snap.view.keys.copy_(sorted_keys[:n])
+    snap.view.values.copy_(sorted_values[:n])
+    ranks = bfs_inorder_ranks_on(snap.height, snap.keys.device)
+    torch.index_select(snap.view.keys, 0, ranks, out=snap.keys)
+    torch.index_select(snap.view.values, 0, ranks, out=snap.values)
+    snap.view.count.copy_(count.reshape(1))
+
+
+def _padded(sorted_keys: torch.Tensor, sorted_values: torch.Tensor, n: int):
+    """The first ``n`` slots of a sorted view, sentinel-padded where it is
+    shorter."""
     pad = n - int(sorted_keys.shape[0])
     if pad > 0:
         sorted_keys = torch.cat([sorted_keys, sorted_keys.new_full((pad,), int(SENTINEL_KEY))])
         sorted_values = torch.cat(
             [sorted_values, sorted_values.new_full((pad,), int(SENTINEL_VALUE))]
         )
-    ranks = bfs_inorder_ranks_on(h, sorted_keys.device)
-    return TreeData(
-        keys=sorted_keys[:n][ranks],
-        values=sorted_values[:n][ranks],
-        height=h,
-        n_real=n_real,
-    )
+    return sorted_keys[:n], sorted_values[:n]
 
 
 def init_ordered(B: int, device) -> OrderedResult:

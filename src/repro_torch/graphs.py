@@ -21,6 +21,7 @@ REPLAYED`` per kernel.
 
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Dict
@@ -97,16 +98,24 @@ class Graph:
             before = launch_counts()
             t0 = time.perf_counter()
             self._graph = torch.cuda.CUDAGraph()
-            self._graph.capture_begin(pool=pool)
+            # No collection inside the capture: a collected graph's teardown
+            # (a dead engine's, in a reference cycle) would invalidate it.
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                self.out = fn()
-            except BaseException:
+                self._graph.capture_begin(pool=pool)
                 try:
-                    self._graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is already invalid: report fn's error
-                raise
-            self._graph.capture_end()
+                    self.out = fn()
+                except BaseException:
+                    try:
+                        self._graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is already invalid: report fn's error
+                    raise
+                self._graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             seconds = time.perf_counter() - t0
         torch.cuda.current_stream(device).wait_stream(stream)
         after = launch_counts()

@@ -41,8 +41,8 @@ that loop:
 
 The JAX server re-warms its reads after every snapshot swap to refill jit's
 compile cache.  Here ``warmup`` captures the served ops' CUDA graphs on the
-card, and after a swap the engine captures each op's graph again at its
-first use on the new snapshot.
+card (the write path's too, where asked); a compaction that keeps the
+tree's height keeps them all, and one that changes it captures each again.
 """
 
 from __future__ import annotations
@@ -212,14 +212,20 @@ class BSTServer:
         return self._engine
 
     def warmup(self, ops=("lookup",)) -> None:
-        """Run one chunk of each op, so timed chunks exclude first-use costs
-        (the kernels' build and load, the allocator's first blocks, and on
-        the card each op's CUDA graph of the current snapshot: its capture;
-        a compaction's new snapshot captures again at first use).  Sharded,
-        the chunk runs through the sharded program, which is eager (no
-        graph): every rank must call it."""
+        """Run one chunk of each read op, so timed chunks exclude first-use
+        costs (the kernels' build and load, the allocator's first blocks,
+        and on the card each op's CUDA graph: its capture).  A ``write`` or
+        ``delete`` among ``ops`` warms the write path the same way
+        (``BSTEngine.warmup_writes``: the ingest's and the compaction's
+        graphs, over data that changes nothing).  A compaction that keeps
+        the tree's height keeps every graph; one that changes it captures
+        each again.  Sharded, a read chunk runs through the sharded
+        program, which is eager (no graph): every rank must call it."""
         dummy = np.zeros(self.chunk_size, np.int32)
         for op in ops:
+            if op in WRITE_OPS:
+                self._engine.warmup_writes()
+                continue
             runtime.block_until_ready(self._query_chunk(op, dummy, dummy))
 
     def _query_chunk(self, op: str, a, b) -> tuple:

@@ -8,6 +8,8 @@ runs there on its own:
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -309,7 +311,8 @@ def test_write_path_server_round_matches_an_oracle(cuda_device, name):
     t_pred = srv.submit(q, op="predecessor")
     t_succ = srv.submit(q, op="successor")
     t_scan = srv.submit_range(q[:500], q[:500] + 40, op="range_scan")
-    srv.warmup(("lookup", "predecessor", "successor", "range_scan"))  # the graphs' captures
+    # the graphs' captures, the write path's too
+    srv.warmup(("lookup", "predecessor", "successor", "range_scan", "write"))
     before = graphs.kernel_runs()
     got = srv.drain()
     runs = {k: n - before[k] for k, n in graphs.kernel_runs().items()}
@@ -362,7 +365,8 @@ def test_sharded_server_at_world_one_matches_the_single_chip_server(cuda_device,
     """The sharded path over NCCL (split level 0: trivial routing) against
     the single-chip server and a dict oracle, across a compaction: the same
     columns, one fetch per read chunk and per compaction, K4 and K1 from
-    the sharded path and no K2 (the buffer folds in plain torch)."""
+    the sharded path, the engine's ingest kernel once an ingest chunk (its
+    graph warmed first) and no K2 (the buffer folds in plain torch)."""
     keys, values = make_tree_data(8191, seed=2)
     cfg = EngineConfig(strategy=strategy, n_trees=1 if strategy == "hrz" else 4,
                        delta_capacity=256)
@@ -384,12 +388,12 @@ def test_sharded_server_at_world_one_matches_the_single_chip_server(cuda_device,
                 else server.submit_range(q[:500], q[:500] + 40, op=op) for op in ops]
 
     tickets, single_tickets = submit(srv), submit(single)
-    K.reset_launches()
-    QD.reset_launches()
+    srv.warmup(("write",))  # the engine's ingest and compaction graphs
+    runs = graphs.kernel_runs()  # what ran: the ingest runs as graph replays
     fetches = runtime.fetch_count()
     got = srv.drain()
     n_fetch = runtime.fetch_count() - fetches
-    launches = {**K.LAUNCHES, **QD.LAUNCHES}
+    launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
     want = single.drain()
     for t, st in zip(tickets, single_tickets):
         for g, w in zip(got[t], want[st]):
@@ -649,8 +653,11 @@ def test_graphed_queries_match_the_eager_route(cuda_device, name, capacity):
     """Every op through its graph equals the eager route bit for bit: on a
     read-only engine, and with a delta buffer empty, after an ingest (no
     re-capture: the graphs read the buffer's fixed addresses) and after a
-    compaction (a new snapshot: each op captured again at its first use).
-    A query's result is unchanged by the next query."""
+    compaction that grows the tree (the merge's graph captured at its first
+    use, then, over the new snapshot set, every graph of the engine, its
+    queries', the ingest's and the merge's, captured again, once, inside
+    the compaction).  A query's result is unchanged by the
+    next query."""
     keys, values = make_tree_data(32767, seed=4)
     eng = BSTEngine(keys, values, dataclasses.replace(PAPER_CONFIGS[name], delta_capacity=capacity))
     rng = np.random.default_rng(4)
@@ -670,15 +677,134 @@ def test_graphed_queries_match_the_eager_route(cuda_device, name, capacity):
     _same(first, kept)
     if capacity == 0:
         return
-    captures = graphs.STATS["captures"]
     wk = rng.integers(1, 2 * keys.size, 300).astype(np.int32)
     eng.apply_ops(wk, wk + 7, rng.random(wk.size) < 0.3)
     assert eng.compactions == 0
+    captures = graphs.STATS["captures"]
     agree()
     assert graphs.STATS["captures"] == captures
+    height = eng.tree.height
     eng.compact()
+    assert eng.tree.height == height + 1  # 32,767 keys fill height 14
+    held = eng.graph_keys()
+    assert len(held) == len(QUERY_CASES) + 2  # the queries, the ingest, the merge
+    assert graphs.STATS["captures"] == captures + 1 + len(held)
     agree()
-    assert graphs.STATS["captures"] == captures + len(QUERY_CASES)
+    assert graphs.STATS["captures"] == captures + 1 + len(held)
+
+
+def _write_engine(name, n_keys, capacity, seed):
+    """A warmed write-path engine over ``n_keys`` keys (the write path's
+    graphs captured before its first write), its keys and a generator."""
+    keys, values = make_tree_data(n_keys, seed=seed)
+    eng = BSTEngine(keys, values, dataclasses.replace(PAPER_CONFIGS[name], delta_capacity=capacity))
+    eng.warmup_writes()
+    for op, ranged in QUERY_CASES:
+        eng.query(op, keys[:512], keys[:512] + 9) if ranged else eng.query(op, keys[:512])
+    assert eng.compactions == 0 and eng.pending_writes() == 0
+    return eng, keys, np.random.default_rng(seed)
+
+
+def _overwrites(keys, rng, m):
+    """m ops that keep the key count: overwrites of stored keys."""
+    wk = rng.choice(keys, m, replace=False).astype(np.int32)
+    return wk, rng.integers(0, 2**31 - 1, m, dtype=np.int32), np.zeros(m, bool)
+
+
+@pytest.mark.parametrize("name", ["Hrz", "Dup4", "Hyb8q"])
+def test_same_height_compaction_captures_no_graph(cuda_device, name):
+    """With the write path warmed, ingests and a compaction that keeps the
+    height replay their graphs: no capture, no wrapper call, the snapshot
+    tensors where they were; the next read is a replay too, and equals the
+    eager route."""
+    eng, keys, rng = _write_engine(name, 30000, 512, seed=6)
+    ptrs = [t.data_ptr() for t in (eng.tree.keys, eng.tree.values, *eng.plan.sorted_view())]
+    captures, calls, height = graphs.STATS["captures"], graphs.launch_counts(), eng.tree.height
+    eng.apply_ops(*_overwrites(keys, rng, 400))  # crosses the high-water mark (384)
+    assert eng.compactions == 1 and eng.tree.height == height
+    q = rng.choice(np.concatenate([keys, keys + 1]), 512).astype(np.int32)  # a warmed length
+    got = eng.query("predecessor", q)
+    assert graphs.STATS["captures"] == captures
+    assert graphs.launch_counts() == calls  # every step a replay
+    assert [t.data_ptr() for t in (eng.tree.keys, eng.tree.values, *eng.plan.sorted_view())] == ptrs
+    _same(got, eng.query("predecessor", q, eager=True))
+    # the engine's graphs keep no reference cycle through it: dropped, it
+    # and its graphs go at once, not at a collection (one inside a later
+    # capture would tear a graph down there)
+    gone = weakref.ref(eng)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del eng, got
+        assert gone() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _clone_delta(delta):
+    return TD.DeltaBuffer(*(t.clone() for t in delta))
+
+
+@pytest.mark.parametrize("name", ["Hrz", "Dup4", "Hyb8q"])
+def test_ingest_and_compaction_graphs_equal_the_eager_route(cuda_device, name):
+    """The ingest graph against ``_ingest_step`` and the compaction's graphs
+    against ``delta.compact``, bit for bit (buffer, kernel operands, BFS
+    image, sorted view and device count): a compaction that keeps the
+    height, then one that grows it (the merge's graph, then the eager
+    layout of the new height)."""
+    eng, keys, rng = _write_engine(name, 16000, 4096, seed=7)  # height 13 (16,383 slots)
+    fresh = (rng.choice(keys.size * 4, 3000, replace=False) * 2 + 1).astype(np.int32)
+    for i, (k, v, d) in enumerate((_overwrites(keys, rng, 3000),
+                                   (fresh, fresh + 5, np.zeros(fresh.size, bool)))):
+        before, tree = _clone_delta(eng.delta), eng.tree
+        tree = TT.TreeData(tree.keys.clone(), tree.values.clone(), tree.height, tree.n_real)
+        want = eng._ingest_step(before, *(torch.from_numpy(x).to(cuda_device) for x in (k, v)),
+                                torch.from_numpy(d).to(cuda_device),
+                                torch.ones(k.size, dtype=torch.bool, device=cuda_device))
+        eng.apply_ops(k, v, d)  # below the high-water mark (3072): no compaction
+        assert (eng.compactions, eng.pending_writes()) == (i, k.size)
+        _same(tuple(eng.delta), tuple(want))
+        _same(eng._delta_ops, TD.operands(want))
+        want = TD.compact(tree, _clone_delta(eng.delta))
+        height = eng.tree.height
+        eng.compact()
+        _same((eng.tree.keys, eng.tree.values), (want.keys, want.values))
+        _same(tuple(eng.plan.sorted_view()), tuple(TT.sorted_view_of(want)))
+        assert (eng.tree.height, eng.tree.n_real) == (want.height, want.n_real)
+        assert (eng.tree.height == height) == (i == 0)  # 19,000 keys need height 14
+
+
+def test_write_drain_at_one_height_fetches_once_a_chunk_and_a_compaction(cuda_device):
+    """A drain of interleaved writes and reads with several compactions at
+    one height: one fetch per read chunk and one per compaction, no
+    capture, every K2 run a replay, the answers those of the eager
+    engine fed the same stream."""
+    keys, values = make_tree_data(30000, seed=8)
+    cfg = dataclasses.replace(PAPER_CONFIGS["Hrz"], delta_capacity=256)
+    srv = BSTServer(keys, values, cfg, chunk_size=1024, scan_k=4)
+    srv.warmup(("lookup", "successor", "write"))
+    ref = BSTEngine(keys, values, dataclasses.replace(cfg, device="cpu"))
+    rng = np.random.default_rng(8)
+    tickets = []
+    for _ in range(6):
+        k, v, d = _overwrites(keys, rng, 200)
+        srv.submit_write(k, v)
+        ref.apply_ops(k, v, d)
+        q = rng.choice(np.concatenate([keys, keys + 1]), 1500).astype(np.int32)
+        tickets.append((srv.submit(q), srv.submit(q, op="successor"),
+                        ref.query("lookup", q), ref.query("successor", q)))
+    captures, fetches, runs = graphs.STATS["captures"], runtime.fetch_count(), graphs.kernel_runs()
+    got = srv.drain()
+    st = srv.stats
+    read_chunks = st.per_op["lookup"].chunks + st.per_op["successor"].chunks
+    assert st.compactions >= 4 and srv.snapshot.height == 14
+    assert runtime.fetch_count() - fetches == read_chunks + st.compactions
+    assert graphs.STATS["captures"] == captures
+    assert graphs.kernel_runs()["forest_descend_delta"] - runs["forest_descend_delta"] == read_chunks
+    for t_look, t_succ, look, succ in tickets:
+        for g, w in zip(got[t_look] + got[t_succ], look + succ):
+            np.testing.assert_array_equal(g, w.numpy())
 
 
 def test_steady_state_drain_captures_nothing(cuda_device):
