@@ -67,6 +67,19 @@ Phases, in order; any failure raises and exits non-zero:
    ``memory_nodes_per_device`` (4,194,306 for hrz and hyb at 4 ranks),
    each rank's peak memory, and lanes/s beside the single-chip server's
    at world 1 are logged;
+4g. the port gates (``repro_torch.analysis``): the lint, dead-code and
+   contracts passes (the contracts on the card's kernels), then the
+   serve gate for hrz, dup and hyb on the single-chip server and on the
+   sharded server at world 1 over NCCL, at the gate's size (63 keys,
+   chunks of 64) and on the phase-4 tree in chunks of CHUNK: a warm
+   phase, then two rounds of a small write and 3 chunks each of lookup,
+   predecessor and range_scan under the capture and transfer watches
+   (no capture, one fetch a read chunk, the planned puts, no compaction,
+   no sync that ``set_sync_debug_mode("error")`` raises); two negative
+   controls, a planted ``.item()`` and a second batch length, must come
+   back as violations; which calls the sync debug mode sees is logged,
+   and so are each gate's seconds and kernel runs (K1, K3, K2 and K4
+   must each run);
 5. measure the card's dependent-load latency with the pointer chase
    (``csrc/pointer_chase.cu``: L_HBM, cold 64 MiB; L_L2, warm 4 MiB); at
    the main path's shapes, hold each kernel configuration against its
@@ -140,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -149,7 +163,8 @@ import torch  # noqa: E402
 import torch.distributed  # noqa: E402
 import torch.multiprocessing  # noqa: E402
 
-from repro_torch import graphs, invariants, runtime  # noqa: E402
+from repro_torch import graphs  # noqa: E402
+from repro_torch.analysis import invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
 from repro_torch.core import buffers as buf_lib  # noqa: E402
 from repro_torch.core import delta as delta_lib  # noqa: E402
@@ -173,6 +188,9 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.analysis import __main__ as analysis_main  # noqa: E402
+from repro_torch.analysis import contracts, deadcode, gate, lint, report  # noqa: E402
+from repro_torch.serving import bst_server  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BSTServer,
     decode_graph,
@@ -201,6 +219,7 @@ PROFILE_RUNS = 3
 CHUNK_PROFILE_OPS = ("lookup", "predecessor", "range_scan")
 CHUNK_PROFILE_CALLS = 16
 PROFILE_ATTEMPTS = 3
+COUNT_ATTEMPTS = 6  # traces for an exact kernel count (``kernels_per_dispatch``)
 SOURCE = "src/repro_torch/kernels/csrc/forest_search.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:100"
@@ -244,6 +263,8 @@ SHARD_RANKS = 4
 SHARD_POINTS = 1 << 16
 SHARD_W_ROUNDS = 4
 SHARD_TIMEOUT_S = 420
+# The gate phase (4g): the serve gate's strategies.
+GATE_STRATEGIES = ("hrz", "dup", "hyb")
 # The LM phase (6): qwen3-1.7b at its published width and depth.
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32  # the serving run
@@ -1526,6 +1547,142 @@ def shard_phase(keys, values, lookups, rounds, smi: str) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------------ phase 4g: the port gates
+class _PlantedPull(BSTServer):
+    """Negative control: an implicit device -> host pull (an ``.item()``)
+    in every read chunk's retire, which the measured phase runs."""
+
+    def _fill_columns(self, columns, total, sl, res):
+        res[0].sum().item()
+        return super()._fill_columns(columns, total, sl, res)
+
+
+class _SecondLength(BSTServer):
+    """Negative control: the measured chunks half the length that
+    ``warmup`` captured, so the drain captures graphs of a second length."""
+
+    def warmup(self, ops=("lookup",)):
+        super().warmup(ops)
+        self.chunk_size //= 2
+
+
+def sync_mode_findings() -> dict:
+    """Which calls ``torch.cuda.set_sync_debug_mode("error")`` sees: each
+    call planted alone under ``runtime.transfer_watch``; True where it
+    raised."""
+    x = torch.arange(1024, dtype=torch.int32, device="cuda")
+    host = torch.arange(1024, dtype=torch.int32)
+    pinned = host.pin_memory()
+    dst = torch.empty_like(x)
+    event = torch.cuda.Event()
+    calls = {
+        ".item()": lambda: x.sum().item(),
+        ".cpu()": lambda: x.cpu(),
+        ".tolist()": lambda: x[:4].tolist(),
+        "pageable .to(cuda)": lambda: host.to("cuda"),
+        "pageable copy_": lambda: dst.copy_(host),
+        "pinned copy_ non_blocking": lambda: dst.copy_(pinned, non_blocking=True),
+        "torch.tensor(int, device=cuda)": lambda: torch.tensor(5, device="cuda"),
+        "torch.nonzero": lambda: torch.nonzero(x),
+        "boolean mask index": lambda: x[x > 5],
+        "torch.cuda.synchronize()": torch.cuda.synchronize,
+        "Event.synchronize()": lambda: (event.record(), event.synchronize()),
+        "Stream.synchronize()": lambda: torch.cuda.current_stream().synchronize(),
+        "runtime.device_fetch": lambda: runtime.device_fetch((x,)),
+        "runtime.device_put": lambda: runtime.device_put(host, dst),
+        "runtime.block_until_ready": lambda: runtime.block_until_ready((x,)),
+    }
+    raised = {}
+    for name, call in calls.items():
+        with runtime.transfer_watch():
+            try:
+                call()
+                raised[name] = False
+            except RuntimeError as e:
+                check("synchroniz" in str(e), f"sync mode: {name} raised another error: {e}")
+                raised[name] = True
+    torch.cuda.synchronize()
+    return raised
+
+
+def gate_phase(keys, smi: str) -> dict:
+    """Phase 4g: the port gates (``repro_torch.analysis``) on the card: the
+    lint, dead-code and contracts passes, the serve gate for hrz, dup and
+    hyb on the single-chip server and on the sharded server at world 1 over
+    NCCL, at the gate's size and at the main path's (the phase-4 tree,
+    CHUNK), both negative controls, and the sync debug mode's findings.
+    Returns the phase's record; kernel runs are counted per gate run."""
+    t_phase = time.perf_counter()
+    out = {"sync_mode_raises": sync_mode_findings()}
+    expected = {".item()": True, ".cpu()": True, ".tolist()": True, "pageable .to(cuda)": True,
+                "pageable copy_": True, "runtime.device_fetch": False,
+                "runtime.device_put": False, "runtime.block_until_ready": False}
+    for name, want in expected.items():
+        check(out["sync_mode_raises"][name] == want,
+              f"4g: under transfer_watch {name} {'did not raise' if want else 'raised'}")
+    log(f"    sync debug mode 'error' raises on: "
+        f"{[k for k, v in out['sync_mode_raises'].items() if v]}; not on: "
+        f"{[k for k, v in out['sync_mode_raises'].items() if not v]} ({smi})")
+
+    t0 = time.perf_counter()
+    lint_hard, lint_soft = lint.lint_paths([os.path.join(ROOT, p) for p in analysis_main.DEFAULT_PATHS])
+    dead_hard, dead = deadcode.report_dead(ROOT)
+    check(not lint_hard and not dead_hard, "4g static passes:\n" + report.render_all(lint_hard + dead_hard))
+    out["static_s"] = time.perf_counter() - t0
+    out["allowlisted"] = len(lint_soft)
+    out["quarantined"] = sorted(dead)
+
+    runs = {}
+    seconds = {}
+    with gate.world1_group("cuda"):
+        t0 = time.perf_counter()
+        errors = contracts.run_contracts("cuda")
+        check(not errors, "4g contracts:\n" + report.render_all(errors))
+        out["contracts_s"] = time.perf_counter() - t0
+        for size, gate_kw in (("gate", {}), ("main", {"keys": keys, "chunk_size": CHUNK})):
+            for sharded in (False, True):
+                for strategy in GATE_STRATEGIES:
+                    tag = f"{strategy}{'/sharded' if sharded else ''} at the {size} size"
+                    torch.cuda.synchronize()
+                    before, t0 = graphs.kernel_runs(), time.perf_counter()
+                    errors = gate.serve_gate(strategy, sharded=sharded, device="cuda", **gate_kw)
+                    seconds[tag] = time.perf_counter() - t0
+                    runs[tag] = {k: n - before[k] for k, n in graphs.kernel_runs().items()
+                                 if n != before[k]}
+                    check(not errors, f"4g serve gate {tag}:\n" + report.render_all(errors))
+                    gc.collect()
+    out["contracts_and_gates_s"], out["gate_s"], out["gate_kernel_runs"] = (
+        time.perf_counter() - t_phase, seconds, runs)
+
+    controls = {}
+    for label, planted, needle in (("planted .item()", _PlantedPull, "synchroniz"),
+                                   ("second batch length", _SecondLength, "captured")):
+        with unittest.mock.patch.object(bst_server, "BSTServer", planted):
+            errors = gate.serve_gate("hrz", device="cuda")
+        caught = [v.render() for v in errors if needle in v.msg]
+        check(caught, f"4g negative control {label!r} not reported: {report.render_all(errors)}")
+        controls[label] = [v.render() for v in errors]
+        log(f"    negative control {label}: {len(errors)} violation(s), e.g. {caught[0]}")
+    out["negative_controls"] = controls
+
+    total = {}
+    for r in runs.values():
+        for k, n in r.items():
+            total[k] = total.get(k, 0) + n
+    for kern, names in (("K1", ("forest_descend",)), ("K3", ("hybrid_descend",)),
+                        ("K2", ("forest_descend_delta", "hybrid_descend_delta")),
+                        ("K4", ("queue_dispatch",))):
+        check(sum(total.get(n, 0) for n in names) > 0, f"4g: {kern} never ran in the gates")
+    for tag, r in runs.items():
+        log(f"    serve gate {tag}: clean in {seconds[tag]!r} s; kernel runs {r}")
+    out["kernel_runs_total"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"    phase 4g in {out['seconds']!r} s (static passes {out['static_s']!r} s, "
+        f"contracts {out['contracts_s']!r} s); {out['allowlisted']} allowlisted lint hits, "
+        f"quarantined {out['quarantined']}; kernel runs over the gates {total} ({smi})")
+    return out
+
+
 # ------------------------------------------------------------ phase 5: timing
 class ColdTimer:
     """Median CUDA-event time of a call, with the L2 flushed before each run
@@ -2154,24 +2311,33 @@ def time_queue_dispatch(timer, l_hbm_ms: float) -> list:
     return rows
 
 
-def kernels_per_dispatch(G: int, B: int, n_dest: int, capacity: int, calls: int = 10) -> list:
+def kernels_per_dispatch(G: int, B: int, n_dest: int, capacity: int, calls: int = 10) -> tuple:
     """The device kernels (and copies) of ``calls`` queue dispatches of the
     MoE layer, ``core.buffers.dispatch("queue", ...)``, on the card, by
     name, as torch.profiler sees them: one step of ``calls`` dispatches as
     the profiler's warm-up (a trace can miss its first kernels), then one
-    recorded.  One K4 launch per dispatch gives ``calls`` names, so a lost
-    event shows too."""
+    recorded.  One K4 launch per dispatch gives ``calls`` names.  The
+    profiler now and then loses some or all of a trace's device events
+    (7, and 0, of 10 in two runs on an H100), so a trace with fewer
+    events than ``calls`` is taken again, in a new
+    session, up to COUNT_ATTEMPTS times; a trace with more, or with any
+    other kernel, is returned at once.  Returns the names and the traces
+    it took."""
     dest = queue_dispatch_rows(G, B, n_dest, seed=7)[:G].contiguous()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                buf_lib.dispatch("queue", dest, n_dest, capacity)
-            torch.cuda.synchronize()
-            prof.step()
-    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not ev.name.startswith("ProfilerStep")]  # the step's own annotation
+    for attempt in range(1, COUNT_ATTEMPTS + 1):
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    buf_lib.dispatch("queue", dest, n_dest, capacity)
+                torch.cuda.synchronize()
+                prof.step()
+        names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not ev.name.startswith("ProfilerStep")]  # the step's own annotation
+        if len(names) >= calls or any("queue_dispatch" not in n for n in names):
+            break
+    return names, attempt
 
 
 @contextlib.contextmanager
@@ -2375,10 +2541,12 @@ def count_dispatch_kernels() -> dict:
     for i in QD_TIMED[:2]:  # the prefill and decode shapes
         G, B, n_dest, capacity, what = QD_SHAPES[i]
         calls = 10
-        names = kernels_per_dispatch(G, B, n_dest, capacity, calls)
+        names, traces = kernels_per_dispatch(G, B, n_dest, capacity, calls)
         check(len(names) == calls and all("queue_dispatch" in n for n in names),
-              f"{calls} queue dispatches at {what} ran {names}, not one K4 launch each")
+              f"{calls} queue dispatches at {what} ran {names} ({traces} traces), not one K4 "
+              f"launch each")
         out[f"{what} (G={G}, B={B})"] = names
+        log(f"    10 queue dispatches at {what}: {traces} trace(s) to see every device event")
     return out
 
 
@@ -2564,6 +2732,13 @@ def main() -> int:
     sharded = shard_phase(keys, values, lookup_sets["random"], rounds, smi)
     log(f"    [4s] done at {time.perf_counter() - t_start:.1f} s")
 
+    log("[4g] the port gates: lint, dead code, contracts, and the serve gate (hrz, dup, hyb; "
+        f"single-chip and sharded at world 1 over NCCL; the gate's 63 keys in chunks of 64, then "
+        f"the phase-4 tree in chunks of {CHUNK}); negative controls; the sync debug mode")
+    gc.collect()
+    gated = gate_phase(keys, smi)
+    log(f"    [4g] done at {time.perf_counter() - t_start:.1f} s")
+
     log("[5] kernels vs plain versions at the main path's shapes; times (CUDA events, L2 flushed, median)")
     serving_sets = make_key_sets(tree, 2 * CHUNK)
     pool = torch.from_numpy(serving_sets["random"]).cuda()
@@ -2693,6 +2868,7 @@ def main() -> int:
                        "hrz_drain_profile": busy, "written": written,
                        "write_phase_launches": w_launches, "write_phase_peak_bytes": peak,
                        "hrz_write_drain_profile": write_profile, "sharded": sharded,
+                       "gates": gated,
                        "delta_occupancy": occupancy, "kernel_limits": limits,
                        "pointer_chase": chase,
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,

@@ -1,9 +1,13 @@
-"""Shared invariants of the read and write paths, kept inside the port.
+"""Shared invariants of the read and write paths: one definition, two
+consumers.
 
-The port stands alone: it imports nothing of the JAX package, so it keeps
-its own copy of the few pure-stdlib bounds its engine, plans and kernel
-wrappers enforce.  Keep this file stdlib only, so every subpackage can
-depend on it without cycles.
+Each check is imported both by the code that must fail loudly at run time
+(``EngineConfig.__post_init__``, ``BSTServer`` construction, the sharded
+builders, the kernel wrappers) and by ``analysis.contracts``, which holds
+the same bounds on representative sizes.  The port stands alone: it
+imports nothing of the JAX package, so this is its own copy of
+``repro.analysis.invariants``, function for function.  Keep this file
+stdlib only, so every subpackage can depend on it without cycles.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch import runtime
+from repro_torch.analysis import runtime
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import OrderedResult, TreeData
 from repro_torch.kernels import ops as kops
@@ -476,7 +476,8 @@ def compact(tree: TreeData, delta: DeltaBuffer) -> TreeData:
 
 def _count(n_real: Count, device) -> torch.Tensor:
     """A key count as a () int32 tensor: the device count a graph reads as
-    it is, a host int (an eager caller's) moved to ``device``."""
+    it is, a host int (an eager caller's) filled in on ``device`` (a fill
+    kernel: no host -> device copy, no sync)."""
     if isinstance(n_real, torch.Tensor):
         return n_real.reshape(()).to(torch.int32)
-    return torch.tensor(n_real, dtype=torch.int32, device=device)
+    return torch.full((), n_real, dtype=torch.int32, device=device)

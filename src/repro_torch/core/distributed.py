@@ -52,7 +52,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch import invariants
+from repro_torch.analysis import invariants, runtime
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import tree as tree_lib
@@ -69,11 +69,13 @@ def stored_nodes_per_device(tensors: Sequence[torch.Tensor], group) -> int:
     elements of the tensors it really holds, and an ``all_reduce(MAX)``
     over ``group`` takes the largest.  A sharding fault that replicated a
     partitioned operand shows as an M-fold jump.  A collective: every rank
-    of ``group`` must call it."""
+    of ``group`` must call it; the result comes back in one counted fetch,
+    never inside a drain."""
     local = sum(int(t.numel()) for t in tensors)
-    count = torch.tensor([local], dtype=torch.int64, device=tensors[0].device)
+    count = torch.full((1,), local, dtype=torch.int64, device=tensors[0].device)
     dist.all_reduce(count, op=dist.ReduceOp.MAX, group=group)
-    return int(count.item())
+    (most,) = runtime.device_fetch((count,))
+    return int(most[0])
 
 
 def _axis_of(mesh: DeviceMesh, axis: str) -> Tuple[int, int, object]:

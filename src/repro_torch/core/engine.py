@@ -37,7 +37,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import graphs, invariants, runtime
+from repro_torch import graphs
+from repro_torch.analysis import invariants, runtime
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import tree as tree_lib
@@ -214,9 +215,9 @@ class BSTEngine:
             q_s = torch.zeros(q.shape[0], dtype=torch.int32, device=self.device)
             self._inputs[key] = (q_s, None if hi is None else torch.zeros_like(q_s))
         q_s, hi_s = self._inputs[key]
-        q_s.copy_(q)  # the H2D copy of a host batch, outside the graph
+        _stage(q, q_s)  # a host batch's copy to the device, outside the graph
         if hi is not None:
-            hi_s.copy_(hi)
+            _stage(hi, hi_s)
         return self._run(key, BSTEngine._query_step, op, k, q_s, hi_s)
 
     def _query_step(self, op: str, k: int, queries, queries_hi):
@@ -250,7 +251,7 @@ class BSTEngine:
         step, args = self._steps[key]
         with torch.cuda.device(self.device):
             g = self._graphs[key] = graphs.Graph(
-                functools.partial(step, self, *args), warmup=warmup, pool=self._pool
+                functools.partial(step, self, *args), warmup=warmup, pool=self._pool, label=key
             )
         return g
 
@@ -261,7 +262,13 @@ class BSTEngine:
         return tuple(self._graphs)
 
     def _to_device(self, x) -> torch.Tensor:
-        return _batch(x).to(device=self.device).contiguous()
+        """A batch on the engine's device: a host batch through the counted
+        ``runtime.device_put`` (on the CPU a host copy, counted alike, so
+        that a drain counts the same puts on either device)."""
+        x = _batch(x)
+        if x.is_cpu:
+            return runtime.device_put(x, torch.empty(x.shape, dtype=torch.int32, device=self.device))
+        return x.to(device=self.device).contiguous()
 
     def lookup(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
         """(values, found) for a 1-D int32 query batch."""
@@ -300,7 +307,7 @@ class BSTEngine:
         if _INGEST not in self._inputs:
             self._inputs[_INGEST] = (torch.zeros((4, cap), dtype=torch.int32, device=self.device),)
         (batch,) = self._inputs[_INGEST]
-        batch.copy_(torch.from_numpy(packed))
+        runtime.device_put(torch.from_numpy(packed), batch)
         self._run(_INGEST, BSTEngine._ingest_into, batch)
 
     def warmup_writes(self) -> None:
@@ -506,6 +513,15 @@ def _check_kernel_limits(config: EngineConfig) -> None:
     device = torch.device(config.device)
     if device.type == "cuda" and config.strategy == "hyb" and config.mapping == "queue":
         bst_kernels.check_queue_split(invariants.split_level_for(config.n_trees), device)
+
+
+def _stage(x: torch.Tensor, static: torch.Tensor) -> None:
+    """Copy a query batch into a graph's static input: a host batch through
+    the counted ``runtime.device_put``, a device batch in place."""
+    if x.is_cpu:
+        runtime.device_put(x, static)
+    else:
+        static.copy_(x)
 
 
 def _batch(x) -> torch.Tensor:

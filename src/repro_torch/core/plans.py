@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch import invariants
+from repro_torch.analysis import invariants
 from repro_torch.core import buffers as buf
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import tree as tree_lib

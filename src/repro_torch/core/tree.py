@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import runtime
+
 # Sentinel key for padding to a perfect tree: int32 max keeps compare
 # semantics intact for any real int32 key strictly below it.
 SENTINEL_KEY = np.int32(np.iinfo(np.int32).max)
@@ -95,16 +97,18 @@ class TreeData:
 
     def subtree(self, split_level: int, index: int) -> "TreeData":
         """Vertical partition: the ``index``-th subtree rooted at ``split_level``
-        (a host-side build step; it reads the sentinel count back)."""
+        (a host-side build step: its key count comes back in one counted
+        fetch)."""
         idx = torch.from_numpy(
             subtree_gather_indices(self.height, split_level, index)
         ).to(self.device)
         keys = self.keys[idx]
+        (n_real,) = runtime.device_fetch(((keys != int(SENTINEL_KEY)).sum(),))
         return TreeData(
             keys=keys,
             values=self.values[idx],
             height=self.height - split_level,
-            n_real=int((keys != int(SENTINEL_KEY)).sum()),
+            n_real=int(n_real),
         )
 
 

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import runtime
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import TreeData
@@ -27,9 +28,10 @@ from repro_torch.kernels import ops as kops
 
 
 def sorted_view(tree: TreeData) -> Tuple[np.ndarray, np.ndarray]:
-    """The sorted key/value arrays of a snapshot, on the host."""
-    keys = tree.keys.cpu().numpy()
-    values = tree.values.cpu().numpy()
+    """The sorted key/value arrays of a snapshot, on the host: one counted
+    fetch of the snapshot (a rebuild without a delta buffer is a host-side
+    step, outside any drain)."""
+    keys, values = runtime.device_fetch((tree.keys, tree.values))
     real = keys != tree_lib.SENTINEL_KEY
     order = np.argsort(keys[real], kind="stable")
     return keys[real][order], values[real][order]

@@ -24,7 +24,7 @@ from __future__ import annotations
 import gc
 import time
 import weakref
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -38,6 +38,9 @@ _COUNTERS = (bst_search.LAUNCHES, queue_dispatch.LAUNCHES, flash_attention.LAUNC
 CAPTURED: Dict[str, int] = {name: 0 for c in _COUNTERS for name in c}
 REPLAYED: Dict[str, int] = {name: 0 for c in _COUNTERS for name in c}
 STATS: Dict[str, float] = {"captures": 0, "capture_s": 0.0}
+# The lists of the open ``analysis.runtime.capture_watch`` blocks: every
+# capture appends its graph's label to each.
+WATCHERS: List[List[object]] = []
 
 _side_streams: Dict[torch.device, torch.cuda.Stream] = {}
 _live: "weakref.WeakSet[Graph]" = weakref.WeakSet()
@@ -85,10 +88,11 @@ class Graph:
     re-capture of ops that already ran in this process may skip it.
     ``pool``, a ``torch.cuda.graph_pool_handle()``, lets graphs share one
     memory pool: safe when each replay's outputs are consumed before
-    another graph of the pool replays.  ``out`` is ``fn``'s result, the
-    static output."""
+    another graph of the pool replays.  ``label`` names the step for a
+    ``capture_watch`` (an engine passes its step key).  ``out`` is
+    ``fn``'s result, the static output."""
 
-    def __init__(self, fn: Callable, *, warmup: bool = True, pool=None):
+    def __init__(self, fn: Callable, *, warmup: bool = True, pool=None, label: object = None):
         device = torch.device("cuda", torch.cuda.current_device())
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -124,6 +128,8 @@ class Graph:
             CAPTURED[name] += n
         STATS["captures"] += 1
         STATS["capture_s"] += seconds
+        for watch in WATCHERS:
+            watch.append(label)
         _live.add(self)
 
     def replay(self):

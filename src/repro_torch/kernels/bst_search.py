@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import invariants
+from repro_torch.analysis import invariants
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import MAPPINGS
 

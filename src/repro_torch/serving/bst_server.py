@@ -56,7 +56,7 @@ import numpy as np
 
 import torch
 
-from repro_torch import invariants, runtime
+from repro_torch.analysis import invariants, runtime
 from repro_torch.core import distributed as dist_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core.engine import BSTEngine, EngineConfig
@@ -508,7 +508,8 @@ class BSTServer:
         """The sharded read loop: a depth-2 double buffer.
 
         Each chunk is staged in one of two host slots (pinned on the card),
-        copied to the device without blocking, and its kernels and
+        copied into one of two device slots without blocking (the one
+        counted ``device_put`` of a chunk), and its kernels and
         collectives enqueued; an event recorded behind them marks the
         chunk.  Chunk i is retired (its event waited on, its columns
         fetched: the one counted fetch) only after chunk i+1 is enqueued,
@@ -522,6 +523,10 @@ class BSTServer:
         rows = 1 if b is None else 2  # a chunk's lows, and its highs
         slots = [
             torch.empty((rows, self.chunk_size), dtype=torch.int32, pin_memory=on_card)
+            for _ in range(2)
+        ]
+        dev_slots = [
+            torch.empty((rows, self.chunk_size), dtype=torch.int32, device=device)
             for _ in range(2)
         ]
         columns = None
@@ -545,7 +550,7 @@ class BSTServer:
             stage[0].numpy()[:] = a[sl]
             if b is not None:
                 stage[1].numpy()[:] = b[sl]
-            dev = stage.to(device, non_blocking=True)
+            dev = runtime.device_put(stage, dev_slots[n_chunks % 2], non_blocking=True)
             res = self._query_chunk(op, dev[0], None if b is None else dev[1])
             done = None
             if on_card:

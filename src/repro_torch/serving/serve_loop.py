@@ -16,6 +16,7 @@ graph against it.  A ``mesh`` (sharded serving) raises
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -33,21 +34,34 @@ def _single_card(mesh: Any) -> None:
         )
 
 
+def _addresses(model: M.Model) -> Tuple[int, ...]:
+    """The addresses of ``model``'s parameters and buffers: what a decode
+    graph reads its weights from."""
+    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers()))
+
+
 class DecodeGraph:
     """The decode step of one (config, batch, cache length) on ``model`` as
     one CUDA graph, with the state it owns: ``state`` (caches and
     position), the (B, 1) ``tokens`` it reads and the (B, V) logits it
     writes.  Its warm-up step moves the position; a prefill into ``state``
     sets it before the first replay.  It holds no reference to the model,
-    only the addresses of its parameters."""
+    only the addresses of its parameters and buffers at the capture
+    (``addresses``): a graph whose model holds tensors at other addresses
+    since (a parameter re-bound, ``model.to(...)``) is stale, and is never
+    replayed."""
 
     def __init__(self, cfg: ModelConfig, model: M.Model, batch: int, max_len: int):
         device = model.embed.device
         self.cfg = cfg
         self.state = M.make_decode_state(cfg, batch, max_len, device)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+        self.addresses = _addresses(model)
         with torch.cuda.device(device):
-            self.graph = graphs.Graph(lambda: M.decode_step(cfg, model, self.tokens, self.state)[0])
+            self.graph = graphs.Graph(
+                lambda: M.decode_step(cfg, model, self.tokens, self.state)[0],
+                label=("decode", batch, max_len),
+            )
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens)
@@ -63,17 +77,26 @@ _GRAPHS: "weakref.WeakKeyDictionary[M.Model, Dict[Tuple, DecodeGraph]]" = (
 
 def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int) -> DecodeGraph:
     """``model``'s decode graph for (cfg, batch, max_len), captured at the
-    first call and returned as it is by every later one."""
+    first call and returned as it is by every later one while the model
+    holds its parameters at the same addresses; otherwise captured anew
+    over the current ones, as the JAX step takes ``params`` at every
+    call."""
     per_model = _GRAPHS.setdefault(model, {})
     key = (cfg, batch, max_len)
-    if key not in per_model:
-        per_model[key] = DecodeGraph(cfg, model, batch, max_len)
-    return per_model[key]
+    g = per_model.get(key)
+    if g is None or g.addresses != _addresses(model):
+        per_model[key] = g = DecodeGraph(cfg, model, batch, max_len)
+    return g
 
 
 def _graph_of(cfg: ModelConfig, model: M.Model, state: M.DecodeState) -> DecodeGraph:
     for g in _GRAPHS.get(model, {}).values():
         if g.cfg == cfg and g.state.kv.k is state.kv.k:
+            if g.addresses != _addresses(model):
+                raise ValueError(
+                    "the decode graph of this state was captured over parameters the "
+                    "model no longer holds (re-bound or moved since): prefill again"
+                )
             return g
     raise ValueError(
         "the graphed decode step runs on the state of its own graph: prefill "

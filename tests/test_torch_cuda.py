@@ -17,10 +17,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as TC  # noqa: E402
-from repro_torch import graphs, invariants  # noqa: E402
+from repro_torch import graphs  # noqa: E402
+from repro_torch.analysis import __main__ as analysis_main  # noqa: E402
+from repro_torch.analysis import gate, invariants, report, runtime  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
-from repro_torch import runtime  # noqa: E402
 from repro_torch.core import distributed as TDist  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig  # noqa: E402
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
@@ -866,3 +867,76 @@ def test_graphed_decode_matches_the_eager_route(cuda_device, no_tf32, arch, dtyp
     _, own = TM.prefill(cfg, model, prompt, max_len=12 + n_new)
     with pytest.raises(ValueError, match="its own graph"):
         make_serve_step(cfg)(model, prompt[:, :1], own)
+
+
+def test_decode_graph_follows_rebound_parameters(cuda_device, no_tf32):
+    """A parameter re-bound after the capture: a state prefilled before
+    refuses the stale graph, and the next request captures a new graph
+    over the current weights, equal to the eager route bit for bit."""
+    cfg = TC.smoke_config("qwen3-1.7b")
+    model = TM.init_params(cfg, seed=3, device=cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 12)))
+    prompt = prompt.to(cuda_device)
+    n_new = 6
+    greedy_generate(cfg, model, prompt, n_new)  # captures the decode graph
+    logits, state = make_prefill_fn(cfg, max_len=12 + n_new)(model, prompt)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    model.final_norm = torch.nn.Parameter(
+        torch.randn(model.final_norm.shape, generator=g, device=cuda_device), requires_grad=False)
+    with pytest.raises(ValueError, match="no longer holds"):
+        make_serve_step(cfg)(model, logits.argmax(dim=-1, keepdim=True), state)
+    captures = graphs.STATS["captures"]
+    routes = {}
+    for name, eager in (("graph", False), ("eager", True)):
+        logits, state = make_prefill_fn(cfg, max_len=12 + n_new, eager=eager)(model, prompt)
+        logits, state = make_serve_step(cfg, eager=eager)(
+            model, logits.argmax(dim=-1, keepdim=True), state)
+        routes[name] = logits.clone()
+    assert graphs.STATS["captures"] == captures + 1
+    assert torch.equal(routes["graph"], routes["eager"])
+    assert torch.equal(greedy_generate(cfg, model, prompt, n_new),
+                       greedy_generate(cfg, model, prompt, n_new, eager=True))
+
+
+def test_transfer_watch_raises_on_planted_syncs(cuda_device):
+    """On the card the watch raises on an implicit pull and a pageable
+    copy; the counted spellings and the explicit waits do not."""
+    x = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    host = torch.arange(64, dtype=torch.int32)
+    dst = torch.empty_like(x)
+    for planted in (lambda: x.sum().item(), lambda: host.to(cuda_device), lambda: dst.copy_(host)):
+        with runtime.transfer_watch():
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                planted()
+    with runtime.transfer_watch() as tw:
+        (got,) = runtime.device_fetch((x,))
+        runtime.device_put(host, dst)
+        runtime.block_until_ready((dst,))
+        torch.cuda.synchronize()
+    assert (tw.fetches, tw.puts) == (1, 1)
+    assert np.array_equal(got, host.numpy()) and torch.equal(dst.cpu(), host)
+
+
+def test_capture_watch_reports_a_new_batch_length(cuda_device):
+    keys, values = make_tree_data(1023, seed=2)
+    eng = BSTEngine(keys, values, EngineConfig(device="cuda"))
+    eng.query("lookup", np.zeros(64, np.int32))
+    with runtime.capture_watch() as cw:
+        eng.query("lookup", np.ones(64, np.int32))
+        eng.query("lookup", np.ones(32, np.int32))
+        eng.query("range_scan", np.ones(32, np.int32), np.ones(32, np.int32), k=4)
+    assert cw.keys == [("lookup", None, 32), ("range_scan", 4, 32)]
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["single", "sharded"])
+@pytest.mark.parametrize("strategy", ["hrz", "dup", "hyb"])
+def test_serve_gate_is_clean_on_the_card(cuda_device, strategy, sharded):
+    with gate.world1_group("cuda"):
+        errors = gate.serve_gate(strategy, sharded=sharded, device="cuda")
+    assert errors == [], report.render_all(errors)
+
+
+def test_analysis_cli_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: --device cuda is the default")
+    assert analysis_main.main(["--repo-root", ".", "--serve-gate"]) == 0

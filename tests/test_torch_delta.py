@@ -21,7 +21,7 @@ from repro.core import delta as JD  # noqa: E402
 from repro.core import tree as JT  # noqa: E402
 from repro.data.keysets import make_tree_data  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch import invariants, runtime  # noqa: E402
+from repro_torch.analysis import invariants, runtime  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.tree import OrderedResult  # noqa: E402

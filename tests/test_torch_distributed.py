@@ -32,7 +32,7 @@ import torch.multiprocessing as torch_mp  # noqa: E402
 from repro.core import plans as JP  # noqa: E402
 from repro.core import tree as JT  # noqa: E402
 from repro.data.keysets import make_tree_data as j_make_tree_data  # noqa: E402
-from repro_torch import invariants, runtime  # noqa: E402
+from repro_torch.analysis import invariants, runtime  # noqa: E402
 from repro_torch.core import distributed as dist_lib  # noqa: E402
 from repro_torch.core import plans as TP  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402

@@ -25,7 +25,7 @@ from repro.data.keysets import leaf_keys, make_tree_data  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.bst_search import _dispatch_lanes  # noqa: E402
-from repro_torch import invariants  # noqa: E402
+from repro_torch.analysis import invariants  # noqa: E402
 from repro_torch.core import plans as tplans  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import BSTEngine, EngineConfig  # noqa: E402

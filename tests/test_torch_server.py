@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro.core.engine import PAPER_CONFIGS as J_CONFIGS  # noqa: E402
 from repro.data.keysets import make_tree_data  # noqa: E402
 from repro.serving import BSTServer as JServer  # noqa: E402
-from repro_torch import runtime  # noqa: E402
+from repro_torch.analysis import runtime  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, EngineConfig  # noqa: E402
 from repro_torch.serving import BSTServer  # noqa: E402
 

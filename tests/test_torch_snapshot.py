@@ -31,7 +31,7 @@ from repro.core import tree as JT  # noqa: E402
 from repro.core.engine import PAPER_CONFIGS as J_CONFIGS  # noqa: E402
 from repro.core.engine import BSTEngine as JEngine  # noqa: E402
 from repro.data.keysets import make_tree_data  # noqa: E402
-from repro_torch import runtime  # noqa: E402
+from repro_torch.analysis import runtime  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine  # noqa: E402
