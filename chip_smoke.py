@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM and MoE serving.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -92,8 +92,11 @@ Phases, in order; any failure raises and exits non-zero:
    (flash attention) against its plain version in fp32 and bf16 at the JAX
    package's sweep shapes, at Sq > Skv, at the edges of the bf16 body's
    128-row tiles (ragged Sq and Skv, a window edge inside a kv tile, rows
-   that see no key, d = 16 and 32) and at both serving shapes (qwen3's and
-   mixtral-8x7b's prefill attention); the whole model in fp32 (1 x 512
+   that see no key, d = 16 and 32), at both serving shapes (qwen3's and
+   mixtral-8x7b's prefill attention) and at phase 8's (hymba's windowed
+   GQA attention with a group of 5, seamless's non-causal encoder, a
+   cross-attention over a shorter memory, a small odd-group edge case);
+   the whole model in fp32 (1 x 512
    prompt), the flash route against the naive route over prefill and 4
    decode steps, and decode against a prefill of the longer prompt; the
    whole model in bf16 (4 x 512 prompts), the flash route (K5's wgmma body)
@@ -131,7 +134,25 @@ Phases, in order; any failure raises and exits non-zero:
    the two routes' shares equal, no capture, every logit finite, with
    prefill and decode times, peak memory, a decode step's device idle
    share, its device kernels and its host launch calls;
-8. print the ``{"kernels": [...]}`` line, the card's line, and last the
+8. the other families at their published width and depth, one model
+   alive at a time: mamba2-1.3b (ssm), hymba-1.5b (hybrid),
+   seamless-m4t-medium (encdec, 2048 frames a prompt) and internvl2-2b
+   (vlm, 256 patch embeddings a prompt); each in fp32 (1 x 512 + 4 decode
+   steps): the flash route against the naive route (the families with
+   attention) and decode against a prefill of the longer prompt (for
+   mamba2 the SSD duality at 48 layers), logits within 1e-3; in bf16 (4 x
+   512, the families with attention) the flash route's RMS distance from
+   the fp32 naive route at most 1.25 times the naive bf16 route's; the
+   bf16 serving run as phase 6's (4 x 2048 + 32 through
+   ``greedy_generate``, one decode graph, every kernel count set to 0
+   first: K5 launches a prefill hymba 32, seamless 36, internvl2 24,
+   mamba2 0, and no other kernel; graph tokens == eager tokens, then one
+   request on each route in turns with no capture, every logit finite;
+   prefill tok/s, decode ms/step, peak memory, a decode step's and a
+   prefill's profile); then K5 timed at hymba's and seamless's encoder
+   shapes beside its bound, its plain version and SDPA (an explicit mask
+   for hymba's window; the backend SDPA chose is named);
+9. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits with code 2 and prints no result without one.
@@ -154,6 +175,7 @@ import sys
 import tempfile
 import time
 import unittest.mock
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -181,6 +203,7 @@ from repro_torch.core.tree import (  # noqa: E402
 )
 from repro_torch.data.keysets import make_key_sets, make_tree_data  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.config import ShapeConfig, input_specs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -309,6 +332,10 @@ FLASH_SHAPES = [
     (4, 2, 1, 300, 128, True, None),  # one q row
     (4, 2, 190, 190, 32, True, 50),  # d = 32, window edge inside a tile
     (8, 4, 129, 129, 16, True, 7),  # d = 16, a 7-key window
+    (100, 20, 2048, 2048, 64, True, 1024),  # hymba-1.5b: 4 x 25 heads, 5 kv heads, window 1024
+    (64, 64, 2048, 2048, 64, False, None),  # seamless-m4t-medium's encoder: non-causal
+    (64, 64, 2048, 1536, 64, False, None),  # cross-attention over a memory shorter than the prompt
+    (10, 2, 300, 300, 64, True, 100),  # an odd GQA group (5), a window edge inside a kv tile
 ]
 FLASH_TIMED = (6, 7)  # indices into FLASH_SHAPES: the qwen3 and mixtral prefill shapes
 # The MoE phase (7): mixtral-8x7b at its published width.  Depth is the one
@@ -319,6 +346,22 @@ MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 2048, 32  # the serving run
 MOE_CHECK_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 2, 512, 4  # the fp32 checks
 MOE_AMPLE_CF = 4.0  # n_experts / top_k: no expert can overflow
 MOE_CHECK_TOL = 1e-3  # fp32 logits: the oracle sums the experts in another order
+# The families phase (8): the ssm, hybrid, encdec and vlm families at their
+# published width and depth, one model alive at a time.  Per arch: the
+# published (layers, encoder layers, d_model, heads, kv heads, head dim,
+# d_ff, vocab, SSM state, SSM heads, window, frontend length, dtype), and
+# K5's launches per prefill (each self-attention; seamless also its 12
+# encoder layers' and 12 cross-attentions').
+FAMILY_ARCHS = {
+    "mamba2-1.3b": ((48, 0, 2048, 0, 0, 0, 0, 50280, 128, 64, None, 0, "bfloat16"), 0),
+    "hymba-1.5b": ((32, 0, 1600, 25, 5, 64, 5504, 32001, 16, 25, 1024, 0, "bfloat16"), 32),
+    "seamless-m4t-medium": ((12, 12, 1024, 16, 16, 64, 4096, 256206, 0, 0, None, 0, "bfloat16"),
+                            36),
+    "internvl2-2b": ((24, 0, 2048, 16, 8, 128, 8192, 92553, 0, 0, None, 256, "bfloat16"), 24),
+}
+# The families' K5 shapes timed: indices into FLASH_SHAPES.
+FAMILY_FLASH_TIMED = ((16, "hymba-1.5b prefill attention"),
+                      (17, "seamless-m4t-medium encoder attention"))
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
 # (G, B, n_dest, capacity, what): K4's shapes.
@@ -1942,20 +1985,38 @@ def check_flash_kernel() -> list:
     return rows
 
 
-def check_full_model_fp32(cfg, smi: str) -> dict:
-    """qwen3-1.7b in fp32 at full width and depth, 1 x LM_CHECK_PROMPT: the
-    flash route (K5) against the naive route (plain attention) over prefill
-    and LM_CHECK_STEPS decode steps, then each decode step against a prefill
-    of the longer prompt."""
+def frontend_embeds(cfg, batch: int, seq: int, seed: int) -> tuple:
+    """The stub frontend's embeddings of a (batch, seq) prompt, as
+    ``launch/serve.py`` makes them: shaped by ``input_specs`` (seamless a
+    frame per position, internvl2 its 256 patches), N(0, 0.02) from numpy,
+    in the parameter dtype; () where the config has no frontend."""
+    if cfg.frontend is None:
+        return ()
+    spec = input_specs(cfg, ShapeConfig("serve", seq, batch, "prefill"))["frontend_embeds"]
+    draw = np.random.default_rng(seed).standard_normal(tuple(spec.shape), dtype=np.float32) * 0.02
+    return (torch.from_numpy(draw).to("cuda", spec.dtype),)
+
+
+def check_full_model_fp32(cfg, smi: str, k5_per_prefill=None) -> dict:
+    """A model (qwen3-1.7b, or a family of phase 8) in fp32 at full width
+    and depth, 1 x LM_CHECK_PROMPT with its frontend embeddings: the flash
+    route (K5, ``k5_per_prefill`` launches a prefill, by default one a
+    layer) against the naive route (plain attention), where the family has
+    attention, over prefill and LM_CHECK_STEPS decode steps, then each
+    decode step against a prefill of the longer prompt (the same frames or
+    patches; for mamba2 the SSD duality at full depth)."""
+    k5 = cfg.n_layers if k5_per_prefill is None else k5_per_prefill
     cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
     naive = dataclasses.replace(cfg32, attention_impl="naive")
     model = lm.init_params(cfg32, seed=0, device="cuda")
     total = LM_CHECK_PROMPT + LM_CHECK_STEPS
     toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, total))).cuda()
+    fe = frontend_embeds(cfg32, 1, LM_CHECK_PROMPT, seed=3)
 
     def run(c):
-        logits, state = lm.prefill(c, model, toks[:, :LM_CHECK_PROMPT], max_len=total)
-        check(bool(torch.isfinite(logits).all()), f"fp32 {c.attention_impl} prefill: a logit is not finite")
+        logits, state = lm.prefill(c, model, toks[:, :LM_CHECK_PROMPT], *fe, max_len=total)
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name} fp32 {c.attention_impl} prefill: a logit is not finite")
         out = [logits]
         for t in range(LM_CHECK_PROMPT, total):
             logits, state = lm.decode_step(c, model, toks[:, t:t + 1], state)
@@ -1964,38 +2025,45 @@ def check_full_model_fp32(cfg, smi: str) -> dict:
 
     FA.reset_launches()
     flash = run(cfg32)
-    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
-          f"fp32 prefill: {FA.LAUNCHES['flash_attention']} K5 launches for {cfg.n_layers} layers")
-    plain = run(naive)
-    route_err = max(float((a - b).abs().max()) for a, b in zip(flash, plain))
-    for a, b in zip(flash, plain):
-        torch.testing.assert_close(a, b, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
+    check(FA.LAUNCHES["flash_attention"] == k5,
+          f"{cfg.name} fp32 prefill: {FA.LAUNCHES['flash_attention']} K5 launches, want {k5}")
+    route_err = None
+    if cfg.has_attention:
+        plain = run(naive)
+        check(FA.LAUNCHES["flash_attention"] == k5, f"{cfg.name}: the naive route launched K5")
+        route_err = max(float((a - b).abs().max()) for a, b in zip(flash, plain))
+        for a, b in zip(flash, plain):
+            torch.testing.assert_close(a, b, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
+        del plain
     consistency_err = 0.0
     for t, logits in enumerate(flash[1:], start=1):
-        want, _ = lm.prefill(cfg32, model, toks[:, :LM_CHECK_PROMPT + t])
+        want, _ = lm.prefill(cfg32, model, toks[:, :LM_CHECK_PROMPT + t], *fe)
         consistency_err = max(consistency_err, float((logits - want).abs().max()))
         torch.testing.assert_close(logits, want, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
-    row = {"prompt": LM_CHECK_PROMPT, "decode_steps": len(flash) - 1,
-           "flash_vs_naive_max_abs_err": route_err,
+    row = {"arch": cfg.name, "prompt": LM_CHECK_PROMPT, "decode_steps": len(flash) - 1,
+           "k5_per_prefill": k5, "flash_vs_naive_max_abs_err": route_err,
            "decode_vs_prefill_max_abs_err": consistency_err, "tol": LM_CHECK_TOL,
            "logit_scale": float(flash[0].abs().max())}
-    log(f"  fp32 {cfg.name}, {cfg.n_layers} layers, 1 x {LM_CHECK_PROMPT}: flash vs naive route "
-        f"max_abs_err {route_err!r}, decode vs longer prefill {consistency_err!r} over "
-        f"{len(flash) - 1} steps (tolerance {LM_CHECK_TOL}; largest logit "
-        f"{row['logit_scale']!r}) ({smi})")
-    del model, flash, plain
+    log(f"  fp32 {cfg.name}, {cfg.n_layers} layers, 1 x {LM_CHECK_PROMPT}: K5 launches {k5}; "
+        f"flash vs naive route max_abs_err {route_err!r}, decode vs longer prefill "
+        f"{consistency_err!r} over {len(flash) - 1} steps (tolerance {LM_CHECK_TOL}; largest "
+        f"logit {row['logit_scale']!r}) ({smi})")
+    del model, flash
     torch.cuda.empty_cache()
     return row
 
 
-def check_full_model_bf16(cfg, smi: str) -> dict:
-    """qwen3-1.7b in bf16 at full width and depth, LM_BF16_CHECK_BATCH x
-    LM_CHECK_PROMPT: the serving route (flash, K5's bf16 wgmma body) and the
-    naive route (plain attention) in bf16, each against the naive route of
-    the same weights in fp32.  The flash route's RMS distance over all the
-    last-position logits may be at most LM_BF16_ROUTE_RATIO times the naive
-    bf16 route's: the kernel may add to the model's bf16 rounding, not
-    more than that share of it."""
+def check_full_model_bf16(cfg, smi: str, k5_per_prefill=None) -> dict:
+    """A model with attention in bf16 at full width and depth,
+    LM_BF16_CHECK_BATCH x LM_CHECK_PROMPT with its frontend embeddings: the
+    serving route (flash, K5's bf16 wgmma body, ``k5_per_prefill``
+    launches, by default one a layer) and the naive route (plain
+    attention) in bf16, each against the naive route of the same weights
+    in fp32.  The flash route's RMS distance over all the last-position
+    logits may be at most LM_BF16_ROUTE_RATIO times the naive bf16
+    route's: the kernel may add to the model's bf16 rounding, not more
+    than that share of it."""
+    k5 = cfg.n_layers if k5_per_prefill is None else k5_per_prefill
     naive = dataclasses.replace(cfg, attention_impl="naive")
     naive32 = dataclasses.replace(naive, dtype="float32")
     model = lm.init_params(cfg, seed=0, device="cuda")
@@ -2004,20 +2072,21 @@ def check_full_model_bf16(cfg, smi: str) -> dict:
         p32.copy_(p)
     toks = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab_size, (LM_BF16_CHECK_BATCH, LM_CHECK_PROMPT))).cuda()
+    fe = frontend_embeds(cfg, LM_BF16_CHECK_BATCH, LM_CHECK_PROMPT, seed=4)
     FA.reset_launches()
-    flash, _ = lm.prefill(cfg, model, toks)
-    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
-          f"bf16 prefill: {FA.LAUNCHES['flash_attention']} K5 launches for {cfg.n_layers} layers")
-    plain, _ = lm.prefill(naive, model, toks)
-    want, _ = lm.prefill(naive32, model32, toks)
-    check(FA.LAUNCHES["flash_attention"] == cfg.n_layers, "the naive routes launched K5")
+    flash, _ = lm.prefill(cfg, model, toks, *fe)
+    check(FA.LAUNCHES["flash_attention"] == k5,
+          f"{cfg.name} bf16 prefill: {FA.LAUNCHES['flash_attention']} K5 launches, want {k5}")
+    plain, _ = lm.prefill(naive, model, toks, *fe)
+    want, _ = lm.prefill(naive32, model32, toks, *fe)  # the prefill casts the bf16 embeddings
+    check(FA.LAUNCHES["flash_attention"] == k5, f"{cfg.name}: the naive routes launched K5")
     check(all(bool(torch.isfinite(t).all()) for t in (flash, plain, want)),
-          "bf16 check: a logit is not finite")
+          f"{cfg.name} bf16 check: a logit is not finite")
     dist = {name: (float((got.float() - want).pow(2).mean().sqrt()),
                    float((got.float() - want).abs().max()))
             for name, got in (("flash", flash), ("naive", plain))}
     ratio = dist["flash"][0] / dist["naive"][0]
-    row = {"batch": LM_BF16_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
+    row = {"arch": cfg.name, "batch": LM_BF16_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
            "flash_vs_fp32_rms": dist["flash"][0], "flash_vs_fp32_max_abs": dist["flash"][1],
            "naive_vs_fp32_rms": dist["naive"][0], "naive_vs_fp32_max_abs": dist["naive"][1],
            "rms_ratio": ratio, "tol_ratio": LM_BF16_ROUTE_RATIO,
@@ -2028,27 +2097,29 @@ def check_full_model_bf16(cfg, smi: str) -> dict:
         f"{dist['naive'][1]!r}); ratio {ratio!r} (tolerance {LM_BF16_ROUTE_RATIO}; largest "
         f"logit {row['logit_scale']!r}) ({smi})")
     check(ratio <= LM_BF16_ROUTE_RATIO,
-          f"bf16 check: the flash route is {ratio!r} times as far from fp32 as the naive route")
+          f"{cfg.name} bf16 check: the flash route is {ratio!r} times as far from fp32 as the "
+          f"naive route")
     del model, model32, flash, plain, want
     torch.cuda.empty_cache()
     return row
 
 
 def timed_generate(cfg, model, prompts, n_new: int, eager: bool, per_step=None,
-                   profiles=()) -> dict:
+                   profiles=(), frontend=()) -> dict:
     """One request through the serve loop's units on one route (the decode
     graph, or with ``eager`` the ops one by one): the prefill and the
     ``n_new - 1`` decode steps timed by the host clock around synchronised
     work, every step's logits copied out (the graph's are its static
     buffer) and checked finite, ``per_step()`` after the prefill and after
     each step, then the profiles named in ``profiles``: "decode" (further
-    decode steps) and "prefill" (one more prefill)."""
+    decode steps) and "prefill" (one more prefill).  ``frontend``: the
+    prefill's frontend embeddings, where the config has a frontend."""
     S = prompts.shape[1]
     prefill_fn = make_prefill_fn(cfg, max_len=S + n_new, eager=eager)
     step = make_serve_step(cfg, eager=eager)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = prefill_fn(model, prompts)
+    logits, state = prefill_fn(model, prompts, *frontend)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     if per_step is not None:
@@ -2075,7 +2146,7 @@ def timed_generate(cfg, model, prompts, n_new: int, eager: bool, per_step=None,
         "decode_ms_per_step": (t2 - t1) / n_steps * 1e3,
         "decode_tok_per_s": prompts.shape[0] * n_steps / (t2 - t1),
         **({"decode_profile": profile_decode(step, model, tok, state)} if "decode" in profiles else {}),
-        **({"prefill_profile": profile_calls(lambda: prefill_fn(model, prompts), 1)}
+        **({"prefill_profile": profile_calls(lambda: prefill_fn(model, prompts, *frontend), 1)}
            if "prefill" in profiles else {}),
     }
 
@@ -2088,45 +2159,58 @@ def log_route(label: str, r: dict) -> None:
             log_call_profile(f"{r['route']} {kind}", r[f"{kind}_profile"])
 
 
-def serve_lm(cfg, smi: str) -> dict:
-    """The serving run: qwen3-1.7b in bf16 through ``greedy_generate``, whose
-    first call captures the decode graph, with K5's launches counted from
-    0; the same through the eager route, tokens equal; then one request
-    timed on each route (graph, eager, graph, eager: the host's spread
-    shows in each pair) through the serve loop's units, tokens held against
-    greedy_generate's, and no capture after the first."""
+def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
+    """The serving run of a model (qwen3-1.7b, or a family of phase 8) in
+    bf16: every kernel count set to 0, then ``greedy_generate`` of
+    LM_BATCH x LM_PROMPT + LM_NEW with its frontend embeddings, whose first
+    call captures the decode step as one graph and whose prefill runs
+    ``k5_per_prefill`` K5 launches (by default one a layer) and no other
+    kernel of the port; the same through the eager route, tokens equal;
+    then one request timed on each route (graph, eager, graph, eager: the
+    host's spread shows in each pair) through the serve loop's units,
+    tokens held against greedy_generate's, and no capture after the
+    first."""
+    k5 = cfg.n_layers if k5_per_prefill is None else k5_per_prefill
     model = lm.init_params(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+    fe = frontend_embeds(cfg, LM_BATCH, LM_PROMPT, seed=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
-    captures, capture_s = graphs.STATS["captures"], graphs.STATS["capture_s"]
-    tokens = greedy_generate(cfg, model, prompts, LM_NEW)
+    for reset in (K.reset_launches, QD.reset_launches, FA.reset_launches, graphs.reset):
+        reset()
+    tokens = greedy_generate(cfg, model, prompts, LM_NEW, *fe)
     torch.cuda.synchronize()
-    launches = FA.LAUNCHES["flash_attention"]
+    runs = graphs.kernel_runs()
+    launches = runs["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
-    check(graphs.STATS["captures"] == captures + 1, "serving: not one decode graph captured")
-    capture_s = graphs.STATS["capture_s"] - capture_s
-    check(launches == cfg.n_layers, f"serving: {launches} K5 launches for one prefill of "
-                                    f"{cfg.n_layers} layers")
+    check(graphs.STATS["captures"] == 1, f"{cfg.name} serving: {graphs.STATS['captures']} graphs "
+                                         f"captured, want the one decode graph")
+    capture_s = graphs.STATS["capture_s"]
+    check(launches == k5, f"{cfg.name} serving: {launches} K5 launches for one prefill, want {k5}")
+    check(all(n == 0 for name, n in runs.items() if name != "flash_attention"),
+          f"{cfg.name} serving ran a kernel of another path: {runs}")
     check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
-    eager_tokens = greedy_generate(cfg, model, prompts, LM_NEW, eager=True)
-    check(torch.equal(eager_tokens, tokens), "serving: the graph's tokens differ from the eager route's")
+    eager_tokens = greedy_generate(cfg, model, prompts, LM_NEW, *fe, eager=True)
+    check(torch.equal(eager_tokens, tokens),
+          f"{cfg.name} serving: the graph's tokens differ from the eager route's")
 
-    steady = graphs.STATS["captures"]
-    routes = [timed_generate(cfg, model, prompts, LM_NEW, eager, profiles=profiles)
+    routes = [timed_generate(cfg, model, prompts, LM_NEW, eager, profiles=profiles, frontend=fe)
               for eager, profiles in ROUTE_TURNS]
-    check(graphs.STATS["captures"] == steady, "serving: a steady-state request captured a graph")
+    check(graphs.STATS["captures"] == 1,
+          f"{cfg.name} serving: a steady-state request captured a graph")
     for r in routes:
         check(torch.equal(r.pop("tokens"), tokens),
-              f"serving ({r['route']}): the timed steps' tokens differ from greedy_generate's")
+              f"{cfg.name} serving ({r['route']}): the timed steps' tokens differ from "
+              f"greedy_generate's")
     graph, eager = routes[0], routes[1]
     row = {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
-        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": cfg.n_params(),
+        "arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+        "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype, "params": cfg.n_params(),
         "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "frontend": list(fe[0].shape) if fe else None,
         "flash_launches": launches, "peak_bytes": peak, "capture_s": capture_s,
         **{k: graph[k] for k in ("prefill_s", "prefill_tok_per_s", "decode_steps",
                                  "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
@@ -2134,15 +2218,17 @@ def serve_lm(cfg, smi: str) -> dict:
         "routes": routes, "graph_tokens_equal_eager": True,
         "sample_ids": tokens[0, :16].tolist(),
     }
-    log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + {LM_NEW}: "
-        f"K5 launches {launches}, decode graph captured in {capture_s!r} s, graph tokens == "
-        f"eager tokens; graph: prefill {graph['prefill_s']!r} s ({graph['prefill_tok_per_s']!r} "
-        f"tok/s), decode {graph['decode_ms_per_step']!r} ms/step; eager: decode "
-        f"{eager['decode_ms_per_step']!r} ms/step; peak {peak} bytes, every logit finite ({smi})")
+    log(f"  {cfg.name} ({cfg.family}) bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + "
+        f"{LM_NEW}, frontend {row['frontend']}: K5 launches {launches}, decode graph captured in "
+        f"{capture_s!r} s, graph tokens == eager tokens; graph: prefill {graph['prefill_s']!r} s "
+        f"({graph['prefill_tok_per_s']!r} tok/s), decode {graph['decode_ms_per_step']!r} ms/step; "
+        f"eager: decode {eager['decode_ms_per_step']!r} ms/step; peak {peak} bytes, every logit "
+        f"finite ({smi})")
     for r in routes:
         log_route("route", r)
     log(f"    sample ids {row['sample_ids']}")
     del model
+    gc.collect()  # the model's decode graph goes with it
     torch.cuda.empty_cache()
     return row
 
@@ -2158,30 +2244,63 @@ def profile_decode(step, model, tok, state) -> dict:
     return profile_calls(one_step, LM_PROFILE_STEPS)
 
 
-def time_flash(timer) -> list:
-    """K5 in bf16 at both prefill shapes (qwen3's and mixtral's), each beside
-    its plain version, scaled_dot_product_attention (the library yardstick,
-    never called by the port) and the least time the card could take for
-    the same work."""
+def sdpa_backend(call, want: torch.Tensor) -> str:
+    """The backend ``scaled_dot_product_attention`` chose for ``call``: the
+    ones whose output, each run alone (``sdpa_kernel``), equals the
+    unrestricted call's ``want`` bit for bit."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # why each backend that cannot run refuses
+                out = call()
+        except RuntimeError:
+            continue
+        if torch.equal(out, want):
+            names.append(backend.name)
+    return "/".join(names) or "none equal"
+
+
+def time_flash(timer, timed=None) -> list:
+    """K5 in bf16 at prefill shapes -- both of phase 6 (qwen3's and
+    mixtral's), or ``timed``, (index into FLASH_SHAPES, label) pairs --
+    each beside its plain version, scaled_dot_product_attention (the
+    library yardstick, never called by the port: ``is_causal`` where no
+    window cuts the causal mask, else an explicit boolean mask of the same
+    function; ``enable_gqa``; the backend it chose named) and the least
+    time the card could take for the same work."""
+    if timed is None:
+        timed = [(i, f"{what} prefill attention") for i, what in zip(FLASH_TIMED, (LM_ARCH, MOE_ARCH))]
     rows = []
-    for idx, what in zip(FLASH_TIMED, (LM_ARCH, MOE_ARCH)):
+    for idx, label in timed:
         shape = FLASH_SHAPES[idx]
         BH, BHkv, Sq, Skv, d, causal, window = shape
-        check(causal and (window is None or window >= Skv),
-              f"{shape}: SDPA's is_causal computes this function only without a window cut")
+        check(Sq == Skv or not causal, f"{shape}: SDPA aligns a causal mask top-left, K5 bottom-right")
         q, k, v = flash_operands(shape, torch.bfloat16, seed=99)
         got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         err = float((got.float() - want.float()).abs().max())
         B = LM_BATCH
         q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
-        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
-                                 is_causal=True, enable_gqa=True)
-        lib_err = float((sdpa().reshape(BH, Sq, d).float() - want.float()).abs().max())
+        if window is not None and window < Skv:
+            qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
+            kpos = torch.arange(Skv, device="cuda")[None, :]
+            mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                     attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                     is_causal=causal, enable_gqa=True)
+        lib_out = sdpa()
+        lib_err = float((lib_out.reshape(BH, Sq, d).float() - want.float()).abs().max())
+        backend = sdpa_backend(sdpa, lib_out)
         flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
         n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
         row = {
-            "config": f"{what} prefill attention", "shape": list(shape), "dtype": "bfloat16",
+            "config": label, "shape": list(shape), "dtype": "bfloat16",
             "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal,
                                           window=window)),
             "plain_ms": timer(functools.partial(ref.flash_attention_ref, q, k, v, causal=causal,
@@ -2189,18 +2308,19 @@ def time_flash(timer) -> list:
             "library_ms": timer(sdpa),
             "flop": flop, "bytes": n_bytes,
             "flop_ms": flop / BF16_FLOP_PER_S * 1e3, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "max_abs_err": err, "library_max_abs_err": lib_err, "library_backend": backend,
         }
         row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
         row["tflop_per_s"] = flop / row["ms"] * 1e-9
-        log(f"  K5 {what} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
-            f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}: "
+        log(f"  K5 {label} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+            f"library_ms={row['library_ms']!r} (sdpa backend {backend}) bound_ms="
+            f"{row['bound_ms']!r} ({row['bound_by']}: "
             f"{flop} FLOP over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} ms, {n_bytes} bytes "
             f"over {HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms; {row['tflop_per_s']!r} "
             f"TFLOP/s); max_abs_err vs plain {err!r}, sdpa vs plain {lib_err!r}")
         rows.append(row)
-        del q, k, v, got, want, q4, k4, v4
+        del q, k, v, got, want, q4, k4, v4, lib_out
     return rows
 
 
@@ -2580,6 +2700,31 @@ def moe_phase(resources: dict, timer, smi: str, l_hbm_ms: float, dispatch_kernel
             "moe_full_width_fp32": fp32, "moe_served": served}
 
 
+# ------------------------------------------------------- phase 8: families
+def families_phase(timer, smi: str) -> dict:
+    """Phase 8: mamba2, hymba, seamless-m4t and internvl2 at their published
+    width and depth, one model alive at a time: the fp32 checks, the bf16
+    check (the families with attention), the bf16 serving run; then K5
+    timed at hymba's and seamless's encoder shapes."""
+    out = {"fp32": [], "bf16": [], "served": []}
+    for arch, (published, k5) in FAMILY_ARCHS.items():
+        cfg = get_config(arch)
+        got = (cfg.n_layers, cfg.encoder_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.ssm_state,
+               cfg.ssm_heads if cfg.ssm_state else 0, cfg.sliding_window, cfg.frontend_len,
+               cfg.dtype)
+        check(got == published, f"{arch} is not at its published width and depth: {got}")
+        log(f"  {arch} ({cfg.family}): {cfg.n_params()} parameters, {k5} K5 launches a prefill")
+        t0 = time.perf_counter()
+        out["fp32"].append(check_full_model_fp32(cfg, smi, k5))
+        if cfg.has_attention:
+            out["bf16"].append(check_full_model_bf16(cfg, smi, k5))
+        out["served"].append(serve_lm(cfg, smi, k5))
+        log(f"    {arch} done in {time.perf_counter() - t0!r} s")
+    out["flash_timing"] = time_flash(timer, FAMILY_FLASH_TIMED)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -2779,6 +2924,12 @@ def main() -> int:
     log(f"    [6] done at {time.perf_counter() - t_start:.1f} s")
     moe = moe_phase(resources, timer, smi, chase["l_hbm_ms"], dispatch_kernels)
     qd_timing, moe_served = moe["queue_dispatch_timing"], moe["moe_served"]
+    log(f"    [7] done at {time.perf_counter() - t_start:.1f} s")
+    log(f"[8] families: {', '.join(FAMILY_ARCHS)} at their published width and depth")
+    gc.collect()
+    families = families_phase(timer, smi)
+    family_k5 = {r["arch"]: r["flash_launches"] for r in families["served"]}
+    log(f"    [8] done at {time.perf_counter() - t_start:.1f} s; K5 launches a prefill {family_k5}")
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
@@ -2829,8 +2980,9 @@ def main() -> int:
         "library_ms": flash_timing[0]["library_ms"],
         "config": (f"{flash_timing[0]['config']} {flash_timing[0]['shape']} bf16; launches: one "
                    f"{LM_ARCH} prefill (and {moe_served['k5_launches']} per {MOE_ARCH} prefill "
-                   f"at {MOE_LAYERS} layers)"),
-        "configs": flash_timing,
+                   f"at {MOE_LAYERS} layers; per family prefill: {family_k5})"),
+        "family_launches": family_k5,
+        "configs": flash_timing + families["flash_timing"],
         "ptxas": {k: list(v) for k, v in flash_resources.items()},
         "hgmma": hgmma,
         "bf16_smem_bytes": flash_smem,
@@ -2874,8 +3026,9 @@ def main() -> int:
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
                        "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
-                       **moe, "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
+                       **moe, "families": families,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

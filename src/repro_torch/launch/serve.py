@@ -1,14 +1,22 @@
 """Serving drivers: LM decoding, and the sharded BST store.
 
-LM mode -- batched greedy decoding with prefill + KV cache:
+LM mode -- batched greedy decoding with prefill and the decode caches:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
         --device cpu --batch 4 --prompt-len 32 --new-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b --smoke --device cpu
 
-Parameters come from a seed (``init_params``), prompts from numpy's
-generator.  On the card the decode step runs as one CUDA graph, captured
+Every family is served: dense, moe, ssm (mamba2), hybrid (hymba), encdec
+(seamless-m4t) and vlm (internvl2).  Parameters come from a seed
+(``init_params``), prompts from numpy's generator, and so do the stub
+frontends' embeddings (N(0, 0.02), in the parameter dtype), shaped by
+``input_specs``: seamless's encoder takes a frame per prompt position,
+internvl2's 256 patch embeddings replace the first prompt positions.  On the card the decode step runs as one CUDA graph, captured
 before the timed prefill.  It prints the prefill time, decode tokens per
 second and the first sequence's token ids.  The published config is
 served whole: mixtral-8x7b's 32 layers (93.4 GB in bf16) do not fit one
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import model as M
+from repro_torch.models.config import ShapeConfig, input_specs
 from repro_torch.serving.serve_loop import decode_graph, make_prefill_fn, make_serve_step
 
 
@@ -143,18 +152,26 @@ def main(argv=None):
         ap.error("--new-tokens must be >= 1")
     device = torch.device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm" and args.prompt_len < cfg.frontend_len:
+        ap.error(f"{cfg.name}: --prompt-len must hold the {cfg.frontend_len} patch embeddings")
     model = M.init_params(cfg, seed=0, device=device)
     B, S = args.batch, args.prompt_len
     rng = np.random.default_rng(1)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(device)
+    frontend = ()
+    if cfg.frontend is not None:
+        spec = input_specs(cfg, ShapeConfig("serve", S, B, "prefill"))["frontend_embeds"]
+        draw = rng.standard_normal(tuple(spec.shape), dtype=np.float32) * 0.02
+        frontend = (torch.from_numpy(draw).to(device, spec.dtype),)
+    memory_len = frontend[0].shape[1] if cfg.family == "encdec" else None
 
     if device.type == "cuda":
         t0 = time.perf_counter()
-        decode_graph(cfg, model, B, S + args.new_tokens)
+        decode_graph(cfg, model, B, S + args.new_tokens, memory_len)
         print(f"decode step captured as a CUDA graph in {time.perf_counter() - t0:.3f}s")
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = make_prefill_fn(cfg, max_len=S + args.new_tokens)(model, prompts)
+    logits, state = make_prefill_fn(cfg, max_len=S + args.new_tokens)(model, prompts, *frontend)
     tok = logits.argmax(dim=-1, keepdim=True)
     _sync(device)
     t1 = time.perf_counter()

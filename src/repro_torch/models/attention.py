@@ -45,7 +45,9 @@ class KVCache:
     length: torch.Tensor
 
 
-def attn_params_shape(cfg: ModelConfig):
+def attn_params_shape(cfg: ModelConfig, cross: bool = False):
+    """The block's weights; a cross-attention block (``cross``) has no
+    q/k norms, as its q and memory keys are neither normed nor roped."""
     D, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     shapes = {
@@ -54,7 +56,7 @@ def attn_params_shape(cfg: ModelConfig):
         "wv": (D, KV * hd),
         "wo": (H * hd, D),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         shapes["q_norm"] = (hd,)
         shapes["k_norm"] = (hd,)
     return shapes
@@ -65,9 +67,9 @@ class Attention(nn.Module):
     uninitialised on ``device``; ``models.model.init_params`` or
     ``models.convert.params_from_jax`` fills them."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype: torch.dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype: torch.dtype, cross: bool = False):
         super().__init__()
-        for name, shape in attn_params_shape(cfg).items():
+        for name, shape in attn_params_shape(cfg, cross).items():
             setattr(self, name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype)))
 
 
@@ -144,6 +146,27 @@ def attend(
     return out.reshape(B, Sq, H * hd) @ p.wo
 
 
+def project_cross_kv(
+    cfg: ModelConfig, p: Attention, memory: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K and V (B, Smem, KV, hd) of the encoder memory
+    (B, Smem, D): projected once, neither normed nor roped."""
+    hd = cfg.resolved_head_dim
+    k = _split_heads(memory @ p.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(memory @ p.wv, cfg.n_kv_heads, hd)
+    return k, v
+
+
+def cross_attention(
+    cfg: ModelConfig, p: Attention, x: torch.Tensor, memory_kv: Tuple[torch.Tensor, torch.Tensor]
+) -> torch.Tensor:
+    """Full-sequence cross-attention of x (B, S, D) over the projected
+    memory (``project_cross_kv``), non-causal: (B, S, D).  q is neither
+    normed nor roped (the JAX package's ``kv_override`` path)."""
+    q = _split_heads(x @ p.wq, cfg.n_heads, cfg.resolved_head_dim)
+    return attend(cfg, p, q, *memory_kv, causal=False, window=None)
+
+
 # --------------------------------------------------------------------- decode
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache:
     """Ring buffer of ``window`` slots for SWA archs, else full ``max_len``."""
@@ -160,19 +183,45 @@ def decode_attention(
     cfg: ModelConfig,
     p: Attention,
     x: torch.Tensor,  # (B, 1, D)
-    cache: KVCache,
+    cache: Optional[KVCache],
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step: write the new token's K/V into the (ring) cache in
     place and attend over the cache.  The caller advances the length (one
-    for all layers: ``models.model.decode_step``).  Nothing here reads a
-    device value on the host."""
+    for all layers: ``models.model.decode_step``).  With ``kv_override``,
+    cross-attention: q (neither normed nor roped) attends over every slot
+    of the given memory K/V (B, Smem, KV, hd), and no cache is read or
+    written.  Nothing here reads a device value on the host."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     group = H // KV
-    pos = cache.length  # absolute position of the new token, () int32
 
     q = _split_heads(x @ p.wq, H, hd)
+    if kv_override is not None:
+        k_all, v_all = kv_override
+        valid = None
+    else:
+        q, k_all, v_all, valid = _write_self_kv(cfg, p, x, q, cache)
+
+    qg = (q.float() * hd**-0.5).reshape(B, 1, KV, group, hd)
+    s = torch.einsum("bqkgd,bpkd->bqkgp", qg, k_all.float())
+    if valid is not None:
+        s = torch.where(valid[None, None, None, None, :], s, torch.full_like(s, _NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgp,bpkd->bqkgd", probs, v_all.float())
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return out @ p.wo
+
+
+def _write_self_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, q: torch.Tensor,
+                   cache: KVCache):
+    """Self-attention's part of a decode step: q and the new K normed
+    (qk_norm) and roped at the cache's position, K/V written into the
+    (ring) cache in place.  Returns (q, cache K, cache V, valid slots)."""
+    hd = cfg.resolved_head_dim
+    KV = cfg.n_kv_heads
+    pos = cache.length  # absolute position of the new token, () int32
     k_new = _split_heads(x @ p.wk, KV, hd)
     v_new = _split_heads(x @ p.wv, KV, hd)
     cos, sin = layers.rope_angles(pos.view(1, 1), hd, cfg.rope_theta)
@@ -197,11 +246,4 @@ def decode_attention(
     valid = abs_pos <= pos
     if cfg.sliding_window:
         valid &= abs_pos > pos - cfg.sliding_window
-
-    qg = (q.float() * hd**-0.5).reshape(B, 1, KV, group, hd)
-    s = torch.einsum("bqkgd,bpkd->bqkgp", qg, cache.k.float())
-    s = torch.where(valid[None, None, None, None, :], s, torch.full_like(s, _NEG_INF))
-    probs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgp,bpkd->bqkgd", probs, cache.v.float())
-    out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ p.wo
+    return q, cache.k, cache.v, valid

@@ -11,8 +11,9 @@ Families:
   encdec  -- seamless-m4t: encoder + causal decoder with cross-attention
   vlm     -- internvl2: decoder LM consuming stub patch embeddings
 
-The port runs the dense and moe families (``models.model``); the others
-are configured here and raise ``NotImplementedError`` there.  The JAX
+The port serves all six families (``models.model``).  ``ShapeConfig`` and
+``input_specs`` describe a request's inputs, the frontend's stub embeddings
+among them, as ``meta`` tensors (no data).  The JAX
 package's XLA and TPU switches (``sharding_strategy``, ``zero1``, ``remat``,
 ``remat_policy``, ``scan_layers``, ``attn_block_q``/``attn_block_k``) and its
 training switch ``logit_chunk`` have no meaning in eager PyTorch on one card
@@ -22,7 +23,7 @@ and are left out.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -139,6 +140,7 @@ class ModelConfig:
             )
             # decoder cross-attention
             n += self.n_layers * (D * H * hd + 2 * D * KV * hd + H * hd * D + D)
+            n += D  # the encoder's final norm (the JAX package's formula leaves it out)
         n += V * D  # embedding
         if not self.tie_embeddings:
             n += V * D  # output head
@@ -152,3 +154,45 @@ class ModelConfig:
         D, F = self.d_model, self.d_ff
         inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * D * F
         return self.n_params() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Every model input of ``shape`` as a ``meta`` tensor: its shape and
+    dtype, no data.
+
+    train:   tokens/labels (B, S)
+    prefill: tokens (B, S)
+    decode:  tokens (B, 1); the decode state is ``models.model.make_decode_state``.
+    Frontends contribute precomputed embeddings (stubs), in the parameter
+    dtype: encdec (audio) a frame per position, (B, S, d_model), which the
+    encoder consumes; vlm (vision) a fixed budget of ``frontend_len`` patch
+    embeddings, (B, frontend_len, d_model), which replace the first decoder
+    positions (the sequence stays S long).  Tokens are int64, the port's
+    token dtype (numpy's integers, ``argmax``), where the JAX package's are
+    int32.
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind == "train":
+        specs["tokens"] = spec((B, S), torch.int64)
+        specs["labels"] = spec((B, S), torch.int64)
+    elif shape.kind == "prefill":
+        specs["tokens"] = spec((B, S), torch.int64)
+    else:  # decode: one new token against a seq_len-deep cache
+        specs["tokens"] = spec((B, 1), torch.int64)
+    if cfg.frontend is not None and shape.kind != "decode":
+        flen = S if cfg.family == "encdec" else cfg.frontend_len
+        specs["frontend_embeds"] = spec((B, flen, cfg.d_model), cfg.param_dtype)
+    return specs

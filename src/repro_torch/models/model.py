@@ -1,44 +1,43 @@
-"""The decoder LM: parameters, prefill and decode.
+"""The LM of every family: parameters, prefill and decode.
 
-The port of the JAX package's ``models/model.py`` for the dense family
-(internlm2, granite-3, tinyllama, qwen3) and the moe family (mixtral: the
-dense decoder with a mixture-of-experts FFN, ``models/moe.py``, in place of
-the MLP).  Parameters are ``nn.Module``s:
-``Model`` holds the embedding, the final norm, the untied head where there
-is one, and an ``nn.ModuleList`` of ``DecoderLayer``s, where the JAX package
-stacks (L, ...) leaves for its layer scan; the scan becomes a Python loop.
-Serving runs under ``torch.no_grad``.  The decode caches are stacked
-(L, B, C, KV, hd) as in the JAX package and are updated in place, and the
-decode position is a device scalar that the step advances in place, so the
-step reads nothing on the host and one CUDA graph of it serves every
+The port of the JAX package's ``models/model.py`` for all six families:
+dense (internlm2, granite-3, tinyllama, qwen3), moe (mixtral: a
+mixture-of-experts FFN, ``models/moe.py``, in place of the MLP), ssm
+(mamba2: each layer a norm and the SSD mixer, ``models/ssm.py``), hybrid
+(hymba: attention and SSD heads side by side, their outputs averaged), encdec
+(seamless-m4t: a non-causal encoder over the frontend's frames, and decoder
+layers that also attend to its output) and vlm (internvl2: the frontend's
+patch embeddings replace the first decoder positions).  The frontends are
+stubs, as in the JAX package: precomputed embeddings.  Parameters are
+``nn.Module``s: ``Model`` holds the embedding, the final norm, the untied
+head where there is one, an ``nn.ModuleList`` of ``DecoderLayer``s and, for
+encdec, the encoder's layers and norm, where the JAX package stacks
+(L, ...) leaves for its layer scan; the scan becomes a Python loop.
+Serving runs under ``torch.no_grad``.  The decode caches are stacked (L, ...)
+as in the JAX package and are updated in place, and the decode position is
+one device scalar that every cache shares and the step advances in place,
+so the step reads nothing on the host and one CUDA graph of it serves every
 position (``serving/serve_loop.py``).
-
-The other families (ssm, hybrid, encdec, vlm) raise
-``NotImplementedError``: they are still to port (ROADMAP.md Queue 1 item
-13b).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 INIT_SCALE = 0.02
-PORTED_FAMILIES = ("dense", "moe")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md Queue 1 item 13b); the port runs the families {PORTED_FAMILIES}"
-        )
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# The parameters that are norm scales (``init_params`` sets them to 1): the
+# layers' norms, the q/k norms, the final norms and the SSD mixer's gated
+# norm (``ssm.norm``).
+NORM_SCALES = frozenset(
+    ("ln1", "ln2", "ln_cross", "q_norm", "k_norm", "final_norm", "enc_final_norm", "norm"))
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -55,10 +54,24 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    """One layer's parameters, as the JAX package's ``_layer_param_shapes``:
+    ssm: ``ln1`` and ``ssm``; else ``ln1``, ``attn``, ``ssm`` (hybrid),
+    ``ln_cross`` and ``cross`` (an encdec decoder layer, ``role``
+    "decoder"), ``ln2`` and ``moe`` or ``mlp``.  An encoder layer
+    (``role`` "encoder") has no cross-attention."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype, role: str = "decoder"):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), device, dtype)
+        if cfg.family == "ssm":
+            self.ssm = ssm.SSM(cfg, device, dtype)
+            return
         self.attn = attn.Attention(cfg, device, dtype)
+        if cfg.family == "hybrid":
+            self.ssm = ssm.SSM(cfg, device, dtype)
+        if role == "decoder" and cfg.family == "encdec":
+            self.ln_cross = _param((cfg.d_model,), device, dtype)
+            self.cross = attn.Attention(cfg, device, dtype, cross=True)
         self.ln2 = _param((cfg.d_model,), device, dtype)
         if cfg.family == "moe":
             self.moe = moe.MoE(cfg, device, dtype)
@@ -69,17 +82,22 @@ class DecoderLayer(nn.Module):
 class Model(nn.Module):
     """The LM's parameters, allocated uninitialised on ``device`` in
     the config's parameter dtype (``init_params`` fills them from a seed,
-    ``models.convert.params_from_jax`` from the JAX package's tree)."""
+    ``models.convert.params_from_jax`` from the JAX package's tree).  On
+    the ``meta`` device it allocates nothing: a count of its parameters
+    is ``cfg.n_params()``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_family(cfg)
         dt = cfg.param_dtype
         self.embed = _param((cfg.vocab_size, cfg.d_model), device, dt)
         self.final_norm = _param((cfg.d_model,), device, dt)
         if not cfg.tie_embeddings:
             self.head = _param((cfg.vocab_size, cfg.d_model), device, dt)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device, dt) for _ in range(cfg.n_layers))
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, device, dt, role="encoder") for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = _param((cfg.d_model,), device, dt)
         for p in self.parameters():
             p.requires_grad_(False)
 
@@ -89,18 +107,22 @@ class Model(nn.Module):
 
 # ------------------------------------------------------------------ param init
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
-    """A ``Model`` on ``device`` from ``seed``: every matrix (the MoE
-    router and the (E, in, out) expert stacks too) N(0, 0.02),
-    drawn in fp32 by a ``torch.Generator`` on ``device`` and cast to the
-    parameter dtype; every norm scale 1.  (The JAX package draws its layer
-    norms' scales from N(0, 0.02) too and sets only the final norm to 1;
-    its numbers come from ``jax.random`` and cannot be matched by a torch
-    generator, so the tests carry the JAX weights across with
-    ``params_from_jax`` instead.)"""
+    """A ``Model`` on ``device`` from ``seed``: every norm scale
+    (``NORM_SCALES``) 1, every other parameter N(0, 0.02) -- the matrices,
+    the MoE router and the (E, in, out) expert stacks, and the SSD mixer's
+    ``A_log``, ``dt_bias`` and ``Dskip``, as the JAX package draws them --
+    drawn in fp32 by a ``torch.Generator`` on ``device`` in the order of
+    ``named_parameters`` and cast to the parameter dtype.  (The JAX package
+    draws its layer norms' scales from N(0, 0.02) too and sets only the
+    final norms to 1; its numbers come from ``jax.random`` and cannot be
+    matched by a torch generator, so the tests carry the JAX weights
+    across with ``params_from_jax`` instead.  The dense and moe families
+    have no 1-D parameter but norm scales, so their draws are those of
+    the rule that set every 1-D parameter to 1.)"""
     model = Model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
-        if p.ndim == 1:
+        if name.rsplit(".", 1)[-1] in NORM_SCALES:
             p.fill_(1.0)
         else:
             draw = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
@@ -122,47 +144,143 @@ def _mix_ffn(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor):
 
 
 def _decoder_layer_full(
-    cfg: ModelConfig, lp: DecoderLayer, x: torch.Tensor, positions: torch.Tensor, causal: bool
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence layer: ``(x, k, v)``, with the layer's roped K and its V
-    (B, S, KV, hd) for the decode cache.  The JAX package's prefill projects
-    K/V once for the cache and again inside its attention; here they are
-    projected once (the same ops on the same inputs, so the same numbers)."""
+    cfg: ModelConfig,
+    lp: DecoderLayer,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    causal: bool,
+    memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Full-sequence layer (prefill, encoder): ``(x, kv, ssm_cache)``, with
+    the layer's roped K and its V (B, S, KV, hd) for the decode cache (None
+    for the ssm family) and its SSM cache (ssm and hybrid; else None).  The
+    JAX package's prefill projects K/V once for the cache and again inside
+    its attention; here they are projected once (the same ops on the same
+    inputs, so the same numbers).  ``memory_kv``, the encoder memory's
+    projected K/V, adds the cross-attention of an encdec decoder layer."""
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+    if cfg.family == "ssm":
+        mixed, sc = ssm.ssd_prefill(cfg, lp.ssm, h)
+        return x + mixed, None, sc
     q, k, v = attn.project_qkv(cfg, lp.attn, h, positions)
-    x = x + attn.attend(cfg, lp.attn, q, k, v, causal=causal, window=cfg.sliding_window)
+    a = attn.attend(cfg, lp.attn, q, k, v, causal=causal, window=cfg.sliding_window)
+    sc = None
+    if cfg.family == "hybrid":
+        s, sc = ssm.ssd_prefill(cfg, lp.ssm, h)
+        a = (a + s) * 0.5  # parallel attention + SSM heads (hymba)
+    x = x + a
+    if memory_kv is not None:
+        h = layers.rms_norm(x, lp.ln_cross, cfg.norm_eps)
+        x = x + attn.cross_attention(cfg, lp.cross, h, memory_kv)
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
     f, _ = _mix_ffn(cfg, lp, h)
-    return x + f, k, v
+    return x + f, (k, v), sc
+
+
+# ------------------------------------------------------------------- embedding
+def _embed_inputs(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decoder's input (B, S, D): the tokens' embeddings, the first
+    ``flen`` positions replaced by the vlm frontend's patch embeddings."""
+    x = layers.embed(tokens, model.embed)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        flen = frontend_embeds.shape[1]
+        if flen > tokens.shape[1]:
+            raise ValueError(f"{flen} patch embeddings do not fit a prompt of {tokens.shape[1]}")
+        x = torch.cat([frontend_embeds.to(x.dtype), x[:, flen:, :]], dim=1)
+    return x
+
+
+def _run_encoder(cfg: ModelConfig, model: Model, frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """The encdec encoder over the frontend's frames (B, Smem, D), non-causal,
+    then its final norm: the memory (B, Smem, D)."""
+    B, S, _ = frontend_embeds.shape
+    positions = torch.arange(S, device=frontend_embeds.device).expand(B, S)
+    x = frontend_embeds.to(cfg.param_dtype)
+    for lp in model.enc_layers:
+        x, _, _ = _decoder_layer_full(cfg, lp, x, positions, causal=False)
+    return layers.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
 
 
 # --------------------------------------------------------------------- decode
 class DecodeState(NamedTuple):
-    """The per-layer KV caches, stacked (L, B, C, KV, hd), and the decode
-    position, a 0-d int32 device tensor."""
+    """The per-layer caches, stacked (L, ...), and the decode position.
 
-    kv: attn.KVCache
+    ``kv``: the attention families' KV caches (L, B, C, KV, hd); ``ssm``:
+    the ssm and hybrid families' conv tails (L, B, CONV_K - 1, d_inner +
+    2N) and states (L, B, H, P, N) fp32; ``cross_kv``: the encdec
+    decoder's cross-attention memory K and V (L, B, Smem, KV, hd), Smem the
+    encoder's length (never padded: decode attends to every slot);
+    ``position``: a 0-d int32 device tensor, the tokens consumed so far,
+    which ``kv.length`` and ``ssm.length`` are too.  Absent caches are
+    None."""
+
+    kv: Optional[attn.KVCache]
+    ssm: Optional[ssm.SSMCache]
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    position: torch.Tensor
 
 
-def make_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> DecodeState:
+def make_decode_state(
+    cfg: ModelConfig, batch: int, max_len: int, device="cuda", memory_len: Optional[int] = None
+) -> DecodeState:
     """Zeroed caches at position 0: a ring of ``sliding_window`` slots for
-    SWA archs, else ``max_len`` slots."""
-    check_family(cfg)
-    one = attn.init_kv_cache(cfg, batch, max_len, device)
+    SWA archs, else ``max_len`` slots; for encdec a cross memory of
+    ``memory_len`` slots, the encoder's length, which it needs."""
     L = cfg.n_layers
-    return DecodeState(kv=attn.KVCache(
-        k=one.k.new_zeros((L,) + tuple(one.k.shape)),
-        v=one.v.new_zeros((L,) + tuple(one.v.shape)),
-        length=one.length,
-    ))
+
+    def stacked(one: torch.Tensor) -> torch.Tensor:  # one layer's cache (a meta tensor), L times
+        return torch.zeros((L,) + tuple(one.shape), dtype=one.dtype, device=device)
+
+    position = torch.zeros((), dtype=torch.int32, device=device)
+    kv = sm = cross = None
+    if cfg.has_attention:
+        one = attn.init_kv_cache(cfg, batch, max_len, "meta")
+        kv = attn.KVCache(k=stacked(one.k), v=stacked(one.v), length=position)
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssm.init_ssm_cache(cfg, batch, "meta")
+        sm = ssm.SSMCache(conv=stacked(one.conv), state=stacked(one.state), length=position)
+    if cfg.family == "encdec":
+        if memory_len is None:
+            raise ValueError(f"{cfg.name}: an encdec decode state needs memory_len, the "
+                             f"encoder's length (the cross memory is never padded)")
+        shape = (L, batch, memory_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cross = (torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+                 torch.zeros(shape, dtype=cfg.param_dtype, device=device))
+    return DecodeState(kv=kv, ssm=sm, cross_kv=cross, position=position)
+
+
+def state_tensors(state: DecodeState) -> Dict[str, torch.Tensor]:
+    """The state's cache tensors by name (the position aside)."""
+    out: Dict[str, torch.Tensor] = {}
+    if state.kv is not None:
+        out.update({"kv.k": state.kv.k, "kv.v": state.kv.v})
+    if state.ssm is not None:
+        out.update({"ssm.conv": state.ssm.conv, "ssm.state": state.ssm.state})
+    if state.cross_kv is not None:
+        out.update({"cross_kv.k": state.cross_kv[0], "cross_kv.v": state.cross_kv[1]})
+    return out
 
 
 def _decoder_layer_decode(
-    cfg: ModelConfig, lp: DecoderLayer, x: torch.Tensor, cache: attn.KVCache
+    cfg: ModelConfig,
+    lp: DecoderLayer,
+    x: torch.Tensor,
+    cache_kv: Optional[attn.KVCache],
+    cache_ssm: Optional[ssm.SSMCache],
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
 ) -> torch.Tensor:
-    """One-token layer step; the layer's cache is updated in place."""
+    """One-token layer step; the layer's caches are updated in place."""
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
-    x = x + attn.decode_attention(cfg, lp.attn, h, cache)
+    if cfg.family == "ssm":
+        return x + ssm.ssd_decode(cfg, lp.ssm, h, cache_ssm)
+    a = attn.decode_attention(cfg, lp.attn, h, cache_kv)
+    if cfg.family == "hybrid":
+        a = (a + ssm.ssd_decode(cfg, lp.ssm, h, cache_ssm)) * 0.5
+    x = x + a
+    if cross_kv is not None:
+        h = layers.rms_norm(x, lp.ln_cross, cfg.norm_eps)
+        x = x + attn.decode_attention(cfg, lp.cross, h, None, kv_override=cross_kv)
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
     f, _ = _mix_ffn(cfg, lp, h)
     return x + f
@@ -175,14 +293,18 @@ def decode_step(
     """One serving step: (B, 1) tokens -> (B, V) logits and the advanced
     state.  The caches and the position in ``state`` are advanced in place
     (the JAX package donates them), so the returned state is ``state``."""
-    check_family(cfg)
     x = layers.embed(tokens, model.embed)
-    kv = state.kv
+    pos, kv, sm, cross = state.position, state.kv, state.ssm, state.cross_kv
     for i, lp in enumerate(model.layers):
-        x = _decoder_layer_decode(cfg, lp, x, attn.KVCache(kv.k[i], kv.v[i], kv.length))
+        x = _decoder_layer_decode(
+            cfg, lp, x,
+            None if kv is None else attn.KVCache(kv.k[i], kv.v[i], pos),
+            None if sm is None else ssm.SSMCache(sm.conv[i], sm.state[i], pos),
+            None if cross is None else (cross[0][i], cross[1][i]),
+        )
     x = layers.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = layers.unembed(x, model.head_table())
-    kv.length.add_(1)
+    pos.add_(1)
     return logits[:, 0, :], state
 
 
@@ -191,32 +313,58 @@ def prefill(
     cfg: ModelConfig,
     model: Model,
     tokens: torch.Tensor,
+    frontend_embeds: Optional[torch.Tensor] = None,
     max_len: Optional[int] = None,
     out: Optional[DecodeState] = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """Full-sequence pass that also builds the decode caches: (B, S) tokens
     -> (last-position logits (B, V), DecodeState), with room for
-    ``max_len`` (default S) tokens.  With ``out``, a state of that shape
+    ``max_len`` (default S) tokens.  ``frontend_embeds``: the encdec
+    encoder's frames (B, Smem, D), which it needs, or the vlm's patch
+    embeddings (B, flen, D); other families ignore them, as the JAX
+    package does.  With ``out``, a state of that shape
     (``make_decode_state``), the caches and the position are written into
     it and it is returned: a graphed decode step reads fixed addresses.
-    With ``attention_impl="flash"`` each layer launches kernel K5 once on
-    the card."""
-    check_family(cfg)
+    With ``attention_impl="flash"`` each attention launches kernel K5 once
+    on the card: a layer's self-attention, and an encdec encoder layer's
+    and decoder layer's cross-attention."""
     B, S = tokens.shape
     C = max_len or S
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = layers.embed(tokens, model.embed)
-    state = make_decode_state(cfg, B, C, tokens.device) if out is None else out
+    enc_out = memory_len = None
+    if cfg.family == "encdec":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: the encdec prefill needs frontend_embeds, the "
+                             f"encoder's frames")
+        enc_out = _run_encoder(cfg, model, frontend_embeds)
+        memory_len = enc_out.shape[1]
+        x = layers.embed(tokens, model.embed)
+    else:
+        x = _embed_inputs(cfg, model, tokens, frontend_embeds)
+    if out is None:
+        state = make_decode_state(cfg, B, C, tokens.device, memory_len)
+    else:
+        state = out
+        want = {k: tuple(t.shape) for k, t in
+                state_tensors(make_decode_state(cfg, B, C, "meta", memory_len)).items()}
+        got = {k: tuple(t.shape) for k, t in state_tensors(state).items()}
+        if got != want:
+            raise ValueError(f"out state caches are {got}, want {want}")
     W = min(C, cfg.sliding_window) if cfg.sliding_window else C
-    want = (cfg.n_layers, B, W, cfg.n_kv_heads, cfg.resolved_head_dim)
-    if tuple(state.kv.k.shape) != want or tuple(state.kv.v.shape) != want:
-        raise ValueError(f"out state caches are {tuple(state.kv.k.shape)}, want {want}")
     for i, lp in enumerate(model.layers):
-        x, k, v = _decoder_layer_full(cfg, lp, x, positions, causal=True)
-        ck, cv = _ring_pack(k, v, W, S)
-        state.kv.k[i].copy_(ck)
-        state.kv.v[i].copy_(cv)
-    state.kv.length.fill_(S)
+        mem = None if enc_out is None else attn.project_cross_kv(cfg, lp.cross, enc_out)
+        x, kv, sc = _decoder_layer_full(cfg, lp, x, positions, causal=True, memory_kv=mem)
+        if kv is not None:
+            ck, cv = _ring_pack(*kv, W, S)
+            state.kv.k[i].copy_(ck)
+            state.kv.v[i].copy_(cv)
+        if sc is not None:
+            state.ssm.conv[i].copy_(sc.conv)
+            state.ssm.state[i].copy_(sc.state)
+        if mem is not None:
+            state.cross_kv[0][i].copy_(mem[0])
+            state.cross_kv[1][i].copy_(mem[1])
+    state.position.fill_(S)
     x = layers.rms_norm(x[:, -1, :], model.final_norm, cfg.norm_eps)
     logits = layers.unembed(x, model.head_table())
     return logits, state

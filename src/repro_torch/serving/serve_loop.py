@@ -3,15 +3,18 @@
 ``make_serve_step`` and ``make_prefill_fn`` return the per-request units of
 the JAX package's serve loop, which jits the decode step and donates its
 state.  On a CUDA device the port's decode step is one CUDA graph
-(``repro_torch.graphs``) per (config, model, batch, cache length), captured
-at first use and replayed at every step: the graph owns its decode state
-(caches and position) and its static tokens and logits, and the prefill
-writes its caches into that state.  Prefill itself runs eagerly: it is
-bound by its device work, not by launches.  On the CPU both run eagerly,
-and ``eager=True`` asks for the eager route on the card too, to hold the
-graph against it.  A ``mesh`` (sharded serving) raises
-``NotImplementedError``: it is still to port (ROADMAP.md Queue 1 item 9).
-``greedy_generate`` is the batched greedy decoding driver.
+(``repro_torch.graphs``) per (config, model, batch, cache length, memory
+length), captured at first use and replayed at every step: the graph owns
+its decode state (every cache of the family -- KV ring, SSM conv tails and
+states, the encdec cross memory -- and the position) and its static tokens
+and logits, and the prefill writes its caches into that state.  Prefill
+itself runs eagerly: it is bound by its device work, not by launches.  On
+the CPU both run eagerly, and ``eager=True`` asks for the eager route on
+the card too, to hold the graph against it.  A ``mesh`` (sharded serving)
+raises ``NotImplementedError``: it is still to port (ROADMAP.md Queue 1
+item 9).  ``greedy_generate`` is the batched greedy decoding loop.  The
+families with a frontend (encdec, vlm) take its stub embeddings beside the
+tokens, as the JAX package's serve loop does.
 """
 
 from __future__ import annotations
@@ -41,26 +44,29 @@ def _addresses(model: M.Model) -> Tuple[int, ...]:
 
 
 class DecodeGraph:
-    """The decode step of one (config, batch, cache length) on ``model`` as
-    one CUDA graph, with the state it owns: ``state`` (caches and
-    position), the (B, 1) ``tokens`` it reads and the (B, V) logits it
-    writes.  Its warm-up step moves the position; a prefill into ``state``
-    sets it before the first replay.  It holds no reference to the model,
-    only the addresses of its parameters and buffers at the capture
-    (``addresses``): a graph whose model holds tensors at other addresses
-    since (a parameter re-bound, ``model.to(...)``) is stale, and is never
-    replayed."""
+    """The decode step of one (config, batch, cache length, memory length)
+    on ``model`` as one CUDA graph, with the state it owns: ``state``
+    (caches and position), the (B, 1) ``tokens`` it reads and the (B, V)
+    logits it writes.  ``memory_len`` is the encdec cross memory's length,
+    the encoder's (None for the other families): the memory is never
+    padded, so each length has its graph.  Its warm-up step moves the
+    position; a prefill into ``state`` sets it before the first replay.  It
+    holds no reference to the model, only the addresses of its parameters
+    and buffers at the capture (``addresses``): a graph whose model holds
+    tensors at other addresses since (a parameter re-bound,
+    ``model.to(...)``) is stale, and is never replayed."""
 
-    def __init__(self, cfg: ModelConfig, model: M.Model, batch: int, max_len: int):
+    def __init__(self, cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
+                 memory_len: Optional[int] = None):
         device = model.embed.device
         self.cfg = cfg
-        self.state = M.make_decode_state(cfg, batch, max_len, device)
+        self.state = M.make_decode_state(cfg, batch, max_len, device, memory_len)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=device)
         self.addresses = _addresses(model)
         with torch.cuda.device(device):
             self.graph = graphs.Graph(
                 lambda: M.decode_step(cfg, model, self.tokens, self.state)[0],
-                label=("decode", batch, max_len),
+                label=("decode", batch, max_len, memory_len),
             )
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -69,29 +75,32 @@ class DecodeGraph:
 
 
 # Per model (held weakly: a model's graphs go with it), its decode graphs by
-# (config, batch, max_len).
+# (config, batch, max_len, memory_len).
 _GRAPHS: "weakref.WeakKeyDictionary[M.Model, Dict[Tuple, DecodeGraph]]" = (
     weakref.WeakKeyDictionary()
 )
 
 
-def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int) -> DecodeGraph:
-    """``model``'s decode graph for (cfg, batch, max_len), captured at the
-    first call and returned as it is by every later one while the model
-    holds its parameters at the same addresses; otherwise captured anew
-    over the current ones, as the JAX step takes ``params`` at every
-    call."""
+def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
+                 memory_len: Optional[int] = None) -> DecodeGraph:
+    """``model``'s decode graph for (cfg, batch, max_len, memory_len),
+    captured at the first call and returned as it is by every later one
+    while the model holds its parameters at the same addresses; otherwise
+    captured anew over the current ones, as the JAX step takes ``params``
+    at every call."""
     per_model = _GRAPHS.setdefault(model, {})
-    key = (cfg, batch, max_len)
+    key = (cfg, batch, max_len, memory_len)
     g = per_model.get(key)
     if g is None or g.addresses != _addresses(model):
-        per_model[key] = g = DecodeGraph(cfg, model, batch, max_len)
+        per_model[key] = g = DecodeGraph(cfg, model, batch, max_len, memory_len)
     return g
 
 
 def _graph_of(cfg: ModelConfig, model: M.Model, state: M.DecodeState) -> DecodeGraph:
+    """The graph that owns ``state``: the one whose state has its position
+    tensor (every family's state has one)."""
     for g in _GRAPHS.get(model, {}).values():
-        if g.cfg == cfg and g.state.kv.k is state.kv.k:
+        if g.cfg == cfg and g.state.position is state.position:
             if g.addresses != _addresses(model):
                 raise ValueError(
                     "the decode graph of this state was captured over parameters the "
@@ -129,18 +138,29 @@ def make_serve_step(cfg: ModelConfig, mesh: Any = None, *, eager: bool = False) 
 def make_prefill_fn(
     cfg: ModelConfig, mesh: Any = None, max_len: Optional[int] = None, *, eager: bool = False
 ) -> Callable:
-    """(model, tokens (B, S)) -> (last-position logits (B, V), DecodeState).
-    On a CUDA device (unless ``eager``) the caches are written into the
-    state of the decode graph for (B, ``max_len``), captured at the first
+    """(model, tokens (B, S)[, frontend_embeds]) -> (last-position logits
+    (B, V), DecodeState): the frontend's embeddings are the third argument
+    where ``cfg.frontend`` is set (encdec: the encoder's frames (B, Smem,
+    D); vlm: the patch embeddings (B, flen, D)), as in the JAX package.  On
+    a CUDA device (unless ``eager``) the caches are written into the state
+    of the decode graph for (B, ``max_len``, Smem), captured at the first
     such prefill; a later request of that shape overwrites them."""
     _single_card(mesh)
 
-    def prefill(model, tokens):
+    def run(model, tokens, frontend_embeds=None):
         if _eager(eager, tokens):
-            return M.prefill(cfg, model, tokens, max_len=max_len)
+            return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len)
         B, S = tokens.shape
-        out = decode_graph(cfg, model, B, max_len or S).state
-        return M.prefill(cfg, model, tokens, max_len=max_len, out=out)
+        memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
+        out = decode_graph(cfg, model, B, max_len or S, memory_len).state
+        return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len, out=out)
+
+    if cfg.frontend is not None:
+        def prefill(model, tokens, frontend_embeds):
+            return run(model, tokens, frontend_embeds)
+    else:
+        def prefill(model, tokens):
+            return run(model, tokens)
 
     return prefill
 
@@ -150,16 +170,20 @@ def greedy_generate(
     model: M.Model,
     prompt_tokens: torch.Tensor,
     n_new: int,
+    frontend_embeds: Optional[torch.Tensor] = None,
     *,
     eager: bool = False,
 ) -> torch.Tensor:
     """(B, S) prompts -> (B, n_new) greedy tokens: the prefill's argmax, then
     one decode step per further token, through the graphed step on a CUDA
-    device unless ``eager``.  (The JAX driver runs one more decode step
+    device unless ``eager``.  ``frontend_embeds`` go to the prefill where
+    ``cfg.frontend`` is set.  (The JAX loop runs one more decode step
     after the last token and discards its logits; the tokens are the
     same.)"""
     B, S = prompt_tokens.shape
-    logits, state = make_prefill_fn(cfg, max_len=S + n_new, eager=eager)(model, prompt_tokens)
+    prefill = make_prefill_fn(cfg, max_len=S + n_new, eager=eager)
+    frontend = () if cfg.frontend is None else (frontend_embeds,)
+    logits, state = prefill(model, prompt_tokens, *frontend)
     step = make_serve_step(cfg, eager=eager)
     tok = logits.argmax(dim=-1, keepdim=True)
     outs = [tok]

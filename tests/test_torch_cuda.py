@@ -30,7 +30,13 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.serving import BSTServer, greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    BSTServer,
+    decode_graph,
+    greedy_generate,
+    make_prefill_fn,
+    make_serve_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -867,6 +873,87 @@ def test_graphed_decode_matches_the_eager_route(cuda_device, no_tf32, arch, dtyp
     _, own = TM.prefill(cfg, model, prompt, max_len=12 + n_new)
     with pytest.raises(ValueError, match="its own graph"):
         make_serve_step(cfg)(model, prompt[:, :1], own)
+
+
+def _frontend(cfg, batch: int, length: int, device, seed: int = 9):
+    """Stub frontend embeddings N(0, 0.02) in the parameter dtype: ``length``
+    frames (encdec) or the config's patch budget (vlm); none otherwise."""
+    if cfg.frontend is None:
+        return ()
+    flen = length if cfg.family == "encdec" else cfg.frontend_len
+    draw = np.random.default_rng(seed).standard_normal((batch, flen, cfg.d_model)) * 0.02
+    return (torch.from_numpy(draw.astype(np.float32)).to(device, cfg.param_dtype),)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b", "seamless-m4t-medium",
+                                  "internvl2-2b"])
+def test_graphed_decode_of_every_family_matches_the_eager_route(cuda_device, no_tf32, arch,
+                                                                dtype):
+    """The ssm, hybrid, encdec and vlm smoke configs on the card (hymba with
+    GQA, its 16-slot ring rolled by the prompt and wrapped by decode;
+    seamless with a 15-frame memory): the graphed step's logits and tokens
+    equal the eager route's bit for bit, the graph owning the SSM caches
+    and the cross memory; one K5 launch per attention per prefill (mamba2
+    none); a second request captures nothing."""
+    over = {"n_kv_heads": 2} if arch == "hymba-1.5b" else {}
+    cfg = dataclasses.replace(TC.smoke_config(arch), dtype=dtype, **over)
+    model = TM.init_params(cfg, seed=3, device=cuda_device)
+    S, n_new = 20, 10
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (3, S)))
+    prompt = prompt.to(cuda_device)
+    fe = _frontend(cfg, 3, 15, cuda_device)
+    eager = greedy_generate(cfg, model, prompt, n_new, *fe, eager=True)
+    attentions = cfg.n_layers * (cfg.family != "ssm") + (
+        cfg.encoder_layers + cfg.n_layers if cfg.family == "encdec" else 0)
+
+    routes = {}
+    for name, eager_route in (("graph", False), ("eager", True)):
+        runs = graphs.kernel_runs()["flash_attention"]
+        logits, state = make_prefill_fn(cfg, max_len=S + n_new, eager=eager_route)(
+            model, prompt, *fe)
+        assert graphs.kernel_runs()["flash_attention"] - runs == attentions
+        step = make_serve_step(cfg, eager=eager_route)
+        out, tok = [logits.clone()], logits.argmax(dim=-1, keepdim=True)
+        for _ in range(n_new - 1):
+            logits, state = step(model, tok, state)
+            out.append(logits.clone())
+            tok = logits.argmax(dim=-1, keepdim=True)
+        assert state.position.dim() == 0 and state.position.is_cuda
+        assert int(state.position) == S + n_new - 1
+        if cfg.family == "encdec":
+            assert state.cross_kv[0].shape[2] == 15
+        routes[name] = out
+    assert graphs.kernel_runs()["flash_attention"] - runs == attentions  # decode runs no K5
+    for a, b in zip(routes["graph"], routes["eager"]):
+        assert torch.equal(a, b)
+
+    captures = graphs.STATS["captures"]
+    assert torch.equal(greedy_generate(cfg, model, prompt, n_new, *fe), eager)
+    assert graphs.STATS["captures"] == captures
+
+
+def test_decode_graph_is_keyed_on_the_memory_length(cuda_device, no_tf32):
+    """seamless: a request with another number of frames captures a graph of
+    its own (the memory is never padded), both routes give the same tokens
+    for each, and a prefill into a graph's state sized to another memory
+    length is refused."""
+    cfg = TC.smoke_config("seamless-m4t-medium")
+    model = TM.init_params(cfg, seed=5, device=cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 12)))
+    prompt = prompt.to(cuda_device)
+    n_new = 6
+    captures = graphs.STATS["captures"]
+    for frames in (12, 17, 12):
+        fe = _frontend(cfg, 2, frames, cuda_device)
+        got = greedy_generate(cfg, model, prompt, n_new, *fe)
+        assert torch.equal(got, greedy_generate(cfg, model, prompt, n_new, *fe, eager=True))
+    assert graphs.STATS["captures"] - captures == 2  # one graph per memory length
+    state = decode_graph(cfg, model, 2, 12 + n_new, 12).state
+    assert graphs.STATS["captures"] - captures == 2  # the 12-frame graph, as it was
+    with pytest.raises(ValueError, match="out state"):
+        TM.prefill(cfg, model, prompt, *_frontend(cfg, 2, 17, cuda_device), max_len=12 + n_new,
+                   out=state)
 
 
 def test_decode_graph_follows_rebound_parameters(cuda_device, no_tf32):

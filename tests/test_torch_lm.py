@@ -62,14 +62,17 @@ def _t(a):
 def test_configs_are_the_jax_packages(arch):
     """Every field the port keeps, and n_params, equal the JAX config's, for
     the published config and the smoke config (whose attention_impl is the
-    port's own default)."""
+    port's own default).  The port's n_params also counts the encdec
+    encoder's final norm (d_model scales), which the JAX package's formula
+    leaves out and its ``init_params`` makes."""
     for port, ref in ((tconfigs.get_config(arch), jget_config(arch)),
                       (tconfigs.smoke_config(arch), jsmoke_config(arch))):
         for f in dataclasses.fields(port):
             if f.name != "attention_impl":
                 assert getattr(port, f.name) == getattr(ref, f.name), (arch, f.name)
-        assert port.n_params() == ref.n_params()
-        assert port.n_active_params() == ref.n_active_params()
+        enc_final_norm = ref.d_model if ref.family == "encdec" else 0
+        assert port.n_params() == ref.n_params() + enc_final_norm
+        assert port.n_active_params() == ref.n_active_params() + enc_final_norm
         assert port.resolved_head_dim == ref.resolved_head_dim
         assert port.has_attention == ref.has_attention
         assert port.supports_long_decode == ref.supports_long_decode
@@ -217,22 +220,18 @@ def test_decode_agrees_with_longer_prefill(window):
         _close(logits, want, LOGIT_TOL)
 
 
-@pytest.mark.parametrize(
-    "arch", [a for a in ARCH_IDS if jget_config(a).family not in TM.PORTED_FAMILIES]
-)
-def test_other_families_are_not_ported_yet(arch):
-    cfg = tconfigs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="13b"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        TM.make_decode_state(cfg, 1, 8, device="cpu")
-
-
 def test_serving_entry_points_on_the_cpu(capsys):
     tserve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "8", "--new-tokens", "4"])
     out = capsys.readouterr().out
     assert "prefill: 2x8" in out and "decode: 4 tokens x 2 seqs" in out
+    # the ssm, hybrid, encdec and vlm families (internvl2's smoke config
+    # takes 8 patch embeddings, seamless's encoder a frame per position)
+    for arch in ("mamba2-1.3b", "hymba-1.5b", "seamless-m4t-medium", "internvl2-2b"):
+        tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "12", "--new-tokens", "3"])
+        out = capsys.readouterr().out
+        assert "prefill: 2x12" in out and "decode: 3 tokens x 2 seqs" in out, arch
     # the sharded BST store at world 1 (gloo on the CPU)
     tserve.main(["--bst", "--device", "cpu", "--requests", "500", "--chunk", "128"])
     out = capsys.readouterr().out
