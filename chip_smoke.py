@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -152,7 +152,26 @@ Phases, in order; any failure raises and exits non-zero:
    prefill's profile); then K5 timed at hymba's and seamless's encoder
    shapes beside its bound, its plain version and SDPA (an explicit mask
    for hymba's window; the backend SDPA chose is named);
-9. print the ``{"kernels": [...]}`` line, the card's line, and last the
+9. training: K5's backward (``flash_attention_bwd_cuda``: pre-pass, main
+   kernel, and in bf16 the cast of dq) against its plain version at every
+   FLASH_SHAPES shape in fp32 (1e-4) and bf16 (2e-2), dq, dk, dv and the
+   forward's lse; the fp32 gradients of qwen3-1.7b at full depth and of
+   mixtral-8x7b (K4 in the forward), hymba-1.5b, seamless-m4t-medium and
+   internvl2-2b at their published width and 2 layers, 1 x 512: every
+   parameter's gradient on the flash route (K5 and its backward, with
+   remat) against the naive route's, at most 1e-3 relative per tensor,
+   every parameter with a gradient, the launches counted; the bf16
+   training run of qwen3-1.7b at full depth, 4 x 2048 from TokenPipeline,
+   4 steps of ``make_train_step`` (every kernel count set to 0 first: K5's
+   forward 56 and its backward 28 a step, nothing else), losses and
+   gradient norms finite, the first loss within 0.05 of the uniform
+   stream's expected loss at init (ln V + 0.02^2 d_model / 2), the
+   parameters moved, step ms, tok/s, peak memory under 80 GB, one step
+   profiled (K5's device kernels counted in its trace: the forward's body
+   56, the backward's pre-pass, main kernel and cast 28 each); then K5's backward timed at qwen3's and hymba's training
+   shapes beside its bound (2.5 x the forward's operations), its plain
+   version and SDPA's backward (the backend named);
+10. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits with code 2 and prints no result without one.
@@ -220,6 +239,12 @@ from repro_torch.serving import (  # noqa: E402
     greedy_generate,
     make_prefill_fn,
     make_serve_step,
+)
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.training.train_loop import (  # noqa: E402
+    TrainConfig,
+    init_train_state,
+    make_train_step,
 )
 
 N_KEYS = (1 << 24) - 1  # H = 23: 2 x 64 MiB of int32 keys and values
@@ -362,6 +387,53 @@ FAMILY_ARCHS = {
 # The families' K5 shapes timed: indices into FLASH_SHAPES.
 FAMILY_FLASH_TIMED = ((16, "hymba-1.5b prefill attention"),
                       (17, "seamless-m4t-medium encoder attention"))
+# The training phase (9).  K5's backward against its plain version at every
+# FLASH_SHAPES shape: fp32, the kernel's FMA order and expf against torch's
+# matmuls over the same saved tensors (o, lse), and dq's atomics summed in
+# any order; bf16, the same fp32 arithmetic on bf16 operands with dq, dk
+# and dv rounded to bf16 once, against the plain version's fp32 sums
+# rounded once: about one bf16 rounding.  atol = rtol = the value.  And
+# per tensor, |got - want|_2 / |want|_2 at most BWD_NORM_TOL: the two
+# sides round nearly the same fp32 sums to bf16 and differ only where a
+# sum lands near a rounding boundary, while a value of 2e-2 elementwise
+# is about half a typical bf16 gradient element at the 2048-long shapes,
+# so a wrong scale of a few percent shows only here.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_BWD_REPLACES = "src/repro/models/attention.py:55"  # _blockwise_attn, differentiated by XLA
+BWD_FLOP_FACTOR = 2.5  # the backward's five products against the forward's two
+# K5's device kernels a launch in bf16, by a substring of their names:
+# the forward's body; the backward's pre-pass, main kernel and cast of dq.
+# The profiled train step's trace is held to these times the launches.
+FWD_BF16_KERNEL = "flash_fwd_bf16_kernel<"
+BWD_BF16_KERNELS = ("flash_bwd_pre_kernel<", "flash_bwd_kernel<", "flash_bwd_cast_kernel<")
+# The fp32 gradient checks: qwen3-1.7b at full depth and the families with
+# attention at their published width and TRAIN_CHECK_LAYERS layers, one
+# sequence of TRAIN_CHECK_SEQ tokens; every parameter's gradient on the
+# flash route (K5 and its backward) against the naive route's (plain
+# attention under autograd): max |flash - naive| / max |naive| per tensor
+# at most TRAIN_GRAD_TOL (fp32 sums in other orders through 28 layers and
+# their backward; the forward logits differ by about 1e-5 of their scale,
+# phase 6), and the losses within TRAIN_GRAD_TOL of each other (relative).
+TRAIN_CHECK_SEQ = 512
+TRAIN_CHECK_LAYERS = 2
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_FAMILY_ARCHS = ("mixtral-8x7b", "hymba-1.5b", "seamless-m4t-medium", "internvl2-2b")
+# The bf16 training run: qwen3-1.7b at full width and depth, TRAIN_BATCH x
+# TRAIN_SEQ tokens from TokenPipeline, TRAIN_STEPS steps of make_train_step,
+# then one more step profiled.  Remat (the config's default) runs each
+# layer twice, so a step launches K5's forward 2 x 28 times and its
+# backward 28 times (each 3 device kernels in bf16: BWD_BF16_KERNELS).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_PEAK_BYTES = 80e9  # the card's memory
+# The first loss: the tokens are uniform, and at init the logits are
+# <x, e_v> with x the final norm's output (RMS 1, scale 1) and e_v ~
+# N(0, INIT_SCALE^2): logits ~ N(0, INIT_SCALE^2 D), so the expected loss
+# is ln V + INIT_SCALE^2 D / 2 (ln V + 0.41 at d_model 2048), not ln V.
+FIRST_LOSS_TOL = 0.05
+# K5's backward timed: indices into FLASH_SHAPES (qwen3's and hymba's
+# training attention, 4 x 2048).
+BWD_TIMED = ((6, "qwen3-1.7b training attention"), (16, "hymba-1.5b training attention"))
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
 # (G, B, n_dest, capacity, what): K4's shapes.
@@ -436,7 +508,10 @@ def kernel_label(mangled: str) -> str:
     """A readable name of a kernel instantiation from its mangled name:
     ``forest_descend_kernel<ORDERED,WITH_DELTA>`` (hybrid's
     ``<ORDERED,MAPPING,WITH_DELTA>``), ``flash_fwd_kernel<float,D>``,
-    ``flash_fwd_bf16_kernel<D>``, ``queue_dispatch_kernel`` (and its
+    ``flash_fwd_bf16_kernel<D>`` (``<D,lse>``: the instantiation that also
+    stores the rows' log-sum-exp), K5's backward ``flash_bwd_kernel<T,D>``
+    (``flash_bwd_pre_kernel<T,D>``, ``flash_bwd_cast_kernel<T>``),
+    ``queue_dispatch_kernel`` (and its
     ``_cluster`` and ``_wide`` bodies); any other kernel keeps its mangled
     name, so a renamed or new one still shows."""
     entry = re.search(r"(forest|hybrid)_descend_kernel(I\w*?)EEv", mangled)
@@ -446,9 +521,14 @@ def kernel_label(mangled: str) -> str:
     flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
     if flash:
         return f"flash_fwd_kernel<{'float' if flash.group(1) == 'f' else 'bf16'},{flash.group(2)}>"
-    bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", mangled)
+    bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E(?:Lb([01])E)?", mangled)
     if bf16:
-        return f"flash_fwd_bf16_kernel<{bf16.group(1)}>"
+        return f"flash_fwd_bf16_kernel<{bf16.group(1)}{',lse' if bf16.group(2) == '1' else ''}>"
+    bwd = re.search(r"flash_bwd(_pre|_cast)?_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E", mangled)
+    if bwd:
+        targs = "float" if bwd.group(2) == "f" else "bf16"
+        targs += "" if bwd.group(3) is None else f",{bwd.group(3)}"
+        return f"flash_bwd{bwd.group(1) or ''}_kernel<{targs}>"
     qd = re.search(r"queue_dispatch(_wide|_cluster)?_kernel", mangled)
     if qd:
         return qd.group(0)
@@ -881,7 +961,7 @@ def profile_write_drains(keys, values, rounds) -> list:
     return profiled_drains(srv, submit, runs=2)
 
 
-def profile_calls(run, calls: int) -> dict:
+def profile_calls(run, calls: int, expect: dict | None = None) -> dict:
     """``run()`` ``calls`` times between synchronisations: the wall time and,
     from torch.profiler over the same calls, the device time of kernels and
     copies by name (a graph's replay shows its kernels one by one), the
@@ -891,9 +971,12 @@ def profile_calls(run, calls: int) -> dict:
     loses device events now and then, far more often while a CUDA graph
     is alive (``graphs.live``), and now and then all of a trace's: an
     empty trace is taken again, up to PROFILE_ATTEMPTS times (``traces``
-    says how many it took)."""
+    says how many it took).  ``expect`` maps substrings of kernel names to
+    the device events wanted: ``counts`` holds the trace's, and a trace
+    whose counts differ is taken again, up to COUNT_ATTEMPTS times (the
+    caller checks the last trace's counts)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+    for attempt in range(1, (PROFILE_ATTEMPTS if expect is None else COUNT_ATTEMPTS) + 1):
         with torch.profiler.profile(activities=activities) as prof:
             torch.cuda.synchronize()
             p0 = time.perf_counter()
@@ -914,15 +997,19 @@ def profile_calls(run, calls: int) -> dict:
                 if ev.key.startswith("cu") and "Launch" in ev.key:  # runtime calls: kernels, graphs
                     launches += ev.count
         device_s = sum(by_name.values()) / 1e6
-        if device_s > 0:
+        counts = {sub: sum(ev.count for ev in prof.key_averages()
+                           if ev.device_type == torch.autograd.DeviceType.CUDA
+                           and ev.self_device_time_total > 0 and sub in ev.key)
+                  for sub in expect or ()}
+        if device_s > 0 and counts == (expect or {}):
             break
-    check(device_s > 0, f"the profiler saw no device time in {PROFILE_ATTEMPTS} traces")
+    check(device_s > 0, f"the profiler saw no device time in {attempt} traces")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"calls": calls, "wall_s": wall, "device_s": device_s,
             "idle_share": 1 - device_s / wall,
             "device_events_per_call": device_events / calls,
-            "host_launches_per_call": launches / calls, "traces": attempt,
+            "host_launches_per_call": launches / calls, "traces": attempt, "counts": counts,
             "top": [(name[:80], us) for name, us in top],
             "top_host_self_us": [(name[:80], us) for name, us in top_host]}
 
@@ -2725,6 +2812,324 @@ def families_phase(timer, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 9: training
+def bwd_operands(shape, dtype, seed: int):
+    """q, k, v (``flash_operands``) and an output gradient of q's shape."""
+    q, k, v = flash_operands(shape, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    return q, k, v, torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+
+
+def check_flash_bwd() -> list:
+    """K5's backward against its plain version at every FLASH_SHAPES shape,
+    fp32 and bf16, from the same saved tensors (the kernel forward's output
+    and lse): dq, dk and dv within BWD_TOL, each also within BWD_NORM_TOL
+    in norm, and the forward's lse against ``flash_attention_lse_ref``'s
+    (-inf exactly where a row sees no key).  Fails on any element outside
+    the tolerance."""
+    rows = []
+    for i, shape in enumerate(FLASH_SHAPES):
+        _, _, Sq, Skv, d, causal, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = bwd_operands(shape, dtype, seed=i)
+            out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+            _, lse_want = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+            got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal, window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
+            tol = BWD_TOL[dtype]
+            row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "tol": tol}
+            empty = ~torch.isfinite(lse_want)
+            check(bool((lse[empty] == float("-inf")).all()),
+                  f"K5 {shape} {dtype}: a row that sees no key has a finite lse")
+            for name, g, w in (("lse", lse[~empty], lse_want[~empty]),
+                               *zip(("dq", "dk", "dv"), got, want)):
+                diff = (g.float() - w.float()).abs()
+                bad = int((diff > tol + tol * w.float().abs()).sum())
+                w_norm = float(w.float().norm())
+                check(w_norm > 0, f"K5 backward {shape} {dtype}: the plain {name} is all zero")
+                row[name] = {"mismatches": bad,
+                             "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+                             "rel_norm_err": float(diff.norm()) / w_norm}
+            log(f"  K5 backward {shape} {row['dtype']}: " + ", ".join(
+                f"{n} mismatches {row[n]['mismatches']} max_abs_err {row[n]['max_abs_err']!r} "
+                f"rel_norm_err {row[n]['rel_norm_err']!r}"
+                for n in ("dq", "dk", "dv", "lse")) + f" (tolerance atol = rtol = {tol}, "
+                f"in norm {BWD_NORM_TOL[dtype]})")
+            for n in ("dq", "dk", "dv", "lse"):
+                check(row[n]["mismatches"] == 0,
+                      f"K5 backward {shape} {dtype}: {row[n]['mismatches']} {n} elements outside "
+                      f"the tolerance")
+                check(row[n]["rel_norm_err"] <= BWD_NORM_TOL[dtype],
+                      f"K5 backward {shape} {dtype}: {n} differs by {row[n]['rel_norm_err']!r} "
+                      f"in norm")
+            rows.append(row)
+            del q, k, v, dout, out, lse, lse_want, got, want
+    return rows
+
+
+def train_check_inputs(cfg, seed: int) -> tuple:
+    """One sequence of TRAIN_CHECK_SEQ tokens and its labels (numpy), and
+    the stub frontend's embeddings where the config has one."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, TRAIN_CHECK_SEQ + 1))
+    toks = torch.from_numpy(toks).cuda()
+    return toks[:, :-1], toks[:, 1:], frontend_embeds(cfg, 1, TRAIN_CHECK_SEQ, seed=seed + 1)
+
+
+def k5_per_forward(cfg) -> int:
+    """K5's launches in one forward: each self-attention, and for encdec the
+    encoder's layers and each decoder layer's cross-attention."""
+    if not cfg.has_attention:
+        return 0
+    return cfg.n_layers + (cfg.encoder_layers + cfg.n_layers if cfg.family == "encdec" else 0)
+
+
+def check_train_grads(cfg, smi: str) -> dict:
+    """``forward_train`` in fp32 on one sequence (``train_check_inputs``):
+    every parameter's gradient on the flash route (K5 with its lse, then
+    K5's backward; with remat the forward runs again in the backward)
+    against the naive route's, max |flash - naive| / max |naive| per tensor
+    at most TRAIN_GRAD_TOL; every parameter gets a gradient on the flash
+    route; the launches: K5's forward 2 a layer's attention (remat), its
+    backward 1, K4 2 a MoE layer, none on the naive route but K4's."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
+    naive = dataclasses.replace(cfg32, attention_impl="naive")
+    check(cfg32.remat, f"{cfg.name}: the check expects remat")
+    model = lm.init_params(cfg32, seed=0, device="cuda", trainable=True)
+    tokens, labels, fe = train_check_inputs(cfg32, seed=21)
+
+    def run(c):
+        for p in model.parameters():
+            p.grad = None
+        FA.reset_launches()
+        QD.reset_launches()
+        loss, metrics = lm.forward_train(c, model, tokens, labels, *fe)
+        loss.backward()
+        torch.cuda.synchronize()
+        missing = [n for n, p in model.named_parameters() if p.grad is None]
+        check(not missing, f"{cfg.name} {c.attention_impl} route: no gradient reached {missing}")
+        launches = {**FA.LAUNCHES, **QD.LAUNCHES}
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return float(loss.detach()), float(metrics["moe_dropped"]), grads, launches
+
+    t0 = time.perf_counter()
+    loss_f, dropped_f, g_flash, launches = run(cfg32)
+    n_attn = k5_per_forward(cfg32)
+    n_moe = cfg32.n_layers if cfg32.family == "moe" else 0
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn, "queue_dispatch": 2 * n_moe}
+    check(launches == want, f"{cfg.name} flash route launches {launches}, want {want}")
+    loss_n, dropped_n, g_naive, naive_launches = run(naive)
+    want_naive = {**want, "flash_attention": 0, "flash_attention_bwd": 0}
+    check(naive_launches == want_naive,
+          f"{cfg.name} naive route launches {naive_launches}, want {want_naive}")
+    rel = {n: float((g_flash[n] - g_naive[n]).abs().max() / g_naive[n].abs().max().clamp_min(1e-30))
+           for n in g_naive}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    loss_rel = abs(loss_f - loss_n) / abs(loss_n)
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "seq": TRAIN_CHECK_SEQ, "loss_flash": loss_f,
+           "loss_naive": loss_n, "loss_rel_err": loss_rel, "moe_dropped": dropped_f,
+           "launches": launches, "tensors": len(rel), "max_rel_err": worst[0][1],
+           "worst": worst[:5], "rel_err": rel, "tol": TRAIN_GRAD_TOL,
+           "seconds": time.perf_counter() - t0}
+    log(f"  fp32 gradients {cfg.name}, {cfg.n_layers} layers, 1 x {TRAIN_CHECK_SEQ}: loss flash "
+        f"{loss_f!r} naive {loss_n!r} (rel {loss_rel!r}), moe_dropped {dropped_f!r} / "
+        f"{dropped_n!r}; {len(rel)} tensors, every one with a gradient; largest relative "
+        f"error per tensor {worst[0][1]!r} ({worst[0][0]}), then "
+        f"{[(n, e) for n, e in worst[1:4]]} (tolerance {TRAIN_GRAD_TOL}); launches {launches} "
+        f"in {row['seconds']!r} s ({smi})")
+    check(loss_rel <= TRAIN_GRAD_TOL, f"{cfg.name}: the routes' losses differ by {loss_rel!r}")
+    check(worst[0][1] <= TRAIN_GRAD_TOL,
+          f"{cfg.name}: gradient of {worst[0][0]} differs by {worst[0][1]!r} (relative)")
+    del model, g_flash, g_naive
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_lm(cfg, smi: str) -> dict:
+    """The bf16 training run: TRAIN_STEPS steps of ``make_train_step`` on
+    TokenPipeline's batches, every kernel count set to 0 first; per step the
+    loss and gradient norm finite, the launches as the design says; the
+    first loss within FIRST_LOSS_TOL of the uniform stream's expected loss
+    at init; the parameters changed; the peak memory under the card's;
+    then one step profiled (idle share, top kernels, host launch calls)."""
+    tcfg = TrainConfig(warmup_steps=max(10, TRAIN_STEPS // 20), total_steps=TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    init_s = time.perf_counter() - t0
+    named = dict(state.params.named_parameters())
+    index = {n: i for i, n in enumerate(named)}
+    # The matrices' bf16 copies and every watched tensor's fp32 master must
+    # move; a norm scale's bf16 copy need not (1 - 1e-4 rounds to 1 in bf16).
+    watched = {n: (named[n].detach().clone(), state.opt.master[index[n]].clone())
+               for n in ("embed", "layers.0.attn.wq", "layers.27.mlp.w_down", "final_norm")}
+    n_attn = k5_per_forward(cfg)
+    per_step_want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    FA.reset_launches()
+    QD.reset_launches()
+    K.reset_launches()
+    steps = []
+    for s in range(TRAIN_STEPS):
+        tokens, labels = (torch.from_numpy(a).to("cuda", torch.int64) for a in pipe.batch_at(s))
+        before = dict(FA.LAUNCHES)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        state, metrics = step(state, tokens, labels)
+        m = {k: float(v) for k, v in metrics.items()}  # the host reads the step's metrics
+        ms = (time.perf_counter() - t_step) * 1e3
+        got = {k: FA.LAUNCHES[k] - before[k] for k in FA.LAUNCHES}
+        steps.append({"step": s, **m, "ms": ms, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                      "launches": got})
+        log(f"    step {s}: loss {m['loss']!r} grad_norm {m['grad_norm']!r} lr {m['lr']!r} "
+            f"{ms!r} ms ({steps[-1]['tok_per_s']!r} tok/s); K5 launches {got}")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train step {s}: loss {m['loss']} grad_norm {m['grad_norm']}")
+        check(got == per_step_want, f"train step {s}: launches {got}, want {per_step_want}")
+    launches = {**FA.LAUNCHES, **QD.LAUNCHES, **K.LAUNCHES}
+    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+          f"the training run did not go through K5 and its backward: {launches}")
+    check(not any(QD.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
+          f"the dense training run launched another kernel: {launches}")
+    expected0 = float(np.log(cfg.vocab_size) + lm.INIT_SCALE ** 2 * cfg.d_model / 2)
+    first = steps[0]["loss"]
+    check(abs(first - expected0) <= FIRST_LOSS_TOL,
+          f"first loss {first!r}, want {expected0!r} +- {FIRST_LOSS_TOL}")
+    changed = {n: (float((named[n].detach().float() - w.float()).abs().max()),
+                   float((state.opt.master[index[n]] - m).abs().max()))
+               for n, (w, m) in watched.items()}
+    check(all(m > 0 and (w > 0 or n == "final_norm") for n, (w, m) in changed.items()),
+          f"a watched parameter did not move (bf16 copy, fp32 master): {changed}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < TRAIN_PEAK_BYTES, f"training peak memory {peak} bytes")
+    steady = steps[1:] or steps
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": steps, "init_s": init_s, "launches": launches,
+           "per_step_launches": per_step_want,
+           "first_loss": first, "expected_first_loss": expected0,
+           "ln_v": float(np.log(cfg.vocab_size)), "changed": changed, "peak_bytes": peak,
+           "step_ms": float(np.median([r["ms"] for r in steady])),
+           "tok_per_s": float(np.median([r["tok_per_s"] for r in steady]))}
+    log(f"    first loss {first!r}: expected {expected0!r} (ln V {row['ln_v']!r} + INIT_SCALE^2 "
+        f"d_model / 2), |diff| {abs(first - expected0)!r} (tolerance {FIRST_LOSS_TOL}); "
+        f"largest change (bf16 copy, fp32 master) {changed}; steady step {row['step_ms']!r} ms, {row['tok_per_s']!r} "
+        f"tok/s (median of steps 1..{TRAIN_STEPS - 1}); peak memory {peak} bytes; launches over "
+        f"the run {launches} ({smi})")
+    tokens, labels = (torch.from_numpy(a).to("cuda", torch.int64) for a in pipe.batch_at(TRAIN_STEPS))
+    check(cfg.param_dtype == torch.bfloat16, f"the training run is bf16, not {cfg.param_dtype}")
+    # the device kernels of K5's launches in one step, read from the trace
+    expect = {FWD_BF16_KERNEL: per_step_want["flash_attention"],
+              **{k: per_step_want["flash_attention_bwd"] for k in BWD_BF16_KERNELS}}
+    row["profile"] = profile_calls(lambda: step(state, tokens, labels), 1, expect=expect)
+    log_call_profile("bf16 train step", row["profile"])
+    counts = row["profile"]["counts"]
+    check(counts == expect, f"the profiled train step's K5 device kernels {counts}, want {expect} "
+          f"({row['profile']['traces']} traces)")
+    row["device_kernel_counts"] = counts
+    row["bwd_device_kernels_per_launch"] = (sum(counts[k] for k in BWD_BF16_KERNELS)
+                                            / per_step_want["flash_attention_bwd"])
+    log(f"    K5's device kernels in the profiled step {counts} (want {expect}): "
+        f"{row['bwd_device_kernels_per_launch']!r} a backward launch")
+    del state, step, named, watched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_flash_bwd(timer) -> list:
+    """K5's backward in bf16 at BWD_TIMED's shapes beside its plain version,
+    the backward of scaled_dot_product_attention (``enable_gqa``; an
+    explicit mask where a window cuts the causal one; the backend its
+    forward chose named) and its bound: BWD_FLOP_FACTOR times the forward's
+    operations over the bf16 tensor-core rate, or the bytes (q, k, v, o,
+    dO, lse read; dq, dk, dv written) over the memory rate, the larger."""
+    rows = []
+    for idx, label in BWD_TIMED:
+        shape = FLASH_SHAPES[idx]
+        BH, BHkv, Sq, Skv, d, causal, window = shape
+        q, k, v, dout = bwd_operands(shape, torch.bfloat16, seed=98)
+        out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+        run = functools.partial(FA.flash_attention_bwd_cuda, q, k, v, out, dout, lse,
+                                causal=causal, window=window)
+        plain = functools.partial(ref.flash_attention_bwd_ref, q, k, v, out, dout, lse,
+                                  causal=causal, window=window)
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(run(), plain()))
+        B = LM_BATCH
+        q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d).detach().requires_grad_()
+                      for t in (q, k, v))
+        g4 = dout.view(B, BH // B, Sq, d)
+        kwargs = {"is_causal": causal}
+        if window is not None and window < Skv:
+            qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
+            kpos = torch.arange(Skv, device="cuda")[None, :]
+            kwargs = {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
+        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                 enable_gqa=True, **kwargs)
+        lib_out = sdpa()
+        backend = sdpa_backend(lambda: sdpa().detach(), lib_out.detach())
+        lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True)
+        lib_err = max(float((a.reshape(b.shape).float() - b.float()).abs().max())
+                      for a, b in zip(lib_grads, plain()))
+        flop = BWD_FLOP_FACTOR * 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
+        n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, out, dout, lse))
+                   + sum(t.numel() * t.element_size() for t in (q, k, v)))  # dq, dk, dv
+        row = {
+            "config": label, "shape": list(shape), "dtype": "bfloat16",
+            "ms": timer(run),
+            "plain_ms": timer(plain, reps=5),
+            "library_ms": timer(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                                            retain_graph=True)),
+            "library_backend": backend,
+            "flop": flop, "bytes": n_bytes,
+            "flop_ms": flop / BF16_FLOP_PER_S * 1e3, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+        }
+        row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
+        row["tflop_per_s"] = flop / row["ms"] * 1e-9
+        log(f"  K5 backward {label} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+            f"library_ms={row['library_ms']!r} (sdpa backward, forward backend {backend}) "
+            f"bound_ms={row['bound_ms']!r} ({row['bound_by']}: {flop!r} FLOP = "
+            f"{BWD_FLOP_FACTOR} x the forward's over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} "
+            f"ms, {n_bytes} bytes over {HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms; "
+            f"{row['tflop_per_s']!r} TFLOP/s); max_abs_err vs plain {err!r}, sdpa vs plain "
+            f"{lib_err!r}")
+        rows.append(row)
+        del q, k, v, dout, out, lse, q4, k4, v4, g4, lib_out, lib_grads
+    return rows
+
+
+def training_phase(resources: dict, timer, smi: str) -> dict:
+    """Phase 9: K5's backward against its plain version; the fp32 gradient
+    checks (qwen3-1.7b at full depth, the families with attention at 2
+    layers); the bf16 training run of qwen3-1.7b; K5's backward timed."""
+    t_phase = time.perf_counter()
+    bwd_kernels = {k: v for k, v in resources.items() if k.startswith("flash_bwd")}
+    for d in FA.HEAD_DIMS:
+        for t in ("float", "bf16"):
+            check(f"flash_bwd_kernel<{t},{d}>" in bwd_kernels,
+                  f"ptxas reported no resources for flash_bwd_kernel<{t},{d}>: {sorted(bwd_kernels)}")
+    log(f"    K5 backward kernels (registers, static shared memory, spills): {bwd_kernels}; "
+        f"main kernel dynamic shared memory per CTA by head dim: "
+        f"{ {d: FA.bwd_smem_bytes(d) for d in FA.HEAD_DIMS} }")
+    out = {"bwd_checks": check_flash_bwd()}
+    cfg = get_config(LM_ARCH)
+    out["grads"] = [check_train_grads(cfg, smi)]
+    for arch in TRAIN_FAMILY_ARCHS:
+        fam = get_config(arch)
+        out["grads"].append(check_train_grads(dataclasses.replace(
+            fam, n_layers=TRAIN_CHECK_LAYERS,
+            encoder_layers=TRAIN_CHECK_LAYERS if fam.family == "encdec" else 0), smi))
+    log(f"    bf16 training run: {LM_ARCH}, {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps through make_train_step, then one profiled")
+    out["trained"] = train_lm(cfg, smi)
+    out["bwd_timing"] = time_flash_bwd(timer)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -2750,8 +3155,8 @@ def main() -> int:
     hgmma = {k: n for k, n in sass_instruction_counts(built.path, "HGMMA").items()
              if k.startswith("flash")}
     for d in FA.HEAD_DIMS:
-        bf16_body = f"flash_fwd_bf16_kernel<{d}>"
-        check(hgmma.get(bf16_body, 0) > 0, f"{bf16_body} has no HGMMA in its SASS: {hgmma}")
+        for bf16_body in (f"flash_fwd_bf16_kernel<{d}>", f"flash_fwd_bf16_kernel<{d},lse>"):
+            check(hgmma.get(bf16_body, 0) > 0, f"{bf16_body} has no HGMMA in its SASS: {hgmma}")
     flash_smem = {d: FA.bf16_smem_bytes(d) for d in FA.HEAD_DIMS}
     log(f"    K5 HGMMA instructions in SASS: {hgmma}; bf16 body dynamic shared memory "
         f"per CTA by head dim: {flash_smem}")
@@ -2930,6 +3335,13 @@ def main() -> int:
     families = families_phase(timer, smi)
     family_k5 = {r["arch"]: r["flash_launches"] for r in families["served"]}
     log(f"    [8] done at {time.perf_counter() - t_start:.1f} s; K5 launches a prefill {family_k5}")
+    log(f"[9] training: K5's backward vs its plain version; fp32 gradients of {LM_ARCH} and of "
+        f"{', '.join(TRAIN_FAMILY_ARCHS)} at {TRAIN_CHECK_LAYERS} layers, flash vs naive route; "
+        f"the bf16 training run; K5's backward timed")
+    gc.collect()
+    training = training_phase(resources, timer, smi)
+    trained, bwd_timing = training["trained"], training["bwd_timing"]
+    log(f"    [9] done at {time.perf_counter() - t_start:.1f} s (the phase {training['seconds']!r} s)")
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
@@ -2987,6 +3399,30 @@ def main() -> int:
         "hgmma": hgmma,
         "bf16_smem_bytes": flash_smem,
     })
+    bwd_checks = training["bwd_checks"]
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_BWD_REPLACES,
+        "replaces_note": "no TPU kernel: the JAX package differentiates _blockwise_attn with XLA",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "device_kernels_per_launch": trained["bwd_device_kernels_per_launch"],
+        "device_kernel_counts": trained["device_kernel_counts"],
+        "mismatches": sum(r[n]["mismatches"] for r in bwd_checks for n in ("dq", "dk", "dv")),
+        "max_abs_err": max(r[n]["max_abs_err"] for r in bwd_checks for n in ("dq", "dk", "dv")),
+        "tolerance": {str(k).replace("torch.", ""): v for k, v in BWD_TOL.items()},
+        "ms": bwd_timing[0]["ms"],
+        "plain_ms": bwd_timing[0]["plain_ms"],
+        "bound_ms": bwd_timing[0]["bound_ms"],
+        "bound_by": bwd_timing[0]["bound_by"],
+        "library_ms": bwd_timing[0]["library_ms"],
+        "library_backend": bwd_timing[0]["library_backend"],
+        "config": (f"{bwd_timing[0]['config']} {bwd_timing[0]['shape']} bf16; launches: the bf16 "
+                   f"training run of {LM_ARCH}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}"),
+        "configs": bwd_timing,
+        "ptxas": {k: list(v) for k, v in resources.items() if k.startswith("flash_bwd")},
+    })
     kernels.append({
         "name": "queue_dispatch",
         "route": "cuda",
@@ -3026,9 +3462,9 @@ def main() -> int:
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
                        "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
-                       **moe, "families": families,
+                       **moe, "families": families, "training": training,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[9] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

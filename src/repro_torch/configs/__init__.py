@@ -79,5 +79,7 @@ def smoke_config(name: str) -> ModelConfig:
         sliding_window=16 if cfg.sliding_window else None,
         frontend_len=8 if cfg.frontend == "vision" else 0,
         dtype="float32",
+        remat=False,
+        logit_chunk=8,
     )
 

@@ -39,9 +39,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (name, argtypes) of every C entry point of the library.
 _SIGNATURES = {
-    # q, k, v, o, BH, BHkv, Sq, Skv, d, bf16, causal, window, scale, stream
-    "flash_attention": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
+    # q, k, v, o, lse (or null), BH, BHkv, Sq, Skv, d, bf16, causal, window,
+    # scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
     "flash_bf16_smem_bytes": [_I],  # d
+    # q, k, v, o, dout, lse, dq, dk, dv, dq_acc, delta, BH, BHkv, Sq, Skv, d,
+    # bf16, causal, window, scale, stream
+    "flash_attention_bwd": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_bwd_smem_bytes": [_I],  # d
     "hybrid_block_q": [],
     # keys, values, n, height, shared_tree, queries, active, T, B, ordered,
     # 7 outputs, stream

@@ -73,6 +73,7 @@ constexpr int kLanesPerRow = 4;                   // threads sharing one q row
 constexpr int kBlockQ = kThreads / kLanesPerRow;  // q rows per CTA
 constexpr int kBlockK = 32;                       // kv rows per staged tile
 constexpr float kNegInf = -1e30f;                 // the Pallas kernel's NEG_INF
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -89,8 +90,8 @@ __device__ __forceinline__ void store4(float* p, float4 x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int group, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int group, int causal, int window, float scale) {
   static_assert(D % (4 * kLanesPerRow) == 0, "head dim must split into float4 chunks");
   constexpr int kChunks = D / 4;                // float4 chunks per row
   constexpr int kOwn = kChunks / kLanesPerRow;  // chunks per thread
@@ -211,6 +212,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       acc[4 * i + 3] / l);
     }
     store4(orow + 4 * (lane + kLanesPerRow * i), x);
+  }
+  // The row's log-sum-exp of its visible scaled scores, for the backward
+  // (every lane of the row holds the same m and l).
+  if (lse != nullptr && lane == 0) {
+    lse[static_cast<size_t>(bh) * Sq + row] = l != 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
@@ -594,8 +600,11 @@ struct Consumer {
     }
   }
 
-  // O / l in bf16; a row that saw no key (l == 0) gives 0.
-  __device__ __forceinline__ void store(bf16* out, int row, int Sq, int quad) {
+  // O / l in bf16; a row that saw no key (l == 0) gives 0.  With kLse,
+  // also the row's log-sum-exp of its scaled scores into `lse`, (m + log2
+  // l) ln 2 (m is in log2 units), -inf for a row that saw no key.
+  template <bool kLse>
+  __device__ __forceinline__ void store(bf16* out, float* lse, int row, int Sq, int quad) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float sum = l[h];
@@ -604,6 +613,9 @@ struct Consumer {
       const float inv = sum != 0.f ? 1.f / sum : 0.f;
       const int r = row + 8 * h;
       if (r >= Sq) continue;
+      if constexpr (kLse) {
+        if (quad == 0) lse[r] = sum != 0.f ? (m[h] + log2f(sum)) * kLn2 : -INFINITY;
+      }
       bf16* dst = out + static_cast<size_t>(r) * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -623,11 +635,15 @@ struct Bf16Smem {
   static constexpr int kBytes = kBarriers + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
 };
 
-template <int D>
+// kLse: also store each row's log-sum-exp (the training forward); the
+// serving forward is the instantiation without it, which stores nothing
+// more and passes a null `lse`.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq,
-                      int Skv, int group, int causal, int window, float sl2) {
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Skv, int group, int causal,
+                      int window, float sl2) {
   using L = Layout<D>;
   using M = Bf16Smem<D>;
   constexpr int N = kBlockN;
@@ -715,19 +731,320 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       __syncwarp();
       if (lane == 0) mbar_arrive(v_free + 8 * s);
     }
-    c.store(o + static_cast<size_t>(bh) * Sq * D, row, Sq, quad);
+    c.template store<kLse>(o + static_cast<size_t>(bh) * Sq * D,
+                           kLse ? lse + static_cast<size_t>(bh) * Sq : nullptr, row, Sq, quad);
+  }
+}
+
+
+// ------------------------------------------------------------ the backward
+//
+// K5's backward: dq, dk and dv of the forward above from q, k, v, its
+// output o, the output's gradient dO and the forward's row log-sum-exp.
+// The TPU kernel has no backward (the JAX package trains through
+// _blockwise_attn, which XLA differentiates), so this replaces none; it is
+// FlashAttention-2's recompute schedule on the CUDA cores, in fp32 for
+// both dtypes:
+//
+// - a pre-pass, one warp a q row: delta = rowsum(dO o o), and dq_acc zeroed;
+// - the main kernel, one CTA per (64-row kv tile, kv head row): K and V of
+//   the tile in shared memory, dK and dV in registers; it loops over the
+//   GQA group's q head rows and, of each, the 64-row q tiles that can see
+//   the tile (causal, window), and per q tile recomputes
+//   P = exp(scale S - lse) (0 where masked, and for a row that sees no
+//   key), dP = dO V^T, dS = scale P o (dP - delta), then
+//   dV += P^T dO, dK += dS^T Q and dQ += dS K, the last added to the fp32
+//   dq_acc with atomicAdd (every kv tile of the row adds to it);
+// - in bf16, a cast of dq_acc into dq.
+//
+// Summing the group's q heads inside the CTA gives dK and dV without
+// atomics.  What bounds it on this card: the five products (2.5 times the
+// forward's operations) on the CUDA cores' fp32 FMAs, 67 TFLOP/s at best,
+// where the tensor cores would give 989 in bf16 (wgmma and TMA are later
+// work); the operands are staged in shared memory as fp32 with padded rows
+// (170 KB a CTA at d = 128, one CTA an SM), each thread computes a 4 x 4
+// block of S and dP and an (rows x 4) block of dK, dV and dQ.
+
+using bf16_t = bf16;
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdRows = 64;  // kv rows a CTA, q rows a step
+
+template <typename T>
+__device__ __forceinline__ float4 ld4(const T* p);
+template <>
+__device__ __forceinline__ float4 ld4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 ld4<bf16>(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T>
+__device__ __forceinline__ void st4(T* p, float4 x);
+template <>
+__device__ __forceinline__ void st4<float>(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+template <>
+__device__ __forceinline__ void st4<bf16>(bf16* p, float4 x) {
+  uint2 u;
+  u.x = pack_bf16(x.x, x.y);
+  u.y = pack_bf16(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+template <int D>
+struct BwdSmem {
+  static constexpr int kLdD = D + 4;          // a (64, D) tile's row, floats (16-byte rows, no conflicts)
+  static constexpr int kLdT = kBwdRows + 4;   // a (64, 64) tile's row
+  static constexpr int kTileD = kBwdRows * kLdD;
+  static constexpr int kTileT = kBwdRows * kLdT;
+  // K, V, Q, dO; P, dS; the q tile's lse and delta
+  static constexpr int kFloats = 4 * kTileD + 2 * kTileT + 2 * kBwdRows;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+// Rows [row0, row0 + 64) of a (rows, D) matrix into a padded fp32 tile;
+// rows past `rows` are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, int rows) {
+  constexpr int kChunks = D / 4;
+  for (int ci = threadIdx.x; ci < kBwdRows * kChunks; ci += kBwdThreads) {
+    const int r = ci / kChunks;
+    const int c = ci % kChunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) x = ld4(src + static_cast<size_t>(row0 + r) * D + 4 * c);
+    *reinterpret_cast<float4*>(dst + r * BwdSmem<D>::kLdD + 4 * c) = x;
+  }
+}
+
+// The pre-pass: delta[row] = sum_d dO[row, d] o[row, d] (fp32), and the row
+// of dq_acc zeroed.  One warp a row, eight rows a CTA.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ delta, float* __restrict__ dq_acc, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // uniform across the warp
+  float sum = 0.f;
+  for (int c = lane; c < D / 4; c += 32) {
+    const size_t off = static_cast<size_t>(row) * D + 4 * c;
+    sum = dot4(ld4(o + off), ld4(dout + off), sum);
+    *reinterpret_cast<float4*>(dq_acc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
+  if (lane == 0) delta[row] = sum;
+}
+
+// dq = dq_acc in T, four elements a thread.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_cast_kernel(const float* __restrict__ acc, T* __restrict__ out, long long n4) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (i < n4) st4(out + 4 * i, *reinterpret_cast<const float4*>(acc + 4 * i));
+}
+
+// The main kernel.  Thread layouts (256 threads):
+// - S and dP, (64 q, 64 kv): ty = tid / 16 and tx = tid % 16 own rows
+//   ty + 16 i and columns tx + 16 j (i, j < 4);
+// - dK, dV (64 kv, D) and dQ (64 q, D): td = tid % (D / 4) owns columns
+//   4 td .. 4 td + 3 and tc = tid / (D / 4) the kRows rows tc kRows + i.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int group, int causal,
+                 int window, float scale) {
+  using M = BwdSmem<D>;
+  constexpr int kLdD = M::kLdD;
+  constexpr int kLdT = M::kLdT;
+  constexpr int kTd = D / 4;                       // threads along d
+  constexpr int kRows = kBwdRows * kTd / kBwdThreads;  // rows of dK/dV/dQ a thread
+  static_assert(kRows >= 1 && kBwdThreads % kTd == 0, "head dim out of range");
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + M::kTileD;
+  float* qs = vs + M::kTileD;
+  float* dos = qs + M::kTileD;
+  float* ps = dos + M::kTileD;
+  float* dss = ps + M::kTileT;
+  float* lse_s = dss + M::kTileT;
+  float* del_s = lse_s + kBwdRows;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int td = tid % kTd;
+  const int tc = tid / kTd;
+  // Under a causal mask the first kv tiles are seen by the most q rows:
+  // they are launched first (blockIdx.x), so the short ones fill the tail.
+  const int k0 = blockIdx.x * kBwdRows;
+  const int hk = blockIdx.y;
+  const long long offset = static_cast<long long>(Skv) - Sq;  // q sits at the end of kv
+
+  load_rows<T, D>(ks, k + static_cast<size_t>(hk) * Skv * D, k0, Skv);
+  load_rows<T, D>(vs, v + static_cast<size_t>(hk) * Skv * D, k0, Skv);
+
+  // The q rows that can see a key of [k0, k0 + 64): causal, qpos >= k0;
+  // window, qpos - (k0 + 63) < window.
+  long long i_lo = 0;
+  long long i_hi = Sq;
+  if (causal) i_lo = max(0LL, k0 - offset);
+  if (window > 0) i_hi = min(i_hi, k0 + kBwdRows - 1 + static_cast<long long>(window) - offset);
+  const int qt_lo = static_cast<int>(i_lo / kBwdRows);
+  const int qt_hi = i_hi > i_lo ? static_cast<int>((i_hi + kBwdRows - 1) / kBwdRows) : qt_lo;
+
+  float dk_acc[kRows][4];
+  float dv_acc[kRows][4];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  }
+
+  for (int h = 0; h < group; ++h) {
+    const int bh = hk * group + h;
+    const size_t row_base = static_cast<size_t>(bh) * Sq;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * kBwdRows;
+      __syncthreads();  // the previous step's products are done with Q, dO, P, dS
+      load_rows<T, D>(qs, q + row_base * D, q0, Sq);
+      load_rows<T, D>(dos, dout + row_base * D, q0, Sq);
+      if (tid < kBwdRows) {
+        const bool in = q0 + tid < Sq;
+        lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
+        del_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T, then P and dS into shared memory.
+      float s[4][4];
+      float dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      }
+#pragma unroll 4
+      for (int c = 0; c < D; c += 4) {
+        float4 a[4], b[4], da[4], vb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kLdD + c);
+          da[i] = *reinterpret_cast<const float4*>(dos + (ty + 16 * i) * kLdD + c);
+          b[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * kLdD + c);
+          vb[i] = *reinterpret_cast<const float4*>(vs + (tx + 16 * i) * kLdD + c);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = dot4(a[i], b[j], s[i][j]);
+            dp[i][j] = dot4(da[i], vb[j], dp[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const long long qpos = q0 + r + offset;
+        const bool row_live = q0 + r < Sq;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const long long kpos = k0 + c;
+          bool vis = row_live && kpos < Skv;
+          if (causal) vis = vis && kpos <= qpos;
+          if (window > 0) vis = vis && qpos - kpos < window;
+          const float p = vis ? expf(fmaf(s[i][j], scale, -lse_s[r])) : 0.f;
+          ps[r * kLdT + c] = p;
+          dss[r * kLdT + c] = p * (dp[i][j] - del_s[r]) * scale;
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's q rows.
+      for (int r = 0; r < kBwdRows; ++r) {
+        const float4 dov = *reinterpret_cast<const float4*>(dos + r * kLdD + 4 * td);
+        const float4 qv = *reinterpret_cast<const float4*>(qs + r * kLdD + 4 * td);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float p = ps[r * kLdT + tc * kRows + i];
+          const float ds = dss[r * kLdT + tc * kRows + i];
+          dv_acc[i][0] = fmaf(p, dov.x, dv_acc[i][0]);
+          dv_acc[i][1] = fmaf(p, dov.y, dv_acc[i][1]);
+          dv_acc[i][2] = fmaf(p, dov.z, dv_acc[i][2]);
+          dv_acc[i][3] = fmaf(p, dov.w, dv_acc[i][3]);
+          dk_acc[i][0] = fmaf(ds, qv.x, dk_acc[i][0]);
+          dk_acc[i][1] = fmaf(ds, qv.y, dk_acc[i][1]);
+          dk_acc[i][2] = fmaf(ds, qv.z, dk_acc[i][2]);
+          dk_acc[i][3] = fmaf(ds, qv.w, dk_acc[i][3]);
+        }
+      }
+      // dQ += dS K over the tile's kv rows, added to dq_acc.
+      float dq[kRows][4];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
+      }
+      for (int c = 0; c < kBwdRows; ++c) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + c * kLdD + 4 * td);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float ds = dss[(tc * kRows + i) * kLdT + c];
+          dq[i][0] = fmaf(ds, kv.x, dq[i][0]);
+          dq[i][1] = fmaf(ds, kv.y, dq[i][1]);
+          dq[i][2] = fmaf(ds, kv.z, dq[i][2]);
+          dq[i][3] = fmaf(ds, kv.w, dq[i][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = q0 + tc * kRows + i;
+        if (r >= Sq) continue;
+        float* dst = dq_acc + (row_base + r) * D + 4 * td;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) atomicAdd(dst + j, dq[i][j]);
+      }
+    }
+  }
+
+  // dK and dV of the tile's rows (zeros where no q row sees a key).
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int c = k0 + tc * kRows + i;
+    if (c >= Skv) continue;
+    const size_t off = (static_cast<size_t>(hk) * Skv + c) * D + 4 * td;
+    st4(dk + off, make_float4(dk_acc[i][0], dk_acc[i][1], dk_acc[i][2], dk_acc[i][3]));
+    st4(dv + off, make_float4(dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]));
   }
 }
 
 // ------------------------------------------------------------- host side
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int BH,
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
             int BHkv, int Sq, int Skv, int causal, int window, float scale,
             cudaStream_t stream) {
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, BH);
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, BH / BHkv, causal, window, scale);
+      static_cast<T*>(o), lse, Sq, Skv, BH / BHkv, causal, window, scale);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -787,11 +1104,53 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
   return e;
 }
 
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float* dq_acc;
+  float* delta;
+  int BH, BHkv, Sq, Skv, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a) {
+  const long long rows = static_cast<long long>(a.BH) * a.Sq;
+  constexpr int kRowsPerCta = kBwdThreads / 32;
+  flash_bwd_pre_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
+                               kBwdThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.dq_acc, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (a.Skv > 0) {
+    e = allow_smem(reinterpret_cast<const void*>(&flash_bwd_kernel<T, D>), BwdSmem<D>::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.Skv + kBwdRows - 1) / kBwdRows, a.BHkv);
+    flash_bwd_kernel<T, D><<<grid, kBwdThreads, BwdSmem<D>::kBytes, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.Sq, a.Skv, a.BH / a.BHkv, a.causal, a.window, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (static_cast<const void*>(a.dq) != static_cast<const void*>(a.dq_acc)) {
+    const long long n4 = rows * D / 4;
+    flash_bwd_cast_kernel<T><<<static_cast<unsigned>((n4 + kBwdThreads - 1) / kBwdThreads),
+                               kBwdThreads, 0, a.stream>>>(a.dq_acc, static_cast<T*>(a.dq), n4);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq,
-                int Skv, int causal, int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                int BHkv, int Sq, int Skv, int causal, int window, float scale,
+                cudaStream_t stream) {
   using M = Bf16Smem<D>;
   CUtensorMap tq, tk, tv;
   // With Skv = 0 no tile is loaded; the maps only need to be well formed.
@@ -803,35 +1162,45 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, in
       !encode_rows<D>(&tv, vb, kv_rows, BHkv, kBlockN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D>),
-                                   M::kBytes);
+  const bool with_lse = lse != nullptr;
+  const cudaError_t e = allow_smem(
+      with_lse ? reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D, true>)
+               : reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D, false>),
+      M::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
-  flash_fwd_bf16_kernel<D><<<grid, kBf16Threads, M::kBytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), Sq, Skv, BH / BHkv, causal, window, scale * kLog2e);
+  if (with_lse) {
+    flash_fwd_bf16_kernel<D, true><<<grid, kBf16Threads, M::kBytes, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Skv, BH / BHkv, causal, window,
+        scale * kLog2e);
+  } else {
+    flash_fwd_bf16_kernel<D, false><<<grid, kBf16Threads, M::kBytes, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), nullptr, Sq, Skv, BH / BHkv, causal, window,
+        scale * kLog2e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_head_dim_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                         int Sq, int Skv, int d, int causal, int window, float scale,
+int launch_head_dim_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                         int BHkv, int Sq, int Skv, int d, int causal, int window, float scale,
                          cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_bf16<16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 16: return launch_bf16<16>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int launch_head_dim_fp32(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                         int Sq, int Skv, int d, int causal, int window, float scale,
+int launch_head_dim_fp32(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                         int BHkv, int Sq, int Skv, int d, int causal, int window, float scale,
                          cudaStream_t stream) {
   switch (d) {
-    case 16: launch<float, 16>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 32: launch<float, 32>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 64: launch<float, 64>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
-    case 128: launch<float, 128>(q, k, v, o, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 16: launch<float, 16>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 32: launch<float, 32>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 64: launch<float, 64>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
+    case 128: launch<float, 128>(q, k, v, o, lse, BH, BHkv, Sq, Skv, causal, window, scale, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -844,18 +1213,58 @@ extern "C" {
 // q: (BH, Sq, d); k, v: (BHkv, Skv, d); o: (BH, Sq, d); all contiguous, of
 // one dtype (bf16 != 0: bfloat16, else float32), 16-byte aligned.  BH is a
 // multiple of BHkv, at most 65535; d one of 16, 32, 64, 128; window 0 for
-// none, else >= 1.
-int flash_attention(const void* q, const void* k, const void* v, void* o,
+// none, else >= 1.  lse: null, or fp32 (BH, Sq), which receives each row's
+// log-sum-exp of its visible scaled scores (-inf for a row that sees no
+// key): what the backward recomputes P from.
+int flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
                     int BH, int BHkv, int Sq, int Skv, int d, int bf16,
                     int causal, int window, float scale, void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Sq <= 0 || Skv < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (bf16) {
-    return launch_head_dim_bf16(q, k, v, o, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
+    return launch_head_dim_bf16(q, k, v, o, lse_f, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
   }
-  return launch_head_dim_fp32(q, k, v, o, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
+  return launch_head_dim_fp32(q, k, v, o, lse_f, BH, BHkv, Sq, Skv, d, causal, window, scale, st);
+}
+
+// K5's backward.  q, k, v, o, dout, dq, dk, dv as the forward's q, k, v, o
+// (dout and dq shaped as o, dk and dv as k), all of one dtype; lse the
+// forward's (BH, Sq) fp32 output; dq_acc fp32 (BH, Sq, d) and delta fp32
+// (BH, Sq) scratch (in fp32, dq_acc may be dq itself).  Three kernels on the
+// stream: the pre-pass (delta, dq_acc zeroed), the main kernel, and in bf16
+// the cast of dq_acc into dq.
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                        void* dq_acc, void* delta, int BH, int BHkv, int Sq, int Skv, int d,
+                        int bf16, int causal, int window, float scale, void* stream) {
+  if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Sq <= 0 || Skv < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
+                  static_cast<float*>(dq_acc), static_cast<float*>(delta), BH, BHkv, Sq, Skv,
+                  causal, window, scale, static_cast<cudaStream_t>(stream)};
+  switch (d) {
+    case 16: return bf16 ? launch_bwd<bf16_t, 16>(a) : launch_bwd<float, 16>(a);
+    case 32: return bf16 ? launch_bwd<bf16_t, 32>(a) : launch_bwd<float, 32>(a);
+    case 64: return bf16 ? launch_bwd<bf16_t, 64>(a) : launch_bwd<float, 64>(a);
+    case 128: return bf16 ? launch_bwd<bf16_t, 128>(a) : launch_bwd<float, 128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of one CTA of the backward's main kernel at head
+// dim d (-1 for a d it has no instantiation of).
+int flash_bwd_smem_bytes(int d) {
+  switch (d) {
+    case 16: return BwdSmem<16>::kBytes;
+    case 32: return BwdSmem<32>::kBytes;
+    case 64: return BwdSmem<64>::kBytes;
+    case 128: return BwdSmem<128>::kBytes;
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory of one CTA of the bf16 body at head dim d (-1 for

@@ -1,12 +1,16 @@
-"""Wrapper of kernel K5 in ``csrc/flash_attention.cu``: flash attention.
+"""Wrapper of kernel K5 in ``csrc/flash_attention.cu``: flash attention and
+its backward.
 
 ``flash_attention_cuda`` checks its operands (device, dtype, rank, shapes,
 contiguity, alignment, head dim; ``check_operands`` holds the part of that
-contract the plain version shares), allocates the output with ``torch.empty``,
-launches the kernel on the current stream, raises if the launch was refused,
-and adds one to ``LAUNCHES["flash_attention"]``.  It takes CUDA tensors
-only; ``kernels.ops.flash_attention`` sends CPU tensors to the plain version
-(``ref.flash_attention_ref``) instead.
+contract the plain version shares), allocates the output (and with
+``with_lse`` the rows' log-sum-exp) with ``torch.empty``, launches the
+kernel on the current stream, raises if the launch was refused, and adds one
+to ``LAUNCHES["flash_attention"]``.  ``flash_attention_bwd_cuda`` does the
+same for the backward (``LAUNCHES["flash_attention_bwd"]``, one a call: the
+call's pre-pass, main kernel and, in bf16, cast of dq).  Both take CUDA
+tensors only; ``kernels.ops`` sends CPU tensors to the plain versions
+(``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``) instead.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 # Launches since the last ``reset_launches()``.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
@@ -30,6 +34,15 @@ def bf16_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one CTA of the bf16 body at head dim d (the
     Q tile and two stages of K and V tiles, with their mbarriers)."""
     n = _build.library().lib.flash_bf16_smem_bytes(d)
+    if n < 0:
+        raise ValueError(f"head dim {d} has no kernel instantiation (have {HEAD_DIMS})")
+    return n
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one CTA of the backward's main kernel at
+    head dim d (K and V, Q and dO as padded fp32 tiles, P and dS)."""
+    n = _build.library().lib.flash_bwd_smem_bytes(d)
     if n < 0:
         raise ValueError(f"head dim {d} has no kernel instantiation (have {HEAD_DIMS})")
     return n
@@ -66,20 +79,12 @@ def check_operands(
     return BH, Sq, d, BHkv, Skv
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    causal: bool = True,
-    window: Optional[int] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Kernel K5: (BH, Sq, d) attention output in q's dtype; q row b reads
-    kv row ``b // (BH // BHkv)``.  Causal and window masks align q at the
-    end of kv; rows that see no key give 0.  ``scale`` defaults to
-    ``d ** -0.5``."""
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+                fn: str) -> Tuple[int, int, int, int, int]:
+    """What the kernels take beyond ``check_operands``: CUDA tensors of one
+    dtype of DTYPES, a head dim of HEAD_DIMS, 16-byte aligned, in range."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
+        raise ValueError(f"{fn} takes CUDA tensors, got {q.device}")
     BH, Sq, d, BHkv, Skv = check_operands(q, k, v, window)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
@@ -92,18 +97,94 @@ def flash_attention_cuda(
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if BH > _MAX_HEAD_ROWS or max(Sq, Skv) > _INT32_MAX:
         raise ValueError(f"attention shape out of the kernel's range: BH={BH}, Sq={Sq}, Skv={Skv}")
+    return BH, Sq, d, BHkv, Skv
+
+
+def _window_arg(window: Optional[int]) -> int:
+    return 0 if window is None else min(window, _INT32_MAX)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    with_lse: bool = False,
+):
+    """Kernel K5: (BH, Sq, d) attention output in q's dtype; q row b reads
+    kv row ``b // (BH // BHkv)``.  Causal and window masks align q at the
+    end of kv; rows that see no key give 0.  ``scale`` defaults to
+    ``d ** -0.5``.  With ``with_lse`` it returns ``(out, lse)``, lse (BH,
+    Sq) fp32 the log-sum-exp of each row's visible scaled scores (-inf for
+    a row that sees none), which ``flash_attention_bwd_cuda`` takes; the
+    serving route asks for none, and the kernel then stores nothing more."""
+    BH, Sq, d, BHkv, Skv = _check_cuda(q, k, v, window, "flash_attention_cuda")
     out = torch.empty_like(q)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+    if BH > 0 and Sq > 0:
+        scale = scale if scale is not None else d**-0.5
+        built = _build.library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            LAUNCHES["flash_attention"] += 1
+            rc = built.lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), BH, BHkv, Sq, Skv, d,
+                int(q.dtype == torch.bfloat16), int(causal), _window_arg(window), float(scale),
+                stream,
+            )
+        _build.check_launch(rc, "flash_attention")
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's backward: ``(dq, dk, dv)`` in the operands' dtype from the
+    forward's operands, its output ``out``, the output's gradient ``dout``
+    and its ``lse`` (``flash_attention_cuda(..., with_lse=True)``), for the
+    same masks and scale.  dk and dv sum the GQA group's q rows; a row that
+    sees no key gets dq 0 and adds nothing."""
+    BH, Sq, d, BHkv, Skv = _check_cuda(q, k, v, window, "flash_attention_bwd_cuda")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be shaped, typed and placed as q: got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
+    if lse.shape != (BH, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous fp32 ({BH}, {Sq}) tensor on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
     if BH == 0 or Sq == 0:
-        return out
+        return dq, dk.zero_(), dv.zero_()
     scale = scale if scale is not None else d**-0.5
+    # fp32 accumulates dq in place; bf16 in an fp32 scratch cast at the end
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
+                                                              device=q.device)
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     built = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        LAUNCHES["flash_attention"] += 1
-        rc = built.lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BHkv, Sq,
-            Skv, d, int(q.dtype == torch.bfloat16), int(causal),
-            0 if window is None else min(window, _INT32_MAX), float(scale), stream,
+        LAUNCHES["flash_attention_bwd"] += 1
+        rc = built.lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+            delta.data_ptr(), BH, BHkv, Sq, Skv, d, int(q.dtype == torch.bfloat16), int(causal),
+            _window_arg(window), float(scale), stream,
         )
-    _build.check_launch(rc, "flash_attention")
-    return out
+    _build.check_launch(rc, "flash_attention_bwd")
+    return dq, dk, dv

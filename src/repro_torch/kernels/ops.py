@@ -140,6 +140,35 @@ def bst_delta_resolve(
     )
 
 
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is K5 with its
+    ``lse`` output on the card (``ref.flash_attention_lse_ref`` on the CPU),
+    and it saves q, k, v, the output and lse; the backward is K5's backward
+    kernel on the card (``ref.flash_attention_bwd_ref`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], scale: float):
+        if _on_card(q):
+            out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                               scale=scale, with_lse=True)
+        else:
+            FA.check_operands(q, k, v, window)
+            out, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                                   scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.masks
+        bwd = FA.flash_attention_bwd_cuda if _on_card(q) else ref.flash_attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse, causal=causal, window=window,
+                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -151,7 +180,13 @@ def flash_attention(
     """Batched-heads attention: q (BH, Sq, d) against k/v (BHkv, Skv, d),
     GQA by reading kv row ``b // (BH // BHkv)`` for q row b; causal and
     window masks align q at the end of kv; rows that see no key give 0.
-    Kernel K5 on the card, ``ref.flash_attention_ref`` on the CPU."""
+    Kernel K5 on the card, ``ref.flash_attention_ref`` on the CPU.  Where an
+    operand requires a gradient (under ``torch.no_grad`` only a leaf can)
+    the call goes through ``FlashAttention``, whose backward is K5's
+    backward kernel; the serving route stores no lse."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        return FlashAttention.apply(q, k, v, causal, window,
+                                    scale if scale is not None else q.shape[-1] ** -0.5)
     if _on_card(q):
         return FA.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
     FA.check_operands(q, k, v, window)

@@ -4,7 +4,8 @@ Each BST function repeats its kernel's arithmetic step by step over a level
 loop, with a leading batch dimension where the JAX package used ``vmap``;
 ``queue_dispatch_ref`` is K4's one-hot and cumulative sum; the attention
 functions at the end are the JAX package's reference attention
-(materialized scores, fp32).  They are
+(materialized scores, fp32), with the row log-sum-exp K5 stores for
+training, and K5's backward from the same saved tensors.  They are
 the CPU path of ``kernels.ops`` and the ground truth ``chip_smoke.py`` holds
 the kernels against on the card (called there explicitly on CUDA tensors);
 nothing on the main path calls them for tensors on the card.  All arithmetic
@@ -571,6 +572,24 @@ def queue_dispatch_ref(
 
 
 # ----------------------------------------------------------------- attention
+def _visible(Sq: int, Skv: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each q row sees, q aligned at the end of kv."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _compute_dtype(q: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 and bf16 operands (the kernels' sums), fp64 for fp64 ones
+    (``gradcheck``)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def mha_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -585,21 +604,27 @@ def mha_attention_ref(
     ``window`` masks keys older than ``window`` positions (sliding-window
     attention); q is aligned at the end of the kv sequence.  Rows that see
     no key give 0."""
+    return _attention(q, k, v, causal, window, scale, with_lse=False)
+
+
+def _attention(q, k, v, causal, window, scale, with_lse: bool):
     Sq, d = q.shape[-2], q.shape[-1]
     Skv = k.shape[-2]
+    cdt = _compute_dtype(q)
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    logits = logits.masked_fill(~mask, float("-inf"))
+    logits = (q.to(cdt) @ k.to(cdt).transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~_visible(Sq, Skv, causal, window, q.device), float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
-    return (probs @ v.float()).to(q.dtype)
+    out = (probs @ v.to(cdt)).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if with_lse else out
+
+
+def _repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """k and v (BHkv, Skv, d) with each row repeated for the ``BH // BHkv``
+    q rows that read it."""
+    group = q.shape[0] // k.shape[0]
+    return k.repeat_interleave(group, dim=0), v.repeat_interleave(group, dim=0)
 
 
 def flash_attention_ref(
@@ -613,7 +638,67 @@ def flash_attention_ref(
     """The plain version of K5 (``csrc/flash_attention.cu``): q (BH, Sq, d)
     against k/v (BHkv, Skv, d), each kv row repeated for the ``BH // BHkv``
     q rows that read it, then reference attention per row."""
-    group = q.shape[0] // k.shape[0]
-    kk = k.repeat_interleave(group, dim=0)
-    vv = v.repeat_interleave(group, dim=0)
-    return mha_attention_ref(q, kk, vv, causal=causal, window=window, scale=scale)
+    return mha_attention_ref(q, *_repeat_kv(q, k, v), causal=causal, window=window, scale=scale)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 with its ``lse`` output: ``(out, lse)``, ``out`` as
+    ``flash_attention_ref``'s and lse (BH, Sq) the log-sum-exp of each
+    row's visible scaled scores, -inf for a row that sees none; fp32 (fp64
+    for fp64 operands)."""
+    return _attention(q, *_repeat_kv(q, k, v), causal, window, scale, with_lse=True)
+
+
+BWD_REF_BLOCK_Q = 128  # q rows a step of flash_attention_bwd_ref
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K5's backward: ``(dq, dk, dv)`` in the operands'
+    dtypes from the forward's operands, its output, the output's gradient
+    and its lse, as the kernel computes them: delta = rowsum(dout * out),
+    then per block of BWD_REF_BLOCK_Q q rows P = exp(scale S - lse) (0 where
+    masked), dS = scale P (dout V^T - delta), dV += P^T dout, dK += dS^T Q,
+    dQ = dS K, and dk, dv summed over each kv row's GQA group.  fp32 sums
+    (fp64 for fp64 operands)."""
+    BH, Sq, d = q.shape
+    BHkv, Skv, _ = k.shape
+    group = BH // BHkv
+    cdt = _compute_dtype(q)
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    qf, dof = q.to(cdt), dout.to(cdt)
+    kk, vv = (t.to(cdt) for t in _repeat_kv(q, k, v))
+    delta = (dof * out.to(cdt)).sum(dim=-1)  # (BH, Sq)
+    visible = _visible(Sq, Skv, causal, window, q.device)
+    dq = torch.empty((BH, Sq, d), dtype=cdt, device=q.device)
+    dkk = torch.zeros((BH, Skv, d), dtype=cdt, device=q.device)
+    dvv = torch.zeros((BH, Skv, d), dtype=cdt, device=q.device)
+    for i0 in range(0, Sq, BWD_REF_BLOCK_Q):
+        rows = slice(i0, i0 + BWD_REF_BLOCK_Q)
+        s = (qf[:, rows] @ kk.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, rows, None].to(cdt))
+        p = torch.where(visible[rows], p, torch.zeros((), dtype=cdt, device=q.device))
+        dp = dof[:, rows] @ vv.transpose(-1, -2)
+        ds = p * (dp - delta[:, rows, None]) * scale
+        dvv += p.transpose(-1, -2) @ dof[:, rows]
+        dkk += ds.transpose(-1, -2) @ qf[:, rows]
+        dq[:, rows] = ds @ kk
+    dk = dkk.view(BHkv, group, Skv, d).sum(dim=1)
+    dv = dvv.view(BHkv, group, Skv, d).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -11,13 +11,16 @@ Families:
   encdec  -- seamless-m4t: encoder + causal decoder with cross-attention
   vlm     -- internvl2: decoder LM consuming stub patch embeddings
 
-The port serves all six families (``models.model``).  ``ShapeConfig`` and
-``input_specs`` describe a request's inputs, the frontend's stub embeddings
-among them, as ``meta`` tensors (no data).  The JAX
-package's XLA and TPU switches (``sharding_strategy``, ``zero1``, ``remat``,
-``remat_policy``, ``scan_layers``, ``attn_block_q``/``attn_block_k``) and its
-training switch ``logit_chunk`` have no meaning in eager PyTorch on one card
-and are left out.
+The port serves and trains all six families (``models.model``).
+``ShapeConfig`` and ``input_specs`` describe a request's inputs, the
+frontend's stub embeddings among them, as ``meta`` tensors (no data).  The
+training switches are kept: ``remat`` (each layer under
+``torch.utils.checkpoint``) and ``logit_chunk`` (the cross-entropy's
+sequence chunk).  The JAX package's XLA and TPU switches
+(``sharding_strategy``, ``zero1``, ``scan_layers``,
+``attn_block_q``/``attn_block_k``) have no meaning in eager PyTorch on one
+card and are left out, and so is ``remat_policy``: the port's remat saves
+nothing inside a layer (the JAX "none" policy); "dots" is not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ class ModelConfig:
     # --- numerics / implementation
     dtype: str = "bfloat16"
     attention_impl: str = "flash"  # one of ATTENTION_IMPLS
+    # --- training
+    remat: bool = True  # each layer under torch.utils.checkpoint in forward_train
+    logit_chunk: int = 512  # sequence chunk of the cross-entropy's logits
 
     def __post_init__(self):
         if self.family not in FAMILIES:

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX package.
+"""Weights and optimizer state carried across from the JAX package.
 
 ``params_from_jax`` fills a ``Model`` from the tree that the JAX package's
 ``init_params`` returns, as numpy arrays (``jax.tree.map(np.asarray,
@@ -10,9 +10,13 @@ the MLP's ``mlp.*`` or, for the moe family, the router and the expert
 stacks ``moe.*`` (``layers.moe.w_gate`` (L, E, D, F) and so on); for encdec
 also the encoder's ``enc_layers.*`` the same way and ``enc_final_norm``.
 Every leaf of the port's model is filled, and the names agree with the JAX
-tree's.  The layouts agree (weights (in, out) on both sides), so every
-tensor is a plain copy; bf16 arrays pass through float32, which holds them
-exactly.  This module imports no JAX: it reads the arrays only.
+tree's: the port's ``layers.3.attn.wq`` is ``tree["layers"]["attn"]["wq"][3]``.
+``adamw_state_from_jax`` carries the JAX package's ``AdamWState`` (its step
+and its master, mu and nu trees, as numpy arrays) into the port's, whose
+lists follow the model's ``named_parameters``.  The layouts agree (weights
+(in, out) on both sides), so every tensor is a plain copy; bf16 arrays pass
+through float32, which holds them exactly.  This module imports no JAX: it
+reads the arrays only.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
+from repro_torch.optim.optimizer import AdamWState
 
 
 def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
@@ -33,27 +38,41 @@ def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
     dst.copy_(torch.from_numpy(arr))
 
 
-def _copy_stack(module: torch.nn.Module, stacked: Mapping[str, Any], prefix: str) -> None:
-    """Fill each of ``module``'s layers from its slice of the stacked
-    (L, ...) leaves, by the parameter's dotted name (``attn.wq`` is
-    ``stacked["attn"]["wq"]``)."""
-    for i, layer in enumerate(module):
-        for name, p in layer.named_parameters():
-            leaf: Any = stacked
-            for part in name.split("."):
-                leaf = leaf[part]
-            _copy(p, leaf[i], f"{prefix}.{i}.{name}")
+def jax_leaf(tree: Mapping[str, Any], name: str) -> Any:
+    """The JAX tree's array of the port's parameter ``name``: a stacked
+    layer leaf's slice for ``layers.<i>.*`` and ``enc_layers.<i>.*``."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers"):
+        leaf: Any = tree[parts[0]]
+        for part in parts[2:]:
+            leaf = leaf[part]
+        return leaf[int(parts[1])]
+    return tree[name]
 
 
-def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any], device="cuda") -> Model:
+def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any], device="cuda",
+                    trainable: bool = False) -> Model:
     """A ``Model`` on ``device`` holding the JAX package's parameters."""
-    model = Model(cfg, device)
-    _copy(model.embed, params_np["embed"], "embed")
-    _copy(model.final_norm, params_np["final_norm"], "final_norm")
-    if not cfg.tie_embeddings:
-        _copy(model.head, params_np["head"], "head")
-    _copy_stack(model.layers, params_np["layers"], "layers")
-    if cfg.family == "encdec":
-        _copy_stack(model.enc_layers, params_np["enc_layers"], "enc_layers")
-        _copy(model.enc_final_norm, params_np["enc_final_norm"], "enc_final_norm")
+    model = Model(cfg, device, trainable)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            _copy(p, jax_leaf(params_np, name), name)
     return model
+
+
+def adamw_state_from_jax(model: Model, state_np: Any) -> AdamWState:
+    """The port's ``AdamWState`` for ``model`` from the JAX package's
+    (``step``, ``master``, ``mu``, ``nu``; numpy arrays), on the model's
+    device: the step a 0-d int32 tensor, the trees' leaves as fp32 lists in
+    ``named_parameters`` order."""
+    names = [name for name, _ in model.named_parameters()]
+    device = model.embed.device
+
+    def leaves(tree) -> list:
+        return [torch.from_numpy(np.array(jax_leaf(tree, n), dtype=np.float32)).to(device)
+                for n in names]
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32, device=device),
+        master=leaves(state_np.master), mu=leaves(state_np.mu), nu=leaves(state_np.nu),
+    )

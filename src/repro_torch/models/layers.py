@@ -1,18 +1,18 @@
-"""Shared layers: RMS norm, rope, SwiGLU MLP, embeddings.
+"""Shared layers: RMS norm, rope, SwiGLU MLP, embeddings, chunked CE.
 
 Conventions, as in the JAX package: activations (B, S, D); weights in
 the config's parameter dtype (bf16 on the serving path); the math that
-needs it (norms, rope, the SiLU gate) in fp32.  Weight matrices keep the
-JAX layout, (in, out), so ``x @ w``.  The chunked cross-entropy of the JAX
-package's layers waits for the training slice.
+needs it (norms, rope, the SiLU gate, the cross-entropy) in fp32.  Weight
+matrices keep the JAX layout, (in, out), so ``x @ w``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -57,3 +57,44 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ (V, D)^T -> (..., V)."""
     return x @ table.t()
+
+
+def _xent_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                mc: Optional[torch.Tensor]) -> torch.Tensor:
+    """The summed (masked) NLL of one chunk: (B, c, D) states, (B, c) labels."""
+    logits = (xc @ head.t()).float()  # (B, c, V), the product in the parameter dtype
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    nll = logz - gold
+    if mc is not None:
+        nll = nll * mc.float()
+    return nll.sum()
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,  # (B, S, D) final hidden states
+    head: torch.Tensor,  # (V, D) output embedding
+    labels: torch.Tensor,  # (B, S) integer
+    chunk: int,
+    mask: Optional[torch.Tensor] = None,  # (B, S) bool
+) -> torch.Tensor:
+    """Mean next-token CE with sequence-chunked logits, a 0-d fp32 tensor.
+
+    Never materializes (B, S, V): each chunk runs under
+    ``torch.utils.checkpoint``, so the forward keeps only its summed NLL and
+    the backward computes that chunk's logits again; the peak of live
+    logits is (B, chunk, V) fp32 (and their gradient), the JAX package's
+    promise.  A sequence that ``chunk`` does not divide is one chunk, as
+    there."""
+    B, S, _ = x.shape
+    if S % chunk:
+        chunk = S  # degenerate/smoke shapes
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        cols = slice(c0, c0 + chunk)
+        mc = None if mask is None else mask[:, cols]
+        tot = tot + checkpoint(_xent_chunk, x[:, cols], head, labels[:, cols], mc,
+                               use_reentrant=False, preserve_rng_state=False)
+    if mask is None:
+        return tot / max(B * S, 1)
+    return tot / mask.sum().clamp(min=1).float()

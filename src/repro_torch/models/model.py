@@ -1,4 +1,4 @@
-"""The LM of every family: parameters, prefill and decode.
+"""The LM of every family: parameters, training forward, prefill and decode.
 
 The port of the JAX package's ``models/model.py`` for all six families:
 dense (internlm2, granite-3, tinyllama, qwen3), moe (mixtral: a
@@ -13,6 +13,11 @@ stubs, as in the JAX package: precomputed embeddings.  Parameters are
 head where there is one, an ``nn.ModuleList`` of ``DecoderLayer``s and, for
 encdec, the encoder's layers and norm, where the JAX package stacks
 (L, ...) leaves for its layer scan; the scan becomes a Python loop.
+``forward_train`` is the JAX package's training forward: the mean
+next-token cross-entropy (``layers.chunked_softmax_xent``) and the MoE
+dropped share, each layer under ``torch.utils.checkpoint`` with
+``cfg.remat`` (the counterpart of its ``jax.checkpoint`` around the layer
+scan's body).  A model is frozen unless built ``trainable``.
 Serving runs under ``torch.no_grad``.  The decode caches are stacked (L, ...)
 as in the JAX package and are updated in place, and the decode position is
 one device scalar that every cache shares and the step advances in place,
@@ -22,10 +27,11 @@ position (``serving/serve_loop.py``).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
@@ -84,9 +90,10 @@ class Model(nn.Module):
     the config's parameter dtype (``init_params`` fills them from a seed,
     ``models.convert.params_from_jax`` from the JAX package's tree).  On
     the ``meta`` device it allocates nothing: a count of its parameters
-    is ``cfg.n_params()``."""
+    is ``cfg.n_params()``.  Its parameters require a gradient only if it
+    is ``trainable`` (a serving model is frozen)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", trainable: bool = False):
         super().__init__()
         dt = cfg.param_dtype
         self.embed = _param((cfg.vocab_size, cfg.d_model), device, dt)
@@ -98,15 +105,14 @@ class Model(nn.Module):
             self.enc_layers = nn.ModuleList(
                 DecoderLayer(cfg, device, dt, role="encoder") for _ in range(cfg.encoder_layers))
             self.enc_final_norm = _param((cfg.d_model,), device, dt)
-        for p in self.parameters():
-            p.requires_grad_(False)
+        self.requires_grad_(trainable)
 
     def head_table(self) -> torch.Tensor:
         return getattr(self, "head", self.embed)
 
 
 # ------------------------------------------------------------------ param init
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", trainable: bool = False) -> Model:
     """A ``Model`` on ``device`` from ``seed``: every norm scale
     (``NORM_SCALES``) 1, every other parameter N(0, 0.02) -- the matrices,
     the MoE router and the (E, in, out) expert stacks, and the SSD mixer's
@@ -119,14 +125,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     across with ``params_from_jax`` instead.  The dense and moe families
     have no 1-D parameter but norm scales, so their draws are those of
     the rule that set every 1-D parameter to 1.)"""
-    model = Model(cfg, device)
+    model = Model(cfg, device, trainable)
     gen = torch.Generator(device=device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in NORM_SCALES:
-            p.fill_(1.0)
-        else:
-            draw = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
-            p.copy_(draw.mul_(INIT_SCALE))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in NORM_SCALES:
+                p.fill_(1.0)
+            else:
+                draw = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
+                p.copy_(draw.mul_(INIT_SCALE))
     return model
 
 
@@ -134,11 +141,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
 def _mix_ffn(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor):
     """The layer's FFN: ``(out, dropped)``.  For the moe family ``dropped``
     is the share of expert assignments its dispatch dropped, a device
-    tensor, also copied into ``lp.moe.dropped`` (prefill and decode discard
-    it, as the JAX package does); the dense MLP drops nothing."""
+    tensor, also copied (detached) into ``lp.moe.dropped`` (prefill and
+    decode discard it, as the JAX package does; ``forward_train`` reports
+    it); the dense MLP drops nothing."""
     if cfg.family == "moe":
         out, dropped = moe.moe_ffn(cfg, lp.moe, h)
-        lp.moe.dropped.copy_(dropped)
+        lp.moe.dropped.copy_(dropped.detach())
         return out, dropped
     return layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down), 0.0
 
@@ -151,9 +159,10 @@ def _decoder_layer_full(
     causal: bool,
     memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """Full-sequence layer (prefill, encoder): ``(x, kv, ssm_cache)``, with
-    the layer's roped K and its V (B, S, KV, hd) for the decode cache (None
-    for the ssm family) and its SSM cache (ssm and hybrid; else None).  The
+    """Full-sequence layer (training, prefill, encoder): ``(x, kv,
+    ssm_cache, dropped)``, with the layer's roped K and its V (B, S, KV, hd)
+    for the decode cache (None for the ssm family), its SSM cache (ssm and
+    hybrid; else None) and its FFN's dropped share (``_mix_ffn``).  The
     JAX package's prefill projects K/V once for the cache and again inside
     its attention; here they are projected once (the same ops on the same
     inputs, so the same numbers).  ``memory_kv``, the encoder memory's
@@ -161,7 +170,7 @@ def _decoder_layer_full(
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
         mixed, sc = ssm.ssd_prefill(cfg, lp.ssm, h)
-        return x + mixed, None, sc
+        return x + mixed, None, sc, 0.0
     q, k, v = attn.project_qkv(cfg, lp.attn, h, positions)
     a = attn.attend(cfg, lp.attn, q, k, v, causal=causal, window=cfg.sliding_window)
     sc = None
@@ -173,8 +182,27 @@ def _decoder_layer_full(
         h = layers.rms_norm(x, lp.ln_cross, cfg.norm_eps)
         x = x + attn.cross_attention(cfg, lp.cross, h, memory_kv)
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
-    f, _ = _mix_ffn(cfg, lp, h)
-    return x + f, (k, v), sc
+    f, dropped = _mix_ffn(cfg, lp, h)
+    return x + f, (k, v), sc, dropped
+
+
+LayerFn = Callable[[DecoderLayer, torch.Tensor], Tuple[torch.Tensor, object]]
+
+
+def _run_layers(layer_list: nn.ModuleList, x: torch.Tensor, fn: LayerFn, remat: bool):
+    """``fn(lp, x) -> (x, dropped)`` over the layers: ``(x, the summed
+    dropped share)``, a 0-d fp32 tensor.  With ``remat`` each layer runs
+    under ``torch.utils.checkpoint``: only its input survives the forward,
+    and the backward runs the layer again (the JAX package's
+    ``jax.checkpoint`` around its scan body, policy "none")."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_list:
+        if remat:
+            x, dropped = checkpoint(fn, lp, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, dropped = fn(lp, x)
+        aux = aux + dropped
+    return x, aux
 
 
 # ------------------------------------------------------------------- embedding
@@ -191,15 +219,62 @@ def _embed_inputs(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
     return x
 
 
-def _run_encoder(cfg: ModelConfig, model: Model, frontend_embeds: torch.Tensor) -> torch.Tensor:
+def _run_encoder(cfg: ModelConfig, model: Model, frontend_embeds: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
     """The encdec encoder over the frontend's frames (B, Smem, D), non-causal,
     then its final norm: the memory (B, Smem, D)."""
     B, S, _ = frontend_embeds.shape
     positions = torch.arange(S, device=frontend_embeds.device).expand(B, S)
-    x = frontend_embeds.to(cfg.param_dtype)
-    for lp in model.enc_layers:
-        x, _, _ = _decoder_layer_full(cfg, lp, x, positions, causal=False)
+
+    def layer(lp, h):
+        h, _, _, dropped = _decoder_layer_full(cfg, lp, h, positions, causal=False)
+        return h, dropped
+
+    x, _ = _run_layers(model.enc_layers, frontend_embeds.to(cfg.param_dtype), layer, remat)
     return layers.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+# ------------------------------------------------------------------ training
+def forward_train(
+    cfg: ModelConfig,
+    model: Model,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    frontend_embeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mean next-token cross-entropy of (B, S) ``tokens`` against
+    ``labels`` and the metrics ``{"loss", "moe_dropped"}`` (the layers'
+    dropped shares summed over n_layers, as the JAX package reports them; 0
+    without MoE), all device tensors.  encdec: the encoder consumes
+    ``frontend_embeds`` (its frames, which it needs) and every decoder layer
+    projects its cross K/V from the memory; vlm: the patch embeddings
+    replace the first positions, which the loss leaves out (the mask
+    ``positions >= flen``).  With ``cfg.remat`` every layer, the encoder's
+    too, runs under ``torch.utils.checkpoint``."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    enc_out = None
+    if cfg.family == "encdec":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: the encdec forward needs frontend_embeds, the "
+                             f"encoder's frames")
+        enc_out = _run_encoder(cfg, model, frontend_embeds, remat=cfg.remat)
+        x = layers.embed(tokens, model.embed)
+    else:
+        x = _embed_inputs(cfg, model, tokens, frontend_embeds)
+
+    def layer(lp, h):
+        mem = None if enc_out is None else attn.project_cross_kv(cfg, lp.cross, enc_out)
+        h, _, _, dropped = _decoder_layer_full(cfg, lp, h, positions, causal=True, memory_kv=mem)
+        return h, dropped
+
+    x, aux = _run_layers(model.layers, x, layer, cfg.remat)
+    x = layers.rms_norm(x, model.final_norm, cfg.norm_eps)
+    mask = None
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        mask = positions >= frontend_embeds.shape[1]
+    loss = layers.chunked_softmax_xent(x, model.head_table(), labels, cfg.logit_chunk, mask)
+    return loss, {"loss": loss, "moe_dropped": aux / max(cfg.n_layers, 1)}
 
 
 # --------------------------------------------------------------------- decode
@@ -353,7 +428,7 @@ def prefill(
     W = min(C, cfg.sliding_window) if cfg.sliding_window else C
     for i, lp in enumerate(model.layers):
         mem = None if enc_out is None else attn.project_cross_kv(cfg, lp.cross, enc_out)
-        x, kv, sc = _decoder_layer_full(cfg, lp, x, positions, causal=True, memory_kv=mem)
+        x, kv, sc, _ = _decoder_layer_full(cfg, lp, x, positions, causal=True, memory_kv=mem)
         if kv is not None:
             ck, cv = _ring_pack(*kv, W, S)
             state.kv.k[i].copy_(ck)

@@ -30,6 +30,11 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import queue_dispatch as QD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.training.train_loop import (  # noqa: E402
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+)
 from repro_torch.serving import (  # noqa: E402
     BSTServer,
     decode_graph,
@@ -510,6 +515,134 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_cuda(*(t.cpu() for t in qkv()))
     assert FA.LAUNCHES["flash_attention"] == 0
+
+
+# K5's backward against its plain version from the same saved tensors:
+# fp32, the kernel's FMA order and atomics against torch's matmuls; bf16,
+# one rounding of dq, dk and dv against the plain version's fp32 sums,
+# and each tensor in norm (BWD_NORM_TOL), where a wrong scale shows.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,BHkv,Sq,Skv,d,causal,window", [
+    (8, 4, 300, 300, 128, True, None),  # GQA causal, ragged last tiles
+    (4, 2, 200, 77, 64, True, None),    # Sq > Skv: rows with no key get dq 0
+    (2, 2, 130, 260, 16, True, 40),     # offset and a sliding window
+    (10, 2, 300, 300, 64, True, 100),   # GQA group 5, a window edge inside a kv tile
+    (4, 4, 129, 300, 32, False, None),  # non-causal, Sq != Skv (cross-attention)
+    (2, 1, 5, 0, 64, True, None),       # no keys at all: dq 0, dk and dv empty
+])
+def test_flash_attention_backward_matches_its_plain_version(cuda_device, no_tf32, dtype, BH,
+                                                            BHkv, Sq, Skv, d, causal, window):
+    """``ops.FlashAttention`` on the card: the forward's lse against
+    ``flash_attention_lse_ref``'s and the backward kernel's dq, dk, dv
+    against ``flash_attention_bwd_ref`` on the same saved tensors; one
+    launch of each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(BH + Sq + d)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+                  for shape in ((BH, Sq, d), (BHkv, Skv, d), (BHkv, Skv, d), (BH, Sq, d)))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    FA.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert FA.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1}
+    q, k, v = (t.detach() for t in (q, k, v))
+    out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    _, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)  # -inf where no key: equal
+    want = ref.flash_attention_bwd_ref(q, k, v, out, g, lse, causal=causal, window=window)
+    tol = BWD_TOL[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+        # per tensor in norm: the elementwise bf16 limit is near a typical element
+        assert float((a.float() - b.float()).norm()) <= BWD_NORM_TOL[dtype] * float(b.float().norm())
+    if Sq > Skv:
+        assert not got[0][:, : Sq - Skv].any()
+
+
+def test_flash_backward_fits_one_cta_and_rejects_what_it_does_not_take(cuda_device):
+    """The backward's main kernel fits the 227 KB a CTA can opt in to at
+    every head dim; its wrapper raises on a wrong lse, dout or device."""
+    sizes = [FA.bwd_smem_bytes(d) for d in FA.HEAD_DIMS]
+    assert sizes == sorted(sizes) and sizes[-1] <= 232448
+    q = torch.zeros(4, 32, 64, dtype=torch.bfloat16, device=cuda_device)
+    k = v = torch.zeros(2, 32, 64, dtype=torch.bfloat16, device=cuda_device)
+    out, lse = FA.flash_attention_cuda(q, k, v, with_lse=True)
+    assert lse.shape == (4, 32) and lse.dtype == torch.float32
+    FA.reset_launches()
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_cuda(q, k, v, out, out, lse[:, :5])
+    with pytest.raises(ValueError, match="dout"):
+        FA.flash_attention_bwd_cuda(q, k, v, out, out.float(), lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_bwd_cuda(*(t.cpu() for t in (q, k, v, out, out, lse)))
+    assert FA.LAUNCHES["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b", "seamless-m4t-medium"])
+def test_flash_route_gradients_match_the_naive_route(cuda_device, no_tf32, arch):
+    """``forward_train`` in fp32 at smoke size with remat: every parameter's
+    gradient through K5 and its backward against the naive route's (plain
+    attention under autograd) to 1e-4, element by element and of the
+    tensor's largest magnitude, and none is missing; K5's forward
+    runs twice a layer's attention (remat), its backward once."""
+    cfg = dataclasses.replace(TC.smoke_config(arch), remat=True)
+    model = TM.init_params(cfg, seed=3, device=cuda_device, trainable=True)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41))).to(cuda_device)
+    fe = ()
+    if cfg.family == "encdec":
+        fe = (torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+                               * 0.5).to(cuda_device),)
+
+    def grads(c):
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = TM.forward_train(c, model, toks[:, :-1], toks[:, 1:], *fe)
+        loss.backward()
+        assert all(p.grad is not None for p in model.parameters())
+        return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+    FA.reset_launches()
+    loss, flash = grads(cfg)
+    attentions = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers if cfg.family == "encdec" else 0)
+    assert FA.LAUNCHES == {"flash_attention": 2 * attentions, "flash_attention_bwd": attentions}
+    want_loss, naive = grads(dataclasses.replace(cfg, attention_impl="naive"))
+    assert FA.LAUNCHES["flash_attention_bwd"] == attentions
+    torch.testing.assert_close(loss, want_loss, atol=1e-5, rtol=1e-5)
+    for name, g in naive.items():
+        torch.testing.assert_close(flash[name], g, atol=1e-4, rtol=1e-4, msg=name)
+        # and relative to the tensor's scale, which 1e-4 absolute may exceed
+        scale = float(g.abs().max())
+        assert scale > 0, name
+        assert float((flash[name] - g).abs().max()) <= 1e-4 * scale, name
+
+
+def test_train_step_on_the_card(cuda_device):
+    """Two bf16 steps of ``make_train_step`` on qwen3's smoke config: every
+    parameter gets a gradient (the step raises otherwise), the metrics are
+    finite device tensors, the launches are K5's forward twice a layer and
+    its backward once a layer a step, and the fp32 masters move."""
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), dtype="bfloat16", remat=True)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_train_state(cfg, tcfg, seed=0, device=cuda_device)
+    before = [m.clone() for m in state.opt.master]
+    step = make_train_step(cfg, tcfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 33)))
+    toks = toks.to(cuda_device)
+    FA.reset_launches()
+    for _ in range(2):
+        state, metrics = step(state, toks[:, :-1], toks[:, 1:])
+        assert all(v.is_cuda for v in metrics.values())
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert FA.LAUNCHES == {"flash_attention": 4 * cfg.n_layers,
+                           "flash_attention_bwd": 2 * cfg.n_layers}
+    assert int(state.opt.step) == 2
+    assert all(p.dtype == torch.bfloat16 and p.grad is None for p in state.params.parameters())
+    assert all(bool((m != b).any()) for m, b in zip(state.opt.master, before))
 
 
 def test_smoke_model_on_the_card_matches_the_cpu(cuda_device, no_tf32):
