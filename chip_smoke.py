@@ -13,7 +13,8 @@ Phases, in order; any failure raises and exits non-zero:
    label table), the hybrid body's queue split limit, both bodies' design
    (levels staged and per round trip, sampled delta lines) against their
    twins in ``kernels/ref.py``, and the HGMMA (wgmma) instructions in each
-   K5 body's SASS (``cuobjdump``): the bf16 body must have some;
+   K5 body's SASS (``cuobjdump``): the bf16 bodies, forward and backward,
+   must have some;
 3. hold each kernel against its plain PyTorch version on the card, bit for
    bit, over a 2^24 - 1 key tree and 65,536 lanes (the paper's equal,
    random and split key sets, absent keys and inactive lanes), plus the
@@ -153,14 +154,20 @@ Phases, in order; any failure raises and exits non-zero:
    shapes beside its bound, its plain version and SDPA (an explicit mask
    for hymba's window; the backend SDPA chose is named);
 9. training: K5's backward (``flash_attention_bwd_cuda``: pre-pass, main
-   kernel, and in bf16 the cast of dq) against its plain version at every
-   FLASH_SHAPES shape in fp32 (1e-4) and bf16 (2e-2), dq, dk, dv and the
-   forward's lse; the fp32 gradients of qwen3-1.7b at full depth and of
+   kernel -- ``flash_bwd_bf16_kernel<D>`` on the tensor cores in bf16,
+   ``flash_bwd_kernel<float,D>`` in fp32, both built at every head dim,
+   the bf16 one without spills, the old bf16 instantiation gone -- and in
+   bf16 the cast of dq) against its plain version at every FLASH_SHAPES
+   shape in fp32 (1e-4) and bf16 (2e-2, and 1e-2 in norm), dq, dk, dv and
+   the forward's lse; the fp32 gradients of qwen3-1.7b at full depth and of
    mixtral-8x7b (K4 in the forward), hymba-1.5b, seamless-m4t-medium and
    internvl2-2b at their published width and 2 layers, 1 x 512: every
    parameter's gradient on the flash route (K5 and its backward, with
    remat) against the naive route's, at most 1e-3 relative per tensor,
-   every parameter with a gradient, the launches counted; the bf16
+   every parameter with a gradient, the launches counted; qwen3-1.7b's
+   gradients at full depth in bf16, 1 x 512, the flash and naive routes
+   against the fp32 naive route of the same weights (RMS ratio <= 1.25,
+   the worst tensor named); the bf16
    training run of qwen3-1.7b at full depth, 4 x 2048 from TokenPipeline,
    4 steps of ``make_train_step`` (every kernel count set to 0 first: K5's
    forward 56 and its backward 28 a step, nothing else), losses and
@@ -168,9 +175,13 @@ Phases, in order; any failure raises and exits non-zero:
    stream's expected loss at init (ln V + 0.02^2 d_model / 2), the
    parameters moved, step ms, tok/s, peak memory under 80 GB, one step
    profiled (K5's device kernels counted in its trace: the forward's body
-   56, the backward's pre-pass, main kernel and cast 28 each); then K5's backward timed at qwen3's and hymba's training
-   shapes beside its bound (2.5 x the forward's operations), its plain
-   version and SDPA's backward (the backend named);
+   56, the backward's pre-pass, main kernel and cast 28 each, no fp32
+   backward kernel); then K5's backward timed at qwen3's and hymba's
+   training shapes beside its bound (2.5 x the forward's operations), its
+   plain version and SDPA's backward (the backend named), with each of its
+   three device kernels' share of a launch (each launched alone,
+   ``FA.bwd_stage_calls``, and timed with CUDA events) and the main
+   kernel's TFLOP/s against the bound;
 10. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -400,13 +411,27 @@ FAMILY_FLASH_TIMED = ((16, "hymba-1.5b prefill attention"),
 # so a wrong scale of a few percent shows only here.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/attention.py:55"  # _blockwise_attn, differentiated by XLA
 BWD_FLOP_FACTOR = 2.5  # the backward's five products against the forward's two
 # K5's device kernels a launch in bf16, by a substring of their names:
-# the forward's body; the backward's pre-pass, main kernel and cast of dq.
-# The profiled train step's trace is held to these times the launches.
+# the forward's body; the backward's pre-pass, main kernel (the wgmma body)
+# and cast of dq.  The profiled train step's trace is held to these times
+# the launches, and to nothing of the fp32 backward's.
 FWD_BF16_KERNEL = "flash_fwd_bf16_kernel<"
-BWD_BF16_KERNELS = ("flash_bwd_pre_kernel<", "flash_bwd_kernel<", "flash_bwd_cast_kernel<")
+BWD_BF16_KERNELS = ("flash_bwd_pre_bf16_kernel<", "flash_bwd_bf16_kernel<",
+                    "flash_bwd_cast_kernel<")
+BWD_FP32_KERNELS = ("flash_bwd_pre_kernel<", "flash_bwd_kernel<")
+# The bf16 gradient check: qwen3-1.7b at full width and depth, one sequence
+# of TRAIN_CHECK_SEQ tokens, the same weights three ways (flash route in
+# bf16, naive route in bf16, naive route in fp32).  The RMS over every
+# parameter's gradient of (flash bf16 - naive fp32) may be at most this
+# times that of (naive bf16 - naive fp32): phase 6's rule for bf16 logits,
+# for gradients.  The bf16 backward rounds P and dS to bf16 before their
+# products; the model's gradient may take on that rounding, not more than a
+# quarter more error than the model's own bf16 rounding.  Set before the
+# first run of the check.
+TRAIN_BF16_GRAD_RATIO = 1.25
 # The fp32 gradient checks: qwen3-1.7b at full depth and the families with
 # attention at their published width and TRAIN_CHECK_LAYERS layers, one
 # sequence of TRAIN_CHECK_SEQ tokens; every parameter's gradient on the
@@ -434,6 +459,10 @@ FIRST_LOSS_TOL = 0.05
 # K5's backward timed: indices into FLASH_SHAPES (qwen3's and hymba's
 # training attention, 4 x 2048).
 BWD_TIMED = ((6, "qwen3-1.7b training attention"), (16, "hymba-1.5b training attention"))
+# The backward's device kernels in bf16 by FA.BWD_STAGES' names, each timed
+# alone for its share of a launch.
+BWD_STAGE_KERNELS = {"pre": "flash_bwd_pre_bf16_kernel", "main": "flash_bwd_bf16_kernel",
+                     "cast": "flash_bwd_cast_kernel"}
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
 # (G, B, n_dest, capacity, what): K4's shapes.
@@ -502,6 +531,7 @@ def compare(got, want, kernel: str, tag: str) -> int:
 # CTAs, registers (allocated per warp in units of 256), shared memory (1 KiB
 # reserved per CTA, allocated in units of 128 bytes).
 SM_THREADS, SM_CTAS, SM_REGS, SM_SMEM, CTA_RESERVED_SMEM = 2048, 32, 65536, 233472, 1024
+CTA_MAX_SMEM = 232448  # the dynamic shared memory one CTA can opt in to
 
 
 def kernel_label(mangled: str) -> str:
@@ -509,8 +539,10 @@ def kernel_label(mangled: str) -> str:
     ``forest_descend_kernel<ORDERED,WITH_DELTA>`` (hybrid's
     ``<ORDERED,MAPPING,WITH_DELTA>``), ``flash_fwd_kernel<float,D>``,
     ``flash_fwd_bf16_kernel<D>`` (``<D,lse>``: the instantiation that also
-    stores the rows' log-sum-exp), K5's backward ``flash_bwd_kernel<T,D>``
-    (``flash_bwd_pre_kernel<T,D>``, ``flash_bwd_cast_kernel<T>``),
+    stores the rows' log-sum-exp), K5's backward bodies
+    ``flash_bwd_bf16_kernel<D>`` and ``flash_bwd_kernel<float,D>`` (with
+    ``flash_bwd_pre_bf16_kernel<D>``, ``flash_bwd_pre_kernel<float,D>`` and
+    ``flash_bwd_cast_kernel<T>``),
     ``queue_dispatch_kernel`` (and its
     ``_cluster`` and ``_wide`` bodies); any other kernel keeps its mangled
     name, so a renamed or new one still shows."""
@@ -524,6 +556,9 @@ def kernel_label(mangled: str) -> str:
     bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E(?:Lb([01])E)?", mangled)
     if bf16:
         return f"flash_fwd_bf16_kernel<{bf16.group(1)}{',lse' if bf16.group(2) == '1' else ''}>"
+    bwd16 = re.search(r"flash_bwd(_pre)?_bf16_kernelILi(\d+)E", mangled)
+    if bwd16:
+        return f"flash_bwd{bwd16.group(1) or ''}_bf16_kernel<{bwd16.group(2)}>"
     bwd = re.search(r"flash_bwd(_pre|_cast)?_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E", mangled)
     if bwd:
         targs = "float" if bwd.group(2) == "f" else "bf16"
@@ -2944,6 +2979,85 @@ def check_train_grads(cfg, smi: str) -> dict:
     return row
 
 
+def check_train_grads_bf16(cfg, smi: str) -> dict:
+    """``forward_train`` at full width and depth on one sequence
+    (``train_check_inputs``), the same weights three ways: the flash route
+    in bf16 (K5's bf16 forward and ``flash_bwd_bf16_kernel``), the naive
+    route in bf16 and the naive route in fp32.  Over every parameter's
+    gradient, the RMS of (flash bf16 - naive fp32) may be at most
+    TRAIN_BF16_GRAD_RATIO times the RMS of (naive bf16 - naive fp32); the
+    tensor whose own ratio is largest is reported.  The launches: K5's
+    forward twice a layer (remat), its backward once, none on the naive
+    routes."""
+    check(cfg.dtype == "bfloat16" and cfg.remat, f"{cfg.name}: the check expects bf16 and remat")
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    naive32 = dataclasses.replace(naive, dtype="float32")
+    model = lm.init_params(flash, seed=0, device="cuda", trainable=True)
+    tokens, labels, fe = train_check_inputs(flash, seed=22)
+    n_attn = k5_per_forward(cfg)
+
+    def grads(c, m):
+        for p in m.parameters():
+            p.grad = None
+        FA.reset_launches()
+        loss, _ = lm.forward_train(c, m, tokens, labels, *fe)
+        loss.backward()
+        torch.cuda.synchronize()
+        missing = [n for n, p in m.named_parameters() if p.grad is None]
+        check(not missing, f"{cfg.name} {c.attention_impl} {c.dtype}: no gradient reached {missing}")
+        g = {n: p.grad.float() for n, p in m.named_parameters()}
+        check(all(bool(torch.isfinite(t).all()) for t in g.values()),
+              f"{cfg.name} {c.attention_impl} {c.dtype}: a gradient is not finite")
+        return float(loss.detach()), g, dict(FA.LAUNCHES)
+
+    t0 = time.perf_counter()
+    loss_f, g_flash, launches = grads(flash, model)
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    check(launches == want, f"{cfg.name} bf16 flash route launches {launches}, want {want}")
+    loss_n, g_naive, naive_launches = grads(naive, model)
+    check(not any(naive_launches.values()), f"{cfg.name}: the naive bf16 route launched K5")
+    for p in model.parameters():
+        p.grad = None
+    model32 = lm.init_params(naive32, seed=0, device="cuda", trainable=True)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    loss_32, g_32, _ = grads(naive32, model32)
+    del model, model32
+    torch.cuda.empty_cache()
+    sq = {"flash": 0.0, "naive": 0.0}
+    per_tensor, n_elems = {}, 0
+    for name, w in g_32.items():
+        d_f = float((g_flash[name] - w).pow(2).sum())
+        d_n = float((g_naive[name] - w).pow(2).sum())
+        sq["flash"] += d_f
+        sq["naive"] += d_n
+        n_elems += w.numel()
+        per_tensor[name] = (d_f / d_n) ** 0.5 if d_n > 0 else (0.0 if d_f == 0 else float("inf"))
+    rms = {k: (v / n_elems) ** 0.5 for k, v in sq.items()}
+    ratio = rms["flash"] / rms["naive"]
+    worst = max(per_tensor.items(), key=lambda kv: kv[1])
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "seq": TRAIN_CHECK_SEQ,
+           "loss_flash_bf16": loss_f, "loss_naive_bf16": loss_n, "loss_naive_fp32": loss_32,
+           "flash_vs_fp32_rms": rms["flash"], "naive_vs_fp32_rms": rms["naive"],
+           "rms_ratio": ratio, "tol_ratio": TRAIN_BF16_GRAD_RATIO, "tensors": len(per_tensor),
+           "worst_tensor": worst[0], "worst_tensor_ratio": worst[1],
+           "grad_rms": float(sum(float(w.pow(2).sum()) for w in g_32.values()) / n_elems) ** 0.5,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    log(f"  bf16 gradients {cfg.name}, {cfg.n_layers} layers, 1 x {TRAIN_CHECK_SEQ}: against the "
+        f"fp32 naive route, flash bf16 RMS {rms['flash']!r}, naive bf16 RMS {rms['naive']!r}; "
+        f"ratio {ratio!r} (tolerance {TRAIN_BF16_GRAD_RATIO}; gradient RMS {row['grad_rms']!r}); "
+        f"worst tensor {worst[0]} at {worst[1]!r}; losses flash bf16 {loss_f!r}, naive bf16 "
+        f"{loss_n!r}, naive fp32 {loss_32!r}; launches {launches} in {row['seconds']!r} s ({smi})")
+    check(ratio <= TRAIN_BF16_GRAD_RATIO,
+          f"{cfg.name} bf16 gradients: the flash route is {ratio!r} times as far from fp32 as "
+          f"the naive route")
+    del g_flash, g_naive, g_32
+    torch.cuda.empty_cache()
+    return row
+
+
 def train_lm(cfg, smi: str) -> dict:
     """The bf16 training run: TRAIN_STEPS steps of ``make_train_step`` on
     TokenPipeline's batches, every kernel count set to 0 first; per step the
@@ -3021,7 +3135,8 @@ def train_lm(cfg, smi: str) -> dict:
     check(cfg.param_dtype == torch.bfloat16, f"the training run is bf16, not {cfg.param_dtype}")
     # the device kernels of K5's launches in one step, read from the trace
     expect = {FWD_BF16_KERNEL: per_step_want["flash_attention"],
-              **{k: per_step_want["flash_attention_bwd"] for k in BWD_BF16_KERNELS}}
+              **{k: per_step_want["flash_attention_bwd"] for k in BWD_BF16_KERNELS},
+              **{k: 0 for k in BWD_FP32_KERNELS}}
     row["profile"] = profile_calls(lambda: step(state, tokens, labels), 1, expect=expect)
     log_call_profile("bf16 train step", row["profile"])
     counts = row["profile"]["counts"]
@@ -3089,15 +3204,26 @@ def time_flash_bwd(timer) -> list:
         row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
         row["tflop_per_s"] = flop / row["ms"] * 1e-9
+        # the launch's three device kernels, each launched alone and timed
+        # as the launch is (CUDA events), each's share of their sum
+        _, stages = FA.bwd_stage_calls(q, k, v, out, dout, lse, causal=causal, window=window)
+        row["kernel_ms"] = {BWD_STAGE_KERNELS[name]: timer(fn) for name, fn in stages.items()}
+        stages_ms = sum(row["kernel_ms"].values())
+        row["kernel_share"] = {name: t / stages_ms for name, t in row["kernel_ms"].items()}
+        main_ms = row["kernel_ms"]["flash_bwd_bf16_kernel"]
+        row["main_tflop_per_s"] = flop / main_ms * 1e-9
+        row["main_over_bound"] = main_ms / row["bound_ms"]
         log(f"  K5 backward {label} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
             f"library_ms={row['library_ms']!r} (sdpa backward, forward backend {backend}) "
             f"bound_ms={row['bound_ms']!r} ({row['bound_by']}: {flop!r} FLOP = "
             f"{BWD_FLOP_FACTOR} x the forward's over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} "
             f"ms, {n_bytes} bytes over {HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms; "
             f"{row['tflop_per_s']!r} TFLOP/s); max_abs_err vs plain {err!r}, sdpa vs plain "
-            f"{lib_err!r}")
+            f"{lib_err!r}; each kernel alone, ms {row['kernel_ms']} (sum {stages_ms!r}), shares "
+            f"{row['kernel_share']}; the main kernel "
+            f"{row['main_tflop_per_s']!r} TFLOP/s, {row['main_over_bound']!r} x the bound")
         rows.append(row)
-        del q, k, v, dout, out, lse, q4, k4, v4, g4, lib_out, lib_grads
+        del q, k, v, dout, out, lse, q4, k4, v4, g4, lib_out, lib_grads, stages
     return rows
 
 
@@ -3108,15 +3234,24 @@ def training_phase(resources: dict, timer, smi: str) -> dict:
     t_phase = time.perf_counter()
     bwd_kernels = {k: v for k, v in resources.items() if k.startswith("flash_bwd")}
     for d in FA.HEAD_DIMS:
-        for t in ("float", "bf16"):
-            check(f"flash_bwd_kernel<{t},{d}>" in bwd_kernels,
-                  f"ptxas reported no resources for flash_bwd_kernel<{t},{d}>: {sorted(bwd_kernels)}")
+        for body in (f"flash_bwd_kernel<float,{d}>", f"flash_bwd_bf16_kernel<{d}>"):
+            check(body in bwd_kernels,
+                  f"ptxas reported no resources for {body}: {sorted(bwd_kernels)}")
+        check(f"flash_bwd_kernel<bf16,{d}>" not in bwd_kernels,
+              f"the old bf16 instantiation of flash_bwd_kernel is still built (d {d})")
+        spills = bwd_kernels[f"flash_bwd_bf16_kernel<{d}>"][2]
+        check(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spills) is not None,
+              f"flash_bwd_bf16_kernel<{d}> spills: {spills!r}")
+    smem = {str(dt).replace("torch.", ""): {d: FA.bwd_smem_bytes(d, dt) for d in FA.HEAD_DIMS}
+            for dt in (torch.bfloat16, torch.float32)}
+    check(all(n <= CTA_MAX_SMEM for body in smem.values() for n in body.values()),
+          f"a backward body asks for more shared memory than a CTA can have: {smem}")
     log(f"    K5 backward kernels (registers, static shared memory, spills): {bwd_kernels}; "
-        f"main kernel dynamic shared memory per CTA by head dim: "
-        f"{ {d: FA.bwd_smem_bytes(d) for d in FA.HEAD_DIMS} }")
-    out = {"bwd_checks": check_flash_bwd()}
+        f"main kernels' dynamic shared memory per CTA by head dim: {smem}")
+    out = {"bwd_checks": check_flash_bwd(), "bwd_smem_bytes": smem}
     cfg = get_config(LM_ARCH)
     out["grads"] = [check_train_grads(cfg, smi)]
+    out["grads_bf16"] = check_train_grads_bf16(cfg, smi)
     for arch in TRAIN_FAMILY_ARCHS:
         fam = get_config(arch)
         out["grads"].append(check_train_grads(dataclasses.replace(
@@ -3155,7 +3290,8 @@ def main() -> int:
     hgmma = {k: n for k, n in sass_instruction_counts(built.path, "HGMMA").items()
              if k.startswith("flash")}
     for d in FA.HEAD_DIMS:
-        for bf16_body in (f"flash_fwd_bf16_kernel<{d}>", f"flash_fwd_bf16_kernel<{d},lse>"):
+        for bf16_body in (f"flash_fwd_bf16_kernel<{d}>", f"flash_fwd_bf16_kernel<{d},lse>",
+                          f"flash_bwd_bf16_kernel<{d}>"):
             check(hgmma.get(bf16_body, 0) > 0, f"{bf16_body} has no HGMMA in its SASS: {hgmma}")
     flash_smem = {d: FA.bf16_smem_bytes(d) for d in FA.HEAD_DIMS}
     log(f"    K5 HGMMA instructions in SASS: {hgmma}; bf16 body dynamic shared memory "
@@ -3403,7 +3539,7 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "source": FLASH_SOURCE,
+        "source": FLASH_BWD_SOURCE,
         "replaces": FLASH_BWD_REPLACES,
         "replaces_note": "no TPU kernel: the JAX package differentiates _blockwise_attn with XLA",
         "launches": trained["launches"]["flash_attention_bwd"],
@@ -3421,7 +3557,9 @@ def main() -> int:
         "config": (f"{bwd_timing[0]['config']} {bwd_timing[0]['shape']} bf16; launches: the bf16 "
                    f"training run of {LM_ARCH}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}"),
         "configs": bwd_timing,
+        "grads_bf16": training["grads_bf16"],
         "ptxas": {k: list(v) for k, v in resources.items() if k.startswith("flash_bwd")},
+        "smem_bytes": training["bwd_smem_bytes"],
     })
     kernels.append({
         "name": "queue_dispatch",

@@ -1,10 +1,11 @@
 """Build ``csrc/*.cu`` with ``nvcc`` at first use and load it with ``ctypes``.
 
-Every source under ``csrc/`` is compiled to an object, all at once (one
-``nvcc`` process each, started together), and the objects are linked into
-one shared library in ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of all sources and flags, so an
-edited source rebuilds and an unchanged tree loads at once; nvcc's report
+Every source (``*.cu``) under ``csrc/`` is compiled to an object, all at
+once (one ``nvcc`` process each, started together), and the objects are
+linked into one shared library in ``build/repro_torch/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of all sources, the
+headers they share (``*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged tree loads at once; nvcc's report
 (ptxas resources per kernel, every source's in turn) is kept beside it as
 ``.log``.  Nothing here falls back: a missing ``nvcc``, a failed compile or
 a failed load raises.  Importing this module builds nothing; ``library()``
@@ -44,9 +45,10 @@ _SIGNATURES = {
     "flash_attention": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
     "flash_bf16_smem_bytes": [_I],  # d
     # q, k, v, o, dout, lse, dq, dk, dv, dq_acc, delta, BH, BHkv, Sq, Skv, d,
-    # bf16, causal, window, scale, stream
-    "flash_attention_bwd": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+    # bf16, causal, window, scale, stages, stream
+    "flash_attention_bwd": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "flash_bwd_smem_bytes": [_I],  # d
+    "flash_bwd_bf16_smem_bytes": [_I],  # d
     "hybrid_block_q": [],
     # keys, values, n, height, shared_tree, queries, active, T, B, ordered,
     # 7 outputs, stream
@@ -118,8 +120,23 @@ def nvcc_path() -> str:
     return found
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list:
+    """The files nvcc compiles, one object each."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def headers(csrc: Path = CSRC) -> list:
+    """The headers the sources include: hashed, never compiled alone."""
+    return sorted(csrc.glob("*.cuh"))
+
+
+def library_name(csrc: Path = CSRC) -> str:
+    """The library's file name: a hash of the flags and of every source and
+    header under ``csrc``, so an edit of either builds a new library."""
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sources(csrc) + headers(csrc):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return f"librepro_kernels-{digest.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds) -> list:
@@ -163,10 +180,7 @@ def _compile(nvcc: str, out: Path) -> str:
 @functools.cache
 def library() -> Built:
     """Build (if needed) and load the kernels' shared library."""
-    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
-        digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"librepro_kernels-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / library_name()
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.is_file():

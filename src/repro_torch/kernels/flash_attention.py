@@ -1,5 +1,5 @@
-"""Wrapper of kernel K5 in ``csrc/flash_attention.cu``: flash attention and
-its backward.
+"""Wrapper of kernel K5: flash attention (``csrc/flash_attention.cu``) and
+its backward (``csrc/flash_attention_bwd.cu``).
 
 ``flash_attention_cuda`` checks its operands (device, dtype, rank, shapes,
 contiguity, alignment, head dim; ``check_operands`` holds the part of that
@@ -8,14 +8,16 @@ contract the plain version shares), allocates the output (and with
 kernel on the current stream, raises if the launch was refused, and adds one
 to ``LAUNCHES["flash_attention"]``.  ``flash_attention_bwd_cuda`` does the
 same for the backward (``LAUNCHES["flash_attention_bwd"]``, one a call: the
-call's pre-pass, main kernel and, in bf16, cast of dq).  Both take CUDA
+call's pre-pass, main kernel and, in bf16, cast of dq; ``bwd_stage_calls``
+launches each of the three alone, to time it).  Both take CUDA
 tensors only; ``kernels.ops`` sends CPU tensors to the plain versions
 (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``) instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +30,11 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_ROWS = 65535  # the grid's y dimension
 _INT32_MAX = 2**31 - 1
+BWD_ROW_PAD = 64  # the bf16 backward's q tile: its pre-pass pads each head's rows to it
+# The backward's device kernels as bits of its C entry's stage mask: the
+# pre-pass, the main kernel and, in bf16, the cast of dq.
+BWD_STAGES = {"pre": 1, "main": 2, "cast": 4}
+_BWD_ALL_STAGES = 7
 
 
 def bf16_smem_bytes(d: int) -> int:
@@ -39,10 +46,16 @@ def bf16_smem_bytes(d: int) -> int:
     return n
 
 
-def bwd_smem_bytes(d: int) -> int:
+def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one CTA of the backward's main kernel at
-    head dim d (K and V, Q and dO as padded fp32 tiles, P and dS)."""
-    n = _build.library().lib.flash_bwd_smem_bytes(d)
+    head dim d: in bf16 ``flash_bwd_bf16_kernel<D>`` (K and V, a ring of Q
+    and dO tiles with their lse and delta, two dS tiles, the mbarriers), in
+    fp32 ``flash_bwd_kernel<float, D>`` (K, V, Q and dO as padded fp32
+    tiles, P and dS)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"no backward body for {dtype} (have {DTYPES})")
+    lib = _build.library().lib
+    n = (lib.flash_bwd_bf16_smem_bytes if dtype == torch.bfloat16 else lib.flash_bwd_smem_bytes)(d)
     if n < 0:
         raise ValueError(f"head dim {d} has no kernel instantiation (have {HEAD_DIMS})")
     return n
@@ -155,6 +168,39 @@ def flash_attention_bwd_cuda(
     and its ``lse`` (``flash_attention_cuda(..., with_lse=True)``), for the
     same masks and scale.  dk and dv sum the GQA group's q rows; a row that
     sees no key gets dq 0 and adds nothing."""
+    dq, dk, dv, launch = _bwd_call(q, k, v, out, dout, lse, causal, window, scale)
+    if launch is not None:
+        launch(_BWD_ALL_STAGES)
+    return dq, dk, dv
+
+
+def bwd_stage_calls(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, Callable[[], None]]]:
+    """The backward's device kernels one by one, to time each one's share of
+    a launch: runs one whole backward and returns its ``(dq, dk, dv)`` and,
+    for each name of ``BWD_STAGES``, a call that launches that kernel alone
+    on the scratch and outputs the whole one used (each counts in
+    ``LAUNCHES`` as a call does; the three in order redo the backward)."""
+    dq, dk, dv, launch = _bwd_call(q, k, v, out, dout, lse, causal, window, scale)
+    if launch is None:
+        raise ValueError("the backward has no q rows to launch its kernels on")
+    launch(_BWD_ALL_STAGES)
+    return (dq, dk, dv), {name: functools.partial(launch, bit) for name, bit in BWD_STAGES.items()}
+
+
+def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
+    """The backward's checks and allocations: ``(dq, dk, dv, launch)``,
+    ``launch(stages)`` launching the kernels of the mask ``stages`` on the
+    current stream, or None where there are no q rows (dk and dv zeroed)."""
     BH, Sq, d, BHkv, Skv = _check_cuda(q, k, v, window, "flash_attention_bwd_cuda")
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -166,25 +212,33 @@ def flash_attention_bwd_cuda(
             or lse.device != q.device:
         raise ValueError(f"lse must be a contiguous fp32 ({BH}, {Sq}) tensor on {q.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    sq64 = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    if BH * sq64 > _INT32_MAX:
+        raise ValueError(f"the backward takes BH * Sq < 2**31 q rows, got {BH} x {Sq}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if BH == 0 or Sq == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return dq, dk.zero_(), dv.zero_(), None
     scale = scale if scale is not None else d**-0.5
     # fp32 accumulates dq in place; bf16 in an fp32 scratch cast at the end
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
                                                               device=q.device)
-    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    # delta and, for the bf16 body, each row's lse term, per head padded to
+    # BWD_ROW_PAD rows (the fp32 body reads the first BH * Sq)
+    delta = torch.empty(2 * BH * sq64, dtype=torch.float32, device=q.device)
     built = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        LAUNCHES["flash_attention_bwd"] += 1
-        rc = built.lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-            delta.data_ptr(), BH, BHkv, Sq, Skv, d, int(q.dtype == torch.bfloat16), int(causal),
-            _window_arg(window), float(scale), stream,
-        )
-    _build.check_launch(rc, "flash_attention_bwd")
-    return dq, dk, dv
+
+    def launch(stages: int) -> None:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            LAUNCHES["flash_attention_bwd"] += 1
+            rc = built.lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+                delta.data_ptr(), BH, BHkv, Sq, Skv, d, int(q.dtype == torch.bfloat16),
+                int(causal), _window_arg(window), float(scale), stages, stream,
+            )
+        _build.check_launch(rc, "flash_attention_bwd")
+
+    return dq, dk, dv, launch

@@ -533,6 +533,15 @@ BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     (10, 2, 300, 300, 64, True, 100),   # GQA group 5, a window edge inside a kv tile
     (4, 4, 129, 300, 32, False, None),  # non-causal, Sq != Skv (cross-attention)
     (2, 1, 5, 0, 64, True, None),       # no keys at all: dq 0, dk and dv empty
+    # the bf16 body's edges: 128-row kv tiles, 64-row q tiles
+    (4, 2, 127, 127, 128, True, None),  # Skv one short of a kv tile
+    (4, 2, 128, 128, 64, True, None),   # exactly one kv tile
+    (4, 2, 129, 129, 128, True, None),  # one key into a second kv tile
+    (4, 2, 257, 257, 32, True, None),   # d = 32 (64-byte swizzle), a third kv tile of one key
+    (4, 2, 1, 257, 64, True, None),     # Sq = 1: one q row, at the end of kv
+    (4, 2, 256, 256, 128, True, 96),    # a window edge inside a q tile inside a kv tile
+    (16, 2, 200, 200, 64, True, None),  # a GQA group of 8
+    (8, 8, 300, 300, 16, True, 70),     # d = 16 (32-byte swizzle), group 1, a window
 ])
 def test_flash_attention_backward_matches_its_plain_version(cuda_device, no_tf32, dtype, BH,
                                                             BHkv, Sq, Skv, d, causal, window):
@@ -564,10 +573,12 @@ def test_flash_attention_backward_matches_its_plain_version(cuda_device, no_tf32
 
 
 def test_flash_backward_fits_one_cta_and_rejects_what_it_does_not_take(cuda_device):
-    """The backward's main kernel fits the 227 KB a CTA can opt in to at
-    every head dim; its wrapper raises on a wrong lse, dout or device."""
-    sizes = [FA.bwd_smem_bytes(d) for d in FA.HEAD_DIMS]
-    assert sizes == sorted(sizes) and sizes[-1] <= 232448
+    """Both of the backward's main kernels, the bf16 and the fp32 body, fit
+    the 227 KB a CTA can opt in to at every head dim; the wrapper raises on
+    a wrong lse, dout or device."""
+    for dtype in FA.DTYPES:
+        sizes = [FA.bwd_smem_bytes(d, dtype) for d in FA.HEAD_DIMS]
+        assert sizes == sorted(sizes) and sizes[-1] <= 232448, dtype
     q = torch.zeros(4, 32, 64, dtype=torch.bfloat16, device=cuda_device)
     k = v = torch.zeros(2, 32, 64, dtype=torch.bfloat16, device=cuda_device)
     out, lse = FA.flash_attention_cuda(q, k, v, with_lse=True)
@@ -580,6 +591,70 @@ def test_flash_backward_fits_one_cta_and_rejects_what_it_does_not_take(cuda_devi
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_bwd_cuda(*(t.cpu() for t in (q, k, v, out, out, lse)))
     assert FA.LAUNCHES["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_stages_alone_redo_the_whole_launch(cuda_device, no_tf32, dtype):
+    """``bwd_stage_calls``: the pre-pass, the main kernel and the cast, each
+    launched alone and in order, give the whole launch's dq, dk and dv
+    again (dk and dv bit for bit; dq's fp32 additions may land in another
+    order), one count each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, g = (torch.randn(8, 200, 64, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(2, 200, 64, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    out, lse = FA.flash_attention_cuda(q, k, v, window=90, with_lse=True)
+    want = FA.flash_attention_bwd_cuda(q, k, v, out, g, lse, window=90)
+    FA.reset_launches()
+    grads, calls = FA.bwd_stage_calls(q, k, v, out, g, lse, window=90)
+    assert list(calls) == list(FA.BWD_STAGES)
+    for grad in grads:
+        grad.fill_(float("nan"))
+    for name in FA.BWD_STAGES:
+        calls[name]()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_bwd"] == 1 + len(FA.BWD_STAGES)
+    torch.testing.assert_close(grads[0].float(), want[0].float(), atol=1e-5, rtol=1e-2)
+    assert torch.equal(grads[1], want[1]) and torch.equal(grads[2], want[2])
+
+
+def test_bf16_flash_route_gradients_stay_within_the_models_rounding(cuda_device, no_tf32):
+    """qwen3's smoke config in bf16 with remat, the same weights three ways:
+    over every parameter's gradient, the RMS of (flash route bf16 - naive
+    route fp32) is at most 1.25 times that of (naive route bf16 - naive
+    route fp32).  The bf16 backward rounds P and dS to bf16; the model's
+    gradient may take on that, not more than a quarter more error than
+    its own bf16 rounding (chip_smoke's TRAIN_BF16_GRAD_RATIO)."""
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), dtype="bfloat16", remat=True)
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    naive32 = dataclasses.replace(naive, dtype="float32")
+    model = TM.init_params(cfg, seed=3, device=cuda_device, trainable=True)
+    model32 = TM.init_params(naive32, seed=3, device=cuda_device, trainable=True)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 257)))
+    toks = toks.to(cuda_device)
+
+    def grads(c, m):
+        for p in m.parameters():
+            p.grad = None
+        loss, _ = TM.forward_train(c, m, toks[:, :-1], toks[:, 1:])
+        loss.backward()
+        return {n: p.grad.float() for n, p in m.named_parameters()}
+
+    FA.reset_launches()
+    flash = grads(cfg, model)
+    assert FA.LAUNCHES == {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    plain = grads(naive, model)
+    want = grads(naive32, model32)
+    assert FA.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    d_flash = sum(float((flash[n] - w).pow(2).sum()) for n, w in want.items())
+    d_naive = sum(float((plain[n] - w).pow(2).sum()) for n, w in want.items())
+    assert all(bool(torch.isfinite(g).all()) for g in flash.values())
+    assert d_naive > 0
+    assert (d_flash / d_naive) ** 0.5 <= 1.25
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b", "seamless-m4t-medium"])
