@@ -67,7 +67,13 @@ Phases, in order; any failure raises and exits non-zero:
    K1 over a rank's subtree with the live mask the all_to_all delivers);
    ``memory_nodes_per_device`` (4,194,306 for hrz and hyb at 4 ranks),
    each rank's peak memory, and lanes/s beside the single-chip server's
-   at world 1 are logged;
+   at world 1 are logged.  At world 1 the sharded program runs as CUDA
+   graphs (``ShardedQuery.compiled``): ``warmup`` captures one graph per
+   (op, slot), a read drain none, a compaction that keeps the height none
+   and the one that grows the tree to height 24 every held graph again;
+   the same server then serves the reads on its eager route, and one
+   lookup chunk's drain is profiled on either route (host launch calls,
+   device kernels, idle share).  The gloo ranks run eagerly, and say so;
 4g. the port gates (``repro_torch.analysis``): the lint, dead-code and
    contracts passes (the contracts on the card's kernels), then the
    serve gate for hrz, dup and hyb on the single-chip server and on the
@@ -1473,14 +1479,46 @@ def shard_kernel_checks(srv, mesh, strategy: str, reads) -> dict:
                                          for k in ("forest_descend", "queue_dispatch")}}
 
 
+def sharded_read_drain(srv, reads, strategy: str, ranks: int, tag: str) -> dict:
+    """One drain of the phase's reads through ``srv``, whose read graphs
+    ``warmup`` captured (over NCCL): every answer against the oracle, one
+    fetch a chunk, no capture, the launches the design implies (counted
+    from 0 just before the drain, replays included); lanes/s over the busy
+    time and over the drain's wall."""
+    srv.reset_stats()
+    tickets = submit_reads(srv, reads)
+    torch.cuda.synchronize()
+    runs, fetches, captures = graphs.kernel_runs(), runtime.fetch_count(), graphs.STATS["captures"]
+    t0 = time.perf_counter()
+    res = srv.drain()
+    drain_s = time.perf_counter() - t0
+    launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
+    n_fetch = runtime.fetch_count() - fetches
+    n_capture = graphs.STATS["captures"] - captures
+    check_answers(res, tickets, tag)
+    st = srv.stats
+    check(n_fetch == st.chunks, f"{tag}: {n_fetch} fetches for {st.chunks} chunks")
+    check(n_capture == 0, f"{tag}: the read drain captured {n_capture} graphs")
+    check_shard_launches(launches, strategy, ranks, st.chunks, 0, tag)
+    return {"lanes": st.lanes, "chunks": st.chunks, "fetches": n_fetch, "captures": n_capture,
+            "launches": launches, "busy_s": st.busy_s, "lanes_per_sec": st.lanes_per_sec,
+            "drain_s": drain_s, "lanes_per_drain_sec": st.lanes / drain_s,
+            "per_op_lanes_per_sec": {op: o.lanes_per_sec for op, o in st.per_op.items()}}
+
+
 def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bool = False) -> dict:
     """Phase 4s for one strategy on this rank: the reads through a sharded
     read-only server, then the write stream through a sharded server with a
-    W_CAPACITY buffer, every answer against the oracle, the fetch budget and
-    the launches (each counted from 0 just before its drain) checked; with
-    ``single`` the single-chip server of the same config serves the reads
-    too, for its lanes/s beside the sharded one's.  Every rank of ``mesh``
-    calls it alike."""
+    W_CAPACITY buffer, every answer against the oracle, the fetch budget,
+    the captures and the launches (each counted from 0 just before its
+    drain) checked.  Over NCCL the runner is compiled: ``warmup`` captures
+    one graph per (op, slot), a read drain none, a compaction that keeps
+    the height none, and the one that grows the tree every held graph
+    again; over gloo it is eager.  With ``single`` (world 1) the same
+    server serves the reads again on its eager route, one lookup chunk's
+    drain is profiled on either route, and the single-chip server of the
+    same config serves the reads too, for its lanes/s beside the sharded
+    one's.  Every rank of ``mesh`` calls it alike."""
     name = SHARD_CONFIGS[strategy]
     cfg = dataclasses.replace(PAPER_CONFIGS[name], device="cuda")
     tag = f"4s {strategy} x{mesh.size()}"
@@ -1489,35 +1527,31 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
     t0 = time.perf_counter()
 
     srv = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K, mesh=mesh)
+    run = srv.sharded_query
+    row["compiled"] = run.compiled
+    row["backend"] = str(torch.distributed.get_backend(run.group))
+    captures = graphs.STATS["captures"]
     srv.warmup(QUERY_OPS)
+    row["warmup_captures"] = graphs.STATS["captures"] - captures
+    want = 2 * len(QUERY_OPS) if run.compiled else 0  # one graph per (op, slot)
+    check(row["warmup_captures"] == want,
+          f"{tag}: warmup captured {row['warmup_captures']} graphs, want {want}")
     seconds["read_server"] = time.perf_counter() - t0
-    tickets = submit_reads(srv, reads)
-    torch.cuda.synchronize()
-    runs = graphs.kernel_runs()
-    fetches = runtime.fetch_count()
-    t0 = time.perf_counter()
-    res = srv.drain()
-    drain_s = time.perf_counter() - t0
-    launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
-    n_fetch = runtime.fetch_count() - fetches
-    check_answers(res, tickets, tag)
-    st = srv.stats
-    check(n_fetch == st.chunks, f"{tag}: {n_fetch} fetches for {st.chunks} chunks")
-    check_shard_launches(launches, strategy, mesh.size(), st.chunks, 0, tag)
-    row["reads"] = {"lanes": st.lanes, "chunks": st.chunks, "fetches": n_fetch,
-                    "launches": launches, "busy_s": st.busy_s,
-                    "lanes_per_sec": st.lanes_per_sec, "drain_s": drain_s,
-                    "lanes_per_drain_sec": st.lanes / drain_s,
-                    "per_op_lanes_per_sec": {op: o.lanes_per_sec for op, o in st.per_op.items()}}
-    seconds["reads"] = drain_s
-    if single:  # where a chunk's time goes: one lookup chunk a drain, profiled
+    row["reads"] = sharded_read_drain(srv, reads, strategy, mesh.size(), tag)
+    seconds["reads"] = row["reads"]["drain_s"]
+    if single:  # where a chunk's time goes: one lookup chunk a drain, profiled, on either route
         one_chunk = reads[0][1][:CHUNK]
         row["chunk_profile"] = profile_calls(lambda: (srv.submit(one_chunk), srv.drain()), 4)
+        srv.eager = True
+        row["eager_reads"] = sharded_read_drain(srv, reads, strategy, mesh.size(), f"{tag} eager")
+        row["eager_chunk_profile"] = profile_calls(lambda: (srv.submit(one_chunk), srv.drain()), 4)
+        srv.eager = False
+        seconds["eager_reads"] = row["eager_reads"]["drain_s"]
     t0 = time.perf_counter()
     row["memory_nodes_per_device"] = srv.memory_nodes_per_device()
     row["kernels"] = shard_kernel_checks(srv, mesh, strategy, reads)
     seconds["kernel_checks"] = time.perf_counter() - t0
-    del srv, res
+    del srv, run
 
     if single:
         one = BSTServer(keys, values, cfg, chunk_size=CHUNK, scan_k=SCAN_K)
@@ -1534,8 +1568,14 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
     t0 = time.perf_counter()
     wsrv = BSTServer(keys, values, dataclasses.replace(cfg, delta_capacity=W_CAPACITY),
                      chunk_size=CHUNK, scan_k=SCAN_K, mesh=mesh)
+    captures = graphs.STATS["captures"]
     wsrv.warmup(QUERY_OPS + ("write",))
+    row["write_warmup_captures"] = graphs.STATS["captures"] - captures
     seconds["write_server"] = time.perf_counter() - t0
+    held = len(wsrv.sharded_query.graph_keys()) + len(wsrv.engine.graph_keys())
+    check(row["write_warmup_captures"] == held,
+          f"{tag}: the write server's warmup captured {row['write_warmup_captures']}, holds {held}")
+    compactions = track_compactions(wsrv.engine)
     tickets = []
     for rnd in w_rounds:
         wsrv.submit_write(*rnd["writes"])
@@ -1543,12 +1583,13 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
         tickets += submit_reads(wsrv, rnd["reads"])
     torch.cuda.synchronize()
     runs = graphs.kernel_runs()
-    fetches = runtime.fetch_count()
+    fetches, captures = runtime.fetch_count(), graphs.STATS["captures"]
     t0 = time.perf_counter()
     res = wsrv.drain()
     drain_s = time.perf_counter() - t0
     launches = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
     n_fetch = runtime.fetch_count() - fetches
+    n_capture = graphs.STATS["captures"] - captures
     check_answers(res, tickets, f"{tag} writes")
     st = wsrv.stats
     read_chunks = sum(st.per_op[op].chunks for op in QUERY_OPS)
@@ -1558,8 +1599,16 @@ def serve_sharded(keys, values, strategy: str, mesh, reads, w_rounds, single: bo
           f"{tag}: {n_fetch} fetches for {read_chunks} read chunks + {st.compactions} compactions")
     check_shard_launches(launches, strategy, mesh.size(), read_chunks, ingest_chunks,
                          f"{tag} writes")
+    # captures only where the height changes, there every held graph once
+    held = len(wsrv.sharded_query.graph_keys()) + len(wsrv.engine.graph_keys())
+    for c in compactions:
+        want = 0 if c["height"][0] == c["height"][1] else held
+        check(c["captures"] == want, f"{tag}: compaction {c} captured {c['captures']}, want {want}")
+    check(n_capture == sum(c["captures"] for c in compactions),
+          f"{tag}: the write drain captured {n_capture} graphs outside its compactions too")
     row["writes"] = {"lanes": st.lanes, "read_chunks": read_chunks, "ingest_chunks": ingest_chunks,
                      "compactions": st.compactions, "fetches": n_fetch, "launches": launches,
+                     "captures": n_capture, "compaction_captures": compactions,
                      "busy_s": st.busy_s, "lanes_per_sec": st.lanes_per_sec, "drain_s": drain_s,
                      "lanes_per_drain_sec": st.lanes / drain_s,
                      "final_height": wsrv.snapshot.height}
@@ -1634,22 +1683,35 @@ def spawn_shard_ranks(reads, w_rounds) -> list:
 def log_shard_row(row: dict, smi: str) -> None:
     r, w = row["reads"], row["writes"]
     single = row.get("single_chip")
+    route = ("graphs (captured, one replay a chunk)" if row["compiled"] else
+             f"eager: {row['backend']}'s collectives run on the host and cannot be captured")
     beside = (f"; single-chip {row['config']} {single['lanes_per_sec']!r} (busy), "
               f"{single['lanes_per_drain_sec']!r} (drain wall)" if single else "")
-    log(f"    {row['strategy']} ({row['config']}) x{row['ranks']}: reads lanes_per_sec="
+    log(f"    {row['strategy']} ({row['config']}) x{row['ranks']} over {row['backend']}, {route}; "
+        f"warmup captured {row['warmup_captures']} graphs (write server "
+        f"{row['write_warmup_captures']}); reads lanes_per_sec="
         f"{r['lanes_per_sec']!r} (busy), {r['lanes_per_drain_sec']!r} (drain wall) over "
-        f"{r['lanes']} lanes, {r['chunks']} chunks, {r['fetches']} fetches, K4 "
-        f"{r['launches']['queue_dispatch']}, K1 {r['launches']['forest_descend']}{beside}; "
-        f"writes {w['lanes_per_sec']!r} (busy) over {w['lanes']} lanes, {w['read_chunks']} read "
-        f"+ {w['ingest_chunks']} ingest chunks, {w['compactions']} compactions, {w['fetches']} "
-        f"fetches, K4 {w['launches']['queue_dispatch']}, K1 {w['launches']['forest_descend']}, "
-        f"K3 {w['launches']['hybrid_descend']}; memory_nodes_per_device "
-        f"{row['memory_nodes_per_device']}; answers == oracle ({smi})")
+        f"{r['lanes']} lanes, {r['chunks']} chunks, {r['fetches']} fetches, {r['captures']} "
+        f"captures, K4 {r['launches']['queue_dispatch']}, K1 {r['launches']['forest_descend']}"
+        f"{beside}; writes {w['lanes_per_sec']!r} (busy) over {w['lanes']} lanes, "
+        f"{w['read_chunks']} read + {w['ingest_chunks']} ingest chunks, {w['compactions']} "
+        f"compactions (heights and captures {[(c['height'], c['captures']) for c in w['compaction_captures']]}), "
+        f"{w['fetches']} fetches, K4 {w['launches']['queue_dispatch']}, K1 "
+        f"{w['launches']['forest_descend']}, K3 {w['launches']['hybrid_descend']}; "
+        f"memory_nodes_per_device {row['memory_nodes_per_device']}; answers == oracle ({smi})")
+    if "eager_reads" in row:
+        e = row["eager_reads"]
+        log(f"      eager route of the same server: reads lanes_per_sec={e['lanes_per_sec']!r} "
+            f"(busy), {e['lanes_per_drain_sec']!r} (drain wall); graph route "
+            f"{r['lanes_per_sec'] / e['lanes_per_sec']!r}x (busy), "
+            f"{r['lanes_per_drain_sec'] / e['lanes_per_drain_sec']!r}x (drain wall); "
+            f"answers == oracle ({smi})")
     for c in row["kernels"]["checks"]:
         log(f"      {c}: K1, K4 == their plain versions")
-    if "chunk_profile" in row:
-        log_call_profile(f"{row['strategy']} x{row['ranks']} one lookup chunk's drain",
-                         row["chunk_profile"])
+    for key, route in (("chunk_profile", "graph"), ("eager_chunk_profile", "eager")):
+        if key in row:
+            log_call_profile(f"{row['strategy']} x{row['ranks']} one lookup chunk's drain, "
+                             f"{route} route", row[key])
 
 
 def shard_phase(keys, values, lookups, rounds, smi: str) -> dict:
@@ -1670,6 +1732,7 @@ def shard_phase(keys, values, lookups, rounds, smi: str) -> dict:
                                 reads, w_rounds, single=True)
             check(row["memory_nodes_per_device"] == N_KEYS + (0 if strategy == "dup" else 1),
                   f"4s {strategy} x1: {row['memory_nodes_per_device']} nodes per device")
+            check(row["compiled"], f"4s {strategy} x1 over NCCL: the sharded runner is not compiled")
             world1.append(row)
             log_shard_row(row, smi)
         log(f"    world 1 over NCCL in {time.perf_counter() - t0!r} s; per strategy (host seconds) "
@@ -1689,6 +1752,7 @@ def shard_phase(keys, values, lookups, rounds, smi: str) -> dict:
             check(row["memory_nodes_per_device"] == want,
                   f"4s {row['strategy']} x{SHARD_RANKS} rank {rec['rank']}: "
                   f"{row['memory_nodes_per_device']} nodes per device, want {want}")
+            check(not row["compiled"], f"4s {row['strategy']} x{SHARD_RANKS} over gloo: compiled")
             for kern, a in row["kernels"]["agreement"].items():
                 AGREEMENT[kern]["max_abs_err"] = max(AGREEMENT[kern]["max_abs_err"], a["max_abs_err"])
                 AGREEMENT[kern]["mismatches"] += a["mismatches"]

@@ -27,13 +27,22 @@ collective-bytes lever: capacity == local batch is stall-free but sends
 B x M keys; smaller capacities send less and re-dispatch overflowed keys in
 a stall round, then one final stall-free drain round, so every answer is
 exact.  The JAX package runs that drain round only when some rank still has
-a pending key (``lax.cond`` on a mesh-wide ``pmax``); eager PyTorch has no
+a pending key (``lax.cond`` on a mesh-wide ``pmax``); a CUDA graph holds no
 device-side branch, and reading the flag on the host would add a fetch per
 chunk, so here the drain round always runs behind a capped round, with
 ``active = pending``: the answers are the same, and each such chunk pays
 one full ``all_to_all`` of M x B keys more.  Where the per-batch depth is
 the local batch anyway (one rank), nothing can overflow, and the host runs
 the one stall-free round alone.
+
+The JAX package compiles each runner into one ``jax.jit(shard_map(...))``
+program.  Here, on the card over NCCL, each call shape of a runner is one
+CUDA graph that holds the whole call, collectives included
+(``ShardedQuery``); over gloo, whose collectives run on the host, the same
+ops run eagerly.  A compaction that keeps the tree's height rewrites the
+snapshot in place, and ``ShardedQuery.reshard`` copies this rank's rows
+into its shard tensors, so the graphs stay; a height change cuts new
+shards and captures every graph again.
 
 The delta buffer (the live write path) is replicated: every rank's engine
 ingests the same writes, and each rank folds the buffer into its local
@@ -46,12 +55,14 @@ NCCL on the card, gloo on the CPU.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch import graphs
 from repro_torch.analysis import invariants, runtime
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import plans as plans_lib
@@ -94,16 +105,19 @@ def _check_device(tree: TreeData, mesh: DeviceMesh) -> None:
         )
 
 
-def _subtree_index(height: int, split_level: int, index: int, device) -> torch.Tensor:
-    """Global BFS indices of subtree ``index`` rooted at ``split_level``
-    (row ``index`` of ``tree.all_subtree_gather_indices``), made on
-    ``device``."""
-    parts = [
-        tree_lib.level_offset(split_level + l) + (index << l)
-        + torch.arange(1 << l, dtype=torch.int64, device=device)
-        for l in range(height - split_level + 1)
-    ]
-    return torch.cat(parts)
+def _write_subtree(
+    tree: TreeData, split_level: int, index: int, keys: torch.Tensor, values: torch.Tensor
+) -> None:
+    """Copy subtree ``index`` rooted at ``split_level`` (row ``index`` of
+    ``tree.all_subtree_gather_indices``) into the flat ``keys`` and
+    ``values``: one slice copy a level (level ``l`` of the subtree is
+    contiguous in both layouts), on the current stream, with no index
+    tensor."""
+    for l in range(tree.height - split_level + 1):
+        src = tree_lib.level_offset(split_level + l) + (index << l)
+        dst = (1 << l) - 1
+        keys[dst:dst + (1 << l)].copy_(tree.keys[src:src + (1 << l)])
+        values[dst:dst + (1 << l)].copy_(tree.values[src:src + (1 << l)])
 
 
 def shard_subtrees(
@@ -116,16 +130,39 @@ def shard_subtrees(
     split_level = invariants.check_power_of_two(M, f"mesh axis {axis} size")
     if split_level > tree.height:
         raise ValueError("tree shallower than the mesh axis")
-    idx = _subtree_index(tree.height, split_level, rank, tree.device)
-    sub_keys = tree.keys[idx][None, :].contiguous()
-    sub_vals = tree.values[idx][None, :].contiguous()
+    sub_n = (1 << (tree.height - split_level + 1)) - 1
+    sub_keys = torch.empty((1, sub_n), dtype=tree.keys.dtype, device=tree.device)
+    sub_vals = torch.empty((1, sub_n), dtype=tree.values.dtype, device=tree.device)
+    _write_subtree(tree, split_level, rank, sub_keys[0], sub_vals[0])
     return sub_keys, sub_vals, split_level, tree.height - split_level
+
+
+def captures_collectives(device, backend: str) -> bool:
+    """Whether a sharded runner on ``device`` over a process group of
+    ``backend`` runs as CUDA graphs: on the card over NCCL, whose
+    collectives are kernels a graph can hold.  gloo's run on the host and
+    cannot be captured, so a runner over gloo (the CPU, or ranks that share
+    one card) runs its ops eagerly."""
+    return torch.device(device).type == "cuda" and backend == dist.Backend.NCCL
 
 
 def _batch(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(x)
     return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _stage(x, static: torch.Tensor) -> None:
+    """Copy a batch into a graph's static input row: a host batch through
+    the counted ``runtime.device_put``, a device batch in place, and
+    nothing where it is the row itself (the server's put landed there)."""
+    if isinstance(x, torch.Tensor) and not x.is_cpu:
+        if x.data_ptr() != static.data_ptr():
+            static.copy_(x)
+        return
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+    runtime.device_put(x, static)
 
 
 def _local(x: torch.Tensor, M: int, rank: int) -> torch.Tensor:
@@ -164,34 +201,293 @@ def _plan_of(tree: TreeData, plan: Optional[SearchPlan]) -> SearchPlan:
     return plan
 
 
-def _make_query_runner(descend, plan: SearchPlan, lookup=None):
-    """Wrap a sharded ordered descent into the ``run(op, ...)`` contract.
+def _delta_key(delta, delta_ops) -> Optional[Tuple[int, ...]]:
+    """The addresses a graph reads the buffer at (its step holds the
+    tensors, so no other buffer can take them while the graph lives)."""
+    if delta is None:
+        return None
+    return tuple(t.data_ptr() for t in (*delta, *(delta_ops or ())))
 
-    The op dispatch and epilogues are ``plans.query_through``'s, shared with
-    ``BSTEngine.query``, so the contract cannot drift between the sharded
-    and single-chip paths.  ``descend(both, d_ops)`` returns the whole
-    chunk's ``OrderedResult`` on every rank, the replicated buffer's
-    operands folded in; the epilogues then run on every rank over the whole
-    columns.  ``lookup`` is an optional membership fast path
-    ``(queries, d_ops) -> (values, found)``.
+
+class ShardedQuery:
+    """A sharded ``query(op, ...)`` over one mesh axis: the part that the
+    subtree runner (hrz, hyb) and the replica runner (dup) share.
+
+    ``run(op, queries, queries_hi=None, *, k=8, delta=None, delta_ops=None,
+    eager=False)`` has the per-op contract of ``BSTEngine.query``.  Every
+    rank calls it with the same whole chunk (B lanes, B divisible by the
+    axis size) and gets the whole answer back.  The op dispatch and
+    epilogues are ``plans.query_through``'s, shared with the engine, over
+    the engine's plan of the snapshot.  ``delta`` is the replicated write
+    buffer, ``delta_ops`` its kernel operands where the caller keeps them
+    (the engine does, in place); each rank folds it into its slice.
+
+    ``compiled`` (``captures_collectives``, decided once from the group's
+    backend): on the card over NCCL each ``(op, k for range_scan, batch
+    length, slot)`` of a call is one CUDA graph, the counterpart of the
+    JAX package's jitted ``shard_map`` program.  It holds the whole call:
+    the route, every round's K4, the buffers' gather, the
+    ``all_to_all_single``s, K1, the combine, the register merge, the delta
+    fold, the ``all_gather_into_tensor`` and the epilogue.  A graph reads
+    only tensors at fixed addresses: its slot's static input
+    (``static_input``), the shard tensors, the plan's tensors and the
+    buffer, so it stays valid until ``reshard`` replaces the shard
+    tensors.  It is captured at its first use, after one eager run of its
+    ops (which also starts the NCCL communicator), and replayed after; a
+    failed capture raises.  Every rank makes the same calls, so every rank
+    captures the same graphs in the same order.  ``eager=True`` runs the
+    same ops one by one, to hold the graphs against them; over gloo every
+    call does.  Each slot's graphs share a memory pool, and the two slots
+    never share one: the server's double buffer replays slot i + 1's graph
+    before it reads slot i's outputs.
     """
-    device = plan.full_tree.device
 
-    def run(op: str, queries, queries_hi=None, *, k: int = 8, delta=None):
-        d_ops = None if delta is None else delta_lib.operands(delta)
-        q = _batch(queries, device)
-        hi = None
+    capacity_frac: Optional[float] = None
+
+    def __init__(self, tree: TreeData, mesh: DeviceMesh, axis: str, plan: Optional[SearchPlan]):
+        _check_device(tree, mesh)
+        self.mesh = mesh
+        self.axis = axis
+        self.n_shards, self.rank, self.group = _axis_of(mesh, axis)
+        self.device = tree.device
+        self.compiled = captures_collectives(self.device, dist.get_backend(self.group))
+        self._graphs: Dict[tuple, graphs.Graph] = {}
+        self._steps: Dict[tuple, tuple] = {}
+        self._inputs: Dict[Tuple[int, int, int], torch.Tensor] = {}
+        self._pools: Dict[int, object] = {}
+        self._install(tree, _plan_of(tree, plan))
+
+    # A subclass cuts this rank's shard of a snapshot (``_cut``), rewrites it
+    # in place from a snapshot rewritten in place (``_recut``), names its
+    # (keys, values) pairs (``shards``) and descends a chunk
+    # (``_descend(queries, d_ops)``), and may add a membership fast path.
+    _lookup = None  # (queries, d_ops) -> (values, found)
+
+    def device_nodes(self) -> int:
+        """``stored_nodes_per_device`` over the keys of this rank's shards
+        (a collective: every rank calls it)."""
+        return stored_nodes_per_device(tuple(keys for keys, _ in self.shards), self.group)
+
+    def _install(self, tree: TreeData, plan: SearchPlan) -> None:
+        self.tree = tree
+        self.plan = plan
+        self._cut(tree)
+
+    # ------------------------------------------------------------------ calls
+    def __call__(self, op: str, queries, queries_hi=None, *, k: int = 8, delta=None,
+                 delta_ops=None, eager: bool = False):
+        """Run one op; on the graph route the results are copies of the
+        graph's outputs, which later calls leave alone."""
+        res = self.query_static(
+            op, queries, queries_hi, k=k, delta=delta, delta_ops=delta_ops, eager=eager
+        )
+        if eager or not self.compiled:
+            return res
+        return tuple(t.clone() for t in res) if isinstance(res, tuple) else res.clone()
+
+    def query_static(self, op: str, queries, queries_hi=None, *, k: int = 8, delta=None,
+                     delta_ops=None, slot: int = 0, eager: bool = False):
+        """``run``, except that on the graph route the results are the
+        static outputs of ``slot``'s graph, valid until that graph's next
+        replay: for a caller that fetches them first (``BSTServer``)."""
+        plans_lib.validate_op(op, queries_hi is not None)
+        B = queries.shape[0] if hasattr(queries, "shape") else len(queries)
         if queries_hi is not None:
-            hi = _batch(queries_hi, device)
-            if hi.shape != q.shape:
-                raise ValueError(f"lo {tuple(q.shape)} and hi {tuple(hi.shape)} differ")
+            B_hi = queries_hi.shape[0] if hasattr(queries_hi, "shape") else len(queries_hi)
+            if B_hi != B:
+                raise ValueError(f"lo ({B},) and hi ({B_hi},) differ")
+        if eager or not self.compiled or B == 0:
+            q = _batch(queries, self.device)
+            hi = None if queries_hi is None else _batch(queries_hi, self.device)
+            return self._step(op, k, q, hi, delta, delta_ops)
+        rows = self.static_input(op, B, slot=slot)
+        _stage(queries, rows[0])
+        if queries_hi is not None:
+            _stage(queries_hi, rows[1])
+        key = (op, k if op == "range_scan" else None, B, slot, _delta_key(delta, delta_ops))
+        g = self._graphs.get(key)
+        if g is None:
+            hi = None if queries_hi is None else rows[1]
+            self._steps[key] = (op, k, rows[0], hi, delta, delta_ops)
+            g = self._capture(key, warmup=True)
+        return g.replay()
+
+    def static_input(self, op: str, B: int, *, slot: int = 0) -> torch.Tensor:
+        """``slot``'s static input for a B-lane chunk of ``op``: (1, B) int32
+        on the runner's device, (2, B) for the range ops (lows, highs).  A
+        caller may put a chunk straight into it; the graph route stages
+        other batches there."""
+        key = (2 if op in plans_lib.RANGE_OPS else 1, B, slot)
+        if key not in self._inputs:
+            self._inputs[key] = torch.zeros(key[:2], dtype=torch.int32, device=self.device)
+        return self._inputs[key]
+
+    def _step(self, op: str, k: int, queries, queries_hi, delta, delta_ops):
+        """The whole call over fixed tensors: what a graph holds."""
+        d_ops = None
+        if delta is not None:
+            d_ops = delta_ops if delta_ops is not None else delta_lib.operands(delta)
+        lookup = self._lookup
         return plans_lib.query_through(
-            plan, op, q, hi, k=k, delta=delta,
-            descend=lambda x: descend(x, d_ops),
+            self.plan, op, queries, queries_hi, k=k, delta=delta,
+            descend=lambda x: self._descend(x, d_ops),
             lookup=None if lookup is None else (lambda x: lookup(x, d_ops)),
         )
 
-    return run
+    def _capture(self, key: tuple, *, warmup: bool) -> graphs.Graph:
+        slot = key[3]
+        if slot not in self._pools:
+            self._pools[slot] = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(self.device):
+            g = self._graphs[key] = graphs.Graph(
+                functools.partial(self._step, *self._steps[key]), warmup=warmup,
+                pool=self._pools[slot], label=key[:4], collectives=True,
+            )
+        return g
+
+    def graph_keys(self) -> Tuple[tuple, ...]:
+        """The calls held as CUDA graphs, in capture order: ``(op, k or
+        None, batch length, slot, buffer addresses or None)``."""
+        return tuple(self._graphs)
+
+    def reshard(self, tree: TreeData, plan: Optional[SearchPlan] = None) -> bool:
+        """Install the engine's new snapshot; returns whether the graphs
+        were kept.  Where ``tree`` is the snapshot the shards were cut from
+        (a compaction that kept the height rewrote its tensors in place),
+        this rank's rows are copied into the shard tensors, on the current
+        stream, and every graph stays; the plan stays too, since the
+        graphs read its tensors and the new plan's are the same.  Otherwise
+        new shard tensors are cut and every graph is captured again over
+        them, in its first capture's order and without a warm-up (its ops
+        have run): every rank reshards at the same call."""
+        if tree.keys is self.tree.keys and tree.values is self.tree.values \
+                and tree.height == self.tree.height:
+            self._recut(tree)
+            self.tree = tree
+            return True
+        stale = tuple(self._graphs)
+        self._graphs, self._pools = {}, {}
+        self._install(tree, _plan_of(tree, plan))
+        for key in stale:
+            self._capture(key, warmup=False)
+        return False
+
+
+class _SubtreeQuery(ShardedQuery):
+    """hrz and hyb: subtrees sharded, the register layer replicated, keys
+    routed by ``all_to_all`` (see ``make_distributed_query``)."""
+
+    def __init__(self, tree, mesh, axis, capacity_frac, plan):
+        self.capacity_frac = capacity_frac
+        super().__init__(tree, mesh, axis, plan)
+
+    def _cut(self, tree: TreeData) -> None:
+        self._sub_keys, self._sub_vals, self.split_level, self._sub_height = shard_subtrees(
+            tree, self.mesh, self.axis
+        )
+        reg_n = (1 << max(self.split_level, 1)) - 1
+        self._reg_keys = tree.keys[:reg_n].clone()
+        self._reg_vals = tree.values[:reg_n].clone()
+
+    def _recut(self, tree: TreeData) -> None:
+        _write_subtree(tree, self.split_level, self.rank, self._sub_keys[0], self._sub_vals[0])
+        reg_n = self._reg_keys.shape[0]
+        self._reg_keys.copy_(tree.keys[:reg_n])
+        self._reg_vals.copy_(tree.values[:reg_n])
+
+    @property
+    def shards(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+        """The subtree's and the register layer's (keys, values)."""
+        return ((self._sub_keys, self._sub_vals), (self._reg_keys, self._reg_vals))
+
+    def _one_round(self, queries, dest, active, cap: int):
+        """dispatch -> all_to_all -> local ordered descent -> all_to_all back."""
+        M, group = self.n_shards, self.group
+        dplan = plans_lib.dispatch_phase("queue", dest, M, cap, active=active)
+        send_q, send_live = plans_lib.gather_phase(queries, dplan)
+        recv_q = _all_to_all(send_q, group)
+        recv_live = _all_to_all(send_live.to(torch.int32), group)  # bools ride as int32
+        sub = plans_lib.descend_phase_ordered(
+            self._sub_keys, self._sub_vals, self._sub_height, recv_q.reshape(1, -1),
+            recv_live.reshape(1, -1) != 0,
+        )
+        packed = plans_lib.pack_ordered(OrderedResult(*(f[0].reshape(M, cap) for f in sub)))
+        back = _all_to_all(packed, group)
+        got = plans_lib.combine_phase_ordered(
+            plans_lib.unpack_ordered(back), dplan, queries.shape[0]
+        )
+        return got, dplan.overflow
+
+    def _query_local(self, queries, d_ops) -> OrderedResult:
+        B, M = queries.shape[0], self.n_shards
+        frac = self.capacity_frac
+        cap = B if frac is None else invariants.capacity_for_trace(B, M, frac)
+        # a depth of the local batch cannot overflow: the host knows that no
+        # key is left for the stall and drain rounds without asking
+        capped = cap < B
+        dest, reg = plans_lib.route_phase_ordered(
+            self._reg_keys, self._reg_vals, queries, self.split_level, self.tree.height
+        )
+        acc = tree_lib.init_ordered(B, queries.device)
+        pending = ~reg.found
+        # stall rounds: overflowed keys re-enter, the buffers empty again
+        for _ in range(1 + (STALL_ROUNDS if capped else 0)):
+            got, overflow = self._one_round(queries, dest, pending, cap)
+            acc = plans_lib.where_ordered(pending & ~overflow, got, acc)
+            pending = overflow
+        if capped:
+            # the drain round at capacity == local batch, where the queue
+            # mapping cannot overflow: no lane keeps a partial result.  It
+            # always runs (see the module docstring).
+            got, _ = self._one_round(queries, dest, pending, B)
+            acc = plans_lib.where_ordered(pending, got, acc)
+        res = plans_lib.merge_ordered(reg, acc)
+        if d_ops is not None:
+            # after the register merge, so register hits see overrides too
+            res = delta_lib.merge_ordered(res, *delta_lib.resolve_operands(d_ops, queries))
+        return res
+
+    def _descend(self, queries, d_ops) -> OrderedResult:
+        M = self.n_shards
+        res = self._query_local(_local(queries, M, self.rank), d_ops)
+        return plans_lib.unpack_ordered(_gather(plans_lib.pack_ordered(res), M, self.group))
+
+
+class _DupQuery(ShardedQuery):
+    """dup: the tree replicated, the chunk split (see ``make_dup_query``).
+    The shards are views of the snapshot's own tensors."""
+
+    def _cut(self, tree: TreeData) -> None:
+        self._keys = tree.keys[None, :]
+        self._vals = tree.values[None, :]
+
+    def _recut(self, tree: TreeData) -> None:
+        """Nothing to copy: the views read the tensors the compaction
+        rewrote."""
+
+    @property
+    def shards(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+        """The whole tree's (keys, values), as (1, n) views."""
+        return ((self._keys, self._vals),)
+
+    def _descend(self, queries, d_ops) -> OrderedResult:
+        q = _local(queries, self.n_shards, self.rank)
+        res = plans_lib.descend_phase_ordered(self._keys, self._vals, self.tree.height, q[None, :])
+        res = OrderedResult(*(f[0] for f in res))
+        if d_ops is not None:
+            res = delta_lib.merge_ordered(res, *delta_lib.resolve_operands(d_ops, q))
+        return plans_lib.unpack_ordered(_gather(plans_lib.pack_ordered(res), self.n_shards, self.group))
+
+    def _lookup(self, queries, d_ops):
+        q = _local(queries, self.n_shards, self.rank)
+        val, found = plans_lib.descend_phase(self._keys, self._vals, self.tree.height, q[None, :])
+        val, found = val[0], found[0]
+        if d_ops is not None:
+            hit, dead, d_val, _ = delta_lib.resolve_operands(d_ops, q)
+            val, found = delta_lib.merge_lookup(val, found, hit, dead, d_val)
+        both = _gather(torch.stack([val, found.to(torch.int32)], dim=-1), self.n_shards, self.group)
+        values, hits = both.t().contiguous()
+        return values, hits != 0
 
 
 def make_distributed_query(
@@ -201,15 +497,14 @@ def make_distributed_query(
     capacity_frac: Optional[float] = None,
     *,
     plan: Optional[SearchPlan] = None,
-):
+) -> ShardedQuery:
     """The sharded ``query(op, ...)`` over ``axis``: subtrees sharded, the
     register layer replicated, keys routed by ``all_to_all``.
 
-    Returns ``run(op, queries, queries_hi=None, *, k=8, delta=None)`` with
-    the same per-op contract as ``BSTEngine.query``.  Every rank calls it
-    with the same whole chunk (B lanes, B divisible by the axis size) and
-    gets the whole answer back.  ``plan`` is the engine's plan of ``tree``,
-    whose rank -> BFS map and sorted view the epilogues share.
+    Returns a ``ShardedQuery``: ``run(op, queries, queries_hi=None, *, k=8,
+    delta=None)`` with the same per-op contract as ``BSTEngine.query``.
+    ``plan`` is the engine's plan of ``tree``, whose rank -> BFS map and
+    sorted view the epilogues share.
 
     Without ``capacity_frac`` the per-(src, dst) buffer depth is the local
     batch: one stall-free round.  ``capacity_frac`` sizes the depth per
@@ -224,69 +519,7 @@ def make_distributed_query(
     the live mask as ``active``, and the packed 7-field result rides one
     ``all_to_all_single`` back to ``combine_phase_ordered``.
     """
-    _check_device(tree, mesh)
-    plan = _plan_of(tree, plan)
-    M, rank, group = _axis_of(mesh, axis)
-    sub_keys, sub_vals, split_level, sub_height = shard_subtrees(tree, mesh, axis)
-    reg_n = (1 << max(split_level, 1)) - 1
-    reg_keys = tree.keys[:reg_n].clone()
-    reg_vals = tree.values[:reg_n].clone()
-
-    def _one_round(queries, dest, active, cap):
-        """dispatch -> all_to_all -> local ordered descent -> all_to_all back."""
-        dplan = plans_lib.dispatch_phase("queue", dest, M, cap, active=active)
-        send_q, send_live = plans_lib.gather_phase(queries, dplan)
-        recv_q = _all_to_all(send_q, group)
-        recv_live = _all_to_all(send_live.to(torch.int32), group)  # bools ride as int32
-        sub = plans_lib.descend_phase_ordered(
-            sub_keys, sub_vals, sub_height, recv_q.reshape(1, -1),
-            recv_live.reshape(1, -1) != 0,
-        )
-        packed = plans_lib.pack_ordered(OrderedResult(*(f[0].reshape(M, cap) for f in sub)))
-        back = _all_to_all(packed, group)
-        got = plans_lib.combine_phase_ordered(
-            plans_lib.unpack_ordered(back), dplan, queries.shape[0]
-        )
-        return got, dplan.overflow
-
-    def _query_local(queries, d_ops) -> OrderedResult:
-        B = queries.shape[0]
-        cap = B if capacity_frac is None else invariants.capacity_for_trace(B, M, capacity_frac)
-        # a depth of the local batch cannot overflow: the host knows that no
-        # key is left for the stall and drain rounds without asking
-        capped = cap < B
-        dest, reg = plans_lib.route_phase_ordered(
-            reg_keys, reg_vals, queries, split_level, tree.height
-        )
-        acc = tree_lib.init_ordered(B, queries.device)
-        pending = ~reg.found
-        # stall rounds: overflowed keys re-enter, the buffers empty again
-        for _ in range(1 + (STALL_ROUNDS if capped else 0)):
-            got, overflow = _one_round(queries, dest, pending, cap)
-            acc = plans_lib.where_ordered(pending & ~overflow, got, acc)
-            pending = overflow
-        if capped:
-            # the drain round at capacity == local batch, where the queue
-            # mapping cannot overflow: no lane keeps a partial result.  It
-            # always runs (see the module docstring).
-            got, _ = _one_round(queries, dest, pending, B)
-            acc = plans_lib.where_ordered(pending, got, acc)
-        res = plans_lib.merge_ordered(reg, acc)
-        if d_ops is not None:
-            # after the register merge, so register hits see overrides too
-            res = delta_lib.merge_ordered(res, *delta_lib.resolve_operands(d_ops, queries))
-        return res
-
-    def _descend(queries, d_ops=None) -> OrderedResult:
-        res = _query_local(_local(queries, M, rank), d_ops)
-        return plans_lib.unpack_ordered(_gather(plans_lib.pack_ordered(res), M, group))
-
-    run = _make_query_runner(_descend, plan)
-    run.mesh = mesh
-    run.capacity_frac = capacity_frac
-    run.split_level = split_level
-    run.device_nodes = functools.partial(stored_nodes_per_device, (sub_keys, reg_keys), group)
-    return run
+    return _SubtreeQuery(tree, mesh, axis, capacity_frac, plan)
 
 
 def make_distributed_lookup(
@@ -310,43 +543,16 @@ def make_distributed_lookup(
 
 def make_dup_query(
     tree: TreeData, mesh: DeviceMesh, axis: str = "data", *, plan: Optional[SearchPlan] = None
-):
+) -> ShardedQuery:
     """dup as data parallelism: the tree replicated, the chunk split.
 
-    Returns the same ``run(op, ...)`` contract as ``make_distributed_query``:
-    each rank runs the whole ordered descent (K1) on its slice.  Lookups
-    take a membership fast path (K1's 2-output configuration), so the hot
-    path pays nothing for the ordered tracking or return lanes.
+    Returns a ``ShardedQuery`` with the contract of
+    ``make_distributed_query``: each rank runs the whole ordered descent
+    (K1) on its slice.  Lookups take a membership fast path (K1's
+    2-output configuration), so the hot path pays nothing for the ordered
+    tracking or return lanes.
     """
-    _check_device(tree, mesh)
-    plan = _plan_of(tree, plan)
-    M, rank, group = _axis_of(mesh, axis)
-    keys = tree.keys[None, :]
-    vals = tree.values[None, :]
-
-    def _descend(queries, d_ops=None) -> OrderedResult:
-        q = _local(queries, M, rank)
-        res = plans_lib.descend_phase_ordered(keys, vals, tree.height, q[None, :])
-        res = OrderedResult(*(f[0] for f in res))
-        if d_ops is not None:
-            res = delta_lib.merge_ordered(res, *delta_lib.resolve_operands(d_ops, q))
-        return plans_lib.unpack_ordered(_gather(plans_lib.pack_ordered(res), M, group))
-
-    def _lookup(queries, d_ops=None):
-        q = _local(queries, M, rank)
-        val, found = plans_lib.descend_phase(keys, vals, tree.height, q[None, :])
-        val, found = val[0], found[0]
-        if d_ops is not None:
-            hit, dead, d_val, _ = delta_lib.resolve_operands(d_ops, q)
-            val, found = delta_lib.merge_lookup(val, found, hit, dead, d_val)
-        both = _gather(torch.stack([val, found.to(torch.int32)], dim=-1), M, group)
-        values, hits = both.t().contiguous()
-        return values, hits != 0
-
-    run = _make_query_runner(_descend, plan, lookup=_lookup)
-    run.mesh = mesh
-    run.device_nodes = functools.partial(stored_nodes_per_device, (tree.keys,), group)
-    return run
+    return _DupQuery(tree, mesh, axis, plan)
 
 
 def make_dup_lookup(tree: TreeData, mesh: DeviceMesh, axis: str = "data"):
@@ -397,8 +603,8 @@ def make_sharded_query(
         the stall round and the drain round where that depth is below the
         local batch.
 
-    Returns the ``run(op, queries, queries_hi=None, *, k=8, delta=None)``
-    contract of ``make_distributed_query``.  Chunks must divide over the
+    Returns a ``ShardedQuery`` (the contract of
+    ``make_distributed_query``).  Chunks must divide over the
     axis (``BSTServer`` pads them and checks at construction).  ``plan`` is
     the engine's plan of ``tree`` (see ``make_distributed_query``).
     """
@@ -410,11 +616,8 @@ def make_sharded_query(
         )
     if strategy == "dup":
         run = make_dup_query(tree, mesh, axis=axis, plan=plan)
-        run.capacity_frac = None
     else:
         frac = buffer_slack if strategy == "hyb" else None
         run = make_distributed_query(tree, mesh, axis=axis, capacity_frac=frac, plan=plan)
     run.strategy = strategy
-    run.axis = axis
-    run.n_shards = _axis_of(mesh, axis)[0]
     return run

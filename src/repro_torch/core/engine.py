@@ -146,7 +146,7 @@ class BSTEngine:
         # swap (a compaction, or an ``apply_updates`` rebuild without a
         # buffer), which can happen deep inside ``apply_ops``' chunk loop;
         # whatever holds state made from the old snapshot (the sharded
-        # server's shards) rebuilds before the next read.  None by default.
+        # server's shards) refreshes before the next read.  None by default.
         self.on_snapshot = None
         # On the card, one graph per step of the engine (each bound query,
         # the ingest, the compaction's merge and layout), all in one memory
@@ -492,6 +492,13 @@ class BSTEngine:
                 self._capture(key, warmup=False)
         if self.on_snapshot is not None:
             self.on_snapshot(self.tree)
+
+    @property
+    def delta_operands(self) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The buffer's four kernel operands (``delta.operands``) at fixed
+        addresses, which every ingest and compaction rewrites in place;
+        None without the write path."""
+        return self._delta_ops
 
     def pending_writes(self) -> int:
         """Upper bound on buffered entries (0 right after a compaction)."""

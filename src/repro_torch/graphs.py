@@ -89,10 +89,21 @@ class Graph:
     ``pool``, a ``torch.cuda.graph_pool_handle()``, lets graphs share one
     memory pool: safe when each replay's outputs are consumed before
     another graph of the pool replays.  ``label`` names the step for a
-    ``capture_watch`` (an engine passes its step key).  ``out`` is
-    ``fn``'s result, the static output."""
+    ``capture_watch`` (an engine passes its step key).  ``collectives``
+    captures in the thread-local error mode, for steps that hold NCCL
+    collectives: the process group's watchdog thread queries CUDA events
+    while the capture is open, which the global mode forbids (the capture
+    is then invalid).  ``out`` is ``fn``'s result, the static output."""
 
-    def __init__(self, fn: Callable, *, warmup: bool = True, pool=None, label: object = None):
+    def __init__(
+        self,
+        fn: Callable,
+        *,
+        warmup: bool = True,
+        pool=None,
+        label: object = None,
+        collectives: bool = False,
+    ):
         device = torch.device("cuda", torch.cuda.current_device())
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -107,7 +118,9 @@ class Graph:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                self._graph.capture_begin(pool=pool)
+                self._graph.capture_begin(
+                    pool=pool, capture_error_mode="thread_local" if collectives else "global"
+                )
                 try:
                     self.out = fn()
                 except BaseException:

@@ -33,11 +33,13 @@ that loop:
     program of ``core/distributed.py`` for the config's strategy (hrz, dup,
     hyb), each rank serving its slice of every chunk and receiving the
     whole columns, so every rank's ``drain()`` returns every answer.  The
-    read loop is a depth-2 double buffer: chunk i+1's copy to the device,
-    kernels and collectives are enqueued before chunk i is retired.  The
-    engine (and its delta buffer) stays whole on every rank, so writes and
-    compactions run on every rank alike; a compaction re-shards through
-    the engine's ``on_snapshot`` hook.
+    read loop is a depth-2 double buffer over two slots: chunk i+1's copy
+    to the device and its program are enqueued before chunk i is retired.
+    On the card over NCCL a chunk's program is one replay of its slot's
+    CUDA graph; over gloo it runs eagerly.  The engine (and its delta
+    buffer) stays whole on every rank, so writes and compactions run on
+    every rank alike; a compaction re-shards through the engine's
+    ``on_snapshot`` hook, in place where the tree's height holds.
 
 The JAX server re-warms its reads after every snapshot swap to refill jit's
 compile cache.  Here ``warmup`` captures the served ops' CUDA graphs on the
@@ -143,7 +145,9 @@ class BSTServer:
     ``DeviceMesh`` named for the config's strategy
     (``core.distributed.make_serving_mesh``), serves the reads sharded:
     every rank of the mesh constructs the server alike and makes the same
-    calls in the same order.
+    calls in the same order.  ``eager`` runs each read chunk's ops one by
+    one on the card, not as its CUDA graph (to hold the graphs against
+    them, and to time both).
     """
 
     def __init__(
@@ -154,6 +158,7 @@ class BSTServer:
         chunk_size: int = 8192,
         scan_k: int = 8,
         mesh=None,
+        eager: bool = False,
     ):
         if chunk_size < 1:
             raise ValueError("chunk_size must be positive")
@@ -163,7 +168,11 @@ class BSTServer:
         self.chunk_size = chunk_size
         self.scan_k = scan_k
         self.mesh = mesh
+        self.eager = eager
         self._squery = None
+        # the sharded loop's pinned host slots, per (rows, chunk length):
+        # they live as long as the graphs whose static inputs they fill
+        self._host_slots: Dict[tuple, List[torch.Tensor]] = {}
         if mesh is not None:
             axis = plans_lib.mesh_axis_for_strategy(config.strategy)
             names = mesh.mesh_dim_names or ()
@@ -194,12 +203,22 @@ class BSTServer:
 
     def _install_sharded(self, tree: TreeData) -> None:
         """Shard ``tree``, sharing the engine's plan of it (its rank -> BFS
-        map and sorted view) with the sharded epilogues."""
+        map and sorted view) with the sharded epilogues; after a swap,
+        re-shard the runner (``ShardedQuery.reshard``: in place, keeping
+        its graphs, where the height held)."""
+        if self._squery is not None:
+            self._squery.reshard(tree, self._engine.plan)
+            return
         cfg = self.config
         self._squery = dist_lib.make_sharded_query(
             tree, self.mesh, cfg.strategy, buffer_slack=cfg.buffer_slack,
             plan=self._engine.plan,
         )
+
+    @property
+    def sharded_query(self) -> Optional[dist_lib.ShardedQuery]:
+        """The sharded runner when a mesh is installed, else None."""
+        return self._squery
 
     @property
     def snapshot(self) -> TreeData:
@@ -220,30 +239,32 @@ class BSTServer:
         graphs, over data that changes nothing).  A compaction that keeps
         the tree's height keeps every graph; one that changes it captures
         each again.  Sharded, a read chunk runs through the sharded
-        program, which is eager (no graph): every rank must call it."""
+        program, whose graphs (over NCCL) are captured here for both slots
+        of the double buffer: every rank must call it."""
         dummy = np.zeros(self.chunk_size, np.int32)
+        slots = (0, 1) if self._squery is not None else (0,)
         for op in ops:
             if op in WRITE_OPS:
                 self._engine.warmup_writes()
                 continue
-            runtime.block_until_ready(self._query_chunk(op, dummy, dummy))
+            for slot in slots:
+                runtime.block_until_ready(self._query_chunk(op, dummy, dummy, slot=slot))
 
-    def _query_chunk(self, op: str, a, b) -> tuple:
-        """One chunk through the serving datapath: the sharded program when
-        a mesh is installed (the engine's pending delta buffer rides it,
-        folded on every rank's slice), else the engine, whose results on
-        the card are its graph's static outputs, which the caller fetches
-        before the next chunk."""
+    def _query_chunk(self, op: str, a, b, *, slot: int = 0) -> tuple:
+        """One chunk through the serving datapath: the sharded program of
+        ``slot`` when a mesh is installed (the engine's pending delta buffer
+        rides it, folded on every rank's slice), else the engine.  On the
+        card the results are a graph's static outputs, which the caller
+        fetches before that graph's next replay."""
+        hi = b if op in RANGE_OPS else None
+        eng = self._engine
         if self._squery is not None:
-            kw = {"delta": self._engine.delta} if self._engine.delta is not None else {}
-            if op in RANGE_OPS:
-                res = self._squery(op, a, b, k=self.scan_k, **kw)
-            else:
-                res = self._squery(op, a, **kw)
-        elif op in RANGE_OPS:
-            res = self._engine.query_static(op, a, b, k=self.scan_k)
+            kw = {} if eng.delta is None else {"delta": eng.delta, "delta_ops": eng.delta_operands}
+            res = self._squery.query_static(
+                op, a, hi, k=self.scan_k, slot=slot, eager=self.eager, **kw
+            )
         else:
-            res = self._engine.query_static(op, a)
+            res = eng.query_static(op, a, hi, k=self.scan_k, eager=self.eager)
         return res if isinstance(res, tuple) else (res,)
 
     def apply_updates(self, insert_keys=None, insert_values=None, delete_keys=None) -> TreeData:
@@ -505,30 +526,29 @@ class BSTServer:
         return columns
 
     def _serve_stream_sharded(self, op: str, a: np.ndarray, b: Optional[np.ndarray], B: int):
-        """The sharded read loop: a depth-2 double buffer.
+        """The sharded read loop: a depth-2 double buffer over two slots.
 
-        Each chunk is staged in one of two host slots (pinned on the card),
-        copied into one of two device slots without blocking (the one
-        counted ``device_put`` of a chunk), and its kernels and
-        collectives enqueued; an event recorded behind them marks the
-        chunk.  Chunk i is retired (its event waited on, its columns
-        fetched: the one counted fetch) only after chunk i+1 is enqueued,
-        and its slot is staged again only after that.  Busy seconds are the
-        pipeline's wall time, first staging to last retire: per-chunk
-        times would count the overlap twice.  Lane and found accounting is
-        the single-chip loop's.
+        Chunk i goes through slot i % 2: it is staged in the slot's host
+        rows (pinned on the card), copied into the slot's static input
+        (``ShardedQuery.static_input``) without blocking (the one counted
+        ``device_put`` of a chunk), and the slot's program is enqueued (a
+        replay of its graph over NCCL); an event recorded behind it marks
+        the chunk.  Chunk i is retired (its event waited on, its columns
+        fetched from the slot's static outputs: the one counted fetch) only
+        after chunk i+1 is enqueued, and its slot is staged and replayed
+        again only after that.  Busy seconds are the pipeline's wall time,
+        first staging to last retire: per-chunk times would count the
+        overlap twice.  Lane and found accounting is the single-chip
+        loop's.
         """
-        device = self._engine.device
-        on_card = device.type == "cuda"
+        on_card = self._engine.device.type == "cuda"
         rows = 1 if b is None else 2  # a chunk's lows, and its highs
-        slots = [
-            torch.empty((rows, self.chunk_size), dtype=torch.int32, pin_memory=on_card)
-            for _ in range(2)
-        ]
-        dev_slots = [
-            torch.empty((rows, self.chunk_size), dtype=torch.int32, device=device)
-            for _ in range(2)
-        ]
+        key = (rows, self.chunk_size)
+        if key not in self._host_slots:
+            self._host_slots[key] = [
+                torch.empty(key, dtype=torch.int32, pin_memory=on_card) for _ in range(2)
+            ]
+        slots = self._host_slots[key]
         columns = None
         found = 0
         inflight: List[tuple] = []
@@ -546,12 +566,15 @@ class BSTServer:
         t0 = time.perf_counter()
         for lo in range(0, a.size, self.chunk_size):
             sl = slice(lo, lo + self.chunk_size)
-            stage = slots[n_chunks % 2]
+            slot = n_chunks % 2
+            stage = slots[slot]
             stage[0].numpy()[:] = a[sl]
             if b is not None:
                 stage[1].numpy()[:] = b[sl]
-            dev = runtime.device_put(stage, dev_slots[n_chunks % 2], non_blocking=True)
-            res = self._query_chunk(op, dev[0], None if b is None else dev[1])
+            dev = runtime.device_put(
+                stage, self._squery.static_input(op, self.chunk_size, slot=slot), non_blocking=True
+            )
+            res = self._query_chunk(op, dev[0], None if b is None else dev[1], slot=slot)
             done = None
             if on_card:
                 done = torch.cuda.Event()

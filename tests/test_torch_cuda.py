@@ -400,7 +400,9 @@ def test_sharded_server_at_world_one_matches_the_single_chip_server(cuda_device,
                 else server.submit_range(q[:500], q[:500] + 40, op=op) for op in ops]
 
     tickets, single_tickets = submit(srv), submit(single)
-    srv.warmup(("write",))  # the engine's ingest and compaction graphs
+    # the sharded read graphs of both slots and the engine's ingest and
+    # compaction graphs: the drain only replays
+    srv.warmup(ops + ("write",))
     runs = graphs.kernel_runs()  # what ran: the ingest runs as graph replays
     fetches = runtime.fetch_count()
     got = srv.drain()
@@ -434,6 +436,120 @@ def test_sharded_server_at_world_one_matches_the_single_chip_server(cuda_device,
         assert launches["forest_descend"] == read_chunks
     assert launches["forest_descend_delta"] == launches["hybrid_descend_delta"] == 0
     assert srv.memory_nodes_per_device() == srv.snapshot.n_nodes + (1 if strategy != "dup" else 0)
+
+
+SHARDED_OPS = ("lookup", "predecessor", "successor", "range_count", "range_scan")
+
+
+def _sharded_args(op, q):
+    return (q, q + 40) if op in ("range_count", "range_scan") else (q,)
+
+
+@pytest.mark.parametrize("strategy", ["hrz", "dup", "hyb"])
+def test_sharded_graphs_equal_the_eager_route(cuda_device, nccl_world, strategy):
+    """Over NCCL the sharded runner is compiled: every op through its graph
+    equals the eager route and the engine bit for bit, without and with a
+    delta buffer; an ingest changes the buffer's content, not its
+    addresses, so the next calls replay without a capture."""
+    keys, values = make_tree_data(32767, seed=12)
+    cfg = EngineConfig(strategy=strategy, n_trees=1 if strategy == "hrz" else 4,
+                       delta_capacity=512)
+    eng = BSTEngine(keys, values, cfg)
+    run = TDist.make_sharded_query(eng.tree, TDist.make_serving_mesh(strategy), strategy,
+                                   plan=eng.plan)
+    assert run.compiled
+    rng = np.random.default_rng(12)
+    q = rng.choice(np.concatenate([keys, keys + 1, keys - 1]), 2048).astype(np.int32)
+
+    def agree():
+        for op in SHARDED_OPS:
+            args = _sharded_args(op, q)
+            for kw in ({}, {"delta": eng.delta, "delta_ops": eng.delta_operands}):
+                got = _tuple(run(op, *args, k=4, **kw))
+                _same(got, _tuple(run(op, *args, k=4, eager=True, **kw)))
+                if kw:
+                    _same(got, _tuple(eng.query(op, *args, k=4, eager=True)))
+
+    captures = graphs.STATS["captures"]
+    agree()
+    assert graphs.STATS["captures"] == captures + 2 * len(SHARDED_OPS)
+    wk = rng.integers(1, 2 * keys.size, 300).astype(np.int32)
+    eng.apply_ops(wk, wk + 7, rng.random(wk.size) < 0.3)  # below the high-water mark
+    assert eng.compactions == 0
+    captures = graphs.STATS["captures"]
+    agree()
+    assert graphs.STATS["captures"] == captures
+
+
+@pytest.mark.parametrize("strategy", ["hrz", "dup", "hyb"])
+def test_sharded_server_keeps_its_graphs_until_the_height_changes(cuda_device, nccl_world,
+                                                                  strategy):
+    """One sharded server over NCCL: ``warmup`` captures one graph per (op,
+    slot); a compaction that keeps the height captures nothing and leaves
+    the shard tensors where they were; the one that grows the tree cuts
+    new shards and captures every held graph again, once; every answer
+    equals the single-chip server's (on the CPU)."""
+    keys, values = make_tree_data(16383, seed=13)  # height 13, full
+    cfg = EngineConfig(strategy=strategy, n_trees=1 if strategy == "hrz" else 4,
+                       delta_capacity=1024)
+    srv = BSTServer(keys, values, cfg, chunk_size=512, scan_k=4,
+                    mesh=TDist.make_serving_mesh(strategy))
+    # on the CPU: the single-chip server captures no graph of its own
+    single = BSTServer(keys, values, dataclasses.replace(cfg, device="cpu"), chunk_size=512,
+                       scan_k=4)
+    captures = graphs.STATS["captures"]
+    srv.warmup(SHARDED_OPS + ("write",))
+    run = srv.sharded_query
+    assert len(run.graph_keys()) == 2 * len(SHARDED_OPS)
+    assert graphs.STATS["captures"] - captures == 2 * len(SHARDED_OPS) + len(srv.engine.graph_keys())
+    rng = np.random.default_rng(13)
+
+    def serve(writes):
+        q = rng.choice(np.concatenate([keys, keys + 1]), 1500).astype(np.int32)
+        tickets = []
+        for server in (srv, single):
+            server.submit_write(*writes)
+            tickets.append([server.submit(q, op=op) if op not in ("range_count", "range_scan")
+                            else server.submit_range(*_sharded_args(op, q), op=op)
+                            for op in SHARDED_OPS])
+        got, want = srv.drain(), single.drain()
+        for a, b in zip(*tickets):
+            for g, w in zip(got[a], want[b]):
+                assert g.dtype == w.dtype and np.array_equal(g, w)
+
+    ptrs = [t.data_ptr() for pair in run.shards for t in pair]
+    captures, height = graphs.STATS["captures"], srv.snapshot.height
+    over = rng.choice(keys, 900, replace=False).astype(np.int32)
+    serve((over, over + 1))  # crosses the high-water mark (768): the count holds
+    assert srv.stats.compactions == 1 and srv.snapshot.height == height
+    assert graphs.STATS["captures"] == captures
+    assert [t.data_ptr() for pair in run.shards for t in pair] == ptrs
+    fresh = (rng.choice(keys.size * 4, 900, replace=False) * 2 + 1).astype(np.int32)
+    serve((fresh, fresh + 3))  # grows the tree to height 14
+    assert srv.stats.compactions == 2 and srv.snapshot.height == height + 1
+    assert srv.sharded_query is run and len(run.graph_keys()) == 2 * len(SHARDED_OPS)
+    assert graphs.STATS["captures"] - captures == len(run.graph_keys()) + len(srv.engine.graph_keys())
+    assert all(p != n for p, n in zip(ptrs, (t.data_ptr() for pair in run.shards for t in pair)))
+
+
+def test_sharded_slots_keep_their_outputs(cuda_device, nccl_world):
+    """The double buffer's two slots are separate graphs with separate
+    static outputs: chunk i's columns are unchanged by chunk i + 1's
+    replay in the other slot."""
+    keys, values = make_tree_data(32767, seed=14)
+    eng = BSTEngine(keys, values, EngineConfig(strategy="hyb", n_trees=4))
+    run = TDist.make_sharded_query(eng.tree, TDist.make_serving_mesh("hyb"), "hyb",
+                                   plan=eng.plan)
+    rng = np.random.default_rng(14)
+    a, b = (rng.choice(np.concatenate([keys, keys + 1]), 1024).astype(np.int32) for _ in range(2))
+    for op in ("lookup", "successor"):
+        first = run.query_static(op, a, slot=0)
+        kept = tuple(t.clone() for t in first)
+        second = run.query_static(op, b, slot=1)
+        assert all(x.data_ptr() != y.data_ptr() for x, y in zip(first, second))
+        _same(first, kept)
+        _same(kept, _tuple(run(op, a, eager=True)))
+        _same(second, _tuple(run(op, b, eager=True)))
 
 
 # ------------------------------------------------------------ K5: attention

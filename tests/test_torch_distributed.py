@@ -32,11 +32,11 @@ import torch.multiprocessing as torch_mp  # noqa: E402
 from repro.core import plans as JP  # noqa: E402
 from repro.core import tree as JT  # noqa: E402
 from repro.data.keysets import make_tree_data as j_make_tree_data  # noqa: E402
-from repro_torch.analysis import invariants, runtime  # noqa: E402
+from repro_torch.analysis import gate, invariants, runtime  # noqa: E402
 from repro_torch.core import distributed as dist_lib  # noqa: E402
 from repro_torch.core import plans as TP  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
-from repro_torch.core.engine import EngineConfig  # noqa: E402
+from repro_torch.core.engine import BSTEngine, EngineConfig  # noqa: E402
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.serving import BSTServer  # noqa: E402
 
@@ -213,6 +213,75 @@ def test_strategy_axes_and_invariants():
         dist_lib.make_serving_mesh("hrz", "cpu")  # no group in this process
 
 
+def test_only_nccl_on_the_card_runs_the_sharded_program_as_graphs():
+    assert dist_lib.captures_collectives("cuda", "nccl")
+    assert dist_lib.captures_collectives(torch.device("cuda", 1), dist.Backend.NCCL)
+    for device, backend in (("cuda", "gloo"), ("cpu", "gloo"), ("cpu", "nccl")):
+        assert not dist_lib.captures_collectives(device, backend)
+
+
+@pytest.mark.parametrize("strategy", ["hrz", "dup", "hyb"])
+def test_runner_over_gloo_is_eager_and_reshards_in_place(strategy):
+    """In one world-1 gloo group in this process: the runner says it is
+    eager and captures nothing; ``run`` equals ``eager=True`` and the
+    engine, with and without a buffer; ``reshard`` keeps the shard
+    tensors for the same snapshot and cuts new ones for another height."""
+    keys, values = make_tree_data(N_KEYS, seed=KEY_SEED, spacing=SPACING)
+    cfg = _config(strategy)
+    eng = BSTEngine(keys, values, cfg)
+    q = torch.from_numpy(_queries(keys, 64, seed=1))
+    hi = q + 9
+    with gate.world1_group("cpu"):
+        mesh = dist_lib.make_serving_mesh(strategy, "cpu")
+        run = dist_lib.make_sharded_query(eng.tree, mesh, strategy, plan=eng.plan)
+        assert (run.compiled, run.strategy, run.n_shards) == (False, strategy, 1)
+        assert tuple(run.static_input("range_scan", 64, slot=1).shape) == (2, 64)
+        assert tuple(run.static_input("lookup", 64, slot=1).shape) == (1, 64)
+        for op in TP.QUERY_OPS:
+            args = (q, hi) if op in RANGE_OPS else (q,)
+            for kw in ({}, {"delta": eng.delta, "delta_ops": eng.delta_operands}):
+                got = run(op, *args, k=SCAN_K, **kw)
+                for want in (run(op, *args, k=SCAN_K, eager=True, **kw),
+                             eng.query(op, *args, k=SCAN_K) if kw else
+                             TP.ordered_query(eng.plan, op, *args, k=SCAN_K)):
+                    _assert_fields_equal(_fields(got), _fields(want), f"{strategy} {op} {kw}")
+        assert run.graph_keys() == ()
+        ptrs = [t.data_ptr() for pair in run.shards for t in pair]
+        assert run.reshard(eng.tree, eng.plan) is True
+        assert [t.data_ptr() for pair in run.shards for t in pair] == ptrs
+        grown = TT.build_tree(*make_tree_data(2 * N_KEYS, seed=KEY_SEED, spacing=SPACING),
+                              device="cpu")
+        assert run.reshard(grown, None) is False and run.tree is grown
+        new = [t.data_ptr() for pair in run.shards for t in pair]
+        assert all(p != n for p, n in zip(ptrs, new))
+        _assert_fields_equal(run("lookup", q), TT.search_reference(grown, q), strategy)
+
+
+def test_sharded_runner_construction_errors():
+    keys, values = make_tree_data(N_KEYS, seed=KEY_SEED, spacing=SPACING)
+    tree = TT.build_tree(keys, values, device="cpu")
+    other = TT.build_tree(keys, values, device="cpu")
+    with gate.world1_group("cpu"):
+        model = dist_lib.make_serving_mesh("hrz", "cpu")
+        with pytest.raises(ValueError, match="shards over mesh axis 'data'"):
+            dist_lib.make_sharded_query(tree, model, "dup")
+        with pytest.raises(ValueError, match="no 'data' axis"):
+            dist_lib.make_dup_query(tree, model)
+        with pytest.raises(ValueError, match="another snapshot"):
+            dist_lib.make_distributed_query(
+                tree, model, plan=TP.make_plan(other, strategy="hrz"))
+        run = dist_lib.make_distributed_query(tree, model)
+        with pytest.raises(ValueError, match="differ"):
+            run("range_count", keys[:8], keys[:7])
+        with pytest.raises(ValueError, match="unknown op"):
+            run("median", keys[:8])
+    assert not dist.is_initialized()
+
+
+def _fields(res) -> tuple:
+    return res if isinstance(res, tuple) else (res,)
+
+
 # ------------------------------------------------------------ spawned ranks
 def _spawn(fn, nprocs: int, store: str, *args) -> None:
     """Run ``fn(rank, nprocs, *args)`` in ``nprocs`` spawned ranks of a gloo
@@ -293,12 +362,18 @@ def _serve_worker(rank, world, strategy, spec_path, out_dir):
         sub_keys, sub_vals, split, sub_h = dist_lib.shard_subtrees(srv.snapshot, mesh, "model")
         out["shard_keys"], out["shard_values"] = sub_keys.numpy(), sub_vals.numpy()
         assert (split, sub_h) == (2, srv.snapshot.height - 2)
+    run = srv.sharded_query
+    assert run.compiled is False  # gloo: the sharded program runs eagerly
     compacted_before = []
     for r in range(ROUNDS):
         ts, tr = _submit_round(srv, spec, r), _submit_round(ref, spec, r)
+        ptrs, height = _shard_ptrs(run), srv.snapshot.height
         f0 = runtime.fetch_count()
         got = srv.drain()
         f1 = runtime.fetch_count()
+        # every compaction of the drive keeps the height: the shards are
+        # rewritten where they are, so graphs over them would stay valid
+        assert srv.snapshot.height == height and _shard_ptrs(run) == ptrs
         want = ref.drain()
         f2 = runtime.fetch_count()
         assert f1 - f0 == f2 - f1, (r, f1 - f0, f2 - f1)
@@ -317,7 +392,35 @@ def _serve_worker(rank, world, strategy, spec_path, out_dir):
     h = srv.snapshot.height
     want_nodes = (1 << (h + 1)) - 1 if strategy == "dup" else (1 << (h - 1)) - 1 + 3
     assert nodes == want_nodes, (nodes, want_nodes)
+    # 100 fresh keys: two compactions that keep the height, then one that
+    # grows the tree; only the growth cuts new shards
+    seen = []
+    compact = srv.engine.compact
+
+    def tracked():
+        before = (srv.snapshot.height, _shard_ptrs(run))
+        out = compact()
+        seen.append((before, (srv.snapshot.height, _shard_ptrs(run))))
+        return out
+
+    srv.engine.compact = tracked
+    fresh = np.arange(701, 901, 2, dtype=np.int32)
+    for server in (srv, ref):
+        server.submit_write(fresh, fresh * 5)
+    ts = [srv.submit(fresh - 1, op=op) for op in POINT_OPS]
+    tr = [ref.submit(fresh - 1, op=op) for op in POINT_OPS]
+    got, want = srv.drain(), ref.drain()
+    assert [(a[0], b[0]) for a, b in seen] == [(7, 7), (7, 7), (7, 8)], seen
+    for (h0, p0), (h1, p1) in seen:
+        assert (p1 == p0) if h1 == h0 else all(x != y for x, y in zip(p0, p1))
+    for a, b in zip(ts, tr):
+        for g, w in zip(got[a], want[b]):
+            assert np.array_equal(g, w), strategy
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _shard_ptrs(run) -> list:
+    return [t.data_ptr() for pair in run.shards for t in pair]
 
 
 def _run_port(tmp_path, strategy: str, spec_path: str) -> list:
