@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training, checkpoints.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -188,6 +188,29 @@ Phases, in order; any failure raises and exits non-zero:
    three device kernels' share of a launch (each launched alone,
    ``FA.bwd_stage_calls``, and timed with CUDA events) and the main
    kernel's TFLOP/s against the bound;
+9c. checkpoints and the data-parallel step (qwen3-1.7b bf16 at full width
+   and depth, 4 x 2048 from TokenPipeline): (a) after two steps the state
+   (24.09 GB; the depth cut only if the disk under build/ cannot hold it)
+   is saved through ``CheckpointManager(save_async=True, keep=1)``, one
+   step runs while the write goes on, and the checkpoint is restored into
+   a fresh state: every tensor equal to the host snapshot bit for bit, and
+   the restored state's step against the live state's from the same bits
+   (loss within 1e-6 relative, grad norm within 1e-4 relative or 3 x
+   the floor, the spread of five forward and backward passes); bytes,
+   snapshot, write, restore seconds and the step with and without the
+   write; (b) the
+   launcher's restart as a user runs it, in subprocesses at smoke size: a
+   deadline exit (code 42) after its step-0 checkpoint, a ``--resume`` run
+   to the end, its final state against an uninterrupted run's (1e-5 of
+   each tensor's scale, the floor of two uninterrupted runs beside it);
+   (c) ``make_train_step(mode="dp_shard_map")`` at world 1 over NCCL for
+   compression None, bf16 and int8, 3 steps each from the seed-0 state:
+   every kernel count set to 0 first, K5's forward 56 and its backward 28
+   a step and nothing else, losses finite, None's first loss equal to
+   phase 9's plain step's and its three steps' losses and grad norms
+   within 1e-4 (relative) or 3 x the floor (phase 9's steps run again
+   five times) of phase 9's, peak memory under 80 GB, step ms beside the
+   plain step's, the all-reduce's bytes and collective calls a step;
 10. print the ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -201,6 +224,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import pickle
@@ -238,7 +262,7 @@ from repro_torch.core.tree import (  # noqa: E402
     rank_to_bfs_indices,
 )
 from repro_torch.data.keysets import make_key_sets, make_tree_data  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models.config import ShapeConfig, input_specs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
@@ -258,10 +282,18 @@ from repro_torch.serving import (  # noqa: E402
     make_serve_step,
 )
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
+from repro_torch.checkpoint.elastic import reshard_state  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.convert import LayerStack  # noqa: E402
 from repro_torch.training.train_loop import (  # noqa: E402
+    DP_STATS,
     TrainConfig,
     init_train_state,
     make_train_step,
+    reset_dp_stats,
 )
 
 N_KEYS = (1 << 24) - 1  # H = 23: 2 x 64 MiB of int32 keys and values
@@ -469,6 +501,51 @@ BWD_TIMED = ((6, "qwen3-1.7b training attention"), (16, "hymba-1.5b training att
 # alone for its share of a launch.
 BWD_STAGE_KERNELS = {"pre": "flash_bwd_pre_bf16_kernel", "main": "flash_bwd_bf16_kernel",
                      "cast": "flash_bwd_cast_kernel"}
+# The checkpoint and data-parallel phase (9c), qwen3-1.7b bf16 at full
+# width and depth, TRAIN_BATCH x TRAIN_SEQ tokens a step.  (a) A train state
+# after CKPT_STEPS steps is saved through CheckpointManager(save_async=True,
+# keep=1) into build/ (the checkout), one step runs while the write goes
+# on, and the checkpoint is restored into a fresh state: every tensor bit
+# for bit against the host snapshot; then the restored state takes the step
+# that the live state took from the same bits during the write.  Its loss
+# comes from the forward alone, which has no atomics: equal within
+# RESTORE_LOSS_RTOL (relative; expected exact).  Its grad norm goes through
+# K5's backward, whose dQ is summed by atomics in any order: within
+# RESTORE_GNORM_RTOL, or FLOOR_FACTOR times the floor if that is larger.
+# The floor: the largest difference between FLOOR_PASSES forward and
+# backward passes from the restored state (max - min).  The tolerances were
+# set before the phase's first run, the floor's factor before its fourth
+# (the third's five passes spread by 7.3e-5 of the grad norm).
+# If the disk cannot hold the checkpoint
+# (CKPT_DISK_MARGIN of its bytes free), the phase's depth is cut to what
+# fits, never its width.  (b) The launcher's restart at smoke size (fp32,
+# K5's fp32 bodies) in subprocesses: a run with --ckpt-every 1 whose step 1
+# exceeds --step-deadline-s exits with 42, a --resume run (--ckpt-every 2)
+# finishes RESTART_STEPS steps; its final checkpoint against an
+# uninterrupted run in this process, every tensor within RESTART_TOL of its
+# largest magnitude (relative), the floor beside it (two uninterrupted
+# runs).  (c) make_train_step(mode="dp_shard_map") at world 1 over NCCL
+# (this process, a HashStore), each compression, DP_STEPS steps from one
+# seed-0 state: K5's forward 2 x 28 and its backward 28 a step and nothing
+# else, losses finite, None's first loss equal to the plain step's (phase
+# 9) within RESTORE_LOSS_RTOL, peak memory under the card's.  None's steps
+# repeat phase 9's plain steps: each step's loss and grad norm within
+# DP_EQ_RTOL of phase 9's (relative), or FLOOR_FACTOR times the floor if
+# that is larger; the floor at each step: the largest difference from phase
+# 9 of FLOOR_PASSES runs of the plain steps from the seed-0 state.  Set
+# before the phase's fourth run.
+CKPT_STEPS = 2
+CKPT_DISK_MARGIN = 1.1
+RESTORE_LOSS_RTOL = 1e-6
+RESTORE_GNORM_RTOL = 1e-4
+FLOOR_PASSES = 5
+FLOOR_FACTOR = 3.0
+RESTART_STEPS = 6
+RESTART_TOL = 1e-5
+RESTART_TIMEOUT_S = 300
+DP_MODES = (None, "bf16", "int8")
+DP_STEPS = 3
+DP_EQ_RTOL = 1e-4
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
 # (G, B, n_dest, capacity, what): K4's shapes.
@@ -3122,6 +3199,12 @@ def check_train_grads_bf16(cfg, smi: str) -> dict:
     return row
 
 
+def train_tcfg(compression=None) -> TrainConfig:
+    """The TrainConfig of phase 9's bf16 run, which phase 9c (c) repeats."""
+    return TrainConfig(warmup_steps=max(10, TRAIN_STEPS // 20), total_steps=TRAIN_STEPS,
+                       compression=compression)
+
+
 def train_lm(cfg, smi: str) -> dict:
     """The bf16 training run: TRAIN_STEPS steps of ``make_train_step`` on
     TokenPipeline's batches, every kernel count set to 0 first; per step the
@@ -3129,7 +3212,7 @@ def train_lm(cfg, smi: str) -> dict:
     first loss within FIRST_LOSS_TOL of the uniform stream's expected loss
     at init; the parameters changed; the peak memory under the card's;
     then one step profiled (idle share, top kernels, host launch calls)."""
-    tcfg = TrainConfig(warmup_steps=max(10, TRAIN_STEPS // 20), total_steps=TRAIN_STEPS)
+    tcfg = train_tcfg()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3326,6 +3409,316 @@ def training_phase(resources: dict, timer, smi: str) -> dict:
     out["trained"] = train_lm(cfg, smi)
     out["bwd_timing"] = time_flash_bwd(timer)
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------- phase 9c: checkpoints, restart, DP
+def batch_on_card(pipe, s: int) -> tuple:
+    return tuple(torch.from_numpy(a).to("cuda", torch.int64) for a in pipe.batch_at(s))
+
+
+def timed_step(step, state, batch) -> tuple:
+    """One step whose metrics the host reads: (state, metrics as floats, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, *batch)
+    m = {k: float(v) for k, v in metrics.items()}
+    return state, m, (time.perf_counter() - t0) * 1e3
+
+
+def grad_pass(cfg, model, batch) -> tuple:
+    """The step's forward and backward without its update: (loss, the
+    global norm of the gradients, as ``clip_by_global_norm`` takes it)."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = lm.forward_train(cfg, model, *batch)
+    loss.backward()
+    norm = torch.sqrt(sum(p.grad.float().square().sum() for p in model.parameters()))
+    out = (float(loss.detach()), float(norm))
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def state_bytes(cfg) -> int:
+    """A bf16 train state's checkpoint: the parameters in bf16, AdamW's
+    master, mu and nu in fp32, the step."""
+    return cfg.n_params() * (2 + 3 * 4) + 4
+
+
+def check_restored(restored, snap) -> dict:
+    """Every restored tensor against the host snapshot, bit for bit (bf16
+    as uint16), one tensor at a time through the host."""
+    t0 = time.perf_counter()
+    leaves = ckpt_store.tree_leaves(restored)
+    check([p for p, _ in leaves] == snap.paths, "the restored state's paths are not the snapshot's")
+    tensors = 0
+    for path, leaf in leaves:
+        want = snap.arrays[path]
+        parts = leaf.parts if isinstance(leaf, LayerStack) else [leaf]
+        for i, t in enumerate(parts):
+            got = t.detach().cpu()
+            got = got.view(torch.int16).numpy().view(np.uint16) if got.dtype == torch.bfloat16 \
+                else got.numpy()
+            check(np.array_equal(got, want[i] if isinstance(leaf, LayerStack) else want),
+                  f"restored {path}[{i}] differs from the snapshot")
+            tensors += 1
+    return {"tensors": tensors, "seconds": time.perf_counter() - t0}
+
+
+def checkpoint_restore(cfg, smi: str) -> dict:
+    """Phase 9c (a): save, a step during the write, restore, the bits, the
+    restored step against the live one."""
+    ckdir = tempfile.mkdtemp(prefix="phase9c-", dir=os.path.join(ROOT, "build"))
+    try:
+        free = shutil.disk_usage(ckdir).free
+        full_layers = cfg.n_layers
+        while state_bytes(cfg) * CKPT_DISK_MARGIN > free and cfg.n_layers > 1:
+            cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+        check(state_bytes(cfg) * CKPT_DISK_MARGIN <= free,
+              f"the disk under build/ has {free} bytes free: not one layer's checkpoint")
+        log(f"    disk under build/: {free} bytes free; the checkpoint takes {state_bytes(cfg)} bytes "
+            f"at {cfg.n_layers} layers" + ("" if cfg.n_layers == full_layers else
+                                          f" (cut from {full_layers}: the disk holds no more)"))
+        tcfg = TrainConfig(warmup_steps=10, total_steps=100)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+        step = make_train_step(cfg, tcfg)
+        for s in range(CKPT_STEPS):
+            state, _, _ = timed_step(step, state, batch_on_card(pipe, s))
+        mgr = CheckpointManager(ckdir, keep=1, save_async=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = mgr.save(CKPT_STEPS - 1, state, extra={"pipeline_step": CKPT_STEPS - 1})
+        t_saved = time.perf_counter()
+        snapshot_s = t_saved - t0
+        nxt = batch_on_card(pipe, CKPT_STEPS)
+        state, live, ms_writing = timed_step(step, state, nxt)
+        mgr.wait()
+        write_s = time.perf_counter() - t_saved
+        files = {f: os.path.getsize(os.path.join(ckdir, f"step_{CKPT_STEPS - 1:08d}", f))
+                 for f in ("arrays.npz", "manifest.json")}
+        state, _, ms_quiet = timed_step(step, state, batch_on_card(pipe, CKPT_STEPS + 1))
+        like = init_train_state(cfg, tcfg, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, ck_step, extra = mgr.restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(ck_step == CKPT_STEPS - 1 and extra == {"pipeline_step": CKPT_STEPS - 1}
+              and int(restored.opt.step) == CKPT_STEPS, f"restored step {ck_step}, extra {extra}")
+        bits = check_restored(restored, snap)
+        snapshot_bytes = snap.nbytes
+        del snap
+        passes = [grad_pass(cfg, restored.params, nxt) for _ in range(FLOOR_PASSES)]
+        floor = {k: max(p[i] for p in passes) - min(p[i] for p in passes)
+                 for i, k in enumerate(("loss", "grad_norm"))}
+        restored, again, _ = timed_step(step, restored, nxt)
+        diff = {k: abs(again[k] - live[k]) for k in ("loss", "grad_norm")}
+        gnorm_tol = max(RESTORE_GNORM_RTOL * abs(live["grad_norm"]), FLOOR_FACTOR * floor["grad_norm"])
+        check(diff["loss"] <= RESTORE_LOSS_RTOL * abs(live["loss"]),
+              f"the restored step's loss {again['loss']!r}, the live step's {live['loss']!r}")
+        check(diff["grad_norm"] <= gnorm_tol,
+              f"the restored step's grad norm {again['grad_norm']!r}, the live {live['grad_norm']!r}; "
+              f"tolerance {gnorm_tol!r}, floor {floor['grad_norm']!r}")
+        peak = torch.cuda.max_memory_allocated()
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full_layers,
+               "disk_free_bytes": free, "state_bytes": state_bytes(cfg),
+               "snapshot_bytes": snapshot_bytes,
+               "files": files, "snapshot_s": snapshot_s, "write_s": write_s,
+               "step_ms_writing": ms_writing, "step_ms_quiet": ms_quiet, "restore_s": restore_s,
+               "bits": bits, "live": live, "restored": again, "diff": diff, "floor": floor,
+               "floor_passes": passes,
+               "tolerance": {"loss_rtol": RESTORE_LOSS_RTOL, "grad_norm_rtol": RESTORE_GNORM_RTOL,
+                             "floor_factor": FLOOR_FACTOR, "grad_norm": gnorm_tol},
+               "peak_bytes": peak}
+        log(f"    checkpoint of {cfg.name} at {cfg.n_layers} layers: {files['arrays.npz']} bytes "
+            f"(arrays.npz; the state {state_bytes(cfg)}); host snapshot {snapshot_s!r} s, "
+            f"background write {write_s!r} s (save's return to wait's), step {ms_writing!r} ms with "
+            f"the write running, {ms_quiet!r} ms without; restore (read, H2D) {restore_s!r} s; "
+            f"{bits['tensors']} tensors equal to the snapshot bit for bit; the restored step vs the "
+            f"live step from the same bits: |d loss| {diff['loss']!r} (tolerance "
+            f"{RESTORE_LOSS_RTOL} x {live['loss']!r}), |d grad norm| {diff['grad_norm']!r} "
+            f"(tolerance {gnorm_tol!r}: the larger of {RESTORE_GNORM_RTOL} x {live['grad_norm']!r} "
+            f"and {FLOOR_FACTOR} x the floor); floor (max - min of {FLOOR_PASSES} forward and "
+            f"backward passes) {floor}, the passes (loss, grad norm) {passes}; peak memory {peak} "
+            f"bytes ({smi})")
+        del state, restored, like, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def restart_path(smi: str) -> dict:
+    """Phase 9c (b): the launcher's restart as a user runs it, on the card."""
+    ckdir = tempfile.mkdtemp(prefix="phase9c-restart-", dir=os.path.join(ROOT, "build"))
+    flags = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cuda", "--steps",
+             str(RESTART_STEPS), "--batch", "2", "--seq", "16"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(*extra):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *flags, *extra],
+                             capture_output=True, text=True, timeout=RESTART_TIMEOUT_S, env=env,
+                             cwd=ROOT)
+        return out, time.perf_counter() - t0
+
+    def tensors(st):
+        return ([p.detach() for p in st.params.parameters()] + [st.opt.step] + st.opt.master
+                + st.opt.mu + st.opt.nu)
+
+    def worst(a, b) -> float:
+        return max(float((x.float() - y.float()).abs().max())
+                   / max(float(y.float().abs().max()), 1e-30) for x, y in zip(a, b, strict=True))
+
+    try:
+        first, first_s = run("--ckpt-dir", ckdir, "--ckpt-every", "1", "--step-deadline-s", "1e-9")
+        check(first.returncode == launch_train.DEADLINE_EXIT and "step 1 exceeded deadline"
+              in first.stdout, f"the deadline run: rc {first.returncode}\n{first.stdout}\n"
+              f"{first.stderr[-4000:]}")
+        check(ckpt_store.latest_step(ckdir) == 0,
+              f"after the deadline exit the latest checkpoint is {ckpt_store.latest_step(ckdir)}")
+        second, second_s = run("--ckpt-dir", ckdir, "--ckpt-every", "2", "--resume")
+        check(second.returncode == 0 and "resumed from step 0" in second.stdout,
+              f"the resumed run: rc {second.returncode}\n{second.stdout}\n{second.stderr[-4000:]}")
+        check(ckpt_store.latest_step(ckdir) == RESTART_STEPS - 1,
+              f"the resumed run's last checkpoint is {ckpt_store.latest_step(ckdir)}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            whole = [launch_train.main(flags) for _ in range(2)]
+        cfg = smoke_config("tinyllama-1.1b")
+        resumed, _, _ = ckpt_store.restore_checkpoint(
+            ckdir, init_train_state(cfg, TrainConfig(), seed=1, device="cuda"))
+        diff, floor = worst(tensors(resumed), tensors(whole[0])), worst(tensors(whole[1]),
+                                                                        tensors(whole[0]))
+        check(diff <= RESTART_TOL, f"the resumed run's state is {diff!r} (relative) from the "
+              f"uninterrupted run's; tolerance {RESTART_TOL}, floor {floor!r}")
+        row = {"first_rc": first.returncode, "first_s": first_s, "second_rc": second.returncode,
+               "second_s": second_s, "max_rel_diff": diff, "floor": floor, "tolerance": RESTART_TOL}
+        log(f"    launcher restart (tinyllama smoke, fp32, {RESTART_STEPS} steps, on the card): "
+            f"rc {first.returncode} after step 1 ({first_s!r} s), --resume rc {second.returncode} "
+            f"({second_s!r} s); final state vs an uninterrupted run: max relative difference "
+            f"{diff!r} (tolerance {RESTART_TOL}; floor, two uninterrupted runs: {floor!r}) ({smi})")
+        return row
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def plain_floor(cfg, pipe, plain_steps: list) -> list:
+    """Phase 9's plain steps run again FLOOR_PASSES times from the seed-0
+    state: at each step the largest |loss| and |grad norm| difference from
+    phase 9's, the floor that K5's backward's atomics leave between runs
+    of the same steps."""
+    floor = [{"loss": 0.0, "grad_norm": 0.0} for _ in plain_steps]
+    step = make_train_step(cfg, train_tcfg())
+    for _ in range(FLOOR_PASSES):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, train_tcfg(), seed=0, device="cuda")
+        for s, ref_step in enumerate(plain_steps):
+            state, m, _ = timed_step(step, state, batch_on_card(pipe, s))
+            for k in ("loss", "grad_norm"):
+                floor[s][k] = max(floor[s][k], abs(m[k] - ref_step[k]))
+        del state
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return floor
+
+
+def dp_steps(cfg, smi: str, plain: dict) -> list:
+    """Phase 9c (c): the data-parallel step at world 1 over NCCL, each
+    compression, DP_STEPS steps from one seed-0 state; None's steps against
+    phase 9's plain steps (``plain["steps"]``) within the floor-based
+    tolerance (DP_EQ_RTOL, FLOOR_FACTOR)."""
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    floor = plain_floor(cfg, pipe, plain["steps"])
+    log(f"    the floor: phase 9's plain steps 0..{DP_STEPS - 1} run again {FLOOR_PASSES} times, the "
+        f"largest |d loss|, |d grad norm| a step {floor} ({smi})")
+    torch.distributed.init_process_group("nccl", store=torch.distributed.HashStore(), rank=0,
+                                         world_size=1)
+    try:
+        mesh = make_host_mesh()
+        n_attn = k5_per_forward(cfg)
+        want = {"flash_attention": 2 * n_attn * DP_STEPS, "flash_attention_bwd": n_attn * DP_STEPS}
+        rows = []
+        for comp in DP_MODES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tcfg = train_tcfg(comp)
+            state = reshard_state(init_train_state(cfg, tcfg, seed=0, device="cuda"), cfg, mesh)
+            check(isinstance(state.params, lm.Model), "a world-1 state is not whole")
+            step = make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")
+            FA.reset_launches()
+            QD.reset_launches()
+            K.reset_launches()
+            reset_dp_stats()
+            steps = []
+            for s in range(DP_STEPS):
+                state, m, ms = timed_step(step, state, batch_on_card(pipe, s))
+                steps.append({**m, "ms": ms})
+                check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                      f"DP step {s} ({comp}): loss {m['loss']} grad_norm {m['grad_norm']}")
+            launches = {**FA.LAUNCHES, **QD.LAUNCHES, **K.LAUNCHES}
+            check(dict(FA.LAUNCHES) == want and not any(QD.LAUNCHES.values())
+                  and not any(K.LAUNCHES.values()),
+                  f"DP run ({comp}): launches {launches}, want {want} and nothing else")
+            stats = dict(DP_STATS)
+            first = steps[0]["loss"]
+            versus = None
+            if comp is None:
+                check(abs(first - plain["first_loss"]) <= RESTORE_LOSS_RTOL * abs(plain["first_loss"]),
+                      f"the DP step's first loss {first!r}, the plain step's {plain['first_loss']!r}")
+                versus = []
+                for i, (got, ref_step, fl) in enumerate(zip(steps, plain["steps"], floor,
+                                                            strict=True)):
+                    for k in ("loss", "grad_norm"):
+                        tol = max(DP_EQ_RTOL * abs(ref_step[k]), FLOOR_FACTOR * fl[k])
+                        diff = abs(got[k] - ref_step[k])
+                        versus.append({"step": i, "metric": k, "dp": got[k], "plain": ref_step[k],
+                                       "diff": diff, "floor": fl[k], "tol": tol})
+                        check(diff <= tol, f"DP step {i} (None): {k} {got[k]!r}, phase 9's plain "
+                              f"step {ref_step[k]!r}; tolerance {tol!r}, floor {fl[k]!r}")
+                log(f"    DP None vs phase 9's plain steps (|diff|, tolerance, floor): "
+                    + "; ".join(f"step {v['step']} {v['metric']} {v['diff']!r}, {v['tol']!r}, "
+                                f"{v['floor']!r}" for v in versus))
+            peak = torch.cuda.max_memory_allocated()
+            check(peak < TRAIN_PEAK_BYTES, f"DP ({comp}) peak memory {peak} bytes")
+            row = {"compression": comp, "steps": steps, "launches": launches,
+                   "step_ms": float(np.median([r["ms"] for r in steps[1:]])),
+                   "plain_step_ms": plain["step_ms"], "plain_first_loss": plain["first_loss"],
+                   "versus_plain": versus, "floor": floor,
+                   "bytes_per_step": stats["bytes"] / DP_STEPS,
+                   "calls_per_step": stats["calls"] / DP_STEPS, "peak_bytes": peak}
+            rows.append(row)
+            log(f"    DP step, compression {comp}: losses {[r['loss'] for r in steps]}, step "
+                f"{row['step_ms']!r} ms (median of steps 1..{DP_STEPS - 1}; the plain step "
+                f"{plain['step_ms']!r} ms in phase 9), all-reduce {row['bytes_per_step']!r} bytes "
+                f"and {row['calls_per_step']!r} collective calls a step, launches {launches}, "
+                f"peak memory {peak} bytes ({smi})")
+            del state, step
+        return rows
+    finally:
+        torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def checkpoint_phase(smi: str, trained: dict) -> dict:
+    """Phase 9c: (a) a full-size checkpoint and restore, (b) the launcher's
+    restart, (c) the data-parallel step at world 1."""
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    out = {"checkpoint": checkpoint_restore(cfg, smi), "restart": restart_path(smi),
+           "dp": dp_steps(cfg, smi, {"first_loss": trained["first_loss"],
+                                     "step_ms": trained["step_ms"],
+                                     "steps": trained["steps"][:DP_STEPS]})}
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3542,6 +3935,14 @@ def main() -> int:
     training = training_phase(resources, timer, smi)
     trained, bwd_timing = training["trained"], training["bwd_timing"]
     log(f"    [9] done at {time.perf_counter() - t_start:.1f} s (the phase {training['seconds']!r} s)")
+    log(f"[9c] checkpoints and the data-parallel step: {LM_ARCH} bf16, {TRAIN_BATCH} x {TRAIN_SEQ}; "
+        f"(a) save through CheckpointManager(save_async=True, keep=1), a step during the write, "
+        f"restore, the restored step vs the live one; (b) the launcher's restart at smoke size; "
+        f"(c) make_train_step(mode='dp_shard_map') at world 1 over NCCL, {DP_MODES}")
+    gc.collect()
+    checkpointed = checkpoint_phase(smi, trained)
+    log(f"    [9c] done at {time.perf_counter() - t_start:.1f} s (the phase "
+        f"{checkpointed['seconds']!r} s)")
 
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
@@ -3665,6 +4066,7 @@ def main() -> int:
                        "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
                        **moe, "families": families, "training": training,
+                       "checkpoints": checkpointed,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

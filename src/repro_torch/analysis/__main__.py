@@ -33,6 +33,8 @@ DEFAULT_PATHS = (
     "src/repro_torch/kernels",
     "src/repro_torch/serving",
     "src/repro_torch/launch",
+    "src/repro_torch/checkpoint",
+    "src/repro_torch/training",
     "src/repro_torch/graphs.py",
 )
 

@@ -1,7 +1,8 @@
 """AST lint: the PyTorch footguns that cost the port's serving path.
 
 The counterpart of ``repro.analysis.lint``, tuned to the port's hot path
-(``core/``, ``kernels/``, ``serving/``, ``launch/`` and ``graphs.py``).
+(``core/``, ``kernels/``, ``serving/``, ``launch/``, ``graphs.py``) and
+to the training path (``training/``, ``checkpoint/``).
 Analysis is per function and deliberately shallow -- one module, no
 dataflow across calls -- because every rule is a pattern gate: cheap,
 deterministic and explainable in one line.  The runtime gate
@@ -37,10 +38,11 @@ Rules (the JAX ids where the rule translates):
          (only tensors have it): an implicit device -> host sync on the
          hot path.  The sanctioned spelling is
          ``analysis.runtime.device_fetch``, which ANA006 budgets.
-  ANA006 explicit-sync-budget -- every ``device_fetch``, ``device_put``,
-         ``block_until_ready``, ``torch.cuda.synchronize`` and
-         ``<event>.synchronize()`` under ``core/``, ``kernels/`` or
-         ``serving/`` needs an allowlist line that names its budget: the
+  ANA006 explicit-sync-budget -- every ``device_fetch``,
+         ``device_fetch_into``, ``device_put``, ``block_until_ready``,
+         ``torch.cuda.synchronize`` and ``<event>.synchronize()`` under
+         ``core/``, ``kernels/``, ``serving/``, ``checkpoint/`` or
+         ``training/`` needs an allowlist line that names its budget: the
          planned sync points are part of the design and anything else is a
          new stall.
 
@@ -104,8 +106,9 @@ HOST_METHODS = {"item", "tolist", "cpu", "numpy"}
 HOST_PULL_METHODS = {"item", "tolist", "numpy"}
 HOST_PULL_FUNCS = {"int", "float"}
 GRAPH_CTORS = {"graphs.Graph", "Graph", "torch.cuda.CUDAGraph", "torch.cuda.graph"}
-SYNC_CALLS = {"device_fetch", "device_put", "block_until_ready", "synchronize"}
-EXPLICIT_SYNC_DIRS = ("/core/", "/kernels/", "/serving/")
+SYNC_CALLS = {"device_fetch", "device_fetch_into", "device_put", "block_until_ready",
+              "synchronize"}
+EXPLICIT_SYNC_DIRS = ("/core/", "/kernels/", "/serving/", "/checkpoint/", "/training/")
 
 
 def _dotted(node: ast.AST) -> Optional[str]:

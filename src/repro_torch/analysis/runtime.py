@@ -8,6 +8,8 @@ each call site for an allowlist line that names its budget:
   * ``device_fetch``: device -> host, counted (``fetch_count``).  A read
     chunk's results leave the device in exactly one place,
     ``BSTServer._fill_columns``; a compaction adds one fetch, its key count.
+    ``device_fetch_into`` is one fetch into a given host tensor (a copy even
+    on the CPU): a checkpoint's snapshot, one a tensor a save.
   * ``device_put``: host -> device into a given tensor, counted
     (``put_count``): the counterpart of an explicit ``jax.device_put``,
     which stays legal under the JAX transfer guard.  The copy is what the
@@ -92,6 +94,17 @@ def device_fetch(values: Sequence[torch.Tensor]) -> Tuple[np.ndarray, ...]:
 
 def _to_host(values: Sequence[torch.Tensor]) -> Tuple[np.ndarray, ...]:
     return tuple(v.cpu().numpy() for v in values)
+
+
+def device_fetch_into(value: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Copy ``value`` into the host tensor ``out`` (a copy even of a CPU
+    tensor), counted as one fetch; returns ``out``."""
+    if not out.is_cpu:
+        raise ValueError(f"device_fetch_into copies into a host tensor, got one on {out.device}")
+    _count("fetch")
+    if _watch_mode:
+        return _lifted(lambda: out.copy_(value))
+    return out.copy_(value)
 
 
 def device_put(host: torch.Tensor, out: torch.Tensor, *, non_blocking: bool = False) -> torch.Tensor:

@@ -74,6 +74,7 @@ def smoke_config(name: str) -> ModelConfig:
         vocab_size=503,
         n_experts=4 if cfg.n_experts else 0,
         moe_groups=None,  # smoke batches are tiny: one dispatch group
+        zero1=False,
         ssm_head_dim=16 if cfg.ssm_state else 64,
         ssm_chunk=8,
         sliding_window=16 if cfg.sliding_window else None,

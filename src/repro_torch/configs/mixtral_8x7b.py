@@ -25,7 +25,7 @@ CONFIG = ModelConfig(
     capacity_factor=1.25,
     sliding_window=4096,
     rope_theta=1e6,
-    # DP-pinned dispatch groups (the JAX config also sets zero1, a sharding
-    # switch the port has no use for)
+    # DP-pinned dispatch groups + ZeRO-1
     moe_groups=32,
+    zero1=True,
 )

@@ -16,11 +16,14 @@ The port serves and trains all six families (``models.model``).
 frontend's stub embeddings among them, as ``meta`` tensors (no data).  The
 training switches are kept: ``remat`` (each layer under
 ``torch.utils.checkpoint``) and ``logit_chunk`` (the cross-entropy's
-sequence chunk).  The JAX package's XLA and TPU switches
-(``sharding_strategy``, ``zero1``, ``scan_layers``,
-``attn_block_q``/``attn_block_k``) have no meaning in eager PyTorch on one
-card and are left out, and so is ``remat_policy``: the port's remat saves
-nothing inside a layer (the JAX "none" policy); "dots" is not ported.
+sequence chunk).  So are the sharding switches that ``sharding/specs.py``
+reads: ``sharding_strategy`` ("tp", or "dp_only": parameters replicated,
+the batch split over every mesh axis) and ``zero1`` (the optimizer state
+split over the data axis).  The JAX package's XLA and TPU switches
+(``scan_layers``, ``attn_block_q``/``attn_block_k``) have no meaning in
+eager PyTorch and are left out, and so is ``remat_policy``: the port's
+remat saves nothing inside a layer (the JAX "none" policy); "dots" is not
+ported.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ class ModelConfig:
     frontend_len: int = 0  # frames/patches prepended
     # --- numerics / implementation
     dtype: str = "bfloat16"
+    sharding_strategy: str = "tp"  # "tp" | "dp_only"
+    zero1: bool = False  # ZeRO-1: AdamW's state split over the data axis
     attention_impl: str = "flash"  # one of ATTENTION_IMPLS
     # --- training
     remat: bool = True  # each layer under torch.utils.checkpoint in forward_train

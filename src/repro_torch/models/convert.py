@@ -17,11 +17,19 @@ lists follow the model's ``named_parameters``.  The layouts agree (weights
 (in, out) on both sides), so every tensor is a plain copy; bf16 arrays pass
 through float32, which holds them exactly.  This module imports no JAX: it
 reads the arrays only.
+
+The inverse map, port name -> JAX path, is ``jax_key``; ``jax_tree``
+builds the JAX package's nested dict of any per-parameter list of the
+port's (parameters, AdamW's master, mu and nu, the int8 error feedback),
+each layer leaf a ``LayerStack`` of the L per-layer tensors, and
+``train_state_tree`` does so for a whole ``TrainState``.  The checkpoint
+store (``checkpoint/store.py``) flattens these trees in the JAX package's
+order, so either package restores a checkpoint the other writes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,16 +46,79 @@ def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
     dst.copy_(torch.from_numpy(arr))
 
 
+LAYER_LISTS = ("layers", "enc_layers")
+
+
+def jax_key(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """The JAX tree's dict keys of the port's parameter ``name`` and, for a
+    layer's parameter, its index in the stacked (L, ...) leaf:
+    ``layers.3.attn.wq`` -> ``(("layers", "attn", "wq"), 3)``,
+    ``embed`` -> ``(("embed",), None)``."""
+    parts = name.split(".")
+    if parts[0] in LAYER_LISTS:
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
 def jax_leaf(tree: Mapping[str, Any], name: str) -> Any:
     """The JAX tree's array of the port's parameter ``name``: a stacked
     layer leaf's slice for ``layers.<i>.*`` and ``enc_layers.<i>.*``."""
-    parts = name.split(".")
-    if parts[0] in ("layers", "enc_layers"):
-        leaf: Any = tree[parts[0]]
-        for part in parts[2:]:
-            leaf = leaf[part]
-        return leaf[int(parts[1])]
-    return tree[name]
+    keys, layer = jax_key(name)
+    leaf: Any = tree
+    for key in keys:
+        leaf = leaf[key]
+    return leaf if layer is None else leaf[layer]
+
+
+class LayerStack:
+    """One stacked (L, ...) leaf of the JAX tree held as the port's L
+    per-layer tensors, in layer order."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: Optional[List[Any]] = None):
+        self.parts = [] if parts is None else parts
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (len(self.parts), *self.parts[0].shape)
+
+
+def jax_tree(names: Sequence[str], values: Sequence[Any]) -> Dict[str, Any]:
+    """The JAX package's nested dict of ``values``, one a port parameter
+    name in ``names`` (``named_parameters`` order): a layer's leaves
+    gathered into ``LayerStack``s, in layer order."""
+    tree: Dict[str, Any] = {}
+    for name, value in zip(names, values, strict=True):
+        keys, layer = jax_key(name)
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        if layer is None:
+            node[keys[-1]] = value
+            continue
+        stack = node.setdefault(keys[-1], LayerStack())
+        if layer != len(stack.parts):
+            raise ValueError(f"{name}: layer {layer} out of order ({len(stack.parts)} before it)")
+        stack.parts.append(value)
+    return tree
+
+
+def train_state_tree(state: Any) -> Any:
+    """A ``TrainState`` (the port's: a ``Model``, an ``AdamWState`` of
+    lists, an error-feedback list) as the JAX package's ``TrainState``
+    tree: the same NamedTuple types holding ``jax_tree`` dicts, so that
+    the fields flatten as ``.params``, ``.opt/.step``, ``.opt/.master``,
+    ..., ``.error_feedback`` (empty without int8 compression)."""
+    names = [name for name, _ in state.params.named_parameters()]
+    params = [p for _, p in state.params.named_parameters()]
+    opt = state.opt
+    return type(state)(
+        params=jax_tree(names, params),
+        opt=type(opt)(step=opt.step, master=jax_tree(names, opt.master),
+                      mu=jax_tree(names, opt.mu), nu=jax_tree(names, opt.nu)),
+        error_feedback=jax_tree(names, state.error_feedback) if state.error_feedback else (),
+    )
 
 
 def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any], device="cuda",

@@ -1,34 +1,47 @@
-"""Training step and loop: microbatch accumulation, AdamW, the host loop.
+"""Training step and loop: microbatch accumulation, AdamW, the compressed
+data-parallel all-reduce, the host loop.
 
-The port of the JAX package's ``training/train_loop.py`` for one device:
-the step runs ``forward_train``, autograd's backward, the global-norm clip,
-the cosine schedule and AdamW on fp32 masters, and writes the updated
-parameters back into the model in its compute dtype.  The same metrics as
-the JAX step: ``loss``, ``moe_dropped``, ``grad_norm`` and ``lr``, each a
-device tensor (the step reads nothing on the host).  Microbatches split the
-batch along its first dimension: the fp32 gradients are summed divided by
-the count, the loss averaged, and the metrics are the last microbatch's.
+The port of the JAX package's ``training/train_loop.py``.  The step runs
+``forward_train``, autograd's backward, the global-norm clip, the cosine
+schedule and AdamW on fp32 masters, and writes the updated parameters back
+into the model in its compute dtype.  The same metrics as the JAX step:
+``loss``, ``moe_dropped``, ``grad_norm`` and ``lr``, each a device tensor
+(the step reads nothing on the host).  Microbatches split the batch along
+its first dimension: the fp32 gradients are summed divided by the count,
+the loss averaged, and the metrics are the last microbatch's.
 
 Where the JAX step returns a new state (and donates the old one), this one
-updates the model's parameters and the optimizer state in place and
-returns the state it was given.  Gradient compression ("bf16", "int8")
-belongs to the data-parallel all-reduce, which one device does not run: the
-step ignores it, as the JAX package's single-device ``step_plain`` does,
-and for "int8" the state still holds the error-feedback zeros.  The mesh
-step (data-parallel with the compressed all-reduce, or sharded parameters)
-is not ported.
+updates the model's parameters, the optimizer state and the error feedback
+in place and returns the state it was given.
+
+``make_train_step(mesh=None)`` is the one-device step; it ignores gradient
+compression, as the JAX package's ``step_plain`` does (for "int8" the
+state still holds the error-feedback zeros).  ``mode="dp_shard_map"`` is
+the JAX package's ``step_dp`` written SPMD over ``torch.distributed``, one
+process a device: every rank is given the same global batch and takes its
+rows (rank r of n the rows [r B / n, (r + 1) B / n), as ``shard_map``'s
+``P(axes)`` splits them), accumulates its gradients, sums them over the
+ranks through ``_compress_grads`` ("bf16" or "int8" with error feedback),
+divides by n, averages the loss and metrics, and takes the plain step's
+update.  ``mode="pjit"`` (the tensor-parallel step) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.analysis import runtime
+from repro_torch.checkpoint import elastic
+from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import optimizer as opt
+from repro_torch.sharding import specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,17 +76,126 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
 
 
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
+MODES = ("pjit", "dp_shard_map")
+# The data-parallel step's collectives since the last reset: calls and the
+# bytes of the tensors they reduce (what each rank puts on the wire).
+DP_STATS = {"calls": 0, "bytes": 0}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None) -> StepFn:
+def reset_dp_stats() -> None:
+    DP_STATS.update(calls=0, bytes=0)
+
+
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    DP_STATS["calls"] += 1
+    DP_STATS["bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, op=op)
+    return t
+
+
+def _sum_flat(tensors: List[torch.Tensor], wire: Optional[torch.dtype] = None
+              ) -> List[torch.Tensor]:
+    """``psum`` of every tensor, cast to ``wire`` first if given: one
+    all-reduce a dtype over their concatenation (a sum and a cast are
+    elementwise, so the function is the same)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        flat = _all_reduce(flat if wire is None else flat.to(wire))
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def _leaf_groups(names: List[str]) -> List[List[int]]:
+    """The indices of the port's tensors that make one leaf of the JAX
+    tree (a layer leaf: one tensor a layer), in first-seen order."""
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, name in enumerate(names):
+        groups.setdefault(convert.jax_key(name)[0], []).append(i)
+    return list(groups.values())
+
+
+def _compress_grads(grads: List[torch.Tensor], error_feedback: List[torch.Tensor],
+                    kind: Optional[str], groups: List[List[int]]):
+    """The JAX package's ``_compress_grads`` (quantize, ``psum`` over the
+    ranks, dequantize, error feedback) over the default process group:
+    ``(summed gradients, new error feedback)``.
+
+    None sums the gradients in their dtype; "bf16" sums them cast to bf16
+    and casts the sum to fp32; "int8" adds the error feedback, quantizes
+    with this rank's absmax / 127 scale per JAX leaf (``groups``: a layer
+    leaf's scale is its max over every layer), sums the int8 values as
+    int32 and multiplies by the max of the ranks' scales, and keeps the
+    residual as this rank's new error feedback (updated in place).  Each
+    rank keeps its own residual, as each JAX device does under
+    ``out_specs=P()`` with ``check=False``; a checkpoint holds rank 0's,
+    as ``jax.device_get`` of that array does.  The int32 sum puts 4 bytes
+    a parameter on the wire, as fp32 does."""
+    if kind is None:
+        return _sum_flat(grads), error_feedback
+    if kind == "bf16":
+        return [g.float() for g in _sum_flat(grads, wire=torch.bfloat16)], error_feedback
+    if kind != "int8":
+        raise ValueError(f"unknown compression {kind!r} (want None, 'bf16' or 'int8')")
+    g32 = [g.float() + e for g, e in zip(grads, error_feedback, strict=True)]
+    scales = torch.stack([
+        torch.clamp(torch.stack([g32[i].abs().max() for i in idx]).max(), min=1e-12) / 127.0
+        for idx in groups])
+    q = [None] * len(g32)
+    for k, idx in enumerate(groups):
+        for i in idx:
+            q[i] = torch.clamp(torch.round(g32[i] / scales[k]), -127, 127).to(torch.int8)
+            error_feedback[i].copy_(g32[i] - q[i].float() * scales[k])
+    del g32
+    summed = _sum_flat(q, wire=torch.int32)
+    del q
+    scales = _all_reduce(scales, dist.ReduceOp.MAX)
+    out = [None] * len(grads)
+    for k, idx in enumerate(groups):
+        for i in idx:
+            out[i] = summed[i].float() * scales[k]
+    return out, error_feedback
+
+
+def _dp_rows(mesh, batch: int) -> Tuple[slice, int]:
+    """(this rank's rows of a global batch of ``batch`` split over every
+    mesh axis, the mesh's size): the block that ``elastic.shard_slices``
+    cuts for the spec ``P(all_axes)``, as ``shard_map`` splits the batch."""
+    if not dist.is_initialized():
+        raise RuntimeError("the data-parallel step needs a process group: call "
+                           "torch.distributed.init_process_group first")
+    shape = specs.mesh_shape(mesh)
+    n = math.prod(shape.values())
+    if n != dist.get_world_size():
+        raise ValueError(f"the data-parallel step's mesh {tuple(shape.values())} must span every "
+                         f"one of the {dist.get_world_size()} ranks of the process group")
+    if batch % n:
+        raise ValueError(f"a global batch of {batch} does not split over {n} ranks")
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    (rows,) = elastic.shard_slices((batch,), (specs.all_axes(shape),), shape, coord)
+    return rows, n
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
+                    mode: str = "pjit") -> StepFn:
     """``step(state, tokens, labels, frontend=None) -> (state, metrics)`` on
     the state's device; tokens and labels (B, S) integer tensors, frontend
-    the stub embeddings ``forward_train`` takes (encdec, vlm)."""
-    if mesh is not None:
+    the stub embeddings ``forward_train`` takes (encdec, vlm).
+
+    * ``mesh=None``: the one-device step.
+    * ``mode="dp_shard_map"``: data parallelism over every axis of
+      ``mesh`` (a ``DeviceMesh`` over the whole process group), the
+      parameters whole on every rank; every rank is given the same global
+      batch (and frontend), which must split evenly over the ranks.
+    * ``mode="pjit"``: the tensor-parallel step, not ported."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} (want one of {MODES})")
+    if mesh is not None and mode == "pjit":
         raise NotImplementedError(
-            "the mesh train step (data parallelism with the compressed all-reduce, sharded "
-            "parameters) is not ported yet (ROADMAP.md Queue 1 items 9 and 13e)"
-        )
+            "the pjit train step (sharded parameters, tensor parallelism) is not ported yet "
+            "(ROADMAP.md Queue 1 items 9 and 13e); mode='dp_shard_map' is")
 
     def grads_of(model: M.Model, tokens, labels, frontend):
         """One forward and backward: (loss, metrics, the parameters' grads)."""
@@ -108,10 +230,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None) -> St
             acc_loss = acc_loss + loss / mb
         return acc_loss, metrics, acc
 
-    def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
-             frontend: Optional[torch.Tensor] = None):
+    def finish(state: TrainState, loss, dropped, grads, ef):
         model = state.params
-        loss, metrics, grads = accumulate(model, tokens, labels, frontend)
         grads, gnorm = opt.clip_by_global_norm(grads, tcfg.clip_norm)
         for p in model.parameters():  # the raw grads go before the update's temporaries
             p.grad = None
@@ -125,11 +245,39 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None) -> St
         with torch.no_grad():
             for p, new in zip(model.parameters(), params):
                 p.copy_(new)
-        metrics = {"moe_dropped": metrics["moe_dropped"].detach(), "loss": loss,
-                   "grad_norm": gnorm, "lr": lr}
-        return TrainState(model, opt_state, state.error_feedback), metrics
+        metrics = {"moe_dropped": dropped, "loss": loss, "grad_norm": gnorm, "lr": lr}
+        return TrainState(model, opt_state, ef), metrics
 
-    return step
+    def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
+             frontend: Optional[torch.Tensor] = None):
+        loss, metrics, grads = accumulate(state.params, tokens, labels, frontend)
+        return finish(state, loss, metrics["moe_dropped"].detach(), grads, state.error_feedback)
+
+    if mesh is None:
+        return step
+
+    _dp_rows(mesh, 0)  # the process group and the mesh, checked once here
+    groups: List[List[int]] = []
+
+    def step_dp(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
+                frontend: Optional[torch.Tensor] = None):
+        if not isinstance(state.params, M.Model):
+            raise NotImplementedError(
+                "the data-parallel step takes a state whose every tensor is whole on every rank; "
+                "a sharded state (tensor parallelism, ZeRO-1) waits for the tensor-parallel step "
+                "(ROADMAP.md Queue 1 item 9)")
+        rows, n = _dp_rows(mesh, tokens.shape[0])
+        loss, metrics, grads = accumulate(state.params, tokens[rows], labels[rows],
+                                          None if frontend is None else frontend[rows])
+        if not groups:
+            groups.extend(_leaf_groups([name for name, _ in state.params.named_parameters()]))
+        grads, ef = _compress_grads(grads, state.error_feedback, tcfg.compression, groups)
+        grads = [g / n for g in grads]
+        means = _all_reduce(torch.stack([loss.float(), metrics["moe_dropped"].detach().float()]))
+        means = means / n
+        return finish(state, means[0], means[1], grads, ef)
+
+    return step_dp
 
 
 def train_loop(
@@ -138,22 +286,25 @@ def train_loop(
     pipeline,
     steps: int,
     state: Optional[TrainState] = None,
+    step0: int = 0,
     frontend: Optional[torch.Tensor] = None,
     callback: Optional[Callable[[int, TrainState, Dict[str, float]], None]] = None,
     device="cuda",
 ):
     """The host loop of ``launch/train.py`` and the tests: ``steps`` steps on
-    ``pipeline.batch_at(step)`` from ``state`` (a seed-0 init if None), the
-    frontend's embeddings (if any) with every batch, each step's metrics
-    read on the host after it and handed to ``callback(step, state,
-    metrics)``.  Returns ``(state, history)``."""
+    ``pipeline.batch_at(step)`` for step in [step0, step0 + steps), from
+    ``state`` (a seed-0 init if None), the frontend's embeddings (if any)
+    with every batch, each step's metrics read on the host after it (one
+    counted fetch) and handed to ``callback(step, state, metrics)``.
+    Returns ``(state, history)``."""
     state = state if state is not None else init_train_state(cfg, tcfg, 0, device)
     step_fn = make_train_step(cfg, tcfg)
     history = []
-    for s in range(steps):
+    for s in range(step0, step0 + steps):
         tokens, labels = (torch.from_numpy(a).to(device, torch.int64) for a in pipeline.batch_at(s))
         state, metrics = step_fn(state, tokens, labels, frontend)
-        history.append({k: float(v) for k, v in metrics.items()})
+        values = runtime.device_fetch(list(metrics.values()))
+        history.append({k: float(v) for k, v in zip(metrics, values)})
         if callback is not None:
             callback(s, state, history[-1])
     return state, history

@@ -149,7 +149,8 @@ def test_lint_tensor_metadata_is_not_a_pull(tmp_path):
 
 
 @pytest.mark.parametrize("call", ["runtime.device_fetch((x,))", "runtime.device_put(x, y)",
-                                  "torch.cuda.synchronize()", "event.synchronize()"])
+                                  "torch.cuda.synchronize()", "event.synchronize()",
+                                  "runtime.device_fetch_into(x, y)"])
 def test_lint_flags_unallowlisted_explicit_fetch(tmp_path, call):
     serving = tmp_path / "serving"
     serving.mkdir()

@@ -9,6 +9,7 @@ runs there on its own:
 
 import dataclasses
 import gc
+import importlib
 import weakref
 
 import numpy as np
@@ -1351,3 +1352,66 @@ def test_analysis_cli_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: --device cuda is the default")
     assert analysis_main.main(["--repo-root", ".", "--serve-gate"]) == 0
+
+
+def _train_tensors(state):
+    return ([p.detach() for p in state.params.parameters()] + [state.opt.step] + state.opt.master
+            + state.opt.mu + state.opt.nu + list(state.error_feedback))
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A bf16 int8-compression state on the card after one step, saved in
+    the background and restored into a fresh state on the card: every
+    tensor bit for bit, on the card, in its dtype."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), dtype="bfloat16")
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4, compression="int8")
+    state = init_train_state(cfg, tcfg, seed=0, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 17)))
+    toks = toks.to(cuda_device)
+    state, _ = make_train_step(cfg, tcfg)(state, toks[:, :-1], toks[:, 1:])
+    with torch.no_grad():
+        for e in state.error_feedback:  # the one-device step leaves it zero
+            e.normal_()
+    mgr = CheckpointManager(str(tmp_path), save_async=True)
+    mgr.save(1, state)
+    mgr.wait()
+    restored, step, _ = mgr.restore(init_train_state(cfg, tcfg, seed=1, device=cuda_device))
+    assert step == 1 and int(restored.opt.step) == 1
+    for a, b in zip(_train_tensors(state), _train_tensors(restored), strict=True):
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compression", [None, "bf16", "int8"])
+def test_dp_step_at_world_one_over_nccl(cuda_device, nccl_world, compression):
+    """``make_train_step(mode="dp_shard_map")`` at world 1 over NCCL on qwen3's
+    bf16 smoke config: finite metrics, K5's launches as the plain step's,
+    the first loss equal to the plain step's from the same state (the
+    forward has no atomics), the collectives counted (2 calls a step, 3
+    with int8)."""
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+
+    tl = importlib.import_module("repro_torch.training.train_loop")
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), dtype="bfloat16", remat=True)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4, compression=compression)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 33)))
+    toks = toks.to(cuda_device)
+    _, plain = make_train_step(cfg, tcfg)(init_train_state(cfg, tcfg, seed=0, device=cuda_device),
+                                          toks[:, :-1], toks[:, 1:])
+    mesh = make_host_mesh()
+    state = reshard_state(init_train_state(cfg, tcfg, seed=0, device=cuda_device), cfg, mesh)
+    step = make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")
+    FA.reset_launches()
+    tl.reset_dp_stats()
+    for i in range(2):
+        state, metrics = step(state, toks[:, :-1], toks[:, 1:])
+        assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
+        if i == 0:
+            assert float(metrics["loss"]) == float(plain["loss"])
+    assert FA.LAUNCHES == {"flash_attention": 4 * cfg.n_layers,
+                           "flash_attention_bwd": 2 * cfg.n_layers}
+    assert tl.DP_STATS["calls"] == 2 * (3 if compression == "int8" else 2)
+    if compression == "int8":
+        assert all(bool(e.any()) for e in state.error_feedback)

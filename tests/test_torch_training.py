@@ -4,8 +4,8 @@ The token pipeline (bit for bit), the optimizer's functions on the same
 inputs, one train step from the same weights and state, microbatch
 accumulation, a resume from the JAX package's own mid-run ``AdamWState``
 carried across by ``adamw_state_from_jax``, the memorise-one-batch run the
-JAX package's ``tests/test_training.py`` makes, and the launcher at smoke
-size.  Everything is fp32 at smoke size (tinyllama, as the JAX package's
+JAX package's ``tests/test_training.py`` makes, the data-parallel step at
+world 1, and the launcher at smoke size with its checkpoints.  Everything is fp32 at smoke size (tinyllama, as the JAX package's
 training tests use); the JAX step is jitted once per microbatch count (the
 module fixture ``jax_steps``).
 
@@ -22,6 +22,7 @@ near 0 that rounds the other way moves it by 2 lr.
 import contextlib
 import importlib
 import io
+import os
 
 import numpy as np
 import pytest
@@ -36,8 +37,10 @@ from repro.data.pipeline import TokenPipeline as JTokenPipeline  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim import optimizer as jopt  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.analysis import gate  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models.convert import adamw_state_from_jax, jax_leaf, params_from_jax  # noqa: E402
 from repro_torch.optim import optimizer as topt  # noqa: E402
 
@@ -313,8 +316,10 @@ def test_loss_decreases_memorising_one_batch():
 
 def test_single_device_options():
     """int8 compression allocates the error-feedback zeros (one per
-    parameter, as the JAX package does) and the step ignores it; a mesh is
-    not ported and says which roadmap items hold it."""
+    parameter, as the JAX package does) and the one-device step ignores
+    it; a mesh takes the data-parallel step (at world 1 over gloo the plain
+    step's loss and gradient norm, the error feedback updated), and the
+    pjit mode is not ported and says which roadmap items hold it."""
     cfg = tconfigs.smoke_config(ARCH)
     tcfg = ttrain.TrainConfig(compression="int8")
     state = ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu")
@@ -323,26 +328,47 @@ def test_single_device_options():
     for e, p in zip(state.error_feedback, params):
         assert e.shape == p.shape and e.dtype == torch.float32 and not e.any()
     assert ttrain.init_train_state(cfg, ttrain.TrainConfig(), device="cpu").error_feedback == []
-    with pytest.raises(NotImplementedError, match="items 9 and 13e"):
-        ttrain.make_train_step(cfg, tcfg, mesh=object())
+    tokens, labels = (torch.from_numpy(a).long() for a in _batch(0))
+    plain, m_plain = ttrain.make_train_step(cfg, tcfg)(
+        ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu"), tokens, labels)
+    assert not any(e.any() for e in plain.error_feedback)
+    with gate.world1_group("cpu"):
+        mesh = make_host_mesh(device_type="cpu")
+        with pytest.raises(NotImplementedError, match="items 9 and 13e"):
+            ttrain.make_train_step(cfg, tcfg, mesh=mesh)
+        state, m = ttrain.make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")(
+            state, tokens, labels)
+    _close(float(m["loss"]), float(m_plain["loss"]), LOSS_TOL)
+    _close(float(m["grad_norm"]), float(m_plain["grad_norm"]), 2e-2)  # int8-quantized gradients
+    assert all(e.any() for e in state.error_feedback)
 
 
-def test_launch_train_smoke_on_cpu():
+def test_launch_train_smoke_on_cpu(tmp_path):
     """``launch/train.py --smoke --device cpu`` trains and prints each
-    step's loss, gradient norm, learning rate, ms and tok/s; checkpoints
-    are not ported."""
+    step's loss, gradient norm, learning rate, ms and tok/s; with
+    ``--ckpt-dir`` it saves every ``--ckpt-every`` steps and at the end,
+    and ``--resume`` continues from the latest checkpoint."""
     out = io.StringIO()
+    ckpt = str(tmp_path / "ckpt")
+    args = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--ckpt-dir", ckpt, "--ckpt-every", "2"]
     with contextlib.redirect_stdout(out):
-        state = tlaunch.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
-                              "--steps", "3", "--batch", "2", "--seq", "16"])
+        state = tlaunch.main([*args, "--steps", "3"])
     lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("step")]
     assert len(lines) == 3
     for ln in lines:
         assert all(key in ln for key in ("loss=", "gnorm=", "lr=", "ms", "tok/s"))
     assert int(state.opt.step) == 3
-    for flag in (["--resume"], ["--ckpt-every", "5"], ["--ckpt-dir", "ckpt"]):
-        with pytest.raises(NotImplementedError, match="13g"):
-            tlaunch.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu", *flag])
+    assert sorted(os.listdir(ckpt)) == ["step_00000001", "step_00000002"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = tlaunch.main([*args, "--steps", "5", "--resume"])
+    assert "resumed from step 2" in out.getvalue()
+    assert [ln.split()[1] for ln in out.getvalue().splitlines() if ln.startswith("step")] == \
+        ["3", "4"]
+    assert int(state.opt.step) == 5
+    assert sorted(os.listdir(ckpt)) == ["step_00000001", "step_00000002", "step_00000003",
+                                        "step_00000004"][-3:]
 
 
 @pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-medium"])
