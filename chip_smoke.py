@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training, checkpoints.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training, checkpoints, tensor parallelism.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -211,7 +211,30 @@ Phases, in order; any failure raises and exits non-zero:
    within 1e-4 (relative) or 3 x the floor (phase 9's steps run again
    five times) of phase 9's, peak memory under 80 GB, step ms beside the
    plain step's, the all-reduce's bytes and collective calls a step;
-10. print the ``{"kernels": [...]}`` line, the card's line, and last the
+9t. the LM's model axis (``make_train_step(mode="pjit")``, the mesh
+   ``make_prefill_fn``/``make_serve_step``, ``sharding/tp.py``) on 2 gloo
+   ranks sharing the card (NCCL puts no two ranks on one card), mesh (data
+   1, model 2), spawned as in phase 4s, the single-card references written
+   to a file first: qwen3-1.7b at full width and depth, its fp32 blocks
+   over a 1 x 512 prefill and 4 decode steps, the gathered logits within
+   1e-3 of the single-card fp32 route's; in bf16 at 4 x 512 phase 6's RMS
+   rule against the naive single-card routes; the 4 x 2048 prefill and 31
+   decode steps timed; the pjit step's fp32 gradients (``step.gradients``)
+   of every parameter within 1e-3 relative of the single-card gradients,
+   each rank's block held to its slice; 3 bf16 pjit steps of phase 9's
+   batches from the seed-0 state, each loss and grad norm within 1e-4
+   (relative) or 3 x phase 9c's floor of phase 9's, as phase 9c holds
+   the DP step; on each rank K5's forward 28 a prefill and 56 a train step at
+   B·H 32 and B·Hkv 16, its backward 28 a step; then mixtral-8x7b (K4
+   once a layer on each rank) and hymba-1.5b (heads split mid-head) at
+   their published width cut to 2 layers, the same serving rules; per
+   rank peak memory, step ms, the collectives' calls and bytes (no
+   scaling figure: two ranks share one card and gloo crosses the host);
+   then at world 1 over NCCL, mesh (1, 1), phase 6's request through the
+   mesh prefill and the mesh decode step, one CUDA graph, its tokens
+   bit for bit phase 6's;
+10. print the ``{"kernels": [...]}`` line (with each LM kernel's launches on
+   the tensor-parallel path, ``tp_launches``), the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits with code 2 and prints no result without one.
@@ -284,10 +307,16 @@ from repro_torch.serving import (  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
+from repro_torch.checkpoint import elastic  # noqa: E402
 from repro_torch.checkpoint.elastic import reshard_state  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models.convert import LayerStack  # noqa: E402
+from repro_torch.optim.optimizer import AdamWState  # noqa: E402
+from repro_torch.serving import serve_loop  # noqa: E402
+from repro_torch.sharding import specs as tspecs  # noqa: E402
+from repro_torch.sharding import tp as tp_lib  # noqa: E402
+from repro_torch.sharding.specs import mesh_shape  # noqa: E402
 from repro_torch.training.train_loop import (  # noqa: E402
     DP_STATS,
     TrainConfig,
@@ -546,6 +575,19 @@ RESTART_TIMEOUT_S = 300
 DP_MODES = (None, "bf16", "int8")
 DP_STEPS = 3
 DP_EQ_RTOL = 1e-4
+# Phase 9t: the LM's model axis on TP_RANKS gloo ranks sharing the card
+# (NCCL puts no two ranks on one card), mesh (data 1, model TP_RANKS):
+# qwen3-1.7b at full width and depth, then mixtral-8x7b and hymba-1.5b at
+# their published width cut to TP_FAMILY_LAYERS layers (mixtral at 32
+# layers does not fit; two layers carry K4 a layer and hymba's mid-head
+# splits), TP_TRAIN_STEPS bf16 pjit steps, each loss and grad norm held to
+# phase 9's plain step by phase 9c's rule (DP_EQ_RTOL relative, or
+# FLOOR_FACTOR times phase 9c's floor if that is larger).
+TP_RANKS = 2
+TP_FAMILIES = ("mixtral-8x7b", "hymba-1.5b")
+TP_FAMILY_LAYERS = 2
+TP_TRAIN_STEPS = DP_STEPS  # the steps that phase 9c measures the floor of
+TP_TIMEOUT_S = 600
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
 # (G, B, n_dest, capacity, what): K4's shapes.
@@ -2479,7 +2521,7 @@ def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
                                  "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
                                  "prefill_profile")},
         "routes": routes, "graph_tokens_equal_eager": True,
-        "sample_ids": tokens[0, :16].tolist(),
+        "sample_ids": tokens[0, :16].tolist(), "tokens": tokens.tolist(),
     }
     log(f"  {cfg.name} ({cfg.family}) bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + "
         f"{LM_NEW}, frontend {row['frontend']}: K5 launches {launches}, decode graph captured in "
@@ -3722,6 +3764,462 @@ def checkpoint_phase(smi: str, trained: dict) -> dict:
     return out
 
 
+# ------------------------------------------- phase 9t: the model axis over gloo
+def tp_inputs(cfg) -> dict:
+    """The inputs of phase 9t's serving checks: phase 6's (1 x LM_CHECK_PROMPT
+    + LM_CHECK_STEPS for fp32, LM_BF16_CHECK_BATCH x LM_CHECK_PROMPT for
+    bf16), as ``check_full_model_fp32`` and ``check_full_model_bf16`` draw
+    them."""
+    total = LM_CHECK_PROMPT + LM_CHECK_STEPS
+    return {"fp32": torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                                       (1, total))),
+            "bf16": torch.from_numpy(np.random.default_rng(9).integers(
+                0, cfg.vocab_size, (LM_BF16_CHECK_BATCH, LM_CHECK_PROMPT)))}
+
+
+def tp_references(cfg) -> dict:
+    """The single-card references of one config for phase 9t, on the host:
+    the fp32 flash route's logits over prefill and LM_CHECK_STEPS decode
+    steps, the bf16 check's naive fp32 logits and the naive bf16 route's
+    RMS distance from them (phase 6's rule's denominator)."""
+    inputs = tp_inputs(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
+    model = lm.init_params(cfg32, seed=0, device="cuda")
+    toks = inputs["fp32"].cuda()
+    logits, state = lm.prefill(cfg32, model, toks[:, :LM_CHECK_PROMPT],
+                               max_len=toks.shape[1])
+    fp32 = [logits.cpu()]
+    for t in range(LM_CHECK_PROMPT, toks.shape[1]):
+        logits, state = lm.decode_step(cfg32, model, toks[:, t:t + 1], state)
+        fp32.append(logits.cpu())
+    del model, state
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    naive32 = dataclasses.replace(naive, dtype="float32")
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    toks = inputs["bf16"].cuda()
+    plain, _ = lm.prefill(naive, model, toks)
+    model32 = lm.Model(naive32, device="cuda")
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    del model
+    want, _ = lm.prefill(naive32, model32, toks)
+    naive_rms = float((plain.float() - want).pow(2).mean().sqrt())
+    del model32, plain
+    torch.cuda.empty_cache()
+    return {"fp32": fp32, "want": want.cpu(), "naive_rms": naive_rms}
+
+
+def tp_layers_cfg(arch: str):
+    return dataclasses.replace(get_config(arch), n_layers=TP_FAMILY_LAYERS)
+
+
+@contextlib.contextmanager
+def recorded_flash_shapes(out: list):
+    """Record (B·H, B·Hkv) of every K5 wrapper call in ``out``."""
+    real = kops.flash_attention
+
+    def recording(q, k, v, *args, **kwargs):
+        out.append((q.shape[0], k.shape[0]))
+        return real(q, k, v, *args, **kwargs)
+
+    with unittest.mock.patch.object(kops, "flash_attention", recording):
+        yield
+
+
+def tp_counts() -> dict:
+    return {"flash_attention": FA.LAUNCHES["flash_attention"],
+            "flash_attention_bwd": FA.LAUNCHES["flash_attention_bwd"],
+            "queue_dispatch": QD.LAUNCHES["queue_dispatch"]}
+
+
+def tp_reset() -> None:
+    FA.reset_launches()
+    QD.reset_launches()
+    K.reset_launches()
+    tp_lib.reset_stats()
+    reset_dp_stats()
+
+
+def tp_collectives() -> dict:
+    return {**{k: dict(v) for k, v in tp_lib.STATS.items()}, "dp": dict(DP_STATS)}
+
+
+def tp_serve_checks(cfg, mesh, ref: dict, moe_layers: int, timed: bool) -> dict:
+    """A rank's serving checks of one config on the (1, TP_RANKS) mesh: the
+    fp32 model (its blocks) over prefill and decode against the
+    single-card fp32 logits (LM_CHECK_TOL), the bf16 check's RMS rule,
+    the launches of a prefill and a decode step; with ``timed`` the
+    serving run's 4 x 2048 prefill and 31 decode steps timed."""
+    inputs = tp_inputs(cfg)
+    row = {"arch": cfg.name, "layers": cfg.n_layers}
+    k5 = k5_per_forward(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
+    model = lm.init_params(cfg32, seed=0, device="cuda")
+    tm = serve_loop.shard_model(cfg32, model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    toks = inputs["fp32"].cuda()
+    total = toks.shape[1]
+    tp_reset()
+    logits, state = serve_loop.make_prefill_fn(cfg32, mesh, 1, total)(tm, toks[:, :LM_CHECK_PROMPT])
+    prefill_launches = tp_counts()
+    got = [serve_loop.gather_logits(cfg32, mesh, 1, logits).cpu()]
+    step = serve_loop.make_serve_step(cfg32, mesh, 1)
+    tp_reset()
+    for t in range(LM_CHECK_PROMPT, total):
+        logits, state = step(tm, toks[:, t:t + 1], state)
+        got.append(serve_loop.gather_logits(cfg32, mesh, 1, logits).cpu())
+    decode_launches = {k: v / LM_CHECK_STEPS for k, v in tp_counts().items()}
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref["fp32"]))
+    for a, b in zip(got, ref["fp32"]):
+        torch.testing.assert_close(a, b, atol=LM_CHECK_TOL, rtol=LM_CHECK_TOL)
+    want_prefill = {"flash_attention": k5, "flash_attention_bwd": 0, "queue_dispatch": moe_layers}
+    check(prefill_launches == want_prefill,
+          f"9t {cfg.name} fp32 prefill launches {prefill_launches}, want {want_prefill}")
+    want_decode = {"flash_attention": 0, "flash_attention_bwd": 0, "queue_dispatch": moe_layers}
+    check(decode_launches == want_decode,
+          f"9t {cfg.name} decode launches a step {decode_launches}, want {want_decode}")
+    row.update(fp32_max_abs_err=err, fp32_tol=LM_CHECK_TOL, prefill_launches=prefill_launches,
+               decode_launches=decode_launches, logit_scale=float(ref["fp32"][0].abs().max()))
+    del tm, state, logits
+    torch.cuda.empty_cache()
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    tm = serve_loop.shard_model(cfg, model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    toks = inputs["bf16"].cuda()
+    tp_reset()
+    logits, _ = serve_loop.make_prefill_fn(cfg, mesh, toks.shape[0])(tm, toks)
+    full = serve_loop.gather_logits(cfg, mesh, toks.shape[0], logits).float().cpu()
+    check(bool(torch.isfinite(full).all()), f"9t {cfg.name} bf16: a logit is not finite")
+    rms = float((full - ref["want"]).pow(2).mean().sqrt())
+    ratio = rms / ref["naive_rms"]
+    check(ratio <= LM_BF16_ROUTE_RATIO,
+          f"9t {cfg.name} bf16: the TP route is {ratio!r} times as far from fp32 as the naive "
+          f"single-card route")
+    check(tp_counts()["flash_attention"] == k5, f"9t {cfg.name} bf16 prefill: {tp_counts()}")
+    row.update(bf16_rms=rms, bf16_naive_rms=ref["naive_rms"], bf16_rms_ratio=ratio,
+               bf16_tol_ratio=LM_BF16_ROUTE_RATIO)
+    if timed:
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+        prefill = serve_loop.make_prefill_fn(cfg, mesh, LM_BATCH, LM_PROMPT + LM_NEW)
+        step = serve_loop.make_serve_step(cfg, mesh, LM_BATCH)
+        shapes = []
+        tp_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_flash_shapes(shapes):
+            logits, state = prefill(tm, prompts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_coll = tp_collectives()
+        prefill_k5 = tp_counts()["flash_attention"]
+        tok = serve_loop.gather_logits(cfg, mesh, LM_BATCH, logits).argmax(dim=-1, keepdim=True)
+        outs = [tok]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(LM_NEW - 1):
+            tp_reset()
+            logits, state = step(tm, tok, state)
+            decode_coll = tp_collectives()  # the step's own (the logits' gather aside)
+            tok = serve_loop.gather_logits(cfg, mesh, LM_BATCH, logits).argmax(dim=-1, keepdim=True)
+            outs.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n = LM_NEW - 1
+        check(prefill_k5 == k5 and set(shapes) == {(LM_BATCH * cfg.n_heads // TP_RANKS,
+                                                    LM_BATCH * cfg.n_kv_heads // TP_RANKS)},
+              f"9t {cfg.name} serving prefill: {prefill_k5} K5 launches at (B*H, B*Hkv) "
+              f"{sorted(set(shapes))}")
+        row["serving"] = {
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": n,
+            "prefill_s": t1 - t0, "prefill_tok_per_s": prompts.numel() / (t1 - t0),
+            "decode_ms_per_step": (t3 - t2) / n * 1e3, "k5_per_prefill": prefill_k5,
+            "k5_shapes": sorted(set(shapes)), "prefill_collectives": prefill_coll,
+            "decode_collectives_per_step": decode_coll,
+            "tokens": torch.cat(outs, dim=1).tolist()}
+    del tm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_train_checks(cfg, mesh, phase9: dict) -> dict:
+    """A rank's training checks of qwen3-1.7b on the (1, TP_RANKS) mesh:
+    the fp32 gradients of the pjit step (``step.gradients``, after its
+    sums) against the single-card gradients of the same weights, max
+    |tp - single| / max |single| per tensor over every rank's block at
+    most TRAIN_GRAD_TOL; then the bf16 pjit step from the seed-0 state,
+    TP_TRAIN_STEPS steps of phase 9's batches, each loss and grad norm
+    within the larger of DP_EQ_RTOL (relative) and FLOOR_FACTOR times phase
+    9c's floor of phase 9's plain step's (``phase9``: its steps and that
+    floor), launches, collectives and ms a step."""
+    shape = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
+    model = lm.init_params(cfg32, seed=0, device="cuda", trainable=True)
+    tokens, labels, _ = train_check_inputs(cfg32, seed=21)
+    loss_ref, _ = lm.forward_train(cfg32, model, tokens, labels)
+    loss_ref.backward()
+    loss_ref = loss_ref.detach()
+    ref_grads = {n: p.grad for n, p in model.named_parameters()}
+    sspecs = tspecs.state_specs(cfg32, shape)
+    blocks = elastic.reshard_params(model, cfg32, mesh)
+    empty = AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"), {}, {}, {})
+    state = elastic.ShardedState(blocks, empty, {}, sspecs, coord)
+    step = make_train_step(cfg32, train_tcfg(), mesh=mesh, mode="pjit")
+    tp_reset()
+    shapes = []
+    with recorded_flash_shapes(shapes):
+        loss, _, grads = step.gradients(state, tokens, labels)
+    launches = tp_counts()
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "queue_dispatch": 0}
+    check(launches == want, f"9t fp32 gradients: launches {launches}, want {want}")
+    rel = {}
+    for n, g in grads.items():
+        mine = ref_grads[n][elastic.shard_slices(ref_grads[n].shape, sspecs.params[n], shape,
+                                                 coord)]
+        rel[n] = float((g - mine).abs().max() / ref_grads[n].abs().max().clamp_min(1e-30))
+    names = list(rel)
+    worst_all = torch.tensor([rel[n] for n in names], device="cuda")
+    torch.distributed.all_reduce(worst_all, op=torch.distributed.ReduceOp.MAX)
+    rel = dict(zip(names, worst_all.tolist()))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    check(worst[0][1] <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_GRAD_TOL,
+          f"9t fp32 gradients: {worst[0][0]} differs by {worst[0][1]!r} (relative), the loss by "
+          f"{loss_rel!r}")
+    row = {"grads_fp32": {"seq": TRAIN_CHECK_SEQ, "loss_tp": float(loss),
+                          "loss_single": float(loss_ref), "loss_rel_err": loss_rel,
+                          "tensors": len(rel), "max_rel_err": worst[0][1], "worst": worst[:5],
+                          "tol": TRAIN_GRAD_TOL, "launches": launches,
+                          "k5_shapes": sorted(set(shapes))}}
+    del model, ref_grads, blocks, state, grads, loss_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 run: the seed-0 state's blocks (init_train_state's, cut)
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    blocks = elastic.reshard_params(model, cfg, mesh)
+    del model
+    torch.cuda.empty_cache()
+    opt_state = AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"),
+                           {n: b.float() for n, b in blocks.items()},
+                           {n: torch.zeros(b.shape, device="cuda") for n, b in blocks.items()},
+                           {n: torch.zeros(b.shape, device="cuda") for n, b in blocks.items()})
+    state = elastic.ShardedState(blocks, opt_state, {}, tspecs.state_specs(cfg, shape), coord)
+    step = make_train_step(cfg, train_tcfg(), mesh=mesh, mode="pjit")
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(TP_TRAIN_STEPS):
+        tp_reset()
+        shapes = []
+        with recorded_flash_shapes(shapes):
+            state, m, ms = timed_step(step, state, batch_on_card(pipe, s))
+        got = tp_counts()
+        want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "queue_dispatch": 0}
+        check(got == want, f"9t bf16 train step {s}: launches {got}, want {want}")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), f"9t bf16 step {s}: {m}")
+        plain, floor = phase9["steps"][s], phase9["floor"][s]
+        versus = {}
+        for k in ("loss", "grad_norm"):
+            tol = max(DP_EQ_RTOL * abs(plain[k]), FLOOR_FACTOR * floor[k])
+            diff = abs(m[k] - plain[k])
+            versus[k] = {"diff": diff, "tol": tol, "floor": floor[k]}
+            check(diff <= tol, f"9t bf16 pjit step {s}: {k} {m[k]!r}, phase 9's plain step "
+                  f"{plain[k]!r}; tolerance {tol!r}, floor {floor[k]!r}")
+        steps.append({"step": s, **m, "ms": ms, "launches": got, "collectives": tp_collectives(),
+                      "k5_shapes": sorted(set(shapes)), "phase9_loss": plain["loss"],
+                      "phase9_grad_norm": plain["grad_norm"], "versus_phase9": versus})
+    bh = (TRAIN_BATCH * cfg.n_heads // TP_RANKS, TRAIN_BATCH * cfg.n_kv_heads // TP_RANKS)
+    check(all(r["k5_shapes"] == [bh] for r in steps), f"9t bf16 steps: K5 shapes "
+          f"{[r['k5_shapes'] for r in steps]}, want {bh}")
+    row["train_bf16"] = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "step_ms": float(np.median([r["ms"] for r in steps[1:]]))}
+    del state, step, blocks, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_rank(rank: int, world: int, out_dir: str, spawned_at: float) -> None:
+    """One of TP_RANKS ranks spawned on the one card: gloo over its CUDA
+    tensors, mesh (data 1, model TP_RANKS); the serving and training checks
+    of qwen3-1.7b, then the serving checks of mixtral-8x7b and hymba-1.5b
+    at TP_FAMILY_LAYERS layers, against the references the parent wrote to
+    ``out_dir``; writes its rows, peak memory and clock stamps there."""
+    started_s = time.time() - spawned_at
+    refs = torch.load(os.path.join(out_dir, "refs.pt"))  # written by this script
+    with open(os.path.join(out_dir, "phase9.json")) as f:
+        phase9 = json.load(f)
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'store')}", rank=rank,
+        world_size=world)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        stamps = {"started": started_s, "group": time.time() - spawned_at}
+        mesh = make_host_mesh(model=TP_RANKS, device_type="cuda")
+        cfg = get_config(LM_ARCH)
+        rows = {"serve": [tp_serve_checks(cfg, mesh, refs[LM_ARCH], 0, timed=True)]}
+        stamps["serving"] = time.time() - spawned_at
+        rows["train"] = tp_train_checks(cfg, mesh, phase9)
+        stamps["training"] = time.time() - spawned_at
+        for arch in TP_FAMILIES:
+            fcfg = tp_layers_cfg(arch)
+            moe_layers = fcfg.n_layers if fcfg.family == "moe" else 0
+            rows["serve"].append(tp_serve_checks(fcfg, mesh, refs[arch], moe_layers, timed=False))
+            stamps[arch] = time.time() - spawned_at
+        stamps["done"] = time.time() - spawned_at
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "rows": rows, "stamps": stamps,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_tp_ranks(out_dir: str) -> list:
+    """Spawn TP_RANKS ranks on the card; fail (killing the rest) when one
+    raises or they outlast TP_TIMEOUT_S.  Returns each rank's record."""
+    ctx = torch.multiprocessing.start_processes(
+        tp_rank, args=(TP_RANKS, out_dir, time.time()), nprocs=TP_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"phase 9t: ranks still running after {TP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    records = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def tp_world1_graph(cfg, smi: str, phase6_tokens: list) -> dict:
+    """The mesh decode step at world 1 over NCCL, mesh (1, 1): phase 6's
+    serving request (LM_BATCH x LM_PROMPT + LM_NEW, greedy) through the
+    mesh prefill and the mesh decode step, which replays one CUDA graph
+    with its collectives; its tokens bit for bit phase 6's single-card
+    graph's."""
+    with gate.world1_group("cuda"):
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        model = lm.init_params(cfg, seed=0, device="cuda")
+        tm = serve_loop.shard_model(cfg, model, mesh)
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+        graphs.reset()
+        prefill = serve_loop.make_prefill_fn(cfg, mesh, LM_BATCH, LM_PROMPT + LM_NEW)
+        step = serve_loop.make_serve_step(cfg, mesh, LM_BATCH)
+        logits, state = prefill(tm, prompts)
+        tok = logits.argmax(dim=-1, keepdim=True)
+        outs = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_NEW - 1):
+            logits, state = step(tm, tok, state)
+            tok = logits.argmax(dim=-1, keepdim=True)
+            outs.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (LM_NEW - 1) * 1e3
+        tokens = torch.cat(outs, dim=1).tolist()
+        captures = graphs.STATS["captures"]
+        check(captures == 1, f"9t world 1: {captures} graphs captured, want the decode graph")
+        check(tokens == phase6_tokens, "9t world 1: the mesh graph's tokens differ from phase 6's")
+        del tm, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_NEW - 1, "captures": captures,
+           "decode_ms_per_step": ms, "tokens_equal_phase6": True}
+    log(f"  world 1 over NCCL, mesh (1, 1): the mesh decode step replays one graph; "
+        f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW} tokens equal phase 6's single-card graph's bit for "
+        f"bit; decode {ms!r} ms/step ({smi})")
+    return row
+
+
+def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
+    """Phase 9t: the LM's tensor-parallel path on TP_RANKS gloo ranks
+    sharing the card, then the mesh decode graph at world 1 over NCCL;
+    ``floor`` is phase 9c's, of phase 9's plain steps."""
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="phase9t-", dir=os.path.join(ROOT, "build"))
+    try:
+        refs = {LM_ARCH: tp_references(get_config(LM_ARCH))}
+        for arch in TP_FAMILIES:
+            refs[arch] = tp_references(tp_layers_cfg(arch))
+        # Large inputs go through a file (spawn arguments pass through a pipe).
+        torch.save(refs, os.path.join(out_dir, "refs.pt"))
+        with open(os.path.join(out_dir, "phase9.json"), "w") as f:
+            json.dump({"steps": [{k: r[k] for k in ("loss", "grad_norm")}
+                                 for r in trained["steps"]], "floor": floor}, f)
+        del refs
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks share the card
+        refs_s = time.perf_counter() - t0
+        records = spawn_tp_ranks(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0 - refs_s
+    for rec in records:
+        r = rec["rank"]
+        for row in rec["rows"]["serve"]:
+            log(f"  rank {r} {row['arch']} ({row['layers']} layers): fp32 1 x {LM_CHECK_PROMPT} + "
+                f"{LM_CHECK_STEPS} max_abs_err {row['fp32_max_abs_err']!r} (tolerance "
+                f"{LM_CHECK_TOL}; largest logit {row['logit_scale']!r}); bf16 {LM_BF16_CHECK_BATCH} "
+                f"x {LM_CHECK_PROMPT} RMS {row['bf16_rms']!r} vs the naive single-card route's "
+                f"{row['bf16_naive_rms']!r}: ratio {row['bf16_rms_ratio']!r} (tolerance "
+                f"{LM_BF16_ROUTE_RATIO}); launches a prefill {row['prefill_launches']}, a decode "
+                f"step {row['decode_launches']}")
+            if "serving" in row:
+                sv = row["serving"]
+                log(f"    serving {sv['batch']} x {sv['prompt']}: prefill {sv['prefill_s']!r} s "
+                    f"({sv['prefill_tok_per_s']!r} tok/s), decode {sv['decode_ms_per_step']!r} "
+                    f"ms/step over {sv['decode_steps']} steps; K5 {sv['k5_per_prefill']} a "
+                    f"prefill at (B*H, B*Hkv) {sv['k5_shapes']}; collectives a prefill "
+                    f"{sv['prefill_collectives']}, a decode step "
+                    f"{sv['decode_collectives_per_step']} ({smi})")
+        tr = rec["rows"]["train"]
+        g = tr["grads_fp32"]
+        log(f"  rank {r} {LM_ARCH} fp32 gradients 1 x {g['seq']}: loss {g['loss_tp']!r} vs "
+            f"{g['loss_single']!r} single-card; {g['tensors']} tensors, largest relative error "
+            f"{g['max_rel_err']!r} ({g['worst'][0][0]}; tolerance {g['tol']}); launches "
+            f"{g['launches']} at {g['k5_shapes']}")
+        for s in tr["train_bf16"]["steps"]:
+            vs = s["versus_phase9"]
+            log(f"  rank {r} bf16 pjit step {s['step']}: loss {s['loss']!r} (phase 9's plain step "
+                f"{s['phase9_loss']!r}; |diff| {vs['loss']['diff']!r}, tolerance "
+                f"{vs['loss']['tol']!r}), grad_norm {s['grad_norm']!r} "
+                f"({s['phase9_grad_norm']!r}; |diff| {vs['grad_norm']['diff']!r}, tolerance "
+                f"{vs['grad_norm']['tol']!r}), {s['ms']!r} ms, launches {s['launches']} at "
+                f"{s['k5_shapes']}, collectives {s['collectives']}")
+        log(f"  rank {r}: peak memory {rec['peak_bytes']} bytes (bf16 training "
+            f"{tr['train_bf16']['peak_bytes']}), step {tr['train_bf16']['step_ms']!r} ms; stamps "
+            f"{rec['stamps']} ({smi})")
+    serve_rows = [rec["rows"]["serve"][0]["serving"] for rec in records]
+    check(all(sv["tokens"] == serve_rows[0]["tokens"] for sv in serve_rows),
+          "9t: the ranks' greedy tokens differ")
+    world1 = tp_world1_graph(get_config(LM_ARCH), smi, phase6_tokens)
+    return {"ranks": records, "world1": world1, "refs_s": refs_s, "ranks_s": ranks_s,
+            "seconds": time.perf_counter() - t0,
+            "launches": {"flash_attention": records[0]["rows"]["serve"][0]["prefill_launches"][
+                "flash_attention"],
+                "flash_attention_bwd": records[0]["rows"]["train"]["train_bf16"]["steps"][0][
+                    "launches"]["flash_attention_bwd"],
+                "queue_dispatch": records[0]["rows"]["serve"][1]["prefill_launches"][
+                    "queue_dispatch"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -3944,6 +4442,18 @@ def main() -> int:
     log(f"    [9c] done at {time.perf_counter() - t_start:.1f} s (the phase "
         f"{checkpointed['seconds']!r} s)")
 
+    log(f"[9t] the model axis: {LM_ARCH} at full width and depth, then "
+        f"{', '.join(TP_FAMILIES)} at {TP_FAMILY_LAYERS} layers, on {TP_RANKS} gloo ranks sharing "
+        f"this card, mesh (data 1, model {TP_RANKS}); then the mesh decode graph at world 1 over "
+        f"NCCL")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_floor = next(row["floor"] for row in checkpointed["dp"] if row["compression"] is None)
+    tensor_parallel = tp_phase(smi, trained, dp_floor, lm_served["tokens"])
+    log(f"    [9t] done at {time.perf_counter() - t_start:.1f} s (the phase "
+        f"{tensor_parallel['seconds']!r} s: references {tensor_parallel['refs_s']!r} s, ranks "
+        f"{tensor_parallel['ranks_s']!r} s)")
+
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
                 "forest_descend_delta": "Hrz membership",
@@ -3983,6 +4493,7 @@ def main() -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": lm_served["flash_launches"],
+        "tp_launches": tensor_parallel["launches"]["flash_attention"],
         "mismatches": sum(r["mismatches"] for r in flash_checks),
         "max_abs_err": max(r["max_abs_err"] for r in flash_checks),
         "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
@@ -4008,6 +4519,7 @@ def main() -> int:
         "replaces": FLASH_BWD_REPLACES,
         "replaces_note": "no TPU kernel: the JAX package differentiates _blockwise_attn with XLA",
         "launches": trained["launches"]["flash_attention_bwd"],
+        "tp_launches": tensor_parallel["launches"]["flash_attention_bwd"],
         "device_kernels_per_launch": trained["bwd_device_kernels_per_launch"],
         "device_kernel_counts": trained["device_kernel_counts"],
         "mismatches": sum(r[n]["mismatches"] for r in bwd_checks for n in ("dq", "dk", "dv")),
@@ -4033,6 +4545,7 @@ def main() -> int:
         "replaces": QD_REPLACES,
         "launches": moe_served["k4_launches"],
         "sharded_launches": sharded["launches"]["queue_dispatch"],
+        "tp_launches": tensor_parallel["launches"]["queue_dispatch"],
         "mismatches": AGREEMENT["queue_dispatch"]["mismatches"],
         "max_abs_err": AGREEMENT["queue_dispatch"]["max_abs_err"],
         "ms": qd_timing[0]["ms"],
@@ -4066,7 +4579,7 @@ def main() -> int:
                        "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
                        **moe, "families": families, "training": training,
-                       "checkpoints": checkpointed,
+                       "checkpoints": checkpointed, "tensor_parallel": tensor_parallel,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,9 @@ made while a graph is captured records the kernel without running it.  So
 each graph keeps the wrapper calls its capture made (``held``); they are
 added to ``CAPTURED`` once, and to ``REPLAYED`` at every replay.
 ``kernel_runs()`` is what ran on the card: ``LAUNCHES - CAPTURED +
-REPLAYED`` per kernel.
+REPLAYED`` per kernel.  The model axis's collectives (``sharding/tp.py``'s
+``STATS``) count what ran in the same way: a capture takes its calls and
+bytes back out (nothing ran), and every replay adds them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch.kernels import bst_search, flash_attention, queue_dispatch
+from repro_torch.sharding import tp
 
 _COUNTERS = (bst_search.LAUNCHES, queue_dispatch.LAUNCHES, flash_attention.LAUNCHES)
 
@@ -71,6 +74,15 @@ def live() -> int:
     return len(_live)
 
 
+def _collective_counts() -> Dict[tuple, int]:
+    return {(op, field): n for op, row in tp.STATS.items() for field, n in row.items()}
+
+
+def _add_collectives(counts: Dict[tuple, int], sign: int) -> None:
+    for (op, field), n in counts.items():
+        tp.STATS[op][field] += sign * n
+
+
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
     """One stream per device for every warm-up and capture, so that
     per-stream state (cuBLAS workspaces) is set up once, by a warm-up."""
@@ -111,6 +123,7 @@ class Graph:
             if warmup:
                 fn()
             before = launch_counts()
+            collectives_before = _collective_counts()
             t0 = time.perf_counter()
             self._graph = torch.cuda.CUDAGraph()
             # No collection inside the capture: a collected graph's teardown
@@ -139,6 +152,10 @@ class Graph:
         self.held = {name: after[name] - before[name] for name in after if after[name] != before[name]}
         for name, n in self.held.items():
             CAPTURED[name] += n
+        # the model axis's collectives recorded, not run: counted at replay
+        self.collectives = {key: n - collectives_before[key]
+                            for key, n in _collective_counts().items()}
+        _add_collectives(self.collectives, -1)
         STATS["captures"] += 1
         STATS["capture_s"] += seconds
         for watch in WATCHERS:
@@ -150,4 +167,5 @@ class Graph:
         self._graph.replay()
         for name, n in self.held.items():
             REPLAYED[name] += n
+        _add_collectives(self.collectives, 1)
         return self.out

@@ -14,11 +14,20 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import tp
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             axis: Optional[tp.Axis] = None) -> torch.Tensor:
+    """RMS norm over the last dim; with ``axis``, that dim is split over
+    its ranks (``x`` and ``scale`` this rank's block) and the mean of
+    squares spans them."""
     dt = x.dtype
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if axis is None or axis.size == 1:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum_over((xf * xf).sum(dim=-1, keepdim=True), axis) / (x.shape[-1] * axis.size)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
@@ -50,8 +59,12 @@ def swiglu(
     return h @ w_down
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          axis: Optional[tp.Axis] = None) -> torch.Tensor:
+    """``table[tokens]``; with ``axis``, ``table`` is this rank's vocab block."""
+    if axis is None or axis.size == 1:
+        return table[tokens]
+    return tp.embed(tokens, table, axis)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -60,11 +73,15 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def _xent_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
-                mc: Optional[torch.Tensor]) -> torch.Tensor:
-    """The summed (masked) NLL of one chunk: (B, c, D) states, (B, c) labels."""
-    logits = (xc @ head.t()).float()  # (B, c, V), the product in the parameter dtype
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+                mc: Optional[torch.Tensor], axis: Optional[tp.Axis] = None) -> torch.Tensor:
+    """The summed (masked) NLL of one chunk: (B, c, D) states, (B, c)
+    labels; with ``axis``, ``head`` is this rank's vocab block."""
+    if axis is None:
+        logits = (xc @ head.t()).float()  # (B, c, V), the product in the parameter dtype
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    else:  # (B, c, V / m) here; the statistics summed over the ranks
+        logz, gold = tp.xent_terms((tp.copy_in(xc, axis) @ head.t()).float(), lc, axis)
     nll = logz - gold
     if mc is not None:
         nll = nll * mc.float()
@@ -77,6 +94,7 @@ def chunked_softmax_xent(
     labels: torch.Tensor,  # (B, S) integer
     chunk: int,
     mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    axis: Optional[tp.Axis] = None,  # the model axis of a vocab-split head
 ) -> torch.Tensor:
     """Mean next-token CE with sequence-chunked logits, a 0-d fp32 tensor.
 
@@ -85,15 +103,18 @@ def chunked_softmax_xent(
     the backward computes that chunk's logits again; the peak of live
     logits is (B, chunk, V) fp32 (and their gradient), the JAX package's
     promise.  A sequence that ``chunk`` does not divide is one chunk, as
-    there."""
+    there.  With ``axis`` the head is a vocab block and each chunk's
+    logits are (B, chunk, V / m)."""
     B, S, _ = x.shape
+    if axis is not None and axis.size == 1:
+        axis = None
     if S % chunk:
         chunk = S  # degenerate/smoke shapes
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
         cols = slice(c0, c0 + chunk)
         mc = None if mask is None else mask[:, cols]
-        tot = tot + checkpoint(_xent_chunk, x[:, cols], head, labels[:, cols], mc,
+        tot = tot + checkpoint(_xent_chunk, x[:, cols], head, labels[:, cols], mc, axis,
                                use_reentrant=False, preserve_rng_state=False)
     if mask is None:
         return tot / max(B * S, 1)

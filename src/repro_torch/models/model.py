@@ -23,6 +23,15 @@ as in the JAX package and are updated in place, and the decode position is
 one device scalar that every cache shares and the step advances in place,
 so the step reads nothing on the host and one CUDA graph of it serves every
 position (``serving/serve_loop.py``).
+
+A tensor-parallel model (``serving/serve_loop.py``'s and
+``training/train_loop.py``'s mesh steps build one from a placed state) is a
+``Model`` whose tensors are this rank's blocks, with ``sharding/tp.py``'s
+context attached (``tp.attach``): each module finds its split weights and
+collectives through it, the embedding and the head are vocab blocks where
+the vocab divides, and the logits of ``prefill`` and ``decode_step`` are
+this rank's vocab block.  Its decode state is cut the same way, by
+``decode_state_specs`` (``serving/serve_loop.py`` makes it).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import tp
 
 INIT_SCALE = 0.02
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -110,6 +120,11 @@ class Model(nn.Module):
     def head_table(self) -> torch.Tensor:
         return getattr(self, "head", self.embed)
 
+    def vocab_axis(self) -> Optional[tp.Axis]:
+        """The model axis when the embedding and head are vocab blocks."""
+        shard = getattr(self, "tp", None)
+        return shard.axis if shard is not None and shard.vocab_split() else None
+
 
 # ------------------------------------------------------------------ param init
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", trainable: bool = False) -> Model:
@@ -148,7 +163,11 @@ def _mix_ffn(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor):
         out, dropped = moe.moe_ffn(cfg, lp.moe, h)
         lp.moe.dropped.copy_(dropped.detach())
         return out, dropped
-    return layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down), 0.0
+    shard = tp.get(lp.mlp)  # F blocks: a column block, then a row block's partial sums
+    if shard is not None:
+        h = tp.copy_in(h, shard.axis)
+    out = layers.swiglu(h, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+    return (out if shard is None else tp.reduce_out(out, shard.axis)), 0.0
 
 
 def _decoder_layer_full(
@@ -210,7 +229,7 @@ def _embed_inputs(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
                   frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """The decoder's input (B, S, D): the tokens' embeddings, the first
     ``flen`` positions replaced by the vlm frontend's patch embeddings."""
-    x = layers.embed(tokens, model.embed)
+    x = layers.embed(tokens, model.embed, model.vocab_axis())
     if cfg.family == "vlm" and frontend_embeds is not None:
         flen = frontend_embeds.shape[1]
         if flen > tokens.shape[1]:
@@ -259,7 +278,7 @@ def forward_train(
             raise ValueError(f"{cfg.name}: the encdec forward needs frontend_embeds, the "
                              f"encoder's frames")
         enc_out = _run_encoder(cfg, model, frontend_embeds, remat=cfg.remat)
-        x = layers.embed(tokens, model.embed)
+        x = layers.embed(tokens, model.embed, model.vocab_axis())
     else:
         x = _embed_inputs(cfg, model, tokens, frontend_embeds)
 
@@ -273,7 +292,8 @@ def forward_train(
     mask = None
     if cfg.family == "vlm" and frontend_embeds is not None:
         mask = positions >= frontend_embeds.shape[1]
-    loss = layers.chunked_softmax_xent(x, model.head_table(), labels, cfg.logit_chunk, mask)
+    loss = layers.chunked_softmax_xent(x, model.head_table(), labels, cfg.logit_chunk, mask,
+                                       model.vocab_axis())
     return loss, {"loss": loss, "moe_dropped": aux / max(cfg.n_layers, 1)}
 
 
@@ -368,12 +388,12 @@ def decode_step(
     """One serving step: (B, 1) tokens -> (B, V) logits and the advanced
     state.  The caches and the position in ``state`` are advanced in place
     (the JAX package donates them), so the returned state is ``state``."""
-    x = layers.embed(tokens, model.embed)
+    x = layers.embed(tokens, model.embed, model.vocab_axis())
     pos, kv, sm, cross = state.position, state.kv, state.ssm, state.cross_kv
     for i, lp in enumerate(model.layers):
         x = _decoder_layer_decode(
             cfg, lp, x,
-            None if kv is None else attn.KVCache(kv.k[i], kv.v[i], pos),
+            None if kv is None else attn.KVCache(kv.k[i], kv.v[i], pos, kv.seq_axis),
             None if sm is None else ssm.SSMCache(sm.conv[i], sm.state[i], pos),
             None if cross is None else (cross[0][i], cross[1][i]),
         )
@@ -413,13 +433,12 @@ def prefill(
                              f"encoder's frames")
         enc_out = _run_encoder(cfg, model, frontend_embeds)
         memory_len = enc_out.shape[1]
-        x = layers.embed(tokens, model.embed)
+        x = layers.embed(tokens, model.embed, model.vocab_axis())
     else:
         x = _embed_inputs(cfg, model, tokens, frontend_embeds)
-    if out is None:
-        state = make_decode_state(cfg, B, C, tokens.device, memory_len)
-    else:
-        state = out
+    state = make_decode_state(cfg, B, C, tokens.device, memory_len) if out is None else out
+    # (a tensor-parallel model's state holds its rank's blocks, cut by its serve loop)
+    if out is not None and getattr(model, "tp", None) is None:
         want = {k: tuple(t.shape) for k, t in
                 state_tensors(make_decode_state(cfg, B, C, "meta", memory_len)).items()}
         got = {k: tuple(t.shape) for k, t in state_tensors(state).items()}
@@ -430,11 +449,16 @@ def prefill(
         mem = None if enc_out is None else attn.project_cross_kv(cfg, lp.cross, enc_out)
         x, kv, sc, _ = _decoder_layer_full(cfg, lp, x, positions, causal=True, memory_kv=mem)
         if kv is not None:
+            seq = state.kv.seq_axis
+            if seq is not None:  # every kv head of this rank's slots
+                kv = tuple(attn.all_heads(cfg, lp.attn, t, kv=True) for t in kv)
             ck, cv = _ring_pack(*kv, W, S)
+            if seq is not None:
+                ck, cv = seq.block(ck, 1), seq.block(cv, 1)
             state.kv.k[i].copy_(ck)
             state.kv.v[i].copy_(cv)
         if sc is not None:
-            state.ssm.conv[i].copy_(sc.conv)
+            state.ssm.conv[i].copy_(ssm.whole_tail(cfg, lp.ssm, sc.conv))
             state.ssm.state[i].copy_(sc.state)
         if mem is not None:
             state.cross_kv[0][i].copy_(mem[0])

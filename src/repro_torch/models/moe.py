@@ -14,10 +14,17 @@ throughput.  Both of the paper's mappings are exposed (``core/buffers.py``):
   * ``direct``: slot = the item's position modulo capacity; a token can be
     dropped while its expert's buffer still has free slots.
 
-Dispatch and combine are gathers on (E, C) buffers.  The slice runs on one
-card, so the JAX package's sharding constraints (``_ambient_dp_axes``) are
-left out; the dispatch groups stay, since they set the capacity and so the
-drops.  The expert products run as one batched matrix product per weight
+Dispatch and combine are gathers on (E, C) buffers.  The dispatch groups
+set the capacity and so the drops.  Under tensor parallelism
+(``sharding/tp.py``) the router stays replicated, so K4 plans the same
+dispatch on every rank of the model axis; ``w_gate``/``w_up``/``w_down``
+are F blocks of every expert, whose products give partial sums that
+``reduce_out`` completes.  Where the batch rows are split over the data
+axes, a rank's rows form whole dispatch groups when the group count
+splits over them (the JAX package pins the groups to its DP axes); else a
+group spans the ranks, and each rank gathers the batch's rows, dispatches
+the whole groups and keeps its rows' outputs, as GSPMD replicates a group
+dim it cannot split.  The expert products run as one batched matrix product per weight
 (``torch.bmm`` over the experts), as the JAX package leaves its einsums to
 XLA.  Two details differ from a literal copy and give the JAX package's
 answers: the top-k choice is a stable descending sort (``top_k``), and the
@@ -36,6 +43,7 @@ from torch import nn
 from repro_torch.core import buffers as buf
 from repro_torch.kernels import queue_dispatch as QD
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import tp
 
 
 def moe_params_shape(cfg: ModelConfig):
@@ -93,6 +101,21 @@ def moe_ffn(cfg: ModelConfig, params: MoE, x: torch.Tensor) -> Tuple[torch.Tenso
     ``B·S % G``; both give this reshape.)"""
     B, S, D = x.shape
     G = cfg.moe_groups or 1
+    shard = getattr(params, "tp", None)
+    dp = shard.owner.dp if shard is not None and shard.owner.rows_split else tp.SINGLE
+    if dp.size > 1:  # the batch's rows are split over the data axes
+        if G > 1 and (B * dp.size * S) % G == 0 and G % dp.size == 0:
+            G //= dp.size  # this rank's rows are G / n of the groups, whole
+        else:  # a group spans the ranks: dispatch the whole batch, keep these rows
+            out, dropped = moe_ffn_rows(cfg, params, tp.gather_rows(x, dp), G)
+            return dp.block(out, 0), dropped
+    return moe_ffn_rows(cfg, params, x, G)
+
+
+def moe_ffn_rows(cfg: ModelConfig, params: MoE, x: torch.Tensor, G: int):
+    """``moe_ffn`` of the rows ``x`` (B, S, D) in ``G`` dispatch groups
+    (one where G does not divide B·S)."""
+    B, S, D = x.shape
     if G > 1 and (B * S) % G == 0:
         xg = x.reshape(G, (B * S) // G, D)
     else:
@@ -104,6 +127,9 @@ def moe_ffn(cfg: ModelConfig, params: MoE, x: torch.Tensor) -> Tuple[torch.Tenso
 def _moe_grouped(cfg: ModelConfig, p: MoE, xg: torch.Tensor):
     G, Tg, D = xg.shape
     E, K = cfg.n_experts, cfg.top_k
+    shard = tp.get(p)
+    if shard is not None:
+        xg = tp.copy_in(xg, shard.axis)
     logits = (xg @ p.router).float()
     gates, experts = top_k(logits, K)  # (G, Tg, K)
     gates = torch.softmax(gates, dim=-1)
@@ -135,5 +161,7 @@ def _moe_grouped(cfg: ModelConfig, p: MoE, xg: torch.Tensor):
     w = gates.transpose(1, 2)  # (G, K, Tg), fp32
     w = torch.where(slot >= 0, w, 0.0)
     out = (picked.float() * w[..., None]).sum(dim=1)  # (G, Tg, D)
+    if shard is not None:  # each rank's F block gave a partial sum
+        out = tp.reduce_out(out, shard.axis)
     dropped = 1.0 - plan.kept.sum() / max(dest.numel(), 1)
     return out, dropped

@@ -8,13 +8,17 @@ returns the masters cast to the compute dtype.  The step counter and the
 learning rate are device tensors: nothing here reads a value on the host.
 Where the JAX package returns new arrays, ``adamw_update`` updates the
 masters and moments in place (the JAX train step donates its state), which
-saves a second copy of all three.
+saves a second copy of all three.  Under tensor parallelism the lists hold
+a rank's blocks (``clip_by_global_norm`` sums the split ones' squares over
+the model axis), and under ZeRO-1 ``adamw_update`` is given the slices of
+the masters, moments and gradients this rank keeps
+(``training/train_loop.py`` gathers the parameters after it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,11 +55,23 @@ def cosine_schedule(
 
 
 def clip_by_global_norm(
-    grads: Sequence[torch.Tensor], max_norm: float
+    grads: Sequence[torch.Tensor], max_norm: float, split: Optional[Sequence[bool]] = None,
+    axis=None,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The gradients in fp32 scaled to a global norm of at most
-    ``max_norm``, and that norm before clipping (a 0-d device tensor)."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    ``max_norm``, and that norm before clipping (a 0-d device tensor).
+
+    Over blocks (tensor parallelism): ``split[i]`` says that ``grads[i]``
+    is this rank's block of a tensor split over ``axis``
+    (``sharding/tp.Axis``); the split tensors' squares are summed over the
+    axis (one all-reduce) and a replicated tensor's counted once."""
+    if split is None or axis is None or axis.size == 1:
+        gn = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        parts = sum((g.float().square().sum() for g, s in zip(grads, split) if s), zero)
+        whole = sum((g.float().square().sum() for g, s in zip(grads, split) if not s), zero)
+        gn = torch.sqrt(axis.all_reduce(parts) + whole)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return [g.float() * scale for g in grads], gn
 

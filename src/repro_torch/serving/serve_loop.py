@@ -10,11 +10,26 @@ states, the encdec cross memory -- and the position) and its static tokens
 and logits, and the prefill writes its caches into that state.  Prefill
 itself runs eagerly: it is bound by its device work, not by launches.  On
 the CPU both run eagerly, and ``eager=True`` asks for the eager route on
-the card too, to hold the graph against it.  A ``mesh`` (sharded serving)
-raises ``NotImplementedError``: it is still to port (ROADMAP.md Queue 1
-item 9).  ``greedy_generate`` is the batched greedy decoding loop.  The
-families with a frontend (encdec, vlm) take its stub embeddings beside the
-tokens, as the JAX package's serve loop does.
+the card too, to hold the graph against it.  ``greedy_generate`` is the
+batched greedy decoding loop.  The families with a frontend (encdec, vlm)
+take its stub embeddings beside the tokens, as the JAX package's serve
+loop does.
+
+With a ``mesh`` (a ``DeviceMesh`` over the whole process group, one
+process a device) the steps are the JAX package's sharded ones: the model
+is a tensor-parallel one of this rank's parameter blocks
+(``shard_model``), every rank is given the same global tokens and takes
+its rows where ``specs.batch_dim`` splits the batch over the DP axes, the
+caches are this rank's blocks per ``specs.decode_state_specs`` (the KV
+cache head- or sequence-sharded: the prefill chooses as the JAX package's
+does, ``place_state`` as it is told), and the logits are this
+rank's block per ``specs.logits_spec`` (its rows, its vocab block):
+``gather_logits`` puts them together.  ``place_state`` cuts a whole decode
+state into a rank's blocks, as ``jax.device_put`` with those specs does.
+Over NCCL the mesh decode step is one CUDA graph with its collectives
+(``graphs.Graph(collectives=True)``), as the sharded BST program is; over
+gloo (the CPU, or ranks that share one card) it runs eagerly: gloo's
+collectives run on the host and cannot be captured.
 """
 
 from __future__ import annotations
@@ -24,17 +39,13 @@ import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs
+from repro_torch.checkpoint import elastic
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-
-
-def _single_card(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded LM serving (a mesh) is not ported yet (ROADMAP.md Queue 1 item 9)"
-        )
+from repro_torch.sharding import specs, tp
 
 
 def _addresses(model: M.Model) -> Tuple[int, ...]:
@@ -57,16 +68,21 @@ class DecodeGraph:
     ``model.to(...)``) is stale, and is never replayed."""
 
     def __init__(self, cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
-                 memory_len: Optional[int] = None):
+                 memory_len: Optional[int] = None, mesh: Any = None):
         device = model.embed.device
         self.cfg = cfg
-        self.state = M.make_decode_state(cfg, batch, max_len, device, memory_len)
-        self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+        if mesh is None:
+            self.state = M.make_decode_state(cfg, batch, max_len, device, memory_len)
+            rows, collectives = batch, False
+        else:  # this rank's blocks; the step's collectives are kernels of the graph
+            self.state = mesh_decode_state(cfg, mesh, batch, max_len, device, memory_len)
+            rows, collectives = _rows(mesh, batch).stop - _rows(mesh, batch).start, True
+        self.tokens = torch.zeros((rows, 1), dtype=torch.int64, device=device)
         self.addresses = _addresses(model)
         with torch.cuda.device(device):
             self.graph = graphs.Graph(
                 lambda: M.decode_step(cfg, model, self.tokens, self.state)[0],
-                label=("decode", batch, max_len, memory_len),
+                label=("decode", batch, max_len, memory_len), collectives=collectives,
             )
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -82,17 +98,17 @@ _GRAPHS: "weakref.WeakKeyDictionary[M.Model, Dict[Tuple, DecodeGraph]]" = (
 
 
 def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
-                 memory_len: Optional[int] = None) -> DecodeGraph:
-    """``model``'s decode graph for (cfg, batch, max_len, memory_len),
-    captured at the first call and returned as it is by every later one
-    while the model holds its parameters at the same addresses; otherwise
-    captured anew over the current ones, as the JAX step takes ``params``
-    at every call."""
+                 memory_len: Optional[int] = None, mesh: Any = None) -> DecodeGraph:
+    """``model``'s decode graph for (cfg, batch, max_len, memory_len[,
+    the mesh]), captured at the first call and returned as
+    it is by every later one while the model holds its parameters at the
+    same addresses; otherwise captured anew over the current ones, as the
+    JAX step takes ``params`` at every call."""
     per_model = _GRAPHS.setdefault(model, {})
-    key = (cfg, batch, max_len, memory_len)
+    key = (cfg, batch, max_len, memory_len, mesh is not None)
     g = per_model.get(key)
     if g is None or g.addresses != _addresses(model):
-        per_model[key] = g = DecodeGraph(cfg, model, batch, max_len, memory_len)
+        per_model[key] = g = DecodeGraph(cfg, model, batch, max_len, memory_len, mesh)
     return g
 
 
@@ -117,26 +133,141 @@ def _eager(eager: bool, tokens: torch.Tensor) -> bool:
     return eager or tokens.device.type != "cuda"
 
 
-def make_serve_step(cfg: ModelConfig, mesh: Any = None, *, eager: bool = False) -> Callable:
+def _mesh_eager(eager: bool, tokens: torch.Tensor) -> bool:
+    return eager or not (tokens.device.type == "cuda"
+                         and dist.get_backend() == dist.Backend.NCCL)
+
+
+# ------------------------------------------------------------------ the mesh
+def _rows(mesh: Any, batch: int) -> slice:
+    """This rank's rows of a global serving batch (``specs.batch_dim``)."""
+    shape = specs.mesh_shape(mesh)
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    (rows,) = elastic.shard_slices((batch,), (specs.batch_dim(shape, batch),), shape, coord)
+    return rows
+
+
+def shard_model(cfg: ModelConfig, model: M.Model, mesh: Any) -> M.Model:
+    """The tensor-parallel model of ``model`` on ``mesh``: this rank's
+    blocks of its parameters (``param_specs``) on the mesh's device."""
+    return elastic.sharded_model(cfg, elastic.reshard_params(model, cfg, mesh), mesh)
+
+
+def _cut_state(cfg: ModelConfig, mesh: Any, batch: int, state: M.DecodeState,
+               seq_shard: Optional[bool], make) -> M.DecodeState:
+    """``state``'s tensors cut by ``decode_state_specs``: ``make(tensor,
+    this rank's slices)`` gives each block."""
+    shape = specs.mesh_shape(mesh)
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    sp = specs.decode_state_specs(cfg, shape, batch, seq_shard)
+    want = M.state_tensors(sp)
+
+    def cut(name, t):
+        return make(t, elastic.shard_slices(t.shape, want[name], shape, coord))
+
+    position = make(state.position, ())
+    kv = ssm_c = cross = None
+    if state.kv is not None:
+        seq = tp.mesh_axis(mesh, ("model",)) if specs.seq_sharded(cfg, shape, seq_shard) else None
+        kv = type(state.kv)(cut("kv.k", state.kv.k), cut("kv.v", state.kv.v), position, seq)
+    if state.ssm is not None:
+        ssm_c = type(state.ssm)(cut("ssm.conv", state.ssm.conv), cut("ssm.state", state.ssm.state),
+                                position)
+    if state.cross_kv is not None:
+        cross = (cut("cross_kv.k", state.cross_kv[0]), cut("cross_kv.v", state.cross_kv[1]))
+    return M.DecodeState(kv=kv, ssm=ssm_c, cross_kv=cross, position=position)
+
+
+def mesh_decode_state(cfg: ModelConfig, mesh: Any, batch: int, max_len: int, device,
+                      memory_len: Optional[int] = None) -> M.DecodeState:
+    """Zeroed caches of a global batch of ``batch``: this rank's blocks per
+    ``decode_state_specs`` with the sequence split chosen automatically (a
+    sequence-sharded KV cache carries the model axis as its
+    ``seq_axis``)."""
+    meta = M.make_decode_state(cfg, batch, max_len, "meta", memory_len)
+
+    def make(t, rows):
+        return torch.zeros([s.stop - s.start for s in rows], dtype=t.dtype, device=device)
+
+    return _cut_state(cfg, mesh, batch, meta, None, make)
+
+
+def place_state(cfg: ModelConfig, mesh: Any, batch: int, state: M.DecodeState,
+                seq_shard: Optional[bool] = None) -> M.DecodeState:
+    """A whole decode state (a single-card prefill's) cut into copies of
+    this rank's blocks per ``decode_state_specs(seq_shard)``."""
+    return _cut_state(cfg, mesh, batch, state, seq_shard, lambda t, rows: t[rows].clone())
+
+
+def gather_logits(cfg: ModelConfig, mesh: Any, batch: int, logits: torch.Tensor) -> torch.Tensor:
+    """The whole (B, V) logits of a mesh step's block (``logits_spec``):
+    the vocab blocks gathered over the model axis, the rows over the DP
+    axes."""
+    shape = specs.mesh_shape(mesh)
+    spec = specs.logits_spec(cfg, shape, batch)
+    if spec[1] is not None:
+        logits = tp.mesh_axis(mesh, ("model",)).all_gather(logits, dim=1)
+    if spec[0] is not None:
+        logits = tp.mesh_axis(mesh, specs.dp_axes(shape)).all_gather(logits, dim=0)
+    return logits
+
+
+def _check_model(model: M.Model) -> None:
+    if getattr(model, "tp", None) is None:
+        raise ValueError("a mesh step runs a tensor-parallel model: build it with "
+                         "shard_model(cfg, model, mesh) (or elastic.sharded_model)")
+
+
+# -------------------------------------------------------------- entry points
+def make_serve_step(cfg: ModelConfig, mesh: Any = None, batch: int = 1,
+                    seq_shard: Optional[bool] = None, *, eager: bool = False) -> Callable:
     """(model, tokens (B, 1), DecodeState) -> (logits (B, V), DecodeState);
     the state's caches and position advance in place.  On a CUDA device
     (unless ``eager``) the step is one replay of the state's decode graph,
     so the state must be the one its prefill wrote (``make_prefill_fn``),
     and the logits are the graph's static buffer: valid until the next
-    step of that graph, as a donated buffer is (clone them to keep them)."""
-    _single_card(mesh)
+    step of that graph, as a donated buffer is (clone them to keep them).
 
-    def step(model, tokens, state):
-        if _eager(eager, tokens):
-            return M.decode_step(cfg, model, tokens, state)
-        graph = _graph_of(cfg, model, state)
-        return graph(tokens), graph.state
+    With ``mesh``: the sharded step of a global batch of ``batch``, the
+    KV cache laid out per ``decode_state_specs(seq_shard)`` (None: auto,
+    as the prefill lays it out; a state of the other layout raises), on a
+    tensor-parallel model; tokens are the global (B, 1) on every rank, the
+    logits this rank's block.  A graph over NCCL (the state its prefill
+    wrote), eager over gloo."""
+    if mesh is None:
+        def step(model, tokens, state):
+            if _eager(eager, tokens):
+                return M.decode_step(cfg, model, tokens, state)
+            graph = _graph_of(cfg, model, state)
+            return graph(tokens), graph.state
 
-    return step
+        return step
+
+    rows = _rows(mesh, batch)
+    split = specs.batch_dim(mesh, batch) is not None
+    seq = specs.seq_sharded(cfg, mesh, seq_shard)
+
+    def mesh_step(model, tokens, state):
+        _check_model(model)
+        if tokens.shape[0] != batch:
+            raise ValueError(f"the mesh step was made for a batch of {batch}, got "
+                             f"{tokens.shape[0]}")
+        if state.kv is not None and (state.kv.seq_axis is not None) != seq:
+            layouts = ("head", "sequence")
+            raise ValueError(f"the mesh step (seq_shard={seq_shard!r}) takes a {layouts[seq]}-"
+                             f"sharded KV cache, the state's is {layouts[not seq]}-sharded")
+        with model.tp.batch_rows(split):
+            if _mesh_eager(eager, tokens):
+                return M.decode_step(cfg, model, tokens[rows], state)
+            graph = _graph_of(cfg, model, state)
+            return graph(tokens[rows]), graph.state
+
+    return mesh_step
 
 
 def make_prefill_fn(
-    cfg: ModelConfig, mesh: Any = None, max_len: Optional[int] = None, *, eager: bool = False
+    cfg: ModelConfig, mesh: Any = None, batch: int = 1, max_len: Optional[int] = None, *,
+    eager: bool = False,
 ) -> Callable:
     """(model, tokens (B, S)[, frontend_embeds]) -> (last-position logits
     (B, V), DecodeState): the frontend's embeddings are the third argument
@@ -144,16 +275,36 @@ def make_prefill_fn(
     D); vlm: the patch embeddings (B, flen, D)), as in the JAX package.  On
     a CUDA device (unless ``eager``) the caches are written into the state
     of the decode graph for (B, ``max_len``, Smem), captured at the first
-    such prefill; a later request of that shape overwrites them."""
-    _single_card(mesh)
+    such prefill; a later request of that shape overwrites them.
+
+    With ``mesh``: the sharded prefill of a global batch of ``batch`` on a
+    tensor-parallel model (the global tokens and frontend on every rank),
+    its cache laid out by ``decode_state_specs`` with the sequence split
+    chosen automatically, as the JAX package's; the logits are this
+    rank's block."""
+    rows = None if mesh is None else _rows(mesh, batch)
+    split = mesh is not None and specs.batch_dim(mesh, batch) is not None
 
     def run(model, tokens, frontend_embeds=None):
-        if _eager(eager, tokens):
-            return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len)
+        if mesh is None:
+            if _eager(eager, tokens):
+                return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len)
+            B, S = tokens.shape
+            memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
+            out = decode_graph(cfg, model, B, max_len or S, memory_len).state
+            return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len, out=out)
+        _check_model(model)
         B, S = tokens.shape
+        if B != batch:
+            raise ValueError(f"the mesh prefill was made for a batch of {batch}, got {B}")
         memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
-        out = decode_graph(cfg, model, B, max_len or S, memory_len).state
-        return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len, out=out)
+        if _mesh_eager(eager, tokens):
+            out = mesh_decode_state(cfg, mesh, batch, max_len or S, tokens.device, memory_len)
+        else:
+            out = decode_graph(cfg, model, batch, max_len or S, memory_len, mesh).state
+        fe = None if frontend_embeds is None else frontend_embeds[rows]
+        with model.tp.batch_rows(split):
+            return M.prefill(cfg, model, tokens[rows], fe, max_len=max_len, out=out)
 
     if cfg.frontend is not None:
         def prefill(model, tokens, frontend_embeds):

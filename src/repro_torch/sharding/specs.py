@@ -23,16 +23,19 @@ so that layer i is held whole by the devices whose coordinate on that axis
 is i // (L / size) -- which no DTensor placement of a single layer's
 tensor can say.
 
-``train_step_shardings``, ``decode_state_specs`` and
-``serve_step_shardings`` belong to the tensor-parallel step and sharded LM
-serving, which are not ported (ROADMAP.md Queue 1 item 9).
+``train_step_shardings`` places the tensor-parallel train step's inputs
+and outputs; ``decode_state_specs`` a ``DecodeState``'s caches (stacked
+(L, ...) as the JAX package's, so each cache's spec is the JAX leaf's
+whole tuple) and ``serve_step_shardings`` the serving step's: what
+``training/train_loop.py``'s ``mode="pjit"`` and
+``serving/serve_loop.py``'s mesh steps cut their tensors by
+(``sharding/tp.py`` computes on those blocks).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-from repro_torch.models import convert
 from repro_torch.models.config import ModelConfig
 
 Entry = Any  # None | str | Tuple[str, ...]
@@ -189,6 +192,8 @@ def _meta_params(cfg: ModelConfig):
 
 def param_specs(cfg: ModelConfig, mesh: Any) -> Dict[str, Spec]:
     """Parameter name -> ``Spec``, in ``named_parameters`` order."""
+    from repro_torch.models import convert
+
     m = _axis(mesh_shape(mesh), "model")
     if cfg.sharding_strategy == "dp_only":
         m = 1  # every _maybe() falls back to replication
@@ -219,6 +224,7 @@ def state_specs(cfg: ModelConfig, mesh: Any):
     """Specs of a ``TrainState``: ``params``, ``opt`` (``step``, and the
     ``master``, ``mu``, ``nu`` name -> ``Spec`` dicts, ZeRO-1 sharded over
     ``data`` when ``cfg.zero1``) and an empty ``error_feedback``."""
+    from repro_torch.models import convert
     from repro_torch.optim.optimizer import AdamWState
     from repro_torch.training.train_loop import TrainState
 
@@ -252,3 +258,93 @@ def batch_specs(cfg: ModelConfig, mesh: Any) -> Dict[str, Spec]:
         "labels": Spec((dp, None)),
         "frontend": Spec((dp, None, None)),
     }
+
+
+def _ndp(shape: Mapping[str, int]) -> int:
+    n = 1
+    for a in ("pod", "data"):
+        n *= shape.get(a, 1)
+    return n
+
+
+def batch_dim(mesh: Any, batch: int) -> Entry:
+    """The serving batch's entry: split over the DP axes when ``batch``
+    divides by their product and there is more than one DP rank, else
+    replicated (the JAX package's ``bdim``)."""
+    shape = mesh_shape(mesh)
+    dp, ndp = dp_axes(shape), _ndp(shape)
+    return _canonical(dp) if (batch % max(ndp, 1) == 0 and ndp > 1) else None
+
+
+def train_step_shardings(cfg: ModelConfig, mesh: Any) -> Dict[str, Any]:
+    """Specs of ``make_train_step(mode="pjit")``'s (state, tokens,
+    labels[, frontend]) and of its (state, metrics)."""
+    ss = state_specs(cfg, mesh)
+    bs = batch_specs(cfg, mesh)
+    ins = (ss, bs["tokens"], bs["labels"])
+    if cfg.frontend is not None:
+        ins = ins + (bs["frontend"],)
+    return {"in": ins, "out": (ss, Spec(()))}
+
+
+def seq_sharded(cfg: ModelConfig, mesh: Any, seq_shard: Optional[bool] = None) -> bool:
+    """Whether the KV cache splits its slots (sequence) over the model
+    axis: ``seq_shard``, or for None (auto) exactly when the kv heads do
+    not split and the axis has more than one rank."""
+    m = _axis(mesh_shape(mesh), "model")
+    if seq_shard is None:
+        return cfg.has_attention and _maybe(cfg.n_kv_heads, m, "model") is None and m > 1
+    return bool(seq_shard)
+
+
+def decode_state_specs(cfg: ModelConfig, mesh: Any, batch: int,
+                       seq_shard: Optional[bool] = None):
+    """Specs of a ``DecodeState``: the batch over DP when it divides, kv
+    heads and SSM heads over model.  ``seq_shard=True`` splits the KV
+    cache's slots over model instead of its kv heads (sequence-parallel
+    decode: each rank owns 1/m of the window, computes a partial softmax,
+    and the ranks combine its statistics); None (auto) seq-shards exactly
+    when the kv heads cannot split (``seq_sharded``).  Each cache entry is
+    the (L, ...) stacked tensor's whole spec; the position is replicated."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import DecodeState
+
+    m = _axis(mesh_shape(mesh), "model")
+    bdim = batch_dim(mesh, batch)
+    kv_head = _maybe(cfg.n_kv_heads, m, "model")
+    seq = seq_sharded(cfg, mesh, seq_shard)
+    position = Spec(())
+    kv = sm = cross = None
+    if cfg.has_attention:
+        if seq:
+            kv = attn_mod.KVCache(k=Spec((None, bdim, "model", None, None)),
+                                  v=Spec((None, bdim, "model", None, None)), length=position)
+        else:
+            kv = attn_mod.KVCache(k=Spec((None, bdim, None, kv_head, None)),
+                                  v=Spec((None, bdim, None, kv_head, None)), length=position)
+    if cfg.family in ("ssm", "hybrid"):
+        sm = ssm_mod.SSMCache(
+            conv=Spec((None, bdim, None, None)),
+            state=Spec((None, bdim, _maybe(cfg.ssm_heads, m, "model"), None, None)),
+            length=position)
+    if cfg.family == "encdec":
+        cross = (Spec((None, bdim, None, kv_head, None)), Spec((None, bdim, None, kv_head, None)))
+    return DecodeState(kv=kv, ssm=sm, cross_kv=cross, position=position)
+
+
+def logits_spec(cfg: ModelConfig, mesh: Any, batch: int) -> Spec:
+    """The serving steps' (B, V) logits: the batch as ``batch_dim``, the
+    vocab over model where it divides."""
+    m = _axis(mesh_shape(mesh), "model")
+    return Spec((batch_dim(mesh, batch), _maybe(cfg.vocab_size, m, "model")))
+
+
+def serve_step_shardings(cfg: ModelConfig, mesh: Any, batch: int,
+                         seq_shard: Optional[bool] = False) -> Dict[str, Any]:
+    """Specs of the mesh decode step's (params, tokens, cache) and of its
+    (logits, cache)."""
+    cache = decode_state_specs(cfg, mesh, batch, seq_shard=seq_shard)
+    toks = Spec((batch_dim(mesh, batch), None))
+    return {"in": (param_specs(cfg, mesh), toks, cache),
+            "out": (logits_spec(cfg, mesh, batch), cache)}

@@ -23,7 +23,22 @@ rows (rank r of n the rows [r B / n, (r + 1) B / n), as ``shard_map``'s
 ``P(axes)`` splits them), accumulates its gradients, sums them over the
 ranks through ``_compress_grads`` ("bf16" or "int8" with error feedback),
 divides by n, averages the loss and metrics, and takes the plain step's
-update.  ``mode="pjit"`` (the tensor-parallel step) is not ported.
+update; a ``ShardedState`` (ZeRO-1, or split parameters) is gathered whole
+first, as the JAX package's ``in_specs=P()`` gathers it.
+
+``mode="pjit"`` is the JAX package's ``pjit`` step written SPMD: each rank
+holds its blocks of the state as ``sharding/specs.py`` places it
+(``elastic.reshard_state``), takes its rows of the global batch over the
+DP axes (of every microbatch, so that the ranks' rows of microbatch i are
+the JAX step's microbatch i), and runs the tensor-parallel model
+(``elastic.sharded_model``, ``sharding/tp.py``'s collectives over the
+model axis).  After the backward it sums over the model axis the
+gradients of the replicated parameters of the split modules (each rank's
+is partial: ``tp.partial_grad_names``), sums every gradient over the DP
+axes and divides by their size, clips by the norm of the blocks, and
+updates: with ZeRO-1 each data rank updates the masters and moments it
+holds and all-gathers the parameters over ``data``.  It ignores gradient
+compression, as the JAX package's pjit step does.
 """
 
 from __future__ import annotations
@@ -41,7 +56,7 @@ from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import optimizer as opt
-from repro_torch.sharding import specs
+from repro_torch.sharding import specs, tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +92,9 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
 
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 MODES = ("pjit", "dp_shard_map")
-# The data-parallel step's collectives since the last reset: calls and the
-# bytes of the tensors they reduce (what each rank puts on the wire).
+# The data-parallel collectives (both steps' sums over the DP ranks) since
+# the last reset: calls and the bytes of the tensors they reduce (what each
+# rank puts on the wire).  The model axis's are ``sharding.tp.STATS``.
 DP_STATS = {"calls": 0, "bytes": 0}
 
 
@@ -86,14 +102,14 @@ def reset_dp_stats() -> None:
     DP_STATS.update(calls=0, bytes=0)
 
 
-def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     DP_STATS["calls"] += 1
     DP_STATS["bytes"] += t.numel() * t.element_size()
-    dist.all_reduce(t, op=op)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def _sum_flat(tensors: List[torch.Tensor], wire: Optional[torch.dtype] = None
+def _sum_flat(tensors: List[torch.Tensor], wire: Optional[torch.dtype] = None, group=None
               ) -> List[torch.Tensor]:
     """``psum`` of every tensor, cast to ``wire`` first if given: one
     all-reduce a dtype over their concatenation (a sum and a cast are
@@ -102,7 +118,7 @@ def _sum_flat(tensors: List[torch.Tensor], wire: Optional[torch.dtype] = None
     for dtype in dict.fromkeys(t.dtype for t in tensors):
         idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        flat = _all_reduce(flat if wire is None else flat.to(wire))
+        flat = _all_reduce(flat if wire is None else flat.to(wire), group=group)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = part.view(tensors[i].shape)
     return out
@@ -178,6 +194,19 @@ def _dp_rows(mesh, batch: int) -> Tuple[slice, int]:
     return rows, n
 
 
+def _grads_of(cfg: ModelConfig, model: M.Model, tokens, labels, frontend):
+    """One forward and backward: (loss, metrics, the parameters' grads)."""
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    loss, metrics = M.forward_train(cfg, model, tokens, labels, frontend)
+    loss.backward()
+    missing = [name for name, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise RuntimeError(f"no gradient reached {missing}")
+    return loss.detach(), metrics, [p.grad for p in params]
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
                     mode: str = "pjit") -> StepFn:
     """``step(state, tokens, labels, frontend=None) -> (state, metrics)`` on
@@ -187,32 +216,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
     * ``mesh=None``: the one-device step.
     * ``mode="dp_shard_map"``: data parallelism over every axis of
       ``mesh`` (a ``DeviceMesh`` over the whole process group), the
-      parameters whole on every rank; every rank is given the same global
-      batch (and frontend), which must split evenly over the ranks.
-    * ``mode="pjit"``: the tensor-parallel step, not ported."""
+      parameters whole on every rank (a ``ShardedState`` is gathered
+      whole first); every rank is given the same global batch (and
+      frontend), which must split evenly over the ranks.
+    * ``mode="pjit"``: tensor and data parallelism (``_make_pjit_step``)
+      on the state ``elastic.reshard_state`` placed on ``mesh`` (a
+      ``ShardedState``, or a whole ``TrainState`` where every spec keeps
+      every tensor whole); every rank is given the same global batch.
+      The step returns the state it was given, its blocks updated in
+      place; ``step.gradients(state, tokens, labels[, frontend])`` gives
+      ``(loss, metrics, gradients)``, the gradients of this rank's blocks
+      by name after the step's sums and before the clip."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (want one of {MODES})")
     if mesh is not None and mode == "pjit":
-        raise NotImplementedError(
-            "the pjit train step (sharded parameters, tensor parallelism) is not ported yet "
-            "(ROADMAP.md Queue 1 items 9 and 13e); mode='dp_shard_map' is")
-
-    def grads_of(model: M.Model, tokens, labels, frontend):
-        """One forward and backward: (loss, metrics, the parameters' grads)."""
-        params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        loss, metrics = M.forward_train(cfg, model, tokens, labels, frontend)
-        loss.backward()
-        missing = [name for name, p in model.named_parameters() if p.grad is None]
-        if missing:
-            raise RuntimeError(f"no gradient reached {missing}")
-        return loss.detach(), metrics, [p.grad for p in params]
+        return _make_pjit_step(cfg, tcfg, mesh)
 
     def accumulate(model: M.Model, tokens, labels, frontend):
         mb = tcfg.microbatches
         if mb == 1:
-            return grads_of(model, tokens, labels, frontend)
+            return _grads_of(cfg, model, tokens, labels, frontend)
         Bl = tokens.shape[0]
         if Bl % mb:
             raise ValueError(f"a batch of {Bl} does not split into {mb} microbatches")
@@ -223,8 +246,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
         metrics: Dict[str, torch.Tensor] = {}
         for i in range(mb):
             rows = slice(i * n, (i + 1) * n)
-            loss, metrics, grads = grads_of(model, tokens[rows], labels[rows],
-                                            None if frontend is None else frontend[rows])
+            loss, metrics, grads = _grads_of(cfg, model, tokens[rows], labels[rows],
+                                             None if frontend is None else frontend[rows])
             for a, g in zip(acc, grads):
                 a.add_(g.float() / mb)
             acc_loss = acc_loss + loss / mb
@@ -261,11 +284,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
 
     def step_dp(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
                 frontend: Optional[torch.Tensor] = None):
-        if not isinstance(state.params, M.Model):
-            raise NotImplementedError(
-                "the data-parallel step takes a state whose every tensor is whole on every rank; "
-                "a sharded state (tensor parallelism, ZeRO-1) waits for the tensor-parallel step "
-                "(ROADMAP.md Queue 1 item 9)")
+        if isinstance(state, elastic.ShardedState):  # the JAX step's in_specs=P()
+            state = elastic.gather_state(state, cfg, mesh)
         rows, n = _dp_rows(mesh, tokens.shape[0])
         loss, metrics, grads = accumulate(state.params, tokens[rows], labels[rows],
                                           None if frontend is None else frontend[rows])
@@ -278,6 +298,139 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
         return finish(state, means[0], means[1], grads, ef)
 
     return step_dp
+
+
+def _check_mesh(mesh) -> Dict[str, int]:
+    if not dist.is_initialized():
+        raise RuntimeError("the pjit step needs a process group: call "
+                           "torch.distributed.init_process_group first")
+    shape = specs.mesh_shape(mesh)
+    if math.prod(shape.values()) != dist.get_world_size():
+        raise ValueError(f"the pjit step's mesh {tuple(shape.values())} must span every one of "
+                         f"the {dist.get_world_size()} ranks of the process group")
+    return shape
+
+
+def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> StepFn:
+    """The tensor-parallel step (``make_train_step``'s ``mode="pjit"``)."""
+    shape = _check_mesh(mesh)
+    sspecs = specs.state_specs(cfg, shape)
+    pspecs, ospecs = sspecs.params, sspecs.opt.master
+    names = list(pspecs)
+    model_axis, dp = elastic.shard_axes(cfg, mesh)
+    partial = tp.partial_grad_names(pspecs, model_axis.size)
+    split = [tp.is_split(pspecs[n]) for n in names]
+    zero = [n for n in names if ospecs[n] != pspecs[n]]  # ZeRO-1 splits their AdamW state
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    full = elastic.param_shapes(cfg)
+    # a ZeRO-1 block's place inside this rank's parameter block
+    inner = {}
+    for n in zero:
+        if elastic.holds(n, ospecs[n], cfg, shape, coord):
+            src = elastic.shard_slices(full[n], ospecs[n], shape, coord)
+            dst = elastic.shard_slices(full[n], pspecs[n], shape, coord)
+            inner[n] = tuple(slice(a.start - b.start, a.stop - b.start) for a, b in zip(src, dst))
+    held: Dict[str, Any] = {}
+
+    def placed(state) -> elastic.ShardedState:
+        """``state`` as a ``ShardedState``: a whole ``TrainState`` (what
+        ``reshard_state`` gives where every spec keeps every tensor whole)
+        becomes one whose blocks are its own tensors, so that the step
+        updates it in place, as it does a ``ShardedState``."""
+        if isinstance(state, elastic.ShardedState):
+            return state
+        if not all(elastic.is_whole(sp) for tree in (pspecs, ospecs) for sp in tree.values()):
+            raise ValueError("the pjit step takes the state that elastic.reshard_state placed "
+                             "on its mesh: here the specs split tensors, so a ShardedState")
+        if held.get("whole") is not state.params:
+            held.update(whole=state.params,
+                        blocks={n: p.detach() for n, p in state.params.named_parameters()})
+        o = state.opt
+        return elastic.ShardedState(
+            held["blocks"], opt.AdamWState(o.step, dict(zip(names, o.master)),
+                                           dict(zip(names, o.mu)), dict(zip(names, o.nu))),
+            {}, sspecs, coord)
+
+    def model_of(state: elastic.ShardedState) -> M.Model:
+        """The tensor-parallel model over a placed state's parameter blocks,
+        built here: the caller's model, if any, is left as it is."""
+        if held.get("params") is not state.params:
+            held.update(params=state.params, model=elastic.sharded_model(
+                cfg, state.params, mesh, trainable=True))
+        return held["model"]
+
+    def gradients(state, tokens, labels, frontend=None):
+        model = model_of(placed(state))
+        B, mb, n = tokens.shape[0], tcfg.microbatches, dp.size
+        if B % (mb * n):
+            raise ValueError(f"a global batch of {B} does not split into {mb} microbatches "
+                             f"over {n} data-parallel ranks")
+        per, mine = B // mb, B // (mb * n)
+        acc_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        acc = None
+        with model.tp.batch_rows(n > 1):
+            for i in range(mb):  # this rank's rows of the JAX step's microbatch i
+                rows = slice(i * per + dp.index * mine, i * per + (dp.index + 1) * mine)
+                loss, metrics, grads = _grads_of(cfg, model, tokens[rows], labels[rows],
+                                                 None if frontend is None else frontend[rows])
+                if mb == 1:
+                    acc, acc_loss = grads, loss
+                    break
+                if acc is None:
+                    acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                           for g in grads]
+                for a, g in zip(acc, grads):
+                    a.add_(g.float() / mb)
+                acc_loss = acc_loss + loss / mb
+        grads = dict(zip(names, acc))
+        if partial:  # partial sums on each rank of the model axis
+            flat = model_axis.all_reduce(torch.cat([grads[k].reshape(-1) for k in partial]))
+            for k, part in zip(partial, flat.split([grads[k].numel() for k in partial])):
+                grads[k] = part.view(grads[k].shape)
+        means = torch.stack([acc_loss.float(), metrics["moe_dropped"].detach().float()])
+        if n > 1:
+            summed = _sum_flat([grads[k] for k in names], group=dp.group)
+            grads = {k: g / n for k, g in zip(names, summed)}
+            means = _all_reduce(means, group=dp.group) / n
+        return means[0], {"moe_dropped": means[1]}, grads
+
+    def step(state, tokens: torch.Tensor, labels: torch.Tensor,
+             frontend: Optional[torch.Tensor] = None):
+        blocks = placed(state)
+        model, o = model_of(blocks), blocks.opt
+        master, mu, nu = o.master, o.mu, o.nu
+        loss, metrics, grads = gradients(blocks, tokens, labels, frontend)
+        for p in model.parameters():
+            p.grad = None
+        clipped, gnorm = opt.clip_by_global_norm([grads[k] for k in names], tcfg.clip_norm,
+                                                 split, model_axis)
+        del grads
+        lr = opt.cosine_schedule(state.opt.step, tcfg.peak_lr, tcfg.warmup_steps,
+                                 tcfg.total_steps)
+        mine = [k for k in names if master[k] is not None]
+        g = dict(zip(names, clipped))
+        new, st = opt.adamw_update(
+            [g[k][inner[k]] if k in inner else g[k] for k in mine],
+            opt.AdamWState(state.opt.step, [master[k] for k in mine], [mu[k] for k in mine],
+                           [nu[k] for k in mine]),
+            lr, b1=tcfg.b1, b2=tcfg.b2, weight_decay=tcfg.weight_decay,
+            compute_dtype=cfg.param_dtype)
+        del clipped, g
+        params = dict(model.named_parameters())
+        new = dict(zip(mine, new))
+        with torch.no_grad():
+            for k in names:
+                if k not in zero:
+                    params[k].copy_(new[k])
+            if zero:  # each data rank's slices, gathered into every rank's blocks
+                elastic.gather_blocks({k: new.get(k) for k in zero}, ospecs, pspecs, cfg, mesh,
+                                      ("data",), out={k: params[k].data for k in zero})
+        metrics = {"moe_dropped": metrics["moe_dropped"], "loss": loss, "grad_norm": gnorm,
+                   "lr": lr}
+        return state._replace(opt=state.opt._replace(step=st.step)), metrics
+
+    step.gradients = gradients
+    return step
 
 
 def train_loop(

@@ -1310,6 +1310,29 @@ def test_decode_graph_follows_rebound_parameters(cuda_device, no_tf32):
                        greedy_generate(cfg, model, prompt, n_new, eager=True))
 
 
+def test_graph_counts_the_model_axis_collectives_at_replay(cuda_device):
+    """``tp.STATS`` counts the model axis's collectives that ran: a graph's
+    capture takes the calls it recorded back out, and every replay adds
+    them (as ``graphs.kernel_runs`` counts kernels)."""
+    from repro_torch.sharding import tp
+
+    t = torch.zeros(4, device=cuda_device)
+
+    def fn():
+        tp._count("all_reduce", t)  # what Axis.all_reduce counts for its call
+        return t.add_(1)
+
+    tp.reset_stats()
+    g = graphs.Graph(fn)  # its warm-up runs fn once eagerly
+    assert tp.STATS["all_reduce"] == {"calls": 1, "bytes": 16}
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    assert tp.STATS["all_reduce"] == {"calls": 4, "bytes": 64}
+    assert tp.STATS["all_gather"] == {"calls": 0, "bytes": 0}
+    assert float(t[0]) == 4.0
+
+
 def test_transfer_watch_raises_on_planted_syncs(cuda_device):
     """On the card the watch raises on an implicit pull and a pageable
     copy; the counted spellings and the explicit waits do not."""
@@ -1415,3 +1438,103 @@ def test_dp_step_at_world_one_over_nccl(cuda_device, nccl_world, compression):
     assert tl.DP_STATS["calls"] == 2 * (3 if compression == "int8" else 2)
     if compression == "int8":
         assert all(bool(e.any()) for e in state.error_feedback)
+
+
+TP_CARD_RANKS = 2
+TP_CARD_TIMEOUT_S = 300
+
+
+def _tp_card_worker(rank, world, out):
+    """One of two gloo ranks sharing the card, mesh (data 1, model 2): the
+    pjit step and the mesh serving steps of qwen3's fp32 smoke config with
+    a vocab of 512 (split over the model axis) against the single-card
+    steps of the same weights."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import elastic
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import serve_loop
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(out, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), vocab_size=512, remat=True)
+        tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 33)))
+        toks = toks.cuda()
+        mesh = make_host_mesh(model=TP_CARD_RANKS, device_type="cuda")
+        plain = init_train_state(cfg, tcfg, seed=0, device="cuda")
+        _, m_plain = make_train_step(cfg, tcfg)(plain, toks[:, :-1], toks[:, 1:])
+        placed = elastic.reshard_state(init_train_state(cfg, tcfg, seed=0, device="cuda"), cfg,
+                                       mesh)
+        FA.reset_launches()
+        placed, m = make_train_step(cfg, tcfg, mesh=mesh, mode="pjit")(
+            placed, toks[:, :-1], toks[:, 1:])
+        res = {"loss": [float(m["loss"]), float(m_plain["loss"])],
+               "grad_norm": [float(m["grad_norm"]), float(m_plain["grad_norm"])],
+               "train_launches": dict(FA.LAUNCHES),
+               "sharded": isinstance(placed, elastic.ShardedState)}
+        whole = elastic.gather_state(placed, cfg, mesh)
+        res["param_err"] = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+                               zip(whole.params.parameters(), plain.params.parameters()))
+        model = TM.init_params(cfg, seed=0, device="cuda")
+        prompt = toks[:, :12]
+        want, state = TM.prefill(cfg, model, prompt, max_len=16)
+        nxt = want.argmax(dim=-1, keepdim=True)
+        want_step, _ = TM.decode_step(cfg, model, nxt, state)
+        tm = serve_loop.shard_model(cfg, model, mesh)
+        FA.reset_launches()
+        got, mstate = serve_loop.make_prefill_fn(cfg, mesh, 4, 16)(tm, prompt)
+        res["prefill_launches"] = FA.LAUNCHES["flash_attention"]
+        got_step, _ = serve_loop.make_serve_step(cfg, mesh, 4)(tm, nxt, mstate)
+        res["logit_err"] = [
+            float((serve_loop.gather_logits(cfg, mesh, 4, got) - want).abs().max()),
+            float((serve_loop.gather_logits(cfg, mesh, 4, got_step) - want_step).abs().max())]
+        res["logits_block"] = list(got.shape)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_step_and_serving_on_two_gloo_ranks(cuda_device, tmp_path):
+    """Two gloo ranks on the one card (NCCL puts no two ranks on one card),
+    mesh (1, 2), qwen3's smoke config in fp32 with a vocab of 512: the
+    pjit step's loss and grad norm within 1e-5 of the single-card step's
+    and its gathered parameters within 1e-5, K5 launched on each rank's
+    heads (forward twice a layer with remat, backward once); the mesh prefill
+    and decode step's gathered logits within 1e-4 of the single-card
+    steps', each rank's logits its (B, V / 2) vocab block."""
+    import json
+    import time
+
+    import torch.multiprocessing as torch_mp
+
+    ctx = torch_mp.start_processes(_tp_card_worker, args=(TP_CARD_RANKS, str(tmp_path)),
+                                   nprocs=TP_CARD_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_CARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, f"ranks still running after {TP_CARD_TIMEOUT_S} s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    cfg = TC.smoke_config("qwen3-1.7b")
+    for r in range(TP_CARD_RANKS):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["sharded"]
+        for key in ("loss", "grad_norm"):
+            got, want = res[key]
+            assert abs(got - want) <= 1e-5 * max(1.0, abs(want)), (key, got, want)
+        assert res["param_err"] <= 1e-5, res["param_err"]
+        assert res["train_launches"] == {"flash_attention": 2 * cfg.n_layers,
+                                         "flash_attention_bwd": cfg.n_layers}
+        assert res["prefill_launches"] == cfg.n_layers
+        assert max(res["logit_err"]) <= 1e-4, res["logit_err"]
+        assert res["logits_block"] == [4, 256]

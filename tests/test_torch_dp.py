@@ -47,6 +47,7 @@ from repro_torch.checkpoint.elastic import ShardedState, reshard_params, reshard
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models.convert import jax_key  # noqa: E402
+from repro_torch.sharding import specs as tspecs  # noqa: E402
 
 jtrain = importlib.import_module("repro.training.train_loop")
 ttrain = importlib.import_module("repro_torch.training.train_loop")
@@ -182,11 +183,14 @@ def _dp_worker(rank, world, out):
                                   if n.startswith("layers.") and t is not None})
     res["zero1_params_whole"] = all(t is not None and t.shape == p.shape for (n, p), t in zip(
         zstate.params.named_parameters(), sharded.params.values()))
-    try:
-        ttrain.make_train_step(zcfg, _tcfg(ttrain, None), mesh=mesh, mode="dp_shard_map")(
-            sharded, *batch(0))
-    except NotImplementedError as e:
-        res["zero1_step"] = str(e)
+    zstep = ttrain.make_train_step(zcfg, _tcfg(ttrain, None), mesh=mesh, mode="dp_shard_map")
+    gathered, m = zstep(sharded, *batch(0))
+    res["zero1_step"] = [float(m["loss"]), float(m["grad_norm"])]
+    whole = ttrain.init_train_state(zcfg, _tcfg(ttrain, None), seed=0, device="cpu")
+    _, m = zstep(whole, *batch(0))
+    res["zero1_whole_step"] = [float(m["loss"]), float(m["grad_norm"])]
+    res["zero1_gathered_whole"] = isinstance(gathered, ttrain.TrainState) and all(
+        torch.equal(a, b) for a, b in zip(gathered.params.parameters(), whole.params.parameters()))
     # a model axis of 2: each rank keeps its column block of the head-split projections
     tp_mesh = make_host_mesh(model=2, device_type="cpu")
     tp_state = ttrain.init_train_state(cfg, _tcfg(ttrain, None), seed=0, device="cpu")
@@ -350,8 +354,10 @@ def test_meshes_and_sharded_states_at_world_one():
     """``make_host_mesh`` and ``make_production_mesh`` over a world-1 gloo
     group; ``reshard_state`` keeps a state whole (the same tensors) at
     world 1 and the DP step takes it; a ZeRO-1 state on a (1, 1) mesh is
-    whole too; the DP step rejects a ``ShardedState`` and a mesh that is
-    not the whole group; the pjit mode is not ported."""
+    whole too; the DP step gathers a ``ShardedState`` whole and rejects a
+    mesh that is not the whole group; the pjit step at world 1 is the
+    plain step, and steps a whole state in place without giving its model
+    a tensor-parallel context."""
     cfg = tconfigs.smoke_config(ARCH)
     tcfg = _tcfg(ttrain, None)
     with pytest.raises(RuntimeError, match="process group"):
@@ -376,11 +382,25 @@ def test_meshes_and_sharded_states_at_world_one():
         _, m_plain = ttrain.make_train_step(cfg, tcfg)(plain, tokens, labels)
         for key in ("loss", "grad_norm"):
             assert float(m[key]) == float(m_plain[key])
-        fake = ShardedState({}, state.opt, {}, None, {"data": 0, "model": 0})
-        with pytest.raises(NotImplementedError, match="item 9"):
-            step(fake, tokens, labels)
-        with pytest.raises(NotImplementedError, match="items 9 and 13e"):
-            ttrain.make_train_step(cfg, tcfg, mesh=mesh)
+        # a state cut into (here whole) blocks by the specs: the DP step gathers it
+        fresh = ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu")
+        names = [n for n, _ in fresh.params.named_parameters()]
+        specs = tspecs.state_specs(cfg, mesh)
+        blocks = ShardedState(
+            dict(zip(names, (p.detach() for p in fresh.params.parameters()))),
+            fresh.opt._replace(master=dict(zip(names, fresh.opt.master)),
+                               mu=dict(zip(names, fresh.opt.mu)), nu=dict(zip(names, fresh.opt.nu))),
+            {}, specs, {"data": 0, "model": 0})
+        _, m_blocks = step(blocks, tokens, labels)
+        pjit = ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu")
+        stepped, m_pjit = ttrain.make_train_step(cfg, tcfg, mesh=mesh)(pjit, tokens, labels)
+        # a whole state is stepped in place, as by the plain step, through a
+        # tensor-parallel model of the step's own: the caller's gets no context
+        assert stepped.params is pjit.params and int(stepped.opt.step) == 1
+        assert not hasattr(pjit.params, "tp")
+        for key in ("loss", "grad_norm"):
+            assert float(m_blocks[key]) == float(m_plain[key])
+            assert abs(float(m_pjit[key]) - float(m_plain[key])) <= LOSS_TOL
         with pytest.raises(ValueError, match="unknown mode"):
             ttrain.make_train_step(cfg, tcfg, mesh=mesh, mode="tp")
 
@@ -388,13 +408,16 @@ def test_meshes_and_sharded_states_at_world_one():
 def test_zero1_state_is_split_by_layer_and_refused(runs):
     """mixtral with ZeRO-1 at data 2: ``reshard_state`` keeps each rank's
     parameters whole and, of AdamW's layer state, its own layer (layer i
-    on the rank whose data coordinate is i // (L / 2)); the DP step
-    refuses that sharded state and names the tensor-parallel item."""
+    on the rank whose data coordinate is i // (L / 2)); the DP step no
+    longer refuses that sharded state: it gathers it whole (the JAX
+    package's ``in_specs=P()``), and its step is the whole state's step
+    (the same loss and grad norm, the same parameters after)."""
     _, _, port = runs
     for rank in range(WORLD):
         assert port[rank]["zero1_layers"] == [rank]
         assert port[rank]["zero1_params_whole"]
-        assert "item 9" in port[rank]["zero1_step"]
+        assert port[rank]["zero1_step"] == port[rank]["zero1_whole_step"]
+        assert port[rank]["zero1_gathered_whole"]
 
 
 def test_model_axis_splits_the_head_projections(runs):

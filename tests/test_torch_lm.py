@@ -34,8 +34,10 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serving import serve_loop as jserve  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.analysis import gate  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -236,5 +238,27 @@ def test_serving_entry_points_on_the_cpu(capsys):
     tserve.main(["--bst", "--device", "cpu", "--requests", "500", "--chunk", "128"])
     out = capsys.readouterr().out
     assert "sharded hyb x 1 gloo ranks on cpu: 500 lookups" in out and "500 found" in out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tserve_loop.make_prefill_fn(tconfigs.smoke_config("qwen3-1.7b"), mesh=object())
+    # the mesh steps at world 1 (gloo, mesh (1, 1)): the unsharded steps' logits
+    cfg = tconfigs.smoke_config("qwen3-1.7b")
+    model = TM.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 8)))
+    want, state = TM.prefill(cfg, model, prompt, max_len=10)
+    nxt = want.argmax(dim=-1, keepdim=True)
+    with gate.world1_group("cpu"):
+        mesh = make_host_mesh(device_type="cpu")
+        # the prefill's cache with its slots split over the (1-rank) model axis
+        seq_state = tserve_loop.place_state(cfg, mesh, 2, state, seq_shard=True)
+        want_step, _ = TM.decode_step(cfg, model, nxt, state)
+        tm = tserve_loop.shard_model(cfg, model, mesh)
+        got, mstate = tserve_loop.make_prefill_fn(cfg, mesh, 2, 10)(tm, prompt)
+        # the step takes the cache layout it was made for, and no other
+        with pytest.raises(ValueError, match="takes a sequence-sharded KV cache"):
+            tserve_loop.make_serve_step(cfg, mesh, 2, seq_shard=True)(tm, nxt, mstate)
+        with pytest.raises(ValueError, match="takes a head-sharded KV cache"):
+            tserve_loop.make_serve_step(cfg, mesh, 2)(tm, nxt, seq_state)
+        got_step, _ = tserve_loop.make_serve_step(cfg, mesh, 2)(tm, nxt, mstate)
+        got_seq, _ = tserve_loop.make_serve_step(cfg, mesh, 2, seq_shard=True)(tm, nxt, seq_state)
+        with pytest.raises(ValueError, match="tensor-parallel model"):
+            tserve_loop.make_prefill_fn(cfg, mesh, 2)(model, prompt)
+    assert torch.equal(got, want) and torch.equal(got_step, want_step)
+    torch.testing.assert_close(got_seq, want_step, atol=1e-5, rtol=1e-5)

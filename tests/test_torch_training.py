@@ -319,7 +319,8 @@ def test_single_device_options():
     parameter, as the JAX package does) and the one-device step ignores
     it; a mesh takes the data-parallel step (at world 1 over gloo the plain
     step's loss and gradient norm, the error feedback updated), and the
-    pjit mode is not ported and says which roadmap items hold it."""
+    pjit step at world 1 (every tensor whole, compression ignored as the
+    JAX package's pjit step does) is the plain step."""
     cfg = tconfigs.smoke_config(ARCH)
     tcfg = ttrain.TrainConfig(compression="int8")
     state = ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu")
@@ -334,10 +335,13 @@ def test_single_device_options():
     assert not any(e.any() for e in plain.error_feedback)
     with gate.world1_group("cpu"):
         mesh = make_host_mesh(device_type="cpu")
-        with pytest.raises(NotImplementedError, match="items 9 and 13e"):
-            ttrain.make_train_step(cfg, tcfg, mesh=mesh)
+        pjit_state = ttrain.init_train_state(cfg, tcfg, seed=0, device="cpu")
+        _, m_pjit = ttrain.make_train_step(cfg, tcfg, mesh=mesh)(pjit_state, tokens, labels)
+        assert not any(e.any() for e in pjit_state.error_feedback)
         state, m = ttrain.make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")(
             state, tokens, labels)
+    for key in ("loss", "grad_norm"):
+        _close(float(m_pjit[key]), float(m_plain[key]), LOSS_TOL)
     _close(float(m["loss"]), float(m_plain["loss"]), LOSS_TOL)
     _close(float(m["grad_norm"]), float(m_plain["grad_norm"]), 2e-2)  # int8-quantized gradients
     assert all(e.any() for e in state.error_feedback)
