@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training, checkpoints, tensor parallelism.
+"""Drive the PyTorch/CUDA port on one card: the BST read and write paths, LM serving of every family, training, checkpoints, tensor parallelism, the dry run, the examples.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -233,7 +233,28 @@ Phases, in order; any failure raises and exits non-zero:
    then at world 1 over NCCL, mesh (1, 1), phase 6's request through the
    mesh prefill and the mesh decode step, one CUDA graph, its tokens
    bit for bit phase 6's;
-10. print the ``{"kernels": [...]}`` line (with each LM kernel's launches on
+10. the dry run (``launch/dryrun.py``, ``dryrun_bst.py``): (a) in two
+   subprocesses that see no card, as rank 0 of a fake process group of 256
+   under ``FakeTensorMode``, qwen3-1.7b's train_4k, prefill_32k and
+   decode_32k cells and mixtral-8x7b's train_4k with ``launch/perf.py``'s
+   iteration 5 (32 dispatch groups, ZeRO-1) on the production mesh (data
+   16, model 16), and the BST lookup (2^21 - 1 nodes, 65,536 keys a rank):
+   every cell ok, neither process imports JAX or the JAX package, each
+   cell's peak, FLOPs and collective bytes a rank logged; (b) phase 9's
+   bf16 train step of qwen3-1.7b (4 x 2048, full depth) traced at world 1
+   (a fake group of 1, one subprocess each) with remat off, "none" and
+   "dots", while the card runs the same three steps (``make_train_step(
+   mode="pjit")`` at world 1 over NCCL, two steps each from the seed-0
+   state): each traced peak within DRYRUN_PEAK_TOL of the card's
+   ``max_memory_allocated`` (less what was allocated before the state),
+   "dots" between "none" and remat off in both, and the traced FLOPs over
+   the measured step as TFLOP/s;
+10e. the port's four examples (``examples/torch_*.py``) on the card, each
+   in a process of its own, all at once, at sizes that take seconds: their
+   assertions (every strategy's answers identical, every served key
+   found, the fresh writes read back, queue drops <= direct drops at every
+   capacity factor) and the training example's checkpoints;
+11. print the ``{"kernels": [...]}`` line (with each LM kernel's launches on
    the tensor-parallel path, ``tp_launches``), the card's line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -268,7 +289,7 @@ import torch  # noqa: E402
 import torch.distributed  # noqa: E402
 import torch.multiprocessing  # noqa: E402
 
-from repro_torch import graphs  # noqa: E402
+from repro_torch import graphs, hardware  # noqa: E402
 from repro_torch.analysis import invariants, runtime  # noqa: E402
 from repro_torch.core import PAPER_CONFIGS, QUERY_OPS, BSTEngine  # noqa: E402
 from repro_torch.core import buffers as buf_lib  # noqa: E402
@@ -331,7 +352,7 @@ STREAM = 1 << 18  # the paper's 256K key sets
 RANGE_STREAM = 1 << 17
 CHUNK = 8192  # the server's chunk: the main path's lookup shape
 SCAN_K = 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+HBM_BYTES_PER_S = hardware.HBM_BYTES_PER_S  # the data sheet's (repro_torch/hardware.py)
 TIMING_REPS = 30
 SPIN_CYCLES = 2_000_000  # about 1 ms of the SM clock
 CHASE_HBM_INTS = 1 << 24  # 64 MiB: the tree's key array, past the 50 MB L2
@@ -405,7 +426,7 @@ LM_PROFILE_STEPS = 4
 # The timed requests of phases 6 and 7, in turns: (eager route, the profiles
 # taken after it); the prefill is the same on both routes.
 ROUTE_TURNS = ((False, ("decode", "prefill")), (True, ("decode",)), (False, ()), (True, ()))
-BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+BF16_FLOP_PER_S = hardware.BF16_FLOP_PER_S  # dense bf16 tensor cores, the data sheet's
 # K5 against its plain version: fp32, the kernel's FMA order and expf
 # against torch's matmul and softmax (TF32 off); bf16, the kernel's tensor
 # cores take bf16 q, k, v and P (P rounded to bf16 before P V, at most
@@ -480,7 +501,6 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/attention.py:55"  # _blockwise_attn, differentiated by XLA
-BWD_FLOP_FACTOR = 2.5  # the backward's five products against the forward's two
 # K5's device kernels a launch in bf16, by a substring of their names:
 # the forward's body; the backward's pre-pass, main kernel (the wgmma body)
 # and cast of dq.  The profiled train step's trace is held to these times
@@ -517,7 +537,7 @@ TRAIN_FAMILY_ARCHS = ("mixtral-8x7b", "hymba-1.5b", "seamless-m4t-medium", "inte
 # layer twice, so a step launches K5's forward 2 x 28 times and its
 # backward 28 times (each 3 device kernels in bf16: BWD_BF16_KERNELS).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
-TRAIN_PEAK_BYTES = 80e9  # the card's memory
+TRAIN_PEAK_BYTES = hardware.HBM_BYTES  # the card's memory
 # The first loss: the tokens are uniform, and at init the logits are
 # <x, e_v> with x the final norm's output (RMS 1, scale 1) and e_v ~
 # N(0, INIT_SCALE^2): logits ~ N(0, INIT_SCALE^2 D), so the expected loss
@@ -2248,14 +2268,6 @@ def time_kernels(tree, pool, skewed, timer, l_hbm_ms, delta=None, library_keys=N
 
 
 # ------------------------------------------------------------- phase 6: LM
-def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
-    """(q row, key) pairs one head row attends to: the work K5 must do."""
-    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
-    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
-    hi = np.minimum(Skv - 1, qpos) if causal else np.full(Sq, Skv - 1, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def flash_operands(shape, dtype, seed: int):
     BH, BHkv, Sq, Skv, d, _, _ = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2602,8 +2614,7 @@ def time_flash(timer, timed=None) -> list:
         lib_out = sdpa()
         lib_err = float((lib_out.reshape(BH, Sq, d).float() - want.float()).abs().max())
         backend = sdpa_backend(sdpa, lib_out)
-        flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
-        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        flop, n_bytes = FA.forward_work(BH, BHkv, Sq, Skv, d, causal, window, q.element_size())
         row = {
             "config": label, "shape": list(shape), "dtype": "bfloat16",
             "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal,
@@ -2679,12 +2690,6 @@ def check_queue_dispatch() -> list:
     return rows
 
 
-def queue_dispatch_bytes(G: int, B: int, n_dest: int, capacity: int) -> int:
-    """Bytes K4 must move: dest read once; slot, buffers and counts (int32)
-    and kept and overflow (bool) written once."""
-    return 4 * G * B + G * (4 * B + 2 * B + 4 * n_dest * capacity + 4 * n_dest)
-
-
 def empty_launch(grid: int, threads: int, smem_bytes: int, cluster: int = 1) -> None:
     """An empty kernel (``csrc/pointer_chase.cu``) of ``grid`` CTAs of
     ``threads`` threads with ``smem_bytes`` of dynamic shared memory, in
@@ -2710,7 +2715,7 @@ def time_queue_dispatch(timer, l_hbm_ms: float) -> list:
         dest = queue_dispatch_rows(G, B, n_dest, seed=100 + i)[:G].contiguous()
         compare_k4(QD.queue_dispatch_cuda(dest, n_dest, capacity),
                    ref.queue_dispatch_ref(dest, n_dest, capacity), f"K4 timed {what}")
-        n_bytes = queue_dispatch_bytes(G, B, n_dest, capacity)
+        _, n_bytes = QD.work(G, B, n_dest, capacity)
         ctas = lib.queue_dispatch_ctas(B, n_dest)
         threads = lib.queue_dispatch_threads(B, n_dest)
         smem = lib.queue_dispatch_smem_bytes(B, n_dest)
@@ -3346,9 +3351,10 @@ def time_flash_bwd(timer) -> list:
     """K5's backward in bf16 at BWD_TIMED's shapes beside its plain version,
     the backward of scaled_dot_product_attention (``enable_gqa``; an
     explicit mask where a window cuts the causal one; the backend its
-    forward chose named) and its bound: BWD_FLOP_FACTOR times the forward's
-    operations over the bf16 tensor-core rate, or the bytes (q, k, v, o,
-    dO, lse read; dq, dk, dv written) over the memory rate, the larger."""
+    forward chose named) and its bound (``FA.backward_work``): BWD_FLOP_FACTOR
+    times the forward's operations over the bf16 tensor-core rate, or the
+    bytes (q, k, v, o, dO, lse read; dq, dk, dv written) over the memory
+    rate, the larger."""
     rows = []
     for idx, label in BWD_TIMED:
         shape = FLASH_SHAPES[idx]
@@ -3376,9 +3382,7 @@ def time_flash_bwd(timer) -> list:
         lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True)
         lib_err = max(float((a.reshape(b.shape).float() - b.float()).abs().max())
                       for a, b in zip(lib_grads, plain()))
-        flop = BWD_FLOP_FACTOR * 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
-        n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, out, dout, lse))
-                   + sum(t.numel() * t.element_size() for t in (q, k, v)))  # dq, dk, dv
+        flop, n_bytes = FA.backward_work(BH, BHkv, Sq, Skv, d, causal, window, q.element_size())
         row = {
             "config": label, "shape": list(shape), "dtype": "bfloat16",
             "ms": timer(run),
@@ -3405,7 +3409,7 @@ def time_flash_bwd(timer) -> list:
         log(f"  K5 backward {label} {shape} bf16: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
             f"library_ms={row['library_ms']!r} (sdpa backward, forward backend {backend}) "
             f"bound_ms={row['bound_ms']!r} ({row['bound_by']}: {flop!r} FLOP = "
-            f"{BWD_FLOP_FACTOR} x the forward's over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} "
+            f"{FA.BWD_FLOP_FACTOR} x the forward's over {BF16_FLOP_PER_S:.3g}/s = {row['flop_ms']!r} "
             f"ms, {n_bytes} bytes over {HBM_BYTES_PER_S:.3g}/s = {row['bytes_ms']!r} ms; "
             f"{row['tflop_per_s']!r} TFLOP/s); max_abs_err vs plain {err!r}, sdpa vs plain "
             f"{lib_err!r}; each kernel alone, ms {row['kernel_ms']} (sum {stages_ms!r}), shares "
@@ -4220,6 +4224,231 @@ def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
                     "queue_dispatch"]}}
 
 
+# ----------------------------------------------------- phase 10: the dry run
+# (a) cells of the production mesh (256 fake ranks), in two subprocesses that
+# run beside the rest of the phase: (arch, shape, launch/perf.py's iteration
+# whose variant it takes, or None); the first also traces the BST lookup.
+DRYRUN_CELLS = (
+    ((LM_ARCH, "train_4k", None), (LM_ARCH, "prefill_32k", None), (LM_ARCH, "decode_32k", None)),
+    ((MOE_ARCH, "train_4k", "5"),),
+)
+# (b) the traced peak of phase 9's step (qwen3 bf16, full depth, TRAIN_BATCH x
+# TRAIN_SEQ) at world 1 against the card's max_memory_allocated, for each
+# remat setting: |predicted - measured| <= DRYRUN_PEAK_TOL x measured (set
+# before the final run; the first card run was within 0.0012).
+REMAT_VARIANTS = {"off": {"remat": False}, "none": {"remat": True, "remat_policy": "none"},
+                  "dots": {"remat": True, "remat_policy": "dots"}}
+DRYRUN_PEAK_TOL = 0.02
+DRYRUN_TIMEOUT_S = 400
+# 10e: the port's examples, each in a process of its own at a size that
+# takes seconds (its own assertions raise; exit 0 is the check).
+EXAMPLES = {
+    "torch_quickstart.py": ["--stream", "4096"],
+    "torch_serve_bst.py": ["--requests", "65536", "--chunk", "8192", "--tree-keys", "65535"],
+    "torch_moe_dispatch.py": [],
+    "torch_train_lm.py": ["--steps", "6", "--batch", "4", "--seq", "64", "--ckpt-every", "3"],
+}
+EXAMPLE_TIMEOUT_S = 300
+
+_DRYRUN_WORKER = """
+import json, sys
+from repro_torch.launch import dryrun as DR, dryrun_bst, perf
+cells, bst, out_path = json.loads(sys.argv[1]), sys.argv[2] == "1", sys.argv[3]
+out = {"cells": []}
+with DR.fake_group(DR.world_of("single")):
+    for arch, shape, it in cells:
+        variant, tag = (perf.ITERATIONS[it][2], perf.ITERATIONS[it][3]) if it else (None, "")
+        out["cells"].append(DR.run_cell(arch, shape, "single", save=False, variant=variant,
+                                        tag=tag))
+    if bst:
+        out["bst"] = dryrun_bst.lookup_record(DR.production_mesh("single"), "single",
+                                              (1 << 21) - 1, 65536, 1.0)
+out["imported"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+_TRACE_WORKER = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.models.config import ShapeConfig
+arch, batch, seq, variant, out_path = sys.argv[1:]
+shape = ShapeConfig("train", int(seq), int(batch), "train")
+rec = DR.trace_cell(get_config(arch), shape, {"data": 1, "model": 1}, json.loads(variant))
+with open(out_path, "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def start_worker(argv: list, card: bool = False) -> subprocess.Popen:
+    """A Python process of ``argv`` started from the repo root; without
+    ``card`` it sees no CUDA device (the dry run needs none)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    if not card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_worker(proc: subprocess.Popen, what: str, timeout: float) -> str:
+    """Wait for ``proc`` (killed past ``timeout``); its output, checked exit 0."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        check(False, f"{what} ran past {timeout} s:\n{out[-3000:]}")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def log_dryrun_cell(rec: dict) -> None:
+    ma, ca, co = rec["memory_analysis"], rec["cost_analysis"], rec["collectives"]
+    log(f"    {rec['arch']} x {rec['shape']}{' [' + rec['tag'] + ']' if rec.get('tag') else ''} "
+        f"x {rec['mesh']} (256 ranks): {rec['status']}; a rank: peak "
+        f"{ma['peak_per_device_bytes']} B, arguments {ma['argument_size_in_bytes']} B, "
+        f"{ca['flops']!r} FLOP ({ca['matmul_flops']!r} in matrix products, "
+        f"{ca['kernel_flops']!r} in the kernels), collectives {co['total_bytes']} B in "
+        f"{co['total_count']} calls; traced in {rec['lower_s']:.1f} s")
+
+
+def remat_steps(cfg, smi: str) -> dict:
+    """Phase 10 (b) on the card: phase 9's step (``make_train_step(mode=
+    "pjit")`` at world 1 over NCCL, mesh (1, 1), the state whole) for each
+    of REMAT_VARIANTS, two steps from the seed-0 state: the peak
+    (``max_memory_allocated`` over both, less what was allocated before the
+    state) and the second step's time."""
+    out = {}
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    with gate.world1_group("cuda"):
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        for name, variant in REMAT_VARIANTS.items():
+            c = dataclasses.replace(cfg, **variant)
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            state = reshard_state(init_train_state(c, train_tcfg(), seed=0, device="cuda"), c, mesh)
+            step = make_train_step(c, train_tcfg(), mesh=mesh, mode="pjit")
+            batch = batch_on_card(pipe, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, first, _ = timed_step(step, state, batch)
+            state, second, ms = timed_step(step, state, batch)
+            peak = torch.cuda.max_memory_allocated() - base
+            check(all(np.isfinite(m["loss"]) for m in (first, second)),
+                  f"10b {name}: losses {first['loss']}, {second['loss']}")
+            out[name] = {"peak_bytes": peak, "step_ms": ms, "losses": [first["loss"],
+                                                                        second["loss"]]}
+            log(f"    {name}: measured peak {peak} B, step {ms!r} ms, losses "
+                f"{out[name]['losses']} ({smi})")
+            del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(smi: str) -> dict:
+    """Phase 10: (a) ``launch/dryrun.py``'s cells and ``dryrun_bst`` on the
+    production mesh over a fake group of 256, in subprocesses that see no
+    card: every cell ok, none imports JAX or the JAX package, and each
+    one's peak, FLOPs and collective bytes a rank logged; (b) the traced
+    peak of phase 9's step at world 1 (a fake group of 1, qwen3 bf16 at
+    full depth) for each remat setting, each trace in a subprocess,
+    against the card's: every predicted peak within DRYRUN_PEAK_TOL of the
+    measured one, "dots" between "none" and remat off on the card as in
+    the trace, and the traced FLOPs over the measured step as TFLOP/s.
+    The subprocesses run while the card runs (b)'s steps; phase 10e runs
+    after them."""
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    tmp = tempfile.mkdtemp(prefix="repro-torch-dryrun-", dir=os.path.join(ROOT, "build"))
+    workers = []
+    for i, cells in enumerate(DRYRUN_CELLS):
+        path = os.path.join(tmp, f"cells{i}.json")
+        workers.append((path, start_worker(["-c", _DRYRUN_WORKER, json.dumps(cells),
+                                            str(int(i == 0)), path])))
+    traces = {}
+    for name, variant in REMAT_VARIANTS.items():
+        path = os.path.join(tmp, f"trace_{name}.json")
+        traces[name] = (path, start_worker(["-c", _TRACE_WORKER, LM_ARCH, str(TRAIN_BATCH),
+                                            str(TRAIN_SEQ), json.dumps(variant), path]))
+    measured = remat_steps(cfg, smi)
+    cells, bst = [], None
+    for path, proc in workers:
+        finish_worker(proc, "the dry run's cells", DRYRUN_TIMEOUT_S)
+        with open(path) as f:
+            got = json.load(f)
+        check(not got["imported"], f"the dry run imported {got['imported']}")
+        cells += got["cells"]
+        bst = got.get("bst", bst)
+    log("  (a) the production mesh, single (data 16, model 16), as rank 0 of 256 fake ranks:")
+    for rec in cells:
+        check(rec["status"] == "ok", f"dry run {rec['arch']} x {rec['shape']}: {rec['status']} "
+              f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        log_dryrun_cell(rec)
+    log(f"    BST lookup, {bst['tree_nodes']} nodes, {bst['keys_per_device']} keys a rank: "
+        f"all-to-all {bst['collectives']['all-to-all']} a rank, peak "
+        f"{bst['peak_per_device_bytes']} B; terms (s) compute {bst['t_compute_s']!r}, memory "
+        f"{bst['t_memory_s']!r}, collective {bst['t_collective_s']!r}: {bst['dominant']}-bound, "
+        f"{bst['keys_per_sec_bound']!r} keys/s at most ({bst['card']})")
+    log(f"  (b) {LM_ARCH} bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, world 1: traced peak vs the card's "
+        f"(tolerance {DRYRUN_PEAK_TOL}):")
+    rows = {}
+    for name, (path, proc) in traces.items():
+        finish_worker(proc, f"the {name} trace", DRYRUN_TIMEOUT_S)
+        with open(path) as f:
+            rec = json.load(f)
+        pred = rec["memory_analysis"]["peak_per_device_bytes"]
+        meas = measured[name]["peak_bytes"]
+        flops = rec["cost_analysis"]["flops"]
+        rows[name] = {"predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+                      "rel_err": (pred - meas) / meas, "flops": flops,
+                      "step_ms": measured[name]["step_ms"],
+                      "tflop_per_s": flops / measured[name]["step_ms"] * 1e-9,
+                      "argument_size_in_bytes": rec["memory_analysis"]["argument_size_in_bytes"],
+                      "lower_s": rec["lower_s"], "losses": measured[name]["losses"]}
+        r = rows[name]
+        log(f"    remat {name}: predicted peak {pred} B, measured {meas} B "
+            f"({r['rel_err']!r} relative); {flops!r} FLOP traced over {r['step_ms']!r} ms = "
+            f"{r['tflop_per_s']!r} TFLOP/s ({smi})")
+    for name, r in rows.items():
+        check(abs(r["rel_err"]) <= DRYRUN_PEAK_TOL,
+              f"10b {name}: predicted peak {r['predicted_peak_bytes']} vs measured "
+              f"{r['measured_peak_bytes']}")
+    for key in ("predicted_peak_bytes", "measured_peak_bytes"):
+        order = [rows[n][key] for n in ("none", "dots", "off")]
+        check(order[0] < order[1] < order[2], f"10b: {key} none < dots < off fails: {order}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    return {"cells": cells, "bst": bst, "remat": rows, "seconds": seconds}
+
+
+def examples_phase(smi: str) -> dict:
+    """Phase 10e: the four ``examples/torch_*.py`` on the card, each in a
+    process of its own at EXAMPLES' sizes, all at once; each must exit 0
+    (their assertions: every strategy's answers identical, every served
+    key found, queue drops <= direct drops at every capacity factor) and
+    the training example must leave its checkpoints."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro-torch-examples-", dir=os.path.join(ROOT, "build"))
+    procs = {}
+    for script, args in EXAMPLES.items():
+        extra = ["--ckpt-dir", os.path.join(tmp, "ckpt")] if script == "torch_train_lm.py" else []
+        procs[script] = start_worker([os.path.join(ROOT, "examples", script), *args, *extra],
+                                     card=True)
+    rows = {}
+    for script, proc in procs.items():
+        out = finish_worker(proc, f"examples/{script}", EXAMPLE_TIMEOUT_S)
+        rows[script] = {"tail": out.strip().splitlines()[-3:]}
+        log(f"    examples/{script} {' '.join(EXAMPLES[script])}: exit 0; "
+            f"{' | '.join(rows[script]['tail'])}")
+    ckpts = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+    check(ckpts == ["step_00000002", "step_00000005"], f"torch_train_lm checkpoints: {ckpts}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"examples": rows, "seconds": time.perf_counter() - t0, "card": smi}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -4454,6 +4683,18 @@ def main() -> int:
         f"{tensor_parallel['seconds']!r} s: references {tensor_parallel['refs_s']!r} s, ranks "
         f"{tensor_parallel['ranks_s']!r} s)")
 
+    log(f"[10] the dry run: {', '.join(f'{a} x {sh}' for group in DRYRUN_CELLS for a, sh, _ in group)} "
+        f"and the BST lookup on the production mesh over 256 fake ranks; {LM_ARCH}'s train step "
+        f"traced at world 1 for remat {list(REMAT_VARIANTS)} against the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun = dryrun_phase(smi)
+    log(f"    [10] done at {time.perf_counter() - t_start:.1f} s (the phase {dryrun['seconds']!r} s)")
+    log(f"[10e] the port's examples on the card: {', '.join(EXAMPLES)}")
+    examples = examples_phase(smi)
+    log(f"    [10e] done at {time.perf_counter() - t_start:.1f} s (the phase "
+        f"{examples['seconds']!r} s)")
+
     # The headline row of each kernel: the lookup chunk of Hrz and of Hyb8q.
     headline = {"forest_descend": "Hrz membership", "hybrid_descend": "Hyb8q membership",
                 "forest_descend_delta": "Hrz membership",
@@ -4580,8 +4821,9 @@ def main() -> int:
                        "lm_served": lm_served, "flash_timing": flash_timing,
                        **moe, "families": families, "training": training,
                        "checkpoints": checkpointed, "tensor_parallel": tensor_parallel,
+                       "dryrun": dryrun, "examples": examples,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.analysis.deadcode``.  A static import graph over
 ``src/repro_torch``, walked from the port's executable roots: the
-``launch`` entry points, this tool's CLI (``repro_torch.analysis.__main__``)
-and ``chip_smoke.py`` at the repo root.  Modules reachable only through a
+``launch`` entry points, this tool's CLI (``repro_torch.analysis.__main__``),
+``chip_smoke.py`` at the repo root and the port's examples
+(``examples/torch_*.py``).  Modules reachable only through a
 package ``__init__`` re-export (a weak edge) or only from ``tests/`` are
 ``TEST_ONLY``; modules reachable from nothing are ``DEAD``.  Both need an
 entry in ``quarantine.txt`` (beside this file) naming why they stay --
@@ -32,7 +33,13 @@ from repro_torch.analysis.report import Violation
 
 PACKAGE = "repro_torch"
 ROOT_MODULES = ("repro_torch.launch", "repro_torch.analysis.__main__")
-ROOT_FILES = ("chip_smoke.py",)
+ROOT_FILES = (
+    "chip_smoke.py",
+    "examples/torch_quickstart.py",
+    "examples/torch_serve_bst.py",
+    "examples/torch_moe_dispatch.py",
+    "examples/torch_train_lm.py",
+)
 QUARANTINE_FILE = os.path.join(os.path.dirname(__file__), "quarantine.txt")
 
 
@@ -211,7 +218,7 @@ def dead_modules(repo_root: str) -> Dict[str, str]:
     """module -> classification ('DEAD' | 'TEST_ONLY') for unreachable code.
 
     Roots: the ``launch`` entry points, this tool's CLI, and what the
-    root files (``chip_smoke.py``) import.
+    root files (``chip_smoke.py``, the port's examples) import.
     """
     files, edges, strong, reexported = build_graph(repo_root)
     weak = {m for m, p in files.items() if p.endswith("__init__.py")}

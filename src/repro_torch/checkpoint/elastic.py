@@ -92,7 +92,8 @@ class ShardedState(NamedTuple):
     coord: Dict[str, int]
 
 
-def _mesh_device(mesh) -> torch.device:
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors of ``mesh`` live on."""
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -125,7 +126,7 @@ def reshard_params(params, cfg: ModelConfig, mesh) -> Dict[str, Optional[torch.T
     shape, coord = mesh_shape(mesh), _coord(mesh)
     named = list(params.named_parameters())
     return _blocks([n for n, _ in named], [p.detach() for _, p in named],
-                   specs_lib.param_specs(cfg, shape), cfg, shape, coord, _mesh_device(mesh))
+                   specs_lib.param_specs(cfg, shape), cfg, shape, coord, mesh_device(mesh))
 
 
 def reshard_state(state, cfg: ModelConfig, mesh):
@@ -135,7 +136,7 @@ def reshard_state(state, cfg: ModelConfig, mesh):
     it in place, as it does any state it is given), else this rank's
     ``ShardedState``, every block a copy: stepping it leaves ``state`` as
     it was."""
-    shape, coord, device = mesh_shape(mesh), _coord(mesh), _mesh_device(mesh)
+    shape, coord, device = mesh_shape(mesh), _coord(mesh), mesh_device(mesh)
     specs = specs_lib.state_specs(cfg, shape)
     if all(is_whole(s) for tree in (specs.params, specs.opt.master) for s in tree.values()):
         model = state.params.to(device)
@@ -265,7 +266,7 @@ def gather_state(state: ShardedState, cfg: ModelConfig, mesh):
     model = Model(cfg, device="meta")
     for name, t in params.items():
         _set_param(model, name, t, True)
-    _real_buffers(model, _mesh_device(mesh))
+    _real_buffers(model, mesh_device(mesh))
     names = list(state.params)
 
     def listed(tree, specs):
@@ -313,7 +314,7 @@ def sharded_model(cfg: ModelConfig, blocks: Mapping[str, torch.Tensor], mesh,
     model = Model(cfg, device="meta")
     for name, t in blocks.items():
         _set_param(model, name, t, trainable)
-    _real_buffers(model, _mesh_device(mesh))
+    _real_buffers(model, mesh_device(mesh))
     model_axis, dp = shard_axes(cfg, mesh)
     tp.attach(model, model_axis, dp, specs_lib.param_specs(cfg, mesh))
     return model

@@ -1,6 +1,7 @@
 """Architecture registry: one module per assigned architecture.
 
-``get_config(name)`` returns the full published config; ``smoke_config(name)``
+``get_config(name)`` returns the full published config (``all_configs()``
+every one, by architecture id); ``smoke_config(name)``
 returns a reduced same-family config for CPU smoke tests (2 layers, narrow,
 tiny vocab, fp32), as the JAX package's registry does.  One difference: the
 JAX smoke config selects naive attention because the Pallas kernel runs
@@ -84,3 +85,6 @@ def smoke_config(name: str) -> ModelConfig:
         logit_chunk=8,
     )
 
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -14,6 +14,11 @@ shared memory, so any capacity runs.  The hybrid kernel's queue mapping
 keeps a label table of 16 x 2^split ints in shared memory, so a split above
 ``hybrid_max_queue_split`` raises (``check_queue_split``, which the engine
 also applies to its configuration before it is built).
+
+``descent_work`` is what a call must do from its shapes alone, the count
+the dry run (``launch/dryrun_bst.py``) adds up for the calls it stands in
+for: ``chip_smoke.py`` holds the kernels to a count over its data instead
+(each distinct node the lanes visit read once), which is at most this.
 """
 
 from __future__ import annotations
@@ -37,6 +42,26 @@ LAUNCHES: Dict[str, int] = {
 
 HYBRID_BLOCK_Q = 512  # lanes per dispatch chunk: one CTA of hybrid_descend
 _INT32_MAX = 2**31 - 1
+
+
+def descent_work(lanes: int, height: int, ordered: bool,
+                 delta_capacity: Optional[int] = None) -> Tuple[int, int]:
+    """``(operations, bytes)`` of a descent of ``lanes`` queries through
+    trees of height ``height``, from the shapes alone: each lane compares
+    and selects at each of the H + 1 levels (a compare, a select, an index
+    step: 4 integer operations a level) and reads each level's key and
+    value; the query read and the outputs (value and found, or the seven
+    ordered fields) written once; with a delta buffer of ``delta_capacity``
+    entries, a lower-bound search of its keys (log2 C + 1 of them) a lane."""
+    levels = height + 1
+    out = 4 * 6 + 1 if ordered else 4 + 1
+    n_bytes = lanes * (4 + out + 8 * levels)
+    flop = 4 * lanes * levels
+    if delta_capacity:
+        probes = max(1, int(delta_capacity).bit_length())
+        n_bytes += lanes * 4 * probes
+        flop += 4 * lanes * probes
+    return flop, n_bytes
 
 
 def reset_launches() -> None:
@@ -148,7 +173,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _outputs(shape, device, ordered: bool):
+def outputs(shape, device, ordered: bool):
+    """A descent's outputs, allocated with ``torch.empty``: value and
+    found, and with ``ordered`` the five int32 fields after them."""
     val = torch.empty(shape, dtype=torch.int32, device=device)
     found = torch.empty(shape, dtype=torch.bool, device=device)
     if not ordered:
@@ -188,7 +215,7 @@ def bst_ordered_forest_cuda(
     T, B = queries.shape
     if T > 65535 or B > _INT32_MAX or forest_keys.shape[1] > _INT32_MAX:
         raise ValueError(f"forest shape out of the kernel's range: T={T}, B={B}")
-    outs = _outputs((T, B), device, ordered)
+    outs = outputs((T, B), device, ordered)
     if B == 0 or T == 0:
         return outs
     built = _build.library()
@@ -285,7 +312,7 @@ def bst_hybrid_forest_cuda(
     B = queries.shape[0]
     if B > _INT32_MAX or tree_keys.shape[0] > _INT32_MAX:
         raise ValueError(f"hybrid shape out of the kernel's range: B={B}")
-    outs = _outputs((B,), device, ordered)
+    outs = outputs((B,), device, ordered)
     if B == 0:
         return outs
     built = _build.library()

@@ -12,6 +12,11 @@ call's pre-pass, main kernel and, in bf16, cast of dq; ``bwd_stage_calls``
 launches each of the three alone, to time it).  Both take CUDA
 tensors only; ``kernels.ops`` sends CPU tensors to the plain versions
 (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``) instead.
+
+``forward_work`` and ``backward_work`` are the work a call must do, its
+operations and the bytes it must move, from its shapes alone: what
+``chip_smoke.py`` holds the kernels' times to and what the dry run
+(``launch/dryrun.py``) adds up for the calls it stands in for.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -35,6 +41,7 @@ BWD_ROW_PAD = 64  # the bf16 backward's q tile: its pre-pass pads each head's ro
 # pre-pass, the main kernel and, in bf16, the cast of dq.
 BWD_STAGES = {"pre": 1, "main": 2, "cast": 4}
 _BWD_ALL_STAGES = 7
+BWD_FLOP_FACTOR = 2.5  # the backward's five products against the forward's two
 
 
 def bf16_smem_bytes(d: int) -> int:
@@ -59,6 +66,34 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
     if n < 0:
         raise ValueError(f"head dim {d} has no kernel instantiation (have {HEAD_DIMS})")
     return n
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(q row, key) pairs one head row attends to: the work K5 must do."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
+    hi = np.minimum(Skv - 1, qpos) if causal else np.full(Sq, Skv - 1, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def forward_work(BH: int, BHkv: int, Sq: int, Skv: int, d: int, causal: bool,
+                 window: Optional[int], itemsize: int, with_lse: bool = False) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one forward call: two products of d
+    multiply-adds over every visible pair of each head row (4 BH d pairs),
+    and q, k and v read once, the output (and the fp32 lse) written once."""
+    flop = 4 * BH * d * visible_pairs(Sq, Skv, causal, window)
+    n_bytes = (2 * BH * Sq * d + 2 * BHkv * Skv * d) * itemsize + (4 * BH * Sq if with_lse else 0)
+    return flop, n_bytes
+
+
+def backward_work(BH: int, BHkv: int, Sq: int, Skv: int, d: int, causal: bool,
+                  window: Optional[int], itemsize: int) -> Tuple[float, int]:
+    """``(operations, bytes)`` of one backward call: ``BWD_FLOP_FACTOR``
+    times the forward's operations, and q, k, v, the output, its gradient
+    and the lse read once, dq, dk and dv written once."""
+    flop, _ = forward_work(BH, BHkv, Sq, Skv, d, causal, window, itemsize)
+    n_bytes = (4 * BH * Sq * d + 4 * BHkv * Skv * d) * itemsize + 4 * BH * Sq
+    return BWD_FLOP_FACTOR * flop, n_bytes
 
 
 def reset_launches() -> None:
@@ -197,6 +232,20 @@ def bwd_stage_calls(
     return (dq, dk, dv), {name: functools.partial(launch, bit) for name, bit in BWD_STAGES.items()}
 
 
+def bwd_scratch(q: torch.Tensor, dq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's scratch beside its outputs: ``(dq_acc, delta)``.
+    fp32 accumulates dq in place (``dq_acc`` is ``dq``); bf16 in an fp32
+    scratch cast at the end.  ``delta`` holds delta and, for the bf16 body,
+    each row's lse term, per head padded to BWD_ROW_PAD rows (the fp32 body
+    reads the first BH * Sq)."""
+    BH, Sq = q.shape[0], q.shape[1]
+    sq64 = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
+                                                              device=q.device)
+    delta = torch.empty(2 * BH * sq64, dtype=torch.float32, device=q.device)
+    return dq_acc, delta
+
+
 def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
     """The backward's checks and allocations: ``(dq, dk, dv, launch)``,
     ``launch(stages)`` launching the kernels of the mask ``stages`` on the
@@ -221,12 +270,7 @@ def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
     if BH == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_(), None
     scale = scale if scale is not None else d**-0.5
-    # fp32 accumulates dq in place; bf16 in an fp32 scratch cast at the end
-    dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
-                                                              device=q.device)
-    # delta and, for the bf16 body, each row's lse term, per head padded to
-    # BWD_ROW_PAD rows (the fp32 body reads the first BH * Sq)
-    delta = torch.empty(2 * BH * sq64, dtype=torch.float32, device=q.device)
+    dq_acc, delta = bwd_scratch(q, dq)
     built = _build.library()
 
     def launch(stages: int) -> None:

@@ -6,13 +6,24 @@ call raises), CPU tensors take the plain version in ``kernels.ref``.  There
 is no fallback from one to the other.  ``delta=``, the write buffer's four
 (C,) int32 operands (``core.delta.operands``), rides any descent: value,
 found and (ordered) rank come back merged with the pending writes.
+
+Tensors without data -- ``FakeTensor``s under ``FakeTensorMode``, or
+``meta`` tensors -- take a third, shapes-only route, which the dry runs
+(``launch/dryrun.py``, ``launch/dryrun_bst.py``) trace the port through:
+each entry point checks the operands as the plain version does, returns
+outputs of its kernel's shapes and dtypes without computing anything (the
+plain versions would allocate what the kernels never do: the (S, S)
+scores of a 32k prefill), and adds the kernel's work (its wrapper's
+``*_work`` function: operations and bytes from the shapes) to
+``SHAPE_WORK``.  It launches nothing and counts no launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import bst_search as K
 from repro_torch.kernels import flash_attention as FA
@@ -20,8 +31,43 @@ from repro_torch.kernels import queue_dispatch as QD
 from repro_torch.kernels import ref
 
 
+def _shapes_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds no data: a ``FakeTensor`` or a ``meta`` tensor."""
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
 def _on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
+    """Whether ``t`` is a CUDA tensor with data (a fake one takes the
+    shapes-only route)."""
+    return t.device.type == "cuda" and not _shapes_only(t)
+
+
+# The kernels' work that shapes-only calls stood for since the last
+# ``reset_shape_work()``: kernel -> {"calls", "flop", "bytes"}, kernels named
+# as in the wrappers' ``LAUNCHES``.
+SHAPE_WORK: Dict[str, Dict[str, float]] = {}
+
+
+def reset_shape_work() -> None:
+    SHAPE_WORK.clear()
+
+
+def _record(kernel: str, work: Tuple[float, int]) -> None:
+    row = SHAPE_WORK.setdefault(kernel, {"calls": 0, "flop": 0, "bytes": 0})
+    row["calls"] += 1
+    row["flop"] += work[0]
+    row["bytes"] += work[1]
+
+
+def _descent_shapes(kernel: str, shape, device, height: int, ordered: bool,
+                    delta: Optional[Sequence[torch.Tensor]]) -> Tuple[torch.Tensor, ...]:
+    lanes = 1
+    for n in shape:
+        lanes *= n
+    capacity = None if delta is None else delta[0].shape[0]
+    _record(kernel if delta is None else kernel + "_delta",
+            K.descent_work(lanes, height, ordered, capacity))
+    return K.outputs(tuple(shape), device, ordered)
 
 
 def bst_search_forest(
@@ -42,6 +88,9 @@ def bst_search_forest(
             shared_tree=shared_tree, delta=delta,
         )
     K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
+    if _shapes_only(queries):
+        return _descent_shapes("forest_descend", queries.shape, queries.device, height, False,
+                               delta)
     return ref.bst_search_ref(forest_keys, forest_values, queries, height, active, delta)
 
 
@@ -65,6 +114,9 @@ def bst_ordered_forest(
             shared_tree=shared_tree, delta=delta,
         )
     K.check_forest_operands(forest_keys, forest_values, queries, height, shared_tree)
+    if _shapes_only(queries):
+        return _descent_shapes("forest_descend", queries.shape, queries.device, height, True,
+                               delta)
     return ref.bst_ordered_ref(
         forest_keys, forest_values, queries, height, active, delta=delta
     )
@@ -98,6 +150,9 @@ def bst_hybrid_forest(
     K.check_hybrid_operands(
         tree_keys, tree_values, queries, height, split_level, mapping, capacity
     )
+    if _shapes_only(queries):
+        return _descent_shapes("hybrid_descend", queries.shape, queries.device, height, ordered,
+                               delta)
     return ref.bst_hybrid_ref(
         tree_keys, tree_values, queries, height, split_level, mapping, capacity,
         active=active, ordered=ordered, block_q=K.HYBRID_BLOCK_Q, overflow_out=overflow_out,
@@ -151,6 +206,8 @@ class FlashAttention(torch.autograd.Function):
         if _on_card(q):
             out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                                scale=scale, with_lse=True)
+        elif _shapes_only(q):
+            out, lse = _flash_shapes(q, k, v, causal, window, with_lse=True)
         else:
             FA.check_operands(q, k, v, window)
             out, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window,
@@ -163,10 +220,29 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.masks
+        if _shapes_only(q):
+            BH, Sq, d, BHkv, Skv = FA.check_operands(q, k, v, window)
+            _record("flash_attention_bwd",
+                    FA.backward_work(BH, BHkv, Sq, Skv, d, causal, window, q.element_size()))
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            FA.bwd_scratch(q, dq)  # allocated and freed as the card's call does
+            return dq, dk, dv, None, None, None
         bwd = FA.flash_attention_bwd_cuda if _on_card(q) else ref.flash_attention_bwd_ref
         dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse, causal=causal, window=window,
                          scale=scale)
         return dq, dk, dv, None, None, None
+
+
+def _flash_shapes(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+    """K5's outputs without computing them: (BH, Sq, d) in q's dtype and,
+    with ``with_lse``, the (BH, Sq) fp32 lse."""
+    BH, Sq, d, BHkv, Skv = FA.check_operands(q, k, v, window)
+    _record("flash_attention",
+            FA.forward_work(BH, BHkv, Sq, Skv, d, causal, window, q.element_size(), with_lse))
+    out = torch.empty_like(q)
+    if not with_lse:
+        return out
+    return out, torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
 
 
 def flash_attention(
@@ -189,6 +265,8 @@ def flash_attention(
                                     scale if scale is not None else q.shape[-1] ** -0.5)
     if _on_card(q):
         return FA.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    if _shapes_only(q):
+        return _flash_shapes(q, k, v, causal, window, with_lse=False)
     FA.check_operands(q, k, v, window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
 
@@ -206,5 +284,8 @@ def queue_dispatch(
     on the CPU."""
     if _on_card(dest):
         return QD.queue_dispatch_cuda(dest, n_dest, capacity)
-    QD.check_operands(dest, n_dest, capacity)
+    G, B = QD.check_operands(dest, n_dest, capacity)
+    if _shapes_only(dest):
+        _record("queue_dispatch", QD.work(G, B, n_dest, capacity))
+        return QD.outputs(dest, n_dest, capacity)
     return ref.queue_dispatch_ref(dest, n_dest, capacity)

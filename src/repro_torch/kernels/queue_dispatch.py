@@ -7,7 +7,8 @@ the dispatch plan with ``torch.empty``, launches the kernel on the current
 stream, raises if the launch was refused, and adds one to
 ``LAUNCHES["queue_dispatch"]``.  It takes CUDA tensors only;
 ``kernels.ops.queue_dispatch`` sends CPU tensors to the plain version
-(``ref.queue_dispatch_ref``) instead.
+(``ref.queue_dispatch_ref``) instead.  ``work`` is the bytes a call must
+move, from its shapes: ``chip_smoke.py``'s bound and the dry run's count.
 """
 
 from __future__ import annotations
@@ -50,6 +51,14 @@ def check_operands(dest: torch.Tensor, n_dest: int, capacity: int) -> Tuple[int,
     return G, B
 
 
+def work(G: int, B: int, n_dest: int, capacity: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one call: dest read once; slot, buffers
+    and counts (int32) and kept and overflow (bool) written once.  Its
+    operations are integer compares and prefix sums, counted as none: the
+    bytes bound it."""
+    return 0, 4 * G * B + G * (4 * B + 2 * B + 4 * n_dest * capacity + 4 * n_dest)
+
+
 def max_dest() -> int:
     """The largest ``n_dest`` K4 takes: above 32 destinations its per-warp
     count table lives in shared memory."""
@@ -64,6 +73,18 @@ def check_n_dest(n_dest: int) -> None:
             f"n_dest {n_dest} is above K4's limit of {limit} destinations "
             f"(its per-warp count table in shared memory)"
         )
+
+
+def outputs(dest: torch.Tensor, n_dest: int, capacity: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plan's five tensors for ``dest``, allocated with ``torch.empty``."""
+    lead = tuple(dest.shape[:-1])
+    slot = torch.empty_like(dest)
+    kept = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
+    buffers = torch.empty(lead + (n_dest, capacity), dtype=torch.int32, device=dest.device)
+    counts = torch.empty(lead + (n_dest,), dtype=torch.int32, device=dest.device)
+    overflow = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
+    return slot, kept, buffers, counts, overflow
 
 
 def queue_dispatch_cuda(
@@ -81,12 +102,7 @@ def queue_dispatch_cuda(
         raise ValueError(f"queue_dispatch_cuda takes CUDA tensors, got {dest.device}")
     G, B = check_operands(dest, n_dest, capacity)
     check_n_dest(n_dest)
-    lead = tuple(dest.shape[:-1])
-    slot = torch.empty_like(dest)
-    kept = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
-    buffers = torch.empty(lead + (n_dest, capacity), dtype=torch.int32, device=dest.device)
-    counts = torch.empty(lead + (n_dest,), dtype=torch.int32, device=dest.device)
-    overflow = torch.empty(dest.shape, dtype=torch.bool, device=dest.device)
+    slot, kept, buffers, counts, overflow = outputs(dest, n_dest, capacity)
     if G > 0:
         built = _build.library()
         with torch.cuda.device(dest.device):

@@ -13,23 +13,26 @@ Families:
 
 The port serves and trains all six families (``models.model``).
 ``ShapeConfig`` and ``input_specs`` describe a request's inputs, the
-frontend's stub embeddings among them, as ``meta`` tensors (no data).  The
-training switches are kept: ``remat`` (each layer under
-``torch.utils.checkpoint``) and ``logit_chunk`` (the cross-entropy's
-sequence chunk).  So are the sharding switches that ``sharding/specs.py``
-reads: ``sharding_strategy`` ("tp", or "dp_only": parameters replicated,
-the batch split over every mesh axis) and ``zero1`` (the optimizer state
-split over the data axis).  The JAX package's XLA and TPU switches
-(``scan_layers``, ``attn_block_q``/``attn_block_k``) have no meaning in
-eager PyTorch and are left out, and so is ``remat_policy``: the port's
-remat saves nothing inside a layer (the JAX "none" policy); "dots" is not
-ported.
+frontend's stub embeddings among them, as ``meta`` tensors (no data);
+``SHAPES`` are the dry run's four cell shapes and ``cell_is_runnable``
+says which (arch, shape) cells run, as in the JAX package.  The training
+switches are kept: ``remat`` (each layer under ``torch.utils.checkpoint``),
+``remat_policy`` (what a layer keeps under it: "none", nothing but its
+input; "dots", also the outputs of its matrix products without batch
+dims, the JAX package's ``dots_with_no_batch_dims_saveable``) and
+``logit_chunk`` (the cross-entropy's sequence chunk).  So are the sharding
+switches that ``sharding/specs.py`` reads: ``sharding_strategy`` ("tp", or
+"dp_only": parameters replicated, the batch split over every mesh axis)
+and ``zero1`` (the optimizer state split over the data axis).  The JAX
+package's XLA and TPU switches (``scan_layers``,
+``attn_block_q``/``attn_block_k``) have no meaning in eager PyTorch and are
+left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,7 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # "flash": kernel K5 on the card (its plain version on the CPU); "naive":
 # materialized scores, for tiny tests only.
 ATTENTION_IMPLS = ("flash", "naive")
+REMAT_POLICIES = ("none", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +83,7 @@ class ModelConfig:
     attention_impl: str = "flash"  # one of ATTENTION_IMPLS
     # --- training
     remat: bool = True  # each layer under torch.utils.checkpoint in forward_train
+    remat_policy: str = "none"  # one of REMAT_POLICIES
     logit_chunk: int = 512  # sequence chunk of the cross-entropy's logits
 
     def __post_init__(self):
@@ -88,6 +93,10 @@ class ModelConfig:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r} (want one of "
                 f"{ATTENTION_IMPLS})"
+            )
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r} (want one of {REMAT_POLICIES})"
             )
 
     # ------------------------------------------------------------------ props
@@ -173,6 +182,24 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, reason).  long_500k needs sub-quadratic decode."""
+    if shape.name == "long_500k" and not cfg.supports_long_decode:
+        return False, (
+            "pure full-attention arch: 524k dense-KV decode is the quadratic "
+            "case long_500k excludes (DESIGN.md §4)"
+        )
+    return True, ""
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:

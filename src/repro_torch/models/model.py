@@ -17,7 +17,8 @@ encdec, the encoder's layers and norm, where the JAX package stacks
 next-token cross-entropy (``layers.chunked_softmax_xent``) and the MoE
 dropped share, each layer under ``torch.utils.checkpoint`` with
 ``cfg.remat`` (the counterpart of its ``jax.checkpoint`` around the layer
-scan's body).  A model is frozen unless built ``trainable``.
+scan's body), keeping what ``cfg.remat_policy`` says.  A model is frozen
+unless built ``trainable``.
 Serving runs under ``torch.no_grad``.  The decode caches are stacked (L, ...)
 as in the JAX package and are updated in place, and the decode position is
 one device scalar that every cache shares and the step advances in place,
@@ -36,11 +37,16 @@ this rank's vocab block.  Its decode state is cut the same way, by
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
@@ -208,18 +214,43 @@ def _decoder_layer_full(
 LayerFn = Callable[[DecoderLayer, torch.Tensor], Tuple[torch.Tensor, object]]
 
 
-def _run_layers(layer_list: nn.ModuleList, x: torch.Tensor, fn: LayerFn, remat: bool):
+# The matrix products without batch dims: ``x @ w`` of a 2-D weight (a 3-D
+# ``x`` is flattened into one ``mm``), with or without a bias.  Batched
+# products (``bmm``: the experts, the naive attention's and the SSD scan's
+# einsums) and K5 are not among them.
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" policy: keep the outputs of ``_DOTS``, recompute the rest
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig) -> Optional[str]:
+    """The layers' remat policy in ``forward_train``: None without remat."""
+    return cfg.remat_policy if cfg.remat else None
+
+
+def _run_layers(layer_list: nn.ModuleList, x: torch.Tensor, fn: LayerFn,
+                remat: Optional[str]):
     """``fn(lp, x) -> (x, dropped)`` over the layers: ``(x, the summed
     dropped share)``, a 0-d fp32 tensor.  With ``remat`` each layer runs
-    under ``torch.utils.checkpoint``: only its input survives the forward,
-    and the backward runs the layer again (the JAX package's
-    ``jax.checkpoint`` around its scan body, policy "none")."""
+    under ``torch.utils.checkpoint`` and the backward runs the layer again
+    (the JAX package's ``jax.checkpoint`` around its scan body): "none"
+    keeps only the layer's input through the forward, "dots" also the
+    outputs of its ``_DOTS``, which the backward's rerun reads instead of
+    recomputing them (a selective checkpoint)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_list:
-        if remat:
+        if remat is None:
+            x, dropped = fn(lp, x)
+        elif remat == "none":
             x, dropped = checkpoint(fn, lp, x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, dropped = fn(lp, x)
+            x, dropped = checkpoint(
+                fn, lp, x, use_reentrant=False, preserve_rng_state=False,
+                context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
         aux = aux + dropped
     return x, aux
 
@@ -239,7 +270,7 @@ def _embed_inputs(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
 
 
 def _run_encoder(cfg: ModelConfig, model: Model, frontend_embeds: torch.Tensor,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: Optional[str] = None) -> torch.Tensor:
     """The encdec encoder over the frontend's frames (B, Smem, D), non-causal,
     then its final norm: the memory (B, Smem, D)."""
     B, S, _ = frontend_embeds.shape
@@ -269,7 +300,7 @@ def forward_train(
     projects its cross K/V from the memory; vlm: the patch embeddings
     replace the first positions, which the loss leaves out (the mask
     ``positions >= flen``).  With ``cfg.remat`` every layer, the encoder's
-    too, runs under ``torch.utils.checkpoint``."""
+    too, runs under ``torch.utils.checkpoint`` with ``cfg.remat_policy``."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     enc_out = None
@@ -277,7 +308,7 @@ def forward_train(
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: the encdec forward needs frontend_embeds, the "
                              f"encoder's frames")
-        enc_out = _run_encoder(cfg, model, frontend_embeds, remat=cfg.remat)
+        enc_out = _run_encoder(cfg, model, frontend_embeds, remat=_remat(cfg))
         x = layers.embed(tokens, model.embed, model.vocab_axis())
     else:
         x = _embed_inputs(cfg, model, tokens, frontend_embeds)
@@ -287,7 +318,7 @@ def forward_train(
         h, _, _, dropped = _decoder_layer_full(cfg, lp, h, positions, causal=True, memory_kv=mem)
         return h, dropped
 
-    x, aux = _run_layers(model.layers, x, layer, cfg.remat)
+    x, aux = _run_layers(model.layers, x, layer, _remat(cfg))
     x = layers.rms_norm(x, model.final_norm, cfg.norm_eps)
     mask = None
     if cfg.family == "vlm" and frontend_embeds is not None:

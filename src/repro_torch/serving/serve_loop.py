@@ -179,17 +179,18 @@ def _cut_state(cfg: ModelConfig, mesh: Any, batch: int, state: M.DecodeState,
 
 
 def mesh_decode_state(cfg: ModelConfig, mesh: Any, batch: int, max_len: int, device,
-                      memory_len: Optional[int] = None) -> M.DecodeState:
+                      memory_len: Optional[int] = None,
+                      seq_shard: Optional[bool] = None) -> M.DecodeState:
     """Zeroed caches of a global batch of ``batch``: this rank's blocks per
-    ``decode_state_specs`` with the sequence split chosen automatically (a
-    sequence-sharded KV cache carries the model axis as its
-    ``seq_axis``)."""
+    ``decode_state_specs(seq_shard)``, the sequence split chosen
+    automatically by default (a sequence-sharded KV cache carries the model
+    axis as its ``seq_axis``)."""
     meta = M.make_decode_state(cfg, batch, max_len, "meta", memory_len)
 
     def make(t, rows):
         return torch.zeros([s.stop - s.start for s in rows], dtype=t.dtype, device=device)
 
-    return _cut_state(cfg, mesh, batch, meta, None, make)
+    return _cut_state(cfg, mesh, batch, meta, seq_shard, make)
 
 
 def place_state(cfg: ModelConfig, mesh: Any, batch: int, state: M.DecodeState,

@@ -34,7 +34,9 @@ whole tuple) and ``serve_step_shardings`` the serving step's: what
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.models.config import ModelConfig
 
@@ -77,11 +79,21 @@ class Spec(tuple):
         return f"Spec({tuple(self)!r}" + (f", layer={self.layer!r})" if self.layer else ")")
 
 
+def mesh_ranks(mesh: Any) -> List[List[int]]:
+    """A ``DeviceMesh``'s ranks, nested as its shape (a list a dim).  The
+    layout is host metadata, read outside any ``FakeTensorMode`` (a dry
+    run traces the steps under one, and the layout is a real tensor)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return mesh.mesh.tolist()
+
+
 def mesh_shape(mesh: Any) -> Dict[str, int]:
     """Axis name -> size, in mesh order, of a ``DeviceMesh`` or a mapping."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+    return dict(zip(mesh.mesh_dim_names, np.shape(mesh_ranks(mesh))))
 
 
 def _axis(shape: Mapping[str, int], name: str) -> int:

@@ -41,6 +41,7 @@ import contextlib
 import math
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -111,6 +112,12 @@ SINGLE = Axis((), None, 1, 0)
 _GROUPS: Dict[Tuple, Dict[int, object]] = {}
 
 
+def forget_groups() -> None:
+    """Drop the subgroups made so far: after the default process group is
+    destroyed they are dead, and a new one makes its own."""
+    _GROUPS.clear()
+
+
 def mesh_axis(mesh, axes: Sequence[str]) -> Axis:
     """The ``Axis`` of ``axes`` (names of ``mesh``, a ``DeviceMesh`` over
     the whole default process group) for this rank."""
@@ -126,12 +133,12 @@ def mesh_axis(mesh, axes: Sequence[str]) -> Axis:
         return Axis(axes, None, 1, 0)
     if len(axes) == 1:
         return Axis(axes, mesh.get_group(axes[0]), size, index)
-    layout = mesh.mesh
+    layout = np.array(specs_lib.mesh_ranks(mesh))
     key = (tuple(layout.flatten().tolist()), tuple(layout.shape), names, axes)
     if key not in _GROUPS:
         keep = [i for i, a in enumerate(names) if a in axes]
         other = [i for i, a in enumerate(names) if a not in axes]
-        moved = layout.permute(other + keep).reshape(-1, size)
+        moved = layout.transpose(other + keep).reshape(-1, size)
         groups = {}
         for row in moved.tolist():  # every rank creates every group, in order
             g = dist.new_group(sorted(row))
