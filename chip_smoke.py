@@ -109,13 +109,16 @@ Phases, in order; any failure raises and exits non-zero:
    whole model in bf16 (4 x 512 prompts), the flash route (K5's wgmma body)
    and the naive route each against the naive route in fp32: the flash
    route's RMS distance at most 1.25 times the naive one's; then the bf16
-   serving run through ``greedy_generate`` (4 prompts x 2048
-   tokens + 32 new), which captures the decode step as one CUDA graph, one
-   K5 launch per layer, its tokens equal to the eager route's, then one
-   request on each route in turns (graph, eager, graph, eager) with no
-   capture, every logit finite, with prefill and decode times, peak
-   memory and the device idle share, kernels and host launch calls of a
-   decode step and of a prefill; then K5 timed at both prefill shapes
+   serving run (4 prompts x 2048 tokens + 32 new): its decode and prefill
+   CUDA graphs captured (seconds, each pool's bytes), the prefill graph's
+   logits, caches and position equal to the eager route's bit for bit;
+   ``greedy_generate`` with every count set to 0 captures nothing, runs one
+   K5 a layer (the prefill graph's replay), its tokens equal to the eager
+   route's; then one request on each route in turns (graph, eager, graph,
+   eager) with no capture, every logit finite, with prefill and decode
+   times on both routes, peak memory and the device idle share, kernels
+   and host launch calls of a decode step and of a prefill on both
+   routes; then K5 timed at both prefill shapes
    beside its bound, its plain version and ``scaled_dot_product_attention``;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
    layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
@@ -133,14 +136,16 @@ Phases, in order; any failure raises and exits non-zero:
    and at capacity factor 4 the dispatch route against a dense
    every-token-through-its-experts oracle and decode against a prefill of
    the longer prompt; then the bf16 serving run at 16 layers: the decode
-   graph captured, then ``greedy_generate`` (4 prompts x 2048 tokens + 32
-   new), one K4 and one K5 launch per layer per prefill, one K4 run per
-   layer per decode step (the replays'), its tokens equal to the eager
-   route's, then one request on each route in turns (graph, eager, graph,
-   eager), K4 counted and the dropped share copied out after every step,
-   the two routes' shares equal, no capture, every logit finite, with
-   prefill and decode times, peak memory, a decode step's device idle
-   share, its device kernels and its host launch calls;
+   and prefill graphs captured, the prefill graph (K4 and K5 inside) equal
+   to the eager route bit for bit, then ``greedy_generate`` (4 prompts x
+   2048 tokens + 32 new), one K4 and one K5 run per layer per prefill and
+   one K4 run per layer per decode step, all of them replays', its tokens
+   equal to the eager route's, then one request on each route in turns
+   (graph, eager, graph, eager), K4 counted and the dropped share copied
+   out after every step, the two routes' shares equal, no capture, every
+   logit finite, with prefill and decode times on both routes, peak
+   memory, a decode step's device idle share, its device kernels and its
+   host launch calls;
 8. the other families at their published width and depth, one model
    alive at a time: mamba2-1.3b (ssm), hymba-1.5b (hybrid),
    seamless-m4t-medium (encdec, 2048 frames a prompt) and internvl2-2b
@@ -150,13 +155,14 @@ Phases, in order; any failure raises and exits non-zero:
    mamba2 the SSD duality at 48 layers), logits within 1e-3; in bf16 (4 x
    512, the families with attention) the flash route's RMS distance from
    the fp32 naive route at most 1.25 times the naive bf16 route's; the
-   bf16 serving run as phase 6's (4 x 2048 + 32 through
-   ``greedy_generate``, one decode graph, every kernel count set to 0
-   first: K5 launches a prefill hymba 32, seamless 36, internvl2 24,
-   mamba2 0, and no other kernel; graph tokens == eager tokens, then one
-   request on each route in turns with no capture, every logit finite;
-   prefill tok/s, decode ms/step, peak memory, a decode step's and a
-   prefill's profile); then K5 timed at hymba's and seamless's encoder
+   bf16 serving run as phase 6's (4 x 2048 + 32: the decode and prefill
+   graphs captured, the prefill graph equal to the eager route bit for
+   bit; ``greedy_generate`` with every kernel count set to 0 first: K5
+   runs a prefill hymba 32, seamless 36, internvl2 24, mamba2 0, and no
+   other kernel; graph tokens == eager tokens, then one request on each
+   route in turns with no capture, every logit finite; prefill tok/s on
+   both routes, decode ms/step, peak memory, a decode step's and a
+   prefill's profile on both routes); then K5 timed at hymba's and seamless's encoder
    shapes beside its bound, its plain version and SDPA (an explicit mask
    for hymba's window; the backend SDPA chose is named);
 9. training: K5's backward (``flash_attention_bwd_cuda``: pre-pass, main
@@ -175,14 +181,23 @@ Phases, in order; any failure raises and exits non-zero:
    against the fp32 naive route of the same weights (RMS ratio <= 1.25,
    the worst tensor named); the bf16
    training run of qwen3-1.7b at full depth, 4 x 2048 from TokenPipeline,
-   4 steps of ``make_train_step`` (every kernel count set to 0 first: K5's
-   forward 56 and its backward 28 a step, nothing else), losses and
-   gradient norms finite, the first loss within 0.05 of the uniform
-   stream's expected loss at init (ln V + 0.02^2 d_model / 2), the
-   parameters moved, step ms, tok/s, peak memory under 80 GB, one step
-   profiled (K5's device kernels counted in its trace: the forward's body
-   56, the backward's pre-pass, main kernel and cast 28 each, no fp32
-   backward kernel); then K5's backward timed at qwen3's and hymba's
+   4 steps of ``make_train_step`` on the eager route (every kernel count
+   set to 0 first: K5's forward 56 and its backward 28 a step, nothing
+   else), losses and gradient norms finite, the first loss within 0.05 of
+   the uniform stream's expected loss at init (ln V + 0.02^2 d_model /
+   2), the parameters moved, one step profiled (K5's device kernels
+   counted in its trace: the forward's body 56, the backward's pre-pass,
+   main kernel and cast 28 each, no fp32 backward kernel); then the same
+   4 steps from the same init through the step's CUDA graph, the main
+   path: step 0 the capture (its warm-up is the step) with the eager
+   step's loss bit for bit, the replays running K5 56 and its backward 28
+   each (``graphs.kernel_runs()``), later steps held to the eager ones in
+   phase 9c; step ms and tok/s on both routes, the pool's bytes, peak
+   memory under 80 GB, one replayed step profiled (host launch calls,
+   idle share); mixtral-8x7b cut to 2 layers, 3 graphed train steps (K4
+   inside) against two eager runs from the same init (step 0's loss bit
+   for bit, every step within the floor rule, the floor the eager runs'
+   difference); then K5's backward timed at qwen3's and hymba's
    training shapes beside its bound (2.5 x the forward's operations), its
    plain version and SDPA's backward (the backend named), with each of its
    three device kernels' share of a launch (each launched alone,
@@ -203,14 +218,20 @@ Phases, in order; any failure raises and exits non-zero:
    deadline exit (code 42) after its step-0 checkpoint, a ``--resume`` run
    to the end, its final state against an uninterrupted run's (1e-5 of
    each tensor's scale, the floor of two uninterrupted runs beside it);
-   (c) ``make_train_step(mode="dp_shard_map")`` at world 1 over NCCL for
-   compression None, bf16 and int8, 3 steps each from the seed-0 state:
-   every kernel count set to 0 first, K5's forward 56 and its backward 28
-   a step and nothing else, losses finite, None's first loss equal to
-   phase 9's plain step's and its three steps' losses and grad norms
-   within 1e-4 (relative) or 3 x the floor (phase 9's steps run again
-   five times) of phase 9's, peak memory under 80 GB, step ms beside the
-   plain step's, the all-reduce's bytes and collective calls a step;
+   (a)'s step is the graphed one, and the restored state's first step
+   captures a graph of its own;
+   (c) the floor (phase 9's eager steps run again five times) and phase
+   9's graphed steps held to its eager ones (loss and grad norm within
+   1e-4 relative or 3 x the floor); ``make_train_step(mode=
+   "dp_shard_map")`` at world 1 over NCCL, a CUDA graph with its
+   all-reduces, for compression None, bf16 and int8, 3 steps each from
+   the seed-0 state: every kernel count set to 0 first, K5's forward 56
+   and its backward 28 a step and nothing else (``kernel_runs()``), one
+   capture in step 0, losses finite, None's first loss equal to phase 9's
+   and its three steps' losses and grad norms within the floor rule of
+   phase 9's eager steps, peak memory under 80 GB, step ms beside the
+   plain graphed step's, the all-reduce's bytes and collective calls a
+   step (replays counted), the pool's bytes;
 9t. the LM's model axis (``make_train_step(mode="pjit")``, the mesh
    ``make_prefill_fn``/``make_serve_step``, ``sharding/tp.py``) on 2 gloo
    ranks sharing the card (NCCL puts no two ranks on one card), mesh (data
@@ -231,8 +252,10 @@ Phases, in order; any failure raises and exits non-zero:
    rank peak memory, step ms, the collectives' calls and bytes (no
    scaling figure: two ranks share one card and gloo crosses the host);
    then at world 1 over NCCL, mesh (1, 1), phase 6's request through the
-   mesh prefill and the mesh decode step, one CUDA graph, its tokens
-   bit for bit phase 6's;
+   mesh prefill and the mesh decode step, a CUDA graph each, its tokens
+   bit for bit phase 6's, and 3 steps of the pjit step, a CUDA graph (one
+   capture), each loss and grad norm within the floor rule of phase 9's
+   graphed steps;
 10. the dry run (``launch/dryrun.py``, ``dryrun_bst.py``): (a) in two
    subprocesses that see no card, as rank 0 of a fake process group of 256
    under ``FakeTensorMode``, qwen3-1.7b's train_4k, prefill_32k and
@@ -244,8 +267,8 @@ Phases, in order; any failure raises and exits non-zero:
    bf16 train step of qwen3-1.7b (4 x 2048, full depth) traced at world 1
    (a fake group of 1, one subprocess each) with remat off, "none" and
    "dots", while the card runs the same three steps (``make_train_step(
-   mode="pjit")`` at world 1 over NCCL, two steps each from the seed-0
-   state): each traced peak within DRYRUN_PEAK_TOL of the card's
+   mode="pjit", eager=True)`` at world 1 over NCCL, two steps each from
+   the seed-0 state: the dry run traces the eager step): each traced peak within DRYRUN_PEAK_TOL of the card's
    ``max_memory_allocated`` (less what was allocated before the state),
    "dots" between "none" and remat off in both, and the traced FLOPs over
    the measured step as TFLOP/s;
@@ -320,7 +343,6 @@ from repro_torch.analysis import contracts, deadcode, gate, lint, report  # noqa
 from repro_torch.serving import bst_server  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BSTServer,
-    decode_graph,
     greedy_generate,
     make_prefill_fn,
     make_serve_step,
@@ -423,9 +445,10 @@ LM_CHECK_TOL = 1e-3  # fp32 logits after 28 layers: the routes' rounding differs
 LM_BF16_CHECK_BATCH = 4
 LM_BF16_ROUTE_RATIO = 1.25
 LM_PROFILE_STEPS = 4
-# The timed requests of phases 6 and 7, in turns: (eager route, the profiles
-# taken after it); the prefill is the same on both routes.
-ROUTE_TURNS = ((False, ("decode", "prefill")), (True, ("decode",)), (False, ()), (True, ()))
+# The timed requests of phases 6, 7 and 8, in turns: (eager route, the
+# profiles taken after it).
+ROUTE_TURNS = ((False, ("decode", "prefill")), (True, ("decode", "prefill")), (False, ()),
+               (True, ()))
 BF16_FLOP_PER_S = hardware.BF16_FLOP_PER_S  # dense bf16 tensor cores, the data sheet's
 # K5 against its plain version: fp32, the kernel's FMA order and expf
 # against torch's matmul and softmax (TF32 off); bf16, the kernel's tensor
@@ -537,6 +560,9 @@ TRAIN_FAMILY_ARCHS = ("mixtral-8x7b", "hymba-1.5b", "seamless-m4t-medium", "inte
 # layer twice, so a step launches K5's forward 2 x 28 times and its
 # backward 28 times (each 3 device kernels in bf16: BWD_BF16_KERNELS).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+# The graphed train step with K4 inside (mixtral-8x7b at TRAIN_CHECK_LAYERS
+# layers, TRAIN_BATCH x TRAIN_CHECK_SEQ tokens): steps on each route.
+MOE_TRAIN_STEPS = 3
 TRAIN_PEAK_BYTES = hardware.HBM_BYTES  # the card's memory
 # The first loss: the tokens are uniform, and at init the logits are
 # <x, e_v> with x the final norm's output (RMS 1, scale 1) and e_v ~
@@ -578,11 +604,12 @@ BWD_STAGE_KERNELS = {"pre": "flash_bwd_pre_bf16_kernel", "main": "flash_bwd_bf16
 # seed-0 state: K5's forward 2 x 28 and its backward 28 a step and nothing
 # else, losses finite, None's first loss equal to the plain step's (phase
 # 9) within RESTORE_LOSS_RTOL, peak memory under the card's.  None's steps
-# repeat phase 9's plain steps: each step's loss and grad norm within
+# repeat phase 9's eager steps: each step's loss and grad norm within
 # DP_EQ_RTOL of phase 9's (relative), or FLOOR_FACTOR times the floor if
 # that is larger; the floor at each step: the largest difference from phase
-# 9 of FLOOR_PASSES runs of the plain steps from the seed-0 state.  Set
-# before the phase's fourth run.
+# 9 of FLOOR_PASSES eager runs of its steps from the seed-0 state.  Set
+# before the phase's fourth run.  The same rule holds phase 9's graphed
+# steps, the DP graph's and phase 9t's world-1 pjit graph's.
 CKPT_STEPS = 2
 CKPT_DISK_MARGIN = 1.1
 RESTORE_LOSS_RTOL = 1e-6
@@ -2476,17 +2503,62 @@ def log_route(label: str, r: dict) -> None:
             log_call_profile(f"{r['route']} {kind}", r[f"{kind}_profile"])
 
 
+def capture_serving_graphs(cfg, model, prompts, fe, max_len: int) -> dict:
+    """The serving request's decode and prefill graphs, captured before any
+    count is read (a capture runs its step once eagerly, and the prefill's
+    once more as a replay): their capture seconds (``graphs.STATS``, the
+    warm-ups excluded), the wall time around both, and each pool's bytes."""
+    graphs.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg = serve_loop.prefill_graph(cfg, model, prompts, fe[0] if fe else None, max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(graphs.STATS["captures"] == 2, f"{cfg.name}: {graphs.STATS['captures']} graphs captured "
+                                         f"for one request shape, want its decode and prefill graphs")
+    return {"captures": graphs.STATS["captures"], "capture_s": graphs.STATS["capture_s"],
+            "capture_wall_s": wall, "prefill_pool_bytes": pg.graph.pool_bytes,
+            "decode_pool_bytes": pg.decode.graph.pool_bytes}
+
+
+def check_prefill_routes(cfg, model, prompts, fe, max_len: int) -> dict:
+    """The prefill graph against the eager route on the serving request: the
+    logits, every cache and the position bit for bit (the graph replays the
+    eager route's kernels in its order, and the forward has no atomics)."""
+    got, state = make_prefill_fn(cfg, max_len=max_len)(model, prompts, *fe)
+    want, eager_state = make_prefill_fn(cfg, max_len=max_len, eager=True)(model, prompts, *fe)
+    caches, want_caches = lm.state_tensors(state), lm.state_tensors(eager_state)
+    check(torch.equal(got, want), f"{cfg.name}: the prefill graph's logits differ from the eager "
+                                  f"route's")
+    check(set(caches) == set(want_caches) and all(torch.equal(caches[k], want_caches[k])
+                                                  for k in caches)
+          and int(state.position) == int(eager_state.position),
+          f"{cfg.name}: the prefill graph's caches differ from the eager route's")
+    return {"logits_equal": True, "caches_equal": sorted(caches),
+            "cache_bytes": sum(t.numel() * t.element_size() for t in caches.values())}
+
+
+def log_prefill_graph(cfg, captured: dict, routes: list, smi: str) -> None:
+    prefill = {r["route"]: [x["prefill_s"] for x in routes if x["route"] == r["route"]]
+               for r in routes}
+    log(f"    {cfg.name} prefill graph: logits and caches == the eager route's bit for bit; decode "
+        f"and prefill graphs captured in {captured['capture_s']!r} s ({captured['capture_wall_s']!r} "
+        f"s with the warm-ups and the first replay), pools: prefill "
+        f"{captured['prefill_pool_bytes']} bytes, decode {captured['decode_pool_bytes']} bytes; "
+        f"prefill s in turns: graph {prefill['graph']}, eager {prefill['eager']} ({smi})")
+
+
 def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
     """The serving run of a model (qwen3-1.7b, or a family of phase 8) in
-    bf16: every kernel count set to 0, then ``greedy_generate`` of
-    LM_BATCH x LM_PROMPT + LM_NEW with its frontend embeddings, whose first
-    call captures the decode step as one graph and whose prefill runs
+    bf16: the decode and prefill graphs of LM_BATCH x LM_PROMPT + LM_NEW
+    captured, the prefill graph held to the eager route bit for bit; every
+    kernel count set to 0, then ``greedy_generate`` with its frontend
+    embeddings, which captures nothing and whose prefill replay runs
     ``k5_per_prefill`` K5 launches (by default one a layer) and no other
     kernel of the port; the same through the eager route, tokens equal;
     then one request timed on each route (graph, eager, graph, eager: the
     host's spread shows in each pair) through the serve loop's units,
-    tokens held against greedy_generate's, and no capture after the
-    first."""
+    tokens held against greedy_generate's, and no capture."""
     k5 = cfg.n_layers if k5_per_prefill is None else k5_per_prefill
     model = lm.init_params(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(
@@ -2494,6 +2566,8 @@ def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
     fe = frontend_embeds(cfg, LM_BATCH, LM_PROMPT, seed=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    captured = capture_serving_graphs(cfg, model, prompts, fe, LM_PROMPT + LM_NEW)
+    prefill_check = check_prefill_routes(cfg, model, prompts, fe, LM_PROMPT + LM_NEW)
     for reset in (K.reset_launches, QD.reset_launches, FA.reset_launches, graphs.reset):
         reset()
     tokens = greedy_generate(cfg, model, prompts, LM_NEW, *fe)
@@ -2501,9 +2575,8 @@ def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
     runs = graphs.kernel_runs()
     launches = runs["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
-    check(graphs.STATS["captures"] == 1, f"{cfg.name} serving: {graphs.STATS['captures']} graphs "
-                                         f"captured, want the one decode graph")
-    capture_s = graphs.STATS["capture_s"]
+    check(graphs.STATS["captures"] == 0, f"{cfg.name} serving: greedy_generate captured "
+                                         f"{graphs.STATS['captures']} graphs")
     check(launches == k5, f"{cfg.name} serving: {launches} K5 launches for one prefill, want {k5}")
     check(all(n == 0 for name, n in runs.items() if name != "flash_attention"),
           f"{cfg.name} serving ran a kernel of another path: {runs}")
@@ -2514,7 +2587,7 @@ def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
 
     routes = [timed_generate(cfg, model, prompts, LM_NEW, eager, profiles=profiles, frontend=fe)
               for eager, profiles in ROUTE_TURNS]
-    check(graphs.STATS["captures"] == 1,
+    check(graphs.STATS["captures"] == 0,
           f"{cfg.name} serving: a steady-state request captured a graph")
     for r in routes:
         check(torch.equal(r.pop("tokens"), tokens),
@@ -2528,24 +2601,28 @@ def serve_lm(cfg, smi: str, k5_per_prefill=None) -> dict:
         "dtype": cfg.dtype, "params": cfg.n_params(),
         "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
         "frontend": list(fe[0].shape) if fe else None,
-        "flash_launches": launches, "peak_bytes": peak, "capture_s": capture_s,
+        "flash_launches": launches, "peak_bytes": peak, "capture_s": captured["capture_s"],
+        "graphs": captured, "prefill_graph": prefill_check,
         **{k: graph[k] for k in ("prefill_s", "prefill_tok_per_s", "decode_steps",
                                  "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
                                  "prefill_profile")},
+        "eager_prefill_s": eager["prefill_s"], "eager_prefill_tok_per_s": eager["prefill_tok_per_s"],
+        "eager_prefill_profile": eager["prefill_profile"],
         "routes": routes, "graph_tokens_equal_eager": True,
         "sample_ids": tokens[0, :16].tolist(), "tokens": tokens.tolist(),
     }
     log(f"  {cfg.name} ({cfg.family}) bf16, {cfg.n_layers} layers, {LM_BATCH} x {LM_PROMPT} + "
-        f"{LM_NEW}, frontend {row['frontend']}: K5 launches {launches}, decode graph captured in "
-        f"{capture_s!r} s, graph tokens == eager tokens; graph: prefill {graph['prefill_s']!r} s "
+        f"{LM_NEW}, frontend {row['frontend']}: K5 runs {launches} (the prefill graph's replay), "
+        f"graph tokens == eager tokens; graph: prefill {graph['prefill_s']!r} s "
         f"({graph['prefill_tok_per_s']!r} tok/s), decode {graph['decode_ms_per_step']!r} ms/step; "
-        f"eager: decode {eager['decode_ms_per_step']!r} ms/step; peak {peak} bytes, every logit "
-        f"finite ({smi})")
+        f"eager: prefill {eager['prefill_s']!r} s ({eager['prefill_tok_per_s']!r} tok/s), decode "
+        f"{eager['decode_ms_per_step']!r} ms/step; peak {peak} bytes, every logit finite ({smi})")
+    log_prefill_graph(cfg, captured, routes, smi)
     for r in routes:
         log_route("route", r)
     log(f"    sample ids {row['sample_ids']}")
     del model
-    gc.collect()  # the model's decode graph goes with it
+    gc.collect()  # the model's graphs go with it
     torch.cuda.empty_cache()
     return row
 
@@ -2867,23 +2944,23 @@ def layer_dropped(model) -> torch.Tensor:
 
 def serve_moe(cfg, smi: str) -> dict:
     """The MoE serving run: mixtral-8x7b in bf16 at MOE_LAYERS layers.  The
-    decode graph is captured first; then ``greedy_generate`` with the
-    kernels that ran counted from 0 (K4 and K5 eager in the prefill, K4 in
-    every replayed step); the eager route's tokens equal; then one request
-    timed on each route (graph, eager, graph, eager) through the serve
-    loop's units, one K4 run per layer per step counted after each step,
-    the dropped share copied out after each step, tokens held against
-    greedy_generate's, and no capture after the first."""
+    decode and prefill graphs are captured first, the prefill graph held to
+    the eager route bit for bit; then ``greedy_generate`` with the kernels
+    that ran counted from 0 (K4 and K5 in the prefill's replay, K4 in every
+    replayed step); the eager route's tokens equal; then one request timed
+    on each route (graph, eager, graph, eager) through the serve loop's
+    units, one K4 run per layer per step counted after each step, the
+    dropped share copied out after each step, tokens held against
+    greedy_generate's, and no capture."""
     model = lm.init_params(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).cuda()
     L = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    decode_graph(cfg, model, MOE_BATCH, MOE_PROMPT + MOE_NEW)
-    torch.cuda.synchronize()
-    capture_wall_s = time.perf_counter() - t0
+    captured = capture_serving_graphs(cfg, model, prompts, (), MOE_PROMPT + MOE_NEW)
+    capture_wall_s = captured["capture_wall_s"]
+    prefill_check = check_prefill_routes(cfg, model, prompts, (), MOE_PROMPT + MOE_NEW)
     QD.reset_launches()
     FA.reset_launches()
     graphs.reset()
@@ -2894,8 +2971,9 @@ def serve_moe(cfg, smi: str) -> dict:
     k4_launches, k5_launches = runs["queue_dispatch"], runs["flash_attention"]
     k4_replayed = graphs.REPLAYED["queue_dispatch"]
     check(graphs.STATS["captures"] == 0, "MoE serving: greedy_generate captured a graph")
-    check(k5_launches == L, f"MoE serving: {k5_launches} K5 launches for one prefill of {L} layers")
-    check(k4_launches == L * MOE_NEW == k4_replayed + L,
+    check(k5_launches == L == graphs.REPLAYED["flash_attention"],
+          f"MoE serving: {k5_launches} K5 launches for one prefill of {L} layers")
+    check(k4_launches == L * MOE_NEW == k4_replayed,
           f"MoE serving: {k4_launches} K4 launches ({k4_replayed} replayed) "
           f"for a prefill and {MOE_NEW - 1} decode steps of {L} layers")
     check(tuple(tokens.shape) == (MOE_BATCH, MOE_NEW), f"greedy_generate gave {tuple(tokens.shape)}")
@@ -2934,7 +3012,9 @@ def serve_moe(cfg, smi: str) -> dict:
         "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
         "k4_launches": k4_launches, "k4_replayed": k4_replayed, "k5_launches": k5_launches,
         "peak_bytes": peak,
-        "capture_wall_s": capture_wall_s,
+        "capture_wall_s": capture_wall_s, "graphs": captured, "prefill_graph": prefill_check,
+        "eager_prefill_s": eager["prefill_s"], "eager_prefill_tok_per_s": eager["prefill_tok_per_s"],
+        "eager_prefill_profile": eager["prefill_profile"],
         **{k: graph[k] for k in ("prefill_s", "prefill_tok_per_s", "decode_steps",
                                  "decode_ms_per_step", "decode_tok_per_s", "decode_profile",
                                  "prefill_profile", "prefill_dropped_share",
@@ -2944,14 +3024,15 @@ def serve_moe(cfg, smi: str) -> dict:
         "sample_ids": tokens[0, :16].tolist(),
     }
     log(f"  {cfg.name} bf16, {L} of {row['published_layers']} layers, {MOE_BATCH} x {MOE_PROMPT} + "
-        f"{MOE_NEW}: decode graph captured in {capture_wall_s!r} s (warm-up step included); K4 "
-        f"launches {k4_launches} ({k4_replayed} of them replayed: one per "
-        f"layer per prefill and decode step), K5 launches {k5_launches}; graph tokens == eager "
+        f"{MOE_NEW}: decode and prefill graphs captured in {capture_wall_s!r} s (warm-ups "
+        f"included); K4 runs {k4_launches} ({k4_replayed} of them replayed: one per "
+        f"layer per prefill and decode step), K5 runs {k5_launches}; graph tokens == eager "
         f"tokens, dropped shares equal; graph: prefill {graph['prefill_s']!r} s "
         f"({graph['prefill_tok_per_s']!r} tok/s), decode {graph['decode_ms_per_step']!r} ms/step; "
-        f"eager: decode {eager['decode_ms_per_step']!r} ms/step; dropped share "
-        f"{row['prefill_dropped_share']!r} (prefill), {row['decode_dropped_share']!r} (decode), "
-        f"peak {peak} bytes, every logit finite ({smi})")
+        f"eager: prefill {eager['prefill_s']!r} s, decode {eager['decode_ms_per_step']!r} ms/step; "
+        f"dropped share {row['prefill_dropped_share']!r} (prefill), "
+        f"{row['decode_dropped_share']!r} (decode), peak {peak} bytes, every logit finite ({smi})")
+    log_prefill_graph(cfg, captured, routes, smi)
     for r in routes:
         log_route("route", r)
     log(f"    sample ids {row['sample_ids']}")
@@ -3252,21 +3333,91 @@ def train_tcfg(compression=None) -> TrainConfig:
                        compression=compression)
 
 
+def train_steps(step, state, pipe, steps: int, route: str, want: dict) -> tuple:
+    """``steps`` steps of ``step`` on the pipeline's batches 0.., each timed
+    by the host clock around a synchronised step whose metrics the host
+    reads: per step the metrics, ms, tok/s, the kernels that ran
+    (``graphs.kernel_runs()``: eager launches and replays' kernels) and the
+    graphs captured; the metrics finite and the kernels ``want``.
+    Returns (state, rows)."""
+    rows = []
+    for s in range(steps):
+        tokens, labels = batch_on_card(pipe, s)
+        runs, captures = graphs.kernel_runs(), graphs.STATS["captures"]
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        state, metrics = step(state, tokens, labels)
+        m = {k: float(v) for k, v in metrics.items()}  # the host reads the step's metrics
+        ms = (time.perf_counter() - t_step) * 1e3
+        got = {k: n - runs[k] for k, n in graphs.kernel_runs().items() if n != runs[k]}
+        rows.append({"step": s, **m, "ms": ms,
+                     "tok_per_s": tokens.numel() / ms * 1e3, "launches": got,
+                     "captures": graphs.STATS["captures"] - captures})
+        log(f"    {route} step {s}: loss {m['loss']!r} grad_norm {m['grad_norm']!r} lr {m['lr']!r} "
+            f"{ms!r} ms ({rows[-1]['tok_per_s']!r} tok/s); kernels that ran {got}; "
+            f"{rows[-1]['captures']} graphs captured")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"{route} train step {s}: loss {m['loss']} grad_norm {m['grad_norm']}")
+        check(got == want, f"{route} train step {s}: kernels that ran {got}, want {want}")
+    return state, rows
+
+
+def check_graph_steps(graph: list, eager: list, label: str) -> dict:
+    """A graphed run's steps against the eager run of the same steps from the
+    same init: one capture, in step 0, whose warm-up is that step; its loss
+    the eager step's bit for bit (the forward has no atomics)."""
+    check([r["captures"] for r in graph] == [1] + [0] * (len(graph) - 1),
+          f"{label}: captures per step {[r['captures'] for r in graph]}, want one in step 0")
+    check(graph[0]["loss"] == eager[0]["loss"],
+          f"{label}: the graph's step-0 loss {graph[0]['loss']!r}, the eager route's "
+          f"{eager[0]['loss']!r}")
+    return {"step0_loss_equal": True, "captures": [r["captures"] for r in graph]}
+
+
+def within_floor(label: str, got: list, ref: list, floor: list) -> list:
+    """Each step's loss and grad norm of ``got`` within the larger of
+    DP_EQ_RTOL (relative) and FLOOR_FACTOR times the floor of ``ref``'s
+    (the spread of reruns of ``ref``'s steps: K5's backward sums dQ by
+    atomics); the rows of the comparison."""
+    versus = []
+    for i, (g, r, fl) in enumerate(zip(got, ref, floor)):
+        for k in ("loss", "grad_norm"):
+            tol = max(DP_EQ_RTOL * abs(r[k]), FLOOR_FACTOR * fl[k])
+            diff = abs(g[k] - r[k])
+            versus.append({"step": i, "metric": k, "got": g[k], "ref": r[k], "diff": diff,
+                           "floor": fl[k], "tol": tol})
+            check(diff <= tol, f"{label} step {i}: {k} {g[k]!r}, the reference's {r[k]!r}; "
+                  f"tolerance {tol!r}, floor {fl[k]!r}")
+    log(f"    {label} (|diff|, tolerance, floor): "
+        + "; ".join(f"step {v['step']} {v['metric']} {v['diff']!r}, {v['tol']!r}, {v['floor']!r}"
+                    for v in versus))
+    return versus
+
+
 def train_lm(cfg, smi: str) -> dict:
-    """The bf16 training run: TRAIN_STEPS steps of ``make_train_step`` on
-    TokenPipeline's batches, every kernel count set to 0 first; per step the
-    loss and gradient norm finite, the launches as the design says; the
-    first loss within FIRST_LOSS_TOL of the uniform stream's expected loss
-    at init; the parameters changed; the peak memory under the card's;
-    then one step profiled (idle share, top kernels, host launch calls)."""
+    """The bf16 training run, TRAIN_STEPS steps on TokenPipeline's batches
+    from the seed-0 state on each route, every kernel count set to 0
+    first.  The eager route first: per step the loss and gradient norm
+    finite, the launches as the design says; the first loss within
+    FIRST_LOSS_TOL of the uniform stream's expected loss at init; the
+    parameters changed; one more step profiled (K5's device kernels
+    counted exactly: no graph of the phase is alive yet).  Then the graph
+    route, the main path (``make_train_step`` on the card): step 0 the
+    capture (its warm-up is the step), the others replays, the kernels
+    that ran as the eager route's in every step, step 0's loss the eager
+    route's bit for bit (later steps are held to the eager ones in phase
+    9c, against its floor); the pool's bytes, the peak memory under the
+    card's; one replayed step profiled (host launch calls, idle share)."""
     tcfg = train_tcfg()
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    n_attn = k5_per_forward(cfg)
+    per_step_want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    check(cfg.param_dtype == torch.bfloat16, f"the training run is bf16, not {cfg.param_dtype}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, tcfg, seed=0, device="cuda")
-    step = make_train_step(cfg, tcfg)
-    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
     init_s = time.perf_counter() - t0
     named = dict(state.params.named_parameters())
     index = {n: i for i, n in enumerate(named)}
@@ -3274,35 +3425,12 @@ def train_lm(cfg, smi: str) -> dict:
     # move; a norm scale's bf16 copy need not (1 - 1e-4 rounds to 1 in bf16).
     watched = {n: (named[n].detach().clone(), state.opt.master[index[n]].clone())
                for n in ("embed", "layers.0.attn.wq", "layers.27.mlp.w_down", "final_norm")}
-    n_attn = k5_per_forward(cfg)
-    per_step_want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
-    FA.reset_launches()
-    QD.reset_launches()
-    K.reset_launches()
-    steps = []
-    for s in range(TRAIN_STEPS):
-        tokens, labels = (torch.from_numpy(a).to("cuda", torch.int64) for a in pipe.batch_at(s))
-        before = dict(FA.LAUNCHES)
-        torch.cuda.synchronize()
-        t_step = time.perf_counter()
-        state, metrics = step(state, tokens, labels)
-        m = {k: float(v) for k, v in metrics.items()}  # the host reads the step's metrics
-        ms = (time.perf_counter() - t_step) * 1e3
-        got = {k: FA.LAUNCHES[k] - before[k] for k in FA.LAUNCHES}
-        steps.append({"step": s, **m, "ms": ms, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
-                      "launches": got})
-        log(f"    step {s}: loss {m['loss']!r} grad_norm {m['grad_norm']!r} lr {m['lr']!r} "
-            f"{ms!r} ms ({steps[-1]['tok_per_s']!r} tok/s); K5 launches {got}")
-        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
-              f"train step {s}: loss {m['loss']} grad_norm {m['grad_norm']}")
-        check(got == per_step_want, f"train step {s}: launches {got}, want {per_step_want}")
-    launches = {**FA.LAUNCHES, **QD.LAUNCHES, **K.LAUNCHES}
-    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
-          f"the training run did not go through K5 and its backward: {launches}")
-    check(not any(QD.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
-          f"the dense training run launched another kernel: {launches}")
+    for reset in (FA.reset_launches, QD.reset_launches, K.reset_launches, graphs.reset):
+        reset()
+    eager_step = make_train_step(cfg, tcfg, eager=True)
+    state, eager_steps = train_steps(eager_step, state, pipe, TRAIN_STEPS, "eager", per_step_want)
     expected0 = float(np.log(cfg.vocab_size) + lm.INIT_SCALE ** 2 * cfg.d_model / 2)
-    first = steps[0]["loss"]
+    first = eager_steps[0]["loss"]
     check(abs(first - expected0) <= FIRST_LOSS_TOL,
           f"first loss {first!r}, want {expected0!r} +- {FIRST_LOSS_TOL}")
     changed = {n: (float((named[n].detach().float() - w.float()).abs().max()),
@@ -3310,40 +3438,117 @@ def train_lm(cfg, smi: str) -> dict:
                for n, (w, m) in watched.items()}
     check(all(m > 0 and (w > 0 or n == "final_norm") for n, (w, m) in changed.items()),
           f"a watched parameter did not move (bf16 copy, fp32 master): {changed}")
-    peak = torch.cuda.max_memory_allocated()
-    check(peak < TRAIN_PEAK_BYTES, f"training peak memory {peak} bytes")
-    steady = steps[1:] or steps
-    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": steps, "init_s": init_s, "launches": launches,
-           "per_step_launches": per_step_want,
-           "first_loss": first, "expected_first_loss": expected0,
-           "ln_v": float(np.log(cfg.vocab_size)), "changed": changed, "peak_bytes": peak,
-           "step_ms": float(np.median([r["ms"] for r in steady])),
-           "tok_per_s": float(np.median([r["tok_per_s"] for r in steady]))}
-    log(f"    first loss {first!r}: expected {expected0!r} (ln V {row['ln_v']!r} + INIT_SCALE^2 "
-        f"d_model / 2), |diff| {abs(first - expected0)!r} (tolerance {FIRST_LOSS_TOL}); "
-        f"largest change (bf16 copy, fp32 master) {changed}; steady step {row['step_ms']!r} ms, {row['tok_per_s']!r} "
-        f"tok/s (median of steps 1..{TRAIN_STEPS - 1}); peak memory {peak} bytes; launches over "
-        f"the run {launches} ({smi})")
-    tokens, labels = (torch.from_numpy(a).to("cuda", torch.int64) for a in pipe.batch_at(TRAIN_STEPS))
-    check(cfg.param_dtype == torch.bfloat16, f"the training run is bf16, not {cfg.param_dtype}")
+    eager_peak = torch.cuda.max_memory_allocated()
+    check(eager_peak < TRAIN_PEAK_BYTES, f"training peak memory {eager_peak} bytes")
+    tokens, labels = batch_on_card(pipe, TRAIN_STEPS)
     # the device kernels of K5's launches in one step, read from the trace
     expect = {FWD_BF16_KERNEL: per_step_want["flash_attention"],
               **{k: per_step_want["flash_attention_bwd"] for k in BWD_BF16_KERNELS},
               **{k: 0 for k in BWD_FP32_KERNELS}}
-    row["profile"] = profile_calls(lambda: step(state, tokens, labels), 1, expect=expect)
-    log_call_profile("bf16 train step", row["profile"])
-    counts = row["profile"]["counts"]
+    profile = profile_calls(lambda: eager_step(state, tokens, labels), 1, expect=expect)
+    log_call_profile("bf16 train step (eager)", profile)
+    counts = profile["counts"]
     check(counts == expect, f"the profiled train step's K5 device kernels {counts}, want {expect} "
-          f"({row['profile']['traces']} traces)")
-    row["device_kernel_counts"] = counts
-    row["bwd_device_kernels_per_launch"] = (sum(counts[k] for k in BWD_BF16_KERNELS)
-                                            / per_step_want["flash_attention_bwd"])
-    log(f"    K5's device kernels in the profiled step {counts} (want {expect}): "
-        f"{row['bwd_device_kernels_per_launch']!r} a backward launch")
-    del state, step, named, watched
+          f"({profile['traces']} traces)")
+    del state, eager_step, named, watched
     gc.collect()
     torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    for reset in (FA.reset_launches, QD.reset_launches, K.reset_launches, graphs.reset):
+        reset()
+    state, graph_steps = train_steps(step, state, pipe, TRAIN_STEPS, "graph", per_step_want)
+    versus = check_graph_steps(graph_steps, eager_steps, "the graphed train step")
+    launches = graphs.kernel_runs()
+    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+          f"the training run did not go through K5 and its backward: {launches}")
+    check(not any(n for k, n in launches.items() if k not in per_step_want),
+          f"the dense training run launched another kernel: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < TRAIN_PEAK_BYTES, f"training peak memory (graph route) {peak} bytes")
+    pool, capture_s = graphs.STATS["pool_bytes"], graphs.STATS["capture_s"]
+    graph_profile = profile_calls(lambda: step(state, tokens, labels), 1)
+    log_call_profile("bf16 train step (graph replay)", graph_profile)
+
+    def median(rows, key):
+        return float(np.median([r[key] for r in rows[1:] or rows]))
+
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": eager_steps, "graph_steps": graph_steps, "graph_vs_eager": versus,
+           "init_s": init_s, "launches": launches, "per_step_launches": per_step_want,
+           "first_loss": first, "expected_first_loss": expected0,
+           "ln_v": float(np.log(cfg.vocab_size)), "changed": changed,
+           "eager_peak_bytes": eager_peak, "peak_bytes": peak, "pool_bytes": pool,
+           "capture_s": capture_s, "step_ms": median(graph_steps, "ms"),
+           "tok_per_s": median(graph_steps, "tok_per_s"),
+           "eager_step_ms": median(eager_steps, "ms"),
+           "eager_tok_per_s": median(eager_steps, "tok_per_s"),
+           "profile": profile, "graph_profile": graph_profile, "device_kernel_counts": counts,
+           "bwd_device_kernels_per_launch": (sum(counts[k] for k in BWD_BF16_KERNELS)
+                                             / per_step_want["flash_attention_bwd"])}
+    log(f"    first loss {first!r}: expected {expected0!r} (ln V {row['ln_v']!r} + INIT_SCALE^2 "
+        f"d_model / 2), |diff| {abs(first - expected0)!r} (tolerance {FIRST_LOSS_TOL}); "
+        f"largest change (bf16 copy, fp32 master) {changed}; steady step (median of steps "
+        f"1..{TRAIN_STEPS - 1}): graph {row['step_ms']!r} ms ({row['tok_per_s']!r} tok/s), eager "
+        f"{row['eager_step_ms']!r} ms ({row['eager_tok_per_s']!r} tok/s); the graph's step 0 loss "
+        f"== the eager route's; capture {capture_s!r} s, pool {pool} bytes; peak memory: graph "
+        f"route {peak} bytes, eager {eager_peak}; kernels that ran on the graph route {launches}; "
+        f"a replayed step: {graph_profile['host_launches_per_call']!r} host launch calls, idle "
+        f"share {graph_profile['idle_share']!r}; an eager step: "
+        f"{profile['host_launches_per_call']!r}, {profile['idle_share']!r} ({smi})")
+    log(f"    K5's device kernels in the profiled eager step {counts} (want {expect}): "
+        f"{row['bwd_device_kernels_per_launch']!r} a backward launch")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_moe_graph(smi: str) -> dict:
+    """The graphed train step with K4 inside: mixtral-8x7b at its published
+    width cut to TRAIN_CHECK_LAYERS layers, bf16 with remat, MOE_TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_CHECK_SEQ tokens from the seed-0 state
+    through the graph, and twice on the eager route: the graph's step 0 the
+    eager step's loss bit for bit, every step within the floor rule against
+    the first eager run (the floor: the second's difference from it); each
+    step runs K4 and K5's forward once a layer and once more in remat's
+    recompute, K5's backward once a layer."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    tcfg = train_tcfg()
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_BATCH)
+    again = 1 + cfg.remat
+    want = {"flash_attention": again * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "queue_dispatch": again * cfg.n_layers}
+    t0 = time.perf_counter()
+    runs = {}
+    for route in ("eager", "eager again", "graph"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graphs.reset()
+        state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+        step = make_train_step(cfg, tcfg, eager=route != "graph")
+        state, rows = train_steps(step, state, pipe, MOE_TRAIN_STEPS, f"{cfg.name} {route}", want)
+        runs[route] = {"steps": rows, "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "pool_bytes": graphs.STATS["pool_bytes"]}
+        del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager, graph = runs["eager"]["steps"], runs["graph"]["steps"]
+    check_graph_steps(graph, eager, f"{cfg.name} graphed train step")
+    floor = [{k: abs(a[k] - e[k]) for k in ("loss", "grad_norm")}
+             for a, e in zip(runs["eager again"]["steps"], eager)]
+    versus = within_floor(f"{cfg.name} graphed train steps vs the eager route", graph, eager, floor)
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_CHECK_SEQ,
+           "runs": runs, "floor": floor, "versus_eager": versus, "per_step_launches": want,
+           "seconds": time.perf_counter() - t0}
+    log(f"    {cfg.name} at {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_CHECK_SEQ}: graph step 0 "
+        f"loss == eager; kernels a step {want} on both routes; step ms graph "
+        f"{[r['ms'] for r in graph]}, eager {[r['ms'] for r in eager]}; pool "
+        f"{runs['graph']['pool_bytes']} bytes, peak {runs['graph']['peak_bytes']} bytes; "
+        f"{row['seconds']!r} s ({smi})")
     return row
 
 
@@ -3451,8 +3656,10 @@ def training_phase(resources: dict, timer, smi: str) -> dict:
             fam, n_layers=TRAIN_CHECK_LAYERS,
             encoder_layers=TRAIN_CHECK_LAYERS if fam.family == "encdec" else 0), smi))
     log(f"    bf16 training run: {LM_ARCH}, {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, "
-        f"{TRAIN_STEPS} steps through make_train_step, then one profiled")
+        f"{TRAIN_STEPS} steps of make_train_step on the eager route and then through its graph, "
+        f"one of each profiled")
     out["trained"] = train_lm(cfg, smi)
+    out["moe_graph"] = train_moe_graph(smi)
     out["bwd_timing"] = time_flash_bwd(timer)
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -3548,6 +3755,9 @@ def checkpoint_restore(cfg, smi: str) -> dict:
         files = {f: os.path.getsize(os.path.join(ckdir, f"step_{CKPT_STEPS - 1:08d}", f))
                  for f in ("arrays.npz", "manifest.json")}
         state, _, ms_quiet = timed_step(step, state, batch_on_card(pipe, CKPT_STEPS + 1))
+        del state  # and with its model the step's graph and pool
+        gc.collect()
+        torch.cuda.empty_cache()
         like = init_train_state(cfg, tcfg, seed=1, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3562,7 +3772,11 @@ def checkpoint_restore(cfg, smi: str) -> dict:
         passes = [grad_pass(cfg, restored.params, nxt) for _ in range(FLOOR_PASSES)]
         floor = {k: max(p[i] for p in passes) - min(p[i] for p in passes)
                  for i, k in enumerate(("loss", "grad_norm"))}
+        captures = graphs.STATS["captures"]
         restored, again, _ = timed_step(step, restored, nxt)
+        recaptured = graphs.STATS["captures"] - captures
+        check(recaptured == 1, f"the restored state's first step captured {recaptured} graphs, want "
+                               f"its own")
         diff = {k: abs(again[k] - live[k]) for k in ("loss", "grad_norm")}
         gnorm_tol = max(RESTORE_GNORM_RTOL * abs(live["grad_norm"]), FLOOR_FACTOR * floor["grad_norm"])
         check(diff["loss"] <= RESTORE_LOSS_RTOL * abs(live["loss"]),
@@ -3576,7 +3790,8 @@ def checkpoint_restore(cfg, smi: str) -> dict:
                "snapshot_bytes": snapshot_bytes,
                "files": files, "snapshot_s": snapshot_s, "write_s": write_s,
                "step_ms_writing": ms_writing, "step_ms_quiet": ms_quiet, "restore_s": restore_s,
-               "bits": bits, "live": live, "restored": again, "diff": diff, "floor": floor,
+               "bits": bits, "live": live, "restored": again, "restored_captures": recaptured,
+               "diff": diff, "floor": floor,
                "floor_passes": passes,
                "tolerance": {"loss_rtol": RESTORE_LOSS_RTOL, "grad_norm_rtol": RESTORE_GNORM_RTOL,
                              "floor_factor": FLOOR_FACTOR, "grad_norm": gnorm_tol},
@@ -3585,14 +3800,15 @@ def checkpoint_restore(cfg, smi: str) -> dict:
             f"(arrays.npz; the state {state_bytes(cfg)}); host snapshot {snapshot_s!r} s, "
             f"background write {write_s!r} s (save's return to wait's), step {ms_writing!r} ms with "
             f"the write running, {ms_quiet!r} ms without; restore (read, H2D) {restore_s!r} s; "
-            f"{bits['tensors']} tensors equal to the snapshot bit for bit; the restored step vs the "
-            f"live step from the same bits: |d loss| {diff['loss']!r} (tolerance "
+            f"{bits['tensors']} tensors equal to the snapshot bit for bit; the restored state's "
+            f"step captured its own graph; the restored step vs the live step from the same bits: "
+            f"|d loss| {diff['loss']!r} (tolerance "
             f"{RESTORE_LOSS_RTOL} x {live['loss']!r}), |d grad norm| {diff['grad_norm']!r} "
             f"(tolerance {gnorm_tol!r}: the larger of {RESTORE_GNORM_RTOL} x {live['grad_norm']!r} "
             f"and {FLOOR_FACTOR} x the floor); floor (max - min of {FLOOR_PASSES} forward and "
             f"backward passes) {floor}, the passes (loss, grad norm) {passes}; peak memory {peak} "
             f"bytes ({smi})")
-        del state, restored, like, step
+        del restored, like, step
         gc.collect()
         torch.cuda.empty_cache()
         return row
@@ -3655,12 +3871,12 @@ def restart_path(smi: str) -> dict:
 
 
 def plain_floor(cfg, pipe, plain_steps: list) -> list:
-    """Phase 9's plain steps run again FLOOR_PASSES times from the seed-0
-    state: at each step the largest |loss| and |grad norm| difference from
-    phase 9's, the floor that K5's backward's atomics leave between runs
-    of the same steps."""
+    """Phase 9's eager steps run again FLOOR_PASSES times on the eager route
+    from the seed-0 state: at each step the largest |loss| and |grad norm|
+    difference from phase 9's, the floor that K5's backward's atomics leave
+    between runs of the same steps."""
     floor = [{"loss": 0.0, "grad_norm": 0.0} for _ in plain_steps]
-    step = make_train_step(cfg, train_tcfg())
+    step = make_train_step(cfg, train_tcfg(), eager=True)
     for _ in range(FLOOR_PASSES):
         gc.collect()
         torch.cuda.empty_cache()
@@ -3676,15 +3892,19 @@ def plain_floor(cfg, pipe, plain_steps: list) -> list:
     return floor
 
 
-def dp_steps(cfg, smi: str, plain: dict) -> list:
-    """Phase 9c (c): the data-parallel step at world 1 over NCCL, each
-    compression, DP_STEPS steps from one seed-0 state; None's steps against
-    phase 9's plain steps (``plain["steps"]``) within the floor-based
-    tolerance (DP_EQ_RTOL, FLOOR_FACTOR)."""
+def dp_steps(cfg, smi: str, plain: dict) -> tuple:
+    """Phase 9c (c): the floor (``plain_floor``), phase 9's graphed steps
+    against its eager ones within the floor rule, then the data-parallel
+    step at world 1 over NCCL, a CUDA graph, each compression, DP_STEPS
+    steps from one seed-0 state; None's steps against phase 9's eager steps
+    (``plain["steps"]``) within the floor-based tolerance (DP_EQ_RTOL,
+    FLOOR_FACTOR).  Returns (the DP rows, phase 9's graph-vs-eager rows)."""
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
     floor = plain_floor(cfg, pipe, plain["steps"])
-    log(f"    the floor: phase 9's plain steps 0..{DP_STEPS - 1} run again {FLOOR_PASSES} times, the "
+    log(f"    the floor: phase 9's eager steps 0..{DP_STEPS - 1} run again {FLOOR_PASSES} times, the "
         f"largest |d loss|, |d grad norm| a step {floor} ({smi})")
+    graph_vs_eager = within_floor("phase 9's graphed steps vs its eager steps",
+                                  plain["graph_steps"], plain["steps"], floor)
     torch.distributed.init_process_group("nccl", store=torch.distributed.HashStore(), rank=0,
                                          world_size=1)
     try:
@@ -3700,39 +3920,31 @@ def dp_steps(cfg, smi: str, plain: dict) -> list:
             state = reshard_state(init_train_state(cfg, tcfg, seed=0, device="cuda"), cfg, mesh)
             check(isinstance(state.params, lm.Model), "a world-1 state is not whole")
             step = make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")
-            FA.reset_launches()
-            QD.reset_launches()
-            K.reset_launches()
-            reset_dp_stats()
+            for reset in (FA.reset_launches, QD.reset_launches, K.reset_launches, graphs.reset,
+                          reset_dp_stats):
+                reset()
             steps = []
             for s in range(DP_STEPS):
+                captures = graphs.STATS["captures"]
                 state, m, ms = timed_step(step, state, batch_on_card(pipe, s))
-                steps.append({**m, "ms": ms})
+                steps.append({**m, "ms": ms, "captures": graphs.STATS["captures"] - captures})
                 check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
                       f"DP step {s} ({comp}): loss {m['loss']} grad_norm {m['grad_norm']}")
-            launches = {**FA.LAUNCHES, **QD.LAUNCHES, **K.LAUNCHES}
-            check(dict(FA.LAUNCHES) == want and not any(QD.LAUNCHES.values())
-                  and not any(K.LAUNCHES.values()),
-                  f"DP run ({comp}): launches {launches}, want {want} and nothing else")
+            launches = {k: n for k, n in graphs.kernel_runs().items() if n}
+            check(launches == want, f"DP run ({comp}): kernels that ran {launches}, want {want} "
+                  f"and nothing else")
+            check([r["captures"] for r in steps] == [1] + [0] * (DP_STEPS - 1),
+                  f"DP run ({comp}): captures per step {[r['captures'] for r in steps]}, want the "
+                  f"graph in step 0 and replays after")
+            pool = graphs.STATS["pool_bytes"]
             stats = dict(DP_STATS)
             first = steps[0]["loss"]
             versus = None
             if comp is None:
                 check(abs(first - plain["first_loss"]) <= RESTORE_LOSS_RTOL * abs(plain["first_loss"]),
                       f"the DP step's first loss {first!r}, the plain step's {plain['first_loss']!r}")
-                versus = []
-                for i, (got, ref_step, fl) in enumerate(zip(steps, plain["steps"], floor,
-                                                            strict=True)):
-                    for k in ("loss", "grad_norm"):
-                        tol = max(DP_EQ_RTOL * abs(ref_step[k]), FLOOR_FACTOR * fl[k])
-                        diff = abs(got[k] - ref_step[k])
-                        versus.append({"step": i, "metric": k, "dp": got[k], "plain": ref_step[k],
-                                       "diff": diff, "floor": fl[k], "tol": tol})
-                        check(diff <= tol, f"DP step {i} (None): {k} {got[k]!r}, phase 9's plain "
-                              f"step {ref_step[k]!r}; tolerance {tol!r}, floor {fl[k]!r}")
-                log(f"    DP None vs phase 9's plain steps (|diff|, tolerance, floor): "
-                    + "; ".join(f"step {v['step']} {v['metric']} {v['diff']!r}, {v['tol']!r}, "
-                                f"{v['floor']!r}" for v in versus))
+                versus = within_floor("DP None vs phase 9's eager steps", steps, plain["steps"],
+                                      floor)
             peak = torch.cuda.max_memory_allocated()
             check(peak < TRAIN_PEAK_BYTES, f"DP ({comp}) peak memory {peak} bytes")
             row = {"compression": comp, "steps": steps, "launches": launches,
@@ -3740,15 +3952,16 @@ def dp_steps(cfg, smi: str, plain: dict) -> list:
                    "plain_step_ms": plain["step_ms"], "plain_first_loss": plain["first_loss"],
                    "versus_plain": versus, "floor": floor,
                    "bytes_per_step": stats["bytes"] / DP_STEPS,
-                   "calls_per_step": stats["calls"] / DP_STEPS, "peak_bytes": peak}
+                   "calls_per_step": stats["calls"] / DP_STEPS, "peak_bytes": peak,
+                   "pool_bytes": pool}
             rows.append(row)
-            log(f"    DP step, compression {comp}: losses {[r['loss'] for r in steps]}, step "
-                f"{row['step_ms']!r} ms (median of steps 1..{DP_STEPS - 1}; the plain step "
-                f"{plain['step_ms']!r} ms in phase 9), all-reduce {row['bytes_per_step']!r} bytes "
-                f"and {row['calls_per_step']!r} collective calls a step, launches {launches}, "
-                f"peak memory {peak} bytes ({smi})")
+            log(f"    DP step (a graph), compression {comp}: losses {[r['loss'] for r in steps]}, "
+                f"step {row['step_ms']!r} ms (median of steps 1..{DP_STEPS - 1}; the plain graphed "
+                f"step {plain['step_ms']!r} ms in phase 9), all-reduce {row['bytes_per_step']!r} "
+                f"bytes and {row['calls_per_step']!r} collective calls a step, kernels that ran "
+                f"{launches}, pool {pool} bytes, peak memory {peak} bytes ({smi})")
             del state, step
-        return rows
+        return rows, graph_vs_eager
     finally:
         torch.distributed.destroy_process_group()
         gc.collect()
@@ -3760,10 +3973,11 @@ def checkpoint_phase(smi: str, trained: dict) -> dict:
     restart, (c) the data-parallel step at world 1."""
     t0 = time.perf_counter()
     cfg = get_config(LM_ARCH)
-    out = {"checkpoint": checkpoint_restore(cfg, smi), "restart": restart_path(smi),
-           "dp": dp_steps(cfg, smi, {"first_loss": trained["first_loss"],
-                                     "step_ms": trained["step_ms"],
-                                     "steps": trained["steps"][:DP_STEPS]})}
+    out = {"checkpoint": checkpoint_restore(cfg, smi), "restart": restart_path(smi)}
+    out["dp"], out["phase9_graph_vs_eager"] = dp_steps(
+        cfg, smi, {"first_loss": trained["first_loss"], "step_ms": trained["step_ms"],
+                   "steps": trained["steps"][:DP_STEPS],
+                   "graph_steps": trained["graph_steps"][:DP_STEPS]})
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4111,12 +4325,15 @@ def spawn_tp_ranks(out_dir: str) -> list:
     return records
 
 
-def tp_world1_graph(cfg, smi: str, phase6_tokens: list) -> dict:
-    """The mesh decode step at world 1 over NCCL, mesh (1, 1): phase 6's
-    serving request (LM_BATCH x LM_PROMPT + LM_NEW, greedy) through the
-    mesh prefill and the mesh decode step, which replays one CUDA graph
-    with its collectives; its tokens bit for bit phase 6's single-card
-    graph's."""
+def tp_world1_graph(cfg, smi: str, phase6_tokens: list, phase9: dict, floor: list) -> dict:
+    """At world 1 over NCCL, mesh (1, 1): phase 6's serving request
+    (LM_BATCH x LM_PROMPT + LM_NEW, greedy) through the mesh prefill and
+    the mesh decode step, each one CUDA graph with its collectives, its
+    tokens bit for bit phase 6's single-card graphs'; then the pjit step,
+    a graph, TP_TRAIN_STEPS steps of phase 9's batches from the seed-0
+    state: one capture, in step 0, K5 as phase 9's step, each loss and grad
+    norm within the floor rule of phase 9's graphed single-card steps
+    (``phase9["graph_steps"]``, phase 9c's ``floor``)."""
     with gate.world1_group("cuda"):
         mesh = make_host_mesh(model=1, device_type="cuda")
         model = lm.init_params(cfg, seed=0, device="cuda")
@@ -4127,6 +4344,12 @@ def tp_world1_graph(cfg, smi: str, phase6_tokens: list) -> dict:
         prefill = serve_loop.make_prefill_fn(cfg, mesh, LM_BATCH, LM_PROMPT + LM_NEW)
         step = serve_loop.make_serve_step(cfg, mesh, LM_BATCH)
         logits, state = prefill(tm, prompts)
+        captures = graphs.STATS["captures"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(tm, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
         tok = logits.argmax(dim=-1, keepdim=True)
         outs = [tok]
         torch.cuda.synchronize()
@@ -4138,17 +4361,38 @@ def tp_world1_graph(cfg, smi: str, phase6_tokens: list) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / (LM_NEW - 1) * 1e3
         tokens = torch.cat(outs, dim=1).tolist()
-        captures = graphs.STATS["captures"]
-        check(captures == 1, f"9t world 1: {captures} graphs captured, want the decode graph")
-        check(tokens == phase6_tokens, "9t world 1: the mesh graph's tokens differ from phase 6's")
-        del tm, model, state
+        check(captures == graphs.STATS["captures"] == 2,
+              f"9t world 1: {graphs.STATS['captures']} graphs captured, want the mesh decode and "
+              f"prefill graphs")
+        check(tokens == phase6_tokens, "9t world 1: the mesh graphs' tokens differ from phase 6's")
+        del tm, model, state, logits, prefill, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = train_tcfg()
+        state = reshard_state(init_train_state(cfg, tcfg, seed=0, device="cuda"), cfg, mesh)
+        step = make_train_step(cfg, tcfg, mesh=mesh, mode="pjit")
+        n_attn = k5_per_forward(cfg)
+        graphs.reset()
+        state, pjit_steps = train_steps(
+            step, state, TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), TP_TRAIN_STEPS,
+            "pjit graph, mesh (1, 1)", {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn})
+        check([r["captures"] for r in pjit_steps] == [1] + [0] * (TP_TRAIN_STEPS - 1),
+              f"9t world 1: pjit captures per step {[r['captures'] for r in pjit_steps]}")
+        pool = graphs.STATS["pool_bytes"]
+        versus = within_floor("9t world 1: the pjit graph vs phase 9's graphed steps", pjit_steps,
+                              phase9["graph_steps"], floor)
+        del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    row = {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_NEW - 1, "captures": captures,
-           "decode_ms_per_step": ms, "tokens_equal_phase6": True}
-    log(f"  world 1 over NCCL, mesh (1, 1): the mesh decode step replays one graph; "
-        f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW} tokens equal phase 6's single-card graph's bit for "
-        f"bit; decode {ms!r} ms/step ({smi})")
+    row = {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_NEW - 1, "captures": 2,
+           "prefill_s": prefill_s, "decode_ms_per_step": ms, "tokens_equal_phase6": True,
+           "pjit_steps": pjit_steps, "pjit_pool_bytes": pool, "pjit_vs_phase9_graph": versus,
+           "pjit_step_ms": float(np.median([r["ms"] for r in pjit_steps[1:]]))}
+    log(f"  world 1 over NCCL, mesh (1, 1): the mesh prefill and decode steps replay one graph each; "
+        f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW} tokens equal phase 6's single-card graphs' bit for "
+        f"bit; prefill {prefill_s!r} s, decode {ms!r} ms/step; the pjit step a graph (pool {pool} "
+        f"bytes), {row['pjit_step_ms']!r} ms a replayed step, within the floor rule of phase 9's "
+        f"graphed steps ({smi})")
     return row
 
 
@@ -4213,7 +4457,7 @@ def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
     serve_rows = [rec["rows"]["serve"][0]["serving"] for rec in records]
     check(all(sv["tokens"] == serve_rows[0]["tokens"] for sv in serve_rows),
           "9t: the ranks' greedy tokens differ")
-    world1 = tp_world1_graph(get_config(LM_ARCH), smi, phase6_tokens)
+    world1 = tp_world1_graph(get_config(LM_ARCH), smi, phase6_tokens, trained, floor)
     return {"ranks": records, "world1": world1, "refs_s": refs_s, "ranks_s": ranks_s,
             "seconds": time.perf_counter() - t0,
             "launches": {"flash_attention": records[0]["rows"]["serve"][0]["prefill_launches"][
@@ -4329,7 +4573,7 @@ def remat_steps(cfg, smi: str) -> dict:
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
             state = reshard_state(init_train_state(c, train_tcfg(), seed=0, device="cuda"), c, mesh)
-            step = make_train_step(c, train_tcfg(), mesh=mesh, mode="pjit")
+            step = make_train_step(c, train_tcfg(), mesh=mesh, mode="pjit", eager=True)
             batch = batch_on_card(pipe, 0)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()

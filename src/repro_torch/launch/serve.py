@@ -16,7 +16,8 @@ Every family is served: dense, moe, ssm (mamba2), hybrid (hymba), encdec
 (``init_params``), prompts from numpy's generator, and so do the stub
 frontends' embeddings (N(0, 0.02), in the parameter dtype), shaped by
 ``input_specs``: seamless's encoder takes a frame per prompt position,
-internvl2's 256 patch embeddings replace the first prompt positions.  On the card the decode step runs as one CUDA graph, captured
+internvl2's 256 patch embeddings replace the first prompt positions.  On
+the card the prefill and the decode step run as CUDA graphs, captured
 before the timed prefill.  It prints the prefill time, decode tokens per
 second and the first sequence's token ids.  The published config is
 served whole: mixtral-8x7b's 32 layers (93.4 GB in bf16) do not fit one
@@ -49,7 +50,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import model as M
 from repro_torch.models.config import ShapeConfig, input_specs
-from repro_torch.serving.serve_loop import decode_graph, make_prefill_fn, make_serve_step
+from repro_torch.serving.serve_loop import make_prefill_fn, make_serve_step, prefill_graph
 
 
 def _sync(device: torch.device) -> None:
@@ -163,12 +164,12 @@ def main(argv=None):
         spec = input_specs(cfg, ShapeConfig("serve", S, B, "prefill"))["frontend_embeds"]
         draw = rng.standard_normal(tuple(spec.shape), dtype=np.float32) * 0.02
         frontend = (torch.from_numpy(draw).to(device, spec.dtype),)
-    memory_len = frontend[0].shape[1] if cfg.family == "encdec" else None
 
     if device.type == "cuda":
         t0 = time.perf_counter()
-        decode_graph(cfg, model, B, S + args.new_tokens, memory_len)
-        print(f"decode step captured as a CUDA graph in {time.perf_counter() - t0:.3f}s")
+        prefill_graph(cfg, model, prompts, *frontend, max_len=S + args.new_tokens)
+        print(f"prefill and decode steps captured as CUDA graphs in "
+              f"{time.perf_counter() - t0:.3f}s")
     _sync(device)
     t0 = time.perf_counter()
     logits, state = make_prefill_fn(cfg, max_len=S + args.new_tokens)(model, prompts, *frontend)

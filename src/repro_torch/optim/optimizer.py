@@ -7,8 +7,9 @@ copies, so bf16 training does not lose small updates, and the update
 returns the masters cast to the compute dtype.  The step counter and the
 learning rate are device tensors: nothing here reads a value on the host.
 Where the JAX package returns new arrays, ``adamw_update`` updates the
-masters and moments in place (the JAX train step donates its state), which
-saves a second copy of all three.  Under tensor parallelism the lists hold
+masters, the moments and the step counter in place (the JAX train step
+donates its state), which saves a second copy of all three and lets a
+train step captured as a CUDA graph replay over the same tensors.  Under tensor parallelism the lists hold
 a rank's blocks (``clip_by_global_norm`` sums the split ones' squares over
 the model axis), and under ZeRO-1 ``adamw_update`` is given the slices of
 the masters, moments and gradients this rank keeps
@@ -89,11 +90,11 @@ def adamw_update(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[List[torch.Tensor], AdamWState]:
     """One AdamW step with decoupled weight decay on the fp32 masters:
-    ``(params in compute_dtype, state)``.  The masters and moments of
-    ``state`` are updated in place; the returned state holds them and the
-    advanced step.  For fp32 the returned parameters are the masters
-    themselves."""
-    step = state.step + 1
+    ``(params in compute_dtype, state)``.  The masters, the moments and the
+    step counter of ``state`` are updated in place (a graphed train step
+    reads and writes them at fixed addresses); the returned state holds
+    them.  For fp32 the returned parameters are the masters themselves."""
+    step = state.step.add_(1)
     t = step.to(torch.float32)
     c1 = 1 - torch.pow(b1, t)
     c2 = 1 - torch.pow(b2, t)

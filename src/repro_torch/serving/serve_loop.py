@@ -1,19 +1,22 @@
 """Serving: prefill and greedy decode steps on one card.
 
 ``make_serve_step`` and ``make_prefill_fn`` return the per-request units of
-the JAX package's serve loop, which jits the decode step and donates its
-state.  On a CUDA device the port's decode step is one CUDA graph
-(``repro_torch.graphs``) per (config, model, batch, cache length, memory
-length), captured at first use and replayed at every step: the graph owns
-its decode state (every cache of the family -- KV ring, SSM conv tails and
-states, the encdec cross memory -- and the position) and its static tokens
-and logits, and the prefill writes its caches into that state.  Prefill
-itself runs eagerly: it is bound by its device work, not by launches.  On
-the CPU both run eagerly, and ``eager=True`` asks for the eager route on
-the card too, to hold the graph against it.  ``greedy_generate`` is the
-batched greedy decoding loop.  The families with a frontend (encdec, vlm)
-take its stub embeddings beside the tokens, as the JAX package's serve
-loop does.
+the JAX package's serve loop, which jits the prefill and the decode step
+and donates the decode state.  On a CUDA device the port runs each as a
+CUDA graph (``repro_torch.graphs``), captured at first use and replayed at
+every later call.  The decode graph is one per (config, model, batch,
+cache length, memory length): it owns its decode state (every cache of the
+family -- KV ring, SSM conv tails and states, the encdec cross memory --
+and the position) and its static tokens and logits.  The prefill graph is
+one per (config, model, batch, prompt length, cache length, frontend
+shape): it owns its static tokens, frontend buffer and logits, and writes
+the caches and position into the state of the decode graph of its batch,
+cache length and memory length, so that prefill and decode together read
+and write only fixed addresses.  On the CPU both run eagerly, and
+``eager=True`` asks for the eager route on the card too, to hold the
+graphs against it.  ``greedy_generate`` is the batched greedy decoding
+loop.  The families with a frontend (encdec, vlm) take its stub
+embeddings beside the tokens, as the JAX package's serve loop does.
 
 With a ``mesh`` (a ``DeviceMesh`` over the whole process group, one
 process a device) the steps are the JAX package's sharded ones: the model
@@ -26,10 +29,10 @@ does, ``place_state`` as it is told), and the logits are this
 rank's block per ``specs.logits_spec`` (its rows, its vocab block):
 ``gather_logits`` puts them together.  ``place_state`` cuts a whole decode
 state into a rank's blocks, as ``jax.device_put`` with those specs does.
-Over NCCL the mesh decode step is one CUDA graph with its collectives
-(``graphs.Graph(collectives=True)``), as the sharded BST program is; over
-gloo (the CPU, or ranks that share one card) it runs eagerly: gloo's
-collectives run on the host and cannot be captured.
+Over NCCL the mesh prefill and decode steps are CUDA graphs with their
+collectives (``graphs.Graph(collectives=True)``), as the sharded BST
+program is; over gloo (the CPU, or ranks that share one card) they run
+eagerly: gloo's collectives run on the host and cannot be captured.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import graphs
 from repro_torch.checkpoint import elastic
@@ -79,22 +81,76 @@ class DecodeGraph:
             rows, collectives = _rows(mesh, batch).stop - _rows(mesh, batch).start, True
         self.tokens = torch.zeros((rows, 1), dtype=torch.int64, device=device)
         self.addresses = _addresses(model)
-        with torch.cuda.device(device):
-            self.graph = graphs.Graph(
-                lambda: M.decode_step(cfg, model, self.tokens, self.state)[0],
-                label=("decode", batch, max_len, memory_len), collectives=collectives,
-            )
+        self.graph = graphs.Graph(
+            lambda: M.decode_step(cfg, model, self.tokens, self.state)[0],
+            label=("decode", batch, max_len, memory_len), collectives=collectives, device=device,
+        )
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens)
         return self.graph.replay()
 
 
+class PrefillGraph:
+    """The prefill of one (config, batch, prompt length, cache length,
+    frontend shape[, mesh]) on ``model`` as one CUDA graph: it reads its
+    static (B, S) ``tokens`` and ``frontend`` buffer (the global batch
+    with a mesh: the graph takes this rank's rows), writes the caches and
+    the position into ``decode``'s state, the decode graph's of the same
+    batch, cache length and memory length, and its (B, V) logits.  The
+    capture runs the prefill once eagerly (the warm-up) and records it; the
+    first call replays it as every later one does (a prefill only rewrites
+    the caches it wrote: it may run twice).  Like the decode graph it holds the addresses of the
+    model's parameters and buffers, not the model.  A model's prefill
+    graphs share one memory pool, ``pool``: a replay may reuse the memory
+    of another prefill graph's logits, so the logits a prefill returns
+    are valid until the model's next prefill, of any shape (clone them to
+    keep them)."""
+
+    def __init__(self, cfg: ModelConfig, model: M.Model, decode: DecodeGraph,
+                 tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor],
+                 max_len: Optional[int], mesh: Any, pool):
+        B, S = tokens.shape
+        self.decode = decode
+        self.addresses = _addresses(model)
+        self.tokens = tokens.clone()
+        self.frontend = None if frontend_embeds is None else frontend_embeds.clone()
+        state = decode.state
+        if mesh is None:
+            def run():
+                return M.prefill(cfg, model, self.tokens, self.frontend, max_len=max_len,
+                                 out=state)[0]
+        else:
+            rows, split = _rows(mesh, B), specs.batch_dim(mesh, B) is not None
+
+            def run():
+                fe = None if self.frontend is None else self.frontend[rows]
+                with model.tp.batch_rows(split):
+                    return M.prefill(cfg, model, self.tokens[rows], fe, max_len=max_len,
+                                     out=state)[0]
+
+        self.graph = graphs.Graph(run, pool=pool, label=("prefill", B, S, max_len),
+                                  collectives=mesh is not None, device=tokens.device)
+
+    def __call__(self, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, M.DecodeState]:
+        self.tokens.copy_(tokens)
+        if self.frontend is not None:
+            self.frontend.copy_(frontend_embeds)
+        return self.graph.replay(), self.decode.state
+
+
 # Per model (held weakly: a model's graphs go with it), its decode graphs by
-# (config, batch, max_len, memory_len).
+# (config, batch, max_len, memory_len, mesh?), its prefill graphs by
+# (config, batch, prompt length, max_len, frontend shape, mesh?), and the
+# memory pool its prefill graphs share.
 _GRAPHS: "weakref.WeakKeyDictionary[M.Model, Dict[Tuple, DecodeGraph]]" = (
     weakref.WeakKeyDictionary()
 )
+_PREFILLS: "weakref.WeakKeyDictionary[M.Model, Dict[Tuple, PrefillGraph]]" = (
+    weakref.WeakKeyDictionary()
+)
+_POOLS: "weakref.WeakKeyDictionary[M.Model, Any]" = weakref.WeakKeyDictionary()
 
 
 def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
@@ -109,6 +165,32 @@ def decode_graph(cfg: ModelConfig, model: M.Model, batch: int, max_len: int,
     g = per_model.get(key)
     if g is None or g.addresses != _addresses(model):
         per_model[key] = g = DecodeGraph(cfg, model, batch, max_len, memory_len, mesh)
+    return g
+
+
+def prefill_graph(cfg: ModelConfig, model: M.Model, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None, max_len: Optional[int] = None,
+                  mesh: Any = None) -> PrefillGraph:
+    """``model``'s prefill graph for the shapes of ``tokens`` (the global
+    batch with a mesh) and ``frontend_embeds``, into the state of
+    ``decode_graph``'s graph for (B, ``max_len`` or S, Smem), captured at
+    the first call (over these inputs) and returned as it is by every
+    later one while that decode graph and the parameters' addresses stay
+    the same; otherwise captured anew."""
+    B, S = tokens.shape
+    memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
+    decode = decode_graph(cfg, model, B, max_len or S, memory_len, mesh)
+    frontend = None if frontend_embeds is None else (tuple(frontend_embeds.shape),
+                                                      frontend_embeds.dtype)
+    key = (cfg, B, S, max_len or S, frontend, mesh is not None)
+    per_model = _PREFILLS.setdefault(model, {})
+    g = per_model.get(key)
+    if g is None or g.decode is not decode or g.addresses != _addresses(model):
+        if model not in _POOLS:
+            _POOLS[model] = torch.cuda.graph_pool_handle()
+        per_model.pop(key, None)
+        per_model[key] = g = PrefillGraph(cfg, model, decode, tokens, frontend_embeds, max_len,
+                                          mesh, _POOLS[model])
     return g
 
 
@@ -127,15 +209,6 @@ def _graph_of(cfg: ModelConfig, model: M.Model, state: M.DecodeState) -> DecodeG
         "the graphed decode step runs on the state of its own graph: prefill "
         "through make_prefill_fn (or M.prefill(..., out=decode_graph(...).state))"
     )
-
-
-def _eager(eager: bool, tokens: torch.Tensor) -> bool:
-    return eager or tokens.device.type != "cuda"
-
-
-def _mesh_eager(eager: bool, tokens: torch.Tensor) -> bool:
-    return eager or not (tokens.device.type == "cuda"
-                         and dist.get_backend() == dist.Backend.NCCL)
 
 
 # ------------------------------------------------------------------ the mesh
@@ -237,7 +310,7 @@ def make_serve_step(cfg: ModelConfig, mesh: Any = None, batch: int = 1,
     wrote), eager over gloo."""
     if mesh is None:
         def step(model, tokens, state):
-            if _eager(eager, tokens):
+            if graphs.eager_route(eager, tokens):
                 return M.decode_step(cfg, model, tokens, state)
             graph = _graph_of(cfg, model, state)
             return graph(tokens), graph.state
@@ -258,7 +331,7 @@ def make_serve_step(cfg: ModelConfig, mesh: Any = None, batch: int = 1,
             raise ValueError(f"the mesh step (seq_shard={seq_shard!r}) takes a {layouts[seq]}-"
                              f"sharded KV cache, the state's is {layouts[not seq]}-sharded")
         with model.tp.batch_rows(split):
-            if _mesh_eager(eager, tokens):
+            if graphs.eager_route(eager, tokens, collectives=True):
                 return M.decode_step(cfg, model, tokens[rows], state)
             graph = _graph_of(cfg, model, state)
             return graph(tokens[rows]), graph.state
@@ -274,35 +347,37 @@ def make_prefill_fn(
     (B, V), DecodeState): the frontend's embeddings are the third argument
     where ``cfg.frontend`` is set (encdec: the encoder's frames (B, Smem,
     D); vlm: the patch embeddings (B, flen, D)), as in the JAX package.  On
-    a CUDA device (unless ``eager``) the caches are written into the state
-    of the decode graph for (B, ``max_len``, Smem), captured at the first
-    such prefill; a later request of that shape overwrites them.
+    a CUDA device (unless ``eager``) the prefill is one replay of the
+    model's prefill graph for these shapes (``prefill_graph``), which
+    writes the caches into the state of the decode graph for (B,
+    ``max_len``, Smem): a later request of that shape overwrites them, and
+    the logits are the prefill graph's static buffer (valid until the
+    model's next prefill).
 
     With ``mesh``: the sharded prefill of a global batch of ``batch`` on a
     tensor-parallel model (the global tokens and frontend on every rank),
     its cache laid out by ``decode_state_specs`` with the sequence split
     chosen automatically, as the JAX package's; the logits are this
-    rank's block."""
+    rank's block.  A graph over NCCL, eager over gloo, whose collectives
+    run on the host."""
     rows = None if mesh is None else _rows(mesh, batch)
     split = mesh is not None and specs.batch_dim(mesh, batch) is not None
 
     def run(model, tokens, frontend_embeds=None):
         if mesh is None:
-            if _eager(eager, tokens):
+            if graphs.eager_route(eager, tokens):
                 return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len)
-            B, S = tokens.shape
-            memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
-            out = decode_graph(cfg, model, B, max_len or S, memory_len).state
-            return M.prefill(cfg, model, tokens, frontend_embeds, max_len=max_len, out=out)
+            return prefill_graph(cfg, model, tokens, frontend_embeds, max_len)(
+                tokens, frontend_embeds)
         _check_model(model)
         B, S = tokens.shape
         if B != batch:
             raise ValueError(f"the mesh prefill was made for a batch of {batch}, got {B}")
+        if not graphs.eager_route(eager, tokens, collectives=True):
+            return prefill_graph(cfg, model, tokens, frontend_embeds, max_len, mesh)(
+                tokens, frontend_embeds)
         memory_len = frontend_embeds.shape[1] if cfg.family == "encdec" else None
-        if _mesh_eager(eager, tokens):
-            out = mesh_decode_state(cfg, mesh, batch, max_len or S, tokens.device, memory_len)
-        else:
-            out = decode_graph(cfg, model, batch, max_len or S, memory_len, mesh).state
+        out = mesh_decode_state(cfg, mesh, batch, max_len or S, tokens.device, memory_len)
         fe = None if frontend_embeds is None else frontend_embeds[rows]
         with model.tp.batch_rows(split):
             return M.prefill(cfg, model, tokens[rows], fe, max_len=max_len, out=out)
@@ -327,8 +402,8 @@ def greedy_generate(
     eager: bool = False,
 ) -> torch.Tensor:
     """(B, S) prompts -> (B, n_new) greedy tokens: the prefill's argmax, then
-    one decode step per further token, through the graphed step on a CUDA
-    device unless ``eager``.  ``frontend_embeds`` go to the prefill where
+    one decode step per further token, through the prefill and decode
+    graphs on a CUDA device unless ``eager``.  ``frontend_embeds`` go to the prefill where
     ``cfg.frontend`` is set.  (The JAX loop runs one more decode step
     after the last token and discards its logits; the tokens are the
     same.)"""

@@ -11,8 +11,21 @@ its first dimension: the fp32 gradients are summed divided by the count,
 the loss averaged, and the metrics are the last microbatch's.
 
 Where the JAX step returns a new state (and donates the old one), this one
-updates the model's parameters, the optimizer state and the error feedback
-in place and returns the state it was given.
+updates the model's parameters, the optimizer state (the step counter too)
+and the error feedback in place and returns the state it was given.
+
+The JAX package jits each step into one program.  On a CUDA device
+(unless ``eager=True``) each of the port's steps is a CUDA graph
+(``repro_torch.graphs``), one per batch shape over one state's tensors
+(``_StepGraphs``): the first call on a state runs the step once eagerly,
+its warm-up, which is that call's step (a step cannot run twice), captures
+it and returns the warm-up's metrics; every later call copies the batch
+into the graph's static inputs and replays it.  The metrics are then the
+graph's static outputs, valid until the next step, as decode logits are.
+A state whose tensors are not the captured ones (a restore into another
+state, ``reshard_state``) is captured anew.  The data-parallel and pjit
+steps are graphs over NCCL, eager over gloo, whose collectives run on the
+host; ``step.gradients`` stays eager.
 
 ``make_train_step(mesh=None)`` is the one-device step; it ignores gradient
 compression, as the JAX package's ``step_plain`` does (for "int8" the
@@ -44,12 +57,15 @@ compression, as the JAX package's pjit step does.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import graphs
 from repro_torch.analysis import runtime
 from repro_torch.checkpoint import elastic
 from repro_torch.models import convert
@@ -96,6 +112,7 @@ MODES = ("pjit", "dp_shard_map")
 # the last reset: calls and the bytes of the tensors they reduce (what each
 # rank puts on the wire).  The model axis's are ``sharding.tp.STATS``.
 DP_STATS = {"calls": 0, "bytes": 0}
+graphs.count_at_replay(DP_STATS)  # a graphed step's all-reduces count as they run
 
 
 def reset_dp_stats() -> None:
@@ -207,8 +224,81 @@ def _grads_of(cfg: ModelConfig, model: M.Model, tokens, labels, frontend):
     return loss.detach(), metrics, [p.grad for p in params]
 
 
+def _state_addresses(state) -> Tuple[int, ...]:
+    """The addresses of every tensor of a ``TrainState`` or a
+    ``ShardedState`` that a step reads or updates in place: the
+    parameters, the step counter, the masters, the moments and the error
+    feedback (a ZeRO-1 block this rank does not hold is None)."""
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, torch.nn.Module):
+            return list(itertools.chain(x.parameters(), x.buffers()))
+        return [t for item in (x.values() if isinstance(x, dict) else x) if item is not None
+                for t in flat(item)]
+
+    o = state.opt
+    return tuple(t.data_ptr() for t in flat([state.params, o.step, o.master, o.mu, o.nu,
+                                             state.error_feedback]))
+
+
+class _StepGraph:
+    """One train step of one batch shape over one state's tensors as a CUDA
+    graph: its static tokens, labels and frontend buffer, and the state's
+    ``addresses`` at the capture.  The capture's warm-up is a real step
+    (``release``: its cached temporaries are freed before the capture
+    draws the graph's pool), whose metrics ``graph.warm`` holds for the
+    first caller."""
+
+    def __init__(self, run: Callable, tokens, labels, frontend, addresses, collectives: bool):
+        self.addresses = addresses
+        self.tokens, self.labels = tokens.clone(), labels.clone()
+        self.frontend = None if frontend is None else frontend.clone()
+        self.graph = graphs.Graph(lambda: run(self.tokens, self.labels, self.frontend),
+                                  release=True, label=("train", *tokens.shape),
+                                  collectives=collectives, device=tokens.device)
+
+    def replay(self, tokens, labels, frontend) -> Dict[str, torch.Tensor]:
+        self.tokens.copy_(tokens)
+        self.labels.copy_(labels)
+        if self.frontend is not None:
+            self.frontend.copy_(frontend)
+        return self.graph.replay()
+
+
+class _StepGraphs:
+    """A step function's graphs, per owner and batch shape.  The owner is
+    the model the step trains (the caller's, or the pjit step's
+    tensor-parallel model), held weakly: a dropped state's graphs and
+    their memory pools go with it.  A graph holds no reference to the
+    state, only its tensors' addresses, and one whose state is not at
+    those addresses any more is captured anew."""
+
+    def __init__(self, collectives: bool):
+        self.collectives = collectives
+        self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, _StepGraph]]" = (
+            weakref.WeakKeyDictionary())
+
+    def __call__(self, owner, state, run: Callable, tokens, labels, frontend
+                 ) -> Dict[str, torch.Tensor]:
+        """The metrics of ``run(tokens, labels, frontend)`` (one step on
+        ``state``) as a replay of its graph, or, where the graph is to be
+        captured, of the capture's warm-up step."""
+        key = (tuple(tokens.shape), tuple(labels.shape),
+               None if frontend is None else (tuple(frontend.shape), frontend.dtype))
+        per_owner = self._graphs.setdefault(owner, {})
+        g = per_owner.get(key)
+        addresses = _state_addresses(state)
+        if g is not None and g.addresses == addresses:
+            return g.replay(tokens, labels, frontend)
+        per_owner.pop(key, None)  # a stale graph's pool goes before the capture
+        per_owner[key] = g = _StepGraph(run, tokens, labels, frontend, addresses,
+                                        self.collectives)
+        return g.graph.warm
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
-                    mode: str = "pjit") -> StepFn:
+                    mode: str = "pjit", *, eager: bool = False) -> StepFn:
     """``step(state, tokens, labels, frontend=None) -> (state, metrics)`` on
     the state's device; tokens and labels (B, S) integer tensors, frontend
     the stub embeddings ``forward_train`` takes (encdec, vlm).
@@ -226,11 +316,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
       The step returns the state it was given, its blocks updated in
       place; ``step.gradients(state, tokens, labels[, frontend])`` gives
       ``(loss, metrics, gradients)``, the gradients of this rank's blocks
-      by name after the step's sums and before the clip."""
+      by name after the step's sums and before the clip.
+
+    On a CUDA device, unless ``eager``, every step but the first on a state
+    replays the step's CUDA graph (the module docstring says how); the
+    mesh steps only over NCCL."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (want one of {MODES})")
+    step_graphs = _StepGraphs(collectives=mesh is not None)
     if mesh is not None and mode == "pjit":
-        return _make_pjit_step(cfg, tcfg, mesh)
+        return _make_pjit_step(cfg, tcfg, mesh, eager, step_graphs)
 
     def accumulate(model: M.Model, tokens, labels, frontend):
         mb = tcfg.microbatches
@@ -271,10 +366,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
         metrics = {"moe_dropped": dropped, "loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(model, opt_state, ef), metrics
 
-    def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
-             frontend: Optional[torch.Tensor] = None):
+    def run_plain(state: TrainState, tokens, labels, frontend):
         loss, metrics, grads = accumulate(state.params, tokens, labels, frontend)
         return finish(state, loss, metrics["moe_dropped"].detach(), grads, state.error_feedback)
+
+    def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
+             frontend: Optional[torch.Tensor] = None):
+        if graphs.eager_route(eager, tokens):
+            return run_plain(state, tokens, labels, frontend)
+        return state, step_graphs(state.params, state,
+                                  lambda t, y, f: run_plain(state, t, y, f)[1],
+                                  tokens, labels, frontend)
 
     if mesh is None:
         return step
@@ -282,10 +384,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
     _dp_rows(mesh, 0)  # the process group and the mesh, checked once here
     groups: List[List[int]] = []
 
-    def step_dp(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
-                frontend: Optional[torch.Tensor] = None):
-        if isinstance(state, elastic.ShardedState):  # the JAX step's in_specs=P()
-            state = elastic.gather_state(state, cfg, mesh)
+    def run_dp(state: TrainState, tokens, labels, frontend):
         rows, n = _dp_rows(mesh, tokens.shape[0])
         loss, metrics, grads = accumulate(state.params, tokens[rows], labels[rows],
                                           None if frontend is None else frontend[rows])
@@ -296,6 +395,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Any = None,
         means = _all_reduce(torch.stack([loss.float(), metrics["moe_dropped"].detach().float()]))
         means = means / n
         return finish(state, means[0], means[1], grads, ef)
+
+    def step_dp(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor,
+                frontend: Optional[torch.Tensor] = None):
+        if isinstance(state, elastic.ShardedState):  # the JAX step's in_specs=P()
+            state = elastic.gather_state(state, cfg, mesh)
+        if graphs.eager_route(eager, tokens, collectives=True):
+            return run_dp(state, tokens, labels, frontend)
+        return state, step_graphs(state.params, state,
+                                  lambda t, y, f: run_dp(state, t, y, f)[1],
+                                  tokens, labels, frontend)
 
     return step_dp
 
@@ -311,8 +420,10 @@ def _check_mesh(mesh) -> Dict[str, int]:
     return shape
 
 
-def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> StepFn:
-    """The tensor-parallel step (``make_train_step``'s ``mode="pjit"``)."""
+def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, eager: bool,
+                    step_graphs: _StepGraphs) -> StepFn:
+    """The tensor-parallel step (``make_train_step``'s ``mode="pjit"``); its
+    graphs are owned by the tensor-parallel model over the state's blocks."""
     shape = _check_mesh(mesh)
     sspecs = specs.state_specs(cfg, shape)
     pspecs, ospecs = sspecs.params, sspecs.opt.master
@@ -394,8 +505,7 @@ def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> StepFn:
             means = _all_reduce(means, group=dp.group) / n
         return means[0], {"moe_dropped": means[1]}, grads
 
-    def step(state, tokens: torch.Tensor, labels: torch.Tensor,
-             frontend: Optional[torch.Tensor] = None):
+    def run(state, tokens, labels, frontend):
         blocks = placed(state)
         model, o = model_of(blocks), blocks.opt
         master, mu, nu = o.master, o.mu, o.nu
@@ -409,7 +519,7 @@ def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> StepFn:
                                  tcfg.total_steps)
         mine = [k for k in names if master[k] is not None]
         g = dict(zip(names, clipped))
-        new, st = opt.adamw_update(
+        new, _ = opt.adamw_update(
             [g[k][inner[k]] if k in inner else g[k] for k in mine],
             opt.AdamWState(state.opt.step, [master[k] for k in mine], [mu[k] for k in mine],
                            [nu[k] for k in mine]),
@@ -427,7 +537,14 @@ def _make_pjit_step(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> StepFn:
                                       ("data",), out={k: params[k].data for k in zero})
         metrics = {"moe_dropped": metrics["moe_dropped"], "loss": loss, "grad_norm": gnorm,
                    "lr": lr}
-        return state._replace(opt=state.opt._replace(step=st.step)), metrics
+        return state, metrics
+
+    def step(state, tokens: torch.Tensor, labels: torch.Tensor,
+             frontend: Optional[torch.Tensor] = None):
+        if graphs.eager_route(eager, tokens, collectives=True):
+            return run(state, tokens, labels, frontend)
+        return state, step_graphs(model_of(placed(state)), state,
+                                  lambda t, y, f: run(state, t, y, f)[1], tokens, labels, frontend)
 
     step.gradients = gradients
     return step
@@ -448,8 +565,9 @@ def train_loop(
     ``pipeline.batch_at(step)`` for step in [step0, step0 + steps), from
     ``state`` (a seed-0 init if None), the frontend's embeddings (if any)
     with every batch, each step's metrics read on the host after it (one
-    counted fetch) and handed to ``callback(step, state, metrics)``.
-    Returns ``(state, history)``."""
+    counted fetch) and handed to ``callback(step, state, metrics)``.  On a
+    CUDA device the steps replay ``make_train_step``'s graph.  Returns
+    ``(state, history)``."""
     state = state if state is not None else init_train_state(cfg, tcfg, 0, device)
     step_fn = make_train_step(cfg, tcfg)
     history = []

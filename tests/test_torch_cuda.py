@@ -814,10 +814,12 @@ def test_flash_route_gradients_match_the_naive_route(cuda_device, no_tf32, arch)
 
 
 def test_train_step_on_the_card(cuda_device):
-    """Two bf16 steps of ``make_train_step`` on qwen3's smoke config: every
-    parameter gets a gradient (the step raises otherwise), the metrics are
-    finite device tensors, the launches are K5's forward twice a layer and
-    its backward once a layer a step, and the fp32 masters move."""
+    """Two bf16 steps of ``make_train_step`` on qwen3's smoke config, the
+    first the graph's capture (its warm-up is the step), the second a
+    replay: every parameter gets a gradient (the step raises otherwise),
+    the metrics are finite device tensors, the kernels that ran are K5's
+    forward twice a layer and its backward once a layer a step, and the
+    fp32 masters move."""
     cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), dtype="bfloat16", remat=True)
     tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
     state = init_train_state(cfg, tcfg, seed=0, device=cuda_device)
@@ -825,13 +827,15 @@ def test_train_step_on_the_card(cuda_device):
     step = make_train_step(cfg, tcfg)
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 33)))
     toks = toks.to(cuda_device)
-    FA.reset_launches()
+    runs, captures = graphs.kernel_runs(), graphs.STATS["captures"]
     for _ in range(2):
         state, metrics = step(state, toks[:, :-1], toks[:, 1:])
         assert all(v.is_cuda for v in metrics.values())
         assert all(bool(torch.isfinite(v)) for v in metrics.values())
-    assert FA.LAUNCHES == {"flash_attention": 4 * cfg.n_layers,
-                           "flash_attention_bwd": 2 * cfg.n_layers}
+    ran = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
+    assert ran == {**{k: 0 for k in ran}, "flash_attention": 4 * cfg.n_layers,
+                   "flash_attention_bwd": 2 * cfg.n_layers}
+    assert graphs.STATS["captures"] == captures + 1
     assert int(state.opt.step) == 2
     assert all(p.dtype == torch.bfloat16 and p.grad is None for p in state.params.parameters())
     assert all(bool((m != b).any()) for m, b in zip(state.opt.master, before))
@@ -1220,7 +1224,8 @@ def test_graphed_decode_of_every_family_matches_the_eager_route(cuda_device, no_
     seamless with a 15-frame memory): the graphed step's logits and tokens
     equal the eager route's bit for bit, the graph owning the SSM caches
     and the cross memory; one K5 launch per attention per prefill (mamba2
-    none); a second request captures nothing."""
+    none), and twice that for the first graphed prefill (its capture's
+    warm-up, then its replay); a second request captures nothing."""
     over = {"n_kv_heads": 2} if arch == "hymba-1.5b" else {}
     cfg = dataclasses.replace(TC.smoke_config(arch), dtype=dtype, **over)
     model = TM.init_params(cfg, seed=3, device=cuda_device)
@@ -1237,7 +1242,7 @@ def test_graphed_decode_of_every_family_matches_the_eager_route(cuda_device, no_
         runs = graphs.kernel_runs()["flash_attention"]
         logits, state = make_prefill_fn(cfg, max_len=S + n_new, eager=eager_route)(
             model, prompt, *fe)
-        assert graphs.kernel_runs()["flash_attention"] - runs == attentions
+        assert graphs.kernel_runs()["flash_attention"] - runs == attentions * (1 + (not eager_route))
         step = make_serve_step(cfg, eager=eager_route)
         out, tok = [logits.clone()], logits.argmax(dim=-1, keepdim=True)
         for _ in range(n_new - 1):
@@ -1259,10 +1264,10 @@ def test_graphed_decode_of_every_family_matches_the_eager_route(cuda_device, no_
 
 
 def test_decode_graph_is_keyed_on_the_memory_length(cuda_device, no_tf32):
-    """seamless: a request with another number of frames captures a graph of
-    its own (the memory is never padded), both routes give the same tokens
-    for each, and a prefill into a graph's state sized to another memory
-    length is refused."""
+    """seamless: a request with another number of frames captures decode and
+    prefill graphs of its own (the memory is never padded), both routes
+    give the same tokens for each, and a prefill into a graph's state sized
+    to another memory length is refused."""
     cfg = TC.smoke_config("seamless-m4t-medium")
     model = TM.init_params(cfg, seed=5, device=cuda_device)
     prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 12)))
@@ -1273,9 +1278,9 @@ def test_decode_graph_is_keyed_on_the_memory_length(cuda_device, no_tf32):
         fe = _frontend(cfg, 2, frames, cuda_device)
         got = greedy_generate(cfg, model, prompt, n_new, *fe)
         assert torch.equal(got, greedy_generate(cfg, model, prompt, n_new, *fe, eager=True))
-    assert graphs.STATS["captures"] - captures == 2  # one graph per memory length
+    assert graphs.STATS["captures"] - captures == 4  # decode and prefill per memory length
     state = decode_graph(cfg, model, 2, 12 + n_new, 12).state
-    assert graphs.STATS["captures"] - captures == 2  # the 12-frame graph, as it was
+    assert graphs.STATS["captures"] - captures == 4  # the 12-frame graph, as it was
     with pytest.raises(ValueError, match="out state"):
         TM.prefill(cfg, model, prompt, *_frontend(cfg, 2, 17, cuda_device), max_len=12 + n_new,
                    out=state)
@@ -1283,14 +1288,15 @@ def test_decode_graph_is_keyed_on_the_memory_length(cuda_device, no_tf32):
 
 def test_decode_graph_follows_rebound_parameters(cuda_device, no_tf32):
     """A parameter re-bound after the capture: a state prefilled before
-    refuses the stale graph, and the next request captures a new graph
-    over the current weights, equal to the eager route bit for bit."""
+    refuses the stale decode graph, and the next request captures new
+    decode and prefill graphs over the current weights, equal to the eager
+    route bit for bit."""
     cfg = TC.smoke_config("qwen3-1.7b")
     model = TM.init_params(cfg, seed=3, device=cuda_device)
     prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 12)))
     prompt = prompt.to(cuda_device)
     n_new = 6
-    greedy_generate(cfg, model, prompt, n_new)  # captures the decode graph
+    greedy_generate(cfg, model, prompt, n_new)  # captures the decode and prefill graphs
     logits, state = make_prefill_fn(cfg, max_len=12 + n_new)(model, prompt)
     g = torch.Generator(device=cuda_device).manual_seed(4)
     model.final_norm = torch.nn.Parameter(
@@ -1304,10 +1310,183 @@ def test_decode_graph_follows_rebound_parameters(cuda_device, no_tf32):
         logits, state = make_serve_step(cfg, eager=eager)(
             model, logits.argmax(dim=-1, keepdim=True), state)
         routes[name] = logits.clone()
-    assert graphs.STATS["captures"] == captures + 1
+    assert graphs.STATS["captures"] == captures + 2
     assert torch.equal(routes["graph"], routes["eager"])
     assert torch.equal(greedy_generate(cfg, model, prompt, n_new),
                        greedy_generate(cfg, model, prompt, n_new, eager=True))
+
+
+def _attentions(cfg) -> int:
+    """K5's launches in one forward: each self-attention, and for encdec the
+    encoder's layers and each decoder layer's cross-attention."""
+    return cfg.n_layers * (cfg.family != "ssm") + (
+        cfg.encoder_layers + cfg.n_layers if cfg.family == "encdec" else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x7b", "mamba2-1.3b", "hymba-1.5b",
+                                  "seamless-m4t-medium", "internvl2-2b"])
+def test_graphed_prefill_equals_the_eager_route(cuda_device, no_tf32, arch, dtype):
+    """Every family's smoke config (hymba with GQA and its prompt rolled
+    into a 16-slot ring, seamless with a 15-frame memory): the prefill
+    graph's logits, every cache and the position equal the eager route's
+    bit for bit, K5 (and mixtral's K4) inside the graph; it wrote into its
+    decode graph's state; a second request of the shape captures nothing,
+    its replay runs K5 once an attention and K4 once a layer; another
+    prompt length captures a prefill graph of its own."""
+    over = {"n_kv_heads": 2} if arch == "hymba-1.5b" else {}
+    cfg = dataclasses.replace(TC.smoke_config(arch), dtype=dtype, **over)
+    model = TM.init_params(cfg, seed=3, device=cuda_device)
+    S, max_len = 20, 26
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (3, S)))
+    prompt = prompt.to(cuda_device)
+    fe = _frontend(cfg, 3, 15, cuda_device)
+    want, eager_state = make_prefill_fn(cfg, max_len=max_len, eager=True)(model, prompt, *fe)
+    got, state = make_prefill_fn(cfg, max_len=max_len)(model, prompt, *fe)
+    assert torch.equal(got, want)
+    caches, want_caches = TM.state_tensors(state), TM.state_tensors(eager_state)
+    assert set(caches) == set(want_caches)
+    assert all(torch.equal(caches[k], want_caches[k]) for k in caches)
+    assert int(state.position) == int(eager_state.position) == S
+    memory_len = 15 if cfg.family == "encdec" else None
+    assert state is decode_graph(cfg, model, 3, max_len, memory_len).state
+
+    captures, runs = graphs.STATS["captures"], graphs.kernel_runs()
+    again, _ = make_prefill_fn(cfg, max_len=max_len)(model, prompt, *fe)
+    assert torch.equal(again, want) and graphs.STATS["captures"] == captures
+    ran = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
+    assert ran == {**{k: 0 for k in ran}, "flash_attention": _attentions(cfg),
+                   "queue_dispatch": cfg.n_layers if cfg.family == "moe" else 0}
+    shorter, _ = make_prefill_fn(cfg, max_len=max_len)(model, prompt[:, :S - 4], *fe)
+    assert graphs.STATS["captures"] == captures + 1
+    assert torch.equal(shorter, make_prefill_fn(cfg, max_len=max_len, eager=True)(
+        model, prompt[:, :S - 4], *fe)[0])
+
+
+def _train_run(cfg, tcfg, batches, eager: bool) -> tuple:
+    """Steps of ``make_train_step`` from the seed-0 state on ``batches``:
+    (the state, each step's metrics as floats, the kernels each ran, the
+    state's tensors' addresses after each step)."""
+    state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+    step = make_train_step(cfg, tcfg, eager=eager)
+    metrics, kernels, addresses = [], [], []
+    for toks in batches:
+        runs = graphs.kernel_runs()
+        state, m = step(state, toks[:, :-1], toks[:, 1:])
+        metrics.append({k: float(v) for k, v in m.items()})
+        kernels.append({k: n - runs[k] for k, n in graphs.kernel_runs().items()})
+        addresses.append([t.data_ptr() for t in _train_tensors(state)])
+    return state, metrics, kernels, addresses
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x7b"])
+def test_graphed_train_step_matches_the_eager_route(cuda_device, arch):
+    """Three bf16 steps with remat through the graph and on the eager route
+    from the same init: step 0, the capture's warm-up, gives the eager
+    step's loss bit for bit (the forward has no atomics); steps 1 and 2,
+    replays, give the loss and grad norm within the larger of 1e-4
+    relative and 3 x the floor (a second eager run's difference: K5's
+    backward sums dQ by atomics); one capture; every step runs K5 twice a
+    layer and its backward once (mixtral K4 twice a layer), replays
+    included; every state tensor keeps its address."""
+    cfg = dataclasses.replace(TC.smoke_config(arch), dtype="bfloat16", remat=True)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33))).to(cuda_device)
+               for _ in range(3)]
+    captures = graphs.STATS["captures"]
+    _, graph, kernels, addresses = _train_run(cfg, tcfg, batches, eager=False)
+    assert graphs.STATS["captures"] == captures + 1
+    _, eager, _, _ = _train_run(cfg, tcfg, batches, eager=True)
+    _, again, _, _ = _train_run(cfg, tcfg, batches, eager=True)
+    assert graph[0]["loss"] == eager[0]["loss"]
+    for g, e, a in zip(graph, eager, again):
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - e[k]) <= max(1e-4 * abs(e[k]), 3 * abs(a[k] - e[k])), (k, g, e, a)
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "queue_dispatch": 2 * cfg.n_layers if cfg.family == "moe" else 0}
+    assert all(k == {**{n: 0 for n in k}, **want} for k in kernels), kernels
+    assert all(a == addresses[0] for a in addresses)
+
+
+def test_train_graph_capture_releases_the_warm_up(cuda_device):
+    """A bf16 step with remat off whose temporaries (hundreds of MB) dwarf
+    its inputs: after the first call (the warm-up, then the capture) the
+    caching allocator holds the state, the graph's pool and the small
+    static inputs and metrics, not the warm-up's temporaries, which were
+    freed from the cache before the capture drew its pool; the next step
+    replays in that pool."""
+    cfg = dataclasses.replace(TC.smoke_config("qwen3-1.7b"), d_model=512, n_heads=8,
+                              n_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=8192,
+                              logit_chunk=512, dtype="bfloat16", remat=False)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_train_state(cfg, tcfg, seed=0, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 513)))
+    toks = toks.to(cuda_device)
+    step = make_train_step(cfg, tcfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pool = graphs.STATS["pool_bytes"]
+    state, _ = step(state, toks[:, :-1], toks[:, 1:])
+    pool = graphs.STATS["pool_bytes"] - pool
+    temporaries = torch.cuda.max_memory_allocated() - allocated
+    slack = 16 << 20  # the static inputs' and the metrics' segments
+    assert temporaries > 8 * slack and pool > 0
+    assert torch.cuda.memory_reserved() - base <= pool + slack
+    reserved = torch.cuda.memory_reserved()
+    state, metrics = step(state, toks[:, :-1], toks[:, 1:])
+    assert torch.cuda.memory_reserved() == reserved
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+def test_mesh_prefill_and_pjit_step_are_graphs_at_world_one(cuda_device, nccl_world, no_tf32):
+    """Mesh (1, 1) over NCCL, qwen3's smoke config: the mesh prefill is a
+    graph with its collectives whose logits and caches equal the mesh
+    eager route's bit for bit, its greedy tokens the single-card graphs';
+    the pjit step is a graph whose first loss (the warm-up) equals the
+    eager pjit step's bit for bit, one capture, then a replay within 1e-5
+    of the eager route's (fp32)."""
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import serve_loop
+
+    cfg = TC.smoke_config("qwen3-1.7b")
+    mesh = make_host_mesh(model=1, device_type="cuda")
+    model = TM.init_params(cfg, seed=3, device=cuda_device)
+    tm = serve_loop.shard_model(cfg, model, mesh)
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (4, 12)))
+    prompt = prompt.to(cuda_device)
+    captures = graphs.STATS["captures"]
+    got, state = serve_loop.make_prefill_fn(cfg, mesh, 4, 18)(tm, prompt)
+    assert graphs.STATS["captures"] == captures + 2  # the mesh decode and prefill graphs
+    got = got.clone()
+    caches = {k: t.clone() for k, t in TM.state_tensors(state).items()}
+    want, eager_state = serve_loop.make_prefill_fn(cfg, mesh, 4, 18, eager=True)(tm, prompt)
+    assert torch.equal(got, want)
+    assert all(torch.equal(t, TM.state_tensors(eager_state)[k]) for k, t in caches.items())
+    logits, state = serve_loop.make_prefill_fn(cfg, mesh, 4, 18)(tm, prompt)
+    step, tok, tokens = serve_loop.make_serve_step(cfg, mesh, 4), None, []
+    for _ in range(5):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        tokens.append(tok)
+        logits, state = step(tm, tok, state)
+    assert torch.equal(torch.cat(tokens, dim=1), greedy_generate(cfg, model, prompt, 5))
+
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 4, 17)))
+    toks = toks.to(cuda_device)
+    losses = {}
+    for eager in (False, True):
+        st = reshard_state(init_train_state(cfg, tcfg, seed=0, device=cuda_device), cfg, mesh)
+        step = make_train_step(cfg, tcfg, mesh=mesh, mode="pjit", eager=eager)
+        captures = graphs.STATS["captures"]
+        losses[eager] = [float(step(st, t[:, :-1], t[:, 1:])[1]["loss"]) for t in toks]
+        assert graphs.STATS["captures"] == captures + (not eager)
+    assert losses[False][0] == losses[True][0]
+    assert abs(losses[False][1] - losses[True][1]) <= 1e-5 * abs(losses[True][1])
 
 
 def test_graph_counts_the_model_axis_collectives_at_replay(cuda_device):
@@ -1409,10 +1588,11 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
 @pytest.mark.parametrize("compression", [None, "bf16", "int8"])
 def test_dp_step_at_world_one_over_nccl(cuda_device, nccl_world, compression):
     """``make_train_step(mode="dp_shard_map")`` at world 1 over NCCL on qwen3's
-    bf16 smoke config: finite metrics, K5's launches as the plain step's,
-    the first loss equal to the plain step's from the same state (the
-    forward has no atomics), the collectives counted (2 calls a step, 3
-    with int8)."""
+    bf16 smoke config, a CUDA graph with its all-reduces: finite metrics,
+    the kernels that ran as the plain step's, the first loss (the capture's
+    warm-up) equal to the plain step's from the same state (the forward has
+    no atomics), the collectives counted as they ran (2 calls a step, 3
+    with int8), one capture and then a replay."""
     from repro_torch.checkpoint.elastic import reshard_state
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -1426,15 +1606,17 @@ def test_dp_step_at_world_one_over_nccl(cuda_device, nccl_world, compression):
     mesh = make_host_mesh()
     state = reshard_state(init_train_state(cfg, tcfg, seed=0, device=cuda_device), cfg, mesh)
     step = make_train_step(cfg, tcfg, mesh=mesh, mode="dp_shard_map")
-    FA.reset_launches()
+    runs, captures = graphs.kernel_runs(), graphs.STATS["captures"]
     tl.reset_dp_stats()
     for i in range(2):
         state, metrics = step(state, toks[:, :-1], toks[:, 1:])
         assert all(v.is_cuda and bool(torch.isfinite(v)) for v in metrics.values())
         if i == 0:
             assert float(metrics["loss"]) == float(plain["loss"])
-    assert FA.LAUNCHES == {"flash_attention": 4 * cfg.n_layers,
-                           "flash_attention_bwd": 2 * cfg.n_layers}
+    ran = {k: n - runs[k] for k, n in graphs.kernel_runs().items()}
+    assert ran == {**{k: 0 for k in ran}, "flash_attention": 4 * cfg.n_layers,
+                   "flash_attention_bwd": 2 * cfg.n_layers}
+    assert graphs.STATS["captures"] == captures + 1
     assert tl.DP_STATS["calls"] == 2 * (3 if compression == "int8" else 2)
     if compression == "int8":
         assert all(bool(e.any()) for e in state.error_feedback)
