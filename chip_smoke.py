@@ -120,6 +120,22 @@ Phases, in order; any failure raises and exits non-zero:
    and host launch calls of a decode step and of a prefill on both
    routes; then K5 timed at both prefill shapes
    beside its bound, its plain version and ``scaled_dot_product_attention``;
+6r. K5 past a launch's 65,535 head rows, launched in chunks of whole GQA
+   groups: the forward in fp32 and bf16, with and without lse, at group 4
+   (2,049 x 32 heads over 8) and group 5 with a window of 50 (2,622 x 25
+   heads over 5) and qwen3-1.7b's prefill at 4,096 x 16 tokens (16 heads
+   over 8), the backward in bf16 past 65,535 q rows and in fp32 past
+   65,535 kv rows (8,193 x 16 heads over 8), each against its plain version
+   in slices of rows, one count and the planned launches a call, timed
+   beside its bound and ``scaled_dot_product_attention``; qwen3-1.7b in
+   bf16 on 4,096 prompts of 16 tokens + 16 new (65,536 head rows a prefill
+   attention) through ``greedy_generate`` on both routes, the tokens equal,
+   28 K5 runs a prefill replay, the first and last layers' K5 outputs
+   against the plain version on their inputs and against one-launch
+   slices bit for bit, the tokens equal to those with every K5 call in
+   one-launch slices, prefill and decode times and the peak memory; then
+   K5 timed again at qwen3's prefill shape and hymba's window, one launch
+   each;
 7. MoE serving of mixtral-8x7b at full width (16 of its 32 layers: 32
    layers of bf16 weights, 93.4 GB, do not fit in 80 GB): kernel K4 (queue
    dispatch, all five outputs of the plan) against its plain version, bit
@@ -509,6 +525,28 @@ FAMILY_ARCHS = {
 # The families' K5 shapes timed: indices into FLASH_SHAPES.
 FAMILY_FLASH_TIMED = ((16, "hymba-1.5b prefill attention"),
                       (17, "seamless-m4t-medium encoder attention"))
+# Phase 6r: K5 past a launch's 65,535 head rows, launched in chunks of
+# whole GQA groups (``FA.head_row_chunks``).  The forward at (B, (BH, BHkv,
+# Sq, Skv, d, causal, window)): group 4, B 2,049 x 32 heads over 8 kv heads;
+# group 5 with a window, B 2,622 x 25 heads over 5 (hymba's heads); and
+# qwen3-1.7b's prefill at ROWS_BATCH x ROWS_PROMPT, 4,096 x 16 heads over 8
+# (65,534 q rows, then a 2-row tail of one kv row).  The backward in bf16
+# past 65,535 q rows (its kernels are bound by kv rows alone: one launch)
+# and in fp32 past 65,535 kv rows (B 8,193 x 16 heads over 8).  The plain
+# versions run in slices of ROWS_SLICE kv rows and their q rows; B views
+# the rows as (B, H, S, d) for scaled_dot_product_attention.  Then
+# qwen3-1.7b serves ROWS_BATCH x ROWS_PROMPT + ROWS_NEW: 65,536 head rows a
+# prefill attention.
+ROWS_BATCH, ROWS_PROMPT, ROWS_NEW = 4096, 16, 16
+ROWS_FWD = ((2049, (2049 * 32, 2049 * 8, 128, 128, 128, True, None)),
+            (2622, (2622 * 25, 2622 * 5, 192, 192, 64, True, 50)),
+            (ROWS_BATCH, (ROWS_BATCH * 16, ROWS_BATCH * 8, ROWS_PROMPT, ROWS_PROMPT, 128, True,
+                          None)))
+ROWS_BWD = ((torch.bfloat16, 2049, (2049 * 32, 2049 * 8, 128, 128, 128, True, None)),
+            (torch.float32, 8193, (8193 * 16, 8193 * 8, 64, 64, 64, True, None)))
+ROWS_SLICE = 2048
+ROWS_REPS = 10
+FP32_FLOP_PER_S = hardware.FP32_FLOP_PER_S  # the CUDA cores, the data sheet's
 # The training phase (9).  K5's backward against its plain version at every
 # FLASH_SHAPES shape: fp32, the kernel's FMA order and expf against torch's
 # matmuls over the same saved tensors (o, lse), and dq's atomics summed in
@@ -2658,6 +2696,18 @@ def sdpa_backend(call, want: torch.Tensor) -> str:
     return "/".join(names) or "none equal"
 
 
+def sdpa_mask(Sq: int, Skv: int, causal: bool, window) -> dict:
+    """scaled_dot_product_attention's mask arguments for K5's masks:
+    ``is_causal`` where no window cuts the causal mask (SDPA aligns it
+    top-left, K5 bottom-right: the same where Sq == Skv), else an explicit
+    boolean mask of the same function."""
+    if window is None or window >= Skv:
+        return {"is_causal": causal}
+    qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device="cuda")[None, :]
+    return {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
+
+
 def time_flash(timer, timed=None) -> list:
     """K5 in bf16 at prefill shapes -- both of phase 6 (qwen3's and
     mixtral's), or ``timed``, (index into FLASH_SHAPES, label) pairs --
@@ -2679,15 +2729,8 @@ def time_flash(timer, timed=None) -> list:
         err = float((got.float() - want.float()).abs().max())
         B = LM_BATCH
         q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
-        if window is not None and window < Skv:
-            qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
-            kpos = torch.arange(Skv, device="cuda")[None, :]
-            mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
-            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
-                                     attn_mask=mask, enable_gqa=True)
-        else:
-            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
-                                     is_causal=causal, enable_gqa=True)
+        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                 enable_gqa=True, **sdpa_mask(Sq, Skv, causal, window))
         lib_out = sdpa()
         lib_err = float((lib_out.reshape(BH, Sq, d).float() - want.float()).abs().max())
         backend = sdpa_backend(sdpa, lib_out)
@@ -2715,6 +2758,319 @@ def time_flash(timer, timed=None) -> list:
         rows.append(row)
         del q, k, v, got, want, q4, k4, v4, lib_out
     return rows
+
+
+# ------------------------------------------- phase 6r: K5 past 65,535 rows
+def plain_in_slices(fn, q_rows, kv_rows) -> list:
+    """``fn(*q_slices, *kv_slices)`` over slices of ROWS_SLICE kv rows and
+    their GQA groups' q rows, each output concatenated over the slices: the
+    plain version at a shape whose intermediates the card would not hold
+    whole."""
+    group = q_rows[0].shape[0] // kv_rows[0].shape[0]
+    parts = [fn(*(t[i * group:(i + ROWS_SLICE) * group] for t in q_rows),
+                *(t[i:i + ROWS_SLICE] for t in kv_rows))
+             for i in range(0, kv_rows[0].shape[0], ROWS_SLICE)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def agreement(got, want, tol: float) -> dict:
+    """Elements outside atol = rtol = ``tol``, the largest difference, and
+    |got - want|_2 / |want|_2."""
+    diff = (got.float() - want.float()).abs()
+    return {"mismatches": int((diff > tol + tol * want.float().abs()).sum()),
+            "max_abs_err": float(diff.max()),
+            "rel_norm_err": float(diff.norm()) / float(want.float().norm())}
+
+
+def rows_work_ms(work, rate: float) -> dict:
+    flop, n_bytes = work
+    row = {"flop": flop, "bytes": n_bytes, "flop_ms": flop / rate * 1e3,
+           "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+    row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+    row["bound_by"] = "operations" if row["flop_ms"] >= row["bytes_ms"] else "bytes"
+    return row
+
+
+def rows_library(timer, B: int, shape, q, k, v, want, dout=None) -> dict:
+    """scaled_dot_product_attention (``enable_gqa``, ``sdpa_mask``) on the
+    same rows viewed as (B, heads, S, d): the forward, or with ``dout`` its
+    backward (autograd through the same call), timed as K5 is beside it,
+    the backend it chose and its largest difference from the plain
+    version's ``want``.  The library's ms is None, with the reason, where
+    it refuses the shape; the port never calls it."""
+    BH, BHkv, Sq, Skv, d, causal, window = shape
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d) for t in (q, k, v))
+    if dout is not None:
+        q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                             enable_gqa=True, **sdpa_mask(Sq, Skv, causal, window))
+    try:
+        lib_out = sdpa()
+        backend = sdpa_backend(lambda: sdpa().detach(), lib_out.detach())
+        if dout is None:
+            got, call = [lib_out], sdpa
+        else:
+            g4 = dout.view(q4.shape)
+            call = functools.partial(torch.autograd.grad, lib_out, (q4, k4, v4), g4,
+                                     retain_graph=True)
+            got = call()
+        err = max(float((a.reshape(b.shape).float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        row = {"library_ms": timer(call, reps=ROWS_REPS), "library_backend": backend,
+               "library_max_abs_err": err}
+    except RuntimeError as e:  # out of memory included
+        row = {"library_ms": None, "library_error": f"{type(e).__name__}: {str(e)[:300]}"}
+    finally:
+        q4 = k4 = v4 = lib_out = got = call = sdpa = None
+        torch.cuda.empty_cache()
+    return row
+
+
+def check_head_rows_forward(timer) -> list:
+    """K5's forward at ROWS_FWD in fp32 and bf16, with and without lse: one
+    count and ``head_row_chunks`` launches a call, the outputs within
+    FLASH_TOL of the plain version and the lse within 1e-5; the call timed
+    beside its bound and scaled_dot_product_attention (``rows_library``)."""
+    rows = []
+    for B, shape in ROWS_FWD:
+        BH, BHkv, Sq, Skv, d, causal, window = shape
+        chunks = len(FA.head_row_chunks(BH, BHkv))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_operands(shape, dtype, seed=BH % 1000)
+            FA.reset_launches()
+            out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+            served = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            counts = {"launches": FA.LAUNCHES["flash_attention"],
+                      "chunks": FA.CHUNKS["flash_attention"]}
+            check(chunks > 1 and counts == {"launches": 2, "chunks": 2 * chunks},
+                  f"K5 {shape}: {counts} for 2 calls of {chunks} chunks")
+            want, want_lse = plain_in_slices(functools.partial(
+                ref.flash_attention_lse_ref, causal=causal, window=window), (q,), (k, v))
+            tol = FLASH_TOL[dtype]
+            agree = {"out": agreement(out, want, tol), "served": agreement(served, want, tol),
+                     "lse": agreement(lse, want_lse, 1e-5)}
+            for name, a in agree.items():
+                check(a["mismatches"] == 0, f"K5 {shape} {dtype}: {a['mismatches']} {name} "
+                                            f"elements outside the tolerance")
+            rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+            row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "tol": tol,
+                   "chunks": chunks, **counts, **agree,
+                   "ms": timer(functools.partial(FA.flash_attention_cuda, q, k, v, causal=causal,
+                                                 window=window), reps=ROWS_REPS),
+                   **rows_work_ms(FA.forward_work(BH, BHkv, Sq, Skv, d, causal, window,
+                                                  q.element_size()), rate),
+                   **rows_library(timer, B, shape, q, k, v, [want])}
+            log(f"  K5 {shape} {row['dtype']}: {chunks} chunks a call, counts {counts} for 2 calls; "
+                f"out max_abs_err {agree['out']['max_abs_err']!r}, served "
+                f"{agree['served']['max_abs_err']!r}, lse {agree['lse']['max_abs_err']!r} "
+                f"(tolerance {tol}, lse 1e-5); ms={row['ms']!r} bound_ms={row['bound_ms']!r} "
+                f"({row['bound_by']}) library_ms={row['library_ms']!r} (sdpa backend "
+                f"{row.get('library_backend', row.get('library_error'))}, max_abs_err vs plain "
+                f"{row.get('library_max_abs_err')!r})")
+            rows.append(row)
+            del q, k, v, out, lse, served, want, want_lse
+    return rows
+
+
+def check_head_rows_backward(timer) -> list:
+    """K5's backward at ROWS_BWD: one count and ``head_row_chunks(...,
+    whole_groups=True)`` launches a call; dq, dk and dv within BWD_TOL of
+    the plain version on the same saved tensors and within BWD_NORM_TOL in
+    norm; the call timed beside its bound and the backward of
+    scaled_dot_product_attention (``rows_library``)."""
+    rows = []
+    for dtype, B, shape in ROWS_BWD:
+        BH, BHkv, Sq, Skv, d, causal, window = shape
+        chunks = len(FA.head_row_chunks(BH, BHkv, whole_groups=True))
+        q, k, v, dout = bwd_operands(shape, dtype, seed=BH % 1000)
+        out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+        FA.reset_launches()
+        got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal, window=window)
+        torch.cuda.synchronize()
+        counts = {"launches": FA.LAUNCHES["flash_attention_bwd"],
+                  "chunks": FA.CHUNKS["flash_attention_bwd"]}
+        check(counts == {"launches": 1, "chunks": chunks},
+              f"K5 backward {shape}: {counts} for one call of {chunks} chunks")
+
+        def plain(qc, oc, doc, lc, kc, vc):
+            return ref.flash_attention_bwd_ref(qc, kc, vc, oc, doc, lc, causal=causal,
+                                               window=window)
+
+        want = plain_in_slices(plain, (q, out, dout, lse), (k, v))
+        tol, norm_tol = BWD_TOL[dtype], BWD_NORM_TOL[dtype]
+        agree = {n: agreement(g, w, tol) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        for name, a in agree.items():
+            check(a["mismatches"] == 0 and a["rel_norm_err"] <= norm_tol,
+                  f"K5 backward {shape} {dtype}: {name} {a} outside the tolerance")
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "tol": tol,
+               "norm_tol": norm_tol, "chunks": chunks, **counts, **agree,
+               "ms": timer(functools.partial(FA.flash_attention_bwd_cuda, q, k, v, out, dout, lse,
+                                             causal=causal, window=window), reps=ROWS_REPS),
+               **rows_work_ms(FA.backward_work(BH, BHkv, Sq, Skv, d, causal, window,
+                                               q.element_size()), rate),
+               **rows_library(timer, B, shape, q, k, v, want, dout=dout)}
+        log(f"  K5 backward {shape} {row['dtype']}: {chunks} chunks, counts {counts}; " + ", ".join(
+            f"{n} max_abs_err {a['max_abs_err']!r} rel_norm_err {a['rel_norm_err']!r}"
+            for n, a in agree.items()) + f" (tolerance {tol}, in norm {norm_tol}); "
+            f"ms={row['ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}) "
+            f"library_ms={row['library_ms']!r} (sdpa backward, forward backend "
+            f"{row.get('library_backend', row.get('library_error'))}, max_abs_err vs plain "
+            f"{row.get('library_max_abs_err')!r})")
+        rows.append(row)
+        del q, k, v, dout, out, lse, got, want
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_flash_calls(keep: dict, calls):
+    """Every K5 call through ``kops.flash_attention`` runs as it would;
+    the ones whose index (from 0) is in ``calls`` leave clones of their q,
+    k, v and output and their keyword arguments in ``keep[index]``."""
+    real, seen = kops.flash_attention, [0]
+
+    def recording(q, k, v, *args, **kwargs):
+        out = real(q, k, v, *args, **kwargs)
+        if seen[0] in calls:
+            check(not args, f"K5 call {seen[0]}: positional mask arguments {args}")
+            keep[seen[0]] = ((q.clone(), k.clone(), v.clone()), out.clone(), dict(kwargs))
+        seen[0] += 1
+        return out
+
+    with unittest.mock.patch.object(kops, "flash_attention", recording):
+        yield
+
+
+def one_launch_slices(q, k, v, **kwargs):
+    """K5 over slices of ROWS_SLICE kv rows and their q rows, each slice
+    one launch (within the limit: the wrapper's call before chunking),
+    concatenated."""
+    group = q.shape[0] // k.shape[0]
+    check(ROWS_SLICE * group <= FA.MAX_HEAD_ROWS, f"a slice of {ROWS_SLICE} kv rows of group "
+                                                  f"{group} is more than one launch")
+    return torch.cat([FA.flash_attention_cuda(q[i * group:(i + ROWS_SLICE) * group],
+                                              k[i:i + ROWS_SLICE], v[i:i + ROWS_SLICE], **kwargs)
+                      for i in range(0, k.shape[0], ROWS_SLICE)])
+
+
+def serve_head_rows(cfg, smi: str) -> dict:
+    """qwen3-1.7b in bf16, whole, seed 0, on ROWS_BATCH prompts of
+    ROWS_PROMPT tokens + ROWS_NEW: 65,536 head rows a prefill attention.
+    The decode and prefill graphs captured first; every count set to 0,
+    then ``greedy_generate`` replays one K5 a layer a prefill and no other
+    kernel of the port; the eager route's tokens equal the graph's bit for
+    bit, its K5 calls launching ``head_row_chunks`` chunks each.  The eager
+    route's first and last layers' K5 inputs and outputs are kept: each
+    output within FLASH_TOL of the plain version on the same inputs, and
+    equal bit for bit to K5 in one-launch slices (``one_launch_slices``).
+    The request again on the eager route with every K5 call in one-launch
+    slices gives the same tokens bit for bit.  Then one request timed on
+    each route, tokens held, no capture; the peak memory."""
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (ROWS_BATCH, ROWS_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured = capture_serving_graphs(cfg, model, prompts, (), ROWS_PROMPT + ROWS_NEW)
+    for reset in (K.reset_launches, QD.reset_launches, FA.reset_launches, graphs.reset):
+        reset()
+    tokens = greedy_generate(cfg, model, prompts, ROWS_NEW)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()  # the captures and the graph route's request
+    runs = graphs.kernel_runs()
+    check(graphs.STATS["captures"] == 0 and runs["flash_attention"] == cfg.n_layers
+          and all(n == 0 for name, n in runs.items() if name != "flash_attention"),
+          f"{cfg.name} at batch {ROWS_BATCH}: kernel runs {runs} for one prefill replay, want "
+          f"{cfg.n_layers} K5, {graphs.STATS['captures']} captures")
+    FA.reset_launches()
+    kept = {}
+    with recorded_flash_calls(kept, (0, cfg.n_layers - 1)):
+        eager_tokens = greedy_generate(cfg, model, prompts, ROWS_NEW, eager=True)
+    chunks = len(FA.head_row_chunks(ROWS_BATCH * cfg.n_heads, ROWS_BATCH * cfg.n_kv_heads))
+    eager_counts = {"launches": FA.LAUNCHES["flash_attention"], "chunks": FA.CHUNKS["flash_attention"]}
+    check(eager_counts == {"launches": cfg.n_layers, "chunks": cfg.n_layers * chunks},
+          f"{cfg.name} at batch {ROWS_BATCH}, eager: K5 {eager_counts}, want {cfg.n_layers} calls "
+          f"of {chunks} chunks")
+    check(tuple(tokens.shape) == (ROWS_BATCH, ROWS_NEW) and torch.equal(eager_tokens, tokens),
+          f"{cfg.name} at batch {ROWS_BATCH}: the graph's tokens differ from the eager route's")
+    layers = {}
+    for call, ((q, k, v), out, kwargs) in sorted(kept.items()):
+        check(q.shape[0] == ROWS_BATCH * cfg.n_heads and k.shape[0] == ROWS_BATCH * cfg.n_kv_heads,
+              f"{cfg.name} layer {call}'s K5 call at {tuple(q.shape)}, {tuple(k.shape)}")
+        want = plain_in_slices(lambda qc, kc, vc: [ref.flash_attention_ref(qc, kc, vc, **kwargs)],
+                               (q,), (k, v))[0]
+        agree = agreement(out, want, FLASH_TOL[q.dtype])
+        check(agree["mismatches"] == 0, f"{cfg.name} at batch {ROWS_BATCH}, layer {call}'s K5: "
+                                        f"{agree} outside {FLASH_TOL[q.dtype]} of the plain version")
+        FA.reset_launches()
+        sliced = one_launch_slices(q, k, v, **kwargs)
+        check(FA.CHUNKS["flash_attention"] == FA.LAUNCHES["flash_attention"]
+              and torch.equal(sliced, out), f"{cfg.name} at batch {ROWS_BATCH}, layer {call}'s K5 "
+                                            f"differs from its one-launch slices")
+        layers[call] = {"shape": [list(q.shape), list(k.shape)], "kwargs": kwargs, **agree,
+                        "equals_one_launch_slices": True}
+        log(f"  {cfg.name} layer {call}'s K5 at {tuple(q.shape)} over {tuple(k.shape)} ({kwargs}): "
+            f"max_abs_err vs plain {agree['max_abs_err']!r} (tolerance {FLASH_TOL[q.dtype]}), "
+            f"== its {FA.LAUNCHES['flash_attention']} one-launch slices bit for bit")
+        del q, k, v, out, want, sliced
+    check(sorted(layers) == [0, cfg.n_layers - 1], f"kept K5 calls {sorted(layers)}")
+    del kept
+    FA.reset_launches()
+    with unittest.mock.patch.object(kops, "flash_attention", one_launch_slices):
+        sliced_tokens = greedy_generate(cfg, model, prompts, ROWS_NEW, eager=True)
+    sliced_counts = {"launches": FA.LAUNCHES["flash_attention"], "chunks": FA.CHUNKS["flash_attention"]}
+    check(sliced_counts["launches"] == sliced_counts["chunks"] > cfg.n_layers
+          and torch.equal(sliced_tokens, tokens),
+          f"{cfg.name} at batch {ROWS_BATCH}: tokens with K5 in one-launch slices "
+          f"({sliced_counts}) differ from the chunked route's")
+    log(f"  {cfg.name} at batch {ROWS_BATCH}: tokens with every K5 call in one-launch slices "
+        f"({sliced_counts}) == the chunked route's bit for bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the checks' copies and slices are not serving's
+    routes = [timed_generate(cfg, model, prompts, ROWS_NEW, eager) for eager in (False, True)]
+    check(graphs.STATS["captures"] == 0, f"{cfg.name} at batch {ROWS_BATCH}: a timed request "
+                                         f"captured a graph")
+    for r in routes:
+        check(torch.equal(r.pop("tokens"), tokens),
+              f"{cfg.name} at batch {ROWS_BATCH} ({r['route']}): the timed tokens differ")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    row = {"arch": cfg.name, "batch": ROWS_BATCH, "prompt": ROWS_PROMPT, "new_tokens": ROWS_NEW,
+           "head_rows": ROWS_BATCH * cfg.n_heads, "chunks_per_call": chunks,
+           "flash_runs_per_prefill": runs["flash_attention"], "eager_counts": eager_counts,
+           "graph_tokens_equal_eager": True, "layers_vs_plain": layers,
+           "one_launch_slices_counts": sliced_counts, "tokens_equal_one_launch_slices": True,
+           "peak_bytes": peak, "graphs": captured,
+           "routes": routes, "sample_ids": tokens[0, :16].tolist()}
+    log(f"  {cfg.name} bf16, {cfg.n_layers} layers, {ROWS_BATCH} x {ROWS_PROMPT} + {ROWS_NEW}: "
+        f"{row['head_rows']} head rows a prefill attention, {chunks} chunks a K5 call; K5 runs "
+        f"{runs['flash_attention']} a prefill replay, eager counts {eager_counts}; graph tokens "
+        f"== eager tokens; peak {peak} bytes ({smi})")
+    for r in routes:
+        log_route("route", r)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def head_rows_phase(cfg, timer, smi: str) -> dict:
+    """Phase 6r: K5's forward and backward past 65,535 head rows against
+    their plain versions, qwen3-1.7b served at batch ROWS_BATCH, and K5
+    timed again at qwen3's prefill shape and hymba's window (one chunk
+    each) beside phase 6's and phase 8's."""
+    t0 = time.perf_counter()
+    forward = check_head_rows_forward(timer)
+    backward = check_head_rows_backward(timer)
+    served = serve_head_rows(cfg, smi)
+    timed = time_flash(timer, [(FLASH_TIMED[0], f"{LM_ARCH} prefill attention"),
+                               (16, "hymba-1.5b prefill attention")])
+    for idx, row in zip((FLASH_TIMED[0], 16), timed):
+        shape = FLASH_SHAPES[idx]
+        check(len(FA.head_row_chunks(shape[0], shape[1])) == 1, f"{shape} is not one chunk")
+    return {"forward": forward, "backward": backward, "served": served, "flash_timing": timed,
+            "seconds": time.perf_counter() - t0}
 
 
 # ------------------------------------------------------------ phase 7: MoE
@@ -3575,13 +3931,8 @@ def time_flash_bwd(timer) -> list:
         q4, k4, v4 = (t.view(B, t.shape[0] // B, t.shape[1], d).detach().requires_grad_()
                       for t in (q, k, v))
         g4 = dout.view(B, BH // B, Sq, d)
-        kwargs = {"is_causal": causal}
-        if window is not None and window < Skv:
-            qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
-            kpos = torch.arange(Skv, device="cuda")[None, :]
-            kwargs = {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
         sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
-                                 enable_gqa=True, **kwargs)
+                                 enable_gqa=True, **sdpa_mask(Sq, Skv, causal, window))
         lib_out = sdpa()
         backend = sdpa_backend(lambda: sdpa().detach(), lib_out.detach())
         lib_grads = torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True)
@@ -4891,6 +5242,14 @@ def main() -> int:
     flash_timing = time_flash(timer)
     flash_resources = {k: v for k, v in resources.items() if k.startswith("flash")}
     log(f"    [6] done at {time.perf_counter() - t_start:.1f} s")
+    log(f"[6r] K5 past {FA.MAX_HEAD_ROWS} head rows: the forward at {[s for _, s in ROWS_FWD]}, "
+        f"the backward at {[s for _, _, s in ROWS_BWD]}; {LM_ARCH} served at {ROWS_BATCH} x "
+        f"{ROWS_PROMPT} + {ROWS_NEW}; K5 timed at {LM_ARCH}'s and hymba-1.5b's prefill shapes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    head_rows = head_rows_phase(cfg, timer, smi)
+    log(f"    [6r] done at {time.perf_counter() - t_start:.1f} s (the phase "
+        f"{head_rows['seconds']!r} s)")
     moe = moe_phase(resources, timer, smi, chase["l_hbm_ms"], dispatch_kernels)
     qd_timing, moe_served = moe["queue_dispatch_timing"], moe["moe_served"]
     log(f"    [7] done at {time.perf_counter() - t_start:.1f} s")
@@ -4991,7 +5350,11 @@ def main() -> int:
                    f"{LM_ARCH} prefill (and {moe_served['k5_launches']} per {MOE_ARCH} prefill "
                    f"at {MOE_LAYERS} layers; per family prefill: {family_k5})"),
         "family_launches": family_k5,
-        "configs": flash_timing + families["flash_timing"],
+        "configs": flash_timing + families["flash_timing"] + head_rows["flash_timing"],
+        "past_head_rows": head_rows["forward"],
+        "served_past_head_rows": {k: head_rows["served"][k] for k in (
+            "batch", "head_rows", "chunks_per_call", "flash_runs_per_prefill", "layers_vs_plain",
+            "tokens_equal_one_launch_slices", "peak_bytes")},
         "ptxas": {k: list(v) for k, v in flash_resources.items()},
         "hgmma": hgmma,
         "bf16_smem_bytes": flash_smem,
@@ -5019,6 +5382,7 @@ def main() -> int:
         "config": (f"{bwd_timing[0]['config']} {bwd_timing[0]['shape']} bf16; launches: the bf16 "
                    f"training run of {LM_ARCH}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}"),
         "configs": bwd_timing,
+        "past_head_rows": head_rows["backward"],
         "grads_bf16": training["grads_bf16"],
         "ptxas": {k: list(v) for k, v in resources.items() if k.startswith("flash_bwd")},
         "smem_bytes": training["bwd_smem_bytes"],
@@ -5063,6 +5427,7 @@ def main() -> int:
                        "flash_checks": flash_checks, "lm_full_model_fp32": full_model,
                        "lm_full_model_bf16": full_model_bf16,
                        "lm_served": lm_served, "flash_timing": flash_timing,
+                       "head_rows": head_rows,
                        **moe, "families": families, "training": training,
                        "checkpoints": checkpointed, "tensor_parallel": tensor_parallel,
                        "dryrun": dryrun, "examples": examples,

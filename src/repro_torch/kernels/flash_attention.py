@@ -13,6 +13,12 @@ launches each of the three alone, to time it).  Both take CUDA
 tensors only; ``kernels.ops`` sends CPU tensors to the plain versions
 (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``) instead.
 
+A launch takes at most ``MAX_HEAD_ROWS`` head rows on a grid dimension that
+bounds them: the forward's q rows, the fp32 backward's kv rows.  A call
+past that makes one launch a chunk of ``head_row_chunks`` (whole GQA
+groups, on views that start at the chunk's first head row: ``run_head_rows``)
+and still counts one in ``LAUNCHES``; ``CHUNKS`` counts the launches.
+
 ``forward_work`` and ``backward_work`` are the work a call must do, its
 operations and the bytes it must move, from its shapes alone: what
 ``chip_smoke.py`` holds the kernels' times to and what the dry run
@@ -22,19 +28,22 @@ operations and the bytes it must move, from its shapes alone: what
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-# Launches since the last ``reset_launches()``.
+# Wrapper calls since the last ``reset_launches()``: one a call, however
+# many chunks it launches.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+# Launches of the C entries (chunks of head rows) since the same reset.
+CHUNKS: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
-_MAX_HEAD_ROWS = 65535  # the grid's y dimension
+MAX_HEAD_ROWS = 65535  # a grid's y dimension: the forward's q rows, the fp32 backward's kv rows
 _INT32_MAX = 2**31 - 1
 BWD_ROW_PAD = 64  # the bf16 backward's q tile: its pre-pass pads each head's rows to it
 # The backward's device kernels as bits of its C entry's stage mask: the
@@ -97,8 +106,53 @@ def backward_work(BH: int, BHkv: int, Sq: int, Skv: int, d: int, causal: bool,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CHUNKS):
+        for name in counts:
+            counts[name] = 0
+
+
+def head_row_chunks(BH: int, BHkv: int, whole_groups: bool = False
+                    ) -> List[Tuple[int, int, int, int]]:
+    """The launches of one call over BH q rows and BHkv kv rows (BH a
+    positive multiple of BHkv): ``(q0, q1, kv0, kv1)`` each, in order,
+    covering every row once.  A chunk is whole GQA groups, kv rows [kv0,
+    kv1) and their q rows [kv0 group, kv1 group), so q row b of a chunk
+    still reads its kv row b // group; the forward's chunks hold at most
+    ``MAX_HEAD_ROWS`` q rows, and so as many kv rows.  Where one group
+    holds more q rows than that, the forward cuts it into pieces of at most
+    ``MAX_HEAD_ROWS`` q rows, each with its one kv row.  ``whole_groups``
+    (the backward, whose kernels loop over a group and sum its q rows into
+    one dk and dv row) never cuts a group and bounds the kv rows alone.
+    One chunk where the rows fit."""
+    limit, group = MAX_HEAD_ROWS, BH // BHkv
+    if whole_groups:
+        step = limit
+    elif group <= limit:
+        step = limit // group
+    else:
+        return [(q0, min(q0 + limit, (kv + 1) * group), kv, kv + 1)
+                for kv in range(BHkv) for q0 in range(kv * group, (kv + 1) * group, limit)]
+    return [(kv0 * group, kv1 * group, kv0, kv1)
+            for kv0 in range(0, BHkv, step) for kv1 in (min(kv0 + step, BHkv),)]
+
+
+def run_head_rows(launch: Callable[..., None], q_rows: Sequence[Optional[torch.Tensor]],
+                  kv_rows: Sequence[torch.Tensor], whole_groups: bool = False) -> int:
+    """``launch(*q_views, *kv_views)`` once a chunk of ``head_row_chunks``
+    over ``q_rows[0]`` and ``kv_rows[0]``'s first dims: each tensor of
+    ``q_rows`` (a None passes through) sliced to the chunk's q rows, each
+    of ``kv_rows`` to its kv rows.  The views start at the chunk's first
+    head row, so a launch on their pointers sees the chunk as a call of its
+    own.  One chunk is the call itself, on the tensors as given.  Returns
+    the number of chunks."""
+    chunks = head_row_chunks(q_rows[0].shape[0], kv_rows[0].shape[0], whole_groups)
+    if len(chunks) == 1:
+        launch(*q_rows, *kv_rows)
+        return 1
+    for q0, q1, kv0, kv1 in chunks:
+        launch(*(None if t is None else t[q0:q1] for t in q_rows),
+               *(t[kv0:kv1] for t in kv_rows))
+    return len(chunks)
 
 
 def check_operands(
@@ -130,7 +184,8 @@ def check_operands(
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
                 fn: str) -> Tuple[int, int, int, int, int]:
     """What the kernels take beyond ``check_operands``: CUDA tensors of one
-    dtype of DTYPES, a head dim of HEAD_DIMS, 16-byte aligned, in range."""
+    dtype of DTYPES, a head dim of HEAD_DIMS, 16-byte aligned, sequences
+    in int32."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn} takes CUDA tensors, got {q.device}")
     BH, Sq, d, BHkv, Skv = check_operands(q, k, v, window)
@@ -143,8 +198,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optio
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if BH > _MAX_HEAD_ROWS or max(Sq, Skv) > _INT32_MAX:
-        raise ValueError(f"attention shape out of the kernel's range: BH={BH}, Sq={Sq}, Skv={Skv}")
+    if max(Sq, Skv) > _INT32_MAX:
+        raise ValueError(f"attention shape out of the kernel's range: Sq={Sq}, Skv={Skv}")
     return BH, Sq, d, BHkv, Skv
 
 
@@ -176,14 +231,19 @@ def flash_attention_cuda(
         built = _build.library()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
+
+            def launch(qc, oc, lc, kc, vc):
+                CHUNKS["flash_attention"] += 1
+                rc = built.lib.flash_attention(
+                    qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
+                    None if lc is None else lc.data_ptr(), qc.shape[0], kc.shape[0], Sq, Skv, d,
+                    int(q.dtype == torch.bfloat16), int(causal), _window_arg(window),
+                    float(scale), stream,
+                )
+                _build.check_launch(rc, "flash_attention")
+
             LAUNCHES["flash_attention"] += 1
-            rc = built.lib.flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), BH, BHkv, Sq, Skv, d,
-                int(q.dtype == torch.bfloat16), int(causal), _window_arg(window), float(scale),
-                stream,
-            )
-        _build.check_launch(rc, "flash_attention")
+            run_head_rows(launch, (q, out, lse), (k, v))
     return (out, lse) if with_lse else out
 
 
@@ -222,9 +282,10 @@ def bwd_stage_calls(
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, Callable[[], None]]]:
     """The backward's device kernels one by one, to time each one's share of
     a launch: runs one whole backward and returns its ``(dq, dk, dv)`` and,
-    for each name of ``BWD_STAGES``, a call that launches that kernel alone
-    on the scratch and outputs the whole one used (each counts in
-    ``LAUNCHES`` as a call does; the three in order redo the backward)."""
+    for each name of ``BWD_STAGES``, a call that launches that kernel alone,
+    over every chunk, on the scratch and outputs the whole one used (each
+    counts in ``LAUNCHES`` as a call does; the three in order redo the
+    backward)."""
     dq, dk, dv, launch = _bwd_call(q, k, v, out, dout, lse, causal, window, scale)
     if launch is None:
         raise ValueError("the backward has no q rows to launch its kernels on")
@@ -235,14 +296,16 @@ def bwd_stage_calls(
 def bwd_scratch(q: torch.Tensor, dq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's scratch beside its outputs: ``(dq_acc, delta)``.
     fp32 accumulates dq in place (``dq_acc`` is ``dq``); bf16 in an fp32
-    scratch cast at the end.  ``delta`` holds delta and, for the bf16 body,
-    each row's lse term, per head padded to BWD_ROW_PAD rows (the fp32 body
-    reads the first BH * Sq)."""
+    scratch cast at the end.  ``delta``, (BH, 2 Sq64) with Sq64 = Sq padded
+    to BWD_ROW_PAD rows, is what a launch over BH' head rows reads from its
+    first row on as 2 BH' Sq64 values: delta and, for the bf16 body, each
+    row's lse term (the fp32 body reads the first BH' Sq); a chunk's rows of
+    it are a launch's own."""
     BH, Sq = q.shape[0], q.shape[1]
     sq64 = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
                                                               device=q.device)
-    delta = torch.empty(2 * BH * sq64, dtype=torch.float32, device=q.device)
+    delta = torch.empty((BH, 2 * sq64), dtype=torch.float32, device=q.device)
     return dq_acc, delta
 
 
@@ -276,13 +339,20 @@ def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
     def launch(stages: int) -> None:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
+
+            def launch_chunk(qc, oc, doc, lc, dqc, accc, deltac, kc, vc, dkc, dvc):
+                CHUNKS["flash_attention_bwd"] += 1
+                rc = built.lib.flash_attention_bwd(
+                    qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(), doc.data_ptr(),
+                    lc.data_ptr(), dqc.data_ptr(), dkc.data_ptr(), dvc.data_ptr(),
+                    accc.data_ptr(), deltac.data_ptr(), qc.shape[0], kc.shape[0], Sq, Skv, d,
+                    int(q.dtype == torch.bfloat16), int(causal), _window_arg(window),
+                    float(scale), stages, stream,
+                )
+                _build.check_launch(rc, "flash_attention_bwd")
+
             LAUNCHES["flash_attention_bwd"] += 1
-            rc = built.lib.flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-                delta.data_ptr(), BH, BHkv, Sq, Skv, d, int(q.dtype == torch.bfloat16),
-                int(causal), _window_arg(window), float(scale), stages, stream,
-            )
-        _build.check_launch(rc, "flash_attention_bwd")
+            run_head_rows(launch_chunk, (q, out, dout, lse, dq, dq_acc, delta), (k, v, dk, dv),
+                          whole_groups=True)
 
     return dq, dk, dv, launch

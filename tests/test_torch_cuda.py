@@ -8,6 +8,7 @@ runs there on its own:
 """
 
 import dataclasses
+import functools
 import gc
 import importlib
 import weakref
@@ -734,6 +735,129 @@ def test_flash_backward_stages_alone_redo_the_whole_launch(cuda_device, no_tf32,
     assert FA.LAUNCHES["flash_attention_bwd"] == 1 + len(FA.BWD_STAGES)
     torch.testing.assert_close(grads[0].float(), want[0].float(), atol=1e-5, rtol=1e-2)
     assert torch.equal(grads[1], want[1]) and torch.equal(grads[2], want[2])
+
+
+# K5 past a launch's 65,535 head rows (``FA.head_row_chunks``): the
+# forward's boundary shapes, (BH, BHkv, Sq, Skv, d, causal, window), group 4
+# (B 2,049 x 32 heads, 8 kv heads), group 5 with a window (B 2,622 x 25
+# heads, 5 kv heads) and qwen3-1.7b's prefill of 4,096 prompts of 16 tokens
+# (16 heads, 8 kv heads: 65,534 q rows, then a tail of one kv row); the
+# backward's, bf16 past 65,535 q rows and fp32 past 65,535 kv rows (B 8,193
+# x 16 heads, 8 kv heads).
+ROWS_FWD = [
+    (2049 * 32, 2049 * 8, 128, 128, 128, True, None),
+    (2622 * 25, 2622 * 5, 192, 192, 64, True, 50),
+    (4096 * 16, 4096 * 8, 16, 16, 128, True, None),
+]
+ROWS_BWD = [
+    (torch.bfloat16, (2049 * 32, 2049 * 8, 128, 128, 128, True, None)),
+    (torch.float32, (8193 * 16, 8193 * 8, 64, 64, 64, True, None)),
+]
+ROWS_SLICE = 2048  # kv rows (and their q rows) a slice of the plain version
+
+
+def _plain_in_slices(fn, q_rows, kv_rows):
+    """``fn(*q_slices, *kv_slices)`` over slices of ROWS_SLICE kv rows and
+    their GQA groups' q rows, each output concatenated over the slices: the
+    plain version at a shape whose whole intermediates the card would not
+    hold at once."""
+    group = q_rows[0].shape[0] // kv_rows[0].shape[0]
+    parts = [fn(*(t[i * group:(i + ROWS_SLICE) * group] for t in q_rows),
+                *(t[i:i + ROWS_SLICE] for t in kv_rows))
+             for i in range(0, kv_rows[0].shape[0], ROWS_SLICE)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def _assert_within(got, want, tol, norm_tol=None):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if norm_tol is not None:
+        assert float((got.float() - want.float()).norm()) <= norm_tol * float(want.float().norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,BHkv,Sq,Skv,d,causal,window", ROWS_FWD)
+def test_flash_attention_past_the_head_row_limit_matches_its_plain_version(
+        cuda_device, no_tf32, dtype, BH, BHkv, Sq, Skv, d, causal, window):
+    """K5 at BH just past 65,535: two launches a call, with and without
+    lse, one count a call; the output and lse against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(BH + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((BH, Sq, d), (BHkv, Skv, d), (BHkv, Skv, d)))
+    FA.reset_launches()
+    out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    served = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert FA.LAUNCHES["flash_attention"] == 2 and FA.CHUNKS["flash_attention"] == 4
+    want, want_lse = _plain_in_slices(functools.partial(
+        ref.flash_attention_lse_ref, causal=causal, window=window), (q,), (k, v))
+    for got in (out, served):
+        _assert_within(got, want.to(dtype), ATTN_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,shape", ROWS_BWD, ids=["bf16-q-rows", "fp32-kv-rows"])
+def test_flash_backward_past_the_head_row_limit_matches_its_plain_version(cuda_device, no_tf32,
+                                                                           dtype, shape):
+    """K5's backward past 65,535 q rows (bf16: one launch, its kernels
+    bound only by kv rows) and past 65,535 kv rows (fp32: two launches),
+    one count a call; dq, dk, dv against the plain version on the same
+    saved tensors, elementwise and in norm."""
+    BH, BHkv, Sq, Skv, d, causal, window = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(BH + d)
+    q, k, v, g = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+                  for s in ((BH, Sq, d), (BHkv, Skv, d), (BHkv, Skv, d), (BH, Sq, d)))
+    out, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    FA.reset_launches()
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, g, lse, causal=causal, window=window)
+    assert FA.LAUNCHES["flash_attention_bwd"] == 1
+    assert FA.CHUNKS["flash_attention_bwd"] == -(-BHkv // FA.MAX_HEAD_ROWS)
+
+    def plain(qc, oc, doc, lc, kc, vc):
+        return ref.flash_attention_bwd_ref(qc, kc, vc, oc, doc, lc, causal=causal, window=window)
+
+    want = _plain_in_slices(plain, (q, out, g, lse), (k, v))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _assert_within(a, b, BWD_TOL[dtype], BWD_NORM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("limit", [1, 3, 6])
+def test_chunked_launches_redo_one_launch(cuda_device, monkeypatch, dtype, limit):
+    """With the launch's head rows lowered to ``limit``, the forward (with
+    and without lse) and the backward launch in chunks on views at the
+    chunks' offsets (the bf16 backward's padded delta and lse term, dq's
+    fp32 scratch) and give one launch's results: bit for bit but dq, whose
+    atomics may sum in another order; each backward stage alone, over every
+    chunk, redoes the backward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(limit)
+    q, g = (torch.randn(16, 200, 64, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(4, 200, 64, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    out, lse = FA.flash_attention_cuda(q, k, v, window=90, with_lse=True)
+    want = FA.flash_attention_bwd_cuda(q, k, v, out, g, lse, window=90)
+    served = FA.flash_attention_cuda(q, k, v, window=90)
+    monkeypatch.setattr(FA, "MAX_HEAD_ROWS", limit)
+    FA.reset_launches()
+    c_out, c_lse = FA.flash_attention_cuda(q, k, v, window=90, with_lse=True)
+    c_served = FA.flash_attention_cuda(q, k, v, window=90)
+    c_grads = FA.flash_attention_bwd_cuda(q, k, v, out, g, lse, window=90)
+    torch.cuda.synchronize()
+    # forward: a group of 4 cut in pieces below 4 rows, else one kv row a
+    # chunk; backward: ``limit`` kv rows a chunk
+    n_fwd, n_bwd = {1: (16, 4), 3: (8, 2), 6: (4, 1)}[limit]
+    assert FA.LAUNCHES == {"flash_attention": 2, "flash_attention_bwd": 1}
+    assert FA.CHUNKS == {"flash_attention": 2 * n_fwd, "flash_attention_bwd": n_bwd}
+    assert torch.equal(c_out, out) and torch.equal(c_lse, lse) and torch.equal(c_served, served)
+    grads, calls = FA.bwd_stage_calls(q, k, v, out, g, lse, window=90)
+    for grad in grads:
+        grad.fill_(float("nan"))
+    for name in FA.BWD_STAGES:
+        calls[name]()
+    torch.cuda.synchronize()
+    for got in (c_grads, grads):
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=1e-5, rtol=1e-2)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 def test_bf16_flash_route_gradients_stay_within_the_models_rounding(cuda_device, no_tf32):
