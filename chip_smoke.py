@@ -211,9 +211,10 @@ Phases, in order; any failure raises and exits non-zero:
    phase 9c; step ms and tok/s on both routes, the pool's bytes, peak
    memory under 80 GB, one replayed step profiled (host launch calls,
    idle share); mixtral-8x7b cut to 2 layers, 3 graphed train steps (K4
-   inside) against two eager runs from the same init (step 0's loss bit
-   for bit, every step within the floor rule, the floor the eager runs'
-   difference); then K5's backward timed at qwen3's and hymba's
+   inside) against two eager runs from the same init (every loss, grad
+   norm and parameter of the eager runs, and every graphed step's loss and
+   grad norm, equal bit for bit); then K5's backward timed at qwen3's and
+   hymba's
    training shapes beside its bound (2.5 x the forward's operations), its
    plain version and SDPA's backward (the backend named), with each of its
    three device kernels' share of a launch (each launched alone,
@@ -225,27 +226,25 @@ Phases, in order; any failure raises and exits non-zero:
    is saved through ``CheckpointManager(save_async=True, keep=1)``, one
    step runs while the write goes on, and the checkpoint is restored into
    a fresh state: every tensor equal to the host snapshot bit for bit, and
-   the restored state's step against the live state's from the same bits
-   (loss within 1e-6 relative, grad norm within 1e-4 relative or 3 x
-   the floor, the spread of five forward and backward passes); bytes,
+   the restored state's step equal to the live state's from the same bits
+   (loss, grad norm and every parameter after it, bit for bit); bytes,
    snapshot, write, restore seconds and the step with and without the
    write; (b) the
    launcher's restart as a user runs it, in subprocesses at smoke size: a
    deadline exit (code 42) after its step-0 checkpoint, a ``--resume`` run
-   to the end, its final state against an uninterrupted run's (1e-5 of
-   each tensor's scale, the floor of two uninterrupted runs beside it);
-   (a)'s step is the graphed one, and the restored state's first step
+   to the end, its final state equal to an uninterrupted run's bit for
+   bit; (a)'s step is the graphed one, and the restored state's first step
    captures a graph of its own;
-   (c) the floor (phase 9's eager steps run again five times) and phase
-   9's graphed steps held to its eager ones (loss and grad norm within
-   1e-4 relative or 3 x the floor); ``make_train_step(mode=
+   (c) phase 9's eager steps run again five times, each run equal to phase
+   9's in every loss and grad norm and to the first rerun in every
+   parameter and master weight, bit for bit; ``make_train_step(mode=
    "dp_shard_map")`` at world 1 over NCCL, a CUDA graph with its
    all-reduces, for compression None, bf16 and int8, 3 steps each from
    the seed-0 state: every kernel count set to 0 first, K5's forward 56
    and its backward 28 a step and nothing else (``kernel_runs()``), one
-   capture in step 0, losses finite, None's first loss equal to phase 9's
-   and its three steps' losses and grad norms within the floor rule of
-   phase 9's eager steps, peak memory under 80 GB, step ms beside the
+   capture in step 0, losses finite, None's three steps' losses and grad
+   norms equal to phase 9's eager steps' bit for bit, peak memory under
+   80 GB, step ms beside the
    plain graphed step's, the all-reduce's bytes and collective calls a
    step (replays counted), the pool's bytes;
 9t. the LM's model axis (``make_train_step(mode="pjit")``, the mesh
@@ -258,10 +257,10 @@ Phases, in order; any failure raises and exits non-zero:
    rule against the naive single-card routes; the 4 x 2048 prefill and 31
    decode steps timed; the pjit step's fp32 gradients (``step.gradients``)
    of every parameter within 1e-3 relative of the single-card gradients,
-   each rank's block held to its slice; 3 bf16 pjit steps of phase 9's
-   batches from the seed-0 state, each loss and grad norm within 1e-4
-   (relative) or 3 x phase 9c's floor of phase 9's, as phase 9c holds
-   the DP step; on each rank K5's forward 28 a prefill and 56 a train step at
+   each rank's block held to its slice; its bf16 gradients, gathered, by
+   phase 9's bf16 gradient rule (RMS ratio <= 1.25); 3 bf16 pjit steps of
+   phase 9's batches from the seed-0 state, logged beside phase 9's; on
+   each rank K5's forward 28 a prefill and 56 a train step at
    B·H 32 and B·Hkv 16, its backward 28 a step; then mixtral-8x7b (K4
    once a layer on each rank) and hymba-1.5b (heads split mid-head) at
    their published width cut to 2 layers, the same serving rules; per
@@ -270,8 +269,8 @@ Phases, in order; any failure raises and exits non-zero:
    then at world 1 over NCCL, mesh (1, 1), phase 6's request through the
    mesh prefill and the mesh decode step, a CUDA graph each, its tokens
    bit for bit phase 6's, and 3 steps of the pjit step, a CUDA graph (one
-   capture), each loss and grad norm within the floor rule of phase 9's
-   graphed steps;
+   capture), each loss and grad norm equal to phase 9's graphed steps' bit
+   for bit;
 10. the dry run (``launch/dryrun.py``, ``dryrun_bst.py``): (a) in two
    subprocesses that see no card, as rank 0 of a fake process group of 256
    under ``FakeTensorMode``, qwen3-1.7b's train_4k, prefill_32k and
@@ -549,8 +548,8 @@ ROWS_REPS = 10
 FP32_FLOP_PER_S = hardware.FP32_FLOP_PER_S  # the CUDA cores, the data sheet's
 # The training phase (9).  K5's backward against its plain version at every
 # FLASH_SHAPES shape: fp32, the kernel's FMA order and expf against torch's
-# matmuls over the same saved tensors (o, lse), and dq's atomics summed in
-# any order; bf16, the same fp32 arithmetic on bf16 operands with dq, dk
+# matmuls over the same saved tensors (o, lse), and dq summed kv tile by kv
+# tile; bf16, the same fp32 arithmetic on bf16 operands with dq, dk
 # and dv rounded to bf16 once, against the plain version's fp32 sums
 # rounded once: about one bf16 rounding.  atol = rtol = the value.  And
 # per tensor, |got - want|_2 / |want|_2 at most BWD_NORM_TOL: the two
@@ -568,7 +567,7 @@ FLASH_BWD_REPLACES = "src/repro/models/attention.py:55"  # _blockwise_attn, diff
 # the launches, and to nothing of the fp32 backward's.
 FWD_BF16_KERNEL = "flash_fwd_bf16_kernel<"
 BWD_BF16_KERNELS = ("flash_bwd_pre_bf16_kernel<", "flash_bwd_bf16_kernel<",
-                    "flash_bwd_cast_kernel<")
+                    "flash_bwd_cast_bf16_kernel<")
 BWD_FP32_KERNELS = ("flash_bwd_pre_kernel<", "flash_bwd_kernel<")
 # The bf16 gradient check: qwen3-1.7b at full width and depth, one sequence
 # of TRAIN_CHECK_SEQ tokens, the same weights three ways (flash route in
@@ -613,65 +612,54 @@ BWD_TIMED = ((6, "qwen3-1.7b training attention"), (16, "hymba-1.5b training att
 # The backward's device kernels in bf16 by FA.BWD_STAGES' names, each timed
 # alone for its share of a launch.
 BWD_STAGE_KERNELS = {"pre": "flash_bwd_pre_bf16_kernel", "main": "flash_bwd_bf16_kernel",
-                     "cast": "flash_bwd_cast_kernel"}
+                     "cast": "flash_bwd_cast_bf16_kernel"}
 # The checkpoint and data-parallel phase (9c), qwen3-1.7b bf16 at full
-# width and depth, TRAIN_BATCH x TRAIN_SEQ tokens a step.  (a) A train state
-# after CKPT_STEPS steps is saved through CheckpointManager(save_async=True,
-# keep=1) into build/ (the checkout), one step runs while the write goes
-# on, and the checkpoint is restored into a fresh state: every tensor bit
-# for bit against the host snapshot; then the restored state takes the step
-# that the live state took from the same bits during the write.  Its loss
-# comes from the forward alone, which has no atomics: equal within
-# RESTORE_LOSS_RTOL (relative; expected exact).  Its grad norm goes through
-# K5's backward, whose dQ is summed by atomics in any order: within
-# RESTORE_GNORM_RTOL, or FLOOR_FACTOR times the floor if that is larger.
-# The floor: the largest difference between FLOOR_PASSES forward and
-# backward passes from the restored state (max - min).  The tolerances were
-# set before the phase's first run, the floor's factor before its fourth
-# (the third's five passes spread by 7.3e-5 of the grad norm).
-# If the disk cannot hold the checkpoint
-# (CKPT_DISK_MARGIN of its bytes free), the phase's depth is cut to what
-# fits, never its width.  (b) The launcher's restart at smoke size (fp32,
-# K5's fp32 bodies) in subprocesses: a run with --ckpt-every 1 whose step 1
-# exceeds --step-deadline-s exits with 42, a --resume run (--ckpt-every 2)
-# finishes RESTART_STEPS steps; its final checkpoint against an
-# uninterrupted run in this process, every tensor within RESTART_TOL of its
-# largest magnitude (relative), the floor beside it (two uninterrupted
-# runs).  (c) make_train_step(mode="dp_shard_map") at world 1 over NCCL
-# (this process, a HashStore), each compression, DP_STEPS steps from one
-# seed-0 state: K5's forward 2 x 28 and its backward 28 a step and nothing
-# else, losses finite, None's first loss equal to the plain step's (phase
-# 9) within RESTORE_LOSS_RTOL, peak memory under the card's.  None's steps
-# repeat phase 9's eager steps: each step's loss and grad norm within
-# DP_EQ_RTOL of phase 9's (relative), or FLOOR_FACTOR times the floor if
-# that is larger; the floor at each step: the largest difference from phase
-# 9 of FLOOR_PASSES eager runs of its steps from the seed-0 state.  Set
-# before the phase's fourth run.  The same rule holds phase 9's graphed
-# steps, the DP graph's and phase 9t's world-1 pjit graph's.
+# width and depth, TRAIN_BATCH x TRAIN_SEQ tokens a step.  The train step is
+# a pure function of its state and batch, as the JAX package's is: K5's
+# backward adds dQ in a fixed order.  (a) A train state after CKPT_STEPS
+# steps is saved through CheckpointManager(save_async=True, keep=1) into
+# build/ (the checkout), one step runs while the write goes on, and the
+# checkpoint is restored into a fresh state: every tensor bit for bit
+# against the host snapshot; then the restored state takes the step that
+# the live state took from the same bits during the write: the same loss,
+# grad norm and parameters after it, bit for bit.  If the disk cannot hold
+# the checkpoint (CKPT_DISK_MARGIN of its bytes free), the phase's depth is
+# cut to what fits, never its width.  (b) The launcher's restart at smoke
+# size (fp32, K5's fp32 bodies) in subprocesses: a run with --ckpt-every 1
+# whose step 1 exceeds --step-deadline-s exits with 42, a --resume run
+# (--ckpt-every 2) finishes RESTART_STEPS steps; its final checkpoint equal
+# to an uninterrupted run's in this process, every tensor bit for bit (the
+# JAX package's tests/test_checkpoint.py, on the card).  (c) Phase 9's
+# eager steps run again RERUNS times from the seed-0 state: each step's
+# loss and grad norm equal to phase 9's, and every parameter and master
+# weight after the last step equal to the first rerun's, bit for bit.  Then
+# make_train_step(mode="dp_shard_map") at world 1 over NCCL (this process,
+# a HashStore), each compression, DP_STEPS steps from one seed-0 state:
+# K5's forward 2 x 28 and its backward 28 a step and nothing else, losses
+# finite, peak memory under the card's; None's steps repeat phase 9's eager
+# steps, each loss and grad norm equal bit for bit, as phase 9's graphed
+# steps equal its eager ones and phase 9t's world-1 pjit graph phase 9's
+# graphed steps (``check_graph_steps``).
 CKPT_STEPS = 2
 CKPT_DISK_MARGIN = 1.1
-RESTORE_LOSS_RTOL = 1e-6
-RESTORE_GNORM_RTOL = 1e-4
-FLOOR_PASSES = 5
-FLOOR_FACTOR = 3.0
+RERUNS = 5
 RESTART_STEPS = 6
-RESTART_TOL = 1e-5
 RESTART_TIMEOUT_S = 300
 DP_MODES = (None, "bf16", "int8")
 DP_STEPS = 3
-DP_EQ_RTOL = 1e-4
 # Phase 9t: the LM's model axis on TP_RANKS gloo ranks sharing the card
 # (NCCL puts no two ranks on one card), mesh (data 1, model TP_RANKS):
 # qwen3-1.7b at full width and depth, then mixtral-8x7b and hymba-1.5b at
 # their published width cut to TP_FAMILY_LAYERS layers (mixtral at 32
 # layers does not fit; two layers carry K4 a layer and hymba's mid-head
-# splits), TP_TRAIN_STEPS bf16 pjit steps, each loss and grad norm held to
-# phase 9's plain step by phase 9c's rule (DP_EQ_RTOL relative, or
-# FLOOR_FACTOR times phase 9c's floor if that is larger).
+# splits).  Each rank rounds its row-parallel partial sums to bf16 before
+# they are summed, so the bf16 pjit step is held by its gradients
+# (``tp_grads_bf16``: ``bf16_grad_rule``, set before its first run), and
+# TP_TRAIN_STEPS steps are logged beside phase 9's.
 TP_RANKS = 2
 TP_FAMILIES = ("mixtral-8x7b", "hymba-1.5b")
 TP_FAMILY_LAYERS = 2
-TP_TRAIN_STEPS = DP_STEPS  # the steps that phase 9c measures the floor of
+TP_TRAIN_STEPS = DP_STEPS
 TP_TIMEOUT_S = 600
 QD_SOURCE = "src/repro_torch/kernels/csrc/queue_dispatch.cu"
 QD_REPLACES = "src/repro/kernels/queue_dispatch.py:61"
@@ -752,7 +740,7 @@ def kernel_label(mangled: str) -> str:
     stores the rows' log-sum-exp), K5's backward bodies
     ``flash_bwd_bf16_kernel<D>`` and ``flash_bwd_kernel<float,D>`` (with
     ``flash_bwd_pre_bf16_kernel<D>``, ``flash_bwd_pre_kernel<float,D>`` and
-    ``flash_bwd_cast_kernel<T>``),
+    ``flash_bwd_cast_bf16_kernel<D>``),
     ``queue_dispatch_kernel`` (and its
     ``_cluster`` and ``_wide`` bodies); any other kernel keeps its mangled
     name, so a renamed or new one still shows."""
@@ -766,10 +754,10 @@ def kernel_label(mangled: str) -> str:
     bf16 = re.search(r"flash_fwd_bf16_kernelILi(\d+)E(?:Lb([01])E)?", mangled)
     if bf16:
         return f"flash_fwd_bf16_kernel<{bf16.group(1)}{',lse' if bf16.group(2) == '1' else ''}>"
-    bwd16 = re.search(r"flash_bwd(_pre)?_bf16_kernelILi(\d+)E", mangled)
+    bwd16 = re.search(r"flash_bwd(_pre|_cast)?_bf16_kernelILi(\d+)E", mangled)
     if bwd16:
         return f"flash_bwd{bwd16.group(1) or ''}_bf16_kernel<{bwd16.group(2)}>"
-    bwd = re.search(r"flash_bwd(_pre|_cast)?_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E", mangled)
+    bwd = re.search(r"flash_bwd(_pre)?_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E", mangled)
     if bwd:
         targs = "float" if bwd.group(2) == "f" else "bf16"
         targs += "" if bwd.group(3) is None else f",{bwd.group(3)}"
@@ -3604,81 +3592,100 @@ def check_train_grads(cfg, smi: str) -> dict:
     return row
 
 
-def check_train_grads_bf16(cfg, smi: str) -> dict:
-    """``forward_train`` at full width and depth on one sequence
-    (``train_check_inputs``), the same weights three ways: the flash route
-    in bf16 (K5's bf16 forward and ``flash_bwd_bf16_kernel``), the naive
-    route in bf16 and the naive route in fp32.  Over every parameter's
-    gradient, the RMS of (flash bf16 - naive fp32) may be at most
-    TRAIN_BF16_GRAD_RATIO times the RMS of (naive bf16 - naive fp32); the
-    tensor whose own ratio is largest is reported.  The launches: K5's
-    forward twice a layer (remat), its backward once, none on the naive
-    routes."""
-    check(cfg.dtype == "bfloat16" and cfg.remat, f"{cfg.name}: the check expects bf16 and remat")
-    flash = dataclasses.replace(cfg, attention_impl="flash")
+def bf16_grad_rule(cfg, model, inputs, route) -> dict:
+    """The rule of every bf16 route of the gradient, on ``model``'s bf16
+    weights (``cfg``: bf16, remat) at ``inputs`` (``train_check_inputs``):
+    the naive route in fp32 (the weights copied) and in bf16, and
+    ``route()`` -> (loss, name -> gradient), the route under test.  Over
+    every parameter's gradient, the RMS of (route - naive fp32) at most
+    TRAIN_BF16_GRAD_RATIO times that of (naive bf16 - naive fp32); the
+    tensor whose own ratio is largest is reported."""
     naive = dataclasses.replace(cfg, attention_impl="naive")
     naive32 = dataclasses.replace(naive, dtype="float32")
-    model = lm.init_params(flash, seed=0, device="cuda", trainable=True)
-    tokens, labels, fe = train_check_inputs(flash, seed=22)
-    n_attn = k5_per_forward(cfg)
 
-    def grads(c, m):
+    def grads(c, m) -> tuple:
+        loss, _ = lm.forward_train(c, m, *inputs[:2], *inputs[2])
+        loss.backward()
+        out = {n: p.grad for n, p in m.named_parameters()}
         for p in m.parameters():
             p.grad = None
-        FA.reset_launches()
-        loss, _ = lm.forward_train(c, m, tokens, labels, *fe)
-        loss.backward()
-        torch.cuda.synchronize()
-        missing = [n for n, p in m.named_parameters() if p.grad is None]
-        check(not missing, f"{cfg.name} {c.attention_impl} {c.dtype}: no gradient reached {missing}")
-        g = {n: p.grad.float() for n, p in m.named_parameters()}
-        check(all(bool(torch.isfinite(t).all()) for t in g.values()),
-              f"{cfg.name} {c.attention_impl} {c.dtype}: a gradient is not finite")
-        return float(loss.detach()), g, dict(FA.LAUNCHES)
+        return float(loss.detach()), out
 
-    t0 = time.perf_counter()
-    loss_f, g_flash, launches = grads(flash, model)
-    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
-    check(launches == want, f"{cfg.name} bf16 flash route launches {launches}, want {want}")
-    loss_n, g_naive, naive_launches = grads(naive, model)
-    check(not any(naive_launches.values()), f"{cfg.name}: the naive bf16 route launched K5")
-    for p in model.parameters():
-        p.grad = None
     model32 = lm.init_params(naive32, seed=0, device="cuda", trainable=True)
     with torch.no_grad():
         for p32, p in zip(model32.parameters(), model.parameters()):
             p32.copy_(p)
-    loss_32, g_32, _ = grads(naive32, model32)
-    del model, model32
+    loss_32, g_32 = grads(naive32, model32)
+    del model32
     torch.cuda.empty_cache()
-    sq = {"flash": 0.0, "naive": 0.0}
-    per_tensor, n_elems = {}, 0
-    for name, w in g_32.items():
-        d_f = float((g_flash[name] - w).pow(2).sum())
-        d_n = float((g_naive[name] - w).pow(2).sum())
-        sq["flash"] += d_f
-        sq["naive"] += d_n
-        n_elems += w.numel()
-        per_tensor[name] = (d_f / d_n) ** 0.5 if d_n > 0 else (0.0 if d_f == 0 else float("inf"))
-    rms = {k: (v / n_elems) ** 0.5 for k, v in sq.items()}
-    ratio = rms["flash"] / rms["naive"]
+
+    def sq_dist(g: dict) -> dict:
+        missing = sorted(set(g_32) - {n for n, t in g.items() if t is not None})
+        check(not missing, f"{cfg.name}: no gradient reached {missing}")
+        check(all(bool(torch.isfinite(g[n]).all()) for n in g_32), f"{cfg.name}: a gradient is "
+              f"not finite")
+        return {n: float((g[n].float() - w).pow(2).sum()) for n, w in g_32.items()}
+
+    loss_n, g = grads(naive, model)
+    check(not any(FA.LAUNCHES.values()), f"{cfg.name}: the naive bf16 route launched K5")
+    d_naive = sq_dist(g)
+    loss_r, g = route()
+    d_route = sq_dist(g)
+    del g, g_32
+    torch.cuda.empty_cache()
+    n_elems = sum(p.numel() for p in model.parameters())
+    rms = {"route": (sum(d_route.values()) / n_elems) ** 0.5,
+           "naive": (sum(d_naive.values()) / n_elems) ** 0.5}
+    per_tensor = {n: (d / d_naive[n]) ** 0.5 if d_naive[n] > 0 else (0.0 if d == 0 else float("inf"))
+                  for n, d in d_route.items()}
     worst = max(per_tensor.items(), key=lambda kv: kv[1])
-    row = {"arch": cfg.name, "layers": cfg.n_layers, "seq": TRAIN_CHECK_SEQ,
-           "loss_flash_bf16": loss_f, "loss_naive_bf16": loss_n, "loss_naive_fp32": loss_32,
-           "flash_vs_fp32_rms": rms["flash"], "naive_vs_fp32_rms": rms["naive"],
-           "rms_ratio": ratio, "tol_ratio": TRAIN_BF16_GRAD_RATIO, "tensors": len(per_tensor),
-           "worst_tensor": worst[0], "worst_tensor_ratio": worst[1],
-           "grad_rms": float(sum(float(w.pow(2).sum()) for w in g_32.values()) / n_elems) ** 0.5,
-           "launches": launches, "seconds": time.perf_counter() - t0}
+    ratio = rms["route"] / rms["naive"]
+    check(ratio <= TRAIN_BF16_GRAD_RATIO, f"{cfg.name} bf16 gradients: the route is {ratio!r} times "
+          f"as far from fp32 as the naive route (RMS {rms})")
+    return {"seq": TRAIN_CHECK_SEQ, "loss_route": loss_r, "loss_naive_bf16": loss_n,
+            "loss_naive_fp32": loss_32, "route_vs_fp32_rms": rms["route"],
+            "naive_vs_fp32_rms": rms["naive"], "rms_ratio": ratio,
+            "tol_ratio": TRAIN_BF16_GRAD_RATIO, "tensors": len(per_tensor),
+            "worst_tensor": worst[0], "worst_tensor_ratio": worst[1]}
+
+
+def check_train_grads_bf16(cfg, smi: str) -> dict:
+    """``bf16_grad_rule`` at full width and depth for the flash route in
+    bf16 (K5's bf16 forward and ``flash_bwd_bf16_kernel``); the launches:
+    K5's forward twice a layer (remat), its backward once, none on the
+    naive routes."""
+    check(cfg.dtype == "bfloat16" and cfg.remat, f"{cfg.name}: the check expects bf16 and remat")
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    model = lm.init_params(flash, seed=0, device="cuda", trainable=True)
+    inputs = train_check_inputs(flash, seed=22)
+    n_attn = k5_per_forward(cfg)
+    launches = {}
+
+    def route() -> tuple:
+        FA.reset_launches()
+        loss, _ = lm.forward_train(flash, model, *inputs[:2], *inputs[2])
+        loss.backward()
+        torch.cuda.synchronize()
+        launches.update(FA.LAUNCHES)
+        g = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), g
+
+    t0 = time.perf_counter()
+    FA.reset_launches()
+    row = {"arch": cfg.name, "layers": cfg.n_layers, **bf16_grad_rule(cfg, model, inputs, route)}
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    check(launches == want, f"{cfg.name} bf16 flash route launches {launches}, want {want}")
+    row.update(launches=launches, seconds=time.perf_counter() - t0)
     log(f"  bf16 gradients {cfg.name}, {cfg.n_layers} layers, 1 x {TRAIN_CHECK_SEQ}: against the "
-        f"fp32 naive route, flash bf16 RMS {rms['flash']!r}, naive bf16 RMS {rms['naive']!r}; "
-        f"ratio {ratio!r} (tolerance {TRAIN_BF16_GRAD_RATIO}; gradient RMS {row['grad_rms']!r}); "
-        f"worst tensor {worst[0]} at {worst[1]!r}; losses flash bf16 {loss_f!r}, naive bf16 "
-        f"{loss_n!r}, naive fp32 {loss_32!r}; launches {launches} in {row['seconds']!r} s ({smi})")
-    check(ratio <= TRAIN_BF16_GRAD_RATIO,
-          f"{cfg.name} bf16 gradients: the flash route is {ratio!r} times as far from fp32 as "
-          f"the naive route")
-    del g_flash, g_naive, g_32
+        f"fp32 naive route, flash bf16 RMS {row['route_vs_fp32_rms']!r}, naive bf16 RMS "
+        f"{row['naive_vs_fp32_rms']!r}; ratio {row['rms_ratio']!r} (tolerance "
+        f"{TRAIN_BF16_GRAD_RATIO}); worst tensor {row['worst_tensor']} at "
+        f"{row['worst_tensor_ratio']!r}; losses flash bf16 {row['loss_route']!r}, naive bf16 "
+        f"{row['loss_naive_bf16']!r}, naive fp32 {row['loss_naive_fp32']!r}; launches {launches} in "
+        f"{row['seconds']!r} s ({smi})")
+    del model
     torch.cuda.empty_cache()
     return row
 
@@ -3718,36 +3725,40 @@ def train_steps(step, state, pipe, steps: int, route: str, want: dict) -> tuple:
     return state, rows
 
 
-def check_graph_steps(graph: list, eager: list, label: str) -> dict:
-    """A graphed run's steps against the eager run of the same steps from the
-    same init: one capture, in step 0, whose warm-up is that step; its loss
-    the eager step's bit for bit (the forward has no atomics)."""
-    check([r["captures"] for r in graph] == [1] + [0] * (len(graph) - 1),
-          f"{label}: captures per step {[r['captures'] for r in graph]}, want one in step 0")
-    check(graph[0]["loss"] == eager[0]["loss"],
-          f"{label}: the graph's step-0 loss {graph[0]['loss']!r}, the eager route's "
-          f"{eager[0]['loss']!r}")
-    return {"step0_loss_equal": True, "captures": [r["captures"] for r in graph]}
+def check_graph_steps(graph: list, ref, label: str) -> dict:
+    """A graphed run's steps: one capture, in step 0, whose warm-up is that
+    step; with ``ref`` (the same steps from the same init on another route)
+    every loss and grad norm equal bit for bit: the train step is a pure
+    function, on every route."""
+    captures = [r["captures"] for r in graph]
+    check(captures == [1] + [0] * (len(graph) - 1),
+          f"{label}: captures per step {captures}, want one in step 0")
+    if ref is not None:
+        check(metrics_of(graph) == metrics_of(ref), f"{label}: (loss, grad norm) a step "
+              f"{metrics_of(graph)}, the reference's {metrics_of(ref)}")
+        log(f"    {label}: every loss and grad norm equal to the reference's bit for bit")
+    return {"captures": captures, "equal_bit_for_bit": ref is not None}
 
 
-def within_floor(label: str, got: list, ref: list, floor: list) -> list:
-    """Each step's loss and grad norm of ``got`` within the larger of
-    DP_EQ_RTOL (relative) and FLOOR_FACTOR times the floor of ``ref``'s
-    (the spread of reruns of ``ref``'s steps: K5's backward sums dQ by
-    atomics); the rows of the comparison."""
-    versus = []
-    for i, (g, r, fl) in enumerate(zip(got, ref, floor)):
-        for k in ("loss", "grad_norm"):
-            tol = max(DP_EQ_RTOL * abs(r[k]), FLOOR_FACTOR * fl[k])
-            diff = abs(g[k] - r[k])
-            versus.append({"step": i, "metric": k, "got": g[k], "ref": r[k], "diff": diff,
-                           "floor": fl[k], "tol": tol})
-            check(diff <= tol, f"{label} step {i}: {k} {g[k]!r}, the reference's {r[k]!r}; "
-                  f"tolerance {tol!r}, floor {fl[k]!r}")
-    log(f"    {label} (|diff|, tolerance, floor): "
-        + "; ".join(f"step {v['step']} {v['metric']} {v['diff']!r}, {v['tol']!r}, {v['floor']!r}"
-                    for v in versus))
-    return versus
+def metrics_of(steps: list) -> list:
+    """Each step's (loss, grad norm)."""
+    return [(r["loss"], r["grad_norm"]) for r in steps]
+
+
+def host_copies(tensors) -> list:
+    """The tensors' bits on the host, to hold a later run to."""
+    return [t.detach().cpu() for t in tensors]
+
+
+def check_same_bits(label: str, got, want: list) -> int:
+    """Every tensor of ``got`` equal to its host copy in ``want``, bit for
+    bit; returns how many were compared."""
+    got = list(got)
+    check(len(got) == len(want), f"{label}: {len(got)} tensors, want {len(want)}")
+    differ = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(g.detach().cpu(), w)]
+    check(not differ, f"{label}: {len(differ)} of {len(want)} tensors differ, the first at index "
+          f"{differ[:1]}")
+    return len(want)
 
 
 def train_lm(cfg, smi: str) -> dict:
@@ -3760,9 +3771,8 @@ def train_lm(cfg, smi: str) -> dict:
     counted exactly: no graph of the phase is alive yet).  Then the graph
     route, the main path (``make_train_step`` on the card): step 0 the
     capture (its warm-up is the step), the others replays, the kernels
-    that ran as the eager route's in every step, step 0's loss the eager
-    route's bit for bit (later steps are held to the eager ones in phase
-    9c, against its floor); the pool's bytes, the peak memory under the
+    that ran as the eager route's in every step, every loss and grad norm
+    the eager route's bit for bit; the pool's bytes, the peak memory under the
     card's; one replayed step profiled (host launch calls, idle share)."""
     tcfg = train_tcfg()
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
@@ -3816,7 +3826,7 @@ def train_lm(cfg, smi: str) -> dict:
     for reset in (FA.reset_launches, QD.reset_launches, K.reset_launches, graphs.reset):
         reset()
     state, graph_steps = train_steps(step, state, pipe, TRAIN_STEPS, "graph", per_step_want)
-    versus = check_graph_steps(graph_steps, eager_steps, "the graphed train step")
+    versus = check_graph_steps(graph_steps, eager_steps, "the graphed train steps vs the eager ones")
     launches = graphs.kernel_runs()
     check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
           f"the training run did not go through K5 and its backward: {launches}")
@@ -3848,8 +3858,8 @@ def train_lm(cfg, smi: str) -> dict:
         f"d_model / 2), |diff| {abs(first - expected0)!r} (tolerance {FIRST_LOSS_TOL}); "
         f"largest change (bf16 copy, fp32 master) {changed}; steady step (median of steps "
         f"1..{TRAIN_STEPS - 1}): graph {row['step_ms']!r} ms ({row['tok_per_s']!r} tok/s), eager "
-        f"{row['eager_step_ms']!r} ms ({row['eager_tok_per_s']!r} tok/s); the graph's step 0 loss "
-        f"== the eager route's; capture {capture_s!r} s, pool {pool} bytes; peak memory: graph "
+        f"{row['eager_step_ms']!r} ms ({row['eager_tok_per_s']!r} tok/s); the graph's steps == the "
+        f"eager route's; capture {capture_s!r} s, pool {pool} bytes; peak memory: graph "
         f"route {peak} bytes, eager {eager_peak}; kernels that ran on the graph route {launches}; "
         f"a replayed step: {graph_profile['host_launches_per_call']!r} host launch calls, idle "
         f"share {graph_profile['idle_share']!r}; an eager step: "
@@ -3866,11 +3876,11 @@ def train_moe_graph(smi: str) -> dict:
     """The graphed train step with K4 inside: mixtral-8x7b at its published
     width cut to TRAIN_CHECK_LAYERS layers, bf16 with remat, MOE_TRAIN_STEPS
     steps of TRAIN_BATCH x TRAIN_CHECK_SEQ tokens from the seed-0 state
-    through the graph, and twice on the eager route: the graph's step 0 the
-    eager step's loss bit for bit, every step within the floor rule against
-    the first eager run (the floor: the second's difference from it); each
-    step runs K4 and K5's forward once a layer and once more in remat's
-    recompute, K5's backward once a layer."""
+    twice on the eager route and through the graph: the eager runs equal in
+    every loss, grad norm and parameter, bit for bit (the step is a pure
+    function, the MoE gathers' backward too), and so is the graph's every
+    loss and grad norm; each step runs K4 and K5's forward once a layer and
+    once more in remat's recompute, K5's backward once a layer."""
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN_CHECK_LAYERS)
     tcfg = train_tcfg()
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_BATCH)
@@ -3878,7 +3888,7 @@ def train_moe_graph(smi: str) -> dict:
     want = {"flash_attention": again * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
             "queue_dispatch": again * cfg.n_layers}
     t0 = time.perf_counter()
-    runs = {}
+    runs, params = {}, None
     for route in ("eager", "eager again", "graph"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -3889,19 +3899,25 @@ def train_moe_graph(smi: str) -> dict:
         state, rows = train_steps(step, state, pipe, MOE_TRAIN_STEPS, f"{cfg.name} {route}", want)
         runs[route] = {"steps": rows, "peak_bytes": torch.cuda.max_memory_allocated(),
                        "pool_bytes": graphs.STATS["pool_bytes"]}
+        if route == "eager":
+            params = host_copies(state.params.parameters())
+        elif route == "eager again":
+            check(metrics_of(rows) == metrics_of(runs["eager"]["steps"]),
+                  f"{cfg.name}: a second eager run's (loss, grad norm) {metrics_of(rows)}")
+            runs[route]["parameters_equal"] = check_same_bits(
+                f"{cfg.name}: the second eager run's parameters", state.params.parameters(), params)
         del state, step
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     eager, graph = runs["eager"]["steps"], runs["graph"]["steps"]
-    check_graph_steps(graph, eager, f"{cfg.name} graphed train step")
-    floor = [{k: abs(a[k] - e[k]) for k in ("loss", "grad_norm")}
-             for a, e in zip(runs["eager again"]["steps"], eager)]
-    versus = within_floor(f"{cfg.name} graphed train steps vs the eager route", graph, eager, floor)
+    versus = check_graph_steps(graph, eager, f"{cfg.name} graphed train steps vs the eager route")
     row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_CHECK_SEQ,
-           "runs": runs, "floor": floor, "versus_eager": versus, "per_step_launches": want,
+           "runs": runs, "versus_eager": versus, "per_step_launches": want,
            "seconds": time.perf_counter() - t0}
-    log(f"    {cfg.name} at {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_CHECK_SEQ}: graph step 0 "
-        f"loss == eager; kernels a step {want} on both routes; step ms graph "
+    log(f"    {cfg.name} at {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_CHECK_SEQ}: two eager runs "
+        f"equal bit for bit ({runs['eager again']['parameters_equal']} parameters), and the graph's "
+        f"steps; kernels a step {want} on both routes; step ms graph "
         f"{[r['ms'] for r in graph]}, eager {[r['ms'] for r in eager]}; pool "
         f"{runs['graph']['pool_bytes']} bytes, peak {runs['graph']['peak_bytes']} bytes; "
         f"{row['seconds']!r} s ({smi})")
@@ -4030,20 +4046,6 @@ def timed_step(step, state, batch) -> tuple:
     return state, m, (time.perf_counter() - t0) * 1e3
 
 
-def grad_pass(cfg, model, batch) -> tuple:
-    """The step's forward and backward without its update: (loss, the
-    global norm of the gradients, as ``clip_by_global_norm`` takes it)."""
-    for p in model.parameters():
-        p.grad = None
-    loss, _ = lm.forward_train(cfg, model, *batch)
-    loss.backward()
-    norm = torch.sqrt(sum(p.grad.float().square().sum() for p in model.parameters()))
-    out = (float(loss.detach()), float(norm))
-    for p in model.parameters():
-        p.grad = None
-    return out
-
-
 def state_bytes(cfg) -> int:
     """A bf16 train state's checkpoint: the parameters in bf16, AdamW's
     master, mu and nu in fp32, the step."""
@@ -4072,7 +4074,7 @@ def check_restored(restored, snap) -> dict:
 
 def checkpoint_restore(cfg, smi: str) -> dict:
     """Phase 9c (a): save, a step during the write, restore, the bits, the
-    restored step against the live one."""
+    restored step against the live one, bit for bit."""
     ckdir = tempfile.mkdtemp(prefix="phase9c-", dir=os.path.join(ROOT, "build"))
     try:
         free = shutil.disk_usage(ckdir).free
@@ -4101,6 +4103,7 @@ def checkpoint_restore(cfg, smi: str) -> dict:
         snapshot_s = t_saved - t0
         nxt = batch_on_card(pipe, CKPT_STEPS)
         state, live, ms_writing = timed_step(step, state, nxt)
+        live_params = host_copies(state.params.parameters())
         mgr.wait()
         write_s = time.perf_counter() - t_saved
         files = {f: os.path.getsize(os.path.join(ckdir, f"step_{CKPT_STEPS - 1:08d}", f))
@@ -4120,21 +4123,15 @@ def checkpoint_restore(cfg, smi: str) -> dict:
         bits = check_restored(restored, snap)
         snapshot_bytes = snap.nbytes
         del snap
-        passes = [grad_pass(cfg, restored.params, nxt) for _ in range(FLOOR_PASSES)]
-        floor = {k: max(p[i] for p in passes) - min(p[i] for p in passes)
-                 for i, k in enumerate(("loss", "grad_norm"))}
         captures = graphs.STATS["captures"]
         restored, again, _ = timed_step(step, restored, nxt)
         recaptured = graphs.STATS["captures"] - captures
         check(recaptured == 1, f"the restored state's first step captured {recaptured} graphs, want "
                                f"its own")
-        diff = {k: abs(again[k] - live[k]) for k in ("loss", "grad_norm")}
-        gnorm_tol = max(RESTORE_GNORM_RTOL * abs(live["grad_norm"]), FLOOR_FACTOR * floor["grad_norm"])
-        check(diff["loss"] <= RESTORE_LOSS_RTOL * abs(live["loss"]),
-              f"the restored step's loss {again['loss']!r}, the live step's {live['loss']!r}")
-        check(diff["grad_norm"] <= gnorm_tol,
-              f"the restored step's grad norm {again['grad_norm']!r}, the live {live['grad_norm']!r}; "
-              f"tolerance {gnorm_tol!r}, floor {floor['grad_norm']!r}")
+        check(again == live, f"the restored step's metrics {again}, the live step's {live}")
+        params_equal = check_same_bits("the restored step's parameters against the live step's",
+                                       restored.params.parameters(), live_params)
+        del live_params
         peak = torch.cuda.max_memory_allocated()
         row = {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full_layers,
                "disk_free_bytes": free, "state_bytes": state_bytes(cfg),
@@ -4142,23 +4139,16 @@ def checkpoint_restore(cfg, smi: str) -> dict:
                "files": files, "snapshot_s": snapshot_s, "write_s": write_s,
                "step_ms_writing": ms_writing, "step_ms_quiet": ms_quiet, "restore_s": restore_s,
                "bits": bits, "live": live, "restored": again, "restored_captures": recaptured,
-               "diff": diff, "floor": floor,
-               "floor_passes": passes,
-               "tolerance": {"loss_rtol": RESTORE_LOSS_RTOL, "grad_norm_rtol": RESTORE_GNORM_RTOL,
-                             "floor_factor": FLOOR_FACTOR, "grad_norm": gnorm_tol},
-               "peak_bytes": peak}
+               "parameters_equal": params_equal, "peak_bytes": peak}
         log(f"    checkpoint of {cfg.name} at {cfg.n_layers} layers: {files['arrays.npz']} bytes "
             f"(arrays.npz; the state {state_bytes(cfg)}); host snapshot {snapshot_s!r} s, "
             f"background write {write_s!r} s (save's return to wait's), step {ms_writing!r} ms with "
             f"the write running, {ms_quiet!r} ms without; restore (read, H2D) {restore_s!r} s; "
             f"{bits['tensors']} tensors equal to the snapshot bit for bit; the restored state's "
             f"step captured its own graph; the restored step vs the live step from the same bits: "
-            f"|d loss| {diff['loss']!r} (tolerance "
-            f"{RESTORE_LOSS_RTOL} x {live['loss']!r}), |d grad norm| {diff['grad_norm']!r} "
-            f"(tolerance {gnorm_tol!r}: the larger of {RESTORE_GNORM_RTOL} x {live['grad_norm']!r} "
-            f"and {FLOOR_FACTOR} x the floor); floor (max - min of {FLOOR_PASSES} forward and "
-            f"backward passes) {floor}, the passes (loss, grad norm) {passes}; peak memory {peak} "
-            f"bytes ({smi})")
+            f"loss {again['loss']!r} and {live['loss']!r}, grad norm {again['grad_norm']!r} and "
+            f"{live['grad_norm']!r}, {params_equal} parameters after it: equal bit for bit; peak "
+            f"memory {peak} bytes ({smi})")
         del restored, like, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -4185,10 +4175,6 @@ def restart_path(smi: str) -> dict:
         return ([p.detach() for p in st.params.parameters()] + [st.opt.step] + st.opt.master
                 + st.opt.mu + st.opt.nu)
 
-    def worst(a, b) -> float:
-        return max(float((x.float() - y.float()).abs().max())
-                   / max(float(y.float().abs().max()), 1e-30) for x, y in zip(a, b, strict=True))
-
     try:
         first, first_s = run("--ckpt-dir", ckdir, "--ckpt-every", "1", "--step-deadline-s", "1e-9")
         check(first.returncode == launch_train.DEADLINE_EXIT and "step 1 exceeded deadline"
@@ -4202,60 +4188,62 @@ def restart_path(smi: str) -> dict:
         check(ckpt_store.latest_step(ckdir) == RESTART_STEPS - 1,
               f"the resumed run's last checkpoint is {ckpt_store.latest_step(ckdir)}")
         with contextlib.redirect_stdout(io.StringIO()):
-            whole = [launch_train.main(flags) for _ in range(2)]
+            whole = launch_train.main(flags)
         cfg = smoke_config("tinyllama-1.1b")
         resumed, _, _ = ckpt_store.restore_checkpoint(
             ckdir, init_train_state(cfg, TrainConfig(), seed=1, device="cuda"))
-        diff, floor = worst(tensors(resumed), tensors(whole[0])), worst(tensors(whole[1]),
-                                                                        tensors(whole[0]))
-        check(diff <= RESTART_TOL, f"the resumed run's state is {diff!r} (relative) from the "
-              f"uninterrupted run's; tolerance {RESTART_TOL}, floor {floor!r}")
+        equal = check_same_bits("the resumed run's final state against the uninterrupted run's",
+                                tensors(resumed), host_copies(tensors(whole)))
         row = {"first_rc": first.returncode, "first_s": first_s, "second_rc": second.returncode,
-               "second_s": second_s, "max_rel_diff": diff, "floor": floor, "tolerance": RESTART_TOL}
+               "second_s": second_s, "tensors_equal": equal}
         log(f"    launcher restart (tinyllama smoke, fp32, {RESTART_STEPS} steps, on the card): "
             f"rc {first.returncode} after step 1 ({first_s!r} s), --resume rc {second.returncode} "
-            f"({second_s!r} s); final state vs an uninterrupted run: max relative difference "
-            f"{diff!r} (tolerance {RESTART_TOL}; floor, two uninterrupted runs: {floor!r}) ({smi})")
+            f"({second_s!r} s); final state equal to an uninterrupted run's bit for bit ({equal} "
+            f"tensors) ({smi})")
         return row
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
-def plain_floor(cfg, pipe, plain_steps: list) -> list:
-    """Phase 9's eager steps run again FLOOR_PASSES times on the eager route
-    from the seed-0 state: at each step the largest |loss| and |grad norm|
-    difference from phase 9's, the floor that K5's backward's atomics leave
-    between runs of the same steps."""
-    floor = [{"loss": 0.0, "grad_norm": 0.0} for _ in plain_steps]
+def plain_reruns(cfg, pipe, plain_steps: list) -> dict:
+    """Phase 9's eager steps run again RERUNS times on the eager route from
+    the seed-0 state: every step's loss and grad norm equal to phase 9's,
+    and after the last step every parameter and AdamW master weight equal
+    to the first rerun's, bit for bit: the step is a pure function."""
     step = make_train_step(cfg, train_tcfg(), eager=True)
-    for _ in range(FLOOR_PASSES):
+    first = None
+    for run in range(RERUNS):
         gc.collect()
         torch.cuda.empty_cache()
         state = init_train_state(cfg, train_tcfg(), seed=0, device="cuda")
-        for s, ref_step in enumerate(plain_steps):
+        got = []
+        for s in range(len(plain_steps)):
             state, m, _ = timed_step(step, state, batch_on_card(pipe, s))
-            for k in ("loss", "grad_norm"):
-                floor[s][k] = max(floor[s][k], abs(m[k] - ref_step[k]))
-        del state
-    del step
-    gc.collect()
-    torch.cuda.empty_cache()
-    return floor
+            got.append(m)
+        check(metrics_of(got) == metrics_of(plain_steps),
+              f"rerun {run} of phase 9's eager steps: (loss, grad norm) {metrics_of(got)}, phase "
+              f"9's {metrics_of(plain_steps)}")
+        tensors = [*state.params.parameters(), *state.opt.master]
+        if first is None:
+            first = host_copies(tensors)
+        else:
+            check_same_bits(f"rerun {run}'s parameters and master weights", tensors, first)
+        del state, tensors
+    return {"reruns": RERUNS, "steps": len(plain_steps), "tensors": len(first)}
 
 
 def dp_steps(cfg, smi: str, plain: dict) -> tuple:
-    """Phase 9c (c): the floor (``plain_floor``), phase 9's graphed steps
-    against its eager ones within the floor rule, then the data-parallel
-    step at world 1 over NCCL, a CUDA graph, each compression, DP_STEPS
-    steps from one seed-0 state; None's steps against phase 9's eager steps
-    (``plain["steps"]``) within the floor-based tolerance (DP_EQ_RTOL,
-    FLOOR_FACTOR).  Returns (the DP rows, phase 9's graph-vs-eager rows)."""
+    """Phase 9c (c): phase 9's eager steps rerun (``plain_reruns``), then the
+    data-parallel step at world 1 over NCCL, a CUDA graph, each
+    compression, DP_STEPS steps from one seed-0 state; None's steps equal
+    to phase 9's eager steps (``plain["steps"]``) bit for bit.  Returns
+    (the DP rows, the reruns' row)."""
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
-    floor = plain_floor(cfg, pipe, plain["steps"])
-    log(f"    the floor: phase 9's eager steps 0..{DP_STEPS - 1} run again {FLOOR_PASSES} times, the "
-        f"largest |d loss|, |d grad norm| a step {floor} ({smi})")
-    graph_vs_eager = within_floor("phase 9's graphed steps vs its eager steps",
-                                  plain["graph_steps"], plain["steps"], floor)
+    t0 = time.perf_counter()
+    reruns = plain_reruns(cfg, pipe, plain["steps"])
+    log(f"    phase 9's eager steps 0..{DP_STEPS - 1} run again {RERUNS} times: every loss and grad "
+        f"norm equal to phase 9's, every one of {reruns['tensors']} parameters and master weights "
+        f"equal across the runs, bit for bit, in {time.perf_counter() - t0!r} s ({smi})")
     torch.distributed.init_process_group("nccl", store=torch.distributed.HashStore(), rank=0,
                                          world_size=1)
     try:
@@ -4284,24 +4272,15 @@ def dp_steps(cfg, smi: str, plain: dict) -> tuple:
             launches = {k: n for k, n in graphs.kernel_runs().items() if n}
             check(launches == want, f"DP run ({comp}): kernels that ran {launches}, want {want} "
                   f"and nothing else")
-            check([r["captures"] for r in steps] == [1] + [0] * (DP_STEPS - 1),
-                  f"DP run ({comp}): captures per step {[r['captures'] for r in steps]}, want the "
-                  f"graph in step 0 and replays after")
+            versus = check_graph_steps(steps, plain["steps"] if comp is None else None,
+                                       f"DP ({comp}) vs phase 9's eager steps")
             pool = graphs.STATS["pool_bytes"]
             stats = dict(DP_STATS)
-            first = steps[0]["loss"]
-            versus = None
-            if comp is None:
-                check(abs(first - plain["first_loss"]) <= RESTORE_LOSS_RTOL * abs(plain["first_loss"]),
-                      f"the DP step's first loss {first!r}, the plain step's {plain['first_loss']!r}")
-                versus = within_floor("DP None vs phase 9's eager steps", steps, plain["steps"],
-                                      floor)
             peak = torch.cuda.max_memory_allocated()
             check(peak < TRAIN_PEAK_BYTES, f"DP ({comp}) peak memory {peak} bytes")
             row = {"compression": comp, "steps": steps, "launches": launches,
                    "step_ms": float(np.median([r["ms"] for r in steps[1:]])),
-                   "plain_step_ms": plain["step_ms"], "plain_first_loss": plain["first_loss"],
-                   "versus_plain": versus, "floor": floor,
+                   "plain_step_ms": plain["step_ms"], "versus_plain": versus,
                    "bytes_per_step": stats["bytes"] / DP_STEPS,
                    "calls_per_step": stats["calls"] / DP_STEPS, "peak_bytes": peak,
                    "pool_bytes": pool}
@@ -4312,7 +4291,7 @@ def dp_steps(cfg, smi: str, plain: dict) -> tuple:
                 f"bytes and {row['calls_per_step']!r} collective calls a step, kernels that ran "
                 f"{launches}, pool {pool} bytes, peak memory {peak} bytes ({smi})")
             del state, step
-        return rows, graph_vs_eager
+        return rows, reruns
     finally:
         torch.distributed.destroy_process_group()
         gc.collect()
@@ -4325,10 +4304,8 @@ def checkpoint_phase(smi: str, trained: dict) -> dict:
     t0 = time.perf_counter()
     cfg = get_config(LM_ARCH)
     out = {"checkpoint": checkpoint_restore(cfg, smi), "restart": restart_path(smi)}
-    out["dp"], out["phase9_graph_vs_eager"] = dp_steps(
-        cfg, smi, {"first_loss": trained["first_loss"], "step_ms": trained["step_ms"],
-                   "steps": trained["steps"][:DP_STEPS],
-                   "graph_steps": trained["graph_steps"][:DP_STEPS]})
+    out["dp"], out["reruns"] = dp_steps(
+        cfg, smi, {"step_ms": trained["step_ms"], "steps": trained["steps"][:DP_STEPS]})
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4515,16 +4492,42 @@ def tp_serve_checks(cfg, mesh, ref: dict, moe_layers: int, timed: bool) -> dict:
     return row
 
 
+def tp_grads_bf16(cfg, mesh, shape, coord) -> dict:
+    """A rank's ``bf16_grad_rule`` on the (1, TP_RANKS) mesh: the pjit
+    step's bf16 gradients (``step.gradients``, after its sums) at the bf16
+    gradient check's inputs, gathered whole, against the single-card naive
+    routes on the same weights."""
+    model = lm.init_params(cfg, seed=0, device="cuda", trainable=True)
+    inputs = train_check_inputs(cfg, seed=22)
+    sspecs = tspecs.state_specs(cfg, shape)
+    empty = AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"), {}, {}, {})
+    state = elastic.ShardedState(elastic.reshard_params(model, cfg, mesh), empty, {}, sspecs, coord)
+    step = make_train_step(cfg, train_tcfg(), mesh=mesh, mode="pjit")
+
+    def route() -> tuple:
+        tp_reset()
+        loss, _, blocks = step.gradients(state, *inputs[:2])
+        return float(loss), elastic.gather_blocks(blocks, sspecs.params, {
+            n: tspecs.Spec(()) for n in blocks}, cfg, mesh, tspecs.all_axes(mesh))
+
+    FA.reset_launches()
+    row = bf16_grad_rule(cfg, model, inputs, route)
+    row["launches"] = tp_counts()
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def tp_train_checks(cfg, mesh, phase9: dict) -> dict:
     """A rank's training checks of qwen3-1.7b on the (1, TP_RANKS) mesh:
     the fp32 gradients of the pjit step (``step.gradients``, after its
     sums) against the single-card gradients of the same weights, max
     |tp - single| / max |single| per tensor over every rank's block at
-    most TRAIN_GRAD_TOL; then the bf16 pjit step from the seed-0 state,
-    TP_TRAIN_STEPS steps of phase 9's batches, each loss and grad norm
-    within the larger of DP_EQ_RTOL (relative) and FLOOR_FACTOR times phase
-    9c's floor of phase 9's plain step's (``phase9``: its steps and that
-    floor), launches, collectives and ms a step."""
+    most TRAIN_GRAD_TOL; the bf16 gradients by ``tp_grads_bf16``'s rule;
+    then the bf16 pjit step from the seed-0 state, TP_TRAIN_STEPS steps of
+    phase 9's batches (``phase9``: its steps' losses and grad norms, logged
+    beside these), launches, collectives and ms a step."""
     shape = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="flash")
@@ -4569,6 +4572,7 @@ def tp_train_checks(cfg, mesh, phase9: dict) -> dict:
     del model, ref_grads, blocks, state, grads, loss_ref
     gc.collect()
     torch.cuda.empty_cache()
+    row["grads_bf16"] = tp_grads_bf16(cfg, mesh, shape, coord)
     # the bf16 run: the seed-0 state's blocks (init_train_state's, cut)
     model = lm.init_params(cfg, seed=0, device="cuda")
     blocks = elastic.reshard_params(model, cfg, mesh)
@@ -4593,17 +4597,10 @@ def tp_train_checks(cfg, mesh, phase9: dict) -> dict:
                 "queue_dispatch": 0}
         check(got == want, f"9t bf16 train step {s}: launches {got}, want {want}")
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), f"9t bf16 step {s}: {m}")
-        plain, floor = phase9["steps"][s], phase9["floor"][s]
-        versus = {}
-        for k in ("loss", "grad_norm"):
-            tol = max(DP_EQ_RTOL * abs(plain[k]), FLOOR_FACTOR * floor[k])
-            diff = abs(m[k] - plain[k])
-            versus[k] = {"diff": diff, "tol": tol, "floor": floor[k]}
-            check(diff <= tol, f"9t bf16 pjit step {s}: {k} {m[k]!r}, phase 9's plain step "
-                  f"{plain[k]!r}; tolerance {tol!r}, floor {floor[k]!r}")
+        plain = phase9["steps"][s]
         steps.append({"step": s, **m, "ms": ms, "launches": got, "collectives": tp_collectives(),
                       "k5_shapes": sorted(set(shapes)), "phase9_loss": plain["loss"],
-                      "phase9_grad_norm": plain["grad_norm"], "versus_phase9": versus})
+                      "phase9_grad_norm": plain["grad_norm"]})
     bh = (TRAIN_BATCH * cfg.n_heads // TP_RANKS, TRAIN_BATCH * cfg.n_kv_heads // TP_RANKS)
     check(all(r["k5_shapes"] == [bh] for r in steps), f"9t bf16 steps: K5 shapes "
           f"{[r['k5_shapes'] for r in steps]}, want {bh}")
@@ -4676,15 +4673,14 @@ def spawn_tp_ranks(out_dir: str) -> list:
     return records
 
 
-def tp_world1_graph(cfg, smi: str, phase6_tokens: list, phase9: dict, floor: list) -> dict:
+def tp_world1_graph(cfg, smi: str, phase6_tokens: list, phase9: dict) -> dict:
     """At world 1 over NCCL, mesh (1, 1): phase 6's serving request
     (LM_BATCH x LM_PROMPT + LM_NEW, greedy) through the mesh prefill and
     the mesh decode step, each one CUDA graph with its collectives, its
     tokens bit for bit phase 6's single-card graphs'; then the pjit step,
     a graph, TP_TRAIN_STEPS steps of phase 9's batches from the seed-0
     state: one capture, in step 0, K5 as phase 9's step, each loss and grad
-    norm within the floor rule of phase 9's graphed single-card steps
-    (``phase9["graph_steps"]``, phase 9c's ``floor``)."""
+    norm equal to phase 9's graphed single-card steps' bit for bit."""
     with gate.world1_group("cuda"):
         mesh = make_host_mesh(model=1, device_type="cuda")
         model = lm.init_params(cfg, seed=0, device="cuda")
@@ -4727,11 +4723,9 @@ def tp_world1_graph(cfg, smi: str, phase6_tokens: list, phase9: dict, floor: lis
         state, pjit_steps = train_steps(
             step, state, TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), TP_TRAIN_STEPS,
             "pjit graph, mesh (1, 1)", {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn})
-        check([r["captures"] for r in pjit_steps] == [1] + [0] * (TP_TRAIN_STEPS - 1),
-              f"9t world 1: pjit captures per step {[r['captures'] for r in pjit_steps]}")
+        versus = check_graph_steps(pjit_steps, phase9["graph_steps"][:TP_TRAIN_STEPS],
+                                   "9t world 1: the pjit graph vs phase 9's graphed steps")
         pool = graphs.STATS["pool_bytes"]
-        versus = within_floor("9t world 1: the pjit graph vs phase 9's graphed steps", pjit_steps,
-                              phase9["graph_steps"], floor)
         del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4742,15 +4736,14 @@ def tp_world1_graph(cfg, smi: str, phase6_tokens: list, phase9: dict, floor: lis
     log(f"  world 1 over NCCL, mesh (1, 1): the mesh prefill and decode steps replay one graph each; "
         f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW} tokens equal phase 6's single-card graphs' bit for "
         f"bit; prefill {prefill_s!r} s, decode {ms!r} ms/step; the pjit step a graph (pool {pool} "
-        f"bytes), {row['pjit_step_ms']!r} ms a replayed step, within the floor rule of phase 9's "
+        f"bytes), {row['pjit_step_ms']!r} ms a replayed step, held to phase 9's "
         f"graphed steps ({smi})")
     return row
 
 
-def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
+def tp_phase(smi: str, trained: dict, phase6_tokens: list) -> dict:
     """Phase 9t: the LM's tensor-parallel path on TP_RANKS gloo ranks
-    sharing the card, then the mesh decode graph at world 1 over NCCL;
-    ``floor`` is phase 9c's, of phase 9's plain steps."""
+    sharing the card, then the mesh decode graph at world 1 over NCCL."""
     t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="phase9t-", dir=os.path.join(ROOT, "build"))
     try:
@@ -4761,7 +4754,7 @@ def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
         torch.save(refs, os.path.join(out_dir, "refs.pt"))
         with open(os.path.join(out_dir, "phase9.json"), "w") as f:
             json.dump({"steps": [{k: r[k] for k in ("loss", "grad_norm")}
-                                 for r in trained["steps"]], "floor": floor}, f)
+                                 for r in trained["steps"]]}, f)
         del refs
         gc.collect()
         torch.cuda.empty_cache()  # the ranks share the card
@@ -4794,21 +4787,25 @@ def tp_phase(smi: str, trained: dict, floor: list, phase6_tokens: list) -> dict:
             f"{g['loss_single']!r} single-card; {g['tensors']} tensors, largest relative error "
             f"{g['max_rel_err']!r} ({g['worst'][0][0]}; tolerance {g['tol']}); launches "
             f"{g['launches']} at {g['k5_shapes']}")
+        b = tr["grads_bf16"]
+        log(f"  rank {r} {LM_ARCH} bf16 gradients 1 x {b['seq']}, against the single-card naive "
+            f"fp32 route: TP RMS {b['route_vs_fp32_rms']!r}, single-card naive bf16 RMS "
+            f"{b['naive_vs_fp32_rms']!r}; ratio {b['rms_ratio']!r} (tolerance {b['tol_ratio']}); "
+            f"losses TP {b['loss_route']!r}, naive bf16 {b['loss_naive_bf16']!r}, naive fp32 "
+            f"{b['loss_naive_fp32']!r}; launches {b['launches']}")
         for s in tr["train_bf16"]["steps"]:
-            vs = s["versus_phase9"]
             log(f"  rank {r} bf16 pjit step {s['step']}: loss {s['loss']!r} (phase 9's plain step "
-                f"{s['phase9_loss']!r}; |diff| {vs['loss']['diff']!r}, tolerance "
-                f"{vs['loss']['tol']!r}), grad_norm {s['grad_norm']!r} "
-                f"({s['phase9_grad_norm']!r}; |diff| {vs['grad_norm']['diff']!r}, tolerance "
-                f"{vs['grad_norm']['tol']!r}), {s['ms']!r} ms, launches {s['launches']} at "
-                f"{s['k5_shapes']}, collectives {s['collectives']}")
+                f"{s['phase9_loss']!r}, |diff| {abs(s['loss'] - s['phase9_loss'])!r}), grad_norm "
+                f"{s['grad_norm']!r} ({s['phase9_grad_norm']!r}, |diff| "
+                f"{abs(s['grad_norm'] - s['phase9_grad_norm'])!r}), {s['ms']!r} ms, launches "
+                f"{s['launches']} at {s['k5_shapes']}, collectives {s['collectives']}")
         log(f"  rank {r}: peak memory {rec['peak_bytes']} bytes (bf16 training "
             f"{tr['train_bf16']['peak_bytes']}), step {tr['train_bf16']['step_ms']!r} ms; stamps "
             f"{rec['stamps']} ({smi})")
     serve_rows = [rec["rows"]["serve"][0]["serving"] for rec in records]
     check(all(sv["tokens"] == serve_rows[0]["tokens"] for sv in serve_rows),
           "9t: the ranks' greedy tokens differ")
-    world1 = tp_world1_graph(get_config(LM_ARCH), smi, phase6_tokens, trained, floor)
+    world1 = tp_world1_graph(get_config(LM_ARCH), smi, phase6_tokens, trained)
     return {"ranks": records, "world1": world1, "refs_s": refs_s, "ranks_s": ranks_s,
             "seconds": time.perf_counter() - t0,
             "launches": {"flash_attention": records[0]["rows"]["serve"][0]["prefill_launches"][
@@ -5280,8 +5277,7 @@ def main() -> int:
         f"NCCL")
     gc.collect()
     torch.cuda.empty_cache()
-    dp_floor = next(row["floor"] for row in checkpointed["dp"] if row["compression"] is None)
-    tensor_parallel = tp_phase(smi, trained, dp_floor, lm_served["tokens"])
+    tensor_parallel = tp_phase(smi, trained, lm_served["tokens"])
     log(f"    [9t] done at {time.perf_counter() - t_start:.1f} s (the phase "
         f"{tensor_parallel['seconds']!r} s: references {tensor_parallel['refs_s']!r} s, ranks "
         f"{tensor_parallel['ranks_s']!r} s)")

@@ -44,9 +44,9 @@ _SIGNATURES = {
     # scale, stream
     "flash_attention": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
     "flash_bf16_smem_bytes": [_I],  # d
-    # q, k, v, o, dout, lse, dq, dk, dv, dq_acc, delta, BH, BHkv, Sq, Skv, d,
-    # bf16, causal, window, scale, stages, stream
-    "flash_attention_bwd": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # q, k, v, o, dout, lse, dq, dk, dv, dq_acc, delta, sems, BH, BHkv, Sq,
+    # Skv, d, bf16, causal, window, scale, stages, stream
+    "flash_attention_bwd": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "flash_bwd_smem_bytes": [_I],  # d
     "flash_bwd_bf16_smem_bytes": [_I],  # d
     "hybrid_block_q": [],

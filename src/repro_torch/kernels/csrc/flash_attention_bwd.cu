@@ -8,15 +8,17 @@
 // _blockwise_attn (repro/models/attention.py), which XLA differentiates;
 // the port trains through K5, so it needs K5's backward as a kernel of its
 // own.  Three kernels a call: a pre-pass (delta = rowsum(dO o o), one warp
-// a q row, and dq_acc zeroed), the main kernel, and in bf16 a cast of the
+// a q row, dq_acc and dQ's semaphores zeroed), the main kernel, and in bf16 a cast of the
 // fp32 dq_acc into dq.  The main kernel is one CTA per (128- or 64-row kv
 // tile, kv head row), which loops over its GQA group's q head rows and, of
 // each, the 64-row q tiles that can see the tile (causal, window), and per
 // q tile recomputes P = exp(scale S - lse) (0 where masked, and for a row
 // that sees no key), dP = dO V^T, dS = scale P o (dP - delta), then
 // dV += P^T dO, dK += dS^T Q and dQ += dS K, the last added to the fp32
-// dq_acc (every kv tile of the row adds to it).  Summing the group's q
-// heads inside the CTA gives dK and dV without atomics.
+// dq_acc (every kv tile of the row adds to it, in a fixed order: see "dQ's
+// order" below, so a call gives the same bits every time, as XLA's
+// gradient does).  Summing the group's q heads inside the CTA gives dK and
+// dV without atomics.
 //
 // What bounds it on this card: the five products, 2.5 times the forward's
 // operations (171.9 GFLOP at qwen3-1.7b's training shape, B*H 64, BHkv 32,
@@ -37,19 +39,95 @@
 
 namespace {
 
+// ------------------------------------------------------- dQ's order
+//
+// Every kv tile that sees a 64-row q tile adds its dQ partial sums into the
+// same rows of the fp32 dq_acc.  The tiles add in the order of their index,
+// from the q tile's first visible kv tile on, so the sums round the same
+// way in every call.  A semaphore per (q head row, q tile), which the
+// pre-pass zeroes, counts the kv tiles that have added: the CTA of kv tile
+// j waits until it reads j - j0 (j0 = first_kv_tile), adds, and bumps it.
+// A CTA draws its (kv head row, kv tile) as a ticket, one atomic at its
+// start, in the grid's order; it waits only on CTAs that drew earlier
+// tickets and so are running or done, so no wait can deadlock, whatever
+// order the hardware starts CTAs in.  Every CTA walks its q tiles from the
+// last one down, the GQA group's q heads inside: kv tiles that run side by
+// side then reach a q tile at the same step, each just after the one
+// before it, and a wait lasts about one add.  (Walking up, as before, kv
+// tile 0 would reach the last q tiles last and hold every later tile.)
+//
+// The semaphores are int32 (BH, T + 1), T = ceil(Sq / 64) q tiles a head
+// row; column T of a launch's first row is its ticket counter.  A wait
+// that outlasts kWaitCycles traps: a fault, not a hang.
+
+using bf16_t = bf16;
+
+constexpr int kQTile = 64;                    // q rows a tile of dQ's order, both bodies
+constexpr long long kWaitCycles = 1LL << 34;  // ~8.7 s at 1.98 GHz
+
+__host__ __device__ __forceinline__ int q_tiles(int Sq) { return (Sq + kQTile - 1) / kQTile; }
+
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// The q tiles [lo, hi) whose rows see a key of kv tile j, rows [n j,
+// min(n j + n, Skv)): causal, qpos >= the tile's first key; window, qpos -
+// its last key < window.
+struct QTiles {
+  int lo, hi;
+};
+__device__ __forceinline__ QTiles visible_q_tiles(int j, int n, int Sq, int Skv, long long offset,
+                                                  int causal, int window) {
+  const long long k0 = static_cast<long long>(j) * n;
+  const long long k_last = min(k0 + n, static_cast<long long>(Skv)) - 1;
+  long long i_lo = 0;
+  long long i_hi = Sq;
+  if (causal) i_lo = max(0LL, k0 - offset);
+  if (window > 0) i_hi = min(i_hi, k_last + window - offset);
+  const int lo = static_cast<int>(i_lo / kQTile);
+  return {lo, i_hi > i_lo ? static_cast<int>((i_hi + kQTile - 1) / kQTile) : lo};
+}
+
+// The first kv tile of n rows whose q tiles hold q tile qt: 0, or with a
+// window the first whose last key lies past 64 qt + offset - window (the
+// inverse of visible_q_tiles; the CPU tests hold the two together).
+__device__ __forceinline__ int first_kv_tile(int qt, int n, long long offset, int window) {
+  if (window <= 0) return 0;
+  const long long x = static_cast<long long>(kQTile) * qt + offset - window;
+  return static_cast<int>(max(0LL, floor_div(x - (n - 1), n) + 1));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_inc(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(1) : "memory");
+}
+
+// Spin until *sem >= turn.
+__device__ __forceinline__ void wait_turn(const int* sem, int turn) {
+  const long long t0 = clock64();
+  while (ld_acquire(sem) < turn) {
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
 // ------------------------------------------------------- the fp32 body
 //
 // One CTA per (64-row kv tile, kv head row): K and V of the tile in shared
 // memory as padded fp32 rows (170 KB a CTA at d = 128, one CTA an SM), dK
 // and dV in registers; each thread computes a 4 x 4 block of S and dP and
 // an (rows x 4) block of dK, dV and dQ with fp32 FMAs, and dQ goes to the
-// fp32 dq_acc with atomicAdd.  The pre-pass and the cast below serve both
-// bodies.
-
-using bf16_t = bf16;
+// fp32 dq_acc with atomicAdd, one CTA at a time in dQ's order.  The
+// pre-pass and the cast below serve both bodies.
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdRows = 64;  // kv rows a CTA, q rows a step
+static_assert(kBwdRows == kQTile, "the fp32 body's q steps are dQ's q tiles");
 
 template <typename T>
 __device__ __forceinline__ float4 ld4(const T* p);
@@ -111,15 +189,28 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, in
   }
 }
 
-// The pre-pass: delta[row] = sum_d dO[row, d] o[row, d] (fp32), and the row
-// of dq_acc zeroed.  One warp a row, eight rows a CTA.
+// A q row's share of zeroing dQ's semaphores: the first row of a q tile
+// zeroes the tile's, the first row of a head row its column T too (the
+// ticket counter, in a launch's first row).
+__device__ __forceinline__ void zero_semaphores(int* sems, long long bh, int i, int Sq) {
+  if (i % kQTile) return;
+  const int tiles = q_tiles(Sq);
+  int* row = sems + bh * (tiles + 1);
+  row[i / kQTile] = 0;
+  if (i == 0) row[tiles] = 0;
+}
+
+// The pre-pass: delta[row] = sum_d dO[row, d] o[row, d] (fp32), the row of
+// dq_acc and dQ's semaphores zeroed.  One warp a row, eight rows a CTA.
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                     float* __restrict__ delta, float* __restrict__ dq_acc, long long rows) {
+                     float* __restrict__ delta, float* __restrict__ dq_acc, int* __restrict__ sems,
+                     int Sq, long long rows) {
   const long long row = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // uniform across the warp
+  if (lane == 0) zero_semaphores(sems, row / Sq, static_cast<int>(row % Sq), Sq);
   float sum = 0.f;
   for (int c = lane; c < D / 4; c += 32) {
     const size_t off = static_cast<size_t>(row) * D + 4 * c;
@@ -131,13 +222,6 @@ flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-// dq = dq_acc in T, four elements a thread.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_cast_kernel(const float* __restrict__ acc, T* __restrict__ out, long long n4) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
-  if (i < n4) st4(out + 4 * i, *reinterpret_cast<const float4*>(acc + 4 * i));
-}
 
 // The main kernel.  Thread layouts (256 threads):
 // - S and dP, (64 q, 64 kv): ty = tid / 16 and tx = tid % 16 own rows
@@ -149,8 +233,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq_acc,
-                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int group, int causal,
-                 int window, float scale) {
+                 int* __restrict__ sems, T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
+                 int group, int causal, int window, float scale) {
   using M = BwdSmem<D>;
   constexpr int kLdD = M::kLdD;
   constexpr int kLdT = M::kLdT;
@@ -172,23 +256,20 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tx = tid % 16;
   const int td = tid % kTd;
   const int tc = tid / kTd;
-  // Under a causal mask the first kv tiles are seen by the most q rows:
-  // they are launched first (blockIdx.x), so the short ones fill the tail.
-  const int k0 = blockIdx.x * kBwdRows;
-  const int hk = blockIdx.y;
+  const int tiles = q_tiles(Sq);
+  // The ticket, in the grid's order (kv tile fastest): a kv head row's
+  // tiles draw in the order in which they add dQ.
+  __shared__ int ticket;
+  if (tid == 0) ticket = atomicAdd(sems + tiles, 1);
+  __syncthreads();
+  const int kv_tile = ticket % gridDim.x;
+  const int k0 = kv_tile * kBwdRows;
+  const int hk = ticket / gridDim.x;
   const long long offset = static_cast<long long>(Skv) - Sq;  // q sits at the end of kv
 
   load_rows<T, D>(ks, k + static_cast<size_t>(hk) * Skv * D, k0, Skv);
   load_rows<T, D>(vs, v + static_cast<size_t>(hk) * Skv * D, k0, Skv);
-
-  // The q rows that can see a key of [k0, k0 + 64): causal, qpos >= k0;
-  // window, qpos - (k0 + 63) < window.
-  long long i_lo = 0;
-  long long i_hi = Sq;
-  if (causal) i_lo = max(0LL, k0 - offset);
-  if (window > 0) i_hi = min(i_hi, k0 + kBwdRows - 1 + static_cast<long long>(window) - offset);
-  const int qt_lo = static_cast<int>(i_lo / kBwdRows);
-  const int qt_hi = i_hi > i_lo ? static_cast<int>((i_hi + kBwdRows - 1) / kBwdRows) : qt_lo;
+  const QTiles qts = visible_q_tiles(kv_tile, kBwdRows, Sq, Skv, offset, causal, window);
 
   float dk_acc[kRows][4];
   float dv_acc[kRows][4];
@@ -198,10 +279,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
   }
 
-  for (int h = 0; h < group; ++h) {
-    const int bh = hk * group + h;
-    const size_t row_base = static_cast<size_t>(bh) * Sq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+  for (int qt = qts.hi - 1; qt >= qts.lo; --qt) {
+    for (int h = 0; h < group; ++h) {
+      const int bh = hk * group + h;
+      const size_t row_base = static_cast<size_t>(bh) * Sq;
       const int q0 = qt * kBwdRows;
       __syncthreads();  // the previous step's products are done with Q, dO, P, dS
       load_rows<T, D>(qs, q + row_base * D, q0, Sq);
@@ -295,14 +376,22 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           dq[i][3] = fmaf(ds, kv.w, dq[i][3]);
         }
       }
+      // dQ's turn (one thread waits for it), the adds, then every add
+      // visible before the semaphore moves on.
+      int* sem = sems + static_cast<size_t>(bh) * (tiles + 1) + qt;
+      if (tid == 0) wait_turn(sem, kv_tile - first_kv_tile(qt, kBwdRows, offset, window));
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = q0 + tc * kRows + i;
         if (r >= Sq) continue;
         float* dst = dq_acc + (row_base + r) * D + 4 * td;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) atomicAdd(dst + j, dq[i][j]);
+        for (int c = 0; c < 4; ++c) atomicAdd(dst + c, dq[i][c]);
       }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) red_release_inc(sem);
     }
   }
 
@@ -343,8 +432,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 //                                       of d, below that the warpgroups
 //                                       take turns, a q tile each)
 //
-// and adds dQ's fp32 partial sums into dq_acc with vectorised reductions
-// (red.global.add.v2.f32).  dK and dV stay in registers across the GQA
+// and stores dQ's fp32 partial sums into one of two shared tiles, which one
+// warp of the producer warpgroup, the dQ writer, adds into dq_acc with one
+// bulk reduction (cp.reduce.async.bulk .add.f32) once the q tile's
+// semaphore gives this kv tile its turn (dQ's order above): the consumers
+// never wait on another CTA, only, two q tiles later, for the writer to
+// have read the tile.  dK and dV stay in registers across the GQA
 // group's q heads and their q tiles; they are stored once, with no atomics.
 // The producer's ring lets the next tile's Q, dO, lse and delta land while
 // this one is computed.  The two consumer warpgroups meet once a q tile,
@@ -359,8 +452,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 constexpr int kBwdN = 128;              // kv rows a CTA
 constexpr int kBwdM = 64;               // q rows a step
 constexpr int kBwdStages = 2;           // Q/dO ring depth
-constexpr int kBwdProducerRegs = 24;    // setmaxnreg: 128 x 24 + 256 x 240 <= 65536
-constexpr int kBwdConsumerRegs = 240;
+constexpr int kBwdProducerRegs = 40;    // setmaxnreg: 128 x 40 + 256 x 232 = 384 x 168
+constexpr int kBwdConsumerRegs = 232;
+// Named barriers (0 is __syncthreads, 1 the consumers' dS^T): shared dQ
+// tile b free (+ b) and full (+ b), b = step % 2 (below d = 128 also the
+// warpgroup that computes the step's dQ).
+constexpr int kBarDqFree = 2;
+constexpr int kBarDqFull = 4;
 
 template <int D>
 struct BwdBf16Smem {
@@ -376,28 +474,64 @@ struct BwdBf16Smem {
   static constexpr int kDS = kDOs + kBwdStages * kQ;    // + b * kDs
   static constexpr int kLse = kDS + 2 * kDs;            // + s * kRow
   static constexpr int kDelta = kLse + kBwdStages * kRow;
+  // two of dQ's fp32 tiles, each as dq_acc holds it (dq_tile_col)
+  static constexpr int kDqTile = kBwdM * D * 4;
+  static constexpr int kDq = kDelta + kBwdStages * kRow;  // + b * kDqTile
   // then the mbarriers: K/V landed, and per stage landed and released
-  static constexpr int kBarriers = kDelta + kBwdStages * kRow;
+  static constexpr int kBarriers = kDq + 2 * kDqTile;
   static constexpr int kBytes = kBarriers + 8 * (1 + 2 * kBwdStages) + 1024;  // + alignment slack
 };
+static_assert(BwdBf16Smem<128>::kBytes + 64 <= 232448,
+              "the bf16 body's shared memory (and its ticket) past what a CTA can opt in to");
+
+// The bf16 body's dq_acc: (BH, Sq64, D) fp32, every 64-row q tile of a
+// head row contiguous, as the dQ writer adds it with one bulk reduction,
+// and within a row each 8-float chunk c stored at c ^ (row & 7) (fewer
+// where the row has fewer chunks): the consumers' stores of their
+// fragments then hit every bank once.  The cast reads it back.
+template <int D>
+__host__ __device__ __forceinline__ int dq_tile_col(int row, int col) {
+  constexpr int kMask = D / 8 - 1 < 7 ? D / 8 - 1 : 7;
+  return ((col / 8) ^ (row & kMask)) * 8 + col % 8;
+}
+
+// dq = dq_acc in bf16, four elements a thread, from the tile layout.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_cast_bf16_kernel(const float* __restrict__ acc, bf16* __restrict__ out, int Sq,
+                           long long n4) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (i >= n4) return;
+  const long long row = i / (D / 4);  // bh Sq + s
+  const int s = static_cast<int>(row % Sq);
+  const int col = 4 * static_cast<int>(i % (D / 4));
+  const long long src = ((row / Sq) * (q_tiles(Sq) * kQTile) + s) * D + dq_tile_col<D>(s, col);
+  st4(out + 4 * i, *reinterpret_cast<const float4*>(acc + src));
+}
 
 // The bf16 body's pre-pass: per q row of a head padded to a multiple of
 // kBwdM rows, delta (as flash_bwd_pre_kernel's) and the row's lse term in
 // log2 units, -lse log2 e, or -inf for a row that sees no key and for the
-// padding rows (their P is then exactly 0); and dq_acc's rows zeroed.  The
-// main kernel's TMA boxes of these then start on a 64-value boundary.
+// padding rows (their P is then exactly 0); dq_acc's rows, the padding's
+// too, and dQ's semaphores zeroed.  The main kernel's TMA boxes of these
+// then start on a 64-value boundary.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_pre_bf16_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, float* __restrict__ delta_p,
-                          float* __restrict__ nlse_p, float* __restrict__ dq_acc, int Sq,
-                          long long rows_p) {
+                          float* __restrict__ nlse_p, float* __restrict__ dq_acc,
+                          int* __restrict__ sems, int Sq, long long rows_p) {
   const long long row_p = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row_p >= rows_p) return;  // uniform across the warp
   const int sq_p = (Sq + kBwdM - 1) / kBwdM * kBwdM;
   const long long bh = row_p / sq_p;
   const int i = static_cast<int>(row_p % sq_p);
+  if (lane == 0 && i < Sq) zero_semaphores(sems, bh, i, Sq);
+  for (int c = lane; c < D / 4; c += 32) {
+    *reinterpret_cast<float4*>(dq_acc + static_cast<size_t>(row_p) * D + 4 * c) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (i >= Sq) {
     if (lane == 0) {
       delta_p[row_p] = 0.f;
@@ -410,7 +544,6 @@ flash_bwd_pre_bf16_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d
   for (int c = lane; c < D / 4; c += 32) {
     const size_t off = static_cast<size_t>(row) * D + 4 * c;
     sum = dot4(ld4(o + off), ld4(dout + off), sum);
-    *reinterpret_cast<float4*>(dq_acc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
@@ -432,8 +565,16 @@ __device__ __forceinline__ bool pair_is_full(int k0, int q0, long long offset, i
   return true;
 }
 
-__device__ __forceinline__ void red_add_v2(float* dst, float a, float b) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(dst), "f"(a), "f"(b) : "memory");
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// dst[0, bytes / 4) += src's floats, by the bulk-copy engine.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
 }
 
 template <int D>
@@ -442,39 +583,29 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tnlse,
                       const __grid_constant__ CUtensorMap tdelta, float* __restrict__ dq_acc,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int group,
-                      int causal, int window, float scale, float sl2) {
+                      int* __restrict__ sems, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      int Sq, int Skv, int group, int causal, int window, float scale, float sl2) {
   using L = Layout<D>;
   using M = BwdBf16Smem<D>;
   constexpr int kDqCols = D == 128 ? 64 : D;  // dQ columns a warpgroup computes
+  // a q tile's dQ: the warpgroups that compute it and the writer warp
+  constexpr int kDqThreads = (D == 128 ? 2 : 1) * kWarpgroup + 32;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic address
+  uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic address
   const uint32_t sk = base + M::kK;
   const uint32_t sv = base + M::kV;
   const uint32_t kv_full = base + M::kBarriers;
   const uint32_t full = kv_full + 8;                // + 8 s
   const uint32_t released = full + 8 * kBwdStages;  // + 8 s
+  const int tiles = q_tiles(Sq);
 
-  // Under a causal mask the first kv tiles are seen by the most q rows:
-  // the tile index is the grid's slow dimension, so they launch first.
-  const int hk = blockIdx.x;
-  const int k0 = blockIdx.y * kBwdN;
-  const long long offset = static_cast<long long>(Skv) - Sq;  // q sits at the end of kv
-  // The q rows that see a key of [k0, min(k0 + 128, Skv)): causal, qpos >=
-  // k0; window, qpos - k_last < window.  Their 64-row q tiles, per q head.
-  const long long k_last = min(k0 + kBwdN, Skv) - 1;
-  long long i_lo = 0;
-  long long i_hi = Sq;
-  if (causal) i_lo = max(0LL, k0 - offset);
-  if (window > 0) i_hi = min(i_hi, k_last + window - offset);
-  const int qt_lo = static_cast<int>(i_lo / kBwdM);
-  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi + kBwdM - 1) / kBwdM) - qt_lo : 0;
-  const int n_iter = group * n_qt;
-  const int sq_p = (Sq + kBwdM - 1) / kBwdM * kBwdM;  // the pre-pass's padded rows a head
-
+  __shared__ int ticket;
   if (threadIdx.x == 0) {
+    // Under a causal mask the first kv tiles are seen by the most q rows:
+    // the tile is the ticket's slow digit, so they start first.
+    ticket = atomicAdd(sems + tiles, 1);
     mbar_init(kv_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -483,20 +614,30 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const int hk = ticket % gridDim.x;
+  const int kv_tile = ticket / gridDim.x;
+  const int k0 = kv_tile * kBwdN;
+  const long long offset = static_cast<long long>(Skv) - Sq;  // q sits at the end of kv
+  // Step i: q tile qts.hi - 1 - i / group (the last first), q head i % group.
+  const QTiles qts = visible_q_tiles(kv_tile, kBwdN, Sq, Skv, offset, causal, window);
+  const int n_iter = group * (qts.hi - qts.lo);
+  const int sq_p = tiles * kBwdM;  // the pre-pass's padded rows a head
 
   const int wg = threadIdx.x / kWarpgroup;
   if (wg == 2) {
-    // Producer: K and V once, then step i's Q, dO, lse and delta into stage
-    // i % kBwdStages once the consumers have released its previous use.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
-    if (threadIdx.x == 2 * kWarpgroup && n_iter > 0) {
+    const int warp = threadIdx.x / 32 - 2 * kWarpgroup / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0 && n_iter > 0) {
+      // Producer: K and V once, then step i's Q, dO, lse and delta into
+      // stage i % kBwdStages once the consumers have released its previous use.
       mbar_expect_tx(kv_full, 2 * M::kKV);
       tma_tile<D>(sk, &tk, kv_full, kBwdN, k0, hk);
       tma_tile<D>(sv, &tv, kv_full, kBwdN, k0, hk);
       for (int i = 0; i < n_iter; ++i) {
         const int s = i % kBwdStages;
-        const int bh = hk * group + i / n_qt;
-        const int q0 = (qt_lo + i % n_qt) * kBwdM;
+        const int bh = hk * group + i % group;
+        const int q0 = (qts.hi - 1 - i / group) * kBwdM;
         if (i >= kBwdStages) mbar_wait(released + 8 * s, (i / kBwdStages + 1) & 1);
         const uint32_t bar = full + 8 * s;
         mbar_expect_tx(bar, M::kStageTx);
@@ -504,6 +645,39 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         tma_tile<D>(base + M::kDOs + s * M::kQ, &tdo, bar, kBwdM, q0, bh);
         tma_load_1d(base + M::kLse + s * M::kRow, &tnlse, bar, bh * sq_p + q0);
         tma_load_1d(base + M::kDelta + s * M::kRow, &tdelta, bar, bh * sq_p + q0);
+      }
+    } else if (warp == 1 && n_iter > 0) {
+      // The dQ writer: step i's dQ tile (shared tile i % 2), once this kv
+      // tile has its turn at the q tile's semaphore (waited for while the
+      // consumers compute) and its warpgroups have stored it, added into
+      // dq_acc with one bulk reduction; the shared tile free again for
+      // step i + 2 once read, the semaphore bumped once the additions are
+      // done.  Lane 0 does the work, the warp meets the barriers.
+      named_arrive(kBarDqFree, kDqThreads);  // both tiles start free
+      if (n_iter > 1) named_arrive(kBarDqFree + 1, kDqThreads);
+      for (int i = 0; i < n_iter; ++i) {
+        const int b = i & 1;
+        const int bh = hk * group + i % group;
+        const int qt = qts.hi - 1 - i / group;
+        int* sem = sems + static_cast<size_t>(bh) * (tiles + 1) + qt;
+        if (lane == 0) wait_turn(sem, kv_tile - first_kv_tile(qt, kBwdN, offset, window));
+        __syncwarp();
+        named_sync(kBarDqFull + b, kDqThreads);
+        if (lane == 0) {
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          bulk_reduce_add(dq_acc + (static_cast<size_t>(bh) * sq_p + qt * kBwdM) * D,
+                          base + M::kDq + b * M::kDqTile, M::kDqTile);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+        __syncwarp();
+        if (i + 2 < n_iter) named_arrive(kBarDqFree + b, kDqThreads);
+        if (lane == 0) {
+          asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          red_release_inc(sem);
+        }
+        __syncwarp();
       }
     }
     return;
@@ -531,8 +705,7 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   for (int it = 0; it < n_iter; ++it) {
     const int s = it % kBwdStages;
-    const int bh = hk * group + it / n_qt;
-    const int q0 = (qt_lo + it % n_qt) * kBwdM;
+    const int q0 = (qts.hi - 1 - it / group) * kBwdM;
     const uint32_t sq = base + M::kQs + s * M::kQ;
     const uint32_t sdo = base + M::kDOs + s * M::kQ;
     const float* nlse_s = reinterpret_cast<const float*>(gbase + M::kLse + s * M::kRow);
@@ -668,18 +841,26 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     __syncwarp();
     if (lane == 0) mbar_arrive(released + 8 * s);
     if (does_dq) {
-      const int col0 = D == 128 ? 64 * wg : 0;
+      // Into shared tile it % 2 in dq_acc's layout, once the writer has read
+      // its step it - 2, then visible to the writer's bulk reduction (the
+      // async proxy); rows past Sq hold zeros.
+      const int b = it & 1;
+      named_sync(kBarDqFree + b, kDqThreads);
+      float* sdq = reinterpret_cast<float*>(gbase + M::kDq + b * M::kDqTile);
+      const int col0 = (D == 128 ? 64 * wg : 0) + 2 * quad;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = q0 + r + 8 * h;
-        float* dst = dq_acc + (static_cast<size_t>(bh) * Sq + row) * D + col0 + 2 * quad;
+        const int row = r + 8 * h;
 #pragma unroll
         for (int j = 0; j < kDqCols / 8; ++j) {
-          if (row < Sq) red_add_v2(dst + 8 * j, dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(sdq + row * D + dq_tile_col<D>(row, col0 + 8 * j)) =
+              make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
         }
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_arrive(kBarDqFull + b, kDqThreads);
     }
-    __syncwarp();  // rows past Sq skipped their reductions: converge again
+    __syncwarp();
   }
 
   // dK and dV of this warpgroup's kv rows (zeros where no q row sees a key).
@@ -703,6 +884,7 @@ struct BwdArgs {
   void *dq, *dk, *dv;
   float* dq_acc;
   float* delta;
+  int* sems;
   int BH, BHkv, Sq, Skv, causal, window;
   float scale;
   int stages;  // kStagePre | kStageMain | kStageCast: which of the kernels to launch
@@ -735,8 +917,8 @@ cudaError_t launch_bwd_bf16_main(const BwdArgs& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid(a.BHkv, (a.Skv + kBwdN - 1) / kBwdN);
   flash_bwd_bf16_kernel<D><<<grid, kBf16Threads, M::kBytes, a.stream>>>(
-      tq, tk, tv, tdo, tnlse, tdelta, a.dq_acc, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.Sq, a.Skv, a.BH / a.BHkv, a.causal, a.window, a.scale, a.scale * kLog2e);
+      tq, tk, tv, tdo, tnlse, tdelta, a.dq_acc, a.sems, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.BH / a.BHkv, a.causal, a.window, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -748,14 +930,20 @@ int launch_bwd(const BwdArgs& a) {
     if constexpr (std::is_same_v<T, float>) {
       flash_bwd_pre_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                    kBwdThreads, 0, a.stream>>>(
-          static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.dq_acc, rows);
+          static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.dq_acc, a.sems,
+          a.Sq, rows);
     } else {
       const long long rows_p = padded_rows(a);
       flash_bwd_pre_bf16_kernel<D>
           <<<static_cast<unsigned>((rows_p + kRowsPerCta - 1) / kRowsPerCta), kBwdThreads, 0,
              a.stream>>>(static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse,
-                         a.delta, a.delta + rows_p, a.dq_acc, a.Sq, rows_p);
+                         a.delta, a.delta + rows_p, a.dq_acc, a.sems, a.Sq, rows_p);
     }
+  } else if (a.stages & kStageMain) {
+    // the main kernel alone: its semaphores zeroed as the pre-pass does
+    const size_t sem_bytes = static_cast<size_t>(a.BH) * (q_tiles(a.Sq) + 1) * sizeof(int);
+    const cudaError_t m = cudaMemsetAsync(a.sems, 0, sem_bytes, a.stream);
+    if (m != cudaSuccess) return static_cast<int>(m);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -766,7 +954,7 @@ int launch_bwd(const BwdArgs& a) {
       const dim3 grid((a.Skv + kBwdRows - 1) / kBwdRows, a.BHkv);
       flash_bwd_kernel<T, D><<<grid, kBwdThreads, BwdSmem<D>::kBytes, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-          static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc, static_cast<T*>(a.dk),
+          static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc, a.sems, static_cast<T*>(a.dk),
           static_cast<T*>(a.dv), a.Sq, a.Skv, a.BH / a.BHkv, a.causal, a.window, a.scale);
       e = cudaGetLastError();
     } else {
@@ -774,12 +962,14 @@ int launch_bwd(const BwdArgs& a) {
     }
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if ((a.stages & kStageCast) &&
-      static_cast<const void*>(a.dq) != static_cast<const void*>(a.dq_acc)) {
-    const long long n4 = rows * D / 4;
-    flash_bwd_cast_kernel<T><<<static_cast<unsigned>((n4 + kBwdThreads - 1) / kBwdThreads),
-                               kBwdThreads, 0, a.stream>>>(a.dq_acc, static_cast<T*>(a.dq), n4);
-    e = cudaGetLastError();
+  if constexpr (!std::is_same_v<T, float>) {  // fp32 accumulates in dq itself
+    if (a.stages & kStageCast) {
+      const long long n4 = rows * D / 4;
+      flash_bwd_cast_bf16_kernel<D><<<static_cast<unsigned>((n4 + kBwdThreads - 1) / kBwdThreads),
+                                      kBwdThreads, 0, a.stream>>>(a.dq_acc, static_cast<bf16*>(a.dq),
+                                                                  a.Sq, n4);
+      e = cudaGetLastError();
+    }
   }
   return static_cast<int>(e);
 }
@@ -790,28 +980,33 @@ extern "C" {
 
 // K5's backward.  q, k, v, o, dout, dq, dk, dv as the forward's q, k, v, o
 // (dout and dq shaped as o, dk and dv as k), all of one dtype; lse the
-// forward's (BH, Sq) fp32 output; dq_acc fp32 (BH, Sq, d) scratch (in
-// fp32, dq_acc may be dq itself) and delta fp32 scratch of 2 BH Sq64
-// values, Sq64 = Sq rounded up to a multiple of 64 (the fp32 body uses the
-// first BH Sq); all 16-byte aligned, BH Sq64 below 2^31.  Three kernels on
-// the stream: the pre-pass (delta, dq_acc zeroed; bf16:
-// flash_bwd_pre_bf16_kernel<D>, which also writes each row's lse term),
-// the main kernel (bf16: flash_bwd_bf16_kernel<D>, fp32:
+// forward's (BH, Sq) fp32 output; dq_acc fp32 scratch: in fp32 dq itself,
+// in bf16 (BH, Sq64, d) in the bf16 body's tile layout (dq_tile_col);
+// delta fp32 scratch of 2 BH Sq64 values,
+// Sq64 = Sq rounded up to a multiple of 64 (the fp32 body uses the first BH
+// Sq), and sems int32 scratch of BH (Sq64 / 64 + 1) values (dQ's
+// semaphores and the launch's ticket counter); all but sems 16-byte
+// aligned, BH Sq64 below 2^31.  Three kernels on the stream: the pre-pass (delta, dq_acc and
+// sems zeroed; bf16: flash_bwd_pre_bf16_kernel<D>, which also writes each
+// row's lse term), the main kernel (bf16: flash_bwd_bf16_kernel<D>, fp32:
 // flash_bwd_kernel<float, D>), and in bf16 the cast of dq_acc into dq.
 // stages is a mask of them (1 pre-pass, 2 main kernel, 4 cast): a call
 // launches those its bits name, 7 all three; one kernel alone can be timed
-// on the scratch a full call left.
+// on the scratch a full call left (the main kernel without the pre-pass
+// zeroes sems first, with a memset on the stream).
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                        void* dq_acc, void* delta, int BH, int BHkv, int Sq, int Skv, int d,
-                        int bf16, int causal, int window, float scale, int stages, void* stream) {
+                        void* dq_acc, void* delta, void* sems, int BH, int BHkv, int Sq, int Skv,
+                        int d, int bf16, int causal, int window, float scale, int stages,
+                        void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Sq <= 0 || Skv < 0 || stages <= 0 ||
       stages > (kStagePre | kStageMain | kStageCast) ||
       static_cast<long long>(BH) * ((Sq + kBwdM - 1) / kBwdM * kBwdM) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
-                  static_cast<float*>(dq_acc), static_cast<float*>(delta), BH, BHkv, Sq, Skv,
+                  static_cast<float*>(dq_acc), static_cast<float*>(delta), static_cast<int*>(sems),
+                  BH, BHkv, Sq, Skv,
                   causal, window, scale, stages, static_cast<cudaStream_t>(stream)};
   switch (d) {
     case 16: return bf16 ? launch_bwd<bf16_t, 16>(a) : launch_bwd<float, 16>(a);

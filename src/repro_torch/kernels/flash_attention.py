@@ -19,6 +19,11 @@ past that makes one launch a chunk of ``head_row_chunks`` (whole GQA
 groups, on views that start at the chunk's first head row: ``run_head_rows``)
 and still counts one in ``LAUNCHES``; ``CHUNKS`` counts the launches.
 
+The backward adds each kv tile's dQ into dq's fp32 rows in a fixed order,
+kv tile by kv tile (the kernel's "dQ's order"), so a call gives the same
+bits every time; ``bwd_visible_q_tiles`` and ``bwd_first_kv_tile`` are that
+order's two halves as the kernels compute them.
+
 ``forward_work`` and ``backward_work`` are the work a call must do, its
 operations and the bytes it must move, from its shapes alone: what
 ``chip_smoke.py`` holds the kernels' times to and what the dry run
@@ -45,7 +50,8 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_ROWS = 65535  # a grid's y dimension: the forward's q rows, the fp32 backward's kv rows
 _INT32_MAX = 2**31 - 1
-BWD_ROW_PAD = 64  # the bf16 backward's q tile: its pre-pass pads each head's rows to it
+BWD_ROW_PAD = 64  # the backward's q tile: the bf16 pre-pass pads each head's rows to it
+BWD_KV_ROWS = {torch.bfloat16: 128, torch.float32: 64}  # kv rows a CTA of each body
 # The backward's device kernels as bits of its C entry's stage mask: the
 # pre-pass, the main kernel and, in bf16, the cast of dq.
 BWD_STAGES = {"pre": 1, "main": 2, "cast": 4}
@@ -285,7 +291,8 @@ def bwd_stage_calls(
     for each name of ``BWD_STAGES``, a call that launches that kernel alone,
     over every chunk, on the scratch and outputs the whole one used (each
     counts in ``LAUNCHES`` as a call does; the three in order redo the
-    backward)."""
+    backward, bit for bit; the main kernel alone first zeroes dQ's
+    semaphores with a memset, as the pre-pass does)."""
     dq, dk, dv, launch = _bwd_call(q, k, v, out, dout, lse, causal, window, scale)
     if launch is None:
         raise ValueError("the backward has no q rows to launch its kernels on")
@@ -293,20 +300,51 @@ def bwd_stage_calls(
     return (dq, dk, dv), {name: functools.partial(launch, bit) for name, bit in BWD_STAGES.items()}
 
 
-def bwd_scratch(q: torch.Tensor, dq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward's scratch beside its outputs: ``(dq_acc, delta)``.
+def bwd_scratch(q: torch.Tensor, dq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                              torch.Tensor]:
+    """The backward's scratch beside its outputs: ``(dq_acc, delta, sems)``.
     fp32 accumulates dq in place (``dq_acc`` is ``dq``); bf16 in an fp32
-    scratch cast at the end.  ``delta``, (BH, 2 Sq64) with Sq64 = Sq padded
+    scratch, (BH, Sq64, d) with each 64-row q tile of a head row contiguous
+    (the bf16 body's tile layout), cast at the end.  ``delta``, (BH, 2 Sq64) with Sq64 = Sq padded
     to BWD_ROW_PAD rows, is what a launch over BH' head rows reads from its
     first row on as 2 BH' Sq64 values: delta and, for the bf16 body, each
-    row's lse term (the fp32 body reads the first BH' Sq); a chunk's rows of
-    it are a launch's own."""
+    row's lse term (the fp32 body reads the first BH' Sq).  ``sems``, int32
+    (BH, Sq64 / BWD_ROW_PAD + 1): a semaphore per (q head row, q tile) of
+    dQ's order, and in column Sq64 / BWD_ROW_PAD of a launch's first row
+    its ticket counter; the pre-pass zeroes them.  A chunk's rows of each
+    are a launch's own."""
     BH, Sq = q.shape[0], q.shape[1]
-    sq64 = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
-    dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
-                                                              device=q.device)
-    delta = torch.empty((BH, 2 * sq64), dtype=torch.float32, device=q.device)
-    return dq_acc, delta
+    tiles = -(-Sq // BWD_ROW_PAD)
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+        (BH, tiles * BWD_ROW_PAD, q.shape[2]), dtype=torch.float32, device=q.device)
+    delta = torch.empty((BH, 2 * tiles * BWD_ROW_PAD), dtype=torch.float32, device=q.device)
+    sems = torch.empty((BH, tiles + 1), dtype=torch.int32, device=q.device)
+    return dq_acc, delta, sems
+
+
+def bwd_visible_q_tiles(kv_tile: int, kv_rows: int, Sq: int, Skv: int, causal: bool,
+                        window: Optional[int]) -> range:
+    """The BWD_ROW_PAD-row q tiles whose rows see a key of kv tile
+    ``kv_tile`` (rows [kv_rows kv_tile, min(kv_rows (kv_tile + 1), Skv))),
+    as the kernels' ``visible_q_tiles``: a CTA walks them from the last
+    down, the GQA group's q heads inside."""
+    offset = Skv - Sq
+    k0 = kv_tile * kv_rows
+    k_last = min(k0 + kv_rows, Skv) - 1
+    i_lo = max(0, k0 - offset) if causal else 0
+    i_hi = Sq if window is None else min(Sq, k_last + window - offset)
+    lo = i_lo // BWD_ROW_PAD
+    return range(lo, -(-i_hi // BWD_ROW_PAD) if i_hi > i_lo else lo)
+
+
+def bwd_first_kv_tile(q_tile: int, kv_rows: int, Sq: int, Skv: int, window: Optional[int]) -> int:
+    """The first kv tile whose ``bwd_visible_q_tiles`` hold ``q_tile``, as
+    the kernels' ``first_kv_tile``: kv tile j adds the q tile's dQ as turn
+    j minus this one."""
+    if window is None:
+        return 0
+    x = BWD_ROW_PAD * q_tile + (Skv - Sq) - window  # the tile's last key must lie past x
+    return max(0, (x - (kv_rows - 1)) // kv_rows + 1)
 
 
 def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
@@ -333,26 +371,26 @@ def _bwd_call(q, k, v, out, dout, lse, causal, window, scale) -> tuple:
     if BH == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_(), None
     scale = scale if scale is not None else d**-0.5
-    dq_acc, delta = bwd_scratch(q, dq)
+    dq_acc, delta, sems = bwd_scratch(q, dq)
     built = _build.library()
 
     def launch(stages: int) -> None:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
 
-            def launch_chunk(qc, oc, doc, lc, dqc, accc, deltac, kc, vc, dkc, dvc):
+            def launch_chunk(qc, oc, doc, lc, dqc, accc, deltac, semc, kc, vc, dkc, dvc):
                 CHUNKS["flash_attention_bwd"] += 1
                 rc = built.lib.flash_attention_bwd(
                     qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(), doc.data_ptr(),
                     lc.data_ptr(), dqc.data_ptr(), dkc.data_ptr(), dvc.data_ptr(),
-                    accc.data_ptr(), deltac.data_ptr(), qc.shape[0], kc.shape[0], Sq, Skv, d,
-                    int(q.dtype == torch.bfloat16), int(causal), _window_arg(window),
-                    float(scale), stages, stream,
+                    accc.data_ptr(), deltac.data_ptr(), semc.data_ptr(), qc.shape[0],
+                    kc.shape[0], Sq, Skv, d, int(q.dtype == torch.bfloat16), int(causal),
+                    _window_arg(window), float(scale), stages, stream,
                 )
                 _build.check_launch(rc, "flash_attention_bwd")
 
             LAUNCHES["flash_attention_bwd"] += 1
-            run_head_rows(launch_chunk, (q, out, dout, lse, dq, dq_acc, delta), (k, v, dk, dv),
-                          whole_groups=True)
+            run_head_rows(launch_chunk, (q, out, dout, lse, dq, dq_acc, delta, sems),
+                          (k, v, dk, dv), whole_groups=True)
 
     return dq, dk, dv, launch

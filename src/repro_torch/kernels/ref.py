@@ -657,6 +657,33 @@ def flash_attention_lse_ref(
 
 
 BWD_REF_BLOCK_Q = 128  # q rows a step of flash_attention_bwd_ref
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_bwd_pre_ref(out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                                dq_acc: torch.Tensor, delta: torch.Tensor,
+                                sems: torch.Tensor) -> None:
+    """The plain version of the backward's pre-pass (``flash_bwd_pre_kernel``
+    in fp32, ``flash_bwd_pre_bf16_kernel`` in bf16) on a launch's rows of the
+    wrapper's scratch (``flash_attention.bwd_scratch``): ``dq_acc`` (its
+    padding rows too) and dQ's semaphores ``sems`` zeroed, and ``delta``, read as its flat 2 BH Sq64
+    values, given delta = rowsum(dout o out) (fp32: the first BH Sq values;
+    bf16: every head row padded to Sq64 = ``delta.shape[1] // 2`` rows, then
+    each row's lse term -lse log2 e, -inf for a row that sees no key and for
+    the padding)."""
+    BH, Sq, _ = out.shape
+    flat = delta.view(-1)
+    rows = (dout.float() * out.float()).sum(dim=-1)
+    if out.dtype == torch.float32:
+        flat[:BH * Sq] = rows.reshape(-1)
+    else:
+        pad = delta.shape[1] // 2 - Sq
+        term = torch.where(torch.isneginf(lse), lse, -lse * LOG2E)
+        flat.copy_(torch.cat([torch.nn.functional.pad(rows, (0, pad)).reshape(-1),
+                              torch.nn.functional.pad(term, (0, pad),
+                                                      value=float("-inf")).reshape(-1)]))
+    dq_acc.zero_()
+    sems.zero_()
 
 
 def flash_attention_bwd_ref(

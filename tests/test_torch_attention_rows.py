@@ -151,18 +151,19 @@ def test_chunked_backward_matches_jax_grad(monkeypatch, limit, window):
     scale = D ** -0.5
     out, lse = ref.flash_attention_lse_ref(qt, kt, vt, causal=True, window=window, scale=scale)
     dq, dk, dv = (torch.full_like(t, float("nan")) for t in (qt, kt, vt))
-    dq_acc, delta = FA.bwd_scratch(qt, dq)
-    assert dq_acc is dq and delta.shape[0] == 16
+    dq_acc, delta, sems = FA.bwd_scratch(qt, dq)
+    assert dq_acc is dq and delta.shape[0] == sems.shape[0] == 16
     seen = []
 
-    def plain_launch(qc, oc, doc, lc, dqc, accc, deltac, kc, vc, dkc, dvc):
+    def plain_launch(qc, oc, doc, lc, dqc, accc, deltac, semc, kc, vc, dkc, dvc):
         seen.append((qc.shape[0], kc.shape[0], deltac.shape[0]))
+        assert semc.shape[0] == qc.shape[0]
         for t, grad in zip((dqc, dkc, dvc), ref.flash_attention_bwd_ref(
                 qc, kc, vc, oc, doc, lc, causal=True, window=window, scale=scale)):
             t.copy_(grad)
 
-    n = FA.run_head_rows(plain_launch, (qt, out, gt, lse, dq, dq_acc, delta), (kt, vt, dk, dv),
-                         whole_groups=True)
+    n = FA.run_head_rows(plain_launch, (qt, out, gt, lse, dq, dq_acc, delta, sems),
+                         (kt, vt, dk, dv), whole_groups=True)
     assert n == -(-4 // limit) and all(kv <= limit and bh == 4 * kv == dl for bh, kv, dl in seen)
     want = jax.grad(lambda a, b, c: jnp.sum(
         jattn._blockwise_attn(a, b, c, True, window, 32, scale) * _model_layout(g)),
