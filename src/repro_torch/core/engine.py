@@ -26,6 +26,13 @@ sorted delta buffer on the device (``core.delta``), classified by the
 engine's own ordered descent; every read resolves the buffer inside its
 descent; at the high-water mark a compaction merges the buffer into a fresh
 perfect snapshot.
+
+Spans (``repro_torch.tracing``; recorded only while a profiler records):
+``bst.engine.stage`` around turning a host batch into a step's static
+input: a read chunk's staging copy in ``query_static`` (on the CPU route
+the batch's copy to the device), and a write slice's ``(4, capacity)``
+packing and its copy in ``_ingest``.  The step itself (a graph replay on
+the card) runs outside it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.core import updates as updates_lib
 from repro_torch.core.tree import TreeData
 from repro_torch.kernels import bst_search as bst_kernels
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,8 +210,10 @@ class BSTEngine:
         that fetches them at once (``BSTServer``)."""
         plans_lib.validate_op(op, queries_hi is not None)
         if eager or self.device.type != "cuda":
-            hi = None if queries_hi is None else self._to_device(queries_hi)
-            return self._query_step(op, k, self._to_device(queries), hi)
+            with span("bst.engine.stage"):
+                hi = None if queries_hi is None else self._to_device(queries_hi)
+                q = self._to_device(queries)
+            return self._query_step(op, k, q, hi)
         q = _batch(queries)
         hi = None if queries_hi is None else _batch(queries_hi)
         if hi is not None and hi.shape != q.shape:
@@ -211,13 +221,14 @@ class BSTEngine:
         if q.shape[0] == 0:  # no lanes, no kernel: nothing to capture
             return self.query_static(op, q, hi, k=k, eager=True)
         key = (op, k if op == "range_scan" else None, q.shape[0])  # k shapes only range_scan
-        if key not in self._inputs:
-            q_s = torch.zeros(q.shape[0], dtype=torch.int32, device=self.device)
-            self._inputs[key] = (q_s, None if hi is None else torch.zeros_like(q_s))
-        q_s, hi_s = self._inputs[key]
-        _stage(q, q_s)  # a host batch's copy to the device, outside the graph
-        if hi is not None:
-            _stage(hi, hi_s)
+        with span("bst.engine.stage"):
+            if key not in self._inputs:
+                q_s = torch.zeros(q.shape[0], dtype=torch.int32, device=self.device)
+                self._inputs[key] = (q_s, None if hi is None else torch.zeros_like(q_s))
+            q_s, hi_s = self._inputs[key]
+            _stage(q, q_s)  # a host batch's copy to the device, outside the graph
+            if hi is not None:
+                _stage(hi, hi_s)
         return self._run(key, BSTEngine._query_step, op, k, q_s, hi_s)
 
     def _query_step(self, op: str, k: int, queries, queries_hi):
@@ -301,13 +312,16 @@ class BSTEngine:
         per engine), one host -> device copy of the packed batch into the
         step's static input, then the step."""
         cap = self.config.delta_capacity
-        packed = np.zeros((4, cap), np.int32)  # padding lanes: valid = 0
-        for row, x in enumerate((keys, values, deletes, valid)):
-            packed[row, : x.size] = x
-        if _INGEST not in self._inputs:
-            self._inputs[_INGEST] = (torch.zeros((4, cap), dtype=torch.int32, device=self.device),)
-        (batch,) = self._inputs[_INGEST]
-        runtime.device_put(torch.from_numpy(packed), batch)
+        with span("bst.engine.stage"):
+            packed = np.zeros((4, cap), np.int32)  # padding lanes: valid = 0
+            for row, x in enumerate((keys, values, deletes, valid)):
+                packed[row, : x.size] = x
+            if _INGEST not in self._inputs:
+                self._inputs[_INGEST] = (
+                    torch.zeros((4, cap), dtype=torch.int32, device=self.device),
+                )
+            (batch,) = self._inputs[_INGEST]
+            runtime.device_put(torch.from_numpy(packed), batch)
         self._run(_INGEST, BSTEngine._ingest_into, batch)
 
     def warmup_writes(self) -> None:

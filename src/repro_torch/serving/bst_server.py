@@ -41,6 +41,15 @@ that loop:
     every rank alike; a compaction re-shards through the engine's
     ``on_snapshot`` hook, in place where the tree's height holds.
 
+Spans (``repro_torch.tracing``; recorded only while a profiler records):
+``bst.server.pack`` around building engine batches from requests (a read
+span's grouping and concatenation, a stream's padding, a write span's
+packed columns), ``bst.server.retire`` around turning fetched columns into
+answers (a read chunk's fetch into the columns, its found count and
+counters, each read request's slice, each write request's
+acknowledgement).  None encloses a call into the engine, a graph replay or
+a sync; the sharded read loop has none.
+
 The JAX server re-warms its reads after every snapshot swap to refill jit's
 compile cache.  Here ``warmup`` captures the served ops' CUDA graphs on the
 card (the write path's too, where asked); a compaction that keeps the
@@ -63,6 +72,7 @@ from repro_torch.core import distributed as dist_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core.engine import BSTEngine, EngineConfig
 from repro_torch.core.tree import TreeData
+from repro_torch.tracing import span
 
 RANGE_OPS = plans_lib.RANGE_OPS
 POINT_OPS = tuple(op for op in plans_lib.QUERY_OPS if op not in RANGE_OPS)
@@ -399,18 +409,23 @@ class BSTServer:
 
     def _serve_read_span(self, reqs: List[_Request], out: Dict[int, tuple]):
         """One span of reads: requests commute, so pack per op kind."""
-        by_op: Dict[str, List[_Request]] = {}
-        for req in reqs:
-            by_op.setdefault(req.op, []).append(req)
-        for op, group in by_op.items():
-            a = np.concatenate([r.a for r in group])
-            b = np.concatenate([r.b for r in group]) if op in RANGE_OPS else None
+        with span("bst.server.pack"):
+            by_op: Dict[str, List[_Request]] = {}
+            for req in reqs:
+                by_op.setdefault(req.op, []).append(req)
+            streams = [
+                (op, group, np.concatenate([r.a for r in group]),
+                 np.concatenate([r.b for r in group]) if op in RANGE_OPS else None)
+                for op, group in by_op.items()
+            ]
+        for op, group, a, b in streams:
             columns = self._serve_stream(op, a, b)
-            lo = 0
-            for r in group:
-                hi = lo + r.a.size
-                out[r.ticket] = tuple(col[lo:hi] for col in columns)
-                lo = hi
+            with span("bst.server.retire"):
+                lo = 0
+                for r in group:
+                    hi = lo + r.a.size
+                    out[r.ticket] = tuple(col[lo:hi] for col in columns)
+                    lo = hi
 
     def _serve_write_span(self, reqs: List[_Request], out: Dict[int, tuple]):
         """One run of consecutive write/delete requests -> delta ingest.
@@ -420,18 +435,19 @@ class BSTServer:
         slices, the last padded with invalid lanes.  The engine may compact
         between slices.
         """
-        keys = np.concatenate([r.a for r in reqs])
-        values = np.concatenate(
-            [r.b if r.op == "write" else np.zeros(r.a.size, np.int32) for r in reqs]
-        )
-        deletes = np.concatenate([np.full(r.a.size, r.op == "delete") for r in reqs])
-        n = keys.size
-        pad = (-n) % self._write_chunk
-        valid = np.arange(n + pad) < n
-        if pad:
-            keys = np.pad(keys, (0, pad))
-            values = np.pad(values, (0, pad))
-            deletes = np.pad(deletes, (0, pad))
+        with span("bst.server.pack"):
+            keys = np.concatenate([r.a for r in reqs])
+            values = np.concatenate(
+                [r.b if r.op == "write" else np.zeros(r.a.size, np.int32) for r in reqs]
+            )
+            deletes = np.concatenate([np.full(r.a.size, r.op == "delete") for r in reqs])
+            n = keys.size
+            pad = (-n) % self._write_chunk
+            valid = np.arange(n + pad) < n
+            if pad:
+                keys = np.pad(keys, (0, pad))
+                values = np.pad(values, (0, pad))
+                deletes = np.pad(deletes, (0, pad))
         before = self._engine.compactions
         t0 = time.perf_counter()
         n_calls = 0
@@ -443,22 +459,23 @@ class BSTServer:
         # holds the ingest as _serve_stream's does the reads
         runtime.block_until_ready(self._engine.delta)
         dt = time.perf_counter() - t0
-        self.stats.busy_s += dt
-        self.stats.updates += n
-        self.stats.served += n
-        self.stats.chunks += n_calls
-        self.stats.compactions += self._engine.compactions - before
-        self.stats.lanes += n
-        for r in reqs:
-            op_stats = self.stats.op(r.op)
-            op_stats.served += r.a.size
-            # busy time shared by the lanes each request occupied
-            op_stats.busy_s += dt * (r.a.size / max(n, 1))
-            op_stats.lanes += r.a.size
-            out[r.ticket] = (np.asarray(r.a.size, np.int32),)
-        for kind in {r.op for r in reqs}:
-            # each kind records every engine call of the span it rode in
-            self.stats.op(kind).chunks += n_calls
+        with span("bst.server.retire"):
+            self.stats.busy_s += dt
+            self.stats.updates += n
+            self.stats.served += n
+            self.stats.chunks += n_calls
+            self.stats.compactions += self._engine.compactions - before
+            self.stats.lanes += n
+            for r in reqs:
+                op_stats = self.stats.op(r.op)
+                op_stats.served += r.a.size
+                # busy time shared by the lanes each request occupied
+                op_stats.busy_s += dt * (r.a.size / max(n, 1))
+                op_stats.lanes += r.a.size
+                out[r.ticket] = (np.asarray(r.a.size, np.int32),)
+            for kind in {r.op for r in reqs}:
+                # each kind records every engine call of the span it rode in
+                self.stats.op(kind).chunks += n_calls
 
     def _empty_columns(self, op: str):
         """Result columns for a zero-key stream (no engine call needed)."""
@@ -482,9 +499,10 @@ class BSTServer:
             return self._empty_columns(op)
         pad = (-B) % self.chunk_size
         if pad:
-            a = np.pad(a, (0, pad))
-            if b is not None:
-                b = np.pad(b, (0, pad))
+            with span("bst.server.pack"):
+                a = np.pad(a, (0, pad))
+                if b is not None:
+                    b = np.pad(b, (0, pad))
         if self._squery is not None:
             return self._serve_stream_sharded(op, a, b, B)
         columns = None
@@ -494,20 +512,21 @@ class BSTServer:
             res = self._query_chunk(op, a[sl], None if b is None else b[sl])
             runtime.block_until_ready(res)
             dt = time.perf_counter() - t0
-            real = min(self.chunk_size, B - lo)  # non-padded lanes this chunk
-            # range requests occupy TWO engine lanes each (lo||hi descent)
-            lanes = real * (2 if op in RANGE_OPS else 1)
-            self.stats.busy_s += dt
-            self.stats.chunks += 1
-            self.stats.lanes += lanes
-            ops = self.stats.op(op)
-            ops.busy_s += dt
-            ops.chunks += 1
-            ops.lanes += lanes
-            columns = self._fill_columns(columns, a.size, sl, res)
-            if op == "lookup":
-                # hits counted from the host columns the retire already paid for
-                self.stats.found += int(columns[1][lo : lo + real].sum())
+            with span("bst.server.retire"):
+                real = min(self.chunk_size, B - lo)  # non-padded lanes this chunk
+                # range requests occupy TWO engine lanes each (lo||hi descent)
+                lanes = real * (2 if op in RANGE_OPS else 1)
+                self.stats.busy_s += dt
+                self.stats.chunks += 1
+                self.stats.lanes += lanes
+                ops = self.stats.op(op)
+                ops.busy_s += dt
+                ops.chunks += 1
+                ops.lanes += lanes
+                columns = self._fill_columns(columns, a.size, sl, res)
+                if op == "lookup":
+                    # hits counted from the host columns the retire already paid for
+                    self.stats.found += int(columns[1][lo : lo + real].sum())
         self.stats.served += B
         self.stats.op(op).served += B
         return [col[:B] for col in columns]
