@@ -335,6 +335,7 @@ from repro_torch.core import delta as delta_lib  # noqa: E402
 from repro_torch.core import distributed as dist_lib  # noqa: E402
 from repro_torch.core import plans as plans_lib  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
+from repro_torch.core.engine import ingest_ladder  # noqa: E402
 from repro_torch.core.tree import (  # noqa: E402
     NO_PRED_KEY,
     NO_SUCC_KEY,
@@ -1366,7 +1367,8 @@ def serve_write_path(keys, values, rounds, final, tree, smi: str, device="cuda")
         srv.warmup(QUERY_OPS + ("write",))
         eng = srv.engine
         held = eng.graph_keys()
-        check(len(held) == len(QUERY_OPS) + 3, f"{name}: warmup holds graphs {held}")
+        check(len(held) == len(QUERY_OPS) + len(ingest_ladder(W_CAPACITY)) + 2,
+              f"{name}: warmup holds graphs {held}")
         compactions = track_compactions(eng)
         tickets = []
         for rnd in rounds:
@@ -1558,7 +1560,7 @@ def check_write_graphs(tree, name: str, rounds, profile: bool) -> dict:
     check([c["captures"] for c in compactions] == [len(eng.graph_keys())] + [0] * (W_GRAPH_ROUNDS - 1),
           f"{name}: the checked compactions captured {[c['captures'] for c in compactions]}")
     prof = None
-    if profile:  # one key a call: the graph pads every slice to the capacity
+    if profile:  # one key a call: the graph pads it to the ladder's lowest rung
         one = (wk[:1], wv[:1], wd[:1])
         prof = profile_segments([
             (("ingest", "graph"), lambda: eng.apply_ops(*one)),

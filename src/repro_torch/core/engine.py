@@ -30,13 +30,14 @@ perfect snapshot.
 Spans (``repro_torch.tracing``; recorded only while a profiler records):
 ``bst.engine.stage`` around turning a host batch into a step's static
 input: a read chunk's staging copy in ``query_static`` (on the CPU route
-the batch's copy to the device), and a write slice's ``(4, capacity)``
-packing and its copy in ``_ingest``.  The step itself (a graph replay on
-the card) runs outside it.
+the batch's copy to the device), and a write slice's ``(4, L)`` packing
+and its copy in ``_ingest``.  The step itself (a graph replay on the card)
+runs outside it.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -105,8 +106,9 @@ PAPER_CONFIGS = {
 
 
 # The engine's CUDA graphs besides its queries (keyed (op, k, batch length)):
-# the ingest step and the compaction's two steps.
-_INGEST = ("ingest",)
+# the ingest step, one a rung of the ingest ladder (keyed ("ingest", L)),
+# and the compaction's two steps.
+_INGEST = "ingest"
 _MERGE = ("merge",)
 _LAYOUT = ("layout",)
 
@@ -170,6 +172,7 @@ class BSTEngine:
         # staging at fixed addresses, written in place (see ``compact``).
         self.delta = None
         self._delta_ops = None
+        self._ladder: Tuple[int, ...] = ()
         self._snap: Optional[tree_lib.Snapshot] = None
         self._staging: Optional[_Staging] = None
         if config.delta_capacity > 0:
@@ -177,6 +180,7 @@ class BSTEngine:
             tree = self._snap.tree(tree.n_real)
             self.delta = delta_lib.empty(config.delta_capacity, self.device)
             self._delta_ops = delta_lib.operands(self.delta)
+            self._ladder = ingest_ladder(config.delta_capacity)
         # Host-side upper bound on the buffer's occupancy (the sum of the
         # batch sizes since the last compaction): the trigger never reads
         # the device count, at the cost of compacting a little early.
@@ -268,8 +272,10 @@ class BSTEngine:
 
     def graph_keys(self) -> Tuple[StepKey, ...]:
         """The steps this engine holds as CUDA graphs, in capture order:
-        ``(op, k or None, batch length)`` per bound query, and
-        ``("ingest",)``, ``("merge",)``, ``("layout",)``."""
+        ``(op, k or None, batch length)`` per bound query, ``("ingest",
+        L)`` per rung ``L`` of the ingest ladder used (``ingest_length``;
+        ``warmup_writes`` captures them all), and ``("merge",)``,
+        ``("layout",)``."""
         return tuple(self._graphs)
 
     def _to_device(self, x) -> torch.Tensor:
@@ -306,33 +312,41 @@ class BSTEngine:
         for dst, src in zip(self._delta_ops[2:], delta_lib.operands(new)[2:]):
             dst.copy_(src)  # keys and values are the buffer's own tensors
 
+    def ingest_length(self, m: int) -> int:
+        """The lanes an ingest slice of ``m <= delta_capacity`` lanes runs
+        at: the smallest rung of ``ingest_ladder(delta_capacity)`` that
+        holds it."""
+        self._require_write_path()
+        return self._ladder[bisect.bisect_left(self._ladder, m)]
+
     def _ingest(self, keys, values, deletes, valid) -> None:
         """One slice of at most ``delta_capacity`` ops into the buffer: the
-        slice padded with invalid lanes to the capacity (one ingest graph
-        per engine), one host -> device copy of the packed batch into the
-        step's static input, then the step."""
-        cap = self.config.delta_capacity
+        slice padded with invalid lanes to its rung ``L`` of the ladder
+        (``ingest_length``; one ingest graph a rung), one host -> device
+        copy of the packed batch into the rung's static input, then the
+        step."""
+        L = self.ingest_length(keys.size)
+        key = (_INGEST, L)
         with span("bst.engine.stage"):
-            packed = np.zeros((4, cap), np.int32)  # padding lanes: valid = 0
+            packed = np.zeros((4, L), np.int32)  # padding lanes: valid = 0
             for row, x in enumerate((keys, values, deletes, valid)):
                 packed[row, : x.size] = x
-            if _INGEST not in self._inputs:
-                self._inputs[_INGEST] = (
-                    torch.zeros((4, cap), dtype=torch.int32, device=self.device),
-                )
-            (batch,) = self._inputs[_INGEST]
+            if key not in self._inputs:
+                self._inputs[key] = (torch.zeros((4, L), dtype=torch.int32, device=self.device),)
+            (batch,) = self._inputs[key]
             runtime.device_put(torch.from_numpy(packed), batch)
-        self._run(_INGEST, BSTEngine._ingest_into, batch)
+        self._run(key, BSTEngine._ingest_into, batch)
 
     def warmup_writes(self) -> None:
         """Capture the write path's graphs on the card before the first
-        write, as a read's first use captures its own: the ingest step over
-        a batch of padding lanes (it writes nothing), and, while the buffer
-        is empty, the compaction's two steps (they write the snapshot into
-        itself).  Counts no write and no compaction, and makes no fetch.
-        On the CPU the same steps run once."""
+        write, as a read's first use captures its own: the ingest step of
+        every rung over a batch of padding lanes (it writes nothing), and,
+        while the buffer is empty, the compaction's two steps (they write
+        the snapshot into itself).  Counts no write and no compaction, and
+        makes no fetch.  On the CPU the same steps run once."""
         self._require_write_path()
-        self._ingest(*(np.zeros(0, np.int32),) * 4)
+        for L in self._ladder:
+            self._ingest(*(np.zeros(L, np.int32),) * 4)
         if self._pending_writes == 0:
             self._run(_MERGE, BSTEngine._merge_step)
             self._run(_LAYOUT, BSTEngine._layout_step)
@@ -522,6 +536,21 @@ class BSTEngine:
     def memory_nodes(self) -> int:
         """Stored nodes (the paper's Fig. 8 memory metric)."""
         return self.plan.memory_nodes()
+
+
+def ingest_ladder(capacity: int) -> Tuple[int, ...]:
+    """The lengths an ingest slice runs at, for a buffer of ``capacity``
+    slots: the powers of two from ``capacity / 16`` up, below the
+    capacity, then the capacity itself (4,096 ... 65,536 at 65,536; 8, 16,
+    32, 64, 100 at 100)."""
+    rung = 1
+    while rung * 16 < capacity:
+        rung *= 2
+    ladder = []
+    while rung < capacity:
+        ladder.append(rung)
+        rung *= 2
+    return (*ladder, capacity)
 
 
 def _check_kernel_limits(config: EngineConfig) -> None:

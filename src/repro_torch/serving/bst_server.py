@@ -15,8 +15,9 @@ that loop:
     ``submit_delete``).  The drain keeps SUBMISSION ORDER across reads and
     writes: the queue splits into maximal read spans (packed per op as
     above) separated by write spans, each write span lands in the engine's
-    delta buffer as fixed-size padded chunks, and the engine compacts
-    between chunks at the high-water mark;
+    delta buffer in slices of at most the buffer's capacity (the engine
+    pads each to its rung of the ingest ladder), and the engine compacts
+    between slices at the high-water mark;
   * **snapshot swap** -- ``apply_updates`` on a write-path engine goes
     through the delta buffer; otherwise it rebuilds the snapshot through
     ``core.updates`` and installs a new engine;
@@ -26,7 +27,8 @@ that loop:
   * **lanes/sec accounting** -- per-chunk engine time (synchronised on the
     device), found counts per chunk, and busy seconds attributed per op by
     the engine lanes each request occupied (one per point, write or delete
-    key, two per range request: the lo||hi concatenated descent);
+    key, two per range request: the lo||hi concatenated descent); the lanes
+    launched, padding included, beside them;
   * **sharded serving** -- with ``mesh`` (``core.distributed.
     make_serving_mesh``) every rank builds the same server and takes the
     same submissions in the same order; reads run through the sharded
@@ -44,9 +46,9 @@ that loop:
 Spans (``repro_torch.tracing``; recorded only while a profiler records):
 ``bst.server.pack`` around building engine batches from requests (a read
 span's grouping and concatenation, a stream's padding, a write span's
-packed columns), ``bst.server.retire`` around turning fetched columns into
-answers (a read chunk's fetch into the columns, its found count and
-counters, each read request's slice, each write request's
+concatenated columns), ``bst.server.retire`` around turning fetched
+columns into answers (a read chunk's fetch into the columns, its found
+count and counters, each read request's slice, each write request's
 acknowledgement).  None encloses a call into the engine, a graph replay or
 a sync; the sharded read loop has none.
 
@@ -90,6 +92,10 @@ class OpStats:
     # Engine lanes the op's requests occupied (padding excluded): one per
     # key for point ops, TWO per range request (lo and hi both descend).
     lanes: int = 0
+    # Engine lanes launched for the op, padding included: a read chunk's
+    # length (twice for a range op), a write slice's ingest length; a
+    # slice's padding goes to the op of its last request.
+    lanes_launched: int = 0
 
     @property
     def keys_per_sec(self) -> float:
@@ -111,6 +117,7 @@ class ServerStats:
     chunks: int = 0  # engine invocations
     busy_s: float = 0.0  # time inside the engine (incl. padding lanes)
     lanes: int = 0  # engine lanes occupied (see OpStats.lanes)
+    lanes_launched: int = 0  # engine lanes launched, padding included
     snapshot_swaps: int = 0  # full-rebuild swaps (the path without a buffer)
     updates: int = 0  # write/delete ops absorbed by the delta buffer
     compactions: int = 0  # delta-buffer merges into fresh snapshots
@@ -383,8 +390,8 @@ class BSTServer:
         separated by write spans, served in submission order, so a read
         sees exactly the writes submitted before it.  Reads commute within
         a span, so each op's stream is packed into its own ``chunk_size``
-        engine calls; a write span lands in the delta buffer as padded
-        chunks, with compaction between chunks at the high-water mark.
+        engine calls; a write span lands in the delta buffer in slices,
+        with compaction between slices at the high-water mark.
         """
         if not self._pending:
             return {}
@@ -432,8 +439,9 @@ class BSTServer:
 
         The requests merge into one submission-ordered batch (the buffer's
         last-wins dedup keeps exactly that order), cut into ``_write_chunk``
-        slices, the last padded with invalid lanes.  The engine may compact
-        between slices.
+        slices that go to the engine unpadded: the engine pads each to its
+        rung of the ingest ladder (``BSTEngine.ingest_length``).  The engine
+        may compact between slices.
         """
         with span("bst.server.pack"):
             keys = np.concatenate([r.a for r in reqs])
@@ -441,38 +449,42 @@ class BSTServer:
                 [r.b if r.op == "write" else np.zeros(r.a.size, np.int32) for r in reqs]
             )
             deletes = np.concatenate([np.full(r.a.size, r.op == "delete") for r in reqs])
-            n = keys.size
-            pad = (-n) % self._write_chunk
-            valid = np.arange(n + pad) < n
-            if pad:
-                keys = np.pad(keys, (0, pad))
-                values = np.pad(values, (0, pad))
-                deletes = np.pad(deletes, (0, pad))
-        before = self._engine.compactions
+        n = keys.size
+        eng = self._engine
+        before = eng.compactions
         t0 = time.perf_counter()
-        n_calls = 0
-        for lo in range(0, keys.size, self._write_chunk):
+        slices = []  # (end lane, lanes, ingest length) of each engine call
+        for lo in range(0, n, self._write_chunk):
             sl = slice(lo, lo + self._write_chunk)
-            self._engine.apply_ops(keys[sl], values[sl], deletes[sl], valid[sl])
-            n_calls += 1
+            eng.apply_ops(keys[sl], values[sl], deletes[sl])
+            m = keys[sl].size
+            slices.append((lo + m, m, eng.ingest_length(m)))
         # the device work is asynchronous: wait for the buffer, so busy_s
         # holds the ingest as _serve_stream's does the reads
-        runtime.block_until_ready(self._engine.delta)
+        runtime.block_until_ready(eng.delta)
         dt = time.perf_counter() - t0
         with span("bst.server.retire"):
+            n_calls = len(slices)
             self.stats.busy_s += dt
             self.stats.updates += n
             self.stats.served += n
             self.stats.chunks += n_calls
-            self.stats.compactions += self._engine.compactions - before
+            self.stats.compactions += eng.compactions - before
             self.stats.lanes += n
+            self.stats.lanes_launched += sum(length for _, _, length in slices)
+            ends = np.cumsum([r.a.size for r in reqs])
             for r in reqs:
                 op_stats = self.stats.op(r.op)
                 op_stats.served += r.a.size
                 # busy time shared by the lanes each request occupied
                 op_stats.busy_s += dt * (r.a.size / max(n, 1))
                 op_stats.lanes += r.a.size
+                op_stats.lanes_launched += r.a.size
                 out[r.ticket] = (np.asarray(r.a.size, np.int32),)
+            for end, m, length in slices:
+                # a slice's padding follows its last lane: it goes to that request's op
+                owner = reqs[int(np.searchsorted(ends, end - 1, side="right"))]
+                self.stats.op(owner.op).lanes_launched += length - m
             for kind in {r.op for r in reqs}:
                 # each kind records every engine call of the span it rode in
                 self.stats.op(kind).chunks += n_calls
@@ -516,13 +528,16 @@ class BSTServer:
                 real = min(self.chunk_size, B - lo)  # non-padded lanes this chunk
                 # range requests occupy TWO engine lanes each (lo||hi descent)
                 lanes = real * (2 if op in RANGE_OPS else 1)
+                launched = self.chunk_size * (2 if op in RANGE_OPS else 1)
                 self.stats.busy_s += dt
                 self.stats.chunks += 1
                 self.stats.lanes += lanes
+                self.stats.lanes_launched += launched
                 ops = self.stats.op(op)
                 ops.busy_s += dt
                 ops.chunks += 1
                 ops.lanes += lanes
+                ops.lanes_launched += launched
                 columns = self._fill_columns(columns, a.size, sl, res)
                 if op == "lookup":
                     # hits counted from the host columns the retire already paid for
@@ -605,16 +620,19 @@ class BSTServer:
         for flying in inflight:
             retire(*flying)
         dt = time.perf_counter() - t0
-        lanes = B * (2 if op in RANGE_OPS else 1)
+        lanes = B * rows
+        launched = a.size * rows  # the chunks' lanes, padding included
         self.stats.busy_s += dt
         self.stats.chunks += n_chunks
         self.stats.lanes += lanes
+        self.stats.lanes_launched += launched
         self.stats.found += found
         self.stats.served += B
         ops = self.stats.op(op)
         ops.busy_s += dt
         ops.chunks += n_chunks
         ops.lanes += lanes
+        ops.lanes_launched += launched
         ops.served += B
         return [col[:B] for col in columns]
 

@@ -13,11 +13,12 @@ The spans the port emits (the single-card serving path):
 
   * ``bst.server.pack``   -- ``BSTServer`` building engine batches from
     requests: a read span's grouping by op and its streams' concatenation,
-    a stream's padding to whole chunks, a write span's packed, padded
-    columns and their ``valid`` mask;
+    a stream's padding to whole chunks, a write span's concatenated
+    columns;
   * ``bst.engine.stage``  -- ``BSTEngine`` turning a host batch into a
     step's static input: a read chunk's staging copy (``query_static``), a
-    write slice's ``(4, capacity)`` packing and its copy (``_ingest``);
+    write slice's packing, padded to its rung of the ingest ladder, and
+    its copy (``_ingest``);
   * ``bst.server.retire`` -- ``BSTServer`` turning fetched columns into
     answers: a read chunk's fetch into the stream's columns, its found
     count and counters; each read request's slice of them; each write

@@ -25,7 +25,12 @@ from repro_torch.analysis import gate, invariants, report, runtime  # noqa: E402
 from repro_torch.core import delta as TD  # noqa: E402
 from repro_torch.core import tree as TT  # noqa: E402
 from repro_torch.core import distributed as TDist  # noqa: E402
-from repro_torch.core.engine import PAPER_CONFIGS, BSTEngine, EngineConfig  # noqa: E402
+from repro_torch.core.engine import (  # noqa: E402
+    PAPER_CONFIGS,
+    BSTEngine,
+    EngineConfig,
+    ingest_ladder,
+)
 from repro_torch.data.keysets import make_tree_data  # noqa: E402
 from repro_torch.kernels import bst_search as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -1312,6 +1317,53 @@ def test_steady_state_drain_captures_nothing(cuda_device):
     assert graphs.launch_counts() == launches
     assert graphs.kernel_runs()["forest_descend"] - runs["forest_descend"] == srv.stats.chunks == 10
     assert got[0][1].all() and np.array_equal(got[1][0], q)
+
+
+@pytest.mark.parametrize("name", ["Hrz", "Hyb8q"])
+def test_write_spans_of_every_length_replay_the_ingest_ladder(cuda_device, name):
+    """After ``warmup_writes`` the engine holds one ingest graph a rung of
+    its ladder (256 ... 4,096 lanes).  A drain of write spans of 1 ... 20
+    requests of 256 keys (every rung, and spans past the capacity: two
+    slices), each span's last request a delete, with reads between the
+    spans and compactions at one height, captures no graph, launches no
+    wrapper, and answers as the same stream served on the CPU, where every
+    step runs eagerly."""
+    keys, values = make_tree_data(30000, seed=14)  # height 14 (16,384 ... 32,767 keys)
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], delta_capacity=4096)
+    srv = BSTServer(keys, values, cfg, chunk_size=4096, scan_k=4)
+    srv.warmup(("lookup", "predecessor", "write"))
+    assert [k for k in srv.engine.graph_keys() if k[0] == "ingest"] == [
+        ("ingest", L) for L in ingest_ladder(4096)]
+    cpu = BSTServer(keys, values, dataclasses.replace(cfg, device="cpu"), chunk_size=4096,
+                    scan_k=4)
+    rng = np.random.default_rng(14)
+    tickets = []
+    for r in range(1, 21):
+        reqs = []
+        for i in range(r):
+            if i == r - 1 and r > 1:
+                reqs.append(("delete", rng.choice(keys, 256).astype(np.int32), None))
+                continue
+            wk = np.concatenate([rng.choice(keys, 240),  # overwrites, some repeated
+                                 rng.integers(0, 2**25, 16) * 2 + 1]).astype(np.int32)
+            reqs.append(("write", wk, rng.integers(0, 2**31 - 1, wk.size, dtype=np.int32)))
+        q = rng.choice(np.concatenate([keys, keys + 1]), 1000).astype(np.int32)
+        pair = []
+        for server in (srv, cpu):
+            for op, k, v in reqs:
+                server.submit_write(k, v) if op == "write" else server.submit_delete(k)
+            pair.append((server.submit(q), server.submit(q, op="predecessor")))
+        tickets.append(pair)
+    height = srv.snapshot.height
+    captures, launches = graphs.STATS["captures"], graphs.launch_counts()
+    got, want = srv.drain(), cpu.drain()
+    assert graphs.STATS["captures"] == captures
+    assert graphs.launch_counts() == launches  # every step a replay
+    assert srv.stats.compactions >= 5 and srv.snapshot.height == height
+    assert (srv.stats.compactions, srv.stats.chunks) == (cpu.stats.compactions, cpu.stats.chunks)
+    for (t_look, t_pred), (c_look, c_pred) in tickets:
+        for g, w in zip(got[t_look] + got[t_pred], want[c_look] + want[c_pred]):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
